@@ -8,19 +8,28 @@ Run from a checkout; it builds every kernel it needs from the sources in
 nothing of JAX or of the JAX package. Phases, each on its own line:
 
 1. device — the card, and nvidia-smi's name and power limit;
-2. build — the kernels, with ptxas' register / spill report;
+2. build — the kernels, one nvcc per source, all at once, with ptxas'
+   register / spill report;
 3. kernels vs plain — on ≥ 1M lanes of the real-size scene (camera rays
    and cosine-sampled bounce rays from their first hits): the standalone
    step, closest-hit and any-hit traversal against their plain PyTorch
    versions, and closest hit on 4,096 lanes against ``intersect_brute``;
-4. small reference — the tiny scene rendered on the card and on the CPU
-   (plain versions) from the same primary-sample array;
-5. render — the main path: ``load_scene_string`` → ``build`` → ``render``
+4. rng — the keyed-uniform kernel (bounce block at depth 5) and the
+   scramble kernel against their plain versions on 1,048,576 lanes, bit
+   for bit; timed at the main path's launch widths;
+5. small reference — the tiny scene rendered on the card and on the CPU
+   (plain versions) from the same primary-sample array, and by
+   ``render(seed=...)`` on both (keyed by threefry), with the card's
+   render at two chunk widths;
+6. gather lab — its kernel against its plain version at the lab's shapes,
+   bit for bit; then the lab's own path (``gather_lab.main()``) with its
+   launch counter set to 0 just before and read just after;
+7. render — the main path: ``load_scene_string`` → ``build`` → ``render``
    at 512², path depth 5, 32 bins, 32,768-lane chunks, lowdiscrepancy,
    box filter; one warm-up sample, then 4 timed samples (CUDA events),
    with the kernels' launch counters set to 0 just before and read just
    after; the film is checked and a ``.dat`` written and read back;
-6. the ``kernels`` JSON line (see PERF.md for the fields), then the result.
+8. the ``kernels`` JSON line (see PERF.md for the fields), then the result.
 
 The real-size scene is ``goldens/killeroo-simple.pbrt`` (its text is kept
 here) at 512² with the path integrator; each ``Include
@@ -37,7 +46,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -49,9 +57,6 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CHUNK = 1 << 15
 N_LANES = 1 << 20
 BRUTE_LANES = 4096
-#: H100 SXM peaks (NVIDIA data sheet)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_PER_S = 67e12
 #: float operations of one interpret step, counted from traverse.cu:
 #: node row — per slot 6 sub + 6 mul (slabs), 10 min/max, 2 compares,
 #: 1 select, then 19 compare-exchanges; leaf row — per slot 45 arithmetic
@@ -65,6 +70,16 @@ LANE_BYTES_TRAVERSE = 76
 #: is_node/act (2) in; refs (32), n_hit, tsel, psel, b1, b2 (20) out
 LANE_BYTES_STEP = 320 + 36 + 8 + 2 + 32 + 20
 ROW_BYTES = 320
+RNG_DEPTH = 5
+#: int32 operations of one threefry-2x32 hash, counted from rng.cu: 20
+#: rounds of add, funnel-shift rotate and xor; 5 key injections of 3 adds;
+#: 2 adds of the key; and per uniform the xor of the two words, a shift,
+#: an or and a float subtract
+OPS_THREEFRY = 20 * 3 + 5 * 3 + 2
+OPS_PER_UNIFORM = OPS_THREEFRY + 4
+OPS_PER_SCRAMBLE = OPS_THREEFRY + 1
+#: tolerance of the card-vs-CPU renders of the tiny scene
+REF_RTOL, REF_ATOL, REF_PIXELS, REF_BIN_REL = 1e-4, 1e-6, 0.99, 1e-3
 
 KILLEROO_SIMPLE = """
 LookAt 400 20 30   0 63 -110   0 0 1
@@ -215,6 +230,7 @@ def main() -> int:
     from pbrt_torch.accel import traverse_cuda as tc
     from pbrt_torch.bsdf import bxdf
     from pbrt_torch.core import geometry as geom
+    from pbrt_torch.core import rng
     from pbrt_torch.core import sampling as smp
     from pbrt_torch.core.interaction import offset_ray_origin, surface_interaction
     from pbrt_torch.film import film as film_mod
@@ -222,16 +238,15 @@ def main() -> int:
     from pbrt_torch.renderers.sampler import render, render_wave
     from pbrt_torch.scene.api import load_scene_string
     from pbrt_torch.scene.builder import build
-    from pbrt_torch.utils import native
+    from pbrt_torch.scripts import gather_lab as gl
+    from pbrt_torch.utils import native, timing
+    from pbrt_torch.utils.timing import cuda_ms
 
     dev = torch.device("cuda", 0)
     sync = torch.cuda.synchronize
 
     # ---- 1. device --------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = timing.nvidia_smi()
     name = torch.cuda.get_device_name(0)
     log("device", f"{name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(f"nvidia-smi: {smi}", flush=True)
@@ -382,25 +397,13 @@ def main() -> int:
         raise SystemExit("standalone step kernel disagrees with its plain version")
 
     # ---- timing at the main path's launch width --------------------------
-    def cuda_ms(fn, n=20, warm=3):
-        for _ in range(warm):
-            fn()
-        sync()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(n):
-            fn()
-        b.record()
-        sync()
-        return a.elapsed_time(b) / n
-
     sub = torch.randperm(R, generator=gen, device=dev)[:CHUNK]
     so, sd, sinv = o[sub].contiguous(), d[sub].contiguous(), inv[sub].contiguous()
     stmin = tmin[sub].contiguous()
     stmax, stmax_a = tmax[sub].contiguous(), tmax_a[sub].contiguous()
     sq = [x[sub].contiguous() for x in q]
     sqa = [x[sub].contiguous() for x in qa]
-    timing = {}
+    times = {}
     for key, tm, seeds, any_hit in (("traverse_closest", stmax, sq, False),
                                     ("traverse_any", stmax_a, sqa, True)):
         stats = {}
@@ -413,14 +416,11 @@ def main() -> int:
         nbytes = CHUNK * LANE_BYTES_TRAVERSE + stats["rows_touched"] * ROW_BYTES
         ops = (stats["node_steps"] * OPS_NODE_STEP
                + stats["leaf_steps"] * OPS_LEAF_STEP)
-        tb_, to_ = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_PER_S * 1e3
-        timing[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(tb_, to_),
-                           bound_by="bytes" if tb_ >= to_ else "operations",
-                           stats=stats)
+        b_ms, b_by = timing.bound_ms(nbytes, ops)
+        times[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
         log("timing", f"{key} on {CHUNK} lanes: {ms:.4f} ms (plain {plain_ms:.2f} ms); "
             f"{stats['node_steps']} node + {stats['leaf_steps']} leaf steps, "
-            f"{stats['rows_touched']} distinct rows; bound {max(tb_, to_):.5f} ms "
-            f"({'bytes' if tb_ >= to_ else 'operations'})")
+            f"{stats['rows_touched']} distinct rows; bound {b_ms:.5f} ms ({b_by})")
     # what -fmad=false costs: the same kernel built with FMA contraction,
     # timed in turns on the same lanes
     fm = [cuda_ms(lambda: tc.traverse(rows, ws, so, sd, sinv, stmin, stmax, *sq,
@@ -434,11 +434,55 @@ def main() -> int:
     st_plain = cuda_ms(lambda: tc.step_plain(*st_args), n=5, warm=1)
     n_node = int(st_args[6].sum())
     st_ops = n_node * OPS_NODE_STEP + (CHUNK - n_node) * OPS_LEAF_STEP
-    st_b = CHUNK * LANE_BYTES_STEP / PEAK_BYTES_PER_S * 1e3
-    st_o = st_ops / PEAK_F32_PER_S * 1e3
+    st_bound, st_by = timing.bound_ms(CHUNK * LANE_BYTES_STEP, st_ops)
     log("timing", f"wide_step on {CHUNK} lanes: {st_ms:.4f} ms (plain {st_plain:.2f} ms)")
 
-    # ---- 4. small reference: card vs CPU on the same uniforms -------------
+    # ---- 4. rng: keyed uniforms and scrambles vs plain ---------------------
+    root = rng.root_key(0)
+    pix_all = torch.arange(N_LANES, dtype=torch.int64, device=dev)
+    rng_eq = {}
+    for sample in (0, 3):
+        ku = rng.bounce_uniforms(root, pix_all, sample, RNG_DEPTH)
+        pu = rng.bounce_uniforms_plain(root, pix_all, sample, RNG_DEPTH)
+        rng_eq[f"uniforms s={sample}"] = bool(torch.equal(ku.view(torch.int32),
+                                                          pu.view(torch.int32)))
+    ks_ = rng.pixel_scrambles(root, pix_all)
+    rng_eq["scrambles"] = bool(torch.equal(ks_, rng.pixel_scrambles_plain(root, pix_all)))
+    sync()
+    log("rng", f"keyed kernels vs plain on {N_LANES} lanes (depth {RNG_DEPTH}): "
+        f"equal bit for bit {rng_eq}; uniforms in [{float(ku.min()):.3g}, "
+        f"{float(ku.max()):.6g}], mean {float(ku.double().mean()):.6f}")
+    if not all(rng_eq.values()):
+        raise SystemExit("a keyed-uniform kernel disagrees with its plain version")
+    if not (float(ku.min()) >= 0.0 and float(ku.max()) < 1.0):
+        raise SystemExit("keyed uniforms outside [0, 1)")
+    n_pix = W * H
+    pix_c, pix_f = pix_all[:CHUNK].contiguous(), pix_all[:n_pix].contiguous()
+    # a keyed launch takes microseconds: its time is the kernel's device
+    # time under the profiler (events would time the host's launch cost)
+    ku_ms = timing.device_ms(lambda: rng.bounce_uniforms(root, pix_c, 1, RNG_DEPTH),
+                             "keyed_uniforms_kernel")
+    ku_call = cuda_ms(lambda: rng.bounce_uniforms(root, pix_c, 1, RNG_DEPTH))
+    ku_plain = cuda_ms(lambda: rng.bounce_uniforms_plain(root, pix_c, 1, RNG_DEPTH),
+                       n=5, warm=1)
+    # the function's work: each lane's key once (3 hashes), then 7 per bounce
+    ku_ops = CHUNK * (3 * OPS_THREEFRY + 7 * RNG_DEPTH * OPS_PER_UNIFORM)
+    ku_bound, ku_by = timing.bound_ms(CHUNK * (8 + 7 * RNG_DEPTH * 4), ku_ops,
+                                      timing.PEAK_I32_PER_S)
+    ks_ms = timing.device_ms(lambda: rng.pixel_scrambles(root, pix_f),
+                             "keyed_scrambles_kernel")
+    ks_call = cuda_ms(lambda: rng.pixel_scrambles(root, pix_f))
+    ks_plain = cuda_ms(lambda: rng.pixel_scrambles_plain(root, pix_f), n=5, warm=1)
+    ks_bound, ks_by = timing.bound_ms(n_pix * (8 + 6 * 8), n_pix * (
+        3 * OPS_THREEFRY + 6 * OPS_PER_SCRAMBLE), timing.PEAK_I32_PER_S)
+    log("timing", f"keyed_uniforms on {CHUNK} lanes, depth {RNG_DEPTH}: {ku_ms:.4f} ms "
+        f"device time ({ku_call:.4f} ms per wrapper call by events; plain "
+        f"{ku_plain:.3f} ms); bound {ku_bound:.5f} ms ({ku_by}, int32 peak)")
+    log("timing", f"keyed_scrambles on {n_pix} lanes: {ks_ms:.4f} ms device time "
+        f"({ks_call:.4f} ms per wrapper call by events; plain {ks_plain:.3f} ms); "
+        f"bound {ks_bound:.5f} ms ({ks_by}, int32 peak)")
+
+    # ---- 5. small reference: card vs CPU --------------------------------
     rs = np.random.default_rng(5)
     tiny_gpu = build(load_scene_string(TINY_SCENE), device=dev)
     tiny_cpu = build(load_scene_string(TINY_SCENE), device="cpu")
@@ -453,20 +497,51 @@ def main() -> int:
                     torch.as_tensor(yy, device=b.device), b.integrator,
                     b.film_config, torch.as_tensor(u_np, device=b.device))
         films.append(st.pixels.cpu().numpy())
-    fg, fc = films
-    px_close = float(np.isclose(fg, fc, rtol=1e-4, atol=1e-6).all(-1).mean())
-    bin_rel = float(np.abs(fg.mean((0, 1)) - fc.mean((0, 1))).max()
-                    / max(np.abs(fc.mean((0, 1))).max(), 1e-30))
-    log("reference", f"tiny scene 16x16, depth 5, same uniforms: card vs CPU "
-        f"pixels close (rtol 1e-4) {px_close:.4f}, per-bin mean rel diff {bin_rel:.3g}")
-    if px_close < 0.99 or bin_rel > 1e-3 or not np.isfinite(fg).all():
-        raise SystemExit("card render of the tiny scene disagrees with the CPU render")
+    def agree(what, fg, fc):
+        px_close = float(np.isclose(fg, fc, rtol=REF_RTOL, atol=REF_ATOL).all(-1).mean())
+        bin_rel = float(np.abs(fg.mean((0, 1)) - fc.mean((0, 1))).max()
+                        / max(np.abs(fc.mean((0, 1))).max(), 1e-30))
+        log("reference", f"tiny scene 16x16, depth 5, {what}: pixels close "
+            f"(rtol {REF_RTOL:g}) {px_close:.4f}, per-bin mean rel diff {bin_rel:.3g}, "
+            f"equal bit for bit {bool(np.array_equal(fg, fc))}")
+        if (px_close < REF_PIXELS or bin_rel > REF_BIN_REL or not np.isfinite(fg).all()
+                or not fg.sum() > 0):
+            raise SystemExit(f"tiny scene, {what}: the renders disagree")
 
-    # ---- 5. the main path -------------------------------------------------
+    agree("same uniforms, card vs CPU", *films)
+    keyed = {}
+    for b, chunk in ((tiny_gpu, 40), (tiny_gpu, 64), (tiny_cpu, 40)):
+        f = render(b, spp=2, seed=0, chunk_pixels=chunk)
+        keyed[(b.device.type, chunk)] = f.pixels.cpu().numpy()
+    agree("render(seed=0, spp=2), card vs CPU", keyed[("cuda", 40)], keyed[("cpu", 40)])
+    agree("render(seed=0, spp=2) on the card, chunk_pixels 40 vs 64",
+          keyed[("cuda", 40)], keyed[("cuda", 64)])
+
+    # ---- 6. gather lab ----------------------------------------------------
+    lab_in = gl.lab_inputs(dev)
+    kg = gl.gather_lab(*lab_in)
+    pg = gl.gather_lab_plain(*lab_in)
+    sync()
+    lab_eq = bool(torch.equal(kg.view(torch.int32), pg.view(torch.int32)))
+    err_lab = float((kg - pg).abs().max())
+    log("gather_lab", f"kernel vs plain on {gl.R} lanes, {gl.N}-row table: equal bit "
+        f"for bit {lab_eq}, finite {bool(torch.isfinite(kg).all())}, "
+        f"sum {float(kg.double().sum()):.9g}")
+    if not (lab_eq and bool(torch.isfinite(kg).all())):
+        raise SystemExit("gather lab kernel disagrees with its plain version")
+    gl.reset_launches()
+    lab = gl.main()
+    lab_launches = gl.launches["gather_lab"]
+    log("gather_lab", f"the lab's path launched the kernel {lab_launches} times")
+    if lab_launches == 0:
+        raise SystemExit("the gather lab's path did not launch its kernel")
+
+    # ---- 7. the main path -------------------------------------------------
     warm = render(built, spp=1, seed=0, chunk_pixels=CHUNK)
     sync()
     del warm
     tc.reset_launches()
+    rng.reset_launches()
     isect.calls["intersect"] = 0
     spp = 4
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -474,7 +549,7 @@ def main() -> int:
     film = render(built, spp=spp, seed=0, chunk_pixels=CHUNK)
     b.record()
     sync()
-    launches = dict(tc.launches)
+    launches = {**tc.launches, **rng.launches}
     n_calls = isect.calls["intersect"]
     sec = a.elapsed_time(b) / 1e3
     paths_per_s = W * H * spp / sec
@@ -485,7 +560,8 @@ def main() -> int:
         f"{paths_per_s:.1f} camera paths/s on {name} ({smi})")
     log("render", f"launches {launches}, intersect calls {n_calls}, "
         f"per frame (1 spp): closest {launches['traverse_closest'] / spp:.1f}, "
-        f"any {launches['traverse_any'] / spp:.1f}")
+        f"any {launches['traverse_any'] / spp:.1f}, keyed uniforms "
+        f"{launches['keyed_uniforms'] / spp:.1f}")
     with tempfile.TemporaryDirectory() as tmp:
         path = film_mod.write_dat(film, built.film_config,
                                   os.path.join(tmp, "killeroo-simple.dat"))
@@ -496,6 +572,10 @@ def main() -> int:
         raise SystemExit("the main path did not launch the traversal kernels")
     if launches["traverse_closest"] + launches["traverse_any"] != n_calls:
         raise SystemExit("traversal launches do not match intersect calls")
+    if launches["keyed_scrambles"] != 1 or launches["keyed_uniforms"] != spp * (
+            -(-W * H // CHUNK)):
+        raise SystemExit("the main path did not launch the keyed-uniform kernels "
+                         "once per render and once per wave and chunk")
     if not (finite and total > 0.0 and dat_ok):
         raise SystemExit("the rendered film is not finite, empty, or did not round-trip")
 
@@ -514,35 +594,50 @@ def main() -> int:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     dev_ms = sum(x[1] for x in kern)
     trav_ms = sum(x[1] for x in kern if "traverse_kernel" in x[0])
+    rng_ms = sum(x[1] for x in kern if "keyed_" in x[0])
     frame_ms = sec / spp * 1e3
     log("profile", f"1 spp: kernel time {dev_ms:.1f} ms in {sum(x[2] for x in kern)} "
         f"launches = {100 * dev_ms / frame_ms:.1f}% of the unprofiled {frame_ms:.1f} ms "
         f"frame (device idle the rest); traversal kernels {trav_ms:.1f} ms "
-        f"({100 * trav_ms / max(dev_ms, 1e-9):.1f}% of kernel time)")
+        f"({100 * trav_ms / max(dev_ms, 1e-9):.1f}% of kernel time); keyed-uniform "
+        f"kernels {rng_ms:.3f} ms")
     for k, ms_, cnt in sorted(kern, key=lambda x: -x[1])[:8]:
         log("profile", f"  {ms_:8.2f} ms  {cnt:6d}x  {k[:90]}")
 
-    # ---- 6. kernels line --------------------------------------------------
+    # ---- 8. kernels line --------------------------------------------------
     src = "pbrt_torch/csrc/traverse.cu"
     rep = "pbrt_tpu/accel/pallas_step.py:36"
     kernels = []
     for key, err in (("traverse_closest", err_closest), ("traverse_any", err_any)):
-        t_ = timing[key]
         kernels.append(dict(
             name=key, route="cuda", source=src, replaces=rep,
-            launches=launches[key], max_abs_err=err, ms=t_["ms"],
-            plain_ms=t_["plain_ms"], bound_ms=t_["bound_ms"],
-            bound_by=t_["bound_by"], library_ms=None,
-        ))
+            launches=launches[key], max_abs_err=err, library_ms=None, **times[key]))
+    for key, rep_, ms_, plain_, b_, by_ in (
+            ("keyed_uniforms", "pbrt_tpu/integrators/path.py:116", ku_ms, ku_plain,
+             ku_bound, ku_by),
+            ("keyed_scrambles", "pbrt_tpu/renderers/sampler.py:44", ks_ms, ks_plain,
+             ks_bound, ks_by)):
+        kernels.append(dict(
+            name=key, route="cuda", source="pbrt_torch/csrc/rng.cu", replaces=rep_,
+            launches=launches[key], max_abs_err=0.0, ms=ms_, plain_ms=plain_,
+            bound_ms=b_, bound_by=by_, library_ms=None))
+    kernels.append(dict(
+        name="gather_lab", route="cuda", source="pbrt_torch/csrc/gather_lab.cu",
+        replaces="scripts/pallas_gather_lab.py:78", launches=lab_launches,
+        max_abs_err=err_lab, ms=lab["ms"], plain_ms=lab["plain_ms"],
+        bound_ms=lab["bound_ms"], bound_by=lab["bound_by"], library_ms=None))
     step_line = dict(
         name="wide_step", route="cuda", source=src, replaces=rep,
         launches=launches["wide_step"], max_abs_err=err_step, ms=st_ms,
-        plain_ms=st_plain, bound_ms=max(st_b, st_o),
-        bound_by="bytes" if st_b >= st_o else "operations", library_ms=None,
+        plain_ms=st_plain, bound_ms=st_bound, bound_by=st_by, library_ms=None,
     )
     log("kernels", "library_ms is null: no single PyTorch call computes a BVH "
-        "traversal; the standalone step is not launched by the main path "
-        "(its device function is), so it stands on its own line")
+        "traversal, threefry keyed from (pixel, sample, purpose) (torch's own "
+        "generators are Philox / mt19937 streams, another function), or the "
+        "lab's gather-and-slab walk; the standalone step is not launched by "
+        "the main path (its device function is), so it stands on its own line; "
+        "keyed_* replace XLA's threefry at the file:line given, not a Pallas "
+        "kernel; gather_lab's launches are those of the lab's own path")
     print("step " + json.dumps(step_line), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -204,22 +204,6 @@ def traverse_plain(rows, wide_stack, o, d, inv, tmin, tmax, t0, p0, b10,
 # ---------------------------------------------------------------------------
 
 
-def _check(name, x, dtype, shape, device):
-    if x.device != device:
-        raise ValueError(f"{name}: on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-
-
-def _raise_on(rc: int, what: str):
-    if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc}")
-
-
 def step(row, o, d, inv, tmin, t_best, is_node, act):
     """One interpret step for R lanes; see ``step_plain`` for the contract."""
     if row.device.type == "cpu":
@@ -231,15 +215,15 @@ def step(row, o, d, inv, tmin, t_best, is_node, act):
     R = row.shape[0]
     dev = row.device
     f32, b = torch.float32, torch.bool
-    _check("row", row, f32, (R, 80), dev)
+    native.check_tensor("row", row, f32, (R, 80), dev)
     if row.data_ptr() % 16:
         raise ValueError("row: not 16-byte aligned (rows are read as float4)")
     for nm, x in (("o", o), ("d", d), ("inv", inv)):
-        _check(nm, x, f32, (R, 3), dev)
+        native.check_tensor(nm, x, f32, (R, 3), dev)
     for nm, x in (("tmin", tmin), ("t_best", t_best)):
-        _check(nm, x, f32, (R,), dev)
+        native.check_tensor(nm, x, f32, (R,), dev)
     for nm, x in (("is_node", is_node), ("act", act)):
-        _check(nm, x, b, (R,), dev)
+        native.check_tensor(nm, x, b, (R,), dev)
     lib = native.kernel_lib()
     refs = torch.empty((8, R), dtype=torch.int32, device=dev)
     n_hit = torch.empty(R, dtype=torch.int32, device=dev)
@@ -250,7 +234,7 @@ def step(row, o, d, inv, tmin, t_best, is_node, act):
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [x.data_ptr() for x in (row, o, d, inv, tmin, t_best, is_node,
                                    act, refs, n_hit, tsel, psel, b1, b2)]
-    _raise_on(lib.pbrt_torch_wide_step(*ptrs, R, stream), "wide_step launch")
+    native.check_launch(lib.pbrt_torch_wide_step(*ptrs, R, stream), "wide_step launch")
     launches["wide_step"] += 1
     return refs, n_hit, tsel, psel, b1, b2
 
@@ -270,15 +254,15 @@ def traverse(rows, wide_stack, o, d, inv, tmin, tmax, t0, p0, b10, b20,
     R = o.shape[0]
     dev = o.device
     f32 = torch.float32
-    _check("rows", rows, f32, (rows.shape[0], 80), dev)
+    native.check_tensor("rows", rows, f32, (rows.shape[0], 80), dev)
     if rows.data_ptr() % 16:
         raise ValueError("rows: not 16-byte aligned (rows are read as float4)")
     for nm, x in (("o", o), ("d", d), ("inv", inv)):
-        _check(nm, x, f32, (R, 3), dev)
+        native.check_tensor(nm, x, f32, (R, 3), dev)
     for nm, x in (("tmin", tmin), ("tmax", tmax), ("t0", t0), ("b10", b10),
                   ("b20", b20)):
-        _check(nm, x, f32, (R,), dev)
-    _check("p0", p0, torch.int32, (R,), dev)
+        native.check_tensor(nm, x, f32, (R,), dev)
+    native.check_tensor("p0", p0, torch.int32, (R,), dev)
     lib = native.kernel_lib(fmad)
     cap = lib.pbrt_torch_max_stack()
     if wide_stack > cap:
@@ -296,6 +280,6 @@ def traverse(rows, wide_stack, o, d, inv, tmin, tmax, t0, p0, b10, b20,
         fn, key = lib.pbrt_torch_traverse_any, "traverse_any"
     else:
         fn, key = lib.pbrt_torch_traverse_closest, "traverse_closest"
-    _raise_on(fn(*ptrs, R, int(wide_stack), stream), f"{key} launch")
+    native.check_launch(fn(*ptrs, R, int(wide_stack), stream), f"{key} launch")
     launches[key] += 1
     return t, prim, b1, b2

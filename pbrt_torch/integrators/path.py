@@ -11,12 +11,12 @@ traversal lets them go at once.
 Randomness: every decision reads a column of an explicit (R, 5 + 7·D)
 primary-sample array through ``PrimarySource`` (path.py:129-160): columns
 [0:5) are the camera's, and bounce b owns the block of 7 at 5 + 7b:
-[light_sel, light_u1, light_u2, bsdf_lobe, bsdf_u1, bsdf_u2, rr]. The JAX
-package's default draws these from threefry keys (``BatchedKeySource``);
-the port's renderer fills the array from a ``torch.Generator`` instead.
-The same seed therefore gives different bits in the two packages — an
-accepted divergence, not a feature; fed the same array, both trace the
-same paths (tests/test_torch_path.py).
+[light_sel, light_u1, light_u2, bsdf_lobe, bsdf_u1, bsdf_u2, rr]. The
+renderer fills the bounce columns from the same threefry keys as the JAX
+package's ``BatchedKeySource`` (``core/rng.py``), whose eighth, unread
+"spare" column per bounce is dropped, so a seed gives the same bits in both
+packages; fed the same array, both trace the same paths
+(tests/test_torch_path.py).
 
 Written differently from the reference on purpose:
 - the RR gate is a real boolean (path.py:682 applies ``~`` to a Python

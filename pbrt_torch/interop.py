@@ -1,4 +1,9 @@
-"""Carry a built scene across as plain arrays.
+"""Carry a built scene and random keys across as plain arrays.
+
+``key_from_numpy`` takes a threefry key's data — two uint32 words, as
+``jax.random.key_data`` gives them, (2,) or (R, 2) — and returns the
+port's key tensor (int64 words, ``pbrt_torch.core.rng``), so both packages
+can be handed the same keys.
 
 ``scene_from_numpy`` takes a scene already flattened elsewhere — in the
 tests, by the JAX package's builder — as numpy arrays keyed by field name,
@@ -43,6 +48,14 @@ _GEOMETRY_F32 = ("tri_v0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
 _GEOMETRY_I64 = ("tri_material", "tri_area_light", "tri_mesh_id",
                  "quad_type", "quad_material", "quad_area_light",
                  "quad_mesh_id")
+
+
+def key_from_numpy(data, device="cpu") -> torch.Tensor:
+    """(..., 2) uint32 key words → the port's (..., 2) int64 key tensor."""
+    a = np.asarray(data)
+    if a.shape[-1:] != (2,) or a.dtype != np.uint32:
+        raise ValueError(f"key data: {a.dtype} {a.shape}, expected uint32 (..., 2)")
+    return torch.as_tensor(a.astype(np.int64), device=device)
 
 
 def scene_from_numpy(arrays: dict, device):

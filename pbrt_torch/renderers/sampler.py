@@ -8,12 +8,13 @@ u/v, time), the path integrator traces it, NaN / negative / infinite
 radiance is zeroed (samplerrenderer.cpp:119-133), and the film takes the
 filter-weighted sample.
 
-Randomness comes from ``torch.Generator`` streams keyed by the seed: six
-32-bit scramble words per pixel, drawn once, and a fresh (R, 7·max_depth)
-block of bounce uniforms per wave and chunk. The JAX package keys both with
-threefry (core/rng.py, not ported), so the same seed gives different bits
-in the two packages; fed the same primary-sample array through
-``render_wave(..., uniforms=u)``, they agree (tests/test_torch_film.py).
+Randomness is keyed as in the JAX package (sampler.py:119-132, :316-346),
+by threefry from the seed and each pixel's index ``y · W + x`` in the
+film array (``core/rng.py``): six scramble words per pixel from sample 0's
+key, drawn once per render, and per wave and chunk the (R, 7·max_depth)
+bounce block of sample n's key. So a seed gives the JAX package's image,
+on the CPU and on the card, whatever ``chunk_pixels`` is. Padded tail lanes
+repeat the last pixel, and so its keys; their weight is 0.
 """
 
 from __future__ import annotations
@@ -21,9 +22,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pbrt_torch.core import rng
 from pbrt_torch.core import sampling as smp
 from pbrt_torch.film import film as film_mod
-from pbrt_torch.integrators.path import PrimarySource, trace_radiance
+from pbrt_torch.integrators.path import trace_radiance
 
 
 def camera_uniforms(sample_idx: int, scrambles: torch.Tensor) -> torch.Tensor:
@@ -55,15 +57,6 @@ def render_wave(film_state, scene, camera, filter_table, pixel_x, pixel_y,
     )
 
 
-def _generator(device, seed: int, stream: int) -> torch.Generator:
-    """Stream 0 draws the pixel scrambles, stream s+1 the bounce uniforms
-    of sample s, so a sample's numbers do not depend on which samples were
-    rendered before it."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed((seed * 0x9E3779B1 + stream) % (1 << 63))
-    return gen
-
-
 def render(built, spp=None, seed: int = 0, chunk_pixels: int | None = None):
     """All sample waves × pixel chunks → the film. Runs on the device the
     built scene lives on."""
@@ -86,19 +79,17 @@ def render(built, spp=None, seed: int = 0, chunk_pixels: int | None = None):
     n_chunks = len(all_x) // chunk
     xs = torch.as_tensor(all_x.reshape(n_chunks, chunk), device=dev)
     ys = torch.as_tensor(all_y.reshape(n_chunks, chunk), device=dev)
+    pix = ys * cfg.xres + xs
     mask = torch.ones((n_chunks, chunk), dtype=torch.float32, device=dev)
     if pad:
         mask[-1, chunk - pad:] = 0.0
-    scrambles = torch.randint(0, 1 << 32, (n_chunks, chunk, 6),
-                              dtype=torch.int64, generator=_generator(dev, seed, 0),
-                              device=dev)
+    root = rng.root_key(seed)
+    scrambles = rng.pixel_scrambles(root, pix.reshape(-1)).view(n_chunks, chunk, -1)
     state = film_mod.init_film(cfg, dev)
     table = built.filter_table
-    n_bounce = PrimarySource.n_dims(icfg.max_depth) - PrimarySource.CAMERA_DIMS
     for s in range(spp):
-        gen = _generator(dev, seed, s + 1)
         for c in range(n_chunks):
-            u_bounce = torch.rand((chunk, n_bounce), generator=gen, device=dev)
+            u_bounce = rng.bounce_uniforms(root, pix[c], s, icfg.max_depth)
             u = torch.cat([camera_uniforms(s, scrambles[c]), u_bounce], -1)
             render_wave(state, built.scene, built.camera, table, xs[c], ys[c],
                         icfg, cfg, u, sample_scale=mask[c])

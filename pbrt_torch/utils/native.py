@@ -8,7 +8,9 @@ rebuilds and a stale library is never loaded:
   compiled with the same ``g++ -O3 -march=native -shared -fPIC`` flags as
   the JAX package's runtime so the two packages build the same tree;
 - ``libpbrt_torch_kernels-<hash>.so`` — the CUDA kernels
-  (``csrc/traverse.cu``), compiled by ``nvcc`` for ``sm_90a``.
+  (``csrc/traverse.cu``, ``csrc/rng.cu``, ``csrc/gather_lab.cu``),
+  compiled by ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all
+  started together, then linked.
 
 A failed build raises with the compiler's output; nothing falls back.
 """
@@ -16,6 +18,7 @@ A failed build raises with the compiler's output; nothing falls back.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -35,6 +38,7 @@ NVCC_FLAGS = [
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
+KERNEL_SOURCES = ["traverse.cu", "rng.cu", "gather_lab.cu"]
 
 #: one lock per library, so different libraries build concurrently
 _locks = collections.defaultdict(threading.Lock)
@@ -59,16 +63,54 @@ def _compile(name: str, sources: list, compiler: list, flags: list) -> str:
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = compiler + flags + ["-o", tmp] + srcs
+    if len(srcs) == 1:
+        build_log[name] = _run(compiler + flags + ["-o", tmp] + srcs, name)
+    else:  # one compiler per source, in parallel, then one link
+        obj_flags = [f for f in flags if f != "-shared"]
+        objs = [f"{tmp}.{i}.o" for i in range(len(srcs))]
+
+        def compile_one(obj, src):
+            return _run(compiler + obj_flags + ["-c", "-o", obj, src], name)
+
+        with concurrent.futures.ThreadPoolExecutor(len(srcs)) as ex:
+            logs = list(ex.map(compile_one, objs, srcs))
+        # the link keeps the target flags, or nvcc adds its default arch
+        link_flags = [f for f in flags if f not in ("-Xptxas", "-v")]
+        logs.append(_run(compiler + link_flags + ["-o", tmp] + objs, name))
+        for o in objs:
+            os.remove(o)
+        build_log[name] = "".join(logs)
+    os.replace(tmp, so)
+    return so
+
+
+def _run(cmd: list, name: str) -> str:
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise RuntimeError(
             f"building {name} failed ({' '.join(cmd)}):\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
-    build_log[name] = proc.stdout + proc.stderr
-    os.replace(tmp, so)
-    return so
+    return proc.stdout + proc.stderr
+
+
+def check_tensor(name: str, x, dtype, shape, device):
+    """Raises unless ``x`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what a kernel reading its raw pointer assumes."""
+    if x.device != device:
+        raise ValueError(f"{name}: on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def check_launch(rc: int, what: str):
+    """Raises on the ``cudaGetLastError()`` code a kernel entry returns."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
 def bvh_lib():
@@ -99,18 +141,18 @@ def nvcc_path() -> str:
 def kernel_lib(fmad: bool = False):
     """The CUDA kernel library (nvcc, sm_90a). Built on first call.
 
-    ``fmad=True`` builds a second copy with FMA contraction allowed, only
-    to measure what ``-fmad=false`` costs; its floats differ from the plain
-    versions by rounding."""
+    ``fmad=True`` builds a second copy of the traversal kernels with FMA
+    contraction allowed, only to measure what ``-fmad=false`` costs; its
+    floats differ from the plain versions by rounding."""
     key = "kernels_fmad" if fmad else "kernels"
     with _locks[key]:
         if key not in _libs:
             flags = [f.replace("-fmad=false", "-fmad=true") if fmad else f
                      for f in NVCC_FLAGS]
-            so = _compile(f"pbrt_torch_{key}", ["traverse.cu"],
-                          [nvcc_path()], flags)
+            sources = ["traverse.cu"] if fmad else KERNEL_SOURCES
+            so = _compile(f"pbrt_torch_{key}", sources, [nvcc_path()], flags)
             lib = ctypes.CDLL(so)
-            vp, ci = ctypes.c_void_p, ctypes.c_int
+            vp, ci, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
             lib.pbrt_torch_wide_step.restype = ci
             lib.pbrt_torch_wide_step.argtypes = [vp] * 14 + [ci, vp]
             for fn in (lib.pbrt_torch_traverse_closest,
@@ -119,5 +161,13 @@ def kernel_lib(fmad: bool = False):
                 fn.argtypes = [vp] * 14 + [ci, ci, vp]
             lib.pbrt_torch_max_stack.restype = ci
             lib.pbrt_torch_max_stack.argtypes = []
+            if not fmad:
+                lib.pbrt_torch_keyed_uniforms.restype = ci
+                lib.pbrt_torch_keyed_uniforms.argtypes = [u32, u32, vp, ci, u32,
+                                                          ci, vp, vp]
+                lib.pbrt_torch_keyed_scrambles.restype = ci
+                lib.pbrt_torch_keyed_scrambles.argtypes = [u32, u32, vp, ci, vp, vp]
+                lib.pbrt_torch_gather_lab.restype = ci
+                lib.pbrt_torch_gather_lab.argtypes = [vp] * 5 + [ci, ci, vp]
             _libs[key] = lib
         return _libs[key]
