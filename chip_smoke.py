@@ -8,8 +8,9 @@ Run from a checkout; it builds every kernel it needs from the sources in
 nothing of JAX or of the JAX package. Phases, each on its own line:
 
 1. device — the card, and nvidia-smi's name and power limit;
-2. build — the kernels, one nvcc per source, all at once, with ptxas'
-   register / spill report;
+2. build — one library per kernel source (and the FMA-contracted copy of
+   the traversal's), one nvcc each, all started together with the SAH
+   builder's g++; ptxas' register / spill report;
 3. kernels vs plain — on ≥ 1M lanes of the real-size scene (camera rays
    and cosine-sampled bounce rays from their first hits): the standalone
    step, closest-hit and any-hit traversal against their plain PyTorch
@@ -71,13 +72,19 @@ LANE_BYTES_TRAVERSE = 76
 LANE_BYTES_STEP = 320 + 36 + 8 + 2 + 32 + 20
 ROW_BYTES = 320
 RNG_DEPTH = 5
-#: int32 operations of one threefry-2x32 hash, counted from rng.cu: 20
-#: rounds of add, funnel-shift rotate and xor; 5 key injections of 3 adds;
-#: 2 adds of the key; and per uniform the xor of the two words, a shift,
-#: an or and a float subtract
-OPS_THREEFRY = 20 * 3 + 5 * 3 + 2
-OPS_PER_UNIFORM = OPS_THREEFRY + 4
-OPS_PER_SCRAMBLE = OPS_THREEFRY + 1
+#: the least integer operations of the keyed functions (rng.cu). One
+#: threefry-2x32 hash of a counter pair (0, c): 20 rounds of add, rotate and
+#: xor; the first key injection's one add (the high word starts as the key
+#: word); 5 injections of 2 adds of the key schedule's words. A key's
+#: schedule, once per key: k0 ^ k1 ^ C (2 xors) and the 5 words k + i the
+#: injections add. Each lane derives 3 keys (pixel, sample, tag), then per
+#: uniform hashes once and takes the xor of the two words, a shift and an
+#: or (integer) and subtracts 1 (float); per scramble word, hash and xor
+OPS_HASH = 20 * 3 + 1 + 5 * 2
+OPS_KEY_SCHEDULE = 2 + 5
+OPS_LANE_KEY = 3 * (OPS_HASH + OPS_KEY_SCHEDULE)
+OPS_PER_UNIFORM = OPS_HASH + 3
+OPS_PER_SCRAMBLE = OPS_HASH + 1
 #: tolerance of the card-vs-CPU renders of the tiny scene
 REF_RTOL, REF_ATOL, REF_PIXELS, REF_BIN_REL = 1e-4, 1e-6, 0.99, 1e-3
 
@@ -253,19 +260,22 @@ def main() -> int:
 
     # ---- 2. build ---------------------------------------------------------
     # every library at once, one compiler process each (the FMA-contracted
-    # kernel build is only for the -fmad=false cost measurement below)
+    # traversal build is only for the -fmad=false cost measurement below)
     t0 = time.time()
-    with ThreadPoolExecutor(3) as ex:
-        for f in [ex.submit(native.kernel_lib), ex.submit(native.kernel_lib, True),
-                  ex.submit(native.bvh_lib)]:
+    builds = [(native.kernel_lib, s, False) for s in native.KERNEL_SOURCES]
+    builds.append((native.kernel_lib, "traverse.cu", True))
+    with ThreadPoolExecutor(len(builds) + 1) as ex:
+        futs = [ex.submit(fn, *args) for fn, *args in builds]
+        futs.append(ex.submit(native.bvh_lib))
+        for f in futs:
             f.result()
     build_s = time.time() - t0
-    ptxas = [ln.strip() for ln in native.build_log.get(
-        "pbrt_torch_kernels", "").splitlines()
-        if "registers" in ln or "spill" in ln]
-    log("build", f"kernels and SAH builder built in {build_s:.1f} s")
-    for ln in ptxas:
-        log("build", ln)
+    log("build", f"{len(builds)} kernel libraries and the SAH builder built in "
+        f"{build_s:.1f} s")
+    for lib_name, out in sorted(native.build_log.items()):
+        for ln in out.splitlines():
+            if "registers" in ln or "spill" in ln:
+                log("build", f"{lib_name}: {ln.strip()}")
 
     # ---- real-size scene --------------------------------------------------
     t0 = time.time()
@@ -440,14 +450,17 @@ def main() -> int:
     # ---- 4. rng: keyed uniforms and scrambles vs plain ---------------------
     root = rng.root_key(0)
     pix_all = torch.arange(N_LANES, dtype=torch.int64, device=dev)
-    rng_eq = {}
+    rng_eq, err_ku = {}, 0.0
     for sample in (0, 3):
         ku = rng.bounce_uniforms(root, pix_all, sample, RNG_DEPTH)
         pu = rng.bounce_uniforms_plain(root, pix_all, sample, RNG_DEPTH)
         rng_eq[f"uniforms s={sample}"] = bool(torch.equal(ku.view(torch.int32),
                                                           pu.view(torch.int32)))
+        err_ku = max(err_ku, float((ku - pu).abs().max()))
     ks_ = rng.pixel_scrambles(root, pix_all)
-    rng_eq["scrambles"] = bool(torch.equal(ks_, rng.pixel_scrambles_plain(root, pix_all)))
+    ps_ = rng.pixel_scrambles_plain(root, pix_all)
+    rng_eq["scrambles"] = bool(torch.equal(ks_, ps_))
+    err_ks = float((ks_ - ps_).abs().max())
     sync()
     log("rng", f"keyed kernels vs plain on {N_LANES} lanes (depth {RNG_DEPTH}): "
         f"equal bit for bit {rng_eq}; uniforms in [{float(ku.min()):.3g}, "
@@ -462,25 +475,23 @@ def main() -> int:
     # time under the profiler (events would time the host's launch cost)
     ku_ms = timing.device_ms(lambda: rng.bounce_uniforms(root, pix_c, 1, RNG_DEPTH),
                              "keyed_uniforms_kernel")
-    ku_call = cuda_ms(lambda: rng.bounce_uniforms(root, pix_c, 1, RNG_DEPTH))
     ku_plain = cuda_ms(lambda: rng.bounce_uniforms_plain(root, pix_c, 1, RNG_DEPTH),
                        n=5, warm=1)
-    # the function's work: each lane's key once (3 hashes), then 7 per bounce
-    ku_ops = CHUNK * (3 * OPS_THREEFRY + 7 * RNG_DEPTH * OPS_PER_UNIFORM)
-    ku_bound, ku_by = timing.bound_ms(CHUNK * (8 + 7 * RNG_DEPTH * 4), ku_ops,
-                                      timing.PEAK_I32_PER_S)
+    # the function's work: each lane's keys once, then 7 uniforms per bounce
+    # (the kernel recomputes a lane's keys in each of its D threads)
+    n_u = 7 * RNG_DEPTH
+    ku_bound, ku_by = timing.bound_ms(
+        CHUNK * (8 + n_u * 4), f32_ops=CHUNK * n_u,
+        i32_ops=CHUNK * (OPS_LANE_KEY + n_u * OPS_PER_UNIFORM))
     ks_ms = timing.device_ms(lambda: rng.pixel_scrambles(root, pix_f),
                              "keyed_scrambles_kernel")
-    ks_call = cuda_ms(lambda: rng.pixel_scrambles(root, pix_f))
     ks_plain = cuda_ms(lambda: rng.pixel_scrambles_plain(root, pix_f), n=5, warm=1)
-    ks_bound, ks_by = timing.bound_ms(n_pix * (8 + 6 * 8), n_pix * (
-        3 * OPS_THREEFRY + 6 * OPS_PER_SCRAMBLE), timing.PEAK_I32_PER_S)
+    ks_bound, ks_by = timing.bound_ms(
+        n_pix * (8 + 6 * 8), i32_ops=n_pix * (OPS_LANE_KEY + 6 * OPS_PER_SCRAMBLE))
     log("timing", f"keyed_uniforms on {CHUNK} lanes, depth {RNG_DEPTH}: {ku_ms:.4f} ms "
-        f"device time ({ku_call:.4f} ms per wrapper call by events; plain "
-        f"{ku_plain:.3f} ms); bound {ku_bound:.5f} ms ({ku_by}, int32 peak)")
+        f"device time (plain {ku_plain:.3f} ms); bound {ku_bound:.5f} ms ({ku_by})")
     log("timing", f"keyed_scrambles on {n_pix} lanes: {ks_ms:.4f} ms device time "
-        f"({ks_call:.4f} ms per wrapper call by events; plain {ks_plain:.3f} ms); "
-        f"bound {ks_bound:.5f} ms ({ks_by}, int32 peak)")
+        f"(plain {ks_plain:.3f} ms); bound {ks_bound:.5f} ms ({ks_by})")
 
     # ---- 5. small reference: card vs CPU --------------------------------
     rs = np.random.default_rng(5)
@@ -612,14 +623,14 @@ def main() -> int:
         kernels.append(dict(
             name=key, route="cuda", source=src, replaces=rep,
             launches=launches[key], max_abs_err=err, library_ms=None, **times[key]))
-    for key, rep_, ms_, plain_, b_, by_ in (
-            ("keyed_uniforms", "pbrt_tpu/integrators/path.py:116", ku_ms, ku_plain,
-             ku_bound, ku_by),
-            ("keyed_scrambles", "pbrt_tpu/renderers/sampler.py:44", ks_ms, ks_plain,
-             ks_bound, ks_by)):
+    for key, rep_, err_, ms_, plain_, b_, by_ in (
+            ("keyed_uniforms", "pbrt_tpu/integrators/path.py:116", err_ku, ku_ms,
+             ku_plain, ku_bound, ku_by),
+            ("keyed_scrambles", "pbrt_tpu/renderers/sampler.py:44", err_ks, ks_ms,
+             ks_plain, ks_bound, ks_by)):
         kernels.append(dict(
             name=key, route="cuda", source="pbrt_torch/csrc/rng.cu", replaces=rep_,
-            launches=launches[key], max_abs_err=0.0, ms=ms_, plain_ms=plain_,
+            launches=launches[key], max_abs_err=err_, ms=ms_, plain_ms=plain_,
             bound_ms=b_, bound_by=by_, library_ms=None))
     kernels.append(dict(
         name="gather_lab", route="cuda", source="pbrt_torch/csrc/gather_lab.cu",

@@ -224,7 +224,7 @@ def step(row, o, d, inv, tmin, t_best, is_node, act):
         native.check_tensor(nm, x, f32, (R,), dev)
     for nm, x in (("is_node", is_node), ("act", act)):
         native.check_tensor(nm, x, b, (R,), dev)
-    lib = native.kernel_lib()
+    lib = native.kernel_lib("traverse.cu")
     refs = torch.empty((8, R), dtype=torch.int32, device=dev)
     n_hit = torch.empty(R, dtype=torch.int32, device=dev)
     tsel = torch.empty(R, dtype=f32, device=dev)
@@ -263,7 +263,7 @@ def traverse(rows, wide_stack, o, d, inv, tmin, tmax, t0, p0, b10, b20,
                   ("b20", b20)):
         native.check_tensor(nm, x, f32, (R,), dev)
     native.check_tensor("p0", p0, torch.int32, (R,), dev)
-    lib = native.kernel_lib(fmad)
+    lib = native.kernel_lib("traverse.cu", fmad)
     cap = lib.pbrt_torch_max_stack()
     if wide_stack > cap:
         raise ValueError(

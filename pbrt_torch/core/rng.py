@@ -180,7 +180,7 @@ def _launch_args(root, pixel_index):
     native.check_tensor("pixel_index", pixel_index, torch.int64, (R,), pixel_index.device)
     k0, k1 = (int(v) & _M32 for v in root.tolist())
     stream = torch.cuda.current_stream(pixel_index.device).cuda_stream
-    return k0, k1, R, native.kernel_lib(), stream
+    return k0, k1, R, native.kernel_lib("rng.cu"), stream
 
 
 def bounce_uniforms(root, pixel_index, sample: int, max_depth: int):

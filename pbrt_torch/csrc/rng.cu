@@ -18,11 +18,12 @@
 //   keyed_scrambles — one thread per lane: sample 0's key, tag 0 (CAMERA),
 //                     6 words written as int64 (the port's uint32 holder).
 //
-// What bounds it on this card: integer operations, about 80 per threefry
-// hash (20 add/rotate/xor rounds, 5 key injections), 10 hashes per thread;
-// the bytes (8 in, 28 out per thread) are few. Rotations are one funnel
-// shift each. Nothing is staged: each thread recomputes its path's key (3
-// of its 10 hashes), which costs less than a second pass through memory.
+// What bounds it on this card: integer operations, at least 71 per threefry
+// hash (20 add/rotate/xor rounds, 11 key-injection adds), 10 hashes per
+// thread; the bytes (8 in, 28 out per thread) are few. Rotations are one
+// funnel shift each. Nothing is staged: each thread recomputes its path's
+// key (3 of its 10 hashes), which costs less than a second pass through
+// memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -20,9 +20,8 @@ on a card and takes the plain version, ``gather_lab_plain``, for tensors on
 the CPU. The plain version repeats the kernel's arithmetic in its order, so
 the two agree bit for bit on the card. ``main()`` needs a card: it times the
 kernel (its device time under ``torch.profiler``, 20 launches after 3
-warm-ups, and the wrapper's time per call by CUDA events) and the plain
-version, and prints them beside the bound, with the card's name and power
-limit.
+warm-ups) and the plain version (CUDA events), and prints them beside the
+bound, with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -104,7 +103,7 @@ def gather_lab(tab, idx, o, inv):
     native.check_tensor("o", o, torch.float32, (r, 3), dev)
     native.check_tensor("inv", inv, torch.float32, (r, 3), dev)
     out = torch.empty(r, dtype=torch.float32, device=dev)
-    lib = native.kernel_lib()
+    lib = native.kernel_lib("gather_lab.cu")
     stream = torch.cuda.current_stream(dev).cuda_stream
     native.check_launch(lib.pbrt_torch_gather_lab(
         tab.data_ptr(), idx.data_ptr(), o.data_ptr(), inv.data_ptr(), out.data_ptr(),
@@ -148,16 +147,14 @@ def main() -> dict:
     dev = torch.device("cuda", 0)
     tab, idx, o, inv = lab_inputs(dev)
     ms = timing.device_ms(lambda: gather_lab(tab, idx, o, inv), "gather_lab_kernel")
-    call_ms = timing.cuda_ms(lambda: gather_lab(tab, idx, o, inv))
     plain_ms = timing.cuda_ms(lambda: gather_lab_plain(tab, idx, o, inv), n=5, warm=1)
     w = work(idx, N)
     b_ms, b_by = timing.bound_ms(w["bytes"], w["ops"])
-    res = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-               **w)
+    res = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, **w)
     print(f"gather lab: table {N}x{ROW} = {N * ROW * 4 / 2**20:.2f} MiB, R={R}, "
           f"iters={ITERS}, on {timing.nvidia_smi()}")
-    print(f"kernel {ms:.4f} ms device time ({ms / ITERS * 1e3:.2f} us/iter; "
-          f"{call_ms:.4f} ms per wrapper call by events), plain {plain_ms:.3f} ms; "
+    print(f"kernel {ms:.4f} ms device time ({ms / ITERS * 1e3:.2f} us/iter), "
+          f"plain {plain_ms:.3f} ms; "
           f"{w['rows_touched']} distinct rows, {w['bytes']} bytes, {w['ops']} operations; "
           f"bound {b_ms:.5f} ms ({b_by})", flush=True)
     return res

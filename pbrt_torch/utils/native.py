@@ -1,16 +1,17 @@
 """Builds and loads the port's native libraries (ctypes, plain C ABI).
 
-Two libraries, both built at first use into ``pbrt_torch/_build/`` (listed
-in ``.gitignore``) and named by a hash of their sources, so an edit
-rebuilds and a stale library is never loaded:
+One library per source, each built by one compiler call at first use into
+``pbrt_torch/_build/`` (listed in ``.gitignore``) and named by a hash of
+its source and flags, so an edit rebuilds and a stale library is never
+loaded. Different libraries build concurrently (``chip_smoke.py`` starts
+them all at once):
 
 - ``libpbrt_torch_bvh-<hash>.so`` — the SAH builder (``csrc/bvh_builder.cpp``),
   compiled with the same ``g++ -O3 -march=native -shared -fPIC`` flags as
   the JAX package's runtime so the two packages build the same tree;
-- ``libpbrt_torch_kernels-<hash>.so`` — the CUDA kernels
-  (``csrc/traverse.cu``, ``csrc/rng.cu``, ``csrc/gather_lab.cu``),
-  compiled by ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all
-  started together, then linked.
+- ``libpbrt_torch_<stem>-<hash>.so`` — the CUDA kernels of one of
+  ``KERNEL_SOURCES`` (``csrc/traverse.cu``, ``csrc/rng.cu``,
+  ``csrc/gather_lab.cu``), compiled by ``nvcc`` for ``sm_90a``.
 
 A failed build raises with the compiler's output; nothing falls back.
 """
@@ -18,7 +19,6 @@ A failed build raises with the compiler's output; nothing falls back.
 from __future__ import annotations
 
 import collections
-import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -38,60 +38,61 @@ NVCC_FLAGS = [
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
-KERNEL_SOURCES = ["traverse.cu", "rng.cu", "gather_lab.cu"]
+
+_vp, _ci, _u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+#: each kernel source's entry points and their ctypes argument types (every
+#: pointer and the stream as ``c_void_p``); each returns ``cudaGetLastError()``
+#: (``pbrt_torch_max_stack`` its stack cap)
+KERNEL_ENTRIES = {
+    "traverse.cu": {
+        "pbrt_torch_wide_step": [_vp] * 14 + [_ci, _vp],
+        "pbrt_torch_traverse_closest": [_vp] * 14 + [_ci, _ci, _vp],
+        "pbrt_torch_traverse_any": [_vp] * 14 + [_ci, _ci, _vp],
+        "pbrt_torch_max_stack": [],
+    },
+    "rng.cu": {
+        "pbrt_torch_keyed_uniforms": [_u32, _u32, _vp, _ci, _u32, _ci, _vp, _vp],
+        "pbrt_torch_keyed_scrambles": [_u32, _u32, _vp, _ci, _vp, _vp],
+    },
+    "gather_lab.cu": {
+        "pbrt_torch_gather_lab": [_vp] * 5 + [_ci, _ci, _vp],
+    },
+}
+KERNEL_SOURCES = tuple(KERNEL_ENTRIES)
 
 #: one lock per library, so different libraries build concurrently
 _locks = collections.defaultdict(threading.Lock)
 _libs: dict = {}
-#: compiler output of the last kernel build (ptxas register/spill report)
+#: compiler output of each library built in this process, by library name
+#: (for the kernels, ptxas' register / spill report)
 build_log: dict = {}
 
 
-def _digest(paths, flags) -> str:
+def _digest(path, flags) -> str:
     h = hashlib.sha256()
-    for p in paths:
-        with open(p, "rb") as f:
-            h.update(f.read())
+    with open(path, "rb") as f:
+        h.update(f.read())
     h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
 
 
-def _compile(name: str, sources: list, compiler: list, flags: list) -> str:
-    srcs = [os.path.join(CSRC, s) for s in sources]
-    so = os.path.join(BUILD_DIR, f"lib{name}-{_digest(srcs, flags)}.so")
+def _compile(name: str, source: str, compiler: list, flags: list) -> str:
+    src = os.path.join(CSRC, source)
+    so = os.path.join(BUILD_DIR, f"lib{name}-{_digest(src, flags)}.so")
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    if len(srcs) == 1:
-        build_log[name] = _run(compiler + flags + ["-o", tmp] + srcs, name)
-    else:  # one compiler per source, in parallel, then one link
-        obj_flags = [f for f in flags if f != "-shared"]
-        objs = [f"{tmp}.{i}.o" for i in range(len(srcs))]
-
-        def compile_one(obj, src):
-            return _run(compiler + obj_flags + ["-c", "-o", obj, src], name)
-
-        with concurrent.futures.ThreadPoolExecutor(len(srcs)) as ex:
-            logs = list(ex.map(compile_one, objs, srcs))
-        # the link keeps the target flags, or nvcc adds its default arch
-        link_flags = [f for f in flags if f not in ("-Xptxas", "-v")]
-        logs.append(_run(compiler + link_flags + ["-o", tmp] + objs, name))
-        for o in objs:
-            os.remove(o)
-        build_log[name] = "".join(logs)
-    os.replace(tmp, so)
-    return so
-
-
-def _run(cmd: list, name: str) -> str:
+    cmd = compiler + flags + ["-o", tmp, src]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise RuntimeError(
             f"building {name} failed ({' '.join(cmd)}):\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
-    return proc.stdout + proc.stderr
+    build_log[name] = proc.stdout + proc.stderr
+    os.replace(tmp, so)
+    return so
 
 
 def check_tensor(name: str, x, dtype, shape, device):
@@ -117,7 +118,7 @@ def bvh_lib():
     """The SAH builder library (g++)."""
     with _locks["bvh"]:
         if "bvh" not in _libs:
-            so = _compile("pbrt_torch_bvh", ["bvh_builder.cpp"], ["g++"],
+            so = _compile("pbrt_torch_bvh", "bvh_builder.cpp", ["g++"],
                           GXX_FLAGS)
             lib = ctypes.CDLL(so)
             fp = ctypes.POINTER(ctypes.c_float)
@@ -138,36 +139,22 @@ def nvcc_path() -> str:
     return cand
 
 
-def kernel_lib(fmad: bool = False):
-    """The CUDA kernel library (nvcc, sm_90a). Built on first call.
+def kernel_lib(source: str, fmad: bool = False):
+    """The library of the CUDA kernels in ``csrc/<source>`` (nvcc, sm_90a),
+    built on first call, with its entry points bound.
 
-    ``fmad=True`` builds a second copy of the traversal kernels with FMA
-    contraction allowed, only to measure what ``-fmad=false`` costs; its
-    floats differ from the plain versions by rounding."""
-    key = "kernels_fmad" if fmad else "kernels"
-    with _locks[key]:
-        if key not in _libs:
+    ``fmad=True`` builds a second copy with FMA contraction allowed, only to
+    measure what ``-fmad=false`` costs; its floats differ from the plain
+    versions by rounding."""
+    name = "pbrt_torch_" + source.removesuffix(".cu") + ("_fmad" if fmad else "")
+    with _locks[name]:
+        if name not in _libs:
             flags = [f.replace("-fmad=false", "-fmad=true") if fmad else f
                      for f in NVCC_FLAGS]
-            sources = ["traverse.cu"] if fmad else KERNEL_SOURCES
-            so = _compile(f"pbrt_torch_{key}", sources, [nvcc_path()], flags)
-            lib = ctypes.CDLL(so)
-            vp, ci, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-            lib.pbrt_torch_wide_step.restype = ci
-            lib.pbrt_torch_wide_step.argtypes = [vp] * 14 + [ci, vp]
-            for fn in (lib.pbrt_torch_traverse_closest,
-                       lib.pbrt_torch_traverse_any):
-                fn.restype = ci
-                fn.argtypes = [vp] * 14 + [ci, ci, vp]
-            lib.pbrt_torch_max_stack.restype = ci
-            lib.pbrt_torch_max_stack.argtypes = []
-            if not fmad:
-                lib.pbrt_torch_keyed_uniforms.restype = ci
-                lib.pbrt_torch_keyed_uniforms.argtypes = [u32, u32, vp, ci, u32,
-                                                          ci, vp, vp]
-                lib.pbrt_torch_keyed_scrambles.restype = ci
-                lib.pbrt_torch_keyed_scrambles.argtypes = [u32, u32, vp, ci, vp, vp]
-                lib.pbrt_torch_gather_lab.restype = ci
-                lib.pbrt_torch_gather_lab.argtypes = [vp] * 5 + [ci, ci, vp]
-            _libs[key] = lib
-        return _libs[key]
+            lib = ctypes.CDLL(_compile(name, source, [nvcc_path()], flags))
+            for entry, argtypes in KERNEL_ENTRIES[source].items():
+                fn = getattr(lib, entry)
+                fn.restype = ctypes.c_int
+                fn.argtypes = argtypes
+            _libs[name] = lib
+        return _libs[name]

@@ -8,12 +8,15 @@ from __future__ import annotations
 
 import subprocess
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 outside the
-#: tensor cores, and int32 lane operations (64 INT32 lanes per SM, Hopper
-#: architecture white paper, x 132 SMs x 1.98 GHz boost clock)
+#: H100 SXM peaks: HBM3 bytes/s and float32 outside the tensor cores (NVIDIA
+#: data sheet); integer operations at the dispatch ceiling of the NVIDIA
+#: H100 Tensor Core GPU Architecture white paper's SM diagram, 4 warp
+#: schedulers of 32 threads/clk per SM, x 132 SMs x 1.98 GHz boost clock.
+#: That is what any mix of integer pipes can issue (the compiler puts adds
+#: on the FMA pipe as IMAD.IADD as well as on the 64 INT32 lanes per SM)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
-PEAK_I32_PER_S = 64 * 132 * 1.98e9
+PEAK_I32_PER_S = 4 * 32 * 132 * 1.98e9
 
 
 def cuda_ms(fn, n: int = 20, warm: int = 3) -> float:
@@ -59,10 +62,12 @@ def device_ms(fn, match: str, n: int = 20, warm: int = 3) -> float:
     return sum(e.self_device_time_total for e in ev) / 1e3 / count
 
 
-def bound_ms(nbytes: float, ops: float, peak_ops: float = PEAK_F32_PER_S):
-    """(least time in ms, "bytes" or "operations") for moving ``nbytes``
-    and doing ``ops`` operations at the card's peak rates."""
-    tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, ops / peak_ops * 1e3
+def bound_ms(nbytes: float, f32_ops: float = 0.0, i32_ops: float = 0.0):
+    """(least time in ms, "bytes" or "operations") for moving ``nbytes`` and
+    doing ``f32_ops`` float32 and ``i32_ops`` integer operations at the
+    card's peak rates; the operations' time is the longer of the two kinds'."""
+    tb = nbytes / PEAK_BYTES_PER_S * 1e3
+    to = max(f32_ops / PEAK_F32_PER_S, i32_ops / PEAK_I32_PER_S) * 1e3
     return max(tb, to), ("bytes" if tb >= to else "operations")
 
 
