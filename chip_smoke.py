@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card proof of the PyTorch port (``pbrt_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--compare-traverse OTHER_TRAVERSE_CU ...]
 
 Run from a checkout; it builds every kernel it needs from the sources in
 ``pbrt_torch/csrc`` (nvcc for sm_90a, g++ for the SAH builder) and imports
@@ -14,7 +14,17 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
 3. kernels vs plain — on ≥ 1M lanes of the real-size scene (camera rays
    and cosine-sampled bounce rays from their first hits): the standalone
    step, closest-hit and any-hit traversal against their plain PyTorch
-   versions, and closest hit on 4,096 lanes against ``intersect_brute``;
+   versions, closest hit on 4,096 lanes against ``intersect_brute``, and
+   all three on ragged lane counts (1, 7, 4,093); then the traversal
+   timed (CUDA events over back-to-back launches through its C entry) on
+   two 32,768-lane sets, a random permutation of the mixed rays and a
+   render-order set (camera rays of consecutive pixels from the frame's
+   middle, then their first bounces in the same order), each with the
+   plain version's steps per lane and per warp.
+   ``--compare-traverse`` names other ``traverse.cu`` sources with the
+   same C entry points (an earlier tree's, or a variant): each is built
+   too and timed in turns with this one (other, this, this, other) on both
+   sets, its results held equal bit for bit;
 4. rng — the keyed-uniform kernel (bounce block at depth 5) and the
    scramble kernel against their plain versions on 1,048,576 lanes, bit
    for bit; timed at the main path's launch widths;
@@ -29,7 +39,9 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    at 512², path depth 5, 32 bins, 32,768-lane chunks, lowdiscrepancy,
    box filter; one warm-up sample, then 4 timed samples (CUDA events),
    with the kernels' launch counters set to 0 just before and read just
-   after; the film is checked and a ``.dat`` written and read back;
+   after; the film is checked and a ``.dat`` written and read back; one
+   more 1-spp frame under the profiler splits the device time by kernel,
+   the traversal's into closest hit and any hit;
 8. the ``kernels`` JSON line (see PERF.md for the fields), then the result.
 
 The real-size scene is ``goldens/killeroo-simple.pbrt`` (its text is kept
@@ -45,6 +57,8 @@ result.
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import os
 import sys
@@ -218,7 +232,63 @@ def log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
-def main() -> int:
+def step_summary(steps, ms=None):
+    """Steps per lane of one launch's lanes (the plain version's
+    ``lane_steps``): their spread, the per-warp maximum at 32 rays per warp
+    (one thread per ray) and at 4 (8 lanes per ray), and the share of
+    lane-steps that do work; with the kernel's ms, ms per step of the
+    longest ray."""
+    import torch
+
+    s = steps.double()
+    out = dict(mean=float(s.mean()), p99=float(torch.quantile(s, 0.99)),
+               max=int(steps.max()))
+    for rays in (32, 4):
+        w = s.view(-1, rays).max(1).values
+        out[f"warp{rays}_mean"] = float(w.mean())
+        out[f"warp{rays}_max"] = int(w.max())
+        out[f"use{rays}"] = float(s.sum() / (rays * w.sum()))
+    if ms is not None:
+        out["ms_per_longest_step"] = ms / max(int(steps.max()), 1)
+    return out
+
+
+def device_ms(fn, match: str) -> float:
+    """``timing.device_ms``, with a profiler session that traced too few
+    launches run again (up to 3 tries, each reported): the tracer now and
+    then drops a session's kernel events."""
+    from pbrt_torch.utils import timing
+
+    for attempt in range(3):
+        try:
+            return timing.device_ms(fn, match)
+        except RuntimeError as e:
+            if attempt == 2:
+                raise
+            log("timing", f"profiler session dropped ({e}); again")
+
+
+def other_lib(i: int, path: str):
+    """Another traverse.cu built with this tree's nvcc flags and bound like
+    this one (same C entry points)."""
+    from pbrt_torch.utils import native
+
+    so = native._compile(f"pbrt_torch_traverse_other{i}", os.path.abspath(path),
+                         [native.nvcc_path()], native.NVCC_FLAGS)
+    lib = ctypes.CDLL(so)
+    for entry, argtypes in native.KERNEL_ENTRIES["traverse.cu"].items():
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    return lib
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--compare-traverse", metavar="OTHER_TRAVERSE_CU", nargs="+",
+                    default=[], help="other traverse.cu sources (an earlier tree's, "
+                    "or variants) to time in turns with this one")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -264,9 +334,13 @@ def main() -> int:
     t0 = time.time()
     builds = [(native.kernel_lib, s, False) for s in native.KERNEL_SOURCES]
     builds.append((native.kernel_lib, "traverse.cu", True))
+    n_std = len(builds)
+    builds += [(other_lib, i, path) for i, path in enumerate(args.compare_traverse)]
     with ThreadPoolExecutor(len(builds) + 1) as ex:
-        futs = [ex.submit(fn, *args) for fn, *args in builds]
+        futs = [ex.submit(fn, *a) for fn, *a in builds]
         futs.append(ex.submit(native.bvh_lib))
+        others = {path: f.result()
+                  for path, f in zip(args.compare_traverse, futs[n_std:-1])}
         for f in futs:
             f.result()
     build_s = time.time() - t0
@@ -405,42 +479,143 @@ def main() -> int:
         f"equal bit for bit {step_ok}")
     if not all(step_ok.values()):
         raise SystemExit("standalone step kernel disagrees with its plain version")
+    # ragged launches: lane counts that leave the last warp (4 rays) partly empty
+    ragged_ok = True
+    for n in (1, 7, 4093):
+        cut = lambda xs: [x[:n].contiguous() for x in xs]
+        for any_hit in (False, True):
+            tm, seeds = (tmax_a, qa) if any_hit else (tmax, q)
+            ra = cut((o, d, inv, tmin, tm, *seeds))
+            ragged_ok &= all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in
+                             zip(tc.traverse(rows, ws, *ra, any_hit=any_hit),
+                                 tc.traverse_plain(rows, ws, *ra, any_hit)))
+        sa = cut((srow, o, d, inv, tmin, s_tb, s_node, s_act))
+        ragged_ok &= all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                         for x, y in zip(tc.step(*sa), tc.step_plain(*sa)))
+    sync()
+    log("kernels", f"closest-hit, any-hit and step kernels vs plain on 1, 7 and 4093 "
+        f"lanes: equal bit for bit {ragged_ok}")
+    if not ragged_ok:
+        raise SystemExit("a traversal kernel disagrees with its plain version on a ragged launch")
 
     # ---- timing at the main path's launch width --------------------------
+    # two 32,768-lane sets: a random permutation of the mixed rays (the set
+    # earlier PRs timed) and a render-order set, as the render launches
+    # them: consecutive pixels from the frame's middle, their camera rays,
+    # then their first bounces in the same order (camera lane p is pixel p;
+    # the bounce lanes follow the camera lanes that hit, in order)
     sub = torch.randperm(R, generator=gen, device=dev)[:CHUNK]
-    so, sd, sinv = o[sub].contiguous(), d[sub].contiguous(), inv[sub].contiguous()
-    stmin = tmin[sub].contiguous()
-    stmax, stmax_a = tmax[sub].contiguous(), tmax_a[sub].contiguous()
-    sq = [x[sub].contiguous() for x in q]
-    sqa = [x[sub].contiguous() for x in qa]
+    n_pix = W * H
+    hit_pix = si.valid[:n_pix].long()
+    first = n_pix // 2 - CHUNK // 4
+    lanes_used = torch.cumsum(1 + hit_pix[first:], 0)
+    n_win = int(torch.searchsorted(lanes_used, CHUNK)) + 1
+    win = torch.arange(first, first + n_win, device=dev)
+    bounce_of = n_cam + torch.cumsum(hit_pix, 0) - 1
+    ro = torch.cat([win, bounce_of[win[hit_pix[win] > 0]]])[:CHUNK]
+    lane_sets = {"permuted": sub, "render-order": ro}
+    log("timing", f"render-order set: pixels {first}..{first + n_win - 1} "
+        f"({n_win} camera rays, {CHUNK - n_win} first bounces)")
+
+    def set_args(idx):
+        pick = lambda x: x[idx].contiguous()
+        return dict(o=pick(o), d=pick(d), inv=pick(inv), tmin=pick(tmin),
+                    tmax=pick(tmax), tmax_a=pick(tmax_a), q=[pick(x) for x in q],
+                    qa=[pick(x) for x in qa])
+
+    def raw_launch(lib, a, any_hit):
+        """One launch through a traversal library's C entry, outputs
+        allocated once: what the timing repeats (the host enqueues it in a
+        few microseconds, less than the kernel runs)."""
+        tm, seeds = (a["tmax_a"], a["qa"]) if any_hit else (a["tmax"], a["q"])
+        n = a["o"].shape[0]
+        outs = [torch.empty(n, dtype=dt, device=dev)
+                for dt in (torch.float32, torch.int32, torch.float32, torch.float32)]
+        fn = lib.pbrt_torch_traverse_any if any_hit else lib.pbrt_torch_traverse_closest
+        ptrs = [x.data_ptr() for x in (rows, a["o"], a["d"], a["inv"], a["tmin"], tm,
+                                        *seeds, *outs)]
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def launch():
+            native.check_launch(fn(*ptrs, n, ws, stream), "traversal launch")
+            return outs
+        return launch
+
+    def launch_ms(launch, n=50, warm=5):
+        """(ms per launch by CUDA events around n back-to-back launches,
+        the host's ms to enqueue one)"""
+        for _ in range(warm):
+            launch()
+        sync()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        t_host = time.perf_counter()
+        for _ in range(n):
+            launch()
+        t_host = (time.perf_counter() - t_host) / n * 1e3
+        ev[1].record()
+        sync()
+        return ev[0].elapsed_time(ev[1]) / n, t_host
+
+    this_lib = native.kernel_lib("traverse.cu")
     times = {}
-    for key, tm, seeds, any_hit in (("traverse_closest", stmax, sq, False),
-                                    ("traverse_any", stmax_a, sqa, True)):
-        stats = {}
-        tc.traverse_plain(rows, ws, so, sd, sinv, stmin, tm, *seeds, any_hit,
-                          stats=stats)
-        ms = cuda_ms(lambda: tc.traverse(rows, ws, so, sd, sinv, stmin, tm,
-                                         *seeds, any_hit=any_hit))
-        plain_ms = cuda_ms(lambda: tc.traverse_plain(
-            rows, ws, so, sd, sinv, stmin, tm, *seeds, any_hit), n=3, warm=1)
-        nbytes = CHUNK * LANE_BYTES_TRAVERSE + stats["rows_touched"] * ROW_BYTES
-        ops = (stats["node_steps"] * OPS_NODE_STEP
-               + stats["leaf_steps"] * OPS_LEAF_STEP)
-        b_ms, b_by = timing.bound_ms(nbytes, ops)
-        times[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        log("timing", f"{key} on {CHUNK} lanes: {ms:.4f} ms (plain {plain_ms:.2f} ms); "
-            f"{stats['node_steps']} node + {stats['leaf_steps']} leaf steps, "
-            f"{stats['rows_touched']} distinct rows; bound {b_ms:.5f} ms ({b_by})")
+    for set_name, idx in lane_sets.items():
+        a = set_args(idx)
+        for key, any_hit in (("traverse_closest", False), ("traverse_any", True)):
+            tm, seeds = (a["tmax_a"], a["qa"]) if any_hit else (a["tmax"], a["q"])
+            stats = {}
+            tc.traverse_plain(rows, ws, a["o"], a["d"], a["inv"], a["tmin"], tm, *seeds,
+                              any_hit, stats=stats)
+            this_launch = raw_launch(this_lib, a, any_hit)
+            ms, host_ms = launch_ms(this_launch)
+            nbytes = CHUNK * LANE_BYTES_TRAVERSE + stats["rows_touched"] * ROW_BYTES
+            ops = (stats["node_steps"] * OPS_NODE_STEP
+                   + stats["leaf_steps"] * OPS_LEAF_STEP)
+            b_ms, b_by = timing.bound_ms(nbytes, ops)
+            summ = step_summary(stats["lane_steps"], ms)
+            plain_txt = ""
+            if set_name == "permuted":  # the kernels line's set
+                plain_ms = cuda_ms(lambda: tc.traverse_plain(
+                    rows, ws, a["o"], a["d"], a["inv"], a["tmin"], tm, *seeds, any_hit),
+                    n=3, warm=1)
+                times[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+                plain_txt = f" (plain {plain_ms:.2f} ms)"
+            log("timing", f"{key}, {set_name} set, {CHUNK} lanes: {ms:.4f} ms{plain_txt} "
+                f"(host enqueue {host_ms:.4f} ms); "
+                f"{stats['node_steps']} node + {stats['leaf_steps']} leaf steps, "
+                f"{stats['rows_touched']} distinct rows; bound {b_ms:.5f} ms ({b_by})")
+            log("timing", f"  steps per lane: mean {summ['mean']:.3f}, p99 {summ['p99']:.0f}, "
+                f"max {summ['max']}; per-warp max at 32 rays/warp: mean "
+                f"{summ['warp32_mean']:.2f}, max {summ['warp32_max']}, lane use "
+                f"{100 * summ['use32']:.1f}%; at 4 rays/warp: mean {summ['warp4_mean']:.2f}, "
+                f"max {summ['warp4_max']}, lane use {100 * summ['use4']:.1f}%; "
+                f"{1e3 * summ['ms_per_longest_step']:.4f} us per step of the longest ray")
+            for path, lib in others.items():
+                other_launch = raw_launch(lib, a, any_hit)
+                ref_out = [x.clone() for x in this_launch()]
+                other_out = other_launch()
+                sync()
+                same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                           for x, y in zip(ref_out, other_out))
+                if not same:
+                    raise SystemExit(f"{key}: {path} and this kernel disagree")
+                turns = [launch_ms(f)[0] for f in (other_launch, this_launch,
+                                                   this_launch, other_launch)]
+                other_ms, new_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+                log("timing", f"  in turns with {path} (other, this, this, other): "
+                    + ", ".join(f"{x:.4f}" for x in turns)
+                    + f" ms; other / this = {other_ms / new_ms:.2f}x; results equal bit "
+                    f"for bit {same}")
     # what -fmad=false costs: the same kernel built with FMA contraction,
     # timed in turns on the same lanes
-    fm = [cuda_ms(lambda: tc.traverse(rows, ws, so, sd, sinv, stmin, stmax, *sq,
-                                      any_hit=False, fmad=f))
+    perm = set_args(sub)
+    fm = [launch_ms(raw_launch(native.kernel_lib("traverse.cu", f), perm, False))[0]
           for f in (False, True, True, False)]
     log("timing", f"traverse_closest -fmad=false vs -fmad=true on {CHUNK} lanes, "
         f"in turns (no-FMA, FMA, FMA, no-FMA): "
         + ", ".join(f"{x:.4f}" for x in fm) + " ms")
     st_args = [x[sub].contiguous() for x in (srow, o, d, inv, tmin, s_tb, s_node, s_act)]
-    st_ms = cuda_ms(lambda: tc.step(*st_args))
+    st_ms = device_ms(lambda: tc.step(*st_args), tc.KERNEL_NAMES["wide_step"])
     st_plain = cuda_ms(lambda: tc.step_plain(*st_args), n=5, warm=1)
     n_node = int(st_args[6].sum())
     st_ops = n_node * OPS_NODE_STEP + (CHUNK - n_node) * OPS_LEAF_STEP
@@ -469,11 +644,10 @@ def main() -> int:
         raise SystemExit("a keyed-uniform kernel disagrees with its plain version")
     if not (float(ku.min()) >= 0.0 and float(ku.max()) < 1.0):
         raise SystemExit("keyed uniforms outside [0, 1)")
-    n_pix = W * H
     pix_c, pix_f = pix_all[:CHUNK].contiguous(), pix_all[:n_pix].contiguous()
     # a keyed launch takes microseconds: its time is the kernel's device
     # time under the profiler (events would time the host's launch cost)
-    ku_ms = timing.device_ms(lambda: rng.bounce_uniforms(root, pix_c, 1, RNG_DEPTH),
+    ku_ms = device_ms(lambda: rng.bounce_uniforms(root, pix_c, 1, RNG_DEPTH),
                              "keyed_uniforms_kernel")
     ku_plain = cuda_ms(lambda: rng.bounce_uniforms_plain(root, pix_c, 1, RNG_DEPTH),
                        n=5, warm=1)
@@ -483,7 +657,7 @@ def main() -> int:
     ku_bound, ku_by = timing.bound_ms(
         CHUNK * (8 + n_u * 4), f32_ops=CHUNK * n_u,
         i32_ops=CHUNK * (OPS_LANE_KEY + n_u * OPS_PER_UNIFORM))
-    ks_ms = timing.device_ms(lambda: rng.pixel_scrambles(root, pix_f),
+    ks_ms = device_ms(lambda: rng.pixel_scrambles(root, pix_f),
                              "keyed_scrambles_kernel")
     ks_plain = cuda_ms(lambda: rng.pixel_scrambles_plain(root, pix_f), n=5, warm=1)
     ks_bound, ks_by = timing.bound_ms(
@@ -604,14 +778,22 @@ def main() -> int:
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     dev_ms = sum(x[1] for x in kern)
-    trav_ms = sum(x[1] for x in kern if "traverse_kernel" in x[0])
+    trav = {}
+    for key in ("traverse_closest", "traverse_any"):
+        ev = [x for x in kern if tc.KERNEL_NAMES[key] in x[0]]
+        if not ev:
+            raise SystemExit(f"the profile shows no {tc.KERNEL_NAMES[key]} event")
+        trav[key] = (sum(x[1] for x in ev), sum(x[2] for x in ev))
+    trav_ms = sum(v[0] for v in trav.values())
     rng_ms = sum(x[1] for x in kern if "keyed_" in x[0])
     frame_ms = sec / spp * 1e3
     log("profile", f"1 spp: kernel time {dev_ms:.1f} ms in {sum(x[2] for x in kern)} "
         f"launches = {100 * dev_ms / frame_ms:.1f}% of the unprofiled {frame_ms:.1f} ms "
-        f"frame (device idle the rest); traversal kernels {trav_ms:.1f} ms "
-        f"({100 * trav_ms / max(dev_ms, 1e-9):.1f}% of kernel time); keyed-uniform "
-        f"kernels {rng_ms:.3f} ms")
+        f"frame (device idle the rest); traversal kernels {trav_ms:.3f} ms "
+        f"({100 * trav_ms / max(dev_ms, 1e-9):.1f}% of kernel time): closest hit "
+        f"{trav['traverse_closest'][0]:.3f} ms in {trav['traverse_closest'][1]} launches, "
+        f"any hit {trav['traverse_any'][0]:.3f} ms in {trav['traverse_any'][1]} launches; "
+        f"keyed-uniform kernels {rng_ms:.3f} ms")
     for k, ms_, cnt in sorted(kern, key=lambda x: -x[1])[:8]:
         log("profile", f"  {ms_:8.2f} ms  {cnt:6d}x  {k[:90]}")
 

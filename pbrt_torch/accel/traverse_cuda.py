@@ -5,21 +5,26 @@ _step_kernel`` — the Pallas TPU kernel for the traversal step's interpret
 phase — and the XLA step it stands for (``intersect.py:897-979``), together
 with the loops around them (``_step_control`` and the warm / straggler
 phases of ``_traverse_wide_batch``). The CUDA source is
-``pbrt_torch/csrc/traverse.cu``; its header says what bounds it on an H100
-(row reads from L2, warp divergence across rays of unequal step counts) and
-that this first design does nothing about either yet.
+``pbrt_torch/csrc/traverse.cu``. What bounds it on an H100 is the
+dependent chain of a launch's longest ray: each step one L2 round trip for
+its row plus a short serial stream of instructions, not the bytes. So a
+group of 8 lanes walks each ray, lane k owning the row's slot k: 8× the
+threads, the sort as 6 layers of shuffles (``SORT8_LAYERS``), the leaf's
+nearest slot as a 3-round (t, slot) butterfly, the stack in shared memory;
+the 4 groups of a warp step together, so every shuffle spans the warp.
 
 Three wrappers, each with a launch counter (``launches``):
 
 - ``step`` — one interpret step with ``step_interpret``'s contract, any R;
-- ``traverse(..., any_hit=False)`` — closest hit, one thread per ray;
+- ``traverse(..., any_hit=False)`` — closest hit, one 8-lane group per ray;
 - ``traverse(..., any_hit=True)`` — any hit.
 
 Each takes its plain version when the tensors lie on the CPU and launches
 its kernel when they lie on a CUDA device; a CUDA tensor never falls back.
 The plain versions (``step_plain``, ``traverse_plain``) repeat the kernels'
-arithmetic in the same operation order, so on the card the two agree bit
-for bit; the CPU tests and ``chip_smoke.py`` hold the kernels to them.
+arithmetic in the same operation order, the sort by the same layers and
+the leaf pick by the same butterfly, so on the card the two agree bit for
+bit; the CPU tests and ``chip_smoke.py`` hold the kernels to them.
 
 Child order follows ``intersect._SORT8`` (the JAX package's default XLA
 step), not the Pallas kernel's list, which orders equal entry keys
@@ -32,15 +37,24 @@ import math
 
 import torch
 
-#: ``intersect._SORT8`` — Batcher odd-even merge network, 19 exchanges
-SORT8 = (
-    (0, 1), (2, 3), (4, 5), (6, 7),
-    (0, 2), (1, 3), (4, 6), (5, 7),
-    (1, 2), (5, 6),
-    (0, 4), (1, 5), (2, 6), (3, 7),
-    (2, 4), (3, 5),
-    (1, 2), (3, 4), (5, 6),
+#: ``intersect._SORT8`` (Batcher odd-even merge network, 19 exchanges) as
+#: its 6 layers of disjoint pairs, in the serial order; the kernel's
+#: ``kSort8Layers`` (``csrc/traverse.cu``) is the same table
+SORT8_LAYERS = (
+    ((0, 1), (2, 3), (4, 5), (6, 7)),
+    ((0, 2), (1, 3), (4, 6), (5, 7)),
+    ((1, 2), (5, 6)),
+    ((0, 4), (1, 5), (2, 6), (3, 7)),
+    ((2, 4), (3, 5)),
+    ((1, 2), (3, 4), (5, 6)),
 )
+#: the same network flattened: ``intersect._SORT8``
+SORT8 = tuple(pair for layer in SORT8_LAYERS for pair in layer)
+
+#: a substring of each kernel's name, as a profiler reports it
+KERNEL_NAMES = {"wide_step": "wide_step_kernel",
+                "traverse_closest": "traverse_closest_kernel",
+                "traverse_any": "traverse_any_kernel"}
 
 #: kernel launches per wrapper (the plain versions count nothing)
 launches = {"wide_step": 0, "traverse_closest": 0, "traverse_any": 0}
@@ -56,12 +70,52 @@ def reset_launches():
 # ---------------------------------------------------------------------------
 
 
+def _partners(layer):
+    p = list(range(8))
+    for i, j in layer:
+        p[i], p[j] = j, i
+    return p
+
+
+#: each layer's partner of every slot (a slot in no pair is its own)
+LAYER_PARTNERS = tuple(tuple(_partners(layer)) for layer in SORT8_LAYERS)
+
+
+def sort8_layers(key, ref):
+    """Sorts (8, C) ``key`` and its ``ref`` along the slots as the kernel's
+    group does: in each layer slot k takes its partner's (key, ref) iff the
+    pair's lower slot holds the strictly larger key; a slot in no pair keeps
+    its own. Equal to the serial ``SORT8``, ties included."""
+    parts = torch.tensor(LAYER_PARTNERS, device=key.device)
+    slot = torch.arange(8, device=key.device)[:, None]
+    for p in parts:
+        ko, ro = key[p], ref[p]
+        swap = torch.where(slot < p[:, None], key > ko, ko > key)
+        key = torch.where(swap, ko, key)
+        ref = torch.where(swap, ro, ref)
+    return key, ref
+
+
+def pick_first_min(tc):
+    """(8, C) candidate t → (t, slot) of each column's first minimum, by the
+    kernel's 3 butterfly rounds: slot k takes slot k^m's (t, slot) iff it is
+    smaller in (t, slot) order. ``tc`` holds no NaN."""
+    lanes = torch.arange(8, device=tc.device)
+    slot = lanes[:, None].expand_as(tc)
+    for m in (1, 2, 4):
+        to, so = tc[lanes ^ m], slot[lanes ^ m]
+        take = (to < tc) | ((to == tc) & (so < slot))
+        tc = torch.where(take, to, tc)
+        slot = torch.where(take, so, slot)
+    return tc[0], slot[0]
+
+
 def _interpret(rt, ox, oy, oz, dx, dy, dz, ix, iy, iz, tmin, t_best,
                node_mask, leaf_mask):
     """Both interpretations of slot-major rows ``rt`` (80, C) for C lanes.
 
-    Returns (refs list of 8 (C,) int32 in sorted order, n_hit (C,) int32,
-    tsel, psel int32, b1, b2) — the JAX step's values on every lane."""
+    Returns (refs (8, C) int32 in sorted order, n_hit (C,) int32, tsel,
+    psel int32, b1, b2) — the JAX step's values on every lane."""
     inf = torch.tensor(math.inf, dtype=rt.dtype, device=rt.device)
     lox, hix = rt[0:8], rt[8:16]
     loy, hiy = rt[16:24], rt[24:32]
@@ -78,16 +132,7 @@ def _interpret(rt, ox, oy, oz, dx, dy, dz, ix, iy, iz, tmin, t_best,
     enter = mx(tn, tmin)
     exit_ = mn(tf, t_best)
     hit8 = (enter <= exit_) & (lox <= hix) & node_mask
-    refs = rt[48:56].to(torch.int32)
-    key = [torch.where(hit8[k], enter[k], inf) for k in range(8)]
-    refs_l = [refs[k] for k in range(8)]
-    for i, j in SORT8:
-        swap = key[i] > key[j]
-        ki, kj, ri, rj = key[i], key[j], refs_l[i], refs_l[j]
-        key[i] = torch.where(swap, kj, ki)
-        key[j] = torch.where(swap, ki, kj)
-        refs_l[i] = torch.where(swap, rj, ri)
-        refs_l[j] = torch.where(swap, ri, rj)
+    _, refs = sort8_layers(torch.where(hit8, enter, inf), rt[48:56].to(torch.int32))
     n_hit = hit8.sum(0, dtype=torch.int32)
 
     v0x, v0y, v0z = rt[0:8], rt[8:16], rt[16:24]
@@ -109,25 +154,23 @@ def _interpret(rt, ox, oy, oz, dx, dy, dz, ix, iy, iz, tmin, t_best,
     t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
     ok8 = (leaf_mask & (pid >= 0) & ~small & (b1 >= 0.0) & (b2 >= 0.0)
            & (b1 + b2 <= 1.0) & (t > tmin) & (t < t_best))
-    tcand = torch.where(ok8, t, inf)
-    tsel, jbest = tcand.min(0)  # first index of the minimum
+    tsel, jbest = pick_first_min(torch.where(ok8, t, inf))
     jb = jbest[None]
     psel = pid.gather(0, jb)[0]
     b1s = b1.gather(0, jb)[0]
     b2s = b2.gather(0, jb)[0]
-    return refs_l, n_hit, tsel, psel, b1s, b2s
+    return refs, n_hit, tsel, psel, b1s, b2s
 
 
 def step_plain(row, o, d, inv, tmin, t_best, is_node, act):
     """(R, 80) gathered rows + per-lane ray state → (refs (8, R) i32,
     n_hit (R,) i32, tsel (R,), psel (R,) i32, b1 (R,), b2 (R,))."""
     rt = row.T
-    refs_l, n_hit, tsel, psel, b1, b2 = _interpret(
+    return _interpret(
         rt, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
         inv[:, 0], inv[:, 1], inv[:, 2], tmin, t_best,
         is_node & act, ~is_node & act,
     )
-    return torch.stack(refs_l), n_hit, tsel, psel, b1, b2
 
 
 def traverse_plain(rows, wide_stack, o, d, inv, tmin, tmax, t0, p0, b10,
@@ -137,7 +180,9 @@ def traverse_plain(rows, wide_stack, o, d, inv, tmin, tmax, t0, p0, b10,
     kernels: (t, prim, b1, b2), seeded with (t0, p0, b10, b20).
 
     ``stats`` (optional dict) receives the work this batch needed:
-    ``node_steps``, ``leaf_steps`` and ``rows_touched`` (distinct rows)."""
+    ``node_steps``, ``leaf_steps``, ``rows_touched`` (distinct rows) and
+    ``lane_steps`` ((R,) int64, each lane's steps); a dict passed again
+    adds the next batch's counts (lane by lane, for the same R)."""
     R = o.shape[0]
     dev = o.device
     t, prim = t0.clone(), p0.clone()
@@ -149,8 +194,10 @@ def traverse_plain(rows, wide_stack, o, d, inv, tmin, tmax, t0, p0, b10,
     if any_hit:
         run = run & (prim < 0)
     idx = torch.nonzero(run).squeeze(1)
-    touched = (torch.zeros(rows.shape[0], dtype=torch.bool, device=dev)
-               if stats is not None else None)
+    touched = lane_steps = None
+    if stats is not None:
+        touched = torch.zeros(rows.shape[0], dtype=torch.bool, device=dev)
+        lane_steps = torch.zeros(R, dtype=torch.int64, device=dev)
     n_node = n_leaf = 0
     while idx.numel():
         c = cur[idx]
@@ -161,10 +208,11 @@ def traverse_plain(rows, wide_stack, o, d, inv, tmin, tmax, t0, p0, b10,
             nn = int(is_node.sum())
             n_node += nn
             n_leaf += idx.numel() - nn
+            lane_steps[idx] += 1
         rt = rows[ridx].T
         oi, di, ii = o[idx], d[idx], inv[idx]
         tb = t[idx]
-        refs_l, n_hit, tsel, psel, b1s, b2s = _interpret(
+        refs, n_hit, tsel, psel, b1s, b2s = _interpret(
             rt, oi[:, 0], oi[:, 1], oi[:, 2], di[:, 0], di[:, 1], di[:, 2],
             ii[:, 0], ii[:, 1], ii[:, 2], tmin[idx], tb, is_node, ~is_node,
         )
@@ -181,12 +229,12 @@ def traverse_plain(rows, wide_stack, o, d, inv, tmin, tmax, t0, p0, b10,
         for j in range(1, 8):
             m = j <= pc
             if bool(m.any()):
-                stack[idx[m], (s0 + pc - j)[m]] = refs_l[j][m].to(torch.int64)
+                stack[idx[m], (s0 + pc - j)[m]] = refs[j][m].to(torch.int64)
         s1 = s0 + pc
         pop = ~descend
         empty = pop & (s1 == 0)
         top = stack[idx, (s1 - 1).clamp(min=0)]
-        cur[idx] = torch.where(descend, refs_l[0].to(torch.int64), top)
+        cur[idx] = torch.where(descend, refs[0].to(torch.int64), top)
         sp[idx] = torch.where(pop & ~empty, s1 - 1, s1)
         done = empty
         if any_hit:
@@ -196,6 +244,7 @@ def traverse_plain(rows, wide_stack, o, d, inv, tmin, tmax, t0, p0, b10,
         stats["node_steps"] = stats.get("node_steps", 0) + n_node
         stats["leaf_steps"] = stats.get("leaf_steps", 0) + n_leaf
         stats["rows_touched"] = stats.get("rows_touched", 0) + int(touched.sum())
+        stats["lane_steps"] = stats.get("lane_steps", 0) + lane_steps
     return t, prim, b1, b2
 
 
@@ -216,8 +265,6 @@ def step(row, o, d, inv, tmin, t_best, is_node, act):
     dev = row.device
     f32, b = torch.float32, torch.bool
     native.check_tensor("row", row, f32, (R, 80), dev)
-    if row.data_ptr() % 16:
-        raise ValueError("row: not 16-byte aligned (rows are read as float4)")
     for nm, x in (("o", o), ("d", d), ("inv", inv)):
         native.check_tensor(nm, x, f32, (R, 3), dev)
     for nm, x in (("tmin", tmin), ("t_best", t_best)):
@@ -255,8 +302,6 @@ def traverse(rows, wide_stack, o, d, inv, tmin, tmax, t0, p0, b10, b20,
     dev = o.device
     f32 = torch.float32
     native.check_tensor("rows", rows, f32, (rows.shape[0], 80), dev)
-    if rows.data_ptr() % 16:
-        raise ValueError("rows: not 16-byte aligned (rows are read as float4)")
     for nm, x in (("o", o), ("d", d), ("inv", inv)):
         native.check_tensor(nm, x, f32, (R, 3), dev)
     for nm, x in (("tmin", tmin), ("tmax", tmax), ("t0", t0), ("b10", b10),
@@ -269,6 +314,8 @@ def traverse(rows, wide_stack, o, d, inv, tmin, tmax, t0, p0, b10, b20,
         raise ValueError(
             f"wide_stack {wide_stack} exceeds the kernel's stack cap {cap}"
         )
+    # the entry refuses (as a launch error) a block's stacks, 16 rays ×
+    # wide_stack ints, that exceed the device's shared memory per block
     t = torch.empty(R, dtype=f32, device=dev)
     prim = torch.empty(R, dtype=torch.int32, device=dev)
     b1 = torch.empty(R, dtype=f32, device=dev)

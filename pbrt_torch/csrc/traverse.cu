@@ -1,6 +1,6 @@
-// Wide-BVH traversal on Hopper: the interpret step as a __device__ function,
-// a standalone launch of that step, and closest-hit / any-hit traversal
-// kernels that walk each ray to completion.
+// Wide-BVH traversal on Hopper, eight lanes per ray: the interpret step as
+// group __device__ functions, a standalone launch of that step, and
+// closest-hit / any-hit kernels that walk each ray to completion.
 //
 // Replaces: pbrt_tpu/accel/pallas_step.py:_step_kernel (the Pallas TPU
 // kernel for one traversal step's interpret phase) and the XLA step it
@@ -8,8 +8,8 @@
 // traversal control around it (_step_control, intersect.py:747-777, and the
 // warm / straggler loops of _traverse_wide_batch, :981-1055). On the TPU
 // every lane of a 32k-lane batch runs the same step in lockstep, so the JAX
-// package compacts stragglers by hand; here each thread owns one ray and
-// leaves its loop when its own stack empties.
+// package compacts stragglers by hand; here each group of 8 threads owns
+// one ray and leaves its loop when its own stack empties.
 //
 // The step computes what the TPU kernel computes, operation for operation
 // as the default XLA step writes it:
@@ -22,84 +22,137 @@
 // Built with -fmad=false and without fast math, so the float results equal
 // the plain PyTorch version (accel/traverse_cuda.py) bit for bit.
 //
-// What bounds it on this card: each step reads one 320-byte row (224 bytes
-// for a node row). The killeroo-scale table is a few MiB and stays resident
-// in the 50 MB L2, so steps are bound by L2 latency and by warp divergence:
-// rays in one warp need different numbers of steps, and a warp runs until
-// its longest ray is done. This first design does nothing about either (no
-// ray sorting, no persistent threads, no shared-memory staging): it is the
-// simple, right kernel; its measured time is in PERF.md.
+// What bounds it on this card: not bytes. A ray's steps form a dependent
+// chain (each row index comes out of the previous row's math), and a launch
+// lasts as long as its longest ray: per step one L2 round trip for the row
+// (the killeroo-scale table, a few MiB, stays in the 50 MB L2) plus the
+// step's instruction stream. With one thread per ray that stream was long
+// and serial (8 slab tests, 19 compare-exchanges, a push loop onto a stack
+// in local memory, 8 Moller-Trumbore tests), and most lanes of a warp
+// waited for its longest ray.
+//
+// What this design does about it: a group of 8 consecutive lanes walks one
+// ray, lane k owning child (or triangle) slot k of the row, so a step is one
+// slab test or one triangle test per lane; the rows are slot-major (field f
+// of slot k at column 8f + k), so each field is one 32-byte sector per
+// group. The sort runs as its 6 layers of disjoint pairs, one shuffle pair
+// per layer (kSort8Layers), n_hit is a ballot, the leaf's nearest slot is a
+// 3-round (t, slot) butterfly, and the stack lives in shared memory, sized
+// by the table's exact wide_stack. A 32,768-ray launch runs 8x the threads,
+// 4 rays per warp. All shuffles and ballots name the group's own mask: the
+// 4 groups of a warp take different branches.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
 
-constexpr int kRow = 80;        // floats per wide row
-constexpr int kMaxStack = 64;   // compile-time cap; the wrapper checks
-                                // g.wide_stack (the exact build-time need)
-constexpr int kThreads = 128;
+constexpr int kRow = 80;                         // floats per wide row
+constexpr int kGroup = 8;                        // lanes per ray (one per slot)
+constexpr int kThreads = 256;
+constexpr int kRaysPerBlock = kThreads / kGroup; // 32
+constexpr int kMaxStack = 1024;  // cap on g.wide_stack (the exact build-time
+                                 // need): 32 rays x 1024 x 4 B = 128 KiB
+constexpr int kDefaultSmem = 48 * 1024;
 
-// NaN-propagating min/max, as torch.minimum/maximum and jnp.minimum/maximum
+// intersect._SORT8 as its 6 layers of disjoint compare-exchange pairs
+// (i, j), i < j, in the serial network's order; {-1, -1} pads a layer.
+// tests/test_torch_traverse_groups.py reads this table as text and holds it
+// to traverse_cuda.SORT8_LAYERS.
+constexpr int kSort8Layers[6][4][2] = {
+    {{0, 1}, {2, 3}, {4, 5}, {6, 7}},
+    {{0, 2}, {1, 3}, {4, 6}, {5, 7}},
+    {{1, 2}, {5, 6}, {-1, -1}, {-1, -1}},
+    {{0, 4}, {1, 5}, {2, 6}, {3, 7}},
+    {{2, 4}, {3, 5}, {-1, -1}, {-1, -1}},
+    {{1, 2}, {3, 4}, {5, 6}, {-1, -1}},
+};
+
+// Layer L's partner of every lane, 4 bits per lane (a lane in no pair is
+// its own partner); evaluated at compile time.
+__host__ __device__ constexpr unsigned partner_word(int L) {
+  unsigned w = 0x76543210u;
+  for (int p = 0; p < 4; ++p) {
+    const int i = kSort8Layers[L][p][0], j = kSort8Layers[L][p][1];
+    if (i >= 0) {
+      w = (w & ~(0xFu << (4 * i))) | (static_cast<unsigned>(j) << (4 * i));
+      w = (w & ~(0xFu << (4 * j))) | (static_cast<unsigned>(i) << (4 * j));
+    }
+  }
+  return w;
+}
+
+// NaN-propagating min/max, one instruction each (PTX min.NaN / max.NaN,
+// sm_80 and later). They return the canonical NaN where torch.minimum /
+// maximum return the NaN operand, but no NaN reaches an output: a NaN
+// entry or exit makes enter <= exit false, so the slot's key is inf and
+// its hit false, the same in either form.
 __device__ __forceinline__ float vmin(float a, float b) {
-  return (a != a) ? a : ((b != b) ? b : fminf(a, b));
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 __device__ __forceinline__ float vmax(float a, float b) {
-  return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz, tmin;
 };
 
-// compare-exchange of intersect._SORT8: swap iff key[i] > key[j]
-#define PBRT_CX(i, j)                                   \
-  {                                                     \
-    const bool s = key[i] > key[j];                     \
-    const float ki = key[i], kj = key[j];               \
-    const int ri = ref[i], rj = ref[j];                 \
-    key[i] = s ? kj : ki;                               \
-    key[j] = s ? ki : kj;                               \
-    ref[i] = s ? rj : ri;                               \
-    ref[j] = s ? ri : rj;                               \
-  }
-
-// Node interpretation of a row r[0:56): sorted child refs and n_hit.
-__device__ __forceinline__ int interpret_node(const float* r, const Ray& ray,
-                                              float t_best, bool act,
-                                              int ref[8]) {
-  float key[8];
-  int n_hit = 0;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const float lox = r[k], hix = r[8 + k];
-    const float loy = r[16 + k], hiy = r[24 + k];
-    const float loz = r[32 + k], hiz = r[40 + k];
-    const float t0x = (lox - ray.ox) * ray.ix;
-    const float t1x = (hix - ray.ox) * ray.ix;
-    const float t0y = (loy - ray.oy) * ray.iy;
-    const float t1y = (hiy - ray.oy) * ray.iy;
-    const float t0z = (loz - ray.oz) * ray.iz;
-    const float t1z = (hiz - ray.oz) * ray.iz;
-    const float tn = vmax(vmax(vmin(t0x, t1x), vmin(t0y, t1y)), vmin(t0z, t1z));
-    const float tf = vmin(vmin(vmax(t0x, t1x), vmax(t0y, t1y)), vmax(t0z, t1z));
-    const float enter = vmax(tn, ray.tmin);
-    const float exit_ = vmin(tf, t_best);
-    const bool hit = (enter <= exit_) && (lox <= hix) && act;
-    key[k] = hit ? enter : CUDART_INF_F;
-    ref[k] = static_cast<int>(r[48 + k]);
-    n_hit += hit ? 1 : 0;
-  }
-  PBRT_CX(0, 1) PBRT_CX(2, 3) PBRT_CX(4, 5) PBRT_CX(6, 7)
-  PBRT_CX(0, 2) PBRT_CX(1, 3) PBRT_CX(4, 6) PBRT_CX(5, 7)
-  PBRT_CX(1, 2) PBRT_CX(5, 6)
-  PBRT_CX(0, 4) PBRT_CX(1, 5) PBRT_CX(2, 6) PBRT_CX(3, 7)
-  PBRT_CX(2, 4) PBRT_CX(3, 5)
-  PBRT_CX(1, 2) PBRT_CX(3, 4) PBRT_CX(5, 6)
-  return n_hit;
+// The 8 lanes of this thread's group: lanes 8q .. 8q+7 of the warp.
+__device__ __forceinline__ unsigned group_mask() {
+  return 0xFFu << (threadIdx.x & 24);
 }
 
-#undef PBRT_CX
+// One layer of the network: the lanes of a pair (i, j) swap their
+// (key, ref) iff key_i > key_j, both lanes evaluating that same strict
+// comparison, so lane i keeps the smaller side and ties stay in place.
+template <unsigned kPartners>
+__device__ __forceinline__ void sort_layer(unsigned gmask, int k, float& key,
+                                           int& ref) {
+  const int p = (kPartners >> (4 * k)) & 7;
+  const float ko = __shfl_sync(gmask, key, p, kGroup);
+  const int ro = __shfl_sync(gmask, ref, p, kGroup);
+  const bool swap = (k < p) ? (key > ko) : (ko > key);
+  key = swap ? ko : key;
+  ref = swap ? ro : ref;
+}
+
+// Node interpretation of row r by lane k of a group: the slab test of child
+// slot k, then the group's sort. Returns n_hit; ref is the k-th child ref
+// in sorted order.
+__device__ __forceinline__ int group_node(const float* __restrict__ r,
+                                          const Ray& ray, float t_best,
+                                          bool act, unsigned gmask, int k,
+                                          int& ref) {
+  const float lox = __ldg(r + k), hix = __ldg(r + 8 + k);
+  const float loy = __ldg(r + 16 + k), hiy = __ldg(r + 24 + k);
+  const float loz = __ldg(r + 32 + k), hiz = __ldg(r + 40 + k);
+  ref = static_cast<int>(__ldg(r + 48 + k));
+  const float t0x = (lox - ray.ox) * ray.ix;
+  const float t1x = (hix - ray.ox) * ray.ix;
+  const float t0y = (loy - ray.oy) * ray.iy;
+  const float t1y = (hiy - ray.oy) * ray.iy;
+  const float t0z = (loz - ray.oz) * ray.iz;
+  const float t1z = (hiz - ray.oz) * ray.iz;
+  const float tn = vmax(vmax(vmin(t0x, t1x), vmin(t0y, t1y)), vmin(t0z, t1z));
+  const float tf = vmin(vmin(vmax(t0x, t1x), vmax(t0y, t1y)), vmax(t0z, t1z));
+  const float enter = vmax(tn, ray.tmin);
+  const float exit_ = vmin(tf, t_best);
+  const bool hit = (enter <= exit_) && (lox <= hix) && act;
+  float key = hit ? enter : CUDART_INF_F;
+  const int n_hit = __popc(__ballot_sync(gmask, hit) & gmask);
+  sort_layer<partner_word(0)>(gmask, k, key, ref);
+  sort_layer<partner_word(1)>(gmask, k, key, ref);
+  sort_layer<partner_word(2)>(gmask, k, key, ref);
+  sort_layer<partner_word(3)>(gmask, k, key, ref);
+  sort_layer<partner_word(4)>(gmask, k, key, ref);
+  sort_layer<partner_word(5)>(gmask, k, key, ref);
+  return n_hit;
+}
 
 struct LeafHit {
   float t;
@@ -107,44 +160,56 @@ struct LeafHit {
   float b1, b2;
 };
 
-// Leaf interpretation of a full row r[0:80): nearest accepted triangle.
-// With no accepted slot, t = inf and prim/b1/b2 are slot 0's values (the
-// argmin of an all-inf candidate vector is 0), as in the JAX step.
-__device__ __forceinline__ LeafHit interpret_leaf(const float* r,
-                                                  const Ray& ray,
-                                                  float t_best, bool act) {
-  LeafHit best{CUDART_INF_F, 0, 0.f, 0.f};
+// Leaf interpretation of row r by lane k of a group: the Moller-Trumbore
+// test of triangle slot k, then the nearest accepted slot, first slot on
+// ties. The 3 butterfly rounds take the other lane's (tc, slot) iff it is
+// smaller in (tc, slot) order: the serial first-minimum scan. tc is never
+// NaN (t only when t > tmin && t < t_best), and with no accepted slot every
+// tc is inf and slot 0 wins, as the argmin of an all-inf vector in the JAX
+// step. Every lane of the group returns the same hit.
+__device__ __forceinline__ LeafHit group_leaf(const float* __restrict__ r,
+                                              const Ray& ray, float t_best,
+                                              bool act, unsigned gmask,
+                                              int k) {
+  const float v0x = __ldg(r + k), v0y = __ldg(r + 8 + k);
+  const float v0z = __ldg(r + 16 + k);
+  const float e1x = __ldg(r + 24 + k), e1y = __ldg(r + 32 + k);
+  const float e1z = __ldg(r + 40 + k);
+  const float e2x = __ldg(r + 48 + k), e2y = __ldg(r + 56 + k);
+  const float e2z = __ldg(r + 64 + k);
+  const int pid = static_cast<int>(__ldg(r + 72 + k));
+  const float pvx = ray.dy * e2z - ray.dz * e2y;
+  const float pvy = ray.dz * e2x - ray.dx * e2z;
+  const float pvz = ray.dx * e2y - ray.dy * e2x;
+  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+  const bool small = fabsf(det) < 1e-12f;
+  const float inv_det = small ? 0.f : 1.0f / det;
+  const float tvx = ray.ox - v0x, tvy = ray.oy - v0y, tvz = ray.oz - v0z;
+  const float b1 = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+  const float qvx = tvy * e1z - tvz * e1y;
+  const float qvy = tvz * e1x - tvx * e1z;
+  const float qvz = tvx * e1y - tvy * e1x;
+  const float b2 = (ray.dx * qvx + ray.dy * qvy + ray.dz * qvz) * inv_det;
+  const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+  const bool ok = act && (pid >= 0) && !small && (b1 >= 0.f) &&
+                  (b2 >= 0.f) && (b1 + b2 <= 1.f) && (t > ray.tmin) &&
+                  (t < t_best);
+  float tc = ok ? t : CUDART_INF_F;
+  int slot = k;
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const float v0x = r[k], v0y = r[8 + k], v0z = r[16 + k];
-    const float e1x = r[24 + k], e1y = r[32 + k], e1z = r[40 + k];
-    const float e2x = r[48 + k], e2y = r[56 + k], e2z = r[64 + k];
-    const int pid = static_cast<int>(r[72 + k]);
-    const float pvx = ray.dy * e2z - ray.dz * e2y;
-    const float pvy = ray.dz * e2x - ray.dx * e2z;
-    const float pvz = ray.dx * e2y - ray.dy * e2x;
-    const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-    const bool small = fabsf(det) < 1e-12f;
-    const float inv_det = small ? 0.f : 1.0f / det;
-    const float tvx = ray.ox - v0x, tvy = ray.oy - v0y, tvz = ray.oz - v0z;
-    const float b1 = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-    const float qvx = tvy * e1z - tvz * e1y;
-    const float qvy = tvz * e1x - tvx * e1z;
-    const float qvz = tvx * e1y - tvy * e1x;
-    const float b2 = (ray.dx * qvx + ray.dy * qvy + ray.dz * qvz) * inv_det;
-    const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
-    const bool ok = act && (pid >= 0) && !small && (b1 >= 0.f) &&
-                    (b2 >= 0.f) && (b1 + b2 <= 1.f) && (t > ray.tmin) &&
-                    (t < t_best);
-    const float tc = ok ? t : CUDART_INF_F;
-    if (k == 0 || tc < best.t) {
-      best.t = tc;
-      best.prim = pid;
-      best.b1 = b1;
-      best.b2 = b2;
-    }
+  for (int m = 1; m < kGroup; m <<= 1) {
+    const float to = __shfl_xor_sync(gmask, tc, m, kGroup);
+    const int so = __shfl_xor_sync(gmask, slot, m, kGroup);
+    const bool take = (to < tc) || (to == tc && so < slot);
+    tc = take ? to : tc;
+    slot = take ? so : slot;
   }
-  return best;
+  LeafHit h;
+  h.t = tc;
+  h.prim = __shfl_sync(gmask, pid, slot, kGroup);
+  h.b1 = __shfl_sync(gmask, b1, slot, kGroup);
+  h.b2 = __shfl_sync(gmask, b2, slot, kGroup);
+  return h;
 }
 
 __device__ __forceinline__ Ray load_ray(const float* o, const float* d,
@@ -164,24 +229,10 @@ __device__ __forceinline__ Ray load_ray(const float* o, const float* d,
   return ray;
 }
 
-// Copies n float4s of a row into registers.
-template <int N>
-__device__ __forceinline__ void load_row(const float* __restrict__ src,
-                                         float* r) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-#pragma unroll
-  for (int q = 0; q < N; ++q) {
-    const float4 v = __ldg(s4 + q);
-    r[4 * q] = v.x;
-    r[4 * q + 1] = v.y;
-    r[4 * q + 2] = v.z;
-    r[4 * q + 3] = v.w;
-  }
-}
-
-// step_interpret's contract: one gathered row per lane, both
-// interpretations computed for every lane and masked as the JAX step masks.
-__global__ void wide_step_kernel(
+// step_interpret's contract: one gathered row per lane i, both
+// interpretations computed for every lane and masked as the JAX step masks;
+// group i of 8 threads serves lane i, with the traversal's device functions.
+__global__ void __launch_bounds__(kThreads) wide_step_kernel(
     const float* __restrict__ row, const float* __restrict__ o,
     const float* __restrict__ d, const float* __restrict__ inv,
     const float* __restrict__ tmin, const float* __restrict__ t_best,
@@ -189,67 +240,75 @@ __global__ void wide_step_kernel(
     int* __restrict__ refs, int* __restrict__ n_hit,
     float* __restrict__ tsel, int* __restrict__ psel,
     float* __restrict__ b1, float* __restrict__ b2, int R) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= R) return;
-  float r[kRow];
-  load_row<kRow / 4>(row + static_cast<size_t>(i) * kRow, r);
+  const int k = threadIdx.x & (kGroup - 1);
+  const int i = blockIdx.x * kRaysPerBlock + threadIdx.x / kGroup;
+  if (i >= R) return;  // the whole group leaves together
+  const unsigned gmask = group_mask();
+  const float* r = row + static_cast<size_t>(i) * kRow;
   const Ray ray = load_ray(o, d, inv, tmin, i);
   const float tb = t_best[i];
   const bool node = is_node[i];
   const bool a = act[i];
-  int ref[8];
-  n_hit[i] = interpret_node(r, ray, tb, node && a, ref);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) refs[static_cast<size_t>(k) * R + i] = ref[k];
-  const LeafHit h = interpret_leaf(r, ray, tb, !node && a);
-  tsel[i] = h.t;
-  psel[i] = h.prim;
-  b1[i] = h.b1;
-  b2[i] = h.b2;
+  int ref;
+  const int nh = group_node(r, ray, tb, node && a, gmask, k, ref);
+  refs[static_cast<size_t>(k) * R + i] = ref;
+  const LeafHit h = group_leaf(r, ray, tb, !node && a, gmask, k);
+  if (k == 0) {
+    n_hit[i] = nh;
+    tsel[i] = h.t;
+    psel[i] = h.prim;
+    b1[i] = h.b1;
+    b2[i] = h.b2;
+  }
 }
 
-// One thread walks one ray to completion (_step_control semantics):
+// One group walks one ray to completion (_step_control semantics):
 // descend to refs[0] when n_hit > 0 and push refs[1..n_hit-1] with the
 // nearest on top; pop otherwise; finish on a pop from an empty stack. The
 // quadric result seeds (t, prim, b1, b2); any-hit leaves at the first
-// prim >= 0; lanes with tmax == 0 leave at once.
+// prim >= 0; lanes with tmax == 0 leave at once. cur, sp, t_best, prim and
+// the loop's exits are the same on all 8 lanes of a group.
 template <bool kAnyHit>
-__global__ void traverse_kernel(
+__device__ __forceinline__ void traverse_group(
     const float* __restrict__ rows, const float* __restrict__ o,
     const float* __restrict__ d, const float* __restrict__ inv,
     const float* __restrict__ tmin, const float* __restrict__ tmax,
     const float* __restrict__ t_in, const int* __restrict__ p_in,
     const float* __restrict__ b1_in, const float* __restrict__ b2_in,
     float* __restrict__ t_out, int* __restrict__ p_out,
-    float* __restrict__ b1_out, float* __restrict__ b2_out, int R) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= R) return;
+    float* __restrict__ b1_out, float* __restrict__ b2_out, int R,
+    int wide_stack) {
+  extern __shared__ int smem[];
+  const int k = threadIdx.x & (kGroup - 1);
+  const int g = threadIdx.x / kGroup;
+  const int i = blockIdx.x * kRaysPerBlock + g;
+  if (i >= R) return;  // the whole group leaves together
+  const unsigned gmask = group_mask();
+  int* stack = smem + g * wide_stack;
   const Ray ray = load_ray(o, d, inv, tmin, i);
   float t_best = t_in[i];
   int prim = p_in[i];
   float bb1 = b1_in[i], bb2 = b2_in[i];
   bool run = tmax[i] != 0.f && !(kAnyHit && prim >= 0);
-  int stack[kMaxStack];
   int sp = 0;
   int cur = 0;  // row 0 is always a node row
   while (run) {
     bool pop = true;
     if (cur >= 0) {
-      float r[56];
-      load_row<14>(rows + static_cast<size_t>(cur) * kRow, r);
-      int ref[8];
-      const int n_hit = interpret_node(r, ray, t_best, true, ref);
+      int ref;
+      const int n_hit = group_node(rows + static_cast<size_t>(cur) * kRow,
+                                   ray, t_best, true, gmask, k, ref);
       if (n_hit > 0) {
-#pragma unroll
-        for (int j = 7; j >= 1; --j)
-          if (j < n_hit) stack[sp++] = ref[j];
-        cur = ref[0];
+        // the serial push order: ref_j at sp + n_hit - 1 - j, nearest on top
+        if (k >= 1 && k < n_hit) stack[sp + n_hit - 1 - k] = ref;
+        sp += n_hit - 1;
+        cur = __shfl_sync(gmask, ref, 0, kGroup);
         pop = false;
+        __syncwarp(gmask);  // the pushes are visible to the next pop
       }
     } else {
-      float r[kRow];
-      load_row<kRow / 4>(rows + static_cast<size_t>(-cur - 1) * kRow, r);
-      const LeafHit h = interpret_leaf(r, ray, t_best, true);
+      const LeafHit h = group_leaf(rows + static_cast<size_t>(-cur - 1) * kRow,
+                                   ray, t_best, true, gmask, k);
       if (h.t < t_best) {
         t_best = h.t;
         prim = h.prim;
@@ -260,16 +319,38 @@ __global__ void traverse_kernel(
     }
     if (pop) {
       if (sp == 0) break;
-      cur = stack[--sp];
+      cur = stack[--sp];  // one address for the group: a broadcast
     }
   }
-  t_out[i] = t_best;
-  p_out[i] = prim;
-  b1_out[i] = bb1;
-  b2_out[i] = bb2;
+  if (k == 0) {
+    t_out[i] = t_best;
+    p_out[i] = prim;
+    b1_out[i] = bb1;
+    b2_out[i] = bb2;
+  }
 }
 
-inline int blocks_for(int R) { return (R + kThreads - 1) / kThreads; }
+// Two named kernels (not one template) so a profile tells them apart.
+#define PBRT_TRAVERSE_KERNEL(NAME, ANY)                                        \
+  __global__ void __launch_bounds__(kThreads) NAME(                           \
+      const float* __restrict__ rows, const float* __restrict__ o,            \
+      const float* __restrict__ d, const float* __restrict__ inv,             \
+      const float* __restrict__ tmin, const float* __restrict__ tmax,         \
+      const float* __restrict__ t_in, const int* __restrict__ p_in,           \
+      const float* __restrict__ b1_in, const float* __restrict__ b2_in,       \
+      float* __restrict__ t_out, int* __restrict__ p_out,                     \
+      float* __restrict__ b1_out, float* __restrict__ b2_out, int R,          \
+      int wide_stack) {                                                       \
+    traverse_group<ANY>(rows, o, d, inv, tmin, tmax, t_in, p_in, b1_in,       \
+                        b2_in, t_out, p_out, b1_out, b2_out, R, wide_stack);  \
+  }
+
+PBRT_TRAVERSE_KERNEL(traverse_closest_kernel, false)
+PBRT_TRAVERSE_KERNEL(traverse_any_kernel, true)
+
+#undef PBRT_TRAVERSE_KERNEL
+
+inline int blocks_for(int R) { return (R + kRaysPerBlock - 1) / kRaysPerBlock; }
 
 }  // namespace
 
@@ -290,22 +371,40 @@ int pbrt_torch_wide_step(const float* row, const float* o, const float* d,
   return static_cast<int>(cudaGetLastError());
 }
 
-#define PBRT_TRAVERSE_ENTRY(NAME, ANY)                                        \
+// Each entry sizes the block's stacks (32 rays x wide_stack ints of dynamic
+// shared memory), refuses a size the device cannot give a block, and raises
+// the kernel's limit only past the 48 KiB every kernel may use.
+#define PBRT_TRAVERSE_ENTRY(NAME, KERNEL)                                     \
   int NAME(const float* rows, const float* o, const float* d,                 \
            const float* inv, const float* tmin, const float* tmax,            \
            const float* t_in, const int* p_in, const float* b1_in,            \
            const float* b2_in, float* t_out, int* p_out, float* b1_out,       \
            float* b2_out, int R, int wide_stack, cudaStream_t stream) {       \
     if (wide_stack > kMaxStack) return static_cast<int>(cudaErrorInvalidValue); \
+    if (wide_stack < 1) wide_stack = 1;                                       \
+    const int smem = kRaysPerBlock * wide_stack * 4;                          \
+    if (smem > kDefaultSmem) {                                                \
+      int dev = 0, optin = 0;                                                 \
+      cudaError_t e = cudaGetDevice(&dev);                                    \
+      if (e == cudaSuccess)                                                   \
+        e = cudaDeviceGetAttribute(                                           \
+            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);            \
+      if (e != cudaSuccess) return static_cast<int>(e);                       \
+      if (smem > optin) return static_cast<int>(cudaErrorInvalidValue);       \
+      e = cudaFuncSetAttribute(KERNEL,                                        \
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,   \
+                               smem);                                         \
+      if (e != cudaSuccess) return static_cast<int>(e);                       \
+    }                                                                         \
     if (R > 0)                                                                \
-      traverse_kernel<ANY><<<blocks_for(R), kThreads, 0, stream>>>(           \
+      KERNEL<<<blocks_for(R), kThreads, smem, stream>>>(                      \
           rows, o, d, inv, tmin, tmax, t_in, p_in, b1_in, b2_in, t_out,       \
-          p_out, b1_out, b2_out, R);                                          \
+          p_out, b1_out, b2_out, R, wide_stack);                              \
     return static_cast<int>(cudaGetLastError());                              \
   }
 
-PBRT_TRAVERSE_ENTRY(pbrt_torch_traverse_closest, false)
-PBRT_TRAVERSE_ENTRY(pbrt_torch_traverse_any, true)
+PBRT_TRAVERSE_ENTRY(pbrt_torch_traverse_closest, traverse_closest_kernel)
+PBRT_TRAVERSE_ENTRY(pbrt_torch_traverse_any, traverse_any_kernel)
 
 #undef PBRT_TRAVERSE_ENTRY
 

@@ -377,7 +377,9 @@ def test_plain_traversal_stats_and_tmax_zero():
     stats = {}
     t, p, _, _ = tc.traverse_plain(tg.wide_rows, tg.wide_stack, o, d, inv, z, z,
                                    *seeds, False, stats=stats)
+    lane_steps = stats.pop("lane_steps")
     assert stats == {"node_steps": 0, "leaf_steps": 0, "rows_touched": 0}
+    assert torch.equal(lane_steps, torch.zeros(64, dtype=torch.int64))
     assert bool((p == -1).all()) and bool((t == 0).all())
     inf = torch.full((64,), float("inf"))
     tc.traverse_plain(tg.wide_rows, tg.wide_stack, o, d, inv, z, inf,
