@@ -116,22 +116,24 @@ __device__ __forceinline__ void sort_layer(unsigned gmask, int k, float& key,
   const int p = (kPartners >> (4 * k)) & 7;
   const float ko = __shfl_sync(gmask, key, p, kGroup);
   const int ro = __shfl_sync(gmask, ref, p, kGroup);
-  const bool swap = (k < p) ? (key > ko) : (ko > key);
+  const bool low = k < p;
+  const float ki = low ? key : ko, kj = low ? ko : key;
+  const bool swap = ki > kj;
   key = swap ? ko : key;
   ref = swap ? ro : ref;
 }
 
-// Node interpretation of row r by lane k of a group: the slab test of child
-// slot k, then the group's sort. Returns n_hit; ref is the k-th child ref
-// in sorted order.
-__device__ __forceinline__ int group_node(const float* __restrict__ r,
+// Node interpretation by lane k of a group, rk pointing at slot k of the
+// row (field f at rk[8f]): the slab test of child slot k, then the group's
+// sort. Returns n_hit; ref is the k-th child ref in sorted order.
+__device__ __forceinline__ int group_node(const float* __restrict__ rk,
                                           const Ray& ray, float t_best,
                                           bool act, unsigned gmask, int k,
                                           int& ref) {
-  const float lox = __ldg(r + k), hix = __ldg(r + 8 + k);
-  const float loy = __ldg(r + 16 + k), hiy = __ldg(r + 24 + k);
-  const float loz = __ldg(r + 32 + k), hiz = __ldg(r + 40 + k);
-  ref = static_cast<int>(__ldg(r + 48 + k));
+  const float lox = __ldg(rk), hix = __ldg(rk + 8);
+  const float loy = __ldg(rk + 16), hiy = __ldg(rk + 24);
+  const float loz = __ldg(rk + 32), hiz = __ldg(rk + 40);
+  ref = static_cast<int>(__ldg(rk + 48));
   const float t0x = (lox - ray.ox) * ray.ix;
   const float t1x = (hix - ray.ox) * ray.ix;
   const float t0y = (loy - ray.oy) * ray.iy;
@@ -160,24 +162,23 @@ struct LeafHit {
   float b1, b2;
 };
 
-// Leaf interpretation of row r by lane k of a group: the Moller-Trumbore
-// test of triangle slot k, then the nearest accepted slot, first slot on
+// Leaf interpretation by lane k of a group, rk pointing at slot k of the
+// row: the Moller-Trumbore test of triangle slot k, then the nearest accepted slot, first slot on
 // ties. The 3 butterfly rounds take the other lane's (tc, slot) iff it is
 // smaller in (tc, slot) order: the serial first-minimum scan. tc is never
 // NaN (t only when t > tmin && t < t_best), and with no accepted slot every
 // tc is inf and slot 0 wins, as the argmin of an all-inf vector in the JAX
 // step. Every lane of the group returns the same hit.
-__device__ __forceinline__ LeafHit group_leaf(const float* __restrict__ r,
+__device__ __forceinline__ LeafHit group_leaf(const float* __restrict__ rk,
                                               const Ray& ray, float t_best,
                                               bool act, unsigned gmask,
                                               int k) {
-  const float v0x = __ldg(r + k), v0y = __ldg(r + 8 + k);
-  const float v0z = __ldg(r + 16 + k);
-  const float e1x = __ldg(r + 24 + k), e1y = __ldg(r + 32 + k);
-  const float e1z = __ldg(r + 40 + k);
-  const float e2x = __ldg(r + 48 + k), e2y = __ldg(r + 56 + k);
-  const float e2z = __ldg(r + 64 + k);
-  const int pid = static_cast<int>(__ldg(r + 72 + k));
+  const float v0x = __ldg(rk), v0y = __ldg(rk + 8), v0z = __ldg(rk + 16);
+  const float e1x = __ldg(rk + 24), e1y = __ldg(rk + 32);
+  const float e1z = __ldg(rk + 40);
+  const float e2x = __ldg(rk + 48), e2y = __ldg(rk + 56);
+  const float e2z = __ldg(rk + 64);
+  const int pid = static_cast<int>(__ldg(rk + 72));
   const float pvx = ray.dy * e2z - ray.dz * e2y;
   const float pvy = ray.dz * e2x - ray.dx * e2z;
   const float pvz = ray.dx * e2y - ray.dy * e2x;
@@ -244,15 +245,15 @@ __global__ void __launch_bounds__(kThreads) wide_step_kernel(
   const int i = blockIdx.x * kRaysPerBlock + threadIdx.x / kGroup;
   if (i >= R) return;  // the whole group leaves together
   const unsigned gmask = group_mask();
-  const float* r = row + static_cast<size_t>(i) * kRow;
+  const float* rk = row + static_cast<size_t>(i) * kRow + k;
   const Ray ray = load_ray(o, d, inv, tmin, i);
   const float tb = t_best[i];
   const bool node = is_node[i];
   const bool a = act[i];
   int ref;
-  const int nh = group_node(r, ray, tb, node && a, gmask, k, ref);
+  const int nh = group_node(rk, ray, tb, node && a, gmask, k, ref);
   refs[static_cast<size_t>(k) * R + i] = ref;
-  const LeafHit h = group_leaf(r, ray, tb, !node && a, gmask, k);
+  const LeafHit h = group_leaf(rk, ray, tb, !node && a, gmask, k);
   if (k == 0) {
     n_hit[i] = nh;
     tsel[i] = h.t;
@@ -285,6 +286,7 @@ __device__ __forceinline__ void traverse_group(
   if (i >= R) return;  // the whole group leaves together
   const unsigned gmask = group_mask();
   int* stack = smem + g * wide_stack;
+  const float* rows_k = rows + k;  // slot k of row 0
   const Ray ray = load_ray(o, d, inv, tmin, i);
   float t_best = t_in[i];
   int prim = p_in[i];
@@ -296,7 +298,7 @@ __device__ __forceinline__ void traverse_group(
     bool pop = true;
     if (cur >= 0) {
       int ref;
-      const int n_hit = group_node(rows + static_cast<size_t>(cur) * kRow,
+      const int n_hit = group_node(rows_k + static_cast<size_t>(cur) * kRow,
                                    ray, t_best, true, gmask, k, ref);
       if (n_hit > 0) {
         // the serial push order: ref_j at sp + n_hit - 1 - j, nearest on top
@@ -307,8 +309,9 @@ __device__ __forceinline__ void traverse_group(
         __syncwarp(gmask);  // the pushes are visible to the next pop
       }
     } else {
-      const LeafHit h = group_leaf(rows + static_cast<size_t>(-cur - 1) * kRow,
-                                   ray, t_best, true, gmask, k);
+      const LeafHit h = group_leaf(
+          rows_k + static_cast<size_t>(-cur - 1) * kRow, ray, t_best, true,
+          gmask, k);
       if (h.t < t_best) {
         t_best = h.t;
         prim = h.prim;
