@@ -9,7 +9,7 @@
 // warm / straggler loops of _traverse_wide_batch, :981-1055). On the TPU
 // every lane of a 32k-lane batch runs the same step in lockstep, so the JAX
 // package compacts stragglers by hand; here each group of 8 threads owns
-// one ray and leaves its loop when its own stack empties.
+// one ray and stops stepping when its own stack empties.
 //
 // The step computes what the TPU kernel computes, operation for operation
 // as the default XLA step writes it:
@@ -26,21 +26,30 @@
 // chain (each row index comes out of the previous row's math), and a launch
 // lasts as long as its longest ray: per step one L2 round trip for the row
 // (the killeroo-scale table, a few MiB, stays in the 50 MB L2) plus the
-// step's instruction stream. With one thread per ray that stream was long
-// and serial (8 slab tests, 19 compare-exchanges, a push loop onto a stack
-// in local memory, 8 Moller-Trumbore tests), and most lanes of a warp
-// waited for its longest ray.
+// step's instruction stream, which the warps of an SM share the issue slots
+// for. With one thread per ray that stream was long and serial (8 slab
+// tests, 19 compare-exchanges, a push loop onto a stack in local memory, 8
+// Moller-Trumbore tests), and most lanes of a warp waited for its longest
+// ray.
 //
 // What this design does about it: a group of 8 consecutive lanes walks one
 // ray, lane k owning child (or triangle) slot k of the row, so a step is one
 // slab test or one triangle test per lane; the rows are slot-major (field f
 // of slot k at column 8f + k), so each field is one 32-byte sector per
-// group. The sort runs as its 6 layers of disjoint pairs, one shuffle pair
-// per layer (kSort8Layers), n_hit is a ballot, the leaf's nearest slot is a
-// 3-round (t, slot) butterfly, and the stack lives in shared memory, sized
-// by the table's exact wide_stack. A 32,768-ray launch runs 8x the threads,
-// 4 rays per warp. All shuffles and ballots name the group's own mask: the
-// 4 groups of a warp take different branches.
+// group, read at a constant offset from one pointer per lane. The sort runs
+// as its 6 layers of disjoint pairs, one shuffle pair per layer
+// (kSort8Layers), n_hit is a ballot, the leaf's nearest slot is a 3-round
+// (t, slot) butterfly, and the stack lives in shared memory, sized by the
+// table's exact wide_stack. A 32,768-ray launch runs 8x the threads, 4 rays
+// per warp.
+//
+// The 4 groups of a warp step together: each pass of the loop runs the node
+// step if any group of the warp is at a node row and then the leaf step if
+// any is at a leaf row, each group masked to its own state (a group may take
+// both in one pass; its sequence of steps is the serial one). Every branch
+// around a shuffle or ballot is therefore uniform across the warp, so they
+// all name the full warp, and the compiler emits them without the
+// convergence checks that a per-group mask in divergent code costs.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -49,11 +58,12 @@ namespace {
 
 constexpr int kRow = 80;                         // floats per wide row
 constexpr int kGroup = 8;                        // lanes per ray (one per slot)
-constexpr int kThreads = 256;
-constexpr int kRaysPerBlock = kThreads / kGroup; // 32
+constexpr int kThreads = 128;
+constexpr int kRaysPerBlock = kThreads / kGroup; // 16
 constexpr int kMaxStack = 1024;  // cap on g.wide_stack (the exact build-time
-                                 // need): 32 rays x 1024 x 4 B = 128 KiB
+                                 // need): 16 rays x 1024 x 4 B = 64 KiB
 constexpr int kDefaultSmem = 48 * 1024;
+constexpr unsigned kWarp = 0xffffffffu;
 
 // intersect._SORT8 as its 6 layers of disjoint compare-exchange pairs
 // (i, j), i < j, in the serial network's order; {-1, -1} pads a layer.
@@ -102,8 +112,8 @@ struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz, tmin;
 };
 
-// The 8 lanes of this thread's group: lanes 8q .. 8q+7 of the warp.
-__device__ __forceinline__ unsigned group_mask() {
+// The bits of this thread's group in a warp-wide ballot: lanes 8q .. 8q+7.
+__device__ __forceinline__ unsigned group_bits() {
   return 0xFFu << (threadIdx.x & 24);
 }
 
@@ -111,11 +121,10 @@ __device__ __forceinline__ unsigned group_mask() {
 // (key, ref) iff key_i > key_j, both lanes evaluating that same strict
 // comparison, so lane i keeps the smaller side and ties stay in place.
 template <unsigned kPartners>
-__device__ __forceinline__ void sort_layer(unsigned gmask, int k, float& key,
-                                           int& ref) {
+__device__ __forceinline__ void sort_layer(int k, float& key, int& ref) {
   const int p = (kPartners >> (4 * k)) & 7;
-  const float ko = __shfl_sync(gmask, key, p, kGroup);
-  const int ro = __shfl_sync(gmask, ref, p, kGroup);
+  const float ko = __shfl_sync(kWarp, key, p, kGroup);
+  const int ro = __shfl_sync(kWarp, ref, p, kGroup);
   const bool low = k < p;
   const float ki = low ? key : ko, kj = low ? ko : key;
   const bool swap = ki > kj;
@@ -125,11 +134,11 @@ __device__ __forceinline__ void sort_layer(unsigned gmask, int k, float& key,
 
 // Node interpretation by lane k of a group, rk pointing at slot k of the
 // row (field f at rk[8f]): the slab test of child slot k, then the group's
-// sort. Returns n_hit; ref is the k-th child ref in sorted order.
+// sort. Returns n_hit; ref is the k-th child ref in sorted order. All 32
+// lanes of the warp call it together.
 __device__ __forceinline__ int group_node(const float* __restrict__ rk,
                                           const Ray& ray, float t_best,
-                                          bool act, unsigned gmask, int k,
-                                          int& ref) {
+                                          bool act, int k, int& ref) {
   const float lox = __ldg(rk), hix = __ldg(rk + 8);
   const float loy = __ldg(rk + 16), hiy = __ldg(rk + 24);
   const float loz = __ldg(rk + 32), hiz = __ldg(rk + 40);
@@ -146,13 +155,13 @@ __device__ __forceinline__ int group_node(const float* __restrict__ rk,
   const float exit_ = vmin(tf, t_best);
   const bool hit = (enter <= exit_) && (lox <= hix) && act;
   float key = hit ? enter : CUDART_INF_F;
-  const int n_hit = __popc(__ballot_sync(gmask, hit) & gmask);
-  sort_layer<partner_word(0)>(gmask, k, key, ref);
-  sort_layer<partner_word(1)>(gmask, k, key, ref);
-  sort_layer<partner_word(2)>(gmask, k, key, ref);
-  sort_layer<partner_word(3)>(gmask, k, key, ref);
-  sort_layer<partner_word(4)>(gmask, k, key, ref);
-  sort_layer<partner_word(5)>(gmask, k, key, ref);
+  const int n_hit = __popc(__ballot_sync(kWarp, hit) & group_bits());
+  sort_layer<partner_word(0)>(k, key, ref);
+  sort_layer<partner_word(1)>(k, key, ref);
+  sort_layer<partner_word(2)>(k, key, ref);
+  sort_layer<partner_word(3)>(k, key, ref);
+  sort_layer<partner_word(4)>(k, key, ref);
+  sort_layer<partner_word(5)>(k, key, ref);
   return n_hit;
 }
 
@@ -163,16 +172,16 @@ struct LeafHit {
 };
 
 // Leaf interpretation by lane k of a group, rk pointing at slot k of the
-// row: the Moller-Trumbore test of triangle slot k, then the nearest accepted slot, first slot on
-// ties. The 3 butterfly rounds take the other lane's (tc, slot) iff it is
-// smaller in (tc, slot) order: the serial first-minimum scan. tc is never
-// NaN (t only when t > tmin && t < t_best), and with no accepted slot every
-// tc is inf and slot 0 wins, as the argmin of an all-inf vector in the JAX
-// step. Every lane of the group returns the same hit.
+// row: the Moller-Trumbore test of triangle slot k, then the nearest
+// accepted slot, first slot on ties. The 3 butterfly rounds take the other
+// lane's (tc, slot) iff it is smaller in (tc, slot) order: the serial
+// first-minimum scan. tc is never NaN (t only when t > tmin && t < t_best),
+// and with no accepted slot every tc is inf and slot 0 wins, as the argmin
+// of an all-inf vector in the JAX step. Every lane of the group returns the
+// same hit. All 32 lanes of the warp call it together.
 __device__ __forceinline__ LeafHit group_leaf(const float* __restrict__ rk,
                                               const Ray& ray, float t_best,
-                                              bool act, unsigned gmask,
-                                              int k) {
+                                              bool act, int k) {
   const float v0x = __ldg(rk), v0y = __ldg(rk + 8), v0z = __ldg(rk + 16);
   const float e1x = __ldg(rk + 24), e1y = __ldg(rk + 32);
   const float e1z = __ldg(rk + 40);
@@ -184,6 +193,7 @@ __device__ __forceinline__ LeafHit group_leaf(const float* __restrict__ rk,
   const float pvz = ray.dx * e2y - ray.dy * e2x;
   const float det = e1x * pvx + e1y * pvy + e1z * pvz;
   const bool small = fabsf(det) < 1e-12f;
+  // compiles to rcp.rn.f32, the correctly rounded reciprocal (__frcp_rn)
   const float inv_det = small ? 0.f : 1.0f / det;
   const float tvx = ray.ox - v0x, tvy = ray.oy - v0y, tvz = ray.oz - v0z;
   const float b1 = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
@@ -199,17 +209,17 @@ __device__ __forceinline__ LeafHit group_leaf(const float* __restrict__ rk,
   int slot = k;
 #pragma unroll
   for (int m = 1; m < kGroup; m <<= 1) {
-    const float to = __shfl_xor_sync(gmask, tc, m, kGroup);
-    const int so = __shfl_xor_sync(gmask, slot, m, kGroup);
+    const float to = __shfl_xor_sync(kWarp, tc, m, kGroup);
+    const int so = __shfl_xor_sync(kWarp, slot, m, kGroup);
     const bool take = (to < tc) || (to == tc && so < slot);
     tc = take ? to : tc;
     slot = take ? so : slot;
   }
   LeafHit h;
   h.t = tc;
-  h.prim = __shfl_sync(gmask, pid, slot, kGroup);
-  h.b1 = __shfl_sync(gmask, b1, slot, kGroup);
-  h.b2 = __shfl_sync(gmask, b2, slot, kGroup);
+  h.prim = __shfl_sync(kWarp, pid, slot, kGroup);
+  h.b1 = __shfl_sync(kWarp, b1, slot, kGroup);
+  h.b2 = __shfl_sync(kWarp, b2, slot, kGroup);
   return h;
 }
 
@@ -230,6 +240,23 @@ __device__ __forceinline__ Ray load_ray(const float* o, const float* d,
   return ray;
 }
 
+// This thread's lane k, group index in the block, and ray. Returns false
+// when the warp's groups all lie past R (the warp leaves at once); a warp
+// with some groups past R keeps their lanes (live false, reading ray R - 1)
+// so every shuffle sees the full warp.
+struct GroupIndex {
+  int k, g, i;
+  bool live;
+};
+
+__device__ __forceinline__ bool group_index(int R, GroupIndex& gi) {
+  gi.k = threadIdx.x & (kGroup - 1);
+  gi.g = threadIdx.x / kGroup;
+  gi.i = blockIdx.x * kRaysPerBlock + gi.g;
+  gi.live = gi.i < R;
+  return blockIdx.x * kRaysPerBlock + (threadIdx.x & ~31) / kGroup < R;
+}
+
 // step_interpret's contract: one gathered row per lane i, both
 // interpretations computed for every lane and masked as the JAX step masks;
 // group i of 8 threads serves lane i, with the traversal's device functions.
@@ -241,20 +268,20 @@ __global__ void __launch_bounds__(kThreads) wide_step_kernel(
     int* __restrict__ refs, int* __restrict__ n_hit,
     float* __restrict__ tsel, int* __restrict__ psel,
     float* __restrict__ b1, float* __restrict__ b2, int R) {
-  const int k = threadIdx.x & (kGroup - 1);
-  const int i = blockIdx.x * kRaysPerBlock + threadIdx.x / kGroup;
-  if (i >= R) return;  // the whole group leaves together
-  const unsigned gmask = group_mask();
-  const float* rk = row + static_cast<size_t>(i) * kRow + k;
+  GroupIndex gi;
+  if (!group_index(R, gi)) return;
+  const int i = gi.live ? gi.i : R - 1;
+  const float* rk = row + static_cast<size_t>(i) * kRow + gi.k;
   const Ray ray = load_ray(o, d, inv, tmin, i);
   const float tb = t_best[i];
   const bool node = is_node[i];
   const bool a = act[i];
   int ref;
-  const int nh = group_node(rk, ray, tb, node && a, gmask, k, ref);
-  refs[static_cast<size_t>(k) * R + i] = ref;
-  const LeafHit h = group_leaf(rk, ray, tb, !node && a, gmask, k);
-  if (k == 0) {
+  const int nh = group_node(rk, ray, tb, node && a, gi.k, ref);
+  const LeafHit h = group_leaf(rk, ray, tb, !node && a, gi.k);
+  if (!gi.live) return;
+  refs[static_cast<size_t>(gi.k) * R + i] = ref;
+  if (gi.k == 0) {
     n_hit[i] = nh;
     tsel[i] = h.t;
     psel[i] = h.prim;
@@ -268,7 +295,8 @@ __global__ void __launch_bounds__(kThreads) wide_step_kernel(
 // nearest on top; pop otherwise; finish on a pop from an empty stack. The
 // quadric result seeds (t, prim, b1, b2); any-hit leaves at the first
 // prim >= 0; lanes with tmax == 0 leave at once. cur, sp, t_best, prim and
-// the loop's exits are the same on all 8 lanes of a group.
+// run are the same on all 8 lanes of a group; the loop runs while any group
+// of the warp runs (a group that is done, or past R, steps masked).
 template <bool kAnyHit>
 __device__ __forceinline__ void traverse_group(
     const float* __restrict__ rows, const float* __restrict__ o,
@@ -280,52 +308,57 @@ __device__ __forceinline__ void traverse_group(
     float* __restrict__ b1_out, float* __restrict__ b2_out, int R,
     int wide_stack) {
   extern __shared__ int smem[];
-  const int k = threadIdx.x & (kGroup - 1);
-  const int g = threadIdx.x / kGroup;
-  const int i = blockIdx.x * kRaysPerBlock + g;
-  if (i >= R) return;  // the whole group leaves together
-  const unsigned gmask = group_mask();
-  int* stack = smem + g * wide_stack;
+  GroupIndex gi;
+  if (!group_index(R, gi)) return;
+  const int k = gi.k;
+  const int i = gi.live ? gi.i : R - 1;
+  int* stack = smem + gi.g * wide_stack;
   const float* rows_k = rows + k;  // slot k of row 0
   const Ray ray = load_ray(o, d, inv, tmin, i);
   float t_best = t_in[i];
   int prim = p_in[i];
   float bb1 = b1_in[i], bb2 = b2_in[i];
-  bool run = tmax[i] != 0.f && !(kAnyHit && prim >= 0);
+  bool run = gi.live && tmax[i] != 0.f && !(kAnyHit && prim >= 0);
   int sp = 0;
   int cur = 0;  // row 0 is always a node row
-  while (run) {
-    bool pop = true;
-    if (cur >= 0) {
+  while (__any_sync(kWarp, run)) {
+    const bool node = run && cur >= 0;
+    if (__any_sync(kWarp, node)) {
       int ref;
-      const int n_hit = group_node(rows_k + static_cast<size_t>(cur) * kRow,
-                                   ray, t_best, true, gmask, k, ref);
-      if (n_hit > 0) {
-        // the serial push order: ref_j at sp + n_hit - 1 - j, nearest on top
-        if (k >= 1 && k < n_hit) stack[sp + n_hit - 1 - k] = ref;
+      const int n_hit = group_node(
+          rows_k + static_cast<size_t>(node ? cur : 0) * kRow, ray, t_best,
+          node, k, ref);
+      const int nearest = __shfl_sync(kWarp, ref, 0, kGroup);
+      const bool descend = node && n_hit > 0;
+      // the serial push order: ref_j at sp + n_hit - 1 - j, nearest on top
+      if (descend && k >= 1 && k < n_hit) stack[sp + n_hit - 1 - k] = ref;
+      __syncwarp();  // the pushes are visible to the pops below
+      if (descend) {
         sp += n_hit - 1;
-        cur = __shfl_sync(gmask, ref, 0, kGroup);
-        pop = false;
-        __syncwarp(gmask);  // the pushes are visible to the next pop
+        cur = nearest;
+      } else if (node) {
+        if (sp == 0) run = false;
+        else cur = stack[--sp];  // one address for the group: a broadcast
       }
-    } else {
-      const LeafHit h = group_leaf(
-          rows_k + static_cast<size_t>(-cur - 1) * kRow, ray, t_best, true,
-          gmask, k);
-      if (h.t < t_best) {
-        t_best = h.t;
-        prim = h.prim;
-        bb1 = h.b1;
-        bb2 = h.b2;
-      }
-      if (kAnyHit && prim >= 0) break;
     }
-    if (pop) {
-      if (sp == 0) break;
-      cur = stack[--sp];  // one address for the group: a broadcast
+    const bool leaf = run && cur < 0;
+    if (__any_sync(kWarp, leaf)) {
+      const LeafHit h = group_leaf(
+          rows_k + static_cast<size_t>(leaf ? -cur - 1 : 0) * kRow, ray,
+          t_best, leaf, k);
+      if (leaf) {
+        if (h.t < t_best) {
+          t_best = h.t;
+          prim = h.prim;
+          bb1 = h.b1;
+          bb2 = h.b2;
+        }
+        if ((kAnyHit && prim >= 0) || sp == 0) run = false;
+        else cur = stack[--sp];
+      }
     }
   }
-  if (k == 0) {
+  if (gi.live && k == 0) {
     t_out[i] = t_best;
     p_out[i] = prim;
     b1_out[i] = bb1;
@@ -374,7 +407,7 @@ int pbrt_torch_wide_step(const float* row, const float* o, const float* d,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Each entry sizes the block's stacks (32 rays x wide_stack ints of dynamic
+// Each entry sizes the block's stacks (16 rays x wide_stack ints of dynamic
 // shared memory), refuses a size the device cannot give a block, and raises
 // the kernel's limit only past the 48 KiB every kernel may use.
 #define PBRT_TRAVERSE_ENTRY(NAME, KERNEL)                                     \
