@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card proof of the PyTorch port (``pbrt_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--compare-traverse OTHER_TRAVERSE_CU ...]
+    python3 chip_smoke.py
 
 Run from a checkout; it builds every kernel it needs from the sources in
 ``pbrt_torch/csrc`` (nvcc for sm_90a, g++ for the SAH builder) and imports
@@ -16,15 +16,13 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    step, closest-hit and any-hit traversal against their plain PyTorch
    versions, closest hit on 4,096 lanes against ``intersect_brute``, and
    all three on ragged lane counts (1, 7, 4,093); then the traversal
-   timed (CUDA events over back-to-back launches through its C entry) on
-   two 32,768-lane sets, a random permutation of the mixed rays and a
-   render-order set (camera rays of consecutive pixels from the frame's
-   middle, then their first bounces in the same order), each with the
-   plain version's steps per lane and per warp.
-   ``--compare-traverse`` names other ``traverse.cu`` sources with the
-   same C entry points (an earlier tree's, or a variant): each is built
-   too and timed in turns with this one (other, this, this, other) on both
-   sets, its results held equal bit for bit;
+   timed on two 32,768-lane sets, a random permutation of the mixed rays
+   and a render-order set (camera rays of consecutive pixels from the
+   frame's middle, then their first bounces in the same order), each with
+   the plain version's steps per lane and per warp. Every kernel time in
+   the script is CUDA events around back-to-back wrapper calls enqueued
+   behind a spin kernel (``queued_ms``), so the device never waits on the
+   host;
 4. rng — the keyed-uniform kernel (bounce block at depth 5) and the
    scramble kernel against their plain versions on 1,048,576 lanes, bit
    for bit; timed at the main path's launch widths;
@@ -57,8 +55,6 @@ result.
 
 from __future__ import annotations
 
-import argparse
-import ctypes
 import json
 import os
 import sys
@@ -81,10 +77,16 @@ OPS_LEAF_STEP = 8 * 54
 #: bytes a traversal lane must read and write once: o, d, 1/d (36), tmin,
 #: tmax (8), seed t/prim/b1/b2 (16) in; t/prim/b1/b2 (16) out
 LANE_BYTES_TRAVERSE = 76
-#: standalone step lane: row (320), o/d/inv (36), tmin/t_best (8),
+#: standalone step lane besides its row: o/d/inv (36), tmin/t_best (8),
 #: is_node/act (2) in; refs (32), n_hit, tsel, psel, b1, b2 (20) out
-LANE_BYTES_STEP = 320 + 36 + 8 + 2 + 32 + 20
-ROW_BYTES = 320
+LANE_BYTES_STEP = 36 + 8 + 2 + 32 + 20
+#: the bytes of a row that a step must read: a node step its 7 slot-major
+#: fields of 8 floats (6 bounds and the refs), a leaf step all 10
+NODE_ROW_BYTES = 7 * 8 * 4
+LEAF_ROW_BYTES = 10 * 8 * 4
+#: cycles of the spin kernel the timed launches are enqueued behind
+#: (~10 ms at 1.98 GHz)
+SPIN_CYCLES = 20_000_000
 RNG_DEPTH = 5
 #: the least integer operations of the keyed functions (rng.cu). One
 #: threefry-2x32 hash of a counter pair (0, c): 20 rounds of add, rotate and
@@ -253,42 +255,35 @@ def step_summary(steps, ms=None):
     return out
 
 
-def device_ms(fn, match: str) -> float:
-    """``timing.device_ms``, with a profiler session that traced too few
-    launches run again (up to 3 tries, each reported): the tracer now and
-    then drops a session's kernel events."""
-    from pbrt_torch.utils import timing
+def queued_ms(fn, n: int = 50, warm: int = 5):
+    """(ms per call of ``fn`` by CUDA events around ``n`` back-to-back
+    calls, the host's ms to enqueue one call). The calls are enqueued
+    behind a spin kernel that outlasts their enqueueing, so the device runs
+    them without waiting on the host, even where a launch is shorter than
+    its enqueueing; raises if the host took longer than the spin."""
+    import torch
 
-    for attempt in range(3):
-        try:
-            return timing.device_ms(fn, match)
-        except RuntimeError as e:
-            if attempt == 2:
-                raise
-            log("timing", f"profiler session dropped ({e}); again")
-
-
-def other_lib(i: int, path: str):
-    """Another traverse.cu built with this tree's nvcc flags and bound like
-    this one (same C entry points)."""
-    from pbrt_torch.utils import native
-
-    so = native._compile(f"pbrt_torch_traverse_other{i}", os.path.abspath(path),
-                         [native.nvcc_path()], native.NVCC_FLAGS)
-    lib = ctypes.CDLL(so)
-    for entry, argtypes in native.KERNEL_ENTRIES["traverse.cu"].items():
-        fn = getattr(lib, entry)
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-    return lib
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    t_host = time.perf_counter()
+    ev[0].record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    ev[1].record()
+    for _ in range(n):
+        fn()
+    t_host = (time.perf_counter() - t_host) * 1e3
+    ev[2].record()
+    torch.cuda.synchronize()
+    spin_ms = ev[0].elapsed_time(ev[1])
+    if t_host >= spin_ms:
+        raise SystemExit(f"queued_ms: the host took {t_host:.3f} ms to enqueue "
+                         f"{n} calls, longer than the {spin_ms:.3f} ms spin")
+    return ev[1].elapsed_time(ev[2]) / n, t_host / n
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--compare-traverse", metavar="OTHER_TRAVERSE_CU", nargs="+",
-                    default=[], help="other traverse.cu sources (an earlier tree's, "
-                    "or variants) to time in turns with this one")
-    args = ap.parse_args(argv)
+def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -334,13 +329,9 @@ def main(argv=None) -> int:
     t0 = time.time()
     builds = [(native.kernel_lib, s, False) for s in native.KERNEL_SOURCES]
     builds.append((native.kernel_lib, "traverse.cu", True))
-    n_std = len(builds)
-    builds += [(other_lib, i, path) for i, path in enumerate(args.compare_traverse)]
     with ThreadPoolExecutor(len(builds) + 1) as ex:
         futs = [ex.submit(fn, *a) for fn, *a in builds]
         futs.append(ex.submit(native.bvh_lib))
-        others = {path: f.result()
-                  for path, f in zip(args.compare_traverse, futs[n_std:-1])}
         for f in futs:
             f.result()
     build_s = time.time() - t0
@@ -523,104 +514,61 @@ def main(argv=None) -> int:
                     tmax=pick(tmax), tmax_a=pick(tmax_a), q=[pick(x) for x in q],
                     qa=[pick(x) for x in qa])
 
-    def raw_launch(lib, a, any_hit):
-        """One launch through a traversal library's C entry, outputs
-        allocated once: what the timing repeats (the host enqueues it in a
-        few microseconds, less than the kernel runs)."""
-        tm, seeds = (a["tmax_a"], a["qa"]) if any_hit else (a["tmax"], a["q"])
-        n = a["o"].shape[0]
-        outs = [torch.empty(n, dtype=dt, device=dev)
-                for dt in (torch.float32, torch.int32, torch.float32, torch.float32)]
-        fn = lib.pbrt_torch_traverse_any if any_hit else lib.pbrt_torch_traverse_closest
-        ptrs = [x.data_ptr() for x in (rows, a["o"], a["d"], a["inv"], a["tmin"], tm,
-                                        *seeds, *outs)]
-        stream = torch.cuda.current_stream().cuda_stream
-
-        def launch():
-            native.check_launch(fn(*ptrs, n, ws, stream), "traversal launch")
-            return outs
-        return launch
-
-    def launch_ms(launch, n=50, warm=5):
-        """(ms per launch by CUDA events around n back-to-back launches,
-        the host's ms to enqueue one)"""
-        for _ in range(warm):
-            launch()
-        sync()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        t_host = time.perf_counter()
-        for _ in range(n):
-            launch()
-        t_host = (time.perf_counter() - t_host) / n * 1e3
-        ev[1].record()
-        sync()
-        return ev[0].elapsed_time(ev[1]) / n, t_host
-
-    this_lib = native.kernel_lib("traverse.cu")
     times = {}
     for set_name, idx in lane_sets.items():
         a = set_args(idx)
         for key, any_hit in (("traverse_closest", False), ("traverse_any", True)):
             tm, seeds = (a["tmax_a"], a["qa"]) if any_hit else (a["tmax"], a["q"])
+            targs = (rows, ws, a["o"], a["d"], a["inv"], a["tmin"], tm, *seeds)
             stats = {}
-            tc.traverse_plain(rows, ws, a["o"], a["d"], a["inv"], a["tmin"], tm, *seeds,
-                              any_hit, stats=stats)
-            this_launch = raw_launch(this_lib, a, any_hit)
-            ms, host_ms = launch_ms(this_launch)
-            nbytes = CHUNK * LANE_BYTES_TRAVERSE + stats["rows_touched"] * ROW_BYTES
+            tc.traverse_plain(*targs, any_hit, stats=stats)
+            ms, host_ms = queued_ms(lambda: tc.traverse(*targs, any_hit=any_hit))
+            nbytes = (CHUNK * LANE_BYTES_TRAVERSE + stats["node_rows"] * NODE_ROW_BYTES
+                      + stats["leaf_rows"] * LEAF_ROW_BYTES)
             ops = (stats["node_steps"] * OPS_NODE_STEP
                    + stats["leaf_steps"] * OPS_LEAF_STEP)
             b_ms, b_by = timing.bound_ms(nbytes, ops)
             summ = step_summary(stats["lane_steps"], ms)
             plain_txt = ""
             if set_name == "permuted":  # the kernels line's set
-                plain_ms = cuda_ms(lambda: tc.traverse_plain(
-                    rows, ws, a["o"], a["d"], a["inv"], a["tmin"], tm, *seeds, any_hit),
-                    n=3, warm=1)
+                plain_ms = cuda_ms(lambda: tc.traverse_plain(*targs, any_hit), n=3, warm=1)
                 times[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
                 plain_txt = f" (plain {plain_ms:.2f} ms)"
             log("timing", f"{key}, {set_name} set, {CHUNK} lanes: {ms:.4f} ms{plain_txt} "
                 f"(host enqueue {host_ms:.4f} ms); "
                 f"{stats['node_steps']} node + {stats['leaf_steps']} leaf steps, "
-                f"{stats['rows_touched']} distinct rows; bound {b_ms:.5f} ms ({b_by})")
+                f"{stats['node_rows']} node + {stats['leaf_rows']} leaf distinct rows, "
+                f"{nbytes} bytes; bound {b_ms:.5f} ms ({b_by}), "
+                f"kernel / bound {ms / b_ms:.1f}x")
             log("timing", f"  steps per lane: mean {summ['mean']:.3f}, p99 {summ['p99']:.0f}, "
                 f"max {summ['max']}; per-warp max at 32 rays/warp: mean "
                 f"{summ['warp32_mean']:.2f}, max {summ['warp32_max']}, lane use "
                 f"{100 * summ['use32']:.1f}%; at 4 rays/warp: mean {summ['warp4_mean']:.2f}, "
                 f"max {summ['warp4_max']}, lane use {100 * summ['use4']:.1f}%; "
                 f"{1e3 * summ['ms_per_longest_step']:.4f} us per step of the longest ray")
-            for path, lib in others.items():
-                other_launch = raw_launch(lib, a, any_hit)
-                ref_out = [x.clone() for x in this_launch()]
-                other_out = other_launch()
-                sync()
-                same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
-                           for x, y in zip(ref_out, other_out))
-                if not same:
-                    raise SystemExit(f"{key}: {path} and this kernel disagree")
-                turns = [launch_ms(f)[0] for f in (other_launch, this_launch,
-                                                   this_launch, other_launch)]
-                other_ms, new_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-                log("timing", f"  in turns with {path} (other, this, this, other): "
-                    + ", ".join(f"{x:.4f}" for x in turns)
-                    + f" ms; other / this = {other_ms / new_ms:.2f}x; results equal bit "
-                    f"for bit {same}")
     # what -fmad=false costs: the same kernel built with FMA contraction,
     # timed in turns on the same lanes
     perm = set_args(sub)
-    fm = [launch_ms(raw_launch(native.kernel_lib("traverse.cu", f), perm, False))[0]
+    pargs = (rows, ws, perm["o"], perm["d"], perm["inv"], perm["tmin"], perm["tmax"],
+             *perm["q"])
+    fm = [queued_ms(lambda: tc.traverse(*pargs, any_hit=False, fmad=f))[0]
           for f in (False, True, True, False)]
     log("timing", f"traverse_closest -fmad=false vs -fmad=true on {CHUNK} lanes, "
         f"in turns (no-FMA, FMA, FMA, no-FMA): "
         + ", ".join(f"{x:.4f}" for x in fm) + " ms")
     st_args = [x[sub].contiguous() for x in (srow, o, d, inv, tmin, s_tb, s_node, s_act)]
-    st_ms = device_ms(lambda: tc.step(*st_args), tc.KERNEL_NAMES["wide_step"])
+    st_ms, st_host = queued_ms(lambda: tc.step(*st_args))
     st_plain = cuda_ms(lambda: tc.step_plain(*st_args), n=5, warm=1)
     n_node = int(st_args[6].sum())
     st_ops = n_node * OPS_NODE_STEP + (CHUNK - n_node) * OPS_LEAF_STEP
-    st_bound, st_by = timing.bound_ms(CHUNK * LANE_BYTES_STEP, st_ops)
-    log("timing", f"wide_step on {CHUNK} lanes: {st_ms:.4f} ms (plain {st_plain:.2f} ms)")
+    # an inactive lane's outputs do not depend on its row
+    n_act_node = int((st_args[6] & st_args[7]).sum())
+    n_act_leaf = int((~st_args[6] & st_args[7]).sum())
+    st_bytes = (CHUNK * LANE_BYTES_STEP + n_act_node * NODE_ROW_BYTES
+                + n_act_leaf * LEAF_ROW_BYTES)
+    st_bound, st_by = timing.bound_ms(st_bytes, st_ops)
+    log("timing", f"wide_step on {CHUNK} lanes: {st_ms:.4f} ms (plain {st_plain:.2f} ms, "
+        f"host enqueue {st_host:.4f} ms); bound {st_bound:.5f} ms ({st_by})")
 
     # ---- 4. rng: keyed uniforms and scrambles vs plain ---------------------
     root = rng.root_key(0)
@@ -645,10 +593,9 @@ def main(argv=None) -> int:
     if not (float(ku.min()) >= 0.0 and float(ku.max()) < 1.0):
         raise SystemExit("keyed uniforms outside [0, 1)")
     pix_c, pix_f = pix_all[:CHUNK].contiguous(), pix_all[:n_pix].contiguous()
-    # a keyed launch takes microseconds: its time is the kernel's device
-    # time under the profiler (events would time the host's launch cost)
-    ku_ms = device_ms(lambda: rng.bounce_uniforms(root, pix_c, 1, RNG_DEPTH),
-                             "keyed_uniforms_kernel")
+    # a keyed launch takes microseconds, less than its enqueueing: the
+    # spin that queued_ms enqueues the calls behind keeps the host out
+    ku_ms, ku_host = queued_ms(lambda: rng.bounce_uniforms(root, pix_c, 1, RNG_DEPTH))
     ku_plain = cuda_ms(lambda: rng.bounce_uniforms_plain(root, pix_c, 1, RNG_DEPTH),
                        n=5, warm=1)
     # the function's work: each lane's keys once, then 7 uniforms per bounce
@@ -657,15 +604,16 @@ def main(argv=None) -> int:
     ku_bound, ku_by = timing.bound_ms(
         CHUNK * (8 + n_u * 4), f32_ops=CHUNK * n_u,
         i32_ops=CHUNK * (OPS_LANE_KEY + n_u * OPS_PER_UNIFORM))
-    ks_ms = device_ms(lambda: rng.pixel_scrambles(root, pix_f),
-                             "keyed_scrambles_kernel")
+    ks_ms, ks_host = queued_ms(lambda: rng.pixel_scrambles(root, pix_f))
     ks_plain = cuda_ms(lambda: rng.pixel_scrambles_plain(root, pix_f), n=5, warm=1)
     ks_bound, ks_by = timing.bound_ms(
         n_pix * (8 + 6 * 8), i32_ops=n_pix * (OPS_LANE_KEY + 6 * OPS_PER_SCRAMBLE))
     log("timing", f"keyed_uniforms on {CHUNK} lanes, depth {RNG_DEPTH}: {ku_ms:.4f} ms "
-        f"device time (plain {ku_plain:.3f} ms); bound {ku_bound:.5f} ms ({ku_by})")
-    log("timing", f"keyed_scrambles on {n_pix} lanes: {ks_ms:.4f} ms device time "
-        f"(plain {ks_plain:.3f} ms); bound {ks_bound:.5f} ms ({ks_by})")
+        f"(plain {ku_plain:.3f} ms, host enqueue {ku_host:.4f} ms); "
+        f"bound {ku_bound:.5f} ms ({ku_by})")
+    log("timing", f"keyed_scrambles on {n_pix} lanes: {ks_ms:.4f} ms (plain "
+        f"{ks_plain:.3f} ms, host enqueue {ks_host:.4f} ms); "
+        f"bound {ks_bound:.5f} ms ({ks_by})")
 
     # ---- 5. small reference: card vs CPU --------------------------------
     rs = np.random.default_rng(5)

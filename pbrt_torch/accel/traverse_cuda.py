@@ -180,9 +180,11 @@ def traverse_plain(rows, wide_stack, o, d, inv, tmin, tmax, t0, p0, b10,
     kernels: (t, prim, b1, b2), seeded with (t0, p0, b10, b20).
 
     ``stats`` (optional dict) receives the work this batch needed:
-    ``node_steps``, ``leaf_steps``, ``rows_touched`` (distinct rows) and
-    ``lane_steps`` ((R,) int64, each lane's steps); a dict passed again
-    adds the next batch's counts (lane by lane, for the same R)."""
+    ``node_steps``, ``leaf_steps``, ``node_rows`` (distinct rows read only
+    as a node: a step reads their 7 node fields), ``leaf_rows`` (distinct
+    rows read as a leaf: all 10 fields) and ``lane_steps`` ((R,) int64,
+    each lane's steps); a dict passed again adds the next batch's counts
+    (lane by lane, for the same R)."""
     R = o.shape[0]
     dev = o.device
     t, prim = t0.clone(), p0.clone()
@@ -196,7 +198,8 @@ def traverse_plain(rows, wide_stack, o, d, inv, tmin, tmax, t0, p0, b10,
     idx = torch.nonzero(run).squeeze(1)
     touched = lane_steps = None
     if stats is not None:
-        touched = torch.zeros(rows.shape[0], dtype=torch.bool, device=dev)
+        # rows read as a node, rows read as a leaf
+        touched = torch.zeros((2, rows.shape[0]), dtype=torch.bool, device=dev)
         lane_steps = torch.zeros(R, dtype=torch.int64, device=dev)
     n_node = n_leaf = 0
     while idx.numel():
@@ -204,7 +207,7 @@ def traverse_plain(rows, wide_stack, o, d, inv, tmin, tmax, t0, p0, b10,
         is_node = c >= 0
         ridx = torch.where(is_node, c, -c - 1)
         if touched is not None:
-            touched[ridx] = True
+            touched[(~is_node).long(), ridx] = True
             nn = int(is_node.sum())
             n_node += nn
             n_leaf += idx.numel() - nn
@@ -243,7 +246,9 @@ def traverse_plain(rows, wide_stack, o, d, inv, tmin, tmax, t0, p0, b10,
     if stats is not None:
         stats["node_steps"] = stats.get("node_steps", 0) + n_node
         stats["leaf_steps"] = stats.get("leaf_steps", 0) + n_leaf
-        stats["rows_touched"] = stats.get("rows_touched", 0) + int(touched.sum())
+        stats["node_rows"] = stats.get("node_rows", 0) + int(
+            (touched[0] & ~touched[1]).sum())
+        stats["leaf_rows"] = stats.get("leaf_rows", 0) + int(touched[1].sum())
         stats["lane_steps"] = stats.get("lane_steps", 0) + lane_steps
     return t, prim, b1, b2
 

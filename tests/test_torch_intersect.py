@@ -378,10 +378,12 @@ def test_plain_traversal_stats_and_tmax_zero():
     t, p, _, _ = tc.traverse_plain(tg.wide_rows, tg.wide_stack, o, d, inv, z, z,
                                    *seeds, False, stats=stats)
     lane_steps = stats.pop("lane_steps")
-    assert stats == {"node_steps": 0, "leaf_steps": 0, "rows_touched": 0}
+    assert stats == {"node_steps": 0, "leaf_steps": 0, "node_rows": 0, "leaf_rows": 0}
     assert torch.equal(lane_steps, torch.zeros(64, dtype=torch.int64))
     assert bool((p == -1).all()) and bool((t == 0).all())
     inf = torch.full((64,), float("inf"))
     tc.traverse_plain(tg.wide_rows, tg.wide_stack, o, d, inv, z, inf,
                       inf.clone(), *seeds[1:], False, stats=stats)
-    assert stats["node_steps"] >= 64 and stats["rows_touched"] > 1
+    assert stats["node_steps"] >= 64 and stats["node_rows"] >= 1
+    assert 1 <= stats["leaf_rows"] <= stats["leaf_steps"]
+    assert stats["node_rows"] + stats["leaf_rows"] <= tg.wide_rows.shape[0]

@@ -167,3 +167,34 @@ def test_lane_steps_count_the_walk(any_hit):
     assert bool((steps[tmax != 0] >= 1).all())
     assert int((prim >= 0).sum()) > 5
     assert int(steps.max()) > 2
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_row_counts_split_node_and_leaf(any_hit):
+    """The distinct rows of the bound: one ray visits each row of the tree
+    at most once, so alone it reads as many node rows and leaf rows as it
+    takes node and leaf steps; a batch reads at most its steps' worth."""
+    rng = np.random.default_rng(47)
+    w = _soup_table(rng)
+    rows = torch.as_tensor(w.rows)
+    R = 64
+    o = torch.as_tensor(rng.uniform(-2, 2, (R, 3)).astype(np.float32))
+    d = rng.normal(size=(R, 3)).astype(np.float32)
+    d = torch.as_tensor(d / np.linalg.norm(d, axis=1, keepdims=True))
+    z, inf = torch.zeros(R), torch.full((R,), float("inf"))
+    seeds = (inf.clone(), torch.full((R,), -1, dtype=torch.int32), z.clone(), z.clone())
+    args = (o, d, make_inv_dir(d), z, inf, *seeds)
+    walked = 0
+    for lane in range(R):
+        one = {}
+        tc.traverse_plain(rows, w.max_stack, *(x[lane:lane + 1] for x in args),
+                          any_hit, stats=one)
+        assert one["node_rows"] == one["node_steps"] >= 1
+        assert one["leaf_rows"] == one["leaf_steps"]
+        walked += one["leaf_steps"] > 0
+    assert walked > 5
+    batch = {}
+    tc.traverse_plain(rows, w.max_stack, *args, any_hit, stats=batch)
+    assert 1 <= batch["node_rows"] <= batch["node_steps"]
+    assert 1 <= batch["leaf_rows"] <= batch["leaf_steps"]
+    assert batch["node_rows"] + batch["leaf_rows"] <= rows.shape[0]
