@@ -10,7 +10,8 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
 1. device — the card, and nvidia-smi's name and power limit;
 2. build — one library per kernel source (and the FMA-contracted copy of
    the traversal's), one nvcc each, all started together with the SAH
-   builder's g++; ptxas' register / spill report;
+   builder's g++; ptxas' register / spill report; the keyed kernels' SASS
+   counted by opcode (cuobjdump), per inlined threefry hash;
 3. kernels vs plain — on ≥ 1M lanes of the real-size scene (camera rays
    and cosine-sampled bounce rays from their first hits): the standalone
    step, closest-hit and any-hit traversal against their plain PyTorch
@@ -23,9 +24,12 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    the script is CUDA events around back-to-back wrapper calls enqueued
    behind a spin kernel (``queued_ms``), so the device never waits on the
    host;
-4. rng — the keyed-uniform kernel (bounce block at depth 5) and the
-   scramble kernel against their plain versions on 1,048,576 lanes, bit
-   for bit; timed at the main path's launch widths;
+4. rng — the keyed-uniform kernel (the wave's whole primary-sample array,
+   camera columns and bounce block, depth 5) and the scramble kernel
+   against their plain versions on 1,048,576 lanes, bit for bit, for
+   samples 0, 3 and 2**31 + 1; then on ragged lane counts (1 to 32,767),
+   depths 1, 4 and 5 and pixel indices at and above 2**31; each timed in
+   5 rounds (median, min–max) at the main path's launch widths;
 5. small reference — the tiny scene rendered on the card and on the CPU
    (plain versions) from the same primary-sample array, and by
    ``render(seed=...)`` on both (keyed by threefry), with the card's
@@ -37,9 +41,12 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    at 512², path depth 5, 32 bins, 32,768-lane chunks, lowdiscrepancy,
    box filter; one warm-up sample, then 4 timed samples (CUDA events),
    with the kernels' launch counters set to 0 just before and read just
-   after; the film is checked and a ``.dat`` written and read back; one
-   more 1-spp frame under the profiler splits the device time by kernel,
-   the traversal's into closest hit and any hit;
+   after, and the sampler's torch path (``camera_uniforms``,
+   ``_bits_to_unit``) counted, which must not run on the card; the film is
+   checked and a ``.dat`` written and read back; one more 1-spp frame
+   under the profiler splits the device time by kernel, the traversal's
+   into closest hit and any hit, with launches per chunk and host-to-device
+   copies;
 8. the ``kernels`` JSON line (see PERF.md for the fields), then the result.
 
 The real-size scene is ``goldens/killeroo-simple.pbrt`` (its text is kept
@@ -88,6 +95,10 @@ LEAF_ROW_BYTES = 10 * 8 * 4
 #: (~10 ms at 1.98 GHz)
 SPIN_CYCLES = 20_000_000
 RNG_DEPTH = 5
+#: rounds of queued_ms for the keyed kernels (median, min–max)
+RNG_ROUNDS = 5
+#: pixel indices at and above 2**31 (uint32 wraparound), as the CPU tests'
+PIXELS_WRAP = (0, 1, 5, 63, 4095, 262143, 2**31 - 1, 2**31, 2**31 + 3, 2**32 - 1)
 #: the least integer operations of the keyed functions (rng.cu). One
 #: threefry-2x32 hash of a counter pair (0, c): 20 rounds of add, rotate and
 #: xor; the first key injection's one add (the high word starts as the key
@@ -95,12 +106,17 @@ RNG_DEPTH = 5
 #: schedule, once per key: k0 ^ k1 ^ C (2 xors) and the 5 words k + i the
 #: injections add. Each lane derives 3 keys (pixel, sample, tag), then per
 #: uniform hashes once and takes the xor of the two words, a shift and an
-#: or (integer) and subtracts 1 (float); per scramble word, hash and xor
+#: or (integer) and subtracts 1 (float); per scramble word, hash and xor.
+#: The camera columns: per lane 5 xors of a scramble word with brev(n) or
+#: the Sobol' word of n (both per launch), then per column a conversion, a
+#: multiply by 2**-32 and a min (float)
 OPS_HASH = 20 * 3 + 1 + 5 * 2
 OPS_KEY_SCHEDULE = 2 + 5
 OPS_LANE_KEY = 3 * (OPS_HASH + OPS_KEY_SCHEDULE)
 OPS_PER_UNIFORM = OPS_HASH + 3
 OPS_PER_SCRAMBLE = OPS_HASH + 1
+OPS_CAMERA_I32 = 5
+OPS_CAMERA_F32 = 5 * 3
 #: tolerance of the card-vs-CPU renders of the tiny scene
 REF_RTOL, REF_ATOL, REF_PIXELS, REF_BIN_REL = 1e-4, 1e-6, 0.99, 1e-3
 
@@ -283,6 +299,34 @@ def queued_ms(fn, n: int = 50, warm: int = 5):
     return ev[1].elapsed_time(ev[2]) / n, t_host / n
 
 
+def sass_per_hash(lib_path: str):
+    """{kernel: (instructions, hashes, {opcode: count per hash})} of the
+    keyed kernels in a library's SASS (cuobjdump, beside nvcc). Each
+    inlined threefry hash has exactly 20 funnel-shift rotations, so the
+    SHF.L.W count / 20 is the number of hashes; the per-hash counts are the
+    kernel's divided by it (the rest of the kernel included, a few per
+    cent)."""
+    import re
+    import subprocess
+
+    from pbrt_torch.utils import native
+
+    tool = os.path.join(os.path.dirname(native.nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for part in re.split(r"\n\s+Function : ", text)[1:]:
+        name = re.search(r"keyed_\w+?_kernel", part.split("\n", 1)[0])
+        ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", part)
+        hashes = sum(o.startswith("SHF.L.W") for o in ops) / 20
+        if name and hashes:
+            per = {k: sum(o.split(".")[0] == k for o in ops) / hashes
+                   for k in ("SHF", "LOP3", "IADD3", "IMAD")}
+            per["IMAD.IADD"] = sum(o == "IMAD.IADD" for o in ops) / hashes
+            out[name.group(0)] = (len(ops), hashes, per)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -341,6 +385,14 @@ def main() -> int:
         for ln in out.splitlines():
             if "registers" in ln or "spill" in ln:
                 log("build", f"{lib_name}: {ln.strip()}")
+    # the threefry hash's pipe mix: SHF (rotate) and LOP3 (xor) issue to the
+    # integer ALU pipe only, IMAD (IMAD.IADD adds) to the FMA pipe, IADD3 to
+    # the ALU pipe
+    for kname, (n_ins, n_hash, per) in sass_per_hash(native.kernel_lib("rng.cu")._name).items():
+        log("build", f"rng.cu {kname} SASS: {n_ins} instructions, {n_hash:g} inlined "
+            f"hashes; per hash " + ", ".join(f"{k} {v:.1f}" for k, v in per.items())
+            + f" (ALU pipe SHF+LOP3+IADD3 {per['SHF'] + per['LOP3'] + per['IADD3']:.1f}, "
+            f"FMA pipe IMAD {per['IMAD']:.1f}, of it IMAD.IADD {per['IMAD.IADD']:.1f})")
 
     # ---- real-size scene --------------------------------------------------
     t0 = time.time()
@@ -574,46 +626,73 @@ def main() -> int:
     root = rng.root_key(0)
     pix_all = torch.arange(N_LANES, dtype=torch.int64, device=dev)
     rng_eq, err_ku = {}, 0.0
-    for sample in (0, 3):
-        ku = rng.bounce_uniforms(root, pix_all, sample, RNG_DEPTH)
-        pu = rng.bounce_uniforms_plain(root, pix_all, sample, RNG_DEPTH)
+    scr_all = rng.pixel_scrambles(root, pix_all)
+    ps_ = rng.pixel_scrambles_plain(root, pix_all)
+    rng_eq["scrambles"] = bool(torch.equal(scr_all, ps_))
+    err_ks = float((scr_all - ps_).abs().max())
+    for sample in (0, 3, 2**31 + 1):
+        ku = rng.primary_uniforms(root, pix_all, scr_all, sample, RNG_DEPTH)
+        pu = rng.primary_uniforms_plain(root, pix_all, scr_all, sample, RNG_DEPTH)
         rng_eq[f"uniforms s={sample}"] = bool(torch.equal(ku.view(torch.int32),
                                                           pu.view(torch.int32)))
         err_ku = max(err_ku, float((ku - pu).abs().max()))
-    ks_ = rng.pixel_scrambles(root, pix_all)
-    ps_ = rng.pixel_scrambles_plain(root, pix_all)
-    rng_eq["scrambles"] = bool(torch.equal(ks_, ps_))
-    err_ks = float((ks_ - ps_).abs().max())
     sync()
-    log("rng", f"keyed kernels vs plain on {N_LANES} lanes (depth {RNG_DEPTH}): "
-        f"equal bit for bit {rng_eq}; uniforms in [{float(ku.min()):.3g}, "
-        f"{float(ku.max()):.6g}], mean {float(ku.double().mean()):.6f}")
+    log("rng", f"keyed kernels vs plain on {N_LANES} lanes (depth {RNG_DEPTH}, "
+        f"{ku.shape[1]} columns): equal bit for bit {rng_eq}; uniforms in "
+        f"[{float(ku.min()):.3g}, {float(ku.max()):.6g}], mean {float(ku.double().mean()):.6f}")
     if not all(rng_eq.values()):
         raise SystemExit("a keyed-uniform kernel disagrees with its plain version")
     if not (float(ku.min()) >= 0.0 and float(ku.max()) < 1.0):
         raise SystemExit("keyed uniforms outside [0, 1)")
+    # ragged lane counts, other depths, pixel indices at and above 2**31
+    pix_wrap = torch.cat([torch.tensor(PIXELS_WRAP, dtype=torch.int64, device=dev), pix_all])
+    n_cases = 0
+    for n in (1, 7, 31, 33, 4093, 32767):
+        pr = pix_wrap[:n].contiguous()
+        sr = rng.pixel_scrambles_plain(root, pr)
+        if not torch.equal(rng.pixel_scrambles(root, pr), sr):
+            raise SystemExit(f"keyed_scrambles disagrees with its plain version on {n} lanes")
+        for depth in (1, 4, 5):
+            for sample in (0, 3, 2**31 + 1):
+                k_ = rng.primary_uniforms(root, pr, sr, sample, depth)
+                p_ = rng.primary_uniforms_plain(root, pr, sr, sample, depth)
+                if not torch.equal(k_.view(torch.int32), p_.view(torch.int32)):
+                    raise SystemExit(f"keyed_uniforms disagrees with its plain version on "
+                                     f"{n} lanes, depth {depth}, sample {sample}")
+                n_cases += 1
+    sync()
+    log("rng", f"keyed_uniforms on {n_cases} ragged cases (1 to 32,767 lanes, depths 1, 4, "
+        f"5, samples 0, 3, 2**31 + 1, pixel indices up to 2**32 - 1) and keyed_scrambles "
+        f"on 6: equal bit for bit")
     pix_c, pix_f = pix_all[:CHUNK].contiguous(), pix_all[:n_pix].contiguous()
+    scr_c = scr_all[:CHUNK].contiguous()
     # a keyed launch takes microseconds, less than its enqueueing: the
     # spin that queued_ms enqueues the calls behind keeps the host out
-    ku_ms, ku_host = queued_ms(lambda: rng.bounce_uniforms(root, pix_c, 1, RNG_DEPTH))
-    ku_plain = cuda_ms(lambda: rng.bounce_uniforms_plain(root, pix_c, 1, RNG_DEPTH),
+    ku_r = [queued_ms(lambda: rng.primary_uniforms(root, pix_c, scr_c, 1, RNG_DEPTH))
+            for _ in range(RNG_ROUNDS)]
+    ks_r = [queued_ms(lambda: rng.pixel_scrambles(root, pix_f)) for _ in range(RNG_ROUNDS)]
+    ku_ms, ks_ms = (float(np.median([x[0] for x in r])) for r in (ku_r, ks_r))
+    ku_host, ks_host = (float(np.median([x[1] for x in r])) for r in (ku_r, ks_r))
+    ku_plain = cuda_ms(lambda: rng.primary_uniforms_plain(root, pix_c, scr_c, 1, RNG_DEPTH),
                        n=5, warm=1)
-    # the function's work: each lane's keys once, then 7 uniforms per bounce
-    # (the kernel recomputes a lane's keys in each of its D threads)
+    ks_plain = cuda_ms(lambda: rng.pixel_scrambles_plain(root, pix_f), n=5, warm=1)
+    # the function's work: each lane's key once, its 5 camera columns, then
+    # 7 uniforms per bounce; bytes: pixel and scramble words in, the row out
     n_u = 7 * RNG_DEPTH
     ku_bound, ku_by = timing.bound_ms(
-        CHUNK * (8 + n_u * 4), f32_ops=CHUNK * n_u,
-        i32_ops=CHUNK * (OPS_LANE_KEY + n_u * OPS_PER_UNIFORM))
-    ks_ms, ks_host = queued_ms(lambda: rng.pixel_scrambles(root, pix_f))
-    ks_plain = cuda_ms(lambda: rng.pixel_scrambles_plain(root, pix_f), n=5, warm=1)
+        CHUNK * (8 + 48 + 4 * (5 + n_u)), f32_ops=CHUNK * (n_u + OPS_CAMERA_F32),
+        i32_ops=CHUNK * (OPS_LANE_KEY + n_u * OPS_PER_UNIFORM + OPS_CAMERA_I32))
     ks_bound, ks_by = timing.bound_ms(
         n_pix * (8 + 6 * 8), i32_ops=n_pix * (OPS_LANE_KEY + 6 * OPS_PER_SCRAMBLE))
-    log("timing", f"keyed_uniforms on {CHUNK} lanes, depth {RNG_DEPTH}: {ku_ms:.4f} ms "
-        f"(plain {ku_plain:.3f} ms, host enqueue {ku_host:.4f} ms); "
-        f"bound {ku_bound:.5f} ms ({ku_by})")
-    log("timing", f"keyed_scrambles on {n_pix} lanes: {ks_ms:.4f} ms (plain "
-        f"{ks_plain:.3f} ms, host enqueue {ks_host:.4f} ms); "
-        f"bound {ks_bound:.5f} ms ({ks_by})")
+    spread = lambda r: f"{min(x[0] for x in r):.5f}–{max(x[0] for x in r):.5f}"
+    log("timing", f"keyed_uniforms (primary-sample array) on {CHUNK} lanes, depth "
+        f"{RNG_DEPTH}: median {ku_ms:.5f} ms over {RNG_ROUNDS} rounds ({spread(ku_r)}; plain "
+        f"{ku_plain:.3f} ms, host enqueue {ku_host:.4f} ms); bound {ku_bound:.5f} ms "
+        f"({ku_by}), kernel / bound {ku_ms / ku_bound:.2f}x")
+    log("timing", f"keyed_scrambles on {n_pix} lanes: median {ks_ms:.5f} ms over "
+        f"{RNG_ROUNDS} rounds ({spread(ks_r)}; plain {ks_plain:.3f} ms, host enqueue "
+        f"{ks_host:.4f} ms); bound {ks_bound:.5f} ms ({ks_by}), kernel / bound "
+        f"{ks_ms / ks_bound:.2f}x")
 
     # ---- 5. small reference: card vs CPU --------------------------------
     rs = np.random.default_rng(5)
@@ -673,6 +752,21 @@ def main() -> int:
     warm = render(built, spp=1, seed=0, chunk_pixels=CHUNK)
     sync()
     del warm
+    # the sampler's torch path, counted where every camera column would pass
+    sampler_calls = {"camera_uniforms": 0, "_bits_to_unit": 0}
+
+    def counted(name):
+        fn = getattr(smp, name)
+
+        def wrapper(*args, **kwargs):
+            sampler_calls[name] += 1
+            return fn(*args, **kwargs)
+        return fn, wrapper
+
+    saved = {}
+    for name_ in sampler_calls:
+        saved[name_], wrapped = counted(name_)
+        setattr(smp, name_, wrapped)
     tc.reset_launches()
     rng.reset_launches()
     isect.calls["intersect"] = 0
@@ -682,6 +776,8 @@ def main() -> int:
     film = render(built, spp=spp, seed=0, chunk_pixels=CHUNK)
     b.record()
     sync()
+    for name_, fn in saved.items():
+        setattr(smp, name_, fn)
     launches = {**tc.launches, **rng.launches}
     n_calls = isect.calls["intersect"]
     sec = a.elapsed_time(b) / 1e3
@@ -711,6 +807,10 @@ def main() -> int:
                          "once per render and once per wave and chunk")
     if not (finite and total > 0.0 and dat_ok):
         raise SystemExit("the rendered film is not finite, empty, or did not round-trip")
+    log("render", f"sampler torch ops on the card's path: {sampler_calls} (the camera "
+        f"columns come from keyed_uniforms)")
+    if any(sampler_calls.values()):
+        raise SystemExit("the main path ran the sampler's torch ops on the card")
 
     # where the time goes: one more sample of the main path under the
     # profiler (not counted above). Only kernel events are summed (an aten
@@ -735,8 +835,13 @@ def main() -> int:
     trav_ms = sum(v[0] for v in trav.values())
     rng_ms = sum(x[1] for x in kern if "keyed_" in x[0])
     frame_ms = sec / spp * 1e3
-    log("profile", f"1 spp: kernel time {dev_ms:.1f} ms in {sum(x[2] for x in kern)} "
-        f"launches = {100 * dev_ms / frame_ms:.1f}% of the unprofiled {frame_ms:.1f} ms "
+    n_launch = sum(x[2] for x in kern)
+    n_chunks = -(-W * H // CHUNK)
+    htod = sum(x[2] for x in kern if x[0].startswith("Memcpy HtoD"))
+    log("profile", f"1 spp: kernel time {dev_ms:.1f} ms in {n_launch} launches "
+        f"({n_launch / n_chunks:.1f} per {CHUNK}-lane chunk, {n_chunks} chunks; of them "
+        f"{htod} host-to-device copies, none from the sampler) "
+        f"= {100 * dev_ms / frame_ms:.1f}% of the unprofiled {frame_ms:.1f} ms "
         f"frame (device idle the rest); traversal kernels {trav_ms:.3f} ms "
         f"({100 * trav_ms / max(dev_ms, 1e-9):.1f}% of kernel time): closest hit "
         f"{trav['traverse_closest'][0]:.3f} ms in {trav['traverse_closest'][1]} launches, "

@@ -21,27 +21,30 @@ Words are held in int64 tensors masked to 32 bits: PyTorch has no uint32
 arithmetic on the CPU. Shifts stay below 2**63 (a word shifted by at most
 31 bits) and every sum is masked back.
 
-The render's two arrays of keyed numbers come from a CUDA kernel
+The render's two arrays of keyed numbers come from CUDA kernels
 (``csrc/rng.cu``) when the pixel indices lie on the card, and from the
 plain versions here when they lie on the CPU; both give the same bits:
 
-- ``bounce_uniforms`` — the (R, 7·D) bounce block of the primary-sample
-  array for sample s, from ``bounce_key(pixel_sample_key(root, pixel, s),
-  0, BATCHED)`` as ``BatchedKeySource`` draws it (path.py:115-120): 8·D
-  uniforms read as (D, 8) blocks [light_sel, light_u1, light_u2,
+- ``primary_uniforms`` — a wave's (R, 5 + 7·D) primary-sample array for
+  sample s: the lowdiscrepancy camera columns from the pixels' scramble
+  words (``sampling.camera_uniforms``, sampler.py:41-48), then the
+  (R, 7·D) bounce block from ``bounce_key(pixel_sample_key(root, pixel,
+  s), 0, BATCHED)`` as ``BatchedKeySource`` draws it (path.py:115-120):
+  8·D uniforms read as (D, 8) blocks [light_sel, light_u1, light_u2,
   bsdf_lobe, bsdf_u1, bsdf_u2, rr, spare], with ``spare`` dropped;
 - ``pixel_scrambles`` — the (R, 6) scramble words of the lowdiscrepancy
   camera sample, from sample 0's pixel key (sampler.py:122-127, :43-44).
 
 There is no Pallas original: XLA computes threefry for the JAX package.
 Threefry's 20 rounds in torch ops are about a hundred small launches per
-call; the kernel is one.
+call, and the camera columns about 430 more; each kernel is one.
 """
 
 from __future__ import annotations
 
 import torch
 
+from pbrt_torch.core import sampling as smp
 from pbrt_torch.utils import native
 
 # Purpose constants (pbrt_tpu/core/rng.py:19-29)
@@ -63,6 +66,8 @@ BATCHED = 15
 PER_BOUNCE_DRAWN = 8
 PER_BOUNCE_USED = 7
 N_SCRAMBLES = 6
+#: camera columns that lead the primary-sample array
+CAMERA_DIMS = 5
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -161,6 +166,13 @@ def bounce_uniforms_plain(root, pixel_index, sample: int, max_depth: int):
     return _to_uniform(_bits_at(keys, cols))
 
 
+def primary_uniforms_plain(root, pixel_index, scrambles, sample: int, max_depth: int):
+    """(R,) pixel indices and their (R, 6) scramble words → the wave's
+    (R, 5 + 7·max_depth) primary-sample array of sample ``sample``."""
+    return torch.cat([smp.camera_uniforms(sample, scrambles),
+                      bounce_uniforms_plain(root, pixel_index, sample, max_depth)], -1)
+
+
 def pixel_scrambles_plain(root, pixel_index):
     """(R,) pixel indices → (R, 6) int64 scramble words (sample 0's key)."""
     keys = pixel_sample_key(root.to(pixel_index.device), pixel_index, 0)
@@ -172,31 +184,41 @@ def pixel_scrambles_plain(root, pixel_index):
 # ---------------------------------------------------------------------------
 
 
-def _launch_args(root, pixel_index):
-    """Checks the inputs of a keyed kernel → (k0, k1, R, library, stream)."""
+def _launch_args(root, pixel_index, row_width: int):
+    """Checks the inputs of a keyed kernel that writes ``row_width`` values
+    per lane → (k0, k1, R, library, stream). The kernels index in 32 bits,
+    and both touch the 6 scramble words of each lane."""
     if tuple(root.shape) != (2,):
         raise ValueError(f"root: shape {tuple(root.shape)}, expected (2,)")
     R = pixel_index.shape[0]
     native.check_tensor("pixel_index", pixel_index, torch.int64, (R,), pixel_index.device)
+    if R * max(row_width, N_SCRAMBLES) >= 2**31:
+        raise ValueError(f"{R} lanes of {row_width} values: over the kernels' 32-bit index")
     k0, k1 = (int(v) & _M32 for v in root.tolist())
     stream = torch.cuda.current_stream(pixel_index.device).cuda_stream
     return k0, k1, R, native.kernel_lib("rng.cu"), stream
 
 
-def bounce_uniforms(root, pixel_index, sample: int, max_depth: int):
-    """The bounce block; see ``bounce_uniforms_plain`` for the contract."""
+def primary_uniforms(root, pixel_index, scrambles, sample: int, max_depth: int):
+    """The primary-sample array; see ``primary_uniforms_plain`` for the
+    contract."""
     if pixel_index.device.type == "cpu":
-        return bounce_uniforms_plain(root, pixel_index, sample, max_depth)
+        return primary_uniforms_plain(root, pixel_index, scrambles, sample, max_depth)
     if pixel_index.device.type != "cuda":
-        raise ValueError(f"bounce_uniforms: unsupported device {pixel_index.device}")
-    k0, k1, R, lib, stream = _launch_args(root, pixel_index)
-    out = torch.empty((R, PER_BOUNCE_USED * max_depth), dtype=torch.float32,
-                      device=pixel_index.device)
-    if out.numel() == 0:
+        raise ValueError(f"primary_uniforms: unsupported device {pixel_index.device}")
+    depth = int(max_depth)
+    if depth < 0:
+        raise ValueError(f"max_depth: {depth}, expected >= 0")
+    width = CAMERA_DIMS + PER_BOUNCE_USED * depth
+    k0, k1, R, lib, stream = _launch_args(root, pixel_index, width)
+    native.check_tensor("scrambles", scrambles, torch.int64, (R, N_SCRAMBLES),
+                        pixel_index.device)
+    out = torch.empty((R, width), dtype=torch.float32, device=pixel_index.device)
+    if R == 0:
         return out
     native.check_launch(lib.pbrt_torch_keyed_uniforms(
-        k0, k1, pixel_index.data_ptr(), R, int(sample) & _M32, int(max_depth),
-        out.data_ptr(), stream), "keyed_uniforms launch")
+        k0, k1, pixel_index.data_ptr(), scrambles.data_ptr(), R, int(sample) & _M32,
+        depth, out.data_ptr(), stream), "keyed_uniforms launch")
     launches["keyed_uniforms"] += 1
     return out
 
@@ -207,7 +229,7 @@ def pixel_scrambles(root, pixel_index):
         return pixel_scrambles_plain(root, pixel_index)
     if pixel_index.device.type != "cuda":
         raise ValueError(f"pixel_scrambles: unsupported device {pixel_index.device}")
-    k0, k1, R, lib, stream = _launch_args(root, pixel_index)
+    k0, k1, R, lib, stream = _launch_args(root, pixel_index, N_SCRAMBLES)
     out = torch.empty((R, N_SCRAMBLES), dtype=torch.int64, device=pixel_index.device)
     if R == 0:
         return out

@@ -118,10 +118,9 @@ def reverse_bits32(n: torch.Tensor) -> torch.Tensor:
 
 
 def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
-    # uint32 → float32 rounds to nearest; the product is rounded to float32
-    f = bits.to(torch.float32) * torch.tensor(
-        _INV_2_32, dtype=torch.float32, device=bits.device)
-    return torch.clamp(f, max=ONE_MINUS_EPS)
+    # uint32 → float32 rounds to nearest; 2**-32 is exact in float32, so the
+    # product (with the Python scalar taken as float32) is exact
+    return torch.clamp(bits.to(torch.float32) * _INV_2_32, max=ONE_MINUS_EPS)
 
 
 def van_der_corput(n: torch.Tensor, scramble: torch.Tensor) -> torch.Tensor:
@@ -145,3 +144,15 @@ def sample02(n: torch.Tensor, scramble2: torch.Tensor) -> torch.Tensor:
     """(0,2)-sequence sample n with two scramble words (..., 2) → (..., 2)."""
     return torch.stack([van_der_corput(n, scramble2[..., 0]),
                         sobol2(n, scramble2[..., 1])], -1)
+
+
+def camera_uniforms(sample_idx: int, scrambles: torch.Tensor) -> torch.Tensor:
+    """(R, 5) lowdiscrepancy camera sample n of each pixel from its (R, 6)
+    scramble words: image (0,2) pair, lens (0,2) pair, van der Corput time
+    (pbrt_tpu/renderers/sampler.py:41-48)."""
+    n = torch.full(scrambles.shape[:1], int(sample_idx), dtype=torch.int64,
+                   device=scrambles.device)
+    img = sample02(n, scrambles[:, 0:2])
+    lens = sample02(n, scrambles[:, 2:4])
+    tim = van_der_corput(n, scrambles[:, 4])
+    return torch.cat([img, lens, tim[:, None]], -1)

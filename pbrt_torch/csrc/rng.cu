@@ -1,41 +1,66 @@
-// Keyed uniforms on Hopper: threefry-2x32 keys from (pixel, sample, purpose)
-// and the render's two arrays of keyed numbers, bit-exact to jax.random.
+// Keyed numbers on Hopper: threefry-2x32 keys from (pixel, sample, purpose)
+// and the render's two arrays of keyed numbers, bit-exact to jax.random and
+// to the JAX package's lowdiscrepancy sampler.
 //
-// Replaces: no Pallas kernel. XLA computes threefry for the JAX package,
-// in BatchedKeySource (pbrt_tpu/integrators/path.py:115-120: one key per
-// path, 8 uniforms per bounce) and in the lowdiscrepancy sampler's
-// scrambles (pbrt_tpu/renderers/sampler.py:43-44, :122-127). The port's
-// plain version is pbrt_torch/core/rng.py; its docstring gives the jax
+// Replaces: no Pallas kernel. XLA computes these for the JAX package:
+//   keyed_uniforms  — a wave's (R, 5 + 7·D) primary-sample array: the
+//                     lowdiscrepancy camera sample from the pixel's scramble
+//                     words (pbrt_tpu/renderers/sampler.py:41-48), then
+//                     BatchedKeySource's bounce uniforms
+//                     (pbrt_tpu/integrators/path.py:115-120: key (pixel,
+//                     sample, tag 15), 8 per bounce, the 8th, "spare",
+//                     never read);
+//   keyed_scrambles — the 6 scramble words per pixel from sample 0's key,
+//                     tag 0 (CAMERA) (pbrt_tpu/renderers/sampler.py:43-44,
+//                     :122-127), written as int64 (the port's uint32 holder).
+// The port's plain versions are pbrt_torch/core/rng.py and
+// core/sampling.py:camera_uniforms; rng.py's docstring gives the jax
 // semantics each step follows (fold_in = threefry(key, (0, data)); bits[i]
 // = y0 ^ y1 of threefry(key, (0, i)); uniform = ((bits >> 9) | 0x3F800000)
 // as float, minus 1).
 //
-// Two entry points:
-//   keyed_uniforms  — one thread per (lane, bounce): three fold_ins give the
-//                     path's batched key (pixel, sample, tag 15), then 7 of
-//                     the bounce's 8 counters (the 8th, "spare", is never
-//                     read) give 7 floats of the (R, 7*D) bounce block;
-//   keyed_scrambles — one thread per lane: sample 0's key, tag 0 (CAMERA),
-//                     6 words written as int64 (the port's uint32 holder).
+// What bounds it on this card: integer operations. One hash is 20 rounds of
+// add, rotate, xor plus 11 key-injection adds, about 72 SASS instructions
+// (20 SHF, 20 LOP3, the adds mostly IMAD.IADD on the FMA pipe); a lane of
+// keyed_uniforms needs 38 at depth 5 (3 for its key, 35 uniforms), a lane
+// of keyed_scrambles 9. Bytes are few (8 + 48 in, 4·(5 + 7·D) out; 8 in,
+// 48 out). A 32,768-lane launch is 1,024 warps, 2 per scheduler: besides
+// the hashes, the load and 3-hash key chain at its start and the copy-out at
+// its end are latency that no other warp hides.
 //
-// What bounds it on this card: integer operations, at least 71 per threefry
-// hash (20 add/rotate/xor rounds, 11 key-injection adds), 10 hashes per
-// thread; the bytes (8 in, 28 out per thread) are few. Rotations are one
-// funnel shift each. Nothing is staged: each thread recomputes its path's
-// key (3 of its 10 hashes), which costs less than a second pass through
-// memory.
+// What the design does about it:
+//   keyed_uniforms  — one thread per lane (row) derives the lane's key once
+//                     and hashes its row's 7·D uniforms, a bounce's 7 hashes
+//                     unrolled so that several are in flight; the camera
+//                     columns are 5 xors with per-launch words (brev(n), the
+//                     Sobol' word of n). A warp writes its 32 rows into a
+//                     shared tile laid out as their block of out (row-major,
+//                     unpadded) and copies it out with 16-byte stores. Rows
+//                     wider than one tile (D > 8) go in passes of 8 bounces,
+//                     copied row by row. 32-bit index arithmetic; the
+//                     wrapper checks R·(5 + 7·D) < 2^31.
+//   keyed_scrambles — one thread per lane, 6 independent hashes after the
+//                     key; the block's words are staged in shared memory and
+//                     written out by consecutive threads as consecutive
+//                     16-byte pieces (two int64 words each).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kWarp = 32;
+constexpr int kWarps = 4;                  // warps per block
+constexpr int kThreads = kWarp * kWarps;
 constexpr int kDrawn = 8;     // uniforms drawn per bounce (BatchedKeySource)
 constexpr int kUsed = 7;      // the ones the path integrator reads
+constexpr int kCameraCols = 5;
 constexpr int kScrambles = 6;
+constexpr int kPassBounces = 8;            // bounces per tile pass
+
 constexpr uint32_t kBatchedTag = 15u;  // bounce 0 * 16 + reserved purpose 15
 constexpr uint32_t kCameraTag = 0u;    // bounce 0 * 16 + CAMERA
+constexpr uint32_t kOneMinusEps = 0x3F7FFFFFu;  // largest float below 1
 
 __device__ __forceinline__ void mix(uint32_t& x0, uint32_t& x1, int r) {
   x0 += x1;
@@ -77,39 +102,127 @@ __device__ __forceinline__ uint32_t bits_at(uint32_t k0, uint32_t k1,
   return x0 ^ x1;
 }
 
-__global__ void keyed_uniforms_kernel(uint32_t k0, uint32_t k1,
-                                      const long long* __restrict__ pixel,
-                                      int R, uint32_t sample, int D,
-                                      float* __restrict__ out) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<long long>(R) * D) return;
-  const int i = static_cast<int>(t / D);
-  const int b = static_cast<int>(t % D);
-  uint32_t a = k0, c = k1;
-  fold_in(a, c, static_cast<uint32_t>(pixel[i]));
-  fold_in(a, c, sample);
-  fold_in(a, c, kBatchedTag);
-  float* dst = out + static_cast<size_t>(i) * (kUsed * D) + b * kUsed;
+// jax.random.uniform's float from 32 bits
+__device__ __forceinline__ float uniform_from_bits(uint32_t r) {
+  return __uint_as_float((r >> 9) | 0x3F800000u) - 1.0f;
+}
+
+// sampling._bits_to_unit: round to nearest, times 2^-32 (exact), below 1
+__device__ __forceinline__ float unit_from_bits(uint32_t b) {
+  return fminf(__uint2float_rn(b) * 0x1p-32f, __uint_as_float(kOneMinusEps));
+}
+
+// sampling.sobol2 without its scramble: the xor of the direction words
+// v_0 = 2^31, v_{i+1} = v_i ^ (v_i >> 1) over the set bits of n (the words
+// fold to constants; n is the same for the whole launch)
+__device__ __forceinline__ uint32_t sobol2_word(uint32_t n) {
+  uint32_t s = 0u, v = 1u << 31;
 #pragma unroll
-  for (int j = 0; j < kUsed; ++j) {
-    const uint32_t r = bits_at(a, c, static_cast<uint32_t>(b * kDrawn + j));
-    dst[j] = __uint_as_float((r >> 9) | 0x3F800000u) - 1.0f;
+  for (int i = 0; i < 32; ++i) {
+    if ((n >> i) & 1u) s ^= v;
+    v ^= v >> 1;
+  }
+  return s;
+}
+
+// a warp tile's columns: the widest pass's (the first)
+__host__ __device__ constexpr unsigned tile_cols(int D) {
+  return kCameraCols + kUsed * (D < kPassBounces ? D : kPassBounces);
+}
+
+__global__ void __launch_bounds__(kThreads)
+keyed_uniforms_kernel(uint32_t k0, uint32_t k1,
+                      const long long* __restrict__ pixel,
+                      const long long* __restrict__ scrambles, int R,
+                      uint32_t sample, int D, float* __restrict__ out) {
+  extern __shared__ float4 tiles[];  // kWarps tiles of kWarp × tile_cols(D) floats
+  const unsigned lane = threadIdx.x % kWarp;
+  const unsigned warp = threadIdx.x / kWarp;
+  const unsigned base = (blockIdx.x * kWarps + warp) * kWarp;  // warp's first row
+  if (base >= static_cast<unsigned>(R)) return;  // the whole warp
+  const unsigned rows = min(static_cast<unsigned>(R) - base, static_cast<unsigned>(kWarp));
+  const unsigned row = base + lane;
+  const bool live = lane < rows;
+  const unsigned width = kCameraCols + kUsed * D;
+  float* tile = reinterpret_cast<float*>(tiles) + warp * kWarp * tile_cols(D);
+
+  uint32_t a = k0, c = k1;
+  uint32_t scr[kCameraCols];
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < kCameraCols; ++j)
+      scr[j] = static_cast<uint32_t>(scrambles[row * kScrambles + j]);
+    fold_in(a, c, static_cast<uint32_t>(pixel[row]));
+    fold_in(a, c, sample);
+    fold_in(a, c, kBatchedTag);
+  }
+
+  const int passes = D > 0 ? (D + kPassBounces - 1) / kPassBounces : 1;
+  for (int p = 0; p < passes; ++p) {
+    const int b0 = p * kPassBounces;
+    const int nb = min(D - b0, kPassBounces);
+    const unsigned cam = p == 0 ? kCameraCols : 0;
+    const unsigned cols = cam + kUsed * nb;          // this pass's columns
+    const unsigned col0 = p == 0 ? 0 : kCameraCols + kUsed * b0;
+    float* mine = tile + lane * cols;  // the tile is the rows' block, row-major
+    if (live) {
+      if (cam) {  // camera_uniforms: image (0,2), lens (0,2), time
+        const uint32_t vdc = __brev(sample), sob = sobol2_word(sample);
+        mine[0] = unit_from_bits(vdc ^ scr[0]);
+        mine[1] = unit_from_bits(sob ^ scr[1]);
+        mine[2] = unit_from_bits(vdc ^ scr[2]);
+        mine[3] = unit_from_bits(sob ^ scr[3]);
+        mine[4] = unit_from_bits(vdc ^ scr[4]);
+      }
+      for (int b = 0; b < nb; ++b) {
+        const uint32_t ctr = static_cast<uint32_t>((b0 + b) * kDrawn);
+        float* dst = mine + cam + b * kUsed;
+#pragma unroll
+        for (int j = 0; j < kUsed; ++j)
+          dst[j] = uniform_from_bits(bits_at(a, c, ctr + j));
+      }
+    }
+    __syncwarp();
+    if (cols == width) {  // one pass: the tile is the rows' block of out
+      const unsigned n = rows * cols;
+      float* dst = out + base * width;  // 16-byte aligned: base is a multiple of 32
+      for (unsigned i = lane; i < n / 4; i += kWarp)
+        reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(tile)[i];
+      for (unsigned i = n / 4 * 4 + lane; i < n; i += kWarp) dst[i] = tile[i];
+    } else {
+      for (unsigned r = 0; r < rows; ++r)
+        for (unsigned q = lane; q < cols; q += kWarp)
+          out[(base + r) * width + col0 + q] = tile[r * cols + q];
+    }
+    __syncwarp();
   }
 }
 
-__global__ void keyed_scrambles_kernel(uint32_t k0, uint32_t k1,
-                                       const long long* __restrict__ pixel,
-                                       int R, long long* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= R) return;
-  uint32_t a = k0, c = k1;
-  fold_in(a, c, static_cast<uint32_t>(pixel[i]));
-  fold_in(a, c, 0u);  // sample 0: scrambles are per pixel
-  fold_in(a, c, kCameraTag);
+__global__ void __launch_bounds__(kThreads)
+keyed_scrambles_kernel(uint32_t k0, uint32_t k1,
+                       const long long* __restrict__ pixel, int R,
+                       long long* __restrict__ out) {
+  __shared__ __align__(16) uint32_t words[kThreads * kScrambles];
+  const unsigned first = blockIdx.x * kThreads;
+  const unsigned rows = min(static_cast<unsigned>(R) - first, static_cast<unsigned>(kThreads));
+  if (threadIdx.x < rows) {
+    uint32_t a = k0, c = k1;
+    fold_in(a, c, static_cast<uint32_t>(pixel[first + threadIdx.x]));
+    fold_in(a, c, 0u);  // sample 0: scrambles are per pixel
+    fold_in(a, c, kCameraTag);
 #pragma unroll
-  for (int j = 0; j < kScrambles; ++j)
-    out[static_cast<size_t>(i) * kScrambles + j] =
-        static_cast<long long>(bits_at(a, c, static_cast<uint32_t>(j)));
+    for (int j = 0; j < kScrambles; ++j)
+      words[threadIdx.x * kScrambles + j] = bits_at(a, c, static_cast<uint32_t>(j));
+  }
+  __syncthreads();
+  // the block's rows × 6 words, contiguous in out: piece p holds words 2p
+  // and 2p + 1, each widened to int64 (high word 0)
+  const uint2* pairs = reinterpret_cast<const uint2*>(words);
+  uint4* dst = reinterpret_cast<uint4*>(out + first * kScrambles);
+  for (unsigned p = threadIdx.x; p < rows * (kScrambles / 2); p += kThreads) {
+    const uint2 w = pairs[p];
+    dst[p] = make_uint4(w.x, 0u, w.y, 0u);
+  }
 }
 
 }  // namespace
@@ -117,21 +230,20 @@ __global__ void keyed_scrambles_kernel(uint32_t k0, uint32_t k1,
 extern "C" {
 
 int pbrt_torch_keyed_uniforms(uint32_t k0, uint32_t k1, const long long* pixel,
-                              int R, uint32_t sample, int max_depth,
-                              float* out, cudaStream_t stream) {
-  const long long n = static_cast<long long>(R) * max_depth;
-  if (n > 0)
-    keyed_uniforms_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads),
-                            kThreads, 0, stream>>>(k0, k1, pixel, R, sample,
-                                                   max_depth, out);
+                              const long long* scrambles, int R, uint32_t sample,
+                              int max_depth, float* out, cudaStream_t stream) {
+  if (R > 0)
+    keyed_uniforms_kernel<<<(R - 1) / kThreads + 1, kThreads,
+                            kThreads * tile_cols(max_depth) * sizeof(float), stream>>>(
+        k0, k1, pixel, scrambles, R, sample, max_depth, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 int pbrt_torch_keyed_scrambles(uint32_t k0, uint32_t k1, const long long* pixel,
                                int R, long long* out, cudaStream_t stream) {
   if (R > 0)
-    keyed_scrambles_kernel<<<(R + kThreads - 1) / kThreads, kThreads, 0,
-                             stream>>>(k0, k1, pixel, R, out);
+    keyed_scrambles_kernel<<<(R - 1) / kThreads + 1, kThreads, 0, stream>>>(
+        k0, k1, pixel, R, out);
   return static_cast<int>(cudaGetLastError());
 }
 

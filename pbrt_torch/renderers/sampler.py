@@ -11,10 +11,12 @@ filter-weighted sample.
 Randomness is keyed as in the JAX package (sampler.py:119-132, :316-346),
 by threefry from the seed and each pixel's index ``y · W + x`` in the
 film array (``core/rng.py``): six scramble words per pixel from sample 0's
-key, drawn once per render, and per wave and chunk the (R, 7·max_depth)
-bounce block of sample n's key. So a seed gives the JAX package's image,
-on the CPU and on the card, whatever ``chunk_pixels`` is. Padded tail lanes
-repeat the last pixel, and so its keys; their weight is 0.
+key, drawn once per render, and per wave and chunk the (R, 5 + 7·max_depth)
+primary-sample array (camera columns from the scrambles, then the bounce
+block of sample n's key), one kernel launch on the card. So a seed gives
+the JAX package's image, on the CPU and on the card, whatever
+``chunk_pixels`` is. Padded tail lanes repeat the last pixel, and so its
+keys; their weight is 0.
 """
 
 from __future__ import annotations
@@ -23,20 +25,8 @@ import numpy as np
 import torch
 
 from pbrt_torch.core import rng
-from pbrt_torch.core import sampling as smp
 from pbrt_torch.film import film as film_mod
 from pbrt_torch.integrators.path import trace_radiance
-
-
-def camera_uniforms(sample_idx: int, scrambles: torch.Tensor) -> torch.Tensor:
-    """(R, 5) lowdiscrepancy camera sample n of each pixel from its (R, 6)
-    scramble words: image (0,2) pair, lens (0,2) pair, van der Corput time."""
-    n = torch.full(scrambles.shape[:1], int(sample_idx), dtype=torch.int64,
-                   device=scrambles.device)
-    img = smp.sample02(n, scrambles[:, 0:2])
-    lens = smp.sample02(n, scrambles[:, 2:4])
-    tim = smp.van_der_corput(n, scrambles[:, 4])
-    return torch.cat([img, lens, tim[:, None]], -1)
 
 
 def render_wave(film_state, scene, camera, filter_table, pixel_x, pixel_y,
@@ -89,8 +79,7 @@ def render(built, spp=None, seed: int = 0, chunk_pixels: int | None = None):
     table = built.filter_table
     for s in range(spp):
         for c in range(n_chunks):
-            u_bounce = rng.bounce_uniforms(root, pix[c], s, icfg.max_depth)
-            u = torch.cat([camera_uniforms(s, scrambles[c]), u_bounce], -1)
+            u = rng.primary_uniforms(root, pix[c], scrambles[c], s, icfg.max_depth)
             render_wave(state, built.scene, built.camera, table, xs[c], ys[c],
                         icfg, cfg, u, sample_scale=mask[c])
     return state

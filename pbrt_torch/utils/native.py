@@ -51,7 +51,7 @@ KERNEL_ENTRIES = {
         "pbrt_torch_max_stack": [],
     },
     "rng.cu": {
-        "pbrt_torch_keyed_uniforms": [_u32, _u32, _vp, _ci, _u32, _ci, _vp, _vp],
+        "pbrt_torch_keyed_uniforms": [_u32, _u32, _vp, _vp, _ci, _u32, _ci, _vp, _vp],
         "pbrt_torch_keyed_scrambles": [_u32, _u32, _vp, _ci, _vp, _vp],
     },
     "gather_lab.cu": {

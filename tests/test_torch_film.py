@@ -23,9 +23,10 @@ from pbrt_tpu.renderers.sampler import render as j_render
 from pbrt_tpu.scene.api import load_scene_string as jload
 from pbrt_tpu.scene.builder import build as jbuild
 from pbrt_torch.core.filters import make_filter as t_make_filter
+from pbrt_torch.core.sampling import camera_uniforms
 from pbrt_torch.film import film as tfilm
 from pbrt_torch.interop import scene_from_numpy
-from pbrt_torch.renderers.sampler import camera_uniforms, render, render_wave
+from pbrt_torch.renderers.sampler import render, render_wave
 from pbrt_torch.scene.api import load_scene_string as tload
 from pbrt_torch.scene.builder import build as tbuild
 from torch_parity_util import jax_scene_arrays, tiny_scene_text

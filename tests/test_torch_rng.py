@@ -1,8 +1,14 @@
 """Parity of the port's threefry keys (``pbrt_torch/core/rng.py``) with
 ``jax.random`` and with the JAX package's keyed sampler arrays, bit for bit:
 root keys, ``fold_in``, ``bits``, ``uniform``, the per-path and per-bounce
-keys, the lowdiscrepancy scramble words and ``BatchedKeySource``'s bounce
-block as the port's 7-per-bounce ``PrimarySource`` columns."""
+keys, the lowdiscrepancy scramble words, and the wave's primary-sample
+array (the lowdiscrepancy camera columns, then ``BatchedKeySource``'s bounce
+block as the port's 7-per-bounce ``PrimarySource`` columns). The CUDA
+kernels (``csrc/rng.cu``) cannot run here: their constants are read from
+the source as text, and the index walk of their tile copy is replayed."""
+
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -12,8 +18,12 @@ import torch
 
 from pbrt_tpu.core import rng as jrng
 from pbrt_tpu.integrators.path import BatchedKeySource
+from pbrt_tpu.renderers.sampler import _sampler_uniforms
 from pbrt_torch.core import rng as trng
+from pbrt_torch.core import sampling as tsmp
 from pbrt_torch.interop import key_from_numpy
+
+SOURCE = pathlib.Path(trng.__file__).resolve().parent.parent / "csrc" / "rng.cu"
 
 #: pixel indices, including ones at and above 2**31 (uint32 wraparound)
 PIXELS = np.array([0, 1, 5, 63, 4095, 262143, 2**31 - 1, 2**31, 2**31 + 3,
@@ -108,15 +118,19 @@ def test_scrambles_match_jax_sampler():
 @pytest.mark.parametrize("depth,sample", [(1, 0), (5, 0), (5, 3), (4, 17)])
 def test_bounce_block_matches_batched_key_source(depth, sample):
     """``BatchedKeySource``'s (R, D, 8) uniforms (path.py:115-120) without
-    the spare column equal the port's (R, 7·D) bounce block."""
+    the spare column equal the bounce block of the port's primary-sample
+    array (its columns after the 5 camera columns)."""
     keys = jrng.pixel_sample_key(jrng.root_key(2), jnp.asarray(PIXELS.astype(np.uint32)),
                                  sample)
     ref = np.asarray(BatchedKeySource(keys, depth).u)[:, :, :7].reshape(len(PIXELS), -1)
+    pix = torch.as_tensor(PIXELS)
     before = dict(trng.launches)
-    out = trng.bounce_uniforms(trng.root_key(2), torch.as_tensor(PIXELS), sample, depth)
-    assert trng.launches == before  # CPU tensors take the plain version
-    assert out.shape == (len(PIXELS), 7 * depth) and out.dtype == torch.float32
-    _same_floats(out.numpy(), ref)
+    scr = trng.pixel_scrambles(trng.root_key(2), pix)
+    out = trng.primary_uniforms(trng.root_key(2), pix, scr, sample, depth)
+    assert trng.launches == before  # CPU tensors take the plain versions
+    assert out.shape == (len(PIXELS), 5 + 7 * depth) and out.dtype == torch.float32
+    _same_floats(out[:, 5:].numpy(), ref)
+    _same_floats(trng.bounce_uniforms_plain(trng.root_key(2), pix, sample, depth).numpy(), ref)
 
 
 def test_key_from_numpy():
@@ -126,3 +140,112 @@ def test_key_from_numpy():
         key_from_numpy(words.astype(np.int64))
     with pytest.raises(ValueError):
         key_from_numpy(np.zeros(3, np.uint32))
+
+
+@pytest.mark.parametrize("depth", [1, 4, 5])
+@pytest.mark.parametrize("sample", [0, 3, 2**31 + 1])
+def test_primary_array_matches_jax_sampler(sample, depth):
+    """The port's (R, 5 + 7·D) primary-sample array equals the JAX
+    package's lowdiscrepancy camera columns (sampler.py:30-48, keys as
+    :120-129) beside ``BatchedKeySource(keys, D).u[..., :7]``, pixel
+    indices at and above 2**31 included."""
+    root_j = jrng.root_key(13)
+    pix_j = jnp.asarray(PIXELS.astype(np.uint32))
+    pixel_keys = jrng.pixel_sample_key(root_j, pix_j, jnp.zeros_like(pix_j))
+    cam = _sampler_uniforms("lowdiscrepancy", pix_j, np.uint32(sample), pixel_keys, 1)
+    keys = jrng.pixel_sample_key(root_j, pix_j, np.uint32(sample))
+    bounce = np.asarray(BatchedKeySource(keys, depth).u)[:, :, :7].reshape(len(PIXELS), -1)
+    ref = np.concatenate([np.stack([np.asarray(c) for c in cam], -1), bounce], -1)
+    root, pix = trng.root_key(13), torch.as_tensor(PIXELS)
+    out = trng.primary_uniforms_plain(root, pix, trng.pixel_scrambles_plain(root, pix),
+                                      sample, depth)
+    assert out.shape == (len(PIXELS), 5 + 7 * depth)
+    _same_floats(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("sample", [0, 1, 3, 17, 2**31 + 1, 2**32 - 1])
+def test_camera_columns_as_the_kernel_forms_them(sample):
+    """The kernel's camera columns: van der Corput is ``brev(n) ^ s`` and
+    Sobol's second dimension ``S(n) ^ s``, with S(n) the xor of the
+    direction words over the set bits of n, both then ``_bits_to_unit``."""
+    scr = np.random.default_rng(sample % 1000).integers(0, 2**32, (64, 6), dtype=np.uint64)
+    scr = torch.as_tensor(scr.astype(np.int64))
+    n = sample & 0xFFFFFFFF
+    brev = int(f"{n:032b}"[::-1], 2)
+    sob, v = 0, 1 << 31
+    for i in range(32):
+        sob ^= v if (n >> i) & 1 else 0
+        v ^= v >> 1
+    words = torch.stack([scr[:, 0] ^ brev, scr[:, 1] ^ sob, scr[:, 2] ^ brev,
+                         scr[:, 3] ^ sob, scr[:, 4] ^ brev], -1)
+    _same_floats(tsmp.camera_uniforms(sample, scr).numpy(),
+                 tsmp._bits_to_unit(words).numpy())
+
+
+def _kernel_writes(R, depth, warp=32, pass_bounces=8, cam=5, used=7):
+    """Replays keyed_uniforms_kernel's tile passes and copy-out (the index
+    walk of ``rng.cu``) → how often each output element is written and the
+    (row, column) of the tile element it gets."""
+    width = cam + used * depth
+    tile_cols = cam + used * min(depth, pass_bounces)
+    hits = np.zeros(R * width, np.int64)
+    src = np.full(R * width, -1, np.int64)
+    passes = -(-depth // pass_bounces) if depth > 0 else 1
+    for base in range(0, R, warp):
+        rows = min(R - base, warp)
+        for p in range(passes):
+            b0 = p * pass_bounces
+            cols = (cam if p == 0 else 0) + used * min(depth - b0, pass_bounces)
+            col0 = 0 if p == 0 else cam + used * b0
+            assert cols <= tile_cols
+            tile = [(base + r) * 10_000 + col0 + q for r in range(rows) for q in range(cols)]
+            if cols == width:  # the tile is the rows' block of out
+                writes = [(base * width + i, tile[i]) for i in range(rows * cols)]
+            else:
+                writes = [((base + r) * width + col0 + q, tile[r * cols + q])
+                          for r in range(rows) for q in range(cols)]
+            for o, v in writes:
+                hits[o] += 1
+                src[o] = v
+    return hits, src, width
+
+
+@pytest.mark.parametrize("R,depth", [(1, 5), (7, 1), (33, 5), (70, 4), (40, 0),
+                                     (37, 8), (65, 9), (3, 17)])
+def test_kernel_tile_copy_covers_the_array_once(R, depth):
+    """Every element of the (R, 5 + 7·D) array is written exactly once, by
+    the tile element of its own row and column: ragged warps, one-pass
+    (D <= 8) and several-pass rows, and D = 0 (camera columns only)."""
+    hits, src, width = _kernel_writes(R, depth)
+    assert (hits == 1).all()
+    rows, cols = np.divmod(np.arange(R * width), width)
+    np.testing.assert_array_equal(src, rows * 10_000 + cols)
+
+
+def _cu_int(name):
+    m = re.search(rf"constexpr\s+\w+\s+{name}\s*=\s*(0x[0-9A-Fa-f]+|\d+)u?;", SOURCE.read_text())
+    assert m, f"{name} not found in rng.cu"
+    return int(m.group(1), 0)
+
+
+def test_kernel_constants_are_the_plain_versions():
+    """rng.cu's rotation schedule, key-schedule constant, tags, camera and
+    per-bounce layout and float clamp, read from the source as text, are
+    ``core/rng.py``'s and ``core/sampling.py``'s."""
+    text = SOURCE.read_text()
+    body = re.search(r"void threefry2x32\(.*?\n}\n", text, re.S).group(0)
+    rots = [int(r) for r in re.findall(r"mix\(x0, x1, (\d+)\)", body)]
+    assert rots == [r for g in range(5) for r in trng._ROT[g % 2]]
+    assert "0x1BD11BDAu" in body
+    injections = re.findall(r"x0 \+= (k\d); x1 \+= (k\d) \+ (\d)u;", body)
+    assert injections == [(f"k{(g + 1) % 3}", f"k{(g + 2) % 3}", str(g + 1)) for g in range(5)]
+    assert _cu_int("kBatchedTag") == 0 * 16 + trng.BATCHED == 15
+    assert _cu_int("kCameraTag") == 0 * 16 + trng.CAMERA == 0
+    assert _cu_int("kDrawn") == trng.PER_BOUNCE_DRAWN == 8
+    assert _cu_int("kUsed") == trng.PER_BOUNCE_USED == 7
+    assert _cu_int("kScrambles") == trng.N_SCRAMBLES
+    assert _cu_int("kCameraCols") == trng.CAMERA_DIMS
+    one_minus_eps = np.float32(tsmp.ONE_MINUS_EPS).view(np.uint32)
+    assert _cu_int("kOneMinusEps") == int(one_minus_eps)
+    assert re.search(r"__global__ void __launch_bounds__\(kThreads\)\s+keyed_uniforms_kernel\(", text)
+    assert re.search(r"__global__ void __launch_bounds__\(kThreads\)\s+keyed_scrambles_kernel\(", text)
