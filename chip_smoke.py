@@ -68,6 +68,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 
@@ -752,32 +753,19 @@ def main() -> int:
     warm = render(built, spp=1, seed=0, chunk_pixels=CHUNK)
     sync()
     del warm
-    # the sampler's torch path, counted where every camera column would pass
-    sampler_calls = {"camera_uniforms": 0, "_bits_to_unit": 0}
-
-    def counted(name):
-        fn = getattr(smp, name)
-
-        def wrapper(*args, **kwargs):
-            sampler_calls[name] += 1
-            return fn(*args, **kwargs)
-        return fn, wrapper
-
-    saved = {}
-    for name_ in sampler_calls:
-        saved[name_], wrapped = counted(name_)
-        setattr(smp, name_, wrapped)
     tc.reset_launches()
     rng.reset_launches()
     isect.calls["intersect"] = 0
     spp = 4
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    film = render(built, spp=spp, seed=0, chunk_pixels=CHUNK)
-    b.record()
-    sync()
-    for name_, fn in saved.items():
-        setattr(smp, name_, fn)
+    # the sampler's torch path, counted where every camera column would pass
+    with mock.patch.object(smp, "camera_uniforms", wraps=smp.camera_uniforms) as cu, \
+            mock.patch.object(smp, "_bits_to_unit", wraps=smp._bits_to_unit) as bu:
+        a.record()
+        film = render(built, spp=spp, seed=0, chunk_pixels=CHUNK)
+        b.record()
+        sync()
+    sampler_calls = {"camera_uniforms": cu.call_count, "_bits_to_unit": bu.call_count}
     launches = {**tc.launches, **rng.launches}
     n_calls = isect.calls["intersect"]
     sec = a.elapsed_time(b) / 1e3

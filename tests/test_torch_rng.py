@@ -5,7 +5,8 @@ keys, the lowdiscrepancy scramble words, and the wave's primary-sample
 array (the lowdiscrepancy camera columns, then ``BatchedKeySource``'s bounce
 block as the port's 7-per-bounce ``PrimarySource`` columns). The CUDA
 kernels (``csrc/rng.cu``) cannot run here: their constants are read from
-the source as text, and the index walk of their tile copy is replayed."""
+the source as text, and their camera-column formulation is held to the
+plain version's."""
 
 import pathlib
 import re
@@ -180,46 +181,6 @@ def test_camera_columns_as_the_kernel_forms_them(sample):
                          scr[:, 3] ^ sob, scr[:, 4] ^ brev], -1)
     _same_floats(tsmp.camera_uniforms(sample, scr).numpy(),
                  tsmp._bits_to_unit(words).numpy())
-
-
-def _kernel_writes(R, depth, warp=32, pass_bounces=8, cam=5, used=7):
-    """Replays keyed_uniforms_kernel's tile passes and copy-out (the index
-    walk of ``rng.cu``) → how often each output element is written and the
-    (row, column) of the tile element it gets."""
-    width = cam + used * depth
-    tile_cols = cam + used * min(depth, pass_bounces)
-    hits = np.zeros(R * width, np.int64)
-    src = np.full(R * width, -1, np.int64)
-    passes = -(-depth // pass_bounces) if depth > 0 else 1
-    for base in range(0, R, warp):
-        rows = min(R - base, warp)
-        for p in range(passes):
-            b0 = p * pass_bounces
-            cols = (cam if p == 0 else 0) + used * min(depth - b0, pass_bounces)
-            col0 = 0 if p == 0 else cam + used * b0
-            assert cols <= tile_cols
-            tile = [(base + r) * 10_000 + col0 + q for r in range(rows) for q in range(cols)]
-            if cols == width:  # the tile is the rows' block of out
-                writes = [(base * width + i, tile[i]) for i in range(rows * cols)]
-            else:
-                writes = [((base + r) * width + col0 + q, tile[r * cols + q])
-                          for r in range(rows) for q in range(cols)]
-            for o, v in writes:
-                hits[o] += 1
-                src[o] = v
-    return hits, src, width
-
-
-@pytest.mark.parametrize("R,depth", [(1, 5), (7, 1), (33, 5), (70, 4), (40, 0),
-                                     (37, 8), (65, 9), (3, 17)])
-def test_kernel_tile_copy_covers_the_array_once(R, depth):
-    """Every element of the (R, 5 + 7·D) array is written exactly once, by
-    the tile element of its own row and column: ragged warps, one-pass
-    (D <= 8) and several-pass rows, and D = 0 (camera columns only)."""
-    hits, src, width = _kernel_writes(R, depth)
-    assert (hits == 1).all()
-    rows, cols = np.divmod(np.arange(R * width), width)
-    np.testing.assert_array_equal(src, rows * 10_000 + cols)
 
 
 def _cu_int(name):
