@@ -22,8 +22,8 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    frame's middle, then their first bounces in the same order), each with
    the plain version's steps per lane and per warp. Every kernel time in
    the script is CUDA events around back-to-back wrapper calls enqueued
-   behind a spin kernel (``queued_ms``), so the device never waits on the
-   host;
+   behind a spin kernel (``timing.queued_ms``), so the device never waits
+   on the host;
 4. rng — the keyed-uniform kernel (the wave's whole primary-sample array,
    camera columns and bounce block, depth 5) and the scramble kernel
    against their plain versions on 1,048,576 lanes, bit for bit, for
@@ -35,8 +35,11 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    ``render(seed=...)`` on both (keyed by threefry), with the card's
    render at two chunk widths;
 6. gather lab — its kernel against its plain version at the lab's shapes,
-   bit for bit; then the lab's own path (``gather_lab.main()``) with its
-   launch counter set to 0 just before and read just after;
+   bit for bit, then on 1 to 32,768 lanes of 7-, 64- and 16,384-row tables
+   with start indices outside the table at lanes 0, 31 and the last; then
+   the lab's own path (``gather_lab.main()``: the kernel's time in 5 rounds,
+   the bound and the L2 read ceiling) with its launch counters set to 0
+   just before and read just after;
 7. render — the main path: ``load_scene_string`` → ``build`` → ``render``
    at 512², path depth 5, 32 bins, 32,768-lane chunks, lowdiscrepancy,
    box filter; one warm-up sample, then 4 timed samples (CUDA events),
@@ -92,11 +95,9 @@ LANE_BYTES_STEP = 36 + 8 + 2 + 32 + 20
 #: fields of 8 floats (6 bounds and the refs), a leaf step all 10
 NODE_ROW_BYTES = 7 * 8 * 4
 LEAF_ROW_BYTES = 10 * 8 * 4
-#: cycles of the spin kernel the timed launches are enqueued behind
-#: (~10 ms at 1.98 GHz)
-SPIN_CYCLES = 20_000_000
 RNG_DEPTH = 5
-#: rounds of queued_ms for the keyed kernels (median, min–max)
+#: rounds of queued_ms for the keyed kernels (median, min–max; the gather
+#: lab's main() takes as many)
 RNG_ROUNDS = 5
 #: pixel indices at and above 2**31 (uint32 wraparound), as the CPU tests'
 PIXELS_WRAP = (0, 1, 5, 63, 4095, 262143, 2**31 - 1, 2**31, 2**31 + 3, 2**32 - 1)
@@ -272,34 +273,6 @@ def step_summary(steps, ms=None):
     return out
 
 
-def queued_ms(fn, n: int = 50, warm: int = 5):
-    """(ms per call of ``fn`` by CUDA events around ``n`` back-to-back
-    calls, the host's ms to enqueue one call). The calls are enqueued
-    behind a spin kernel that outlasts their enqueueing, so the device runs
-    them without waiting on the host, even where a launch is shorter than
-    its enqueueing; raises if the host took longer than the spin."""
-    import torch
-
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    t_host = time.perf_counter()
-    ev[0].record()
-    torch.cuda._sleep(SPIN_CYCLES)
-    ev[1].record()
-    for _ in range(n):
-        fn()
-    t_host = (time.perf_counter() - t_host) * 1e3
-    ev[2].record()
-    torch.cuda.synchronize()
-    spin_ms = ev[0].elapsed_time(ev[1])
-    if t_host >= spin_ms:
-        raise SystemExit(f"queued_ms: the host took {t_host:.3f} ms to enqueue "
-                         f"{n} calls, longer than the {spin_ms:.3f} ms spin")
-    return ev[1].elapsed_time(ev[2]) / n, t_host / n
-
-
 def sass_per_hash(lib_path: str):
     """{kernel: (instructions, hashes, {opcode: count per hash})} of the
     keyed kernels in a library's SASS (cuobjdump, beside nvcc). Each
@@ -357,7 +330,7 @@ def main() -> int:
     from pbrt_torch.scene.builder import build
     from pbrt_torch.scripts import gather_lab as gl
     from pbrt_torch.utils import native, timing
-    from pbrt_torch.utils.timing import cuda_ms
+    from pbrt_torch.utils.timing import cuda_ms, queued_ms
 
     dev = torch.device("cuda", 0)
     sync = torch.cuda.synchronize
@@ -669,11 +642,10 @@ def main() -> int:
     scr_c = scr_all[:CHUNK].contiguous()
     # a keyed launch takes microseconds, less than its enqueueing: the
     # spin that queued_ms enqueues the calls behind keeps the host out
-    ku_r = [queued_ms(lambda: rng.primary_uniforms(root, pix_c, scr_c, 1, RNG_DEPTH))
-            for _ in range(RNG_ROUNDS)]
-    ks_r = [queued_ms(lambda: rng.pixel_scrambles(root, pix_f)) for _ in range(RNG_ROUNDS)]
-    ku_ms, ks_ms = (float(np.median([x[0] for x in r])) for r in (ku_r, ks_r))
-    ku_host, ks_host = (float(np.median([x[1] for x in r])) for r in (ku_r, ks_r))
+    ku_t = timing.queued_rounds(
+        lambda: rng.primary_uniforms(root, pix_c, scr_c, 1, RNG_DEPTH), RNG_ROUNDS)
+    ks_t = timing.queued_rounds(lambda: rng.pixel_scrambles(root, pix_f), RNG_ROUNDS)
+    ku_ms, ks_ms = ku_t["ms"], ks_t["ms"]
     ku_plain = cuda_ms(lambda: rng.primary_uniforms_plain(root, pix_c, scr_c, 1, RNG_DEPTH),
                        n=5, warm=1)
     ks_plain = cuda_ms(lambda: rng.pixel_scrambles_plain(root, pix_f), n=5, warm=1)
@@ -685,14 +657,14 @@ def main() -> int:
         i32_ops=CHUNK * (OPS_LANE_KEY + n_u * OPS_PER_UNIFORM + OPS_CAMERA_I32))
     ks_bound, ks_by = timing.bound_ms(
         n_pix * (8 + 6 * 8), i32_ops=n_pix * (OPS_LANE_KEY + 6 * OPS_PER_SCRAMBLE))
-    spread = lambda r: f"{min(x[0] for x in r):.5f}–{max(x[0] for x in r):.5f}"
+    spread = lambda t: f"{t['min']:.5f}–{t['max']:.5f}"
     log("timing", f"keyed_uniforms (primary-sample array) on {CHUNK} lanes, depth "
-        f"{RNG_DEPTH}: median {ku_ms:.5f} ms over {RNG_ROUNDS} rounds ({spread(ku_r)}; plain "
-        f"{ku_plain:.3f} ms, host enqueue {ku_host:.4f} ms); bound {ku_bound:.5f} ms "
+        f"{RNG_DEPTH}: median {ku_ms:.5f} ms over {RNG_ROUNDS} rounds ({spread(ku_t)}; plain "
+        f"{ku_plain:.3f} ms, host enqueue {ku_t['host_ms']:.4f} ms); bound {ku_bound:.5f} ms "
         f"({ku_by}), kernel / bound {ku_ms / ku_bound:.2f}x")
     log("timing", f"keyed_scrambles on {n_pix} lanes: median {ks_ms:.5f} ms over "
-        f"{RNG_ROUNDS} rounds ({spread(ks_r)}; plain {ks_plain:.3f} ms, host enqueue "
-        f"{ks_host:.4f} ms); bound {ks_bound:.5f} ms ({ks_by}), kernel / bound "
+        f"{RNG_ROUNDS} rounds ({spread(ks_t)}; plain {ks_plain:.3f} ms, host enqueue "
+        f"{ks_t['host_ms']:.4f} ms); bound {ks_bound:.5f} ms ({ks_by}), kernel / bound "
         f"{ks_ms / ks_bound:.2f}x")
 
     # ---- 5. small reference: card vs CPU --------------------------------
@@ -742,12 +714,25 @@ def main() -> int:
         f"sum {float(kg.double().sum()):.9g}")
     if not (lab_eq and bool(torch.isfinite(kg).all())):
         raise SystemExit("gather lab kernel disagrees with its plain version")
+    n_cases = 0
+    for n, r, args in gl.check_cases(dev):
+        kc_, pc_ = gl.gather_lab(*args), gl.gather_lab_plain(*args)
+        if not (torch.equal(kc_.view(torch.int32), pc_.view(torch.int32))
+                and torch.equal(torch.isnan(kc_), args[1].lt(0) | args[1].ge(n))):
+            raise SystemExit(f"gather lab kernel disagrees with its plain version on "
+                             f"{r} lanes of a {n}-row table")
+        n_cases += 1
+    sync()
+    log("gather_lab", f"kernel vs plain on {n_cases} cases ({gl.CHECK_R} lanes x "
+        f"{gl.CHECK_N}-row tables, start indices outside [0, N) at lanes 0, 31 and the "
+        f"last): equal bit for bit, NaN exactly there")
     gl.reset_launches()
     lab = gl.main()
     lab_launches = gl.launches["gather_lab"]
-    log("gather_lab", f"the lab's path launched the kernel {lab_launches} times")
-    if lab_launches == 0:
-        raise SystemExit("the gather lab's path did not launch its kernel")
+    log("gather_lab", f"the lab's path launched the kernel {lab_launches} times and the "
+        f"L2 read kernel {gl.launches['l2_read']} times")
+    if lab_launches == 0 or gl.launches["l2_read"] == 0:
+        raise SystemExit("the gather lab's path did not launch its kernels")
 
     # ---- 7. the main path -------------------------------------------------
     warm = render(built, spp=1, seed=0, chunk_pixels=CHUNK)

@@ -22,16 +22,30 @@
 // maximum, and the kernel equals its plain version bit for bit.
 //
 // What bounds it on this card: the table (16,384 rows x 80 floats, 5 MiB)
-// cannot sit in one block's shared memory (227 KB) but stays in the 50 MB
-// L2, so each round is 12 scattered 16-byte L2 reads per lane. The design
-// uses what sets the lab apart from the traversal: the row indices depend
-// only on idx (the LCG), never on loaded data, so a thread computes all 8
-// indices first and the source issues each row's float4 loads kDepth rows
-// ahead of the math that reads them. In the traversal each row index comes
-// out of the previous row's math, so there every step waits a full L2
-// round trip. One thread per lane, no shared memory. ptxas schedules the
-// loads itself (78 registers, no spills: it does not hold all kDepth rows
-// at once); PERF.md has the measured time.
+// stays in the 50 MB L2, so a launch moves 32,768 lanes x 8 rounds x 192 B
+// = 50.3 MB of slab columns from L2 to the SMs. One thread per lane reading
+// its own row (the first port) splits every 16-byte load of a warp over 32
+// unrelated rows, 32 L1 wavefronts per instruction: that request rate, not
+// L2, set its time. The row indices depend only on idx (the LCG), never on
+// loaded data, so here a warp fetches its 32 rows of a round together:
+// chunk c = lane + 32 j (j < 12) of the round's 384 16-byte chunks belongs
+// to row c / 12, whose index is shuffled from lane c / 12, so 12 neighbouring
+// lanes load one row's 192 contiguous bytes (6 sectors; the 320-byte row
+// stride keeps rows sector-aligned). The loads are ld.global.cg (L2 only: a
+// row is rarely reused inside an SM) into registers, kAhead rounds ahead of
+// the math. A round's chunks go through a warp-private tile in shared memory
+// (row stride 52 floats, 13 chunks, odd, so the 8 lanes of a quarter-warp
+// read 8 distinct bank groups) from which each lane reads its own row with
+// 12 16-byte loads; __syncwarp orders the tile, no block-wide barrier. Lanes
+// without a row (idx outside [0, N), or past R in the last warp) stay in the
+// warp through every shuffle and load and walk from row 0; only a warp
+// wholly past R leaves. The tile is small on purpose (6.5 KiB per warp, 26
+// KiB per block, static): the loads in flight are staged in the SM's L1,
+// which shares its 256 KB with shared memory, and a ring that takes most of
+// it starves them. An asynchronous ring (cp.async or the TMA's bulk copy into
+// 4 rounds of shared memory) measured slower at every depth; PERF.md has the
+// measured times, the L2 read ceiling (l2_read_kernel below) and the
+// variants tried.
 
 #include <cuda_runtime.h>
 
@@ -40,19 +54,33 @@ namespace {
 constexpr int kRow = 80;    // floats per table row
 constexpr int kSlab = 48;   // slab columns read per row
 constexpr int kIters = 8;   // gather rounds per lane
-constexpr int kDepth = 4;   // rows in flight per thread
-constexpr int kThreads = 128;
+constexpr int kChunks = kSlab / 4;  // 16-byte chunks of a row's slab columns
+constexpr int kStride = kSlab + 4;  // tile row stride in floats (13 chunks)
+constexpr int kAhead = 2;   // rounds loaded into registers ahead of the math
+constexpr int kWarps = 4;   // warps per block
+constexpr int kThreads = 32 * kWarps;
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ void load_slab(const float* __restrict__ src,
-                                          float* r) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
+// One round's loads of the warp's 32 rows: chunk c = lane + 32 j of row
+// c / 12 (my_row is this lane's row)
+__device__ __forceinline__ void load_round(float4 (&v)[kChunks], const float* __restrict__ tab,
+                                           int my_row, int lane) {
 #pragma unroll
-  for (int q = 0; q < kSlab / 4; ++q) {
-    const float4 v = __ldg(s4 + q);
-    r[4 * q] = v.x;
-    r[4 * q + 1] = v.y;
-    r[4 * q + 2] = v.z;
-    r[4 * q + 3] = v.w;
+  for (int j = 0; j < kChunks; ++j) {
+    const int c = lane + 32 * j;
+    const int r = c / kChunks, q = c - kChunks * r;
+    const int src_row = __shfl_sync(kFull, my_row, r);
+    v[j] = __ldcg(reinterpret_cast<const float4*>(tab + static_cast<size_t>(src_row) * kRow) + q);
+  }
+}
+
+// The same chunks into the warp's tile, row r at r * kStride
+__device__ __forceinline__ void store_round(float4* tile, const float4 (&v)[kChunks], int lane) {
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    const int c = lane + 32 * j;
+    const int r = c / kChunks, q = c - kChunks * r;
+    tile[r * (kStride / 4) + q] = v[j];
   }
 }
 
@@ -82,36 +110,72 @@ __device__ __forceinline__ int lcg_next(int cur, int n) {
   return m < 0 ? m + n : m;
 }
 
-__global__ void gather_lab_kernel(const float* __restrict__ tab,
-                                  const int* __restrict__ idx,
-                                  const float* __restrict__ o,
-                                  const float* __restrict__ inv,
-                                  float* __restrict__ out, int N, int R) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= R) return;
+__global__ void __launch_bounds__(kThreads)
+gather_lab_kernel(const float* __restrict__ tab, const int* __restrict__ idx,
+                  const float* __restrict__ o, const float* __restrict__ inv,
+                  float* __restrict__ out, int N, int R) {
+  __shared__ float4 tiles[kWarps][32 * kStride / 4];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int first = (blockIdx.x * kWarps + warp) * 32;
+  if (first >= R) return;  // the whole warp: nothing outside it waits on it
+  const int i = first + lane;
+  const bool live = i < R;
+  const int start = live ? idx[i] : 0;
+  const bool ok = start >= 0 && start < N;
   int row[kIters];
-  row[0] = idx[i];
-  if (row[0] < 0 || row[0] >= N) {
-    out[i] = __int_as_float(0x7fc00000);  // torch's float("nan"), bit for bit
-    return;
-  }
+  row[0] = ok ? start : 0;
 #pragma unroll
   for (int it = 1; it < kIters; ++it) row[it] = lcg_next(row[it - 1], N);
-  float buf[kDepth][kSlab];
+  float4 v[kAhead][kChunks];
 #pragma unroll
-  for (int it = 0; it < kDepth; ++it)
-    load_slab(tab + static_cast<size_t>(row[it]) * kRow, buf[it]);
-  const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
-  const float ix = inv[3 * i], iy = inv[3 * i + 1], iz = inv[3 * i + 2];
+  for (int a = 0; a < kAhead; ++a) load_round(v[a], tab, row[a], lane);
+  const float ox = live ? o[3 * i] : 0.f, oy = live ? o[3 * i + 1] : 0.f;
+  const float oz = live ? o[3 * i + 2] : 0.f;
+  const float ix = live ? inv[3 * i] : 0.f, iy = live ? inv[3 * i + 1] : 0.f;
+  const float iz = live ? inv[3 * i + 2] : 0.f;
+  float4* tile = tiles[warp];
   float acc = 0.f;
 #pragma unroll
-  for (int it = 0; it < kIters; ++it) {
-    acc = acc + slab_sum(buf[it % kDepth], ox, oy, oz, ix, iy, iz);
-    if (it + kDepth < kIters)
-      load_slab(tab + static_cast<size_t>(row[it + kDepth]) * kRow,
-                buf[it % kDepth]);
+  for (int t = 0; t < kIters; ++t) {
+    store_round(tile, v[t % kAhead], lane);
+    __syncwarp();  // the round is in the tile
+    if (t + kAhead < kIters) load_round(v[t % kAhead], tab, row[t + kAhead], lane);
+    const float4* mine = tile + lane * (kStride / 4);
+    float r[kSlab];
+#pragma unroll
+    for (int q = 0; q < kChunks; ++q) {
+      const float4 w = mine[q];
+      r[4 * q] = w.x;
+      r[4 * q + 1] = w.y;
+      r[4 * q + 2] = w.z;
+      r[4 * q + 3] = w.w;
+    }
+    acc = acc + slab_sum(r, ox, oy, oz, ix, iy, iz);
+    __syncwarp();  // every lane has read the tile before the next round's stores
   }
-  out[i] = acc;
+  if (live) out[i] = ok ? acc : __int_as_float(0x7fc00000);  // torch's float("nan")
+}
+
+// The L2 read ceiling the lab is held against: thread g of G reads the
+// 16-byte words (g + k G) mod n16, k < reads, of an L2-resident buffer with
+// ld.global.cg (coalesced, L2 only) and writes the xor of all their 32-bit
+// words, so no read can be dropped.
+__global__ void __launch_bounds__(256)
+l2_read_kernel(const uint4* __restrict__ src, int n16, int reads,
+               unsigned* __restrict__ out, int G) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= G) return;
+  const int step = G % n16;
+  int j = g % n16;
+  unsigned x = 0;
+#pragma unroll 8
+  for (int k = 0; k < reads; ++k) {
+    const uint4 v = __ldcg(src + j);
+    x ^= v.x ^ v.y ^ v.z ^ v.w;
+    j += step;
+    if (j >= n16) j -= n16;
+  }
+  out[g] = x;
 }
 
 }  // namespace
@@ -125,6 +189,24 @@ int pbrt_torch_gather_lab(const float* tab, const int* idx, const float* o,
   if (R > 0)
     gather_lab_kernel<<<(R + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
         tab, idx, o, inv, out, N, R);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of gather_lab_kernel that fit on one SM (0 on an error).
+int pbrt_torch_gather_lab_blocks_per_sm() {
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, gather_lab_kernel, kThreads, 0) !=
+      cudaSuccess)
+    return 0;
+  return n;
+}
+
+int pbrt_torch_l2_read(const void* src, int n16, int reads, unsigned* out, int G,
+                       cudaStream_t stream) {
+  if (n16 <= 0 || reads < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (G > 0)
+    l2_read_kernel<<<(G + 255) / 256, 256, 0, stream>>>(static_cast<const uint4*>(src),
+                                                        n16, reads, out, G);
   return static_cast<int>(cudaGetLastError());
 }
 

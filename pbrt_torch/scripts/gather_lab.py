@@ -19,9 +19,12 @@ the start indices, the origins and ``inv = 1 / (u + 0.1)`` in that order.
 on a card and takes the plain version, ``gather_lab_plain``, for tensors on
 the CPU. The plain version repeats the kernel's arithmetic in its order, so
 the two agree bit for bit on the card. ``main()`` needs a card: it times the
-kernel (its device time under ``torch.profiler``, 20 launches after 3
-warm-ups) and the plain version (CUDA events), and prints them beside the
-bound, with the card's name and power limit.
+kernel (median and min–max of 5 rounds of ``timing.queued_ms``, 50 calls
+queued behind a spin kernel each) and the plain version (CUDA events), and
+prints them beside the bound and the L2 read ceiling (``l2_ceiling``: the
+rate at which coalesced 16-byte reads of the table's slab block come from
+L2, and what the lab's 50.3 MB of slab rows take at that rate), with the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -41,14 +44,20 @@ SLAB = 48  # slab columns the rounds read
 OPS_PER_SLOT = 25
 #: bytes a lane must read and write once: idx (4), o (12), inv (12), out (4)
 LANE_BYTES = 32
+#: slab bytes the lab's lanes gather from L2 per launch: R x 8 rounds x 192 B
+SLAB_BYTES = R * ITERS * SLAB * 4
 _LCG_A, _LCG_C = 1103515245, 12345
+#: the lane counts and table sizes ``check_cases`` holds the kernel at
+CHECK_R = (1, 31, 33, 4093, R)
+CHECK_N = (7, 64, N)
 
-#: kernel launches of the wrapper (the plain version counts nothing)
-launches = {"gather_lab": 0}
+#: kernel launches of the wrappers (the plain versions count nothing)
+launches = {"gather_lab": 0, "l2_read": 0}
 
 
 def reset_launches():
-    launches["gather_lab"] = 0
+    for k in launches:
+        launches[k] = 0
 
 
 def lcg_next(cur: torch.Tensor, n: int) -> torch.Tensor:
@@ -112,6 +121,66 @@ def gather_lab(tab, idx, o, inv):
     return out
 
 
+def blocks_per_sm() -> int:
+    """Blocks of the lab's kernel that fit on one SM of the current card."""
+    return native.kernel_lib("gather_lab.cu").pbrt_torch_gather_lab_blocks_per_sm()
+
+
+def l2_read_plain(words, reads: int, threads: int):
+    """words (n16, 4) int32 → (threads,) int32: for thread g the xor of the
+    four words of rows (g + k·threads) mod n16, k < reads."""
+    n16 = words.shape[0]
+    fold = words[:, 0] ^ words[:, 1] ^ words[:, 2] ^ words[:, 3]
+    j = torch.arange(threads, device=words.device) % n16
+    x = torch.zeros(threads, dtype=torch.int32, device=words.device)
+    for _ in range(reads):
+        x ^= fold[j]
+        j = (j + threads) % n16
+    return x
+
+
+def l2_read(words, reads: int, threads: int):
+    """The L2 read ceiling's kernel (``l2_read_kernel``): thread g reads its
+    rows of ``words`` with coalesced 16-byte L2-only loads; see
+    ``l2_read_plain`` for what it returns."""
+    if words.device.type == "cpu":
+        return l2_read_plain(words, reads, threads)
+    if words.device.type != "cuda":
+        raise ValueError(f"l2_read: unsupported device {words.device}")
+    dev = words.device
+    native.check_tensor("words", words, torch.int32, (words.shape[0], 4), dev)
+    if words.data_ptr() % 16 or words.shape[0] == 0:
+        raise ValueError("words: empty or not 16-byte aligned")
+    out = torch.empty(threads, dtype=torch.int32, device=dev)
+    lib = native.kernel_lib("gather_lab.cu")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    native.check_launch(lib.pbrt_torch_l2_read(
+        words.data_ptr(), words.shape[0], reads, out.data_ptr(), threads, stream),
+        "l2_read launch")
+    launches["l2_read"] += 1
+    return out
+
+
+def l2_ceiling(tab) -> dict:
+    """The L2 read rate the lab is held against, on the card: the table's
+    slab block (``tab[:, :48]``, 3 MiB, L2-resident) read as ``SLAB_BYTES``
+    of coalesced 16-byte words per launch, by 1,024 warps (the lab's launch)
+    and by 4,096. Per width: ``queued_rounds``' ms and TB/s; ``best`` the
+    faster width's, ``lab_ms`` the lab's slab bytes at its rate. Each
+    width's result is checked against ``l2_read_plain`` first."""
+    words = tab[:, :SLAB].contiguous().view(torch.int32).view(-1, 4)
+    res = {}
+    for warps in (R // 32, 4 * R // 32):
+        g = 32 * warps
+        reads = SLAB_BYTES // (16 * g)
+        if not torch.equal(l2_read(words, reads, g), l2_read_plain(words, reads, g)):
+            raise SystemExit(f"l2_read disagrees with its plain version at {warps} warps")
+        t = timing.queued_rounds(lambda: l2_read(words, reads, g))
+        res[warps] = dict(t, tb_s=SLAB_BYTES / t["ms"] / 1e9)
+    best = max(res.values(), key=lambda t: t["tb_s"])
+    return dict(widths=res, best=best, lab_ms=SLAB_BYTES / best["tb_s"] / 1e9)
+
+
 def lab_inputs(device, seed: int = 0, n: int = N, r: int = R):
     """The script's inputs (``pallas_gather_lab.main``), drawn in its order."""
     rng = np.random.default_rng(seed)
@@ -120,6 +189,24 @@ def lab_inputs(device, seed: int = 0, n: int = N, r: int = R):
     o = rng.random((r, 3)).astype(np.float32)
     inv = (1.0 / (rng.random((r, 3)) + 0.1)).astype(np.float32)
     return tuple(torch.as_tensor(a, device=device) for a in (tab, idx, o, inv))
+
+
+def check_cases(device):
+    """(n, r, (tab, idx, o, inv)) for each table size of ``CHECK_N`` and lane
+    count of ``CHECK_R``: the lab's draw (seeded by n) cut to r lanes, with
+    start indices outside [0, n) at lane 0 (-1), lane 31 (n) and the last
+    lane (-2**31; the last lane of a ragged tail where r is not a multiple
+    of 32). Every other lane starts inside the table."""
+    for n in CHECK_N:
+        tab, idx, o, inv = lab_inputs(device, seed=n, n=n)
+        for r in CHECK_R:
+            ix = idx[:r].clone()
+            ix[0] = -1
+            if r > 31:
+                ix[31] = n
+            if r > 1:
+                ix[r - 1] = -2**31
+            yield n, r, (tab, ix, o[:r].contiguous(), inv[:r].contiguous())
 
 
 def work(idx: torch.Tensor, n: int) -> dict:
@@ -139,24 +226,35 @@ def work(idx: torch.Tensor, n: int) -> dict:
 
 def main() -> dict:
     """Times the kernel and the plain version at the lab's shapes on the
-    card; prints and returns ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``
+    card and measures the L2 read ceiling; prints and returns ``ms`` (median
+    of 5 rounds, with ``ms_min``, ``ms_max``), ``plain_ms``, ``bound_ms``,
+    ``bound_by``, ``l2_tb_s``, ``l2_ms`` (the lab's slab bytes at that rate)
     and the work counted by ``work``."""
     if not torch.cuda.is_available():
         raise SystemExit("gather_lab: needs an NVIDIA GPU (torch.cuda.is_available() "
                          "is false)")
     dev = torch.device("cuda", 0)
     tab, idx, o, inv = lab_inputs(dev)
-    ms = timing.device_ms(lambda: gather_lab(tab, idx, o, inv), "gather_lab_kernel")
+    k = timing.queued_rounds(lambda: gather_lab(tab, idx, o, inv))
     plain_ms = timing.cuda_ms(lambda: gather_lab_plain(tab, idx, o, inv), n=5, warm=1)
     w = work(idx, N)
     b_ms, b_by = timing.bound_ms(w["bytes"], w["ops"])
-    res = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, **w)
+    l2 = l2_ceiling(tab)
+    res = dict(ms=k["ms"], ms_min=k["min"], ms_max=k["max"], plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, l2_tb_s=l2["best"]["tb_s"],
+               l2_ms=l2["lab_ms"], **w)
     print(f"gather lab: table {N}x{ROW} = {N * ROW * 4 / 2**20:.2f} MiB, R={R}, "
-          f"iters={ITERS}, on {timing.nvidia_smi()}")
-    print(f"kernel {ms:.4f} ms device time ({ms / ITERS * 1e3:.2f} us/iter), "
-          f"plain {plain_ms:.3f} ms; "
+          f"iters={ITERS}, {blocks_per_sm()} blocks per SM, on {timing.nvidia_smi()}")
+    print(f"kernel {k['ms']:.5f} ms median of 5 rounds ({k['min']:.5f}–{k['max']:.5f}; "
+          f"host enqueue {k['host_ms']:.4f} ms), plain {plain_ms:.3f} ms; "
           f"{w['rows_touched']} distinct rows, {w['bytes']} bytes, {w['ops']} operations; "
-          f"bound {b_ms:.5f} ms ({b_by})", flush=True)
+          f"bound {b_ms:.5f} ms ({b_by}), kernel / bound {k['ms'] / b_ms:.2f}x", flush=True)
+    widths = ", ".join(f"{t['tb_s']:.3f} TB/s at {wp} warps ({t['ms']:.5f} ms, "
+                       f"{t['min']:.5f}–{t['max']:.5f})" for wp, t in l2["widths"].items())
+    print(f"L2 read ceiling (coalesced 16-byte reads of the {N * SLAB * 4 / 2**20:.0f} "
+          f"MiB slab block, {SLAB_BYTES} bytes per launch): {widths}; the lab's slab bytes "
+          f"at the best rate {l2['lab_ms']:.5f} ms, kernel / that {k['ms'] / l2['lab_ms']:.2f}x",
+          flush=True)
     return res
 
 

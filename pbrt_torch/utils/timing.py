@@ -1,12 +1,16 @@
 """Timing on the card, and the peaks bounds are taken against.
 
 Used by ``chip_smoke.py`` and ``pbrt_torch.scripts.gather_lab``; both need
-a CUDA device (nothing here is meaningful on the CPU).
+a CUDA device (nothing here is meaningful on the CPU). Every kernel time
+they report is ``queued_ms``: CUDA events around back-to-back calls queued
+behind a spin kernel.
 """
 
 from __future__ import annotations
 
+import statistics
 import subprocess
+import time
 
 #: H100 SXM peaks: HBM3 bytes/s and float32 outside the tensor cores (NVIDIA
 #: data sheet); integer operations at the dispatch ceiling of the NVIDIA
@@ -17,6 +21,9 @@ import subprocess
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 PEAK_I32_PER_S = 4 * 32 * 132 * 1.98e9
+#: cycles of the spin kernel ``queued_ms`` enqueues its calls behind
+#: (~10 ms at 1.98 GHz)
+SPIN_CYCLES = 20_000_000
 
 
 def cuda_ms(fn, n: int = 20, warm: int = 3) -> float:
@@ -37,29 +44,42 @@ def cuda_ms(fn, n: int = 20, warm: int = 3) -> float:
     return a.elapsed_time(b) / n
 
 
-def device_ms(fn, match: str, n: int = 20, warm: int = 3) -> float:
-    """Mean device time in ms of one launch of the kernel whose name holds
-    ``match``, over ``n`` calls of ``fn`` under ``torch.profiler`` (after
-    ``warm`` calls). Events around a launch that takes a few microseconds
-    time the host's launch cost instead; this is the kernel's own time."""
+def queued_ms(fn, n: int = 50, warm: int = 5):
+    """(ms per call of ``fn`` by CUDA events around ``n`` back-to-back
+    calls, the host's ms to enqueue one call). The calls are enqueued
+    behind a spin kernel that outlasts their enqueueing, so the device runs
+    them without waiting on the host, even where a launch is shorter than
+    its enqueueing; raises if the host took longer than the spin."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and match in e.key]
-    count = sum(e.count for e in ev)
-    if count != n:
-        raise RuntimeError(f"device_ms: traced {count} launches of {match!r}, "
-                           f"expected {n}")
-    return sum(e.self_device_time_total for e in ev) / 1e3 / count
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    t_host = time.perf_counter()
+    ev[0].record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    ev[1].record()
+    for _ in range(n):
+        fn()
+    t_host = (time.perf_counter() - t_host) * 1e3
+    ev[2].record()
+    torch.cuda.synchronize()
+    spin_ms = ev[0].elapsed_time(ev[1])
+    if t_host >= spin_ms:
+        raise SystemExit(f"queued_ms: the host took {t_host:.3f} ms to enqueue "
+                         f"{n} calls, longer than the {spin_ms:.3f} ms spin")
+    return ev[1].elapsed_time(ev[2]) / n, t_host / n
+
+
+def queued_rounds(fn, rounds: int = 5) -> dict:
+    """``rounds`` rounds of ``queued_ms``: the median ms per call (``ms``),
+    the rounds' ``min`` and ``max`` and the median host enqueue time per call
+    (``host_ms``)."""
+    r = [queued_ms(fn) for _ in range(rounds)]
+    ms = [x[0] for x in r]
+    return dict(ms=statistics.median(ms), min=min(ms), max=max(ms),
+                host_ms=statistics.median(x[1] for x in r))
 
 
 def bound_ms(nbytes: float, f32_ops: float = 0.0, i32_ops: float = 0.0):

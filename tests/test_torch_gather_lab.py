@@ -3,10 +3,13 @@ plain version of ``csrc/gather_lab.cu``) with the JAX lab script
 ``scripts/pallas_gather_lab.py``: its XLA step at the lab's full size and
 its Pallas kernel body in interpret mode, bit for bit (the port sums the 8
 slots in the order XLA's CPU backend does), and the LCG walk against int32
-arithmetic."""
+arithmetic. The CUDA kernels cannot run here: their shape constants are
+read from ``csrc/gather_lab.cu`` as text, and the plain versions of the
+card's ragged cases and of the L2 read ceiling are checked."""
 
 import importlib.util
 import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +22,7 @@ from jax.experimental.pallas import tpu as pltpu
 from pbrt_torch.scripts import gather_lab as gl
 
 SCRIPT = pathlib.Path(__file__).resolve().parent.parent / "scripts" / "pallas_gather_lab.py"
+SOURCE = pathlib.Path(gl.__file__).resolve().parent.parent / "csrc" / "gather_lab.cu"
 
 
 @pytest.fixture(scope="module")
@@ -96,6 +100,50 @@ def test_out_of_range_start_gives_nan():
     idx[2], idx[5] = -1, 64
     out = gl.gather_lab_plain(tab, idx, o, inv)
     assert torch.isnan(out).tolist() == [i in (2, 5) for i in range(8)]
+
+
+def _cu_int(name):
+    m = re.search(rf"constexpr\s+int\s+{name}\s*=\s*(\d+);", SOURCE.read_text())
+    assert m, f"{name} not found in gather_lab.cu"
+    return int(m.group(1))
+
+
+def test_kernel_shape_is_the_plain_versions():
+    """gather_lab.cu's row width, slab columns and rounds, read from the
+    source as text, are the plain version's."""
+    assert (_cu_int("kRow"), _cu_int("kSlab"), _cu_int("kIters")) == (gl.ROW, gl.SLAB, gl.ITERS)
+
+
+def test_check_cases_put_nan_where_the_start_is_outside():
+    """Every ragged case the card holds the kernel at: the plain version
+    gives NaN exactly at lane 0, lane 31 and the last lane, finite values
+    elsewhere, r values each."""
+    cases = list(gl.check_cases("cpu"))
+    assert [(n, r) for n, r, _ in cases] == [(n, r) for n in gl.CHECK_N for r in gl.CHECK_R]
+    for n, r, (tab, idx, o, inv) in cases:
+        out = gl.gather_lab(tab, idx, o, inv)
+        assert out.shape == (r,) and tab.shape == (n, gl.ROW)
+        bad = [0] + ([31] if r > 31 else []) + ([r - 1] if r > 1 else [])
+        assert torch.nonzero(torch.isnan(out)).flatten().tolist() == bad
+        assert bool(torch.isfinite(out[~torch.isnan(out)]).all())
+
+
+def test_l2_read_plain_xors_every_read():
+    """The L2 ceiling's plain version against numpy: thread g xors the four
+    words of rows (g + k * threads) mod n16 for k < reads."""
+    words = torch.as_tensor(np.random.default_rng(4).integers(-2**31, 2**31, (37, 4)),
+                            dtype=torch.int32)
+    reads, threads = 9, 50
+    w = words.numpy()
+    ref = np.zeros(threads, np.int32)
+    for g in range(threads):
+        for k in range(reads):
+            j = (g + k * threads) % 37
+            ref[g] ^= w[j, 0] ^ w[j, 1] ^ w[j, 2] ^ w[j, 3]
+    before = dict(gl.launches)
+    np.testing.assert_array_equal(gl.l2_read(words, reads, threads).numpy(), ref)
+    assert gl.launches == before  # CPU tensors take the plain version
+    assert gl.SLAB_BYTES == gl.R * 8 * 192 == 50_331_648
 
 
 def test_work_counts_the_walk():
