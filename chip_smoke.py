@@ -96,8 +96,7 @@ LANE_BYTES_STEP = 36 + 8 + 2 + 32 + 20
 NODE_ROW_BYTES = 7 * 8 * 4
 LEAF_ROW_BYTES = 10 * 8 * 4
 RNG_DEPTH = 5
-#: rounds of queued_ms for the keyed kernels (median, min–max; the gather
-#: lab's main() takes as many)
+#: rounds of queued_ms for the keyed kernels (median, min–max)
 RNG_ROUNDS = 5
 #: pixel indices at and above 2**31 (uint32 wraparound), as the CPU tests'
 PIXELS_WRAP = (0, 1, 5, 63, 4095, 262143, 2**31 - 1, 2**31, 2**31 + 3, 2**32 - 1)

@@ -192,15 +192,6 @@ int pbrt_torch_gather_lab(const float* tab, const int* idx, const float* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks of gather_lab_kernel that fit on one SM (0 on an error).
-int pbrt_torch_gather_lab_blocks_per_sm() {
-  int n = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, gather_lab_kernel, kThreads, 0) !=
-      cudaSuccess)
-    return 0;
-  return n;
-}
-
 int pbrt_torch_l2_read(const void* src, int n16, int reads, unsigned* out, int G,
                        cudaStream_t stream) {
   if (n16 <= 0 || reads < 0) return static_cast<int>(cudaErrorInvalidValue);

@@ -121,11 +121,6 @@ def gather_lab(tab, idx, o, inv):
     return out
 
 
-def blocks_per_sm() -> int:
-    """Blocks of the lab's kernel that fit on one SM of the current card."""
-    return native.kernel_lib("gather_lab.cu").pbrt_torch_gather_lab_blocks_per_sm()
-
-
 def l2_read_plain(words, reads: int, threads: int):
     """words (n16, 4) int32 → (threads,) int32: for thread g the xor of the
     four words of rows (g + k·threads) mod n16, k < reads."""
@@ -226,10 +221,10 @@ def work(idx: torch.Tensor, n: int) -> dict:
 
 def main() -> dict:
     """Times the kernel and the plain version at the lab's shapes on the
-    card and measures the L2 read ceiling; prints and returns ``ms`` (median
-    of 5 rounds, with ``ms_min``, ``ms_max``), ``plain_ms``, ``bound_ms``,
-    ``bound_by``, ``l2_tb_s``, ``l2_ms`` (the lab's slab bytes at that rate)
-    and the work counted by ``work``."""
+    card and measures the L2 read ceiling; prints them and returns ``ms``
+    (median of 5 rounds), ``plain_ms``, ``bound_ms``, ``bound_by``,
+    ``l2_ms`` (the lab's slab bytes at the ceiling's rate) and the work
+    counted by ``work``."""
     if not torch.cuda.is_available():
         raise SystemExit("gather_lab: needs an NVIDIA GPU (torch.cuda.is_available() "
                          "is false)")
@@ -240,11 +235,10 @@ def main() -> dict:
     w = work(idx, N)
     b_ms, b_by = timing.bound_ms(w["bytes"], w["ops"])
     l2 = l2_ceiling(tab)
-    res = dict(ms=k["ms"], ms_min=k["min"], ms_max=k["max"], plain_ms=plain_ms,
-               bound_ms=b_ms, bound_by=b_by, l2_tb_s=l2["best"]["tb_s"],
+    res = dict(ms=k["ms"], plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                l2_ms=l2["lab_ms"], **w)
     print(f"gather lab: table {N}x{ROW} = {N * ROW * 4 / 2**20:.2f} MiB, R={R}, "
-          f"iters={ITERS}, {blocks_per_sm()} blocks per SM, on {timing.nvidia_smi()}")
+          f"iters={ITERS}, on {timing.nvidia_smi()}")
     print(f"kernel {k['ms']:.5f} ms median of 5 rounds ({k['min']:.5f}–{k['max']:.5f}; "
           f"host enqueue {k['host_ms']:.4f} ms), plain {plain_ms:.3f} ms; "
           f"{w['rows_touched']} distinct rows, {w['bytes']} bytes, {w['ops']} operations; "

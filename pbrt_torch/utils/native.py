@@ -42,8 +42,7 @@ GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
 _vp, _ci, _u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 #: each kernel source's entry points and their ctypes argument types (every
 #: pointer and the stream as ``c_void_p``); each returns ``cudaGetLastError()``
-#: (``pbrt_torch_max_stack`` its stack cap,
-#: ``pbrt_torch_gather_lab_blocks_per_sm`` an occupancy)
+#: (``pbrt_torch_max_stack`` its stack cap)
 KERNEL_ENTRIES = {
     "traverse.cu": {
         "pbrt_torch_wide_step": [_vp] * 14 + [_ci, _vp],
@@ -57,7 +56,6 @@ KERNEL_ENTRIES = {
     },
     "gather_lab.cu": {
         "pbrt_torch_gather_lab": [_vp] * 5 + [_ci, _ci, _vp],
-        "pbrt_torch_gather_lab_blocks_per_sm": [],
         "pbrt_torch_l2_read": [_vp, _ci, _ci, _vp, _ci, _vp],
     },
 }
