@@ -25,38 +25,51 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    behind a spin kernel (``timing.queued_ms``), so the device never waits
    on the host;
 4. rng — the keyed-uniform kernel (the wave's whole primary-sample array,
-   camera columns and bounce block, depth 5) and the scramble kernel
+   camera columns and bounce block, depth 5), the AO kernel (ambient
+   occlusion's array, 1, 4 and 64 AO samples) and the scramble kernel
    against their plain versions on 1,048,576 lanes, bit for bit, for
    samples 0, 3 and 2**31 + 1; then on ragged lane counts (1 to 32,767),
-   depths 1, 4 and 5 and pixel indices at and above 2**31; each timed in
-   5 rounds (median, min–max) at the main path's launch widths;
-5. small reference — the tiny scene rendered on the card and on the CPU
+   depths 0, 1, 4 and 5, 1, 4 and 64 AO samples and pixel indices at and
+   above 2**31; each timed in 5 rounds (median, min–max) at the main
+   path's launch widths (the AO kernel with 4 AO samples);
+5. small reference — every integrator kind on the tiny scene, and
+   ``path`` and ``directlighting`` on the lights-and-quadrics scene at 16²
+   (with a 2,880-triangle blob), rendered on the card and on the CPU
    (plain versions) from the same primary-sample array, and by
-   ``render(seed=...)`` on both (keyed by threefry), with the card's
-   render at two chunk widths;
+   ``render(seed=...)`` on both (keyed by threefry), the tiny scene's
+   ``path`` render on the card at two chunk widths;
 6. gather lab — its kernel against its plain version at the lab's shapes,
    bit for bit, then on 1 to 32,768 lanes of 7-, 64- and 16,384-row tables
    with start indices outside the table at lanes 0, 31 and the last; then
    the lab's own path (``gather_lab.main()``: the kernel's time in 5 rounds,
    the bound and the L2 read ceiling) with its launch counters set to 0
    just before and read just after;
-7. render — the main path: ``load_scene_string`` → ``build`` → ``render``
-   at 512², path depth 5, 32 bins, 32,768-lane chunks, lowdiscrepancy,
-   box filter; one warm-up sample, then 4 timed samples (CUDA events),
-   with the kernels' launch counters set to 0 just before and read just
-   after, and the sampler's torch path (``camera_uniforms``,
+7. render — the main path: ``goldens/killeroo-simple.pbrt`` as written
+   (``directlighting``, its default depth 5) through ``load_scene_string``
+   → ``build`` → ``render`` at 512², 32 bins, 32,768-lane chunks,
+   lowdiscrepancy, box filter; one warm-up sample, then 4 timed samples
+   (CUDA events), with the kernels' launch counters set to 0 just before
+   and read just after, and the sampler's torch path (``camera_uniforms``,
    ``_bits_to_unit``) counted, which must not run on the card; the film is
    checked and a ``.dat`` written and read back; one more 1-spp frame
    under the profiler splits the device time by kernel, the traversal's
    into closest hit and any hit, with launches per chunk and host-to-device
-   copies;
-8. the ``kernels`` JSON line (see PERF.md for the fields), then the result.
+   copies. Then the same for the ``path`` integrator at depth 5 (the
+   earlier slices' main path);
+8. kinds — the same 512² scene at 1 spp with ``whitted``,
+   ``ambientocclusion`` (4 AO samples) and ``metadata`` (depth, mesh and
+   material ids), each with its launches counted; the material ids equal
+   to the CPU's on the same rays; then the lights-and-quadrics scene (the
+   512² scene with a point, a spot and a distant light, an emissive
+   two-triangle quad and a disk, cylinder, cone, paraboloid and
+   hyperboloid) with ``path`` and ``directlighting``;
+9. the ``kernels`` JSON line (see PERF.md for the fields), then the result.
 
 The real-size scene is ``goldens/killeroo-simple.pbrt`` (its text is kept
-here) at 512² with the path integrator; each ``Include
-"geometry/killeroo.pbrt"`` (geometry not in the repository) becomes a
-``trianglemesh`` generated with numpy from a fixed seed: a radially
-displaced geodesic icosphere of 64,980 triangles, about 100 units across.
+here) at 512²; each ``Include "geometry/killeroo.pbrt"`` (geometry not in
+the repository) becomes a ``trianglemesh`` generated with numpy from a
+fixed seed: a radially displaced geodesic icosphere of 64,980 triangles,
+about 100 units across.
 
 Any failed phase raises and the script exits non-zero. Without a CUDA
 device, or without ``pbrt_torch/`` beside it, it exits 1 and prints no
@@ -65,6 +78,7 @@ result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import sys
@@ -118,6 +132,14 @@ OPS_PER_UNIFORM = OPS_HASH + 3
 OPS_PER_SCRAMBLE = OPS_HASH + 1
 OPS_CAMERA_I32 = 5
 OPS_CAMERA_F32 = 5 * 3
+#: an AO lane derives 2 keys (pixel, sample); per AO sample it forms the tag
+#: s·16 + 3 (2), folds it in (a key) and draws 2 uniforms
+OPS_AO_LANE_KEY = 2 * (OPS_HASH + OPS_KEY_SCHEDULE)
+OPS_PER_AO_SAMPLE = 2 + OPS_HASH + OPS_KEY_SCHEDULE + 2 * OPS_PER_UNIFORM
+#: AO samples the AO kernel is checked at, and the one it is timed at (the
+#: ambient-occlusion render's, ``nsamples`` 4)
+AO_CHECKED = (1, 4, 64)
+AO_TIMED = 4
 #: tolerance of the card-vs-CPU renders of the tiny scene
 REF_RTOL, REF_ATOL, REF_PIXELS, REF_BIN_REL = 1e-4, 1e-6, 0.99, 1e-3
 
@@ -128,7 +150,7 @@ Camera "perspective" "float fov" [39]
 Film "image" "integer xresolution" [512] "integer yresolution" [512]
     "string filename" "killeroo-simple.dat"
 Sampler "lowdiscrepancy" "integer pixelsamples" [8]
-SurfaceIntegrator "path" "integer maxdepth" [5]
+SurfaceIntegrator "directlighting"
 WorldBegin
 AttributeBegin
 Material "matte" "color Kd" [0 0 0]
@@ -161,6 +183,53 @@ Translate -200 0 0
 AttributeEnd
 WorldEnd
 """
+
+#: what the lights-and-quadrics scene adds to the real-size scene, right
+#: after WorldBegin: a point, a spot and a distant light, an emissive
+#: two-triangle quad facing down, and a disk, cylinder, cone, paraboloid and
+#: hyperboloid standing on the floor in front of the blobs
+LIGHTS_AND_QUADRICS = """
+AttributeBegin
+LightSource "point" "color I" [60000 60000 60000] "point from" [200 -80 60]
+LightSource "spot" "color I" [200000 200000 200000] "point from" [250 60 150]
+    "point to" [60 60 -140] "float coneangle" [20] "float conedeltaangle" [5]
+LightSource "distant" "color L" [.4 .4 .4] "point from" [1 1 1] "point to" [0 0 0]
+AttributeEnd
+AttributeBegin
+AreaLightSource "area" "color L" [30 30 30]
+Material "matte" "color Kd" [0 0 0]
+Shape "trianglemesh" "point P" [0 150 60  80 150 60  80 230 60  0 230 60]
+    "integer indices" [0 2 1 0 3 2]
+AttributeEnd
+AttributeBegin
+Material "plastic" "color Kd" [.3 .4 .2] "color Ks" [.4 .4 .4] "float roughness" [.05]
+AttributeBegin
+Translate 120 -40 -100
+Rotate 60 0 1 0
+Shape "disk" "float radius" [18] "float innerradius" [4]
+AttributeEnd
+AttributeBegin
+Translate 120 0 -140
+Shape "cylinder" "float radius" [10] "float zmin" [0] "float zmax" [45] "float phimax" [300]
+AttributeEnd
+AttributeBegin
+Translate 120 40 -140
+Shape "cone" "float radius" [14] "float height" [40]
+AttributeEnd
+AttributeBegin
+Translate 120 80 -140
+Shape "paraboloid" "float radius" [14] "float zmin" [0] "float zmax" [35]
+AttributeEnd
+AttributeBegin
+Translate 120 120 -115
+Scale 10 10 12
+Shape "hyperboloid" "float zmin" [-2] "float zmax" [2]
+AttributeEnd
+AttributeEnd
+"""
+#: icosphere frequency of the blob in the 16² lights-and-quadrics scene the
+#: CPU renders (2,880 triangles)
+SMALL_BLOB_FREQ = 12
 
 TINY_SCENE = """
 LookAt 0 1.5 -5  0 0 0  0 1 0
@@ -238,13 +307,25 @@ def blob_mesh(freq: int = 57, radius: float = 50.0, seed: int = 7):
     return X.astype(np.float32), T.astype(np.int32)
 
 
-def real_scene_text():
-    P, idx = blob_mesh()
+def real_scene_text(freq: int = 57, res: int = 512):
+    """The real-size scene's text with the generated blob at ``freq`` and
+    the film at res × res; → (text, triangles per blob)."""
+    P, idx = blob_mesh(freq)
     mesh = ('Shape "trianglemesh" "point P" ['
             + " ".join(f"{v:.6g}" for v in P.ravel())
             + ']\n  "integer indices" [' + " ".join(map(str, idx.ravel()))
             + "]\n")
-    return KILLEROO_SIMPLE.replace("@MESH@", mesh), len(idx)
+    text = KILLEROO_SIMPLE.replace("@MESH@", mesh).replace(
+        '"integer xresolution" [512] "integer yresolution" [512]',
+        f'"integer xresolution" [{res}] "integer yresolution" [{res}]')
+    return text, len(idx)
+
+
+def lights_scene_text(text: str, integrator: str = "directlighting") -> str:
+    """A real-size scene's text with LIGHTS_AND_QUADRICS added and the
+    given surface integrator."""
+    text = text.replace('SurfaceIntegrator "directlighting"', f'SurfaceIntegrator "{integrator}"')
+    return text.replace("WorldBegin", "WorldBegin" + LIGHTS_AND_QUADRICS, 1)
 
 
 def log(phase, msg):
@@ -323,7 +404,7 @@ def main() -> int:
     from pbrt_torch.core import sampling as smp
     from pbrt_torch.core.interaction import offset_ray_origin, surface_interaction
     from pbrt_torch.film import film as film_mod
-    from pbrt_torch.integrators.path import PrimarySource
+    from pbrt_torch.integrators.path import PrimarySource, trace_radiance
     from pbrt_torch.renderers.sampler import render, render_wave
     from pbrt_torch.scene.api import load_scene_string
     from pbrt_torch.scene.builder import build
@@ -609,23 +690,36 @@ def main() -> int:
         rng_eq[f"uniforms s={sample}"] = bool(torch.equal(ku.view(torch.int32),
                                                           pu.view(torch.int32)))
         err_ku = max(err_ku, float((ku - pu).abs().max()))
+    err_ao = 0.0
+    for sample in (0, 3, 2**31 + 1):
+        for n_ao in AO_CHECKED:
+            ka = rng.ao_uniforms(root, pix_all, scr_all, sample, n_ao)
+            pa = rng.ao_uniforms_plain(root, pix_all, scr_all, sample, n_ao)
+            rng_eq[f"ao s={sample} n={n_ao}"] = bool(torch.equal(ka.view(torch.int32),
+                                                                 pa.view(torch.int32)))
+            err_ao = max(err_ao, float((ka - pa).abs().max()))
+            del pa
     sync()
     log("rng", f"keyed kernels vs plain on {N_LANES} lanes (depth {RNG_DEPTH}, "
-        f"{ku.shape[1]} columns): equal bit for bit {rng_eq}; uniforms in "
-        f"[{float(ku.min()):.3g}, {float(ku.max()):.6g}], mean {float(ku.double().mean()):.6f}")
+        f"{ku.shape[1]} columns; AO samples {AO_CHECKED}): equal bit for bit {rng_eq}; "
+        f"uniforms in [{float(ku.min()):.3g}, {float(ku.max()):.6g}], mean "
+        f"{float(ku.double().mean()):.6f}; AO uniforms ({ka.shape[1]} columns) in "
+        f"[{float(ka.min()):.3g}, {float(ka.max()):.6g}], mean {float(ka.double().mean()):.6f}")
     if not all(rng_eq.values()):
         raise SystemExit("a keyed-uniform kernel disagrees with its plain version")
-    if not (float(ku.min()) >= 0.0 and float(ku.max()) < 1.0):
+    if not (float(ku.min()) >= 0.0 and float(ku.max()) < 1.0
+            and float(ka.min()) >= 0.0 and float(ka.max()) < 1.0):
         raise SystemExit("keyed uniforms outside [0, 1)")
+    del ka
     # ragged lane counts, other depths, pixel indices at and above 2**31
     pix_wrap = torch.cat([torch.tensor(PIXELS_WRAP, dtype=torch.int64, device=dev), pix_all])
-    n_cases = 0
+    n_cases = n_ao_cases = 0
     for n in (1, 7, 31, 33, 4093, 32767):
         pr = pix_wrap[:n].contiguous()
         sr = rng.pixel_scrambles_plain(root, pr)
         if not torch.equal(rng.pixel_scrambles(root, pr), sr):
             raise SystemExit(f"keyed_scrambles disagrees with its plain version on {n} lanes")
-        for depth in (1, 4, 5):
+        for depth in (0, 1, 4, 5):
             for sample in (0, 3, 2**31 + 1):
                 k_ = rng.primary_uniforms(root, pr, sr, sample, depth)
                 p_ = rng.primary_uniforms_plain(root, pr, sr, sample, depth)
@@ -633,21 +727,35 @@ def main() -> int:
                     raise SystemExit(f"keyed_uniforms disagrees with its plain version on "
                                      f"{n} lanes, depth {depth}, sample {sample}")
                 n_cases += 1
+        for n_ao in AO_CHECKED:
+            for sample in (0, 3, 2**31 + 1):
+                k_ = rng.ao_uniforms(root, pr, sr, sample, n_ao)
+                p_ = rng.ao_uniforms_plain(root, pr, sr, sample, n_ao)
+                if not torch.equal(k_.view(torch.int32), p_.view(torch.int32)):
+                    raise SystemExit(f"keyed_ao_uniforms disagrees with its plain version on "
+                                     f"{n} lanes, {n_ao} AO samples, sample {sample}")
+                n_ao_cases += 1
     sync()
-    log("rng", f"keyed_uniforms on {n_cases} ragged cases (1 to 32,767 lanes, depths 1, 4, "
-        f"5, samples 0, 3, 2**31 + 1, pixel indices up to 2**32 - 1) and keyed_scrambles "
-        f"on 6: equal bit for bit")
+    log("rng", f"keyed_uniforms on {n_cases} ragged cases (1 to 32,767 lanes, depths 0, 1, "
+        f"4, 5, samples 0, 3, 2**31 + 1, pixel indices up to 2**32 - 1), keyed_ao_uniforms "
+        f"on {n_ao_cases} ({AO_CHECKED} AO samples) and keyed_scrambles on 6: equal bit "
+        f"for bit")
     pix_c, pix_f = pix_all[:CHUNK].contiguous(), pix_all[:n_pix].contiguous()
     scr_c = scr_all[:CHUNK].contiguous()
     # a keyed launch takes microseconds, less than its enqueueing: the
     # spin that queued_ms enqueues the calls behind keeps the host out
     ku_t = timing.queued_rounds(
         lambda: rng.primary_uniforms(root, pix_c, scr_c, 1, RNG_DEPTH), RNG_ROUNDS)
+    ka_t = timing.queued_rounds(
+        lambda: rng.ao_uniforms(root, pix_c, scr_c, 1, AO_TIMED), RNG_ROUNDS)
     ks_t = timing.queued_rounds(lambda: rng.pixel_scrambles(root, pix_f), RNG_ROUNDS)
     ku_ms, ks_ms = ku_t["ms"], ks_t["ms"]
     ku_plain = cuda_ms(lambda: rng.primary_uniforms_plain(root, pix_c, scr_c, 1, RNG_DEPTH),
                        n=5, warm=1)
     ks_plain = cuda_ms(lambda: rng.pixel_scrambles_plain(root, pix_f), n=5, warm=1)
+    ka_ms = ka_t["ms"]
+    ka_plain = cuda_ms(lambda: rng.ao_uniforms_plain(root, pix_c, scr_c, 1, AO_TIMED),
+                       n=5, warm=1)
     # the function's work: each lane's key once, its 5 camera columns, then
     # 7 uniforms per bounce; bytes: pixel and scramble words in, the row out
     n_u = 7 * RNG_DEPTH
@@ -656,11 +764,21 @@ def main() -> int:
         i32_ops=CHUNK * (OPS_LANE_KEY + n_u * OPS_PER_UNIFORM + OPS_CAMERA_I32))
     ks_bound, ks_by = timing.bound_ms(
         n_pix * (8 + 6 * 8), i32_ops=n_pix * (OPS_LANE_KEY + 6 * OPS_PER_SCRAMBLE))
+    # AO: pixel and scramble words in, the (5 + 2n)-float row out; the
+    # lane's key, then per AO sample its key and 2 uniforms
+    ka_bound, ka_by = timing.bound_ms(
+        CHUNK * (8 + 48 + 4 * (5 + 2 * AO_TIMED)),
+        f32_ops=CHUNK * (2 * AO_TIMED + OPS_CAMERA_F32),
+        i32_ops=CHUNK * (OPS_AO_LANE_KEY + AO_TIMED * OPS_PER_AO_SAMPLE + OPS_CAMERA_I32))
     spread = lambda t: f"{t['min']:.5f}–{t['max']:.5f}"
     log("timing", f"keyed_uniforms (primary-sample array) on {CHUNK} lanes, depth "
         f"{RNG_DEPTH}: median {ku_ms:.5f} ms over {RNG_ROUNDS} rounds ({spread(ku_t)}; plain "
         f"{ku_plain:.3f} ms, host enqueue {ku_t['host_ms']:.4f} ms); bound {ku_bound:.5f} ms "
         f"({ku_by}), kernel / bound {ku_ms / ku_bound:.2f}x")
+    log("timing", f"keyed_ao_uniforms (ambient occlusion's array) on {CHUNK} lanes, "
+        f"{AO_TIMED} AO samples: median {ka_ms:.5f} ms over {RNG_ROUNDS} rounds "
+        f"({spread(ka_t)}; plain {ka_plain:.3f} ms, host enqueue {ka_t['host_ms']:.4f} ms); "
+        f"bound {ka_bound:.5f} ms ({ka_by}), kernel / bound {ka_ms / ka_bound:.2f}x")
     log("timing", f"keyed_scrambles on {n_pix} lanes: median {ks_ms:.5f} ms over "
         f"{RNG_ROUNDS} rounds ({spread(ks_t)}; plain {ks_plain:.3f} ms, host enqueue "
         f"{ks_t['host_ms']:.4f} ms); bound {ks_bound:.5f} ms ({ks_by}), kernel / bound "
@@ -668,38 +786,56 @@ def main() -> int:
 
     # ---- 5. small reference: card vs CPU --------------------------------
     rs = np.random.default_rng(5)
-    tiny_gpu = build(load_scene_string(TINY_SCENE), device=dev)
-    tiny_cpu = build(load_scene_string(TINY_SCENE), device="cpu")
-    n_t = 16 * 16
-    u_np = rs.random((n_t, PrimarySource.n_dims(5)), dtype=np.float32)
-    yy, xx = np.divmod(np.arange(n_t), 16)
-    films = []
-    for b in (tiny_gpu, tiny_cpu):
-        st = film_mod.init_film(b.film_config, b.device)
-        render_wave(st, b.scene, b.camera, b.filter_table,
-                    torch.as_tensor(xx, device=b.device),
-                    torch.as_tensor(yy, device=b.device), b.integrator,
-                    b.film_config, torch.as_tensor(u_np, device=b.device))
-        films.append(st.pixels.cpu().numpy())
+
     def agree(what, fg, fc):
         px_close = float(np.isclose(fg, fc, rtol=REF_RTOL, atol=REF_ATOL).all(-1).mean())
         bin_rel = float(np.abs(fg.mean((0, 1)) - fc.mean((0, 1))).max()
                         / max(np.abs(fc.mean((0, 1))).max(), 1e-30))
-        log("reference", f"tiny scene 16x16, depth 5, {what}: pixels close "
-            f"(rtol {REF_RTOL:g}) {px_close:.4f}, per-bin mean rel diff {bin_rel:.3g}, "
-            f"equal bit for bit {bool(np.array_equal(fg, fc))}")
+        log("reference", f"{what}: pixels close (rtol {REF_RTOL:g}) {px_close:.4f}, "
+            f"per-bin mean rel diff {bin_rel:.3g}, equal bit for bit "
+            f"{bool(np.array_equal(fg, fc))}")
         if (px_close < REF_PIXELS or bin_rel > REF_BIN_REL or not np.isfinite(fg).all()
                 or not fg.sum() > 0):
-            raise SystemExit(f"tiny scene, {what}: the renders disagree")
+            raise SystemExit(f"{what}: the renders disagree")
 
-    agree("same uniforms, card vs CPU", *films)
-    keyed = {}
-    for b, chunk in ((tiny_gpu, 40), (tiny_gpu, 64), (tiny_cpu, 40)):
-        f = render(b, spp=2, seed=0, chunk_pixels=chunk)
-        keyed[(b.device.type, chunk)] = f.pixels.cpu().numpy()
-    agree("render(seed=0, spp=2), card vs CPU", keyed[("cuda", 40)], keyed[("cpu", 40)])
-    agree("render(seed=0, spp=2) on the card, chunk_pixels 40 vs 64",
-          keyed[("cuda", 40)], keyed[("cuda", 64)])
+    def card_vs_cpu(label, text):
+        """One wave from the same primary-sample array, then render(seed=0,
+        spp=2), on the card and on the CPU."""
+        pair = [build(load_scene_string(text), device=d) for d in (dev, "cpu")]
+        ic, fc = pair[0].integrator, pair[0].film_config
+        n_px = fc.xres * fc.yres
+        width = (PrimarySource.CAMERA_DIMS + 2 * ic.ao_nsamples
+                 if ic.kind == "ambientocclusion" else PrimarySource.n_dims(
+                     0 if ic.kind == "metadata" else ic.max_depth))
+        u_np = rs.random((n_px, width), dtype=np.float32)
+        yy, xx = np.divmod(np.arange(n_px), fc.xres)
+        films = []
+        for b in pair:
+            st = film_mod.init_film(b.film_config, b.device)
+            render_wave(st, b.scene, b.camera, b.filter_table,
+                        torch.as_tensor(xx, device=b.device),
+                        torch.as_tensor(yy, device=b.device), b.integrator,
+                        b.film_config, torch.as_tensor(u_np, device=b.device))
+            films.append(st.pixels.cpu().numpy())
+        what = f"{label} {fc.xres}x{fc.yres}, {ic.kind}" + (
+            f" ({ic.metadata_channel})" if ic.kind == "metadata" else "")
+        agree(f"{what}, same uniforms, card vs CPU", *films)
+        keyed = [render(b, spp=2, seed=0, chunk_pixels=40).pixels.cpu().numpy() for b in pair]
+        agree(f"{what}, render(seed=0, spp=2), card vs CPU", *keyed)
+        return pair[0], keyed[0]
+
+    tiny_gpu, tiny_keyed = card_vs_cpu("tiny scene", TINY_SCENE)
+    agree("tiny scene 16x16, path, render(seed=0, spp=2) on the card, chunk_pixels 40 vs 64",
+          tiny_keyed, render(tiny_gpu, spp=2, seed=0, chunk_pixels=64).pixels.cpu().numpy())
+    for directive in ('"directlighting"', '"whitted"', '"ambientocclusion" "integer nsamples" [4]',
+                      '"metadata" "string strategy" ["depth"]',
+                      '"metadata" "string strategy" ["mesh_mask"]',
+                      '"metadata" "string strategy" ["material_mask"]'):
+        card_vs_cpu("tiny scene", TINY_SCENE.replace('"path" "integer maxdepth" [5]', directive))
+    small_text, _ = real_scene_text(SMALL_BLOB_FREQ, res=16)
+    for kind in ("path", "directlighting"):
+        card_vs_cpu(f"lights-and-quadrics scene ({20 * SMALL_BLOB_FREQ ** 2}-triangle blobs)",
+                    lights_scene_text(small_text, kind))
 
     # ---- 6. gather lab ----------------------------------------------------
     lab_in = gl.lab_inputs(dev)
@@ -734,95 +870,157 @@ def main() -> int:
         raise SystemExit("the gather lab's path did not launch its kernels")
 
     # ---- 7. the main path -------------------------------------------------
-    warm = render(built, spp=1, seed=0, chunk_pixels=CHUNK)
-    sync()
-    del warm
-    tc.reset_launches()
-    rng.reset_launches()
-    isect.calls["intersect"] = 0
-    spp = 4
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    # the sampler's torch path, counted where every camera column would pass
-    with mock.patch.object(smp, "camera_uniforms", wraps=smp.camera_uniforms) as cu, \
-            mock.patch.object(smp, "_bits_to_unit", wraps=smp._bits_to_unit) as bu:
-        a.record()
-        film = render(built, spp=spp, seed=0, chunk_pixels=CHUNK)
-        b.record()
-        sync()
-    sampler_calls = {"camera_uniforms": cu.call_count, "_bits_to_unit": bu.call_count}
-    launches = {**tc.launches, **rng.launches}
-    n_calls = isect.calls["intersect"]
-    sec = a.elapsed_time(b) / 1e3
-    paths_per_s = W * H * spp / sec
-    finite = bool(torch.isfinite(film.pixels).all())
-    total = float(film.pixels.double().sum())
-    log("render", f"{W}x{H}, {spp} spp, depth {built.integrator.max_depth}, "
-        f"{built.film_config.n_bins} bins, chunk {CHUNK}: {sec:.3f} s, "
-        f"{paths_per_s:.1f} camera paths/s on {name} ({smi})")
-    log("render", f"launches {launches}, intersect calls {n_calls}, "
-        f"per frame (1 spp): closest {launches['traverse_closest'] / spp:.1f}, "
-        f"any {launches['traverse_any'] / spp:.1f}, keyed uniforms "
-        f"{launches['keyed_uniforms'] / spp:.1f}")
-    with tempfile.TemporaryDirectory() as tmp:
-        path = film_mod.write_dat(film, built.film_config,
-                                  os.path.join(tmp, "killeroo-simple.dat"))
-        back, _ = film_mod.read_dat(path)
-        dat_ok = bool(np.array_equal(back, film.pixels.cpu().double().numpy()))
-    log("render", f"film finite {finite}, sum {total:.6g}, .dat round trip {dat_ok}")
-    if not (launches["traverse_closest"] > 0 and launches["traverse_any"] > 0):
-        raise SystemExit("the main path did not launch the traversal kernels")
-    if launches["traverse_closest"] + launches["traverse_any"] != n_calls:
-        raise SystemExit("traversal launches do not match intersect calls")
-    if launches["keyed_scrambles"] != 1 or launches["keyed_uniforms"] != spp * (
-            -(-W * H // CHUNK)):
-        raise SystemExit("the main path did not launch the keyed-uniform kernels "
-                         "once per render and once per wave and chunk")
-    if not (finite and total > 0.0 and dat_ok):
-        raise SystemExit("the rendered film is not finite, empty, or did not round-trip")
-    log("render", f"sampler torch ops on the card's path: {sampler_calls} (the camera "
-        f"columns come from keyed_uniforms)")
-    if any(sampler_calls.values()):
-        raise SystemExit("the main path ran the sampler's torch ops on the card")
+    n_chunks = -(-W * H // CHUNK)
 
-    # where the time goes: one more sample of the main path under the
-    # profiler (not counted above). Only kernel events are summed (an aten
-    # op's device time is its kernels' time again); the busy share is taken
-    # against the unprofiled frame time above, since profiling slows the host
+    def drive(label, b, spp, warm=True):
+        """Renders ``b`` at ``spp`` (after one warm-up sample) with every
+        launch counter set to 0 just before and read just after, and the
+        sampler's torch path counted; checks the film, the launches and
+        the .dat round trip. → (film, seconds, launches, intersect calls)."""
+        if warm:
+            render(b, spp=1, seed=0, chunk_pixels=CHUNK)
+            sync()
+        tc.reset_launches()
+        rng.reset_launches()
+        isect.calls["intersect"] = 0
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        # the sampler's torch path, counted where every camera column would pass
+        with mock.patch.object(smp, "camera_uniforms", wraps=smp.camera_uniforms) as cu, \
+                mock.patch.object(smp, "_bits_to_unit", wraps=smp._bits_to_unit) as bu:
+            ev[0].record()
+            film = render(b, spp=spp, seed=0, chunk_pixels=CHUNK)
+            ev[1].record()
+            sync()
+        sampler_calls = {"camera_uniforms": cu.call_count, "_bits_to_unit": bu.call_count}
+        launches = {**tc.launches, **rng.launches}
+        n_calls = isect.calls["intersect"]
+        sec = ev[0].elapsed_time(ev[1]) / 1e3
+        ic = b.integrator
+        finite = bool(torch.isfinite(film.pixels).all())
+        total = float(film.pixels.double().sum())
+        with tempfile.TemporaryDirectory() as tmp:
+            path = film_mod.write_dat(film, b.film_config, os.path.join(tmp, "out.dat"))
+            back, _ = film_mod.read_dat(path)
+            dat_ok = bool(np.array_equal(back, film.pixels.cpu().double().numpy()))
+        what = {"ambientocclusion": f"{ic.ao_nsamples} AO samples",
+                "metadata": f"channel {ic.metadata_channel}"}.get(ic.kind, f"depth {ic.max_depth}")
+        log("render", f"{label}: {ic.kind}, {W}x{H}, {spp} spp, {what}, {ic.n_bins} bins, "
+            f"chunk {CHUNK}: {sec:.3f} s, {W * H * spp / sec:.1f} camera paths/s on {name} "
+            f"({smi})")
+        log("render", f"{label}: launches {launches}, intersect calls {n_calls}, per frame "
+            f"(1 spp): closest {launches['traverse_closest'] / spp:.1f}, any "
+            f"{launches['traverse_any'] / spp:.1f}, keyed uniforms "
+            f"{launches['keyed_uniforms'] / spp:.1f}, keyed AO uniforms "
+            f"{launches['keyed_ao_uniforms'] / spp:.1f}; film finite {finite}, sum "
+            f"{total:.6g}, .dat round trip {dat_ok}; sampler torch ops on the card "
+            f"{sampler_calls}")
+        keyed = "keyed_ao_uniforms" if ic.kind == "ambientocclusion" else "keyed_uniforms"
+        other = "keyed_uniforms" if keyed == "keyed_ao_uniforms" else "keyed_ao_uniforms"
+        if launches["traverse_closest"] == 0:
+            raise SystemExit(f"{label}: the path did not launch the closest-hit traversal")
+        if launches["traverse_closest"] + launches["traverse_any"] != n_calls:
+            raise SystemExit(f"{label}: traversal launches do not match intersect calls")
+        if (launches["keyed_scrambles"] != 1 or launches[keyed] != spp * n_chunks
+                or launches[other] != 0):
+            raise SystemExit(f"{label}: the keyed kernels did not launch once per render "
+                             "and once per wave and chunk")
+        if not (finite and total > 0.0 and dat_ok):
+            raise SystemExit(f"{label}: the film is not finite, empty, or did not round-trip")
+        if any(sampler_calls.values()):
+            raise SystemExit(f"{label}: the path ran the sampler's torch ops on the card")
+        return film, sec, launches, n_calls
+
+    # where the time goes: one more sample of a path under the profiler
+    # (not counted above). Only kernel events are summed (an aten op's
+    # device time is its kernels' time again); the busy share is taken
+    # against the unprofiled frame time, since profiling slows the host
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        render(built, spp=1, seed=3, chunk_pixels=CHUNK)
-        sync()
-    kern = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    dev_ms = sum(x[1] for x in kern)
-    trav = {}
-    for key in ("traverse_closest", "traverse_any"):
-        ev = [x for x in kern if tc.KERNEL_NAMES[key] in x[0]]
-        if not ev:
-            raise SystemExit(f"the profile shows no {tc.KERNEL_NAMES[key]} event")
-        trav[key] = (sum(x[1] for x in ev), sum(x[2] for x in ev))
-    trav_ms = sum(v[0] for v in trav.values())
-    rng_ms = sum(x[1] for x in kern if "keyed_" in x[0])
-    frame_ms = sec / spp * 1e3
-    n_launch = sum(x[2] for x in kern)
-    n_chunks = -(-W * H // CHUNK)
-    htod = sum(x[2] for x in kern if x[0].startswith("Memcpy HtoD"))
-    log("profile", f"1 spp: kernel time {dev_ms:.1f} ms in {n_launch} launches "
-        f"({n_launch / n_chunks:.1f} per {CHUNK}-lane chunk, {n_chunks} chunks; of them "
-        f"{htod} host-to-device copies, none from the sampler) "
-        f"= {100 * dev_ms / frame_ms:.1f}% of the unprofiled {frame_ms:.1f} ms "
-        f"frame (device idle the rest); traversal kernels {trav_ms:.3f} ms "
-        f"({100 * trav_ms / max(dev_ms, 1e-9):.1f}% of kernel time): closest hit "
-        f"{trav['traverse_closest'][0]:.3f} ms in {trav['traverse_closest'][1]} launches, "
-        f"any hit {trav['traverse_any'][0]:.3f} ms in {trav['traverse_any'][1]} launches; "
-        f"keyed-uniform kernels {rng_ms:.3f} ms")
-    for k, ms_, cnt in sorted(kern, key=lambda x: -x[1])[:8]:
-        log("profile", f"  {ms_:8.2f} ms  {cnt:6d}x  {k[:90]}")
+    def profile_frame(label, b, frame_ms):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            render(b, spp=1, seed=3, chunk_pixels=CHUNK)
+            sync()
+        kern = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        dev_ms = sum(x[1] for x in kern)
+        trav = {}
+        for key in ("traverse_closest", "traverse_any"):
+            ev = [x for x in kern if tc.KERNEL_NAMES[key] in x[0]]
+            if not ev:
+                raise SystemExit(f"{label}: the profile shows no {tc.KERNEL_NAMES[key]} event")
+            trav[key] = (sum(x[1] for x in ev), sum(x[2] for x in ev))
+        trav_ms = sum(v[0] for v in trav.values())
+        rng_ms = sum(x[1] for x in kern if "keyed_" in x[0])
+        n_launch = sum(x[2] for x in kern)
+        htod = sum(x[2] for x in kern if x[0].startswith("Memcpy HtoD"))
+        log("profile", f"{label}, 1 spp: kernel time {dev_ms:.1f} ms in {n_launch} launches "
+            f"({n_launch / n_chunks:.1f} per {CHUNK}-lane chunk, {n_chunks} chunks; of them "
+            f"{htod} host-to-device copies, none from the sampler) "
+            f"= {100 * dev_ms / frame_ms:.1f}% of the unprofiled {frame_ms:.1f} ms "
+            f"frame (device idle the rest); traversal kernels {trav_ms:.3f} ms "
+            f"({100 * trav_ms / max(dev_ms, 1e-9):.1f}% of kernel time): closest hit "
+            f"{trav['traverse_closest'][0]:.3f} ms in {trav['traverse_closest'][1]} launches, "
+            f"any hit {trav['traverse_any'][0]:.3f} ms in {trav['traverse_any'][1]} launches; "
+            f"keyed-uniform kernels {rng_ms:.3f} ms")
+        for k, ms_, cnt in sorted(kern, key=lambda x: -x[1])[:8]:
+            log("profile", f"  {ms_:8.2f} ms  {cnt:6d}x  {k[:90]}")
 
-    # ---- 8. kernels line --------------------------------------------------
+    spp = 4
+    ic0 = built.integrator
+    if (ic0.kind, ic0.max_depth) != ("directlighting", 5):
+        raise SystemExit(f"the scene's integrator is {ic0.kind} depth {ic0.max_depth}, "
+                         "not killeroo-simple's directlighting at its default depth 5")
+    _, sec, launches, _ = drive("killeroo-simple as written", built, spp)
+    if launches["traverse_any"] == 0:
+        raise SystemExit("directlighting did not launch the any-hit traversal")
+    profile_frame("killeroo-simple as written (directlighting)", built, sec / spp * 1e3)
+    built_path = dataclasses.replace(built, integrator=dataclasses.replace(ic0, kind="path"))
+    _, sec_p, launches_p, _ = drive("killeroo-simple with path", built_path, spp)
+    profile_frame("killeroo-simple with path", built_path, sec_p / spp * 1e3)
+    for key in ("traverse_closest", "traverse_any", "keyed_uniforms", "keyed_scrambles"):
+        launches[key] += launches_p[key]
+
+    # ---- 8. the other kinds, and the lights-and-quadrics scene -----------
+    for directive in ("whitted", "ambientocclusion", "depth", "mesh_mask", "material_mask"):
+        kind = directive if directive in ("whitted", "ambientocclusion") else "metadata"
+        b = dataclasses.replace(built, integrator=dataclasses.replace(
+            ic0, kind=kind, metadata_channel=directive if kind == "metadata" else "depth"))
+        _, _, lk, _ = drive(f"killeroo-simple with {directive}", b, 1, warm=False)
+        if kind == "ambientocclusion":
+            ao_launches = lk["keyed_ao_uniforms"]
+            if lk["traverse_any"] != ic0.ao_nsamples * n_chunks:
+                raise SystemExit(f"ambient occlusion launched {lk['traverse_any']} any-hit "
+                                 f"traversals, not {ic0.ao_nsamples} per chunk")
+    # material ids on the same rays: the card's scene copied to the CPU
+    on_cpu = lambda obj: dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).cpu() for f in dataclasses.fields(obj)
+        if torch.is_tensor(getattr(obj, f.name))})
+    scene_cpu = dataclasses.replace(
+        built.scene, geometry=on_cpu(g), materials=on_cpu(built.scene.materials),
+        lights=on_cpu(built.scene.lights))
+    mcfg = dataclasses.replace(ic0, kind="metadata", metadata_channel="material_mask")
+    sel = torch.randperm(n_cam, generator=gen, device=dev)[:BRUTE_LANES]
+    rays_m = geom.Ray.make(cam.origin[sel].contiguous(), cam.direction[sel].contiguous())
+    mg = trace_radiance(built.scene, rays_m, mcfg, None)[0][:, 0].cpu()
+    mc = trace_radiance(scene_cpu, geom.Ray.make(rays_m.origin.cpu(), rays_m.direction.cpu()),
+                        mcfg, None)[0][:, 0]
+    log("kinds", f"material ids of {BRUTE_LANES} camera rays, card vs CPU: equal "
+        f"{bool(torch.equal(mg, mc))}, ids seen {sorted(set(mc.int().tolist()))}")
+    if not torch.equal(mg, mc) or len(set(mc.int().tolist())) < 3:
+        raise SystemExit("metadata's material ids on the card differ from the CPU's")
+    lq_text, _ = real_scene_text()
+    lq = build(load_scene_string(lights_scene_text(lq_text)), device=dev)
+    lqg = lq.scene.geometry
+    log("scene", f"lights-and-quadrics scene: {lqg.num_triangles} triangles, quadric types "
+        f"{lqg.quad_type.tolist()}, light types {lq.scene.lights.type.tolist()} "
+        f"(area lights from row {lq.scene.lights.area_row0})")
+    for kind in ("path", "directlighting"):
+        b = dataclasses.replace(lq, integrator=dataclasses.replace(lq.integrator, kind=kind))
+        drive(f"lights-and-quadrics scene with {kind}", b, 1, warm=False)
+
+    # ---- 9. kernels line --------------------------------------------------
     src = "pbrt_torch/csrc/traverse.cu"
     rep = "pbrt_tpu/accel/pallas_step.py:36"
     kernels = []
@@ -830,14 +1028,16 @@ def main() -> int:
         kernels.append(dict(
             name=key, route="cuda", source=src, replaces=rep,
             launches=launches[key], max_abs_err=err, library_ms=None, **times[key]))
-    for key, rep_, err_, ms_, plain_, b_, by_ in (
-            ("keyed_uniforms", "pbrt_tpu/integrators/path.py:116", err_ku, ku_ms,
-             ku_plain, ku_bound, ku_by),
-            ("keyed_scrambles", "pbrt_tpu/renderers/sampler.py:44", err_ks, ks_ms,
-             ks_plain, ks_bound, ks_by)):
+    for key, rep_, n_, err_, ms_, plain_, b_, by_ in (
+            ("keyed_uniforms", "pbrt_tpu/integrators/path.py:116", launches["keyed_uniforms"],
+             err_ku, ku_ms, ku_plain, ku_bound, ku_by),
+            ("keyed_scrambles", "pbrt_tpu/renderers/sampler.py:44", launches["keyed_scrambles"],
+             err_ks, ks_ms, ks_plain, ks_bound, ks_by),
+            ("keyed_ao_uniforms", "pbrt_tpu/integrators/path.py:783", ao_launches, err_ao,
+             ka_ms, ka_plain, ka_bound, ka_by)):
         kernels.append(dict(
             name=key, route="cuda", source="pbrt_torch/csrc/rng.cu", replaces=rep_,
-            launches=launches[key], max_abs_err=err_, ms=ms_, plain_ms=plain_,
+            launches=n_, max_abs_err=err_, ms=ms_, plain_ms=plain_,
             bound_ms=b_, bound_by=by_, library_ms=None))
     kernels.append(dict(
         name="gather_lab", route="cuda", source="pbrt_torch/csrc/gather_lab.cu",
@@ -855,7 +1055,10 @@ def main() -> int:
         "lab's gather-and-slab walk; the standalone step is not launched by "
         "the main path (its device function is), so it stands on its own line; "
         "keyed_* replace XLA's threefry at the file:line given, not a Pallas "
-        "kernel; gather_lab's launches are those of the lab's own path")
+        "kernel; the traversal's and keyed_uniforms' launches are those of the "
+        "directlighting and path renders (4 spp each), keyed_ao_uniforms' those "
+        "of the ambient-occlusion render (1 spp); gather_lab's launches are "
+        "those of the lab's own path")
     print("step " + json.dumps(step_line), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,11 @@
 
 A port of the JAX package ``pbrt_tpu`` that lives beside it and imports
 nothing from it. Host-side scene handling (lexer, parser, builder, SAH BVH)
-is numpy; the wavefront (camera rays, path integrator, film) is PyTorch on
-one device; the wide-BVH traversal step is a hand-written CUDA kernel
-(``csrc/traverse.cu``) with a plain PyTorch version beside it
-(``accel/traverse_cuda.py``).
+is numpy; the wavefront (camera rays, surface integrators, film) is
+PyTorch on one device; the wide-BVH traversal and the keyed random numbers
+are hand-written CUDA kernels (``csrc/traverse.cu``, ``csrc/rng.cu``) with
+plain PyTorch versions beside them (``accel/traverse_cuda.py``,
+``core/rng.py``).
 
 Entry points take a ``device`` argument. ``None`` means CUDA and raises
 when no card is present; only an explicit ``device="cpu"`` runs on the

@@ -9,8 +9,8 @@ global: [0, T) triangles, [T, T+Q) quadrics.
 are tested densely first (``quad_best``, torch ops) and their result seeds
 ``t_best`` so the tree prunes on it; the triangles are found by the wide
 traversal (``traverse_cuda.traverse``: the CUDA kernel on a card, its plain
-version on the CPU). Only spheres among the quadrics are ported; the
-builder and ``interop`` refuse other quadric types.
+version on the CPU). All six quadric types are ported: sphere, cylinder,
+disk, cone, paraboloid and hyperboloid.
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ import torch
 from pbrt_torch.accel import traverse_cuda
 from pbrt_torch.core import geometry as geom
 
-SPHERE = 0
+# quadric type codes (intersect.py:44)
+SPHERE, CYLINDER, DISK, CONE, PARABOLOID, HYPERBOLOID = range(6)
 
 #: intersect calls that ran a wide traversal (the traversal kernels' launch
 #: counts must add up to this on a card)
@@ -32,7 +33,7 @@ calls = {"intersect": 0}
 
 @dataclasses.dataclass
 class SceneGeometry:
-    """World-space triangle soup + sphere table + the 8-wide row table."""
+    """World-space triangle soup + quadric table + the 8-wide row table."""
 
     tri_v0: torch.Tensor  # (T, 3)
     tri_e1: torch.Tensor  # (T, 3)
@@ -46,16 +47,22 @@ class SceneGeometry:
     tri_material: torch.Tensor  # (T,) i64
     tri_area_light: torch.Tensor  # (T,) i64, -1 = none
     tri_mesh_id: torch.Tensor  # (T,) i64
-    quad_type: torch.Tensor  # (Q,) i64 (SPHERE only)
+    quad_type: torch.Tensor  # (Q,) i64 quadric type code
     quad_o2w: torch.Tensor  # (Q, 4, 4)
     quad_w2o: torch.Tensor  # (Q, 4, 4)
-    quad_params: torch.Tensor  # (Q, 8) radius, zmin, zmax, phimax, ...
+    quad_params: torch.Tensor  # (Q, 8) radius, zmin, zmax, phimax, height,
+    #   inner radius, hyperboloid a and c coefficients
     quad_material: torch.Tensor  # (Q,) i64
     quad_area_light: torch.Tensor  # (Q,) i64
     quad_mesh_id: torch.Tensor  # (Q,) i64
     quad_reverse: torch.Tensor  # (Q,) bool
     wide_rows: torch.Tensor | None  # (M, 80) f32
     wide_stack: int = 8  # exact worst-case stack need of this table
+    #: host-side, derived: the quadric type codes present (only those are tested)
+    quad_active_types: tuple = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        self.quad_active_types = tuple(sorted(set(self.quad_type.tolist())))
 
     @property
     def num_triangles(self) -> int:
@@ -99,34 +106,89 @@ def _quadratic(a, b, c):
     return ok, torch.minimum(t0, t1), torch.maximum(t0, t1)
 
 
+def _roots(a, b, c, o, d, tmin, tmax, valid):
+    """The nearer of the quadratic's two roots that lies in (tmin, tmax)
+    and passes the clip test ``valid(p)`` (pbrt's two-root pattern) →
+    (hit, t) with t = inf on a miss."""
+    ok, t0, t1 = _quadratic(a, b, c)
+    v0 = ok & (t0 > tmin) & (t0 < tmax) & valid(o + t0[..., None] * d)
+    v1 = ok & (t1 > tmin) & (t1 < tmax) & valid(o + t1[..., None] * d)
+    return v0 | v1, torch.where(v0, t0, torch.where(v1, t1, math.inf))
+
+
 def quad_test(g: SceneGeometry, o_w, d_w, tmin, tmax):
-    """Every ray against every sphere (object space, sphere.cpp:90-150).
-    o_w, d_w (R, 3); tmin, tmax (R,). Returns (hit, t, u, v), each (R, Q)."""
+    """Every ray against every quadric, in object space (intersect.py:252;
+    reference: src/shapes/{sphere,cylinder,disk,cone,paraboloid,
+    hyperboloid}.cpp). Each type present in the scene is tested on every
+    pair and kept where ``quad_type`` names it. o_w, d_w (R, 3); tmin, tmax
+    (R,). Returns (hit, t, u, v), each (R, Q)."""
     w2o = g.quad_w2o  # (Q, 4, 4)
     m3 = w2o[:, :3, :3]
     o = torch.einsum("rj,qij->rqi", o_w, m3) + w2o[:, :3, 3]
     d = torch.einsum("rj,qij->rqi", d_w, m3)
     prm = g.quad_params
     radius, zmin, zmax, phimax = prm[:, 0], prm[:, 1], prm[:, 2], prm[:, 3]
+    height, inner_r, ah, ch = prm[:, 4], prm[:, 5], prm[:, 6], prm[:, 7]
     ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
     dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
-    a = dx * dx + dy * dy + dz * dz
-    b = 2.0 * (dx * ox + dy * oy + dz * oz)
-    c = ox * ox + oy * oy + oz * oz - radius * radius
-    ok, t0, t1 = _quadratic(a, b, c)
     tmin_, tmax_ = tmin[:, None], tmax[:, None]
     eps_z = 1e-5
 
-    def valid(t):
-        p = o + t[..., None] * d
-        return ((p[..., 2] >= zmin - eps_z) & (p[..., 2] <= zmax + eps_z)
-                & (geom.phi_of(p[..., 0], p[..., 1]) <= phimax + 1e-6))
+    def phi_ok(p):
+        return geom.phi_of(p[..., 0], p[..., 1]) <= phimax + 1e-6
 
-    v0 = ok & (t0 > tmin_) & (t0 < tmax_) & valid(t0)
-    v1 = ok & (t1 > tmin_) & (t1 < tmax_) & valid(t1)
-    inf = torch.tensor(math.inf, dtype=o.dtype, device=o.device)
-    t = torch.where(v0, t0, torch.where(v1, t1, inf))
-    hit = v0 | v1
+    def z_in(lo, hi):
+        return lambda p: (p[..., 2] >= lo) & (p[..., 2] <= hi) & phi_ok(p)
+
+    def sphere():
+        a = dx * dx + dy * dy + dz * dz
+        b = 2.0 * (dx * ox + dy * oy + dz * oz)
+        c = ox * ox + oy * oy + oz * oz - radius * radius
+        return _roots(a, b, c, o, d, tmin_, tmax_, z_in(zmin - eps_z, zmax + eps_z))
+
+    def cylinder():
+        a = dx * dx + dy * dy
+        b = 2.0 * (dx * ox + dy * oy)
+        c = ox * ox + oy * oy - radius * radius
+        return _roots(a, b, c, o, d, tmin_, tmax_, z_in(zmin, zmax))
+
+    def disk():
+        t = torch.where(dz.abs() < 1e-9, math.inf, (height - oz) / dz)
+        p = o + t[..., None] * d
+        r2 = p[..., 0] * p[..., 0] + p[..., 1] * p[..., 1]
+        v = ((t > tmin_) & (t < tmax_) & torch.isfinite(t) & (r2 <= radius * radius)
+             & (r2 >= inner_r * inner_r) & phi_ok(p))
+        return v, torch.where(v, t, math.inf)
+
+    def cone():  # apex at z = height, base radius at z = 0
+        k = (radius / height) ** 2
+        a = dx * dx + dy * dy - k * dz * dz
+        b = 2.0 * (dx * ox + dy * oy - k * dz * (oz - height))
+        c = ox * ox + oy * oy - k * (oz - height) * (oz - height)
+        return _roots(a, b, c, o, d, tmin_, tmax_, z_in(0.0, height))
+
+    def paraboloid():  # z = height·(x² + y²)/radius²
+        k = height / (radius * radius)
+        a = k * (dx * dx + dy * dy)
+        b = 2.0 * k * (dx * ox + dy * oy) - dz
+        c = k * (ox * ox + oy * oy) - oz
+        return _roots(a, b, c, o, d, tmin_, tmax_, z_in(zmin, zmax))
+
+    def hyperboloid():  # ah·(x² + y²) − ch·z² = 1
+        a = ah * (dx * dx + dy * dy) - ch * dz * dz
+        b = 2.0 * (ah * (dx * ox + dy * oy) - ch * dz * oz)
+        c = ah * (ox * ox + oy * oy) - ch * oz * oz - 1.0
+        return _roots(a, b, c, o, d, tmin_, tmax_, z_in(zmin, zmax))
+
+    tests = (sphere, cylinder, disk, cone, paraboloid, hyperboloid)
+    hit = t = None
+    for code in g.quad_active_types:
+        h_k, t_k = tests[code]()
+        if hit is None:
+            hit, t = h_k, t_k
+        else:
+            of = g.quad_type == code
+            hit, t = torch.where(of, h_k, hit), torch.where(of, t_k, t)
     p = o + t[..., None] * d
     u = geom.phi_of(p[..., 0], p[..., 1]) / torch.clamp(phimax, min=1e-9)
     v = (p[..., 2] - zmin) / torch.clamp(zmax - zmin, min=1e-9)
@@ -134,7 +196,7 @@ def quad_test(g: SceneGeometry, o_w, d_w, tmin, tmax):
 
 
 def quad_best(g: SceneGeometry, o, d, tmin, tmax):
-    """Dense closest hit over all spheres (intersect.py:568): (t, prim, b1,
+    """Dense closest hit over all quadrics (intersect.py:568): (t, prim, b1,
     b2) with prim a global id or -1, t = tmax on a miss."""
     hit, t, u, v = quad_test(g, o, d, tmin, tmax)
     inf = torch.tensor(math.inf, dtype=t.dtype, device=t.device)

@@ -1,7 +1,7 @@
 """Surface interactions reconstructed from (t, prim, b1, b2) hits.
 
-Port of ``pbrt_tpu/core/interaction.py`` for triangles and spheres, the
-fields the path integrator reads (reference: DifferentialGeometry and
+Port of ``pbrt_tpu/core/interaction.py`` for triangles and quadrics, the
+fields the integrators read (reference: DifferentialGeometry and
 Intersection, src/core/{diffgeom,intersection}.h). Texture footprints and
 the bump-mapping partials (dpdv, dndu, dndv, uv differentials) wait for the
 texture slice.
@@ -13,7 +13,8 @@ import dataclasses
 
 import torch
 
-from pbrt_torch.accel.intersect import Hit, SceneGeometry
+from pbrt_torch.accel.intersect import (CONE, CYLINDER, DISK, HYPERBOLOID,
+                                        PARABOLOID, SPHERE, Hit, SceneGeometry)
 from pbrt_torch.core import geometry as geom
 
 
@@ -78,9 +79,16 @@ def surface_interaction(g: SceneGeometry, ray: geom.Ray, hit: Hit) -> SurfaceInt
         w2o = g.quad_w2o[qi]
         o2w = g.quad_o2w[qi]
         p_obj = torch.einsum("rij,rj->ri", w2o[:, :3, :3], p) + w2o[:, :3, 3]
-        # sphere: the implicit gradient is the object-space point; normals
-        # transform by the inverse transpose (n_world = n_obj @ w2o[:3, :3])
-        n_w = geom.normalize(torch.einsum("ri,rij->rj", p_obj, w2o[:, :3, :3]))
+        # each type's implicit gradient in object space (interaction.py:
+        # 272-286); normals transform by the inverse transpose
+        # (n_world = n_obj @ w2o[:3, :3])
+        n_obj = p_obj
+        typ = g.quad_type[qi]
+        for code in g.quad_active_types:
+            if code != SPHERE:
+                n_obj = torch.where((typ == code)[:, None],
+                                    _quadric_gradient(code, p_obj, g.quad_params[qi]), n_obj)
+        n_w = geom.normalize(torch.einsum("ri,rij->rj", n_obj, w2o[:, :3, :3]))
         n_w = torch.where(g.quad_reverse[qi][:, None], -n_w, n_w)
         x, y = p_obj[:, 0], p_obj[:, 1]
         dpdu_obj = torch.stack([-y, x, torch.zeros_like(x)], -1)
@@ -115,6 +123,27 @@ def surface_interaction(g: SceneGeometry, ray: geom.Ray, hit: Hit) -> SurfaceInt
         mesh_id=torch.where(valid, mesh_id, neg1),
         prim=hit.prim, ray_epsilon=1e-3 * hit.t.abs(),
     )
+
+
+def _quadric_gradient(code, p_obj, prm):
+    """The object-space normal direction of a non-sphere quadric at p_obj
+    (the sphere's is p_obj itself)."""
+    x, y, z = p_obj[:, 0], p_obj[:, 1], p_obj[:, 2]
+    radius, height = prm[:, 0], prm[:, 4]
+    if code == CYLINDER:
+        return torch.stack([x, y, torch.zeros_like(z)], -1)
+    if code == DISK:
+        return torch.stack([torch.zeros_like(x), torch.zeros_like(y), torch.ones_like(z)], -1)
+    if code == CONE:
+        k = (radius / torch.clamp(height, min=1e-9)) ** 2
+        return torch.stack([x, y, -k * (z - height)], -1)
+    if code == PARABOLOID:
+        k = height / torch.clamp(radius * radius, min=1e-9)
+        return torch.stack([2 * k * x, 2 * k * y, -torch.ones_like(z)], -1)
+    if code == HYPERBOLOID:
+        ah, ch = prm[:, 6], prm[:, 7]
+        return torch.stack([ah * x, ah * y, -ch * z], -1)
+    raise ValueError(f"quadric type {code}")
 
 
 def offset_ray_origin(p, ng, w, eps):

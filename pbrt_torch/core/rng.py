@@ -21,7 +21,7 @@ Words are held in int64 tensors masked to 32 bits: PyTorch has no uint32
 arithmetic on the CPU. Shifts stay below 2**63 (a word shifted by at most
 31 bits) and every sum is masked back.
 
-The render's two arrays of keyed numbers come from CUDA kernels
+The render's arrays of keyed numbers come from CUDA kernels
 (``csrc/rng.cu``) when the pixel indices lie on the card, and from the
 plain versions here when they lie on the CPU; both give the same bits:
 
@@ -32,6 +32,10 @@ plain versions here when they lie on the CPU; both give the same bits:
   s), 0, BATCHED)`` as ``BatchedKeySource`` draws it (path.py:115-120):
   8·D uniforms read as (D, 8) blocks [light_sel, light_u1, light_u2,
   bsdf_lobe, bsdf_u1, bsdf_u2, rr, spare], with ``spare`` dropped;
+- ``ao_uniforms`` — ambient occlusion's (R, 5 + 2·n) array for sample s:
+  the camera columns, then for each AO sample j the two uniforms
+  ``uniform_per(bounce_key(pixel_sample_key(root, pixel, s), j,
+  BSDF_SAMPLE), 2)`` that ``_ao_li`` draws (path.py:783-784);
 - ``pixel_scrambles`` — the (R, 6) scramble words of the lowdiscrepancy
   camera sample, from sample 0's pixel key (sampler.py:122-127, :43-44).
 
@@ -73,7 +77,7 @@ _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 #: kernel launches per wrapper (the plain versions count nothing)
-launches = {"keyed_uniforms": 0, "keyed_scrambles": 0}
+launches = {"keyed_uniforms": 0, "keyed_scrambles": 0, "keyed_ao_uniforms": 0}
 
 
 def reset_launches():
@@ -173,6 +177,18 @@ def primary_uniforms_plain(root, pixel_index, scrambles, sample: int, max_depth:
                       bounce_uniforms_plain(root, pixel_index, sample, max_depth)], -1)
 
 
+def ao_uniforms_plain(root, pixel_index, scrambles, sample: int, n_ao: int):
+    """(R,) pixel indices and their (R, 6) scramble words → ambient
+    occlusion's (R, 5 + 2·n_ao) array of sample ``sample``: the camera
+    columns, then AO sample j's two uniforms at columns 5 + 2j, 6 + 2j."""
+    dev = pixel_index.device
+    keys = pixel_sample_key(root.to(dev), pixel_index, sample)
+    j = torch.arange(n_ao, dtype=torch.int64, device=dev)
+    per = uniform_per(bounce_key(keys[:, None, :], j, BSDF_SAMPLE), 2)  # (R, n, 2)
+    return torch.cat([smp.camera_uniforms(sample, scrambles),
+                      per.reshape(pixel_index.shape[0], 2 * n_ao)], -1)
+
+
 def pixel_scrambles_plain(root, pixel_index):
     """(R,) pixel indices → (R, 6) int64 scramble words (sample 0's key)."""
     keys = pixel_sample_key(root.to(pixel_index.device), pixel_index, 0)
@@ -199,6 +215,27 @@ def _launch_args(root, pixel_index, row_width: int):
     return k0, k1, R, native.kernel_lib("rng.cu"), stream
 
 
+def _keyed_rows(entry: str, name: str, root, pixel_index, scrambles, sample: int,
+                count: int, per_count: int):
+    """Launches a keyed kernel that writes CAMERA_DIMS + per_count·count
+    floats per lane (``count`` bounces or AO samples) → the (R, width)
+    array."""
+    if count < 0:
+        raise ValueError(f"{name}: count {count}, expected >= 0")
+    width = CAMERA_DIMS + per_count * count
+    k0, k1, R, lib, stream = _launch_args(root, pixel_index, width)
+    native.check_tensor("scrambles", scrambles, torch.int64, (R, N_SCRAMBLES),
+                        pixel_index.device)
+    out = torch.empty((R, width), dtype=torch.float32, device=pixel_index.device)
+    if R == 0:
+        return out
+    native.check_launch(getattr(lib, entry)(
+        k0, k1, pixel_index.data_ptr(), scrambles.data_ptr(), R, int(sample) & _M32,
+        count, out.data_ptr(), stream), f"{name} launch")
+    launches[name] += 1
+    return out
+
+
 def primary_uniforms(root, pixel_index, scrambles, sample: int, max_depth: int):
     """The primary-sample array; see ``primary_uniforms_plain`` for the
     contract."""
@@ -206,21 +243,19 @@ def primary_uniforms(root, pixel_index, scrambles, sample: int, max_depth: int):
         return primary_uniforms_plain(root, pixel_index, scrambles, sample, max_depth)
     if pixel_index.device.type != "cuda":
         raise ValueError(f"primary_uniforms: unsupported device {pixel_index.device}")
-    depth = int(max_depth)
-    if depth < 0:
-        raise ValueError(f"max_depth: {depth}, expected >= 0")
-    width = CAMERA_DIMS + PER_BOUNCE_USED * depth
-    k0, k1, R, lib, stream = _launch_args(root, pixel_index, width)
-    native.check_tensor("scrambles", scrambles, torch.int64, (R, N_SCRAMBLES),
-                        pixel_index.device)
-    out = torch.empty((R, width), dtype=torch.float32, device=pixel_index.device)
-    if R == 0:
-        return out
-    native.check_launch(lib.pbrt_torch_keyed_uniforms(
-        k0, k1, pixel_index.data_ptr(), scrambles.data_ptr(), R, int(sample) & _M32,
-        depth, out.data_ptr(), stream), "keyed_uniforms launch")
-    launches["keyed_uniforms"] += 1
-    return out
+    return _keyed_rows("pbrt_torch_keyed_uniforms", "keyed_uniforms", root, pixel_index,
+                       scrambles, sample, int(max_depth), PER_BOUNCE_USED)
+
+
+def ao_uniforms(root, pixel_index, scrambles, sample: int, n_ao: int):
+    """Ambient occlusion's array; see ``ao_uniforms_plain`` for the
+    contract."""
+    if pixel_index.device.type == "cpu":
+        return ao_uniforms_plain(root, pixel_index, scrambles, sample, n_ao)
+    if pixel_index.device.type != "cuda":
+        raise ValueError(f"ao_uniforms: unsupported device {pixel_index.device}")
+    return _keyed_rows("pbrt_torch_keyed_ao_uniforms", "keyed_ao_uniforms", root,
+                       pixel_index, scrambles, sample, int(n_ao), 2)
 
 
 def pixel_scrambles(root, pixel_index):

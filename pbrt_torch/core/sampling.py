@@ -88,6 +88,12 @@ def uniform_sample_sphere(u1, u2):
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], -1)
 
 
+def uniform_sample_triangle(u1, u2):
+    """Barycentric (b0, b1) of a uniform point (montecarlo.cpp:242-247)."""
+    su1 = torch.sqrt(u1)
+    return 1.0 - su1, u2 * su1
+
+
 def uniform_sample_cone(u1, u2, cos_theta_max):
     """(montecarlo.cpp:260-268)."""
     cos_theta = (1.0 - u1) + u1 * cos_theta_max

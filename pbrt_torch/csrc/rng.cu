@@ -10,6 +10,11 @@
 //                     (pbrt_tpu/integrators/path.py:115-120: key (pixel,
 //                     sample, tag 15), 8 per bounce, the 8th, "spare",
 //                     never read);
+//   keyed_ao_uniforms — ambient occlusion's (R, 5 + 2·n) array: the same
+//                     camera columns, then per AO sample s the uniforms at
+//                     counters 0 and 1 of the lane key (pixel, sample)
+//                     folded with s·16 + 3 (BSDF_SAMPLE), as _ao_li draws
+//                     them (pbrt_tpu/integrators/path.py:783-784);
 //   keyed_scrambles — the 6 scramble words per pixel from sample 0's key,
 //                     tag 0 (CAMERA) (pbrt_tpu/renderers/sampler.py:43-44,
 //                     :122-127), written as int64 (the port's uint32 holder).
@@ -39,6 +44,10 @@
 //                     wider than one tile (D > 8) go in passes of 8 bounces,
 //                     copied row by row. 32-bit index arithmetic; the
 //                     wrapper checks R·(5 + 7·D) < 2^31.
+//   keyed_ao_uniforms — keyed_uniforms' design: one thread per lane, the
+//                     lane key once, then per AO sample its fold-in and two
+//                     hashes; the same camera columns, warp tile and
+//                     copy-out, in passes of 16 samples.
 //   keyed_scrambles — one thread per lane, 6 independent hashes after the
 //                     key; the block's words are staged in shared memory and
 //                     written out by consecutive threads as consecutive
@@ -57,9 +66,12 @@ constexpr int kUsed = 7;      // the ones the path integrator reads
 constexpr int kCameraCols = 5;
 constexpr int kScrambles = 6;
 constexpr int kPassBounces = 8;            // bounces per tile pass
+constexpr int kAoPerSample = 2;  // uniforms per AO sample
+constexpr int kPassSamples = 16;           // AO samples per tile pass
 
 constexpr uint32_t kBatchedTag = 15u;  // bounce 0 * 16 + reserved purpose 15
 constexpr uint32_t kCameraTag = 0u;    // bounce 0 * 16 + CAMERA
+constexpr uint32_t kAoPurpose = 3u;    // BSDF_SAMPLE: AO sample s folds in s * 16 + 3
 constexpr uint32_t kOneMinusEps = 0x3F7FFFFFu;  // largest float below 1
 
 __device__ __forceinline__ void mix(uint32_t& x0, uint32_t& x1, int r) {
@@ -130,6 +142,42 @@ __host__ __device__ constexpr unsigned tile_cols(int D) {
   return kCameraCols + kUsed * (D < kPassBounces ? D : kPassBounces);
 }
 
+__host__ __device__ constexpr unsigned ao_tile_cols(int n) {
+  return kCameraCols + kAoPerSample * (n < kPassSamples ? n : kPassSamples);
+}
+
+// camera_uniforms: image (0,2), lens (0,2), time
+__device__ __forceinline__ void camera_cols(float* dst, uint32_t sample,
+                                            const uint32_t* scr) {
+  const uint32_t vdc = __brev(sample), sob = sobol2_word(sample);
+  dst[0] = unit_from_bits(vdc ^ scr[0]);
+  dst[1] = unit_from_bits(sob ^ scr[1]);
+  dst[2] = unit_from_bits(vdc ^ scr[2]);
+  dst[3] = unit_from_bits(sob ^ scr[3]);
+  dst[4] = unit_from_bits(vdc ^ scr[4]);
+}
+
+// A warp's tile of ``rows`` rows × ``cols`` columns (row-major, unpadded)
+// into columns [col0, col0 + cols) of rows [base, base + rows) of out, whose
+// rows are ``width`` floats. One pass over the whole row is the rows' block
+// of out, copied with 16-byte stores; a part of a row is copied row by row.
+__device__ __forceinline__ void copy_tile_out(const float* tile, float* out,
+                                              unsigned base, unsigned rows,
+                                              unsigned cols, unsigned width,
+                                              unsigned col0, unsigned lane) {
+  if (cols == width) {
+    const unsigned n = rows * cols;
+    float* dst = out + base * width;  // 16-byte aligned: base is a multiple of 32
+    for (unsigned i = lane; i < n / 4; i += kWarp)
+      reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(tile)[i];
+    for (unsigned i = n / 4 * 4 + lane; i < n; i += kWarp) dst[i] = tile[i];
+  } else {
+    for (unsigned r = 0; r < rows; ++r)
+      for (unsigned q = lane; q < cols; q += kWarp)
+        out[(base + r) * width + col0 + q] = tile[r * cols + q];
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 keyed_uniforms_kernel(uint32_t k0, uint32_t k1,
                       const long long* __restrict__ pixel,
@@ -166,14 +214,7 @@ keyed_uniforms_kernel(uint32_t k0, uint32_t k1,
     const unsigned col0 = p == 0 ? 0 : kCameraCols + kUsed * b0;
     float* mine = tile + lane * cols;  // the tile is the rows' block, row-major
     if (live) {
-      if (cam) {  // camera_uniforms: image (0,2), lens (0,2), time
-        const uint32_t vdc = __brev(sample), sob = sobol2_word(sample);
-        mine[0] = unit_from_bits(vdc ^ scr[0]);
-        mine[1] = unit_from_bits(sob ^ scr[1]);
-        mine[2] = unit_from_bits(vdc ^ scr[2]);
-        mine[3] = unit_from_bits(sob ^ scr[3]);
-        mine[4] = unit_from_bits(vdc ^ scr[4]);
-      }
+      if (cam) camera_cols(mine, sample, scr);
       for (int b = 0; b < nb; ++b) {
         const uint32_t ctr = static_cast<uint32_t>((b0 + b) * kDrawn);
         float* dst = mine + cam + b * kUsed;
@@ -183,17 +224,57 @@ keyed_uniforms_kernel(uint32_t k0, uint32_t k1,
       }
     }
     __syncwarp();
-    if (cols == width) {  // one pass: the tile is the rows' block of out
-      const unsigned n = rows * cols;
-      float* dst = out + base * width;  // 16-byte aligned: base is a multiple of 32
-      for (unsigned i = lane; i < n / 4; i += kWarp)
-        reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(tile)[i];
-      for (unsigned i = n / 4 * 4 + lane; i < n; i += kWarp) dst[i] = tile[i];
-    } else {
-      for (unsigned r = 0; r < rows; ++r)
-        for (unsigned q = lane; q < cols; q += kWarp)
-          out[(base + r) * width + col0 + q] = tile[r * cols + q];
+    copy_tile_out(tile, out, base, rows, cols, width, col0, lane);
+    __syncwarp();
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+keyed_ao_uniforms_kernel(uint32_t k0, uint32_t k1,
+                         const long long* __restrict__ pixel,
+                         const long long* __restrict__ scrambles, int R,
+                         uint32_t sample, int n, float* __restrict__ out) {
+  extern __shared__ float4 tiles[];  // kWarps tiles of kWarp × ao_tile_cols(n) floats
+  const unsigned lane = threadIdx.x % kWarp;
+  const unsigned warp = threadIdx.x / kWarp;
+  const unsigned base = (blockIdx.x * kWarps + warp) * kWarp;  // warp's first row
+  if (base >= static_cast<unsigned>(R)) return;  // the whole warp
+  const unsigned rows = min(static_cast<unsigned>(R) - base, static_cast<unsigned>(kWarp));
+  const unsigned row = base + lane;
+  const bool live = lane < rows;
+  const unsigned width = kCameraCols + kAoPerSample * n;
+  float* tile = reinterpret_cast<float*>(tiles) + warp * kWarp * ao_tile_cols(n);
+
+  uint32_t a = k0, c = k1;  // the lane key: (pixel, sample), no purpose tag
+  uint32_t scr[kCameraCols];
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < kCameraCols; ++j)
+      scr[j] = static_cast<uint32_t>(scrambles[row * kScrambles + j]);
+    fold_in(a, c, static_cast<uint32_t>(pixel[row]));
+    fold_in(a, c, sample);
+  }
+
+  const int passes = n > 0 ? (n + kPassSamples - 1) / kPassSamples : 1;
+  for (int p = 0; p < passes; ++p) {
+    const int s0 = p * kPassSamples;
+    const int ns = min(n - s0, kPassSamples);
+    const unsigned cam = p == 0 ? kCameraCols : 0;
+    const unsigned cols = cam + kAoPerSample * ns;   // this pass's columns
+    const unsigned col0 = p == 0 ? 0 : kCameraCols + kAoPerSample * s0;
+    float* mine = tile + lane * cols;
+    if (live) {
+      if (cam) camera_cols(mine, sample, scr);
+      for (int s = 0; s < ns; ++s) {
+        uint32_t sa = a, sc = c;
+        fold_in(sa, sc, static_cast<uint32_t>(s0 + s) * 16u + kAoPurpose);
+        float* dst = mine + cam + s * kAoPerSample;
+        dst[0] = uniform_from_bits(bits_at(sa, sc, 0u));
+        dst[1] = uniform_from_bits(bits_at(sa, sc, 1u));
+      }
     }
+    __syncwarp();
+    copy_tile_out(tile, out, base, rows, cols, width, col0, lane);
     __syncwarp();
   }
 }
@@ -236,6 +317,16 @@ int pbrt_torch_keyed_uniforms(uint32_t k0, uint32_t k1, const long long* pixel,
     keyed_uniforms_kernel<<<(R - 1) / kThreads + 1, kThreads,
                             kThreads * tile_cols(max_depth) * sizeof(float), stream>>>(
         k0, k1, pixel, scrambles, R, sample, max_depth, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pbrt_torch_keyed_ao_uniforms(uint32_t k0, uint32_t k1, const long long* pixel,
+                                 const long long* scrambles, int R, uint32_t sample,
+                                 int n_ao, float* out, cudaStream_t stream) {
+  if (R > 0)
+    keyed_ao_uniforms_kernel<<<(R - 1) / kThreads + 1, kThreads,
+                               kThreads * ao_tile_cols(n_ao) * sizeof(float), stream>>>(
+        k0, k1, pixel, scrambles, R, sample, n_ao, out);
   return static_cast<int>(cudaGetLastError());
 }
 

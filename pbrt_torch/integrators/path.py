@@ -1,28 +1,48 @@
-"""The path integrator as a wavefront (port of ``pbrt_tpu/integrators/path.py``
-for ``kind="path"``; reference: src/integrators/path.cpp:44-110 with
-UniformSampleOneLight / EstimateDirect, core/integrator.cpp:74-180).
+"""The surface integrators as a wavefront (port of
+``pbrt_tpu/integrators/path.py``; reference: src/integrators/path.cpp:44-110
+with UniformSampleOneLight / EstimateDirect, core/integrator.cpp:74-180;
+directlighting.cpp, whitted.cpp, ambientocclusion.cpp:47-87 and the fork's
+metadata.cpp:42-80).
 
-Per bounce: closest-hit traversal → emitted/escaped radiance with MIS
-(``accumulate_hit``) → one-light next-event estimation with an any-hit
-shadow ray → BSDF sampling → Russian roulette after bounce ``rr_depth``.
-Dead lanes are masked, not compacted; their rays get tmax = 0 so the
-traversal lets them go at once.
+``path``, ``directlighting`` and ``whitted`` share one bounce loop:
+closest-hit traversal → emitted radiance with MIS (``accumulate_hit``) →
+one-light next-event estimation with an any-hit shadow ray → BSDF sampling
+→ Russian roulette after bounce ``rr_depth`` (``path`` only). The direct
+integrators continue only along delta lobes (specular recursion);
+``directlighting`` shoots its non-delta BSDF sample as a gather-only lane
+that collects Le with MIS on the next segment and stops (EstimateDirect's
+BSDF half, path.py:655-672), ``whitted`` drops it (path.py:664). Dead
+lanes are masked, not compacted; their rays get tmax = 0 so the traversal
+lets them go at once. ``ambientocclusion`` casts ``ao_nsamples``
+cosine-distributed any-hit rays from the first hit (``_ao_li``);
+``metadata`` returns the first hit's depth, mesh id or material id + 1 as
+radiance (``_metadata_li``).
 
-Randomness: every decision reads a column of an explicit (R, 5 + 7·D)
-primary-sample array through ``PrimarySource`` (path.py:129-160): columns
-[0:5) are the camera's, and bounce b owns the block of 7 at 5 + 7b:
-[light_sel, light_u1, light_u2, bsdf_lobe, bsdf_u1, bsdf_u2, rr]. The
-renderer fills the bounce columns from the same threefry keys as the JAX
-package's ``BatchedKeySource`` (``core/rng.py``), whose eighth, unread
-"spare" column per bounce is dropped, so a seed gives the same bits in both
-packages; fed the same array, both trace the same paths
-(tests/test_torch_path.py).
+Randomness: every decision reads a column of an explicit primary-sample
+array whose columns [0:5) are the camera's. For the bounce loop the array
+is (R, 5 + 7·D) (``PrimarySource``, path.py:129-160): bounce b owns the
+block of 7 at 5 + 7b: [light_sel, light_u1, light_u2, bsdf_lobe, bsdf_u1,
+bsdf_u2, rr]. The renderer fills the bounce columns from the same threefry
+keys as the JAX package's ``BatchedKeySource`` (``core/rng.py``), whose
+eighth, unread "spare" column per bounce is dropped, so a seed gives the
+same bits in both packages. For ambient occlusion the array is (R, 5 +
+2·n): sample s reads columns 5 + 2s and 6 + 2s, the uniforms the JAX
+package draws from the lane key folded with s·16 + BSDF_SAMPLE
+(path.py:783-784). Metadata reads only the camera columns. Fed the same
+array, both packages trace the same paths (tests/test_torch_path.py,
+test_torch_integrators.py).
+
+Kept as the JAX package has it (the port is held to it): NEE samples one
+light whatever ``strategy`` says, and ``whitted`` weights its light
+samples by the MIS power heuristic without the BSDF half.
 
 Written differently from the reference on purpose:
 - the RR gate is a real boolean (path.py:682 applies ``~`` to a Python
   bool and leans on int32 promotion to get the same masks);
 - the pending shadow ray's tmax is zeroed once (path.py:249 zeroes it a
   second time, which changes nothing);
+- emission and the MIS pdf of a hit area light read its own light-table
+  row (``lights/table.py``);
 - textures, volumes and the merged shadow+closest batch are not ported.
 """
 
@@ -42,6 +62,11 @@ from pbrt_torch.core.interaction import offset_ray_origin, surface_interaction
 from pbrt_torch.lights import table as lights_mod
 from pbrt_torch.materials import table as mat_mod
 
+#: the integrator kinds the port renders
+KINDS = ("path", "directlighting", "whitted", "ambientocclusion", "metadata")
+#: kinds whose BSDF samples continue only along delta lobes
+DIRECT_KINDS = ("directlighting", "whitted")
+
 
 @dataclasses.dataclass
 class RenderScene:
@@ -52,9 +77,13 @@ class RenderScene:
 
 @dataclasses.dataclass(frozen=True)
 class IntegratorConfig:
-    kind: str = "path"
+    kind: str = "path"  # one of KINDS
     max_depth: int = 5
+    strategy: str = "all"  # directlighting's (parsed; NEE samples one light)
     rr_depth: int = 3  # RR starts after this many bounces (path.cpp:95)
+    ao_nsamples: int = 4
+    ao_maxdist: float = math.inf
+    metadata_channel: str = "depth"  # depth | mesh_mask | material_mask
     n_bins: int = 32
 
 
@@ -81,8 +110,7 @@ def _shadow_unoccluded(g, p, ng, wi, dist, eps):
     """Any-hit shadow rays; True where the light point is visible
     (VisibilityTester::Unoccluded)."""
     o = offset_ray_origin(p, ng, wi, eps)
-    big = torch.full_like(dist, 1e30)
-    tmax = torch.where(torch.isfinite(dist), dist * (1.0 - 1e-3) - eps, big)
+    tmax = torch.where(torch.isfinite(dist), dist * (1.0 - 1e-3) - eps, 1e30)
     rays = geom.Ray(origin=o, direction=wi, tmin=torch.zeros_like(dist),
                     tmax=torch.clamp(tmax, min=0.0), time=torch.zeros_like(dist))
     return ~intersect(g, rays, any_hit=True).valid
@@ -90,7 +118,8 @@ def _shadow_unoccluded(g, p, ng, wi, dist, eps):
 
 def _nee_one_light(scene: RenderScene, si, lm, wo_local, frame, source,
                    bounce: int, active):
-    """One-light NEE with MIS; (R, S) already times the light count."""
+    """One-light NEE with MIS (delta lights weigh 1); (R, S) already times
+    the light count."""
     lt = scene.lights
     n_lights = lt.count
     ss, ts, ns = frame
@@ -105,7 +134,7 @@ def _nee_one_light(scene: RenderScene, si, lm, wo_local, frame, source,
     candidate = (active & (ls.pdf > 0.0) & (cos_i > 0.0)
                  & (f > 0.0).any(-1) & (ls.L > 0.0).any(-1))
     pdf_b = mat_mod.bsdf_pdf(lm, wo_local, wi_local)
-    w_mis = smp.power_heuristic(1.0, ls.pdf, 1.0, pdf_b)  # area lights: not delta
+    w_mis = torch.where(ls.is_delta, 1.0, smp.power_heuristic(1.0, ls.pdf, 1.0, pdf_b))
     contrib = f * ls.L * (cos_i * w_mis / torch.clamp(ls.pdf, min=1e-12))[:, None]
     # zero-contribution lanes get dist 0 → tmax 0 → no traversal
     visible = _shadow_unoccluded(
@@ -118,9 +147,13 @@ def _nee_one_light(scene: RenderScene, si, lm, wo_local, frame, source,
 
 def trace_radiance(scene: RenderScene, rays: geom.Ray, cfg: IntegratorConfig,
                    uniforms: torch.Tensor):
-    """(R,) rays → (L (R, S), first_hit_t (R,)). ``uniforms`` is the
-    (R, 5 + 7·max_depth) primary-sample array (see the module docstring)."""
-    if cfg.kind != "path":
+    """(R,) rays → (L (R, S), first_hit_t (R,)). ``uniforms`` is the kind's
+    primary-sample array (see the module docstring)."""
+    if cfg.kind == "metadata":
+        return _metadata_li(scene, rays, cfg)
+    if cfg.kind == "ambientocclusion":
+        return _ao_li(scene, rays, cfg, uniforms)
+    if cfg.kind not in KINDS:
         raise NotImplementedError(f"integrator {cfg.kind!r} is not ported yet")
     S = scene.materials.kd.shape[-1]
     R = rays.origin.shape[0]
@@ -133,10 +166,11 @@ def trace_radiance(scene: RenderScene, rays: geom.Ray, cfg: IntegratorConfig,
     def accumulate_hit(L, ray, hit, si, throughput, alive, specular_bounce,
                        prev_bsdf_pdf):
         """Emissive-hit accumulation with MIS weights (no env lights)."""
-        if lt.count == 0:
+        if lt.count == 0 or lights_mod.AREA not in lt.active_types:
             return L
         le = lights_mod.emitted_radiance(lt, si.area_light, si.ng, si.wo)
-        pdf_light_hit = lights_mod.pdf_li_hit(lt, g, si.area_light, ray.origin)
+        pdf_light_hit = lights_mod.pdf_li_hit(
+            lt, g, si.area_light, ray.origin, ray.direction, hit.t, si.ng)
         w_hit = torch.where(
             specular_bounce, 1.0,
             smp.power_heuristic(1.0, prev_bsdf_pdf, 1.0, pdf_light_hit / n_lights),
@@ -152,6 +186,7 @@ def trace_radiance(scene: RenderScene, rays: geom.Ray, cfg: IntegratorConfig,
     specular_bounce = torch.ones(R, dtype=torch.bool, device=dev)
     prev_bsdf_pdf = torch.ones(R, dtype=torch.float32, device=dev)
     first_hit_t = torch.zeros(R, dtype=torch.float32, device=dev)
+    gather_only = torch.zeros(R, dtype=torch.bool, device=dev)
     for bounce in range(cfg.max_depth):
         hit = intersect(g, ray)
         si = surface_interaction(g, ray, hit)
@@ -159,7 +194,8 @@ def trace_radiance(scene: RenderScene, rays: geom.Ray, cfg: IntegratorConfig,
             first_hit_t = torch.where(si.valid, hit.t, 0.0)
         L = accumulate_hit(L, ray, hit, si, throughput, alive,
                            specular_bounce, prev_bsdf_pdf)
-        alive = alive & si.valid
+        # gather-only lanes exist to collect Le along their segment: they stop
+        alive = alive & si.valid & ~gather_only
 
         lm = mat_mod.gather_lane(scene.materials, si.material)
         ss, ts = bxdf.make_shading_frame(si.ns, si.dpdu)
@@ -179,17 +215,25 @@ def trace_radiance(scene: RenderScene, rays: geom.Ray, cfg: IntegratorConfig,
         wi_world = bxdf.local_to_world(wi_local, ss, ts, si.ns)
         cos_i = geom.absdot(wi_world, si.ns)
         ok = alive & (pdf > 0.0) & (f > 0.0).any(-1)
+        gather_only = torch.zeros_like(ok)
+        if cfg.kind in DIRECT_KINDS:
+            # specular recursion continues; directlighting shoots its
+            # non-delta sample once, to gather Le (integrator.cpp:145-180)
+            if cfg.kind == "directlighting":
+                gather_only = ok & ~is_delta
+            ok = ok & is_delta
+        step = ok | gather_only
         throughput = torch.where(
-            ok[:, None],
+            step[:, None],
             throughput * f * (cos_i / torch.clamp(pdf, min=1e-12))[:, None],
             throughput,
         )
-        alive = ok
+        alive = step
         specular_bounce = is_delta & ok
         prev_bsdf_pdf = pdf
 
         # Russian roulette (path.cpp:95-100), a boolean gate
-        if bounce > cfg.rr_depth:
+        if cfg.kind == "path" and bounce > cfg.rr_depth:
             cont_p = torch.clamp(spec.luminance(throughput), max=0.5)
             u_rr = source.get(bounce, PrimarySource.ROULETTE, 1)[:, 0]
             survive = u_rr < cont_p
@@ -216,3 +260,39 @@ def trace_radiance(scene: RenderScene, rays: geom.Ray, cfg: IntegratorConfig,
     L = accumulate_hit(L, ray, hit, si, throughput, alive, specular_bounce,
                        prev_bsdf_pdf)
     return L, first_hit_t
+
+
+def _first_hit(scene: RenderScene, rays):
+    hit = intersect(scene.geometry, rays)
+    si = surface_interaction(scene.geometry, rays, hit)
+    return hit, si, torch.where(si.valid, hit.t, 0.0)
+
+
+def _ao_li(scene: RenderScene, rays, cfg: IntegratorConfig, uniforms):
+    """Cosine-weighted ambient occlusion (ambientocclusion.cpp:47-87): the
+    visible fraction of ``ao_nsamples`` rays of length ``ao_maxdist``."""
+    _, si, first_hit_t = _first_hit(scene, rays)
+    ss, ts = bxdf.make_shading_frame(si.ns, si.dpdu)
+    n_vis = torch.zeros_like(si.t)
+    maxdist = torch.full_like(si.t, cfg.ao_maxdist)
+    for s in range(cfg.ao_nsamples):
+        col = PrimarySource.CAMERA_DIMS + 2 * s
+        w_local = smp.cosine_sample_hemisphere(uniforms[:, col], uniforms[:, col + 1])
+        w = geom.face_forward(bxdf.local_to_world(w_local, ss, ts, si.ns), si.ns)
+        free = _shadow_unoccluded(scene.geometry, si.p, si.ng, w, maxdist, si.ray_epsilon)
+        n_vis = n_vis + free.to(torch.float32)
+    frac = torch.where(si.valid, n_vis / cfg.ao_nsamples, 0.0)
+    return frac[:, None].expand(-1, cfg.n_bins), first_hit_t
+
+
+def _metadata_li(scene: RenderScene, rays, cfg: IntegratorConfig):
+    """The fork's metadata integrator (metadata.cpp:42-80): depth, mesh id
+    or material id + 1 of the first hit as radiance (0 on a miss)."""
+    hit, si, first_hit_t = _first_hit(scene, rays)
+    if cfg.metadata_channel == "depth":
+        v = first_hit_t
+    elif cfg.metadata_channel == "mesh_mask":
+        v = torch.where(si.valid, si.mesh_id.to(torch.float32), 0.0)
+    else:  # material_mask
+        v = (torch.where(si.valid, si.material, -1) + 1).to(torch.float32)
+    return v[:, None].expand(-1, cfg.n_bins), first_hit_t

@@ -21,8 +21,11 @@ Keys (shapes as in the JAX package's tables):
 - materials: ``mat_n_lobes`` (M,), ``mat_lobe_type`` (M, 4) as indices
   into ``mat_active_lobes`` (the JAX table's compact codes, -1 pad),
   ``mat_kd mat_ks mat_kr`` (M, S), ``mat_exp_u mat_eta`` (M,);
-- lights: ``light_type light_shape_kind light_quad_idx`` (L,),
-  ``light_emit`` (L, S);
+- lights: ``light_type light_shape_kind light_quad_idx light_tri_start
+  light_tri_count light_cdf_offset`` (L,), ``light_cos_total
+  light_cos_falloff light_total_area`` (L,), ``light_pos light_dirw``
+  (L, 3), ``light_emit`` (L, S), ``light_tri_cdf`` (K,), in the JAX
+  package's row order: ``LightSource`` rows, then the area lights;
 - camera: ``cam_raster_to_camera cam_to_world`` (4, 4), ``cam_lens_radius
   cam_focal_distance cam_shutter_open cam_shutter_close cam_fov`` ();
 - film: ``film_xres film_yres film_n_bins`` (), ``filter_kind`` (str),
@@ -39,7 +42,7 @@ from pbrt_torch.cameras.cameras import PerspectiveCamera
 from pbrt_torch.core.filters import Filter
 from pbrt_torch.film.film import FilmConfig
 from pbrt_torch.integrators.path import RenderScene
-from pbrt_torch.lights.table import AREA, LightTable
+from pbrt_torch.lights import table as lt_mod
 from pbrt_torch.materials.table import MaterialTable
 
 _GEOMETRY_F32 = ("tri_v0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
@@ -58,14 +61,37 @@ def key_from_numpy(data, device="cpu") -> torch.Tensor:
     return torch.as_tensor(a.astype(np.int64), device=device)
 
 
+def _lights_from_numpy(arrays, f32, i64) -> lt_mod.LightTable:
+    ltype = np.asarray(arrays["light_type"], np.int64)
+    kind = np.asarray(arrays["light_shape_kind"], np.int64)
+    qidx = np.asarray(arrays["light_quad_idx"], np.int64)
+    bad = set(ltype.tolist()) - {lt_mod.POINT, lt_mod.SPOT, lt_mod.DISTANT, lt_mod.AREA}
+    if bad:
+        raise NotImplementedError(f"light types {sorted(bad)} are not ported yet")
+    area = ltype == lt_mod.AREA
+    sphere = area & (kind == lt_mod.SHAPE_SPHERE)
+    if np.any(area & ~sphere & (kind != lt_mod.SHAPE_MESH)):
+        raise NotImplementedError("area lights on other shapes are not ported yet")
+    if np.any(np.asarray(arrays["quad_type"])[qidx[sphere]] != SPHERE):
+        raise NotImplementedError("area lights on non-sphere quadrics (the JAX "
+                                  "package samples them as spheres)")
+    return lt_mod.LightTable(
+        type=i64(ltype), emit=f32(arrays["light_emit"]), pos=f32(arrays["light_pos"]),
+        dirw=f32(arrays["light_dirw"]), cos_total=f32(arrays["light_cos_total"]),
+        cos_falloff=f32(arrays["light_cos_falloff"]), shape_kind=i64(kind),
+        quad_idx=i64(qidx), tri_start=i64(arrays["light_tri_start"]),
+        tri_count=i64(arrays["light_tri_count"]), cdf_offset=i64(arrays["light_cdf_offset"]),
+        total_area=f32(arrays["light_total_area"]),
+        tri_cdf=f32(arrays["light_tri_cdf"]),
+    )
+
+
 def scene_from_numpy(arrays: dict, device):
     """→ (RenderScene, PerspectiveCamera, FilmConfig) on ``device``."""
     dev = torch.device(device)
     f32 = lambda a: torch.as_tensor(np.array(a, np.float32), device=dev)
     i64 = lambda a: torch.as_tensor(np.array(a, np.int64), device=dev)
 
-    if np.any(np.asarray(arrays["quad_type"]) != SPHERE):
-        raise NotImplementedError("quadrics other than spheres are not ported yet")
     geo = {k: f32(arrays[k]) for k in _GEOMETRY_F32}
     geo.update({k: i64(arrays[k]) for k in _GEOMETRY_I64})
     geometry = SceneGeometry(
@@ -88,12 +114,7 @@ def scene_from_numpy(arrays: dict, device):
         max_lobes=int(max(n_lobes.max(), 1)),
     )
 
-    ltype = np.asarray(arrays["light_type"])
-    if np.any(ltype != AREA) or np.any(np.asarray(arrays["light_shape_kind"]) != 1):
-        raise NotImplementedError("only area lights on spheres are ported yet")
-    lights = LightTable(emit=f32(arrays["light_emit"]),
-                        quad_idx=i64(arrays["light_quad_idx"]))
-
+    lights = _lights_from_numpy(arrays, f32, i64)
     camera = PerspectiveCamera(
         raster_to_camera=f32(arrays["cam_raster_to_camera"]),
         cam_to_world=f32(arrays["cam_to_world"]),

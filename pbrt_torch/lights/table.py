@@ -1,12 +1,23 @@
-"""Light table: diffuse area lights on spheres.
+"""Light table: point, spot and distant lights, and diffuse area lights on
+spheres and triangle meshes.
 
 Port of the slice's part of ``pbrt_tpu/lights/table.py`` (reference:
-DiffuseAreaLight, src/lights/diffuse.{h,cpp}, with Sphere::Sample(p, ...)
-cone sampling, src/shapes/sphere.cpp:230-270): ``sample_li`` (:335),
-``pdf_li_hit`` (:648), ``emitted_radiance`` (:637) and uniform light
-selection. Point, spot, distant, infinite, projection, goniometric and
-mesh area lights wait for later slices; the builder and ``interop`` refuse
-them.
+src/lights/{point,spot,distant,diffuse}.cpp, with Sphere::Sample(p, ...)
+cone sampling, src/shapes/sphere.cpp:230-270, and ShapeSet area sampling,
+core/light.cpp:36-70): ``sample_li`` (:335), ``pdf_li_hit`` (:648),
+``emitted_radiance`` (:637) and uniform light selection. Infinite,
+projection and goniometric lights wait for later slices; the builder and
+``interop`` refuse them.
+
+Rows are in the JAX package's order: every ``LightSource`` first, then the
+area lights in shape order. A surface's ``area_light`` index counts area
+lights only, so the emission and MIS lookups read row ``area_row0 +
+area_light``. (The JAX package reads row ``area_light`` and so takes a
+``LightSource`` row's values where a scene has both families.)
+
+``sample_li`` evaluates each light type present in the table on every lane
+and keeps, per lane, the one its light has (masked evaluation, as the JAX
+package's ``lax.switch`` over ``active_types``).
 """
 
 from __future__ import annotations
@@ -19,13 +30,45 @@ import torch
 from pbrt_torch.core import geometry as geom
 from pbrt_torch.core import sampling as smp
 
-AREA = 3  # the JAX package's light type code
+# the JAX package's light type codes (lights/table.py:28)
+POINT, SPOT, DISTANT, AREA = 0, 1, 2, 3
+#: area-light shape kinds: a sphere quadric row, a triangle range
+SHAPE_SPHERE, SHAPE_MESH = 1, 2
 
 
 @dataclasses.dataclass
 class LightTable:
-    emit: torch.Tensor  # (L, S) emitted radiance
+    type: torch.Tensor  # (L,) i64 light type code
+    emit: torch.Tensor  # (L, S): I (point, spot), L (distant, area)
+    pos: torch.Tensor  # (L, 3) world position (point, spot)
+    dirw: torch.Tensor  # (L, 3) world direction (distant: propagation; spot: axis)
+    cos_total: torch.Tensor  # (L,) spot outer cone cos
+    cos_falloff: torch.Tensor  # (L,) spot inner cone cos
+    shape_kind: torch.Tensor  # (L,) i64 0 none, 1 sphere, 2 triangle range
     quad_idx: torch.Tensor  # (L,) i64 sphere row in SceneGeometry
+    tri_start: torch.Tensor  # (L,) i64 first triangle
+    tri_count: torch.Tensor  # (L,) i64
+    cdf_offset: torch.Tensor  # (L,) i64 offset into tri_cdf
+    total_area: torch.Tensor  # (L,)
+    tri_cdf: torch.Tensor  # (K,) the mesh lights' inclusive area CDFs, concatenated
+    # host-side, derived from the rows:
+    #: the row of area light 0 (the LightSource rows before it)
+    area_row0: int = dataclasses.field(init=False)
+    #: the light type codes present (only those are evaluated)
+    active_types: tuple = dataclasses.field(init=False)
+    #: the area lights' shape kinds present (only those are evaluated)
+    area_shapes: frozenset = dataclasses.field(init=False)
+    #: (row, cdf_offset, tri_count) of each mesh area light
+    mesh_segments: tuple = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        typ, kind = self.type.tolist(), self.shape_kind.tolist()
+        off, cnt = self.cdf_offset.tolist(), self.tri_count.tolist()
+        area = [i for i, t in enumerate(typ) if t == AREA]
+        self.area_row0 = area[0] if area else len(typ)
+        self.active_types = tuple(sorted(set(typ)))
+        self.area_shapes = frozenset(kind[i] for i in area)
+        self.mesh_segments = tuple((i, off[i], cnt[i]) for i in area if kind[i] == SHAPE_MESH)
 
     @property
     def count(self) -> int:
@@ -36,8 +79,9 @@ class LightTable:
 class LightSample:
     wi: torch.Tensor  # (R, 3) unit, toward the light
     L: torch.Tensor  # (R, S)
-    pdf: torch.Tensor  # (R,) solid-angle pdf
-    dist: torch.Tensor  # (R,) distance to the sampled point
+    pdf: torch.Tensor  # (R,) solid-angle pdf (1 for delta lights)
+    dist: torch.Tensor  # (R,) distance to the sampled point (inf: distant)
+    is_delta: torch.Tensor  # (R,) bool
 
 
 def _sphere_of(lt: LightTable, g, li):
@@ -57,10 +101,33 @@ def _cone(center, radius, p):
     return d, dist2, inside, cos_max
 
 
-def sample_li(lt: LightTable, g, light_idx, p, u1, u2) -> LightSample:
-    """Sample a point on sphere light ``light_idx`` (R,) as seen from p:
-    uniform cone from outside, uniform area from inside."""
-    center, radius = _sphere_of(lt, g, light_idx)
+def _toward(pos, p):
+    """Unit direction from p to ``pos``, its distance and squared distance."""
+    d = pos - p
+    dist2 = torch.clamp(geom.dot(d, d), min=1e-12)
+    dist = torch.sqrt(dist2)
+    return d / dist[:, None], dist, dist2
+
+
+def _point(lt, li, emit, p):
+    wi, dist, dist2 = _toward(lt.pos[li], p)
+    return wi, emit / dist2[:, None], dist
+
+
+def _spot(lt, li, emit, p):
+    """(lights/spot.cpp Falloff + Sample_L)."""
+    wi, dist, dist2 = _toward(lt.pos[li], p)
+    cos_t = geom.dot(-wi, lt.dirw[li])
+    ct, cf = lt.cos_total[li], lt.cos_falloff[li]
+    delta = torch.clamp((cos_t - ct) / torch.clamp(cf - ct, min=1e-9), 0.0, 1.0)
+    falloff = torch.where(cos_t < ct, 0.0,
+                          torch.where(cos_t > cf, 1.0, delta ** 2 * delta ** 2))
+    return wi, emit * falloff[:, None] / dist2[:, None], dist
+
+
+def _area_sphere(lt, g, li, p, u1, u2):
+    """Uniform cone from outside, uniform area from inside."""
+    center, radius = _sphere_of(lt, g, li)
     d, dist2, inside, cos_max = _cone(center, radius, p)
     dc = torch.sqrt(dist2)
     wz = d / dc[:, None]
@@ -82,27 +149,120 @@ def sample_li(lt: LightTable, g, light_idx, p, u1, u2) -> LightSample:
     cos_l = torch.clamp(geom.dot(sp, -wi_in), min=1e-9)
     area = 4.0 * math.pi * radius * radius
     pdf_in = dist_in * dist_in / (cos_l * area)
-    return LightSample(
-        wi=torch.where(inside[:, None], wi_in, wi_cone),
-        L=lt.emit[light_idx],
-        pdf=torch.where(inside, pdf_in, pdf_cone),
-        dist=torch.where(inside, dist_in, t_hit),
-    )
+    return (torch.where(inside[:, None], wi_in, wi_cone), lt.emit[li],
+            torch.where(inside, pdf_in, pdf_cone), torch.where(inside, dist_in, t_hit))
 
 
-def pdf_li_hit(lt: LightTable, g, light_idx, p_shade):
-    """Solid-angle pdf that ``sample_li`` gives the direction to the
-    emissive sphere a BSDF-sampled ray hit (for MIS); 0 where
-    light_idx < 0."""
-    li = light_idx.clamp(min=0)
-    center, radius = _sphere_of(lt, g, li)
-    _, _, inside, cos_max = _cone(center, radius, p_shade)
-    pdf = torch.where(inside, smp.UNIFORM_SPHERE_PDF, smp.uniform_cone_pdf(cos_max))
+def _mesh_triangle(lt: LightTable, li, u1):
+    """The triangle an area-CDF inversion picks, per lane: k = the count of
+    the light's CDF entries below u1 (torch.searchsorted on each mesh
+    light's segment), clipped to its range, as the JAX package's
+    ``sum(tri_cdf < u1 & in_range)``; → (global triangle, u1 rescaled
+    within the picked cell)."""
+    u1c = u1.contiguous()
+    k = torch.zeros_like(li)
+    for row, off, cnt in lt.mesh_segments:
+        k_row = torch.searchsorted(lt.tri_cdf[off:off + cnt], u1c)
+        k = torch.where(li == row, k_row, k)
+    k = torch.minimum(k, torch.clamp(lt.tri_count[li], min=1) - 1)
+    off = lt.cdf_offset[li]
+    lower = torch.where(k > 0, lt.tri_cdf[(off + k - 1).clamp(min=0)], 0.0)
+    upper = lt.tri_cdf[off + k]
+    u1r = torch.clamp((u1 - lower) / torch.clamp(upper - lower, min=1e-9), 0.0, 1.0)
+    return lt.tri_start[li] + k, u1r
+
+
+def _area_mesh(lt, g, li, p, u1, u2):
+    """Area-weighted triangle pick, then a uniform point on it."""
+    ti, u1r = _mesh_triangle(lt, li, u1)
+    b0, b1 = smp.uniform_sample_triangle(u1r, u2)
+    e1, e2 = g.tri_e1[ti], g.tri_e2[ti]
+    p_l = g.tri_v0[ti] + b0[:, None] * e1 + b1[:, None] * e2
+    n_l = geom.normalize(geom.cross(e1, e2))
+    d = p_l - p
+    dist = torch.clamp(geom.length(d), min=1e-9)
+    wi = d / dist[:, None]
+    cos_nl = geom.dot(n_l, -wi)
+    pdf = dist * dist / torch.clamp(cos_nl.abs() * lt.total_area[li], min=1e-12)
+    # one-sided emission: L only where the light's front side faces p
+    L = torch.where((cos_nl > 0.0)[:, None], 1.0, 0.0) * lt.emit[li]
+    return wi, L, pdf, dist
+
+
+def _area(lt, g, li, p, u1, u2):
+    """Only the shape kinds the table has are evaluated (the JAX package
+    evaluates both where the scene has quadrics and triangles, and keeps the
+    light's; the kept values are the same)."""
+    if SHAPE_MESH not in lt.area_shapes:
+        return _area_sphere(lt, g, li, p, u1, u2)
+    if SHAPE_SPHERE not in lt.area_shapes:
+        return _area_mesh(lt, g, li, p, u1, u2)
+    sphere = (lt.shape_kind[li] == SHAPE_SPHERE)
+    s, m = _area_sphere(lt, g, li, p, u1, u2), _area_mesh(lt, g, li, p, u1, u2)
+    return tuple(torch.where(sphere[:, None] if a.dim() == 2 else sphere, a, b)
+                 for a, b in zip(s, m))
+
+
+def sample_li(lt: LightTable, g, light_idx, p, u1, u2) -> LightSample:
+    """Sample light ``light_idx`` (R,) as seen from p (R, 3) with the
+    uniforms u1, u2 (R,)."""
+    emit = lt.emit[light_idx]
+    one = torch.ones_like(u1)
+    out = None
+    for code in lt.active_types:
+        if code == POINT:
+            wi, L, dist = _point(lt, light_idx, emit, p)
+            res = (wi, L, one, dist, True)
+        elif code == SPOT:
+            wi, L, dist = _spot(lt, light_idx, emit, p)
+            res = (wi, L, one, dist, True)
+        elif code == DISTANT:
+            wi = -lt.dirw[light_idx]
+            res = (wi, emit, one, torch.full_like(u1, math.inf), True)
+        elif code == AREA:
+            res = _area(lt, g, light_idx, p, u1, u2) + (False,)
+        else:
+            raise NotImplementedError(f"light type {code} is not ported yet")
+        res = res[:4] + (torch.full(u1.shape, res[4], dtype=torch.bool, device=u1.device),)
+        if out is None:
+            out = res
+        else:
+            m = lt.type[light_idx] == code
+            out = tuple(torch.where(m[:, None] if a.dim() == 2 else m, a, b)
+                        for a, b in zip(res, out))
+    wi, L, pdf, dist, is_delta = out
+    return LightSample(wi=wi, L=L, pdf=pdf, dist=dist, is_delta=is_delta)
+
+
+def pdf_li_hit(lt: LightTable, g, light_idx, p_shade, d, t_hit, n_light):
+    """Solid-angle pdf that ``sample_li`` gives the direction of ``d`` (the
+    ray direction, normalized here) toward the emissive primitive a
+    BSDF-sampled ray hit at distance ``t_hit`` with normal ``n_light`` (for
+    MIS): the uniform-cone pdf of a sphere, t²/(|cos θ_l|·A) of a mesh; 0
+    where light_idx < 0. ``light_idx`` is the surface's area-light index."""
+    row = lt.area_row0 + light_idx.clamp(min=0)
+
+    def sphere():
+        center, radius = _sphere_of(lt, g, row)
+        _, _, inside, cos_max = _cone(center, radius, p_shade)
+        return torch.where(inside, smp.UNIFORM_SPHERE_PDF, smp.uniform_cone_pdf(cos_max))
+
+    def mesh():
+        cos_l = geom.dot(n_light, -geom.normalize(d)).abs()
+        return (t_hit * t_hit) / torch.clamp(cos_l * lt.total_area[row], min=1e-12)
+
+    if SHAPE_MESH not in lt.area_shapes:
+        pdf = sphere()
+    elif SHAPE_SPHERE not in lt.area_shapes:
+        pdf = mesh()
+    else:
+        pdf = torch.where(lt.shape_kind[row] == SHAPE_SPHERE, sphere(), mesh())
     return torch.where(light_idx >= 0, pdf, 0.0)
 
 
 def emitted_radiance(lt: LightTable, light_idx, n_light, wo):
-    """One-sided diffuse emission L(p, n, w) (diffuse.h:49-52)."""
+    """One-sided diffuse emission L(p, n, w) (diffuse.h:49-52) of area
+    light ``light_idx`` (the surface's area-light index; -1 none)."""
     front = geom.dot(n_light, wo) > 0.0
-    li = light_idx.clamp(min=0)
-    return torch.where(((light_idx >= 0) & front)[:, None], lt.emit[li], 0.0)
+    row = lt.area_row0 + light_idx.clamp(min=0)
+    return torch.where(((light_idx >= 0) & front)[:, None], lt.emit[row], 0.0)

@@ -4,17 +4,20 @@ src/renderers/samplerrenderer.cpp:60-164, src/samplers/lowdiscrepancy.cpp).
 
 One wave renders sample index n for every pixel of a chunk: the (0,2)
 sequence with per-pixel scrambles gives the camera sample (image x/y, lens
-u/v, time), the path integrator traces it, NaN / negative / infinite
+u/v, time), the surface integrator traces it, NaN / negative / infinite
 radiance is zeroed (samplerrenderer.cpp:119-133), and the film takes the
 filter-weighted sample.
 
 Randomness is keyed as in the JAX package (sampler.py:119-132, :316-346),
 by threefry from the seed and each pixel's index ``y · W + x`` in the
 film array (``core/rng.py``): six scramble words per pixel from sample 0's
-key, drawn once per render, and per wave and chunk the (R, 5 + 7·max_depth)
-primary-sample array (camera columns from the scrambles, then the bounce
-block of sample n's key), one kernel launch on the card. So a seed gives
-the JAX package's image, on the CPU and on the card, whatever
+key, drawn once per render, and per wave and chunk the integrator's
+primary-sample array, one kernel launch on the card (``wave_uniforms``):
+the camera columns from the scrambles, then for ``path``,
+``directlighting`` and ``whitted`` the bounce block of sample n's key (the
+JAX package's ``BatchedKeySource``), for ``ambientocclusion`` each AO
+sample's two uniforms, for ``metadata`` nothing more. So a seed gives the
+JAX package's image, on the CPU and on the card, whatever
 ``chunk_pixels`` is. Padded tail lanes repeat the last pixel, and so its
 keys; their weight is 0.
 """
@@ -29,11 +32,20 @@ from pbrt_torch.film import film as film_mod
 from pbrt_torch.integrators.path import trace_radiance
 
 
+def wave_uniforms(icfg, root, pixel_index, scrambles, sample: int):
+    """The integrator's primary-sample array of one wave (R pixels): one
+    keyed-kernel launch on the card."""
+    if icfg.kind == "ambientocclusion":
+        return rng.ao_uniforms(root, pixel_index, scrambles, sample, icfg.ao_nsamples)
+    depth = 0 if icfg.kind == "metadata" else icfg.max_depth
+    return rng.primary_uniforms(root, pixel_index, scrambles, sample, depth)
+
+
 def render_wave(film_state, scene, camera, filter_table, pixel_x, pixel_y,
                 icfg, film_cfg, uniforms, sample_scale=None):
-    """One wave for one pixel chunk; ``uniforms`` is the (R, 5 + 7·D)
-    primary-sample array (camera columns first). Updates the film in place
-    and returns it."""
+    """One wave for one pixel chunk; ``uniforms`` is the integrator's
+    primary-sample array (camera columns first; ``wave_uniforms``). Updates
+    the film in place and returns it."""
     px = pixel_x.to(torch.float32) + uniforms[:, 0]
     py = pixel_y.to(torch.float32) + uniforms[:, 1]
     rays = camera.generate_rays(px, py, uniforms[:, 2], uniforms[:, 3],
@@ -79,7 +91,7 @@ def render(built, spp=None, seed: int = 0, chunk_pixels: int | None = None):
     table = built.filter_table
     for s in range(spp):
         for c in range(n_chunks):
-            u = rng.primary_uniforms(root, pix[c], scrambles[c], s, icfg.max_depth)
+            u = wave_uniforms(icfg, root, pix[c], scrambles[c], s)
             render_wave(state, built.scene, built.camera, table, xs[c], ys[c],
                         icfg, cfg, u, sample_scale=mask[c])
     return state

@@ -1,18 +1,22 @@
 """Scene flattener: SceneDescription → device-ready ``BuiltScene``.
 
-Port of the slice's part of ``pbrt_tpu/scene/builder.py:150`` (reference:
+Port of the slices' part of ``pbrt_tpu/scene/builder.py:150`` (reference:
 RenderOptions::MakeScene / MakeRenderer, api.cpp:1309-1440): triangle
-meshes become one world-space triangle soup, spheres a quadric table, the
+meshes become one world-space triangle soup, quadrics a quadric table, the
 triangles get the native SAH tree collapsed into 8-wide rows, materials
-and area lights become tables, and the camera, film, filter, sampler and
+and lights become tables, and the camera, film, filter, sampler and
 integrator are configured.
 
-What the slice covers: ``trianglemesh`` and ``sphere`` shapes; ``matte``
-(Lambertian), ``plastic`` and ``mirror`` materials with constant
-parameters; diffuse area lights on spheres; the ``perspective`` camera with
-a static transform; every filter; the ``lowdiscrepancy`` sampler; the
-``path`` integrator; the BVH accelerator with SAH splits. Anything else
-raises ``NotImplementedError`` instead of rendering something different.
+What the slices cover: ``trianglemesh`` and the six quadrics (sphere,
+cylinder, disk, cone, paraboloid, hyperboloid); ``matte`` (Lambertian),
+``plastic`` and ``mirror`` materials with constant parameters; point, spot
+and distant lights; diffuse area lights on spheres and triangle meshes;
+the ``perspective`` camera with a static transform; every filter; the
+``lowdiscrepancy`` sampler; the ``path``, ``directlighting``, ``whitted``,
+``ambientocclusion`` and ``metadata`` integrators; the BVH accelerator with
+SAH splits. Anything else raises ``NotImplementedError`` instead of
+rendering something different. Area lights on non-sphere quadrics are
+refused: the JAX package samples such a light as a sphere of its radius.
 """
 
 from __future__ import annotations
@@ -24,14 +28,15 @@ import torch
 
 from pbrt_torch import resolve_device
 from pbrt_torch.accel import bvh as bvh_mod
-from pbrt_torch.accel.intersect import SPHERE, SceneGeometry
+from pbrt_torch.accel.intersect import (CONE, CYLINDER, DISK, HYPERBOLOID,
+                                        PARABOLOID, SPHERE, SceneGeometry)
 from pbrt_torch.accel.wide import LEAF_TRIS, build_wide_bvh
 from pbrt_torch.cameras.cameras import make_camera
 from pbrt_torch.core import transform as xf
 from pbrt_torch.core.filters import make_filter
 from pbrt_torch.film.film import FilmConfig
-from pbrt_torch.integrators.path import IntegratorConfig, RenderScene
-from pbrt_torch.lights.table import LightTable
+from pbrt_torch.integrators.path import KINDS, IntegratorConfig, RenderScene
+from pbrt_torch.lights import table as lt_mod
 from pbrt_torch.materials.table import build_material_table
 from pbrt_torch.scene.api import SceneDescription
 from pbrt_torch.shapes.mesh import make_mesh
@@ -54,15 +59,138 @@ def _not_ported(what):
     raise NotImplementedError(f"{what} is not ported yet")
 
 
-def _sphere_params(rec) -> np.ndarray:
+_QUADRIC_TYPES = {"sphere": SPHERE, "cylinder": CYLINDER, "disk": DISK,
+                  "cone": CONE, "paraboloid": PARABOLOID, "hyperboloid": HYPERBOLOID}
+
+
+def _quadric_params(rec) -> np.ndarray:
+    """(8,) radius, zmin, zmax, phimax, height, inner radius, hyperboloid a
+    and c, as the JAX package's ``_quadric_params`` (builder.py:81-119)."""
     p = rec.params
     prm = np.zeros(8, np.float32)
-    r = p.find_one_float("radius", 1.0)
-    prm[0] = r
-    prm[1] = p.find_one_float("zmin", -r)
-    prm[2] = p.find_one_float("zmax", r)
-    prm[3] = np.deg2rad(p.find_one_float("phimax", 360.0))
+    st = rec.shape_type
+    phimax = np.deg2rad(p.find_one_float("phimax", 360.0))
+    if st == "sphere":
+        r = p.find_one_float("radius", 1.0)
+        prm[0] = r
+        prm[1] = p.find_one_float("zmin", -r)
+        prm[2] = p.find_one_float("zmax", r)
+        prm[3] = phimax
+    elif st == "cylinder":
+        prm[0] = p.find_one_float("radius", 1.0)
+        prm[1] = p.find_one_float("zmin", -1.0)
+        prm[2] = p.find_one_float("zmax", 1.0)
+        prm[3] = phimax
+    elif st == "disk":
+        prm[0] = p.find_one_float("radius", 1.0)
+        prm[3] = phimax
+        prm[4] = p.find_one_float("height", 0.0)
+        prm[5] = p.find_one_float("innerradius", 0.0)
+    elif st == "cone":
+        prm[0] = p.find_one_float("radius", 1.0)
+        prm[3] = phimax
+        prm[4] = p.find_one_float("height", 1.0)
+        prm[1], prm[2] = 0.0, prm[4]
+    elif st == "paraboloid":
+        prm[0] = p.find_one_float("radius", 1.0)
+        prm[1] = p.find_one_float("zmin", 0.0)
+        prm[2] = p.find_one_float("zmax", 1.0)
+        prm[3] = phimax
+        prm[4] = prm[2]
+    else:  # hyperboloid: the JAX package's canonical x² + y² − z² = 1
+        prm[0] = 1.0
+        prm[1] = p.find_one_float("zmin", -1.0)
+        prm[2] = p.find_one_float("zmax", 1.0)
+        prm[3] = phimax
+        prm[6], prm[7] = 1.0, 1.0
     return prm
+
+
+def _light_source_row(rec) -> dict:
+    """One ``LightSource`` as a light-table row (builder.py:878-916)."""
+    p = rec.params
+    l2w = rec.light_to_world
+    t = rec.light_type
+    if t in ("point", "spot"):
+        I = p.find_one_spectrum("I", 1.0, "illuminant") * p.find_one_float("scale", 1.0)
+        frm = p.find_one_point("from", (0.0, 0.0, 0.0))
+        pos = frm @ l2w[:3, :3].T + l2w[:3, 3]
+        if t == "point":
+            return dict(type=lt_mod.POINT, emit=I, pos=pos)
+        tow = p.find_one_point("to", (0.0, 0.0, 1.0)) @ l2w[:3, :3].T + l2w[:3, 3]
+        d = tow - pos
+        d = d / max(np.linalg.norm(d), 1e-12)
+        cone = p.find_one_float("coneangle", 30.0)
+        delta = p.find_one_float("conedeltaangle", 5.0)
+        return dict(type=lt_mod.SPOT, emit=I, pos=pos, dirw=d,
+                    cos_total=np.cos(np.deg2rad(cone)),
+                    cos_falloff=np.cos(np.deg2rad(cone - delta)))
+    if t == "distant":
+        L = p.find_one_spectrum("L", 1.0, "illuminant") * p.find_one_float("scale", 1.0)
+        frm = p.find_one_point("from", (0.0, 0.0, 0.0))
+        to = p.find_one_point("to", (0.0, 0.0, 1.0))
+        d = (to - frm) @ l2w[:3, :3].T
+        return dict(type=lt_mod.DISTANT, emit=L, dirw=d / max(np.linalg.norm(d), 1e-12))
+    _not_ported(f"light {t!r}")
+
+
+def _light_table(rows: list, n_bins: int, dev) -> lt_mod.LightTable:
+    """Light-table rows (``LightSource`` rows first, then area lights) →
+    the device table, laid out as the JAX package's ``_build_lights``
+    (builder.py:1014-1071). A scene without lights gets an empty table."""
+    L = len(rows)
+    typ = np.zeros(L, np.int64)
+    emit = np.zeros((L, n_bins), np.float32)
+    pos = np.zeros((L, 3), np.float32)
+    dirw = np.tile(np.asarray([0, 0, 1], np.float32), (L, 1))
+    cos_total = np.full(L, -1.0, np.float32)
+    cos_falloff = np.full(L, -1.0, np.float32)
+    shape_kind, quad_idx, tri_start, tri_count, cdf_offset = (
+        np.zeros(L, np.int64) for _ in range(5))
+    total_area = np.ones(L, np.float32)
+    cdfs = []
+    for i, r in enumerate(rows):
+        typ[i] = r["type"]
+        emit[i] = r["emit"]
+        pos[i] = r.get("pos", (0, 0, 0))
+        dirw[i] = r.get("dirw", (0, 0, 1))
+        cos_total[i] = r.get("cos_total", -1.0)
+        cos_falloff[i] = r.get("cos_falloff", -1.0)
+        shape_kind[i] = r.get("shape_kind", 0)
+        quad_idx[i] = r.get("quad_idx", 0)
+        if r.get("shape_kind") == lt_mod.SHAPE_MESH:
+            tri_start[i] = r["tri_start"]
+            tri_count[i] = r["tri_count"]
+            cdf_offset[i] = sum(len(c) for c in cdfs)
+            areas = r["areas"]
+            total_area[i] = float(areas.sum())
+            cdfs.append(np.cumsum(areas) / max(areas.sum(), 1e-20))
+    tri_cdf = np.concatenate(cdfs).astype(np.float32) if cdfs else np.zeros(1, np.float32)
+    t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+    i64 = torch.int64
+    return lt_mod.LightTable(
+        type=t(typ, i64), emit=t(emit), pos=t(pos), dirw=t(dirw),
+        cos_total=t(cos_total), cos_falloff=t(cos_falloff),
+        shape_kind=t(shape_kind, i64), quad_idx=t(quad_idx, i64),
+        tri_start=t(tri_start, i64), tri_count=t(tri_count, i64),
+        cdf_offset=t(cdf_offset, i64), total_area=t(total_area), tri_cdf=t(tri_cdf),
+    )
+
+
+def _integrator_config(name: str, params, n_bins: int) -> IntegratorConfig:
+    """The ``SurfaceIntegrator`` as an ``IntegratorConfig`` (builder.py:
+    716-741): ``nsamples`` and ``maxdist`` are ambient occlusion's, and the
+    metadata channel is read from ``strategy`` as the JAX package reads it."""
+    if name not in KINDS:
+        _not_ported(f"surface integrator {name!r}")
+    return IntegratorConfig(
+        kind=name, max_depth=params.find_one_int("maxdepth", 5),
+        strategy=params.find_one_string("strategy", "all"),
+        ao_nsamples=params.find_one_int("nsamples", 4),
+        ao_maxdist=params.find_one_float("maxdist", 1e30),
+        metadata_channel=params.find_one_string("strategy", "depth"),
+        n_bins=n_bins,
+    )
 
 
 def build(desc: SceneDescription, device=None) -> BuiltScene:
@@ -75,8 +203,7 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
         _not_ported("object instancing")
     if desc.volumes:
         _not_ported("participating media")
-    if desc.lights:
-        _not_ported(f"light {desc.lights[0].light_type!r}")
+    light_rows = [_light_source_row(rec) for rec in desc.lights]
     if desc.accelerator[0] != "bvh" or desc.accelerator[1].find_one_string(
             "splitmethod", "sah") != "sah":
         _not_ported("accelerators other than the SAH BVH")
@@ -92,15 +219,16 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
     tri = {k: [] for k in ("v0", "e1", "e2", "n0", "n1", "n2", "uv0", "uv1",
                            "uv2", "mat", "al", "mid")}
     quads, area_lights = [], []
+    n_tris = 0
     for rec in desc.shapes:
         o2w, o2w_end = rec.object_to_world.m
         if not np.allclose(o2w, o2w_end, atol=1e-12):
             _not_ported("animated shapes (motion blur)")
         mat_i = mat_id_for(rec.material)
         al_id = len(area_lights) if rec.area_light is not None else -1
+        if rec.area_light is not None and rec.area_light[0] != "area":
+            _not_ported(f"area light {rec.area_light[0]!r}")
         if rec.shape_type == "trianglemesh":
-            if al_id >= 0:
-                _not_ported("area lights on triangle meshes")
             mesh = make_mesh(rec.params, o2w, rec.reverse_orientation)
             idx, p = mesh.indices, mesh.positions
             v0 = p[idx[:, 0]]
@@ -125,16 +253,27 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
                          ("uv2", uv2)):
                 tri[k].append(np.asarray(a, np.float32))
             tri["mat"].append(np.full(count, mat_i, np.int64))
-            tri["al"].append(np.full(count, -1, np.int64))
+            tri["al"].append(np.full(count, al_id, np.int64))
             tri["mid"].append(np.full(count, rec.primitive_id, np.int64))
-        elif rec.shape_type == "sphere":
+            if al_id >= 0:
+                area_lights.append(dict(
+                    rec=rec, shape_kind=lt_mod.SHAPE_MESH, tri_start=n_tris,
+                    tri_count=count,
+                    areas=0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)))
+            n_tris += count
+        elif rec.shape_type in _QUADRIC_TYPES:
+            qtype = _QUADRIC_TYPES[rec.shape_type]
+            if al_id >= 0 and qtype != SPHERE:
+                _not_ported(f"area lights on a {rec.shape_type!r} (the JAX package "
+                            "samples them as spheres)")
             quads.append(dict(
-                o2w=o2w.astype(np.float64), params=_sphere_params(rec),
+                type=qtype, o2w=o2w.astype(np.float64), params=_quadric_params(rec),
                 mat=mat_i, al=al_id, mid=rec.primitive_id,
                 reverse=rec.reverse_orientation ^ xf.swaps_handedness(o2w),
             ))
             if al_id >= 0:
-                area_lights.append((rec, len(quads) - 1))
+                area_lights.append(dict(rec=rec, shape_kind=lt_mod.SHAPE_SPHERE,
+                                        quad_idx=len(quads) - 1))
         else:
             _not_ported(f"shape {rec.shape_type!r}")
 
@@ -164,7 +303,7 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
         tri_material=t(cat("mat", (), np.int64), i64),
         tri_area_light=t(cat("al", (), np.int64), i64),
         tri_mesh_id=t(cat("mid", (), np.int64), i64),
-        quad_type=t(np.full(Q, SPHERE, np.int64), i64),
+        quad_type=t([q["type"] for q in quads], i64),
         quad_o2w=t(o2ws.astype(np.float32)),
         quad_w2o=t(np.linalg.inv(o2ws).astype(np.float32) if Q
                    else np.zeros((0, 4, 4), np.float32)),
@@ -178,17 +317,12 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
         wide_stack=int(wide_stack),
     )
 
-    emit = np.zeros((max(len(area_lights), 1), S), np.float32)
-    quad_idx = np.zeros(max(len(area_lights), 1), np.int64)
-    for i, (rec, qi) in enumerate(area_lights):
-        lp = rec.area_light[1]
-        if rec.area_light[0] != "area":
-            _not_ported(f"area light {rec.area_light[0]!r}")
-        emit[i] = (lp.find_one_spectrum("L", 1.0, "illuminant")
-                   * lp.find_one_float("scale", 1.0))
-        quad_idx[i] = qi
-    n_l = len(area_lights)
-    lights = LightTable(emit=t(emit[:n_l]), quad_idx=t(quad_idx[:n_l], i64))
+    for al in area_lights:
+        lp = al["rec"].area_light[1]
+        light_rows.append(dict(
+            al, type=lt_mod.AREA,
+            emit=lp.find_one_spectrum("L", 1.0, "illuminant") * lp.find_one_float("scale", 1.0)))
+    lights = _light_table(light_rows, S, dev)
     materials = build_material_table(mat_records, cfg, dev)
     scene = RenderScene(geometry=geometry, materials=materials, lights=lights)
 
@@ -213,13 +347,7 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
     film_cfg = dataclasses.replace(film_cfg, fov=camera.fov_deg)
 
     sampler_name, sampler_params = desc.sampler
-    integ_name, integ_params = desc.surface_integrator
-    if integ_name != "path":
-        _not_ported(f"surface integrator {integ_name!r}")
-    integrator = IntegratorConfig(
-        kind="path", max_depth=integ_params.find_one_int("maxdepth", 5),
-        n_bins=S,
-    )
+    integrator = _integrator_config(*desc.surface_integrator, S)
     return BuiltScene(
         scene=scene, camera=camera, film_config=film_cfg,
         filter_table=t(filt.table()), sampler_name=sampler_name,

@@ -52,6 +52,7 @@ KERNEL_ENTRIES = {
     },
     "rng.cu": {
         "pbrt_torch_keyed_uniforms": [_u32, _u32, _vp, _vp, _ci, _u32, _ci, _vp, _vp],
+        "pbrt_torch_keyed_ao_uniforms": [_u32, _u32, _vp, _vp, _ci, _u32, _ci, _vp, _vp],
         "pbrt_torch_keyed_scrambles": [_u32, _u32, _vp, _ci, _vp, _vp],
     },
     "gather_lab.cu": {

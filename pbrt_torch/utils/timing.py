@@ -44,32 +44,35 @@ def cuda_ms(fn, n: int = 20, warm: int = 3) -> float:
     return a.elapsed_time(b) / n
 
 
-def queued_ms(fn, n: int = 50, warm: int = 5):
+def queued_ms(fn, n: int = 50, warm: int = 5, tries: int = 3):
     """(ms per call of ``fn`` by CUDA events around ``n`` back-to-back
     calls, the host's ms to enqueue one call). The calls are enqueued
     behind a spin kernel that outlasts their enqueueing, so the device runs
     them without waiting on the host, even where a launch is shorter than
-    its enqueueing; raises if the host took longer than the spin."""
+    its enqueueing. Where the host took longer than the spin (a stall of
+    the shared host), the round is taken again behind a spin 4 times as
+    long, up to ``tries`` rounds; then it raises."""
     import torch
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    t_host = time.perf_counter()
-    ev[0].record()
-    torch.cuda._sleep(SPIN_CYCLES)
-    ev[1].record()
-    for _ in range(n):
-        fn()
-    t_host = (time.perf_counter() - t_host) * 1e3
-    ev[2].record()
-    torch.cuda.synchronize()
-    spin_ms = ev[0].elapsed_time(ev[1])
-    if t_host >= spin_ms:
-        raise SystemExit(f"queued_ms: the host took {t_host:.3f} ms to enqueue "
-                         f"{n} calls, longer than the {spin_ms:.3f} ms spin")
-    return ev[1].elapsed_time(ev[2]) / n, t_host / n
+    for attempt in range(tries):
+        t_host = time.perf_counter()
+        ev[0].record()
+        torch.cuda._sleep(SPIN_CYCLES * 4 ** attempt)
+        ev[1].record()
+        for _ in range(n):
+            fn()
+        t_host = (time.perf_counter() - t_host) * 1e3
+        ev[2].record()
+        torch.cuda.synchronize()
+        spin_ms = ev[0].elapsed_time(ev[1])
+        if t_host < spin_ms:
+            return ev[1].elapsed_time(ev[2]) / n, t_host / n
+    raise SystemExit(f"queued_ms: the host took {t_host:.3f} ms to enqueue "
+                     f"{n} calls, longer than the {spin_ms:.3f} ms spin")
 
 
 def queued_rounds(fn, rounds: int = 5) -> dict:

@@ -1,9 +1,11 @@
 """Parity of the port's threefry keys (``pbrt_torch/core/rng.py``) with
 ``jax.random`` and with the JAX package's keyed sampler arrays, bit for bit:
 root keys, ``fold_in``, ``bits``, ``uniform``, the per-path and per-bounce
-keys, the lowdiscrepancy scramble words, and the wave's primary-sample
-array (the lowdiscrepancy camera columns, then ``BatchedKeySource``'s bounce
-block as the port's 7-per-bounce ``PrimarySource`` columns). The CUDA
+keys, the lowdiscrepancy scramble words, the wave's primary-sample array
+(the lowdiscrepancy camera columns, then ``BatchedKeySource``'s bounce
+block as the port's 7-per-bounce ``PrimarySource`` columns), and ambient
+occlusion's array (the camera columns, then the two uniforms per AO sample
+that ``_ao_li`` draws). The CUDA
 kernels (``csrc/rng.cu``) cannot run here: their constants are read from
 the source as text, and their camera-column formulation is held to the
 plain version's."""
@@ -183,6 +185,31 @@ def test_camera_columns_as_the_kernel_forms_them(sample):
                  tsmp._bits_to_unit(words).numpy())
 
 
+@pytest.mark.parametrize("n_ao", [1, 4, 9])
+@pytest.mark.parametrize("sample", [0, 3, 2**31 + 1])
+def test_ao_array_matches_jax(sample, n_ao):
+    """``ao_uniforms_plain``: the lowdiscrepancy camera columns, then for AO
+    sample j ``uniform_per(bounce_key(keys, j, BSDF_SAMPLE), 2)`` of the lane
+    key, as ``_ao_li`` draws them (path.py:783-784); pixel indices at and
+    above 2**31 included. On CPU tensors the wrapper is the plain version."""
+    root_j = jrng.root_key(17)
+    pix_j = jnp.asarray(PIXELS.astype(np.uint32))
+    pixel_keys = jrng.pixel_sample_key(root_j, pix_j, jnp.zeros_like(pix_j))
+    cam = _sampler_uniforms("lowdiscrepancy", pix_j, np.uint32(sample), pixel_keys, 1)
+    keys = jrng.pixel_sample_key(root_j, pix_j, np.uint32(sample))
+    per = [np.asarray(jrng.uniform_per(jrng.bounce_key(keys, j, jrng.BSDF_SAMPLE), 2))
+           for j in range(n_ao)]
+    ref = np.concatenate([np.stack([np.asarray(c) for c in cam], -1)] + per, -1)
+    root, pix = trng.root_key(17), torch.as_tensor(PIXELS)
+    scr = trng.pixel_scrambles_plain(root, pix)
+    before = dict(trng.launches)
+    for out in (trng.ao_uniforms_plain(root, pix, scr, sample, n_ao),
+                trng.ao_uniforms(root, pix, scr, sample, n_ao)):
+        assert out.shape == (len(PIXELS), 5 + 2 * n_ao) and out.dtype == torch.float32
+        _same_floats(out.numpy(), ref)
+    assert trng.launches == before
+
+
 def _cu_int(name):
     m = re.search(rf"constexpr\s+\w+\s+{name}\s*=\s*(0x[0-9A-Fa-f]+|\d+)u?;", SOURCE.read_text())
     assert m, f"{name} not found in rng.cu"
@@ -210,3 +237,17 @@ def test_kernel_constants_are_the_plain_versions():
     assert _cu_int("kOneMinusEps") == int(one_minus_eps)
     assert re.search(r"__global__ void __launch_bounds__\(kThreads\)\s+keyed_uniforms_kernel\(", text)
     assert re.search(r"__global__ void __launch_bounds__\(kThreads\)\s+keyed_scrambles_kernel\(", text)
+
+
+def test_ao_kernel_constants_are_the_plain_versions():
+    """keyed_ao_uniforms folds AO sample s into the lane key as s·16 +
+    BSDF_SAMPLE and writes 2 uniforms per sample after the camera columns,
+    from counters 0 and 1, as ``ao_uniforms_plain``."""
+    text = SOURCE.read_text()
+    assert _cu_int("kAoPurpose") == trng.BSDF_SAMPLE == 3
+    assert _cu_int("kAoPerSample") == 2
+    body = re.search(r"keyed_ao_uniforms_kernel\(.*?\n}\n", text, re.S).group(0)
+    assert "* 16u + kAoPurpose" in body
+    assert "bits_at(sa, sc, 0u)" in body and "bits_at(sa, sc, 1u)" in body
+    assert "kBatchedTag" not in body  # the lane key carries no purpose tag
+    assert re.search(r"__global__ void __launch_bounds__\(kThreads\)\s+keyed_ao_uniforms_kernel\(", text)

@@ -155,9 +155,18 @@ def test_build_needs_a_device_or_cpu():
 
 def test_unported_features_raise():
     text = tiny_scene_text().replace('SurfaceIntegrator "path"',
-                                     'SurfaceIntegrator "whitted"')
+                                     'SurfaceIntegrator "igi"')
     with pytest.raises(NotImplementedError):
         tbuild(tload(text), device="cpu")
     text = tiny_scene_text().replace('Material "mirror"', 'Material "glass"')
     with pytest.raises(NotImplementedError):
         tbuild(tload(text), device="cpu")
+    # lights not ported yet, and an area light on a disk (the JAX package
+    # samples it as a sphere)
+    for light in ('LightSource "infinite" "rgb L" [1 1 1]',
+                  'LightSource "goniometric" "rgb I" [1 1 1]',
+                  'LightSource "projection" "rgb I" [1 1 1]',
+                  'AreaLightSource "area" "rgb L" [1 1 1]\nShape "disk" "float radius" [.5]'):
+        text = tiny_scene_text().replace("WorldBegin", f"WorldBegin\n{light}", 1)
+        with pytest.raises(NotImplementedError):
+            tbuild(tload(text), device="cpu")
