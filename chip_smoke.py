@@ -63,7 +63,22 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    512² scene with a point, a spot and a distant light, an emissive
    two-triangle quad and a disk, cylinder, cone, paraboloid and
    hyperboloid) with ``path`` and ``directlighting``;
-9. the ``kernels`` JSON line (see PERF.md for the fields), then the result.
+9. materials and environment — the 512² scene with generated blobs whose
+   materials and lights this slice added (``MATERIALS_AND_ENV``: a
+   substrate floor, an uber wall, blobs in glass and metal, spheres in
+   shinymetal, anisoward, Oren–Nayar matte, translucent, a mix and both
+   measured formats; a mapped infinite, a projection and a goniometric
+   light beside the sphere light; maps, ``.brdf`` and MERL files
+   generated from a fixed seed into a temporary directory): the
+   closest-hit and any-hit kernels against their plain versions, bit for
+   bit, on 1,048,576 of its first reflected and transmitted rays; then
+   ``path`` (depth 5) and ``directlighting`` at 1 spp after a warm-up
+   sample, each counted and profiled as in phase 7 (camera paths/s,
+   launches per chunk, kernel time with the closest / any split,
+   host-to-device copies, film and ``.dat`` checks); then its 16² version
+   (2,880-triangle blobs) rendered on the card and on the CPU, from the
+   same primary-sample array and by ``render(seed=...)``;
+10. the ``kernels`` JSON line (see PERF.md for the fields), then the result.
 
 The real-size scene is ``goldens/killeroo-simple.pbrt`` (its text is kept
 here) at 512²; each ``Include "geometry/killeroo.pbrt"`` (geometry not in
@@ -81,6 +96,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import sys
 import tempfile
 import time
@@ -231,6 +247,148 @@ AttributeEnd
 #: CPU renders (2,880 triangles)
 SMALL_BLOB_FREQ = 12
 
+#: what the materials-and-environment scene adds to the real-size scene,
+#: right after WorldBegin: an infinite light with a generated lat-long map,
+#: a projection and a goniometric light with generated maps, and two rows
+#: of spheres ~206 units in front of the camera in shinymetal, anisoward,
+#: Oren–Nayar matte, translucent, a mix of a named plastic and a named
+#: glass, and the two measured formats (@DIR@ is the directory of the
+#: generated files). Near and large, so a float32 sphere hit is well
+#: conditioned (at killeroo's distances, ~390 units for a radius of 14, a
+#: hit point moves by 7e-6 of t between two roundings of the quadratic)
+MATERIALS_AND_ENV = """
+LightSource "infinite" "color L" [1 1 1] "string mapname" ["@DIR@/env.exr"]
+AttributeBegin
+Translate 60 60 160
+Rotate 180 1 0 0
+LightSource "projection" "color I" [150000 150000 150000] "float fov" [30]
+    "string mapname" ["@DIR@/projection.exr"]
+AttributeEnd
+AttributeBegin
+Translate 20 140 60
+LightSource "goniometric" "color I" [40000 40000 40000] "string mapname" ["@DIR@/gonio.exr"]
+AttributeEnd
+MakeNamedMaterial "red plastic" "string type" ["plastic"] "color Kd" [.6 .1 .1]
+    "color Ks" [.3 .3 .3] "float roughness" [.02]
+MakeNamedMaterial "clear glass" "string type" ["glass"] "float index" [1.5]
+AttributeBegin
+Material "shinymetal" "color Ks" [.8 .6 .3] "color Kr" [.5 .5 .5] "float roughness" [.05]
+Translate 196 -6 -18
+Shape "sphere" "float radius" [14]
+AttributeEnd
+AttributeBegin
+Material "anisoward" "color Kd" [.2 .3 .5] "color Ks" [.4 .4 .4] "float alphaU" [.05]
+    "float alphaV" [.3]
+Translate 199 25 -18
+Shape "sphere" "float radius" [14]
+AttributeEnd
+AttributeBegin
+Material "matte" "color Kd" [.7 .7 .5] "float sigma" [20]
+Translate 203 57 -18
+Shape "sphere" "float radius" [14]
+AttributeEnd
+AttributeBegin
+Material "translucent" "color Kd" [.5 .6 .4] "color Ks" [.3 .3 .3] "color reflect" [.5 .5 .5]
+    "color transmit" [.5 .5 .5] "float roughness" [.1]
+Translate 206 89 -18
+Shape "sphere" "float radius" [14]
+AttributeEnd
+AttributeBegin
+Material "mix" "string namedmaterial1" ["red plastic"] "string namedmaterial2" ["clear glass"]
+    "float amount" [.3]
+Translate 211 8 -56
+Shape "sphere" "float radius" [14]
+AttributeEnd
+AttributeBegin
+Material "measured" "string filename" ["@DIR@/generated.brdf"]
+Translate 214 40 -56
+Shape "sphere" "float radius" [14]
+AttributeEnd
+AttributeBegin
+Material "measured" "string filename" ["@DIR@/generated.merl"]
+Translate 217 72 -56
+Shape "sphere" "float radius" [14]
+AttributeEnd
+"""
+#: killeroo-simple's materials as the materials-and-environment scene
+#: changes them: the floor in substrate (goldens/metal.pbrt's, untextured),
+#: the back wall in uber with Kr and Kt, one blob in glass, the other in
+#: metal (default copper)
+MATERIALS_SWAPS = (
+    ('Material "matte" "color Kd" [.5 .5 .8]',
+     'Material "substrate" "color Kd" [.5 .5 .8] "color Ks" [.5 .5 .5]\n'
+     '    "float uroughness" [.05] "float vroughness" [.05]'),
+    ('Shape "trianglemesh" "point P" [ -400',
+     'Material "uber" "color Kd" [.3 .3 .3] "color Ks" [.2 .2 .2] "color Kr" [.2 .2 .2]\n'
+     '    "color Kt" [.3 .3 .3] "float roughness" [.05] "float index" [1.5]\n'
+     'Shape "trianglemesh" "point P" [ -400'),
+    ('Material "plastic" "color Kd" [.4 .2 .2] "color Ks" [.5 .5 .5]\n        "float roughness" [.025]',
+     'Material "glass" "float index" [1.5]'),
+    ('Material "plastic" "color Ks" [.3 .3 .3] "color Kd" [.4 .5 .4]\n        "float roughness" [.15]',
+     'Material "metal" "float roughness" [.001]'),
+)
+
+
+def write_material_data(directory: str, seed: int = 11):
+    """The materials-and-environment scene's files, from a fixed numpy seed:
+    ``env.exr`` (512×256 lat-long: a sky gradient with a bright sun patch,
+    so its Distribution2D is far from uniform), ``projection.exr`` (64×64
+    a soft ring) and ``gonio.exr`` (64×32 lobes), ``generated.brdf`` (2,000
+    scattered spectral samples of a glossy lobe, 8 wavelengths) and
+    ``generated.merl`` (a full 90×90×180 table that falls off with θh)."""
+    from pbrt_torch.film.imageio import write_exr
+
+    rng = np.random.default_rng(seed)
+    # smooth maps: a direction or hit point an ulp away (XLA contracts
+    # multiply-adds, the port does not) then moves a lookup by less than the
+    # parity tests' tolerance, unless it crosses a texel edge of the sky
+    v = (np.arange(256) + 0.5) / 256
+    u = (np.arange(512) + 0.5) / 512
+    env = np.empty((256, 512, 3), np.float32)
+    env[:] = (0.25 + 0.75 * (1.0 - v))[:, None, None] * np.array([0.5, 0.7, 1.0], np.float32)
+    sun = ((v[:, None] - 0.3) ** 2 + (u[None, :] - 0.6) ** 2) < 0.0004
+    env[sun] = (300.0, 280.0, 240.0)
+    write_exr(os.path.join(directory, "env.exr"), env, half=False)
+    yy, xx = np.mgrid[0:64, 0:64] / 63.0
+    ring = 0.5 + 0.5 * np.cos(6.0 * np.hypot(xx - 0.5, yy - 0.5))
+    proj = np.stack([ring, ring * yy, 1.0 - ring * xx], -1).astype(np.float32)
+    write_exr(os.path.join(directory, "projection.exr"), proj, half=False)
+    th, ph = np.mgrid[0:32, 0:64]
+    lobe = (np.cos(th * np.pi / 31) ** 2 * (1.2 + np.sin(3 * ph * 2 * np.pi / 64)))[..., None]
+    write_exr(os.path.join(directory, "gonio.exr"),
+              (lobe * np.array([1.0, 0.9, 0.7])).astype(np.float32), half=False)
+    n, wls = 2000, np.linspace(400.0, 700.0, 8)
+    ti, to = np.arccos(rng.random(n)), np.arccos(rng.random(n))
+    pi_, po = rng.uniform(0, 2 * np.pi, n), rng.uniform(0, 2 * np.pi, n)
+    wi = np.stack([np.sin(ti) * np.cos(pi_), np.sin(ti) * np.sin(pi_), np.cos(ti)], -1)
+    wo = np.stack([np.sin(to) * np.cos(po), np.sin(to) * np.sin(po), np.cos(to)], -1)
+    refl = wo * np.array([-1.0, -1.0, 1.0])
+    gloss = np.exp(-((wi - refl) ** 2).sum(-1) / 0.05)
+    spd = 0.15 + (0.8 * gloss)[:, None] * np.linspace(1.0, 0.4, 8)[None, :]
+    rows = np.concatenate([np.stack([ti, pi_, to, po], -1), spd], 1)
+    with open(os.path.join(directory, "generated.brdf"), "w") as f:
+        f.write(f"8\n{' '.join(f'{w:g}' for w in wls)}\n")
+        f.write("\n".join(" ".join(f"{x:.6g}" for x in r) for r in rows) + "\n")
+    th_h = np.arange(90)[:, None, None] / 89.0
+    base = np.broadcast_to(0.05 + 2.5 * np.exp(-(th_h / 0.12) ** 2), (90, 90, 180))
+    tint = np.array([1.0, 0.85, 0.6])[:, None, None, None]
+    table = (1500.0 * base[None] * tint).reshape(3, -1)
+    with open(os.path.join(directory, "generated.merl"), "wb") as f:
+        f.write(np.array([90, 90, 180], "<i4").tobytes())
+        f.write(table.astype("<f8").tobytes())
+
+
+def materials_scene_text(text: str, directory: str, integrator: str = "path") -> str:
+    """A real-size scene's text made the materials-and-environment scene
+    (files in ``directory``) with the given surface integrator."""
+    for old, new in MATERIALS_SWAPS:
+        if old not in text:
+            raise ValueError(f"the scene text has no {old!r}")
+        text = text.replace(old, new, 1)
+    text = text.replace('SurfaceIntegrator "directlighting"', f'SurfaceIntegrator "{integrator}"')
+    return text.replace("WorldBegin", "WorldBegin" + MATERIALS_AND_ENV.replace(
+        "@DIR@", directory), 1)
+
 TINY_SCENE = """
 LookAt 0 1.5 -5  0 0 0  0 1 0
 Camera "perspective" "float fov" [45]
@@ -328,8 +486,11 @@ def lights_scene_text(text: str, integrator: str = "directlighting") -> str:
     return text.replace("WorldBegin", "WorldBegin" + LIGHTS_AND_QUADRICS, 1)
 
 
+_T0 = time.time()
+
+
 def log(phase, msg):
-    print(f"[{phase}] {msg}", flush=True)
+    print(f"[{phase}] {msg} (+{time.time() - _T0:.1f} s)", flush=True)
 
 
 def step_summary(steps, ms=None):
@@ -379,6 +540,119 @@ def sass_per_hash(lib_path: str):
             per["IMAD.IADD"] = sum(o == "IMAD.IADD" for o in ops) / hashes
             out[name.group(0)] = (len(ops), hashes, per)
     return out
+
+
+def reflected_and_transmitted(built, dev, n_cam: int, gen):
+    """The scene's first specular bounces: from the hits of ``n_cam``
+    camera rays, each hit's mirror direction about the shading normal and
+    its refraction at the hit material's index (total internal reflection
+    dropped), origins offset as the integrator offsets them; → (o, d) of
+    ``n_cam`` lanes, half reflected, half transmitted, and the counts."""
+    import torch
+
+    from pbrt_torch.accel import intersect as isect
+    from pbrt_torch.bsdf import bxdf
+    from pbrt_torch.core.interaction import offset_ray_origin, surface_interaction
+
+    W, H = built.film_config.xres, built.film_config.yres
+    g = built.scene.geometry
+    pix = torch.arange(n_cam, device=dev) % (W * H)
+    px = (pix % W).float() + torch.rand(n_cam, generator=gen, device=dev)
+    py = (pix // W).float() + torch.rand(n_cam, generator=gen, device=dev)
+    z = torch.zeros(n_cam, device=dev)
+    cam = built.camera.generate_rays(px, py, z, z, z)
+    si = surface_interaction(g, cam, isect.intersect(g, cam))
+    h = torch.nonzero(si.valid).squeeze(1)
+    ns, ng, p, eps = si.ns[h], si.ng[h], si.p[h], si.ray_epsilon[h]
+    ss, ts = bxdf.make_shading_frame(ns, si.dpdu[h])
+    wo = bxdf.world_to_local(si.wo[h], ss, ts, ns)
+    eta = built.scene.materials.eta[si.material[h].clamp(min=0)]
+    refl = bxdf.local_to_world(bxdf.specular_reflect_dir(wo), ss, ts, ns)
+    trans, ok, _ = bxdf.specular_transmit_dir(wo, 1.0, eta)
+    trans = bxdf.local_to_world(trans, ss, ts, ns)
+    half = n_cam // 2
+    pick_r = torch.randperm(h.numel(), generator=gen, device=dev)[:half]
+    t_ok = torch.nonzero(ok).squeeze(1)
+    pick_t = t_ok[torch.randperm(t_ok.numel(), generator=gen, device=dev)[:half]]
+    o = torch.cat([offset_ray_origin(p[pick_r], ng[pick_r], refl[pick_r], eps[pick_r]),
+                   offset_ray_origin(p[pick_t], ng[pick_t], trans[pick_t], eps[pick_t])])
+    d = torch.cat([refl[pick_r], trans[pick_t]])
+    return o.contiguous(), d.contiguous(), int(h.numel()), int(t_ok.numel())
+
+
+def materials_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
+    """Phase 9: the materials-and-environment scene at 512² (its files
+    generated into ``data_dir``): the traversal kernels against their plain
+    versions on its first reflected and transmitted rays, ``path`` and
+    ``directlighting`` renders with their profiles, then its 16² version
+    on the card and on the CPU."""
+    import torch
+
+    from pbrt_torch.accel import intersect as isect
+    from pbrt_torch.accel import traverse_cuda as tc
+    from pbrt_torch.scene.api import load_scene_string
+    from pbrt_torch.scene.builder import build
+
+    write_material_data(data_dir)
+    text, _ = real_scene_text()
+    t0 = time.time()
+    built = build(load_scene_string(materials_scene_text(text, data_dir, "path")), device=dev)
+    mt, lt, g = built.scene.materials, built.scene.lights, built.scene.geometry
+    log("scene", f"materials-and-environment scene: {g.num_triangles} triangles, "
+        f"{g.num_quadrics} spheres, material kinds {sorted(set(mt.kind.tolist()))}, "
+        f"lobe codes {list(mt.active_lobes)}, light types {lt.type.tolist()} (area lights "
+        f"from row {lt.area_row0}), env map {tuple(lt.env_map.shape)}, light maps "
+        f"{tuple(lt.lmap.shape)}, measured pools: {mt.irreg_points.shape[0]} .brdf rows, "
+        f"{mt.merl_rgb.shape[0]} MERL rows; built in {time.time() - t0:.1f} s")
+    if set(mt.kind.tolist()) != set(range(14)) - {3, 11, 12} or lt.type.tolist() != [4, 5, 6, 3]:
+        raise SystemExit("the materials-and-environment scene lacks a material or light kind")
+
+    # the traversal kernels on the first reflected and transmitted rays
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    o, d, n_hits, n_trans = reflected_and_transmitted(built, dev, N_LANES, gen)
+    R = o.shape[0]
+    inv = isect.make_inv_dir(d).contiguous()
+    tmin = torch.zeros(R, device=dev)
+    tmax = torch.full((R,), float("inf"), device=dev)
+    rows, ws = g.wide_rows, g.wide_stack
+    equal = {}
+    q = [x.contiguous() for x in isect.quad_best(g, o, d, tmin, tmax)]
+    kc = tc.traverse(rows, ws, o, d, inv, tmin, tmax, *q, any_hit=False)
+    pc = tc.traverse_plain(rows, ws, o, d, inv, tmin, tmax, *q, any_hit=False)
+    equal["closest"] = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                           for a, b in zip(kc, pc))
+    scale = torch.where(torch.rand(R, generator=gen, device=dev) < 0.5, 0.5, 1.5)
+    tmax_a = torch.where(torch.isfinite(pc[0]), pc[0] * scale, 1e30).contiguous()
+    qa = [x.contiguous() for x in isect.quad_best(g, o, d, tmin, tmax_a)]
+    ka = tc.traverse(rows, ws, o, d, inv, tmin, tmax_a, *qa, any_hit=True)
+    pa = tc.traverse_plain(rows, ws, o, d, inv, tmin, tmax_a, *qa, any_hit=True)
+    equal["any"] = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(ka, pa))
+    torch.cuda.synchronize()
+    log("kernels", f"materials scene, {R} lanes ({R // 2} reflected, {R - R // 2} transmitted "
+        f"rays, from {n_hits} camera hits, {n_trans} without total internal reflection): "
+        f"closest-hit and any-hit kernels vs plain equal bit for bit {equal}; closest hits "
+        f"{int((pc[1] >= 0).sum())} ({int(torch.isinf(pc[0]).sum())} escape), occluded "
+        f"{int((pa[1] >= 0).sum())}")
+    if not all(equal.values()) or R < N_LANES:
+        raise SystemExit("a traversal kernel disagrees with its plain version on the "
+                         "materials scene's reflected and transmitted rays")
+    del kc, pc, ka, pa, q, qa
+
+    for kind in ("path", "directlighting"):
+        b = dataclasses.replace(built, integrator=dataclasses.replace(built.integrator, kind=kind))
+        label = f"materials and environment with {kind}"
+        _, sec, _, _ = drive(label, b, 1)
+        profile_frame(label, b, sec * 1e3)
+    del built, b
+    torch.cuda.empty_cache()
+
+    small_text, _ = real_scene_text(SMALL_BLOB_FREQ, res=16)
+    for kind in ("path", "directlighting"):
+        card_vs_cpu(f"materials-and-environment scene ({20 * SMALL_BLOB_FREQ ** 2}-triangle "
+                    "blobs)", materials_scene_text(small_text, data_dir, kind),
+                    spp=1, chunk_pixels=256)
 
 
 def main() -> int:
@@ -798,9 +1072,9 @@ def main() -> int:
                 or not fg.sum() > 0):
             raise SystemExit(f"{what}: the renders disagree")
 
-    def card_vs_cpu(label, text):
+    def card_vs_cpu(label, text, spp=2, chunk_pixels=40):
         """One wave from the same primary-sample array, then render(seed=0,
-        spp=2), on the card and on the CPU."""
+        spp) in chunks of ``chunk_pixels``, on the card and on the CPU."""
         pair = [build(load_scene_string(text), device=d) for d in (dev, "cpu")]
         ic, fc = pair[0].integrator, pair[0].film_config
         n_px = fc.xres * fc.yres
@@ -820,8 +1094,9 @@ def main() -> int:
         what = f"{label} {fc.xres}x{fc.yres}, {ic.kind}" + (
             f" ({ic.metadata_channel})" if ic.kind == "metadata" else "")
         agree(f"{what}, same uniforms, card vs CPU", *films)
-        keyed = [render(b, spp=2, seed=0, chunk_pixels=40).pixels.cpu().numpy() for b in pair]
-        agree(f"{what}, render(seed=0, spp=2), card vs CPU", *keyed)
+        keyed = [render(b, spp=spp, seed=0, chunk_pixels=chunk_pixels).pixels.cpu().numpy()
+                 for b in pair]
+        agree(f"{what}, render(seed=0, spp={spp}), card vs CPU", *keyed)
         return pair[0], keyed[0]
 
     tiny_gpu, tiny_keyed = card_vs_cpu("tiny scene", TINY_SCENE)
@@ -931,14 +1206,16 @@ def main() -> int:
         return film, sec, launches, n_calls
 
     # where the time goes: one more sample of a path under the profiler
-    # (not counted above). Only kernel events are summed (an aten op's
-    # device time is its kernels' time again); the busy share is taken
-    # against the unprofiled frame time, since profiling slows the host
+    # (not counted above). Only the device's activity is recorded (kernels
+    # and copies; host-side events would double the ~350,000 events of a
+    # materials-scene frame, whose processing takes minutes); the busy
+    # share is taken against the unprofiled frame time, since profiling
+    # slows the host
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def profile_frame(label, b, frame_ms):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             render(b, spp=1, seed=3, chunk_pixels=CHUNK)
             sync()
         kern = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -1019,8 +1296,16 @@ def main() -> int:
     for kind in ("path", "directlighting"):
         b = dataclasses.replace(lq, integrator=dataclasses.replace(lq.integrator, kind=kind))
         drive(f"lights-and-quadrics scene with {kind}", b, 1, warm=False)
+    del lq, lqg
 
-    # ---- 9. kernels line --------------------------------------------------
+    # ---- 9. the materials-and-environment scene ---------------------------
+    data_dir = tempfile.mkdtemp(prefix="chip_smoke_materials_")
+    try:
+        materials_phase(dev, data_dir, drive, profile_frame, card_vs_cpu)
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+    # ---- 10. kernels line -------------------------------------------------
     src = "pbrt_torch/csrc/traverse.cu"
     rep = "pbrt_tpu/accel/pallas_step.py:36"
     kernels = []

@@ -1,5 +1,6 @@
-"""Monte Carlo sampling (port of ``pbrt_tpu/core/sampling.py``, the slice's
-subset; reference: src/core/montecarlo.{h,cpp}).
+"""Monte Carlo sampling (port of ``pbrt_tpu/core/sampling.py``, the slices'
+subset: Distribution1D/2D, the warps, MIS and the (0,2)-sequence;
+reference: src/core/montecarlo.{h,cpp}).
 
 The (0,2)-sequence bit kernels work on int64 tensors holding uint32 values
 (PyTorch has no full set of uint32 ops); every intermediate is masked back
@@ -22,34 +23,110 @@ _M32 = 0xFFFFFFFF
 _INV_2_32 = 2.3283064365386963e-10
 
 
+def _cdf_host(f: np.ndarray):
+    """(..., n) float32 values → (normalized (..., n+1) CDF, (...) integral),
+    in float32 as the JAX package's ``Distribution1D.build``; an all-zero
+    row gets the uniform CDF."""
+    n = f.shape[-1]
+    cdf = np.cumsum(f, axis=-1, dtype=np.float32) / np.float32(n)
+    func_int = cdf[..., -1]
+    zero = np.zeros_like(func_int)[..., None]
+    safe = np.maximum(func_int, np.float32(1e-20))[..., None]
+    cdf_n = np.concatenate([zero, cdf], -1) / safe
+    uniform = np.linspace(0.0, 1.0, n + 1, dtype=np.float32)
+    return np.where(func_int[..., None] > 0.0, cdf_n, uniform), func_int
+
+
 @dataclasses.dataclass
 class Distribution1D:
     """Piecewise-constant 1D distribution over [0, 1) (montecarlo.h:46-92):
-    ``func`` (n,), normalized ``cdf`` (n+1,), ``func_int``."""
+    ``func`` (n,), normalized ``cdf`` (n+1,), ``func_int``.
+
+    Built once on the host in numpy (float32 sums in a fixed order), then
+    moved to the device, so the card and the CPU search the same CDF bits."""
 
     func: torch.Tensor
     cdf: torch.Tensor
     func_int: torch.Tensor
 
     @staticmethod
-    def build(f: torch.Tensor) -> "Distribution1D":
-        n = f.shape[-1]
-        cdf = torch.cumsum(f, -1) / n
-        func_int = cdf[..., -1]
-        zero = torch.zeros_like(func_int)[..., None]
-        safe = torch.clamp(func_int, min=1e-20)[..., None]
-        cdf_n = torch.cat([zero, cdf], -1) / safe
-        uniform = torch.linspace(0.0, 1.0, n + 1, dtype=f.dtype, device=f.device)
-        cdf_n = torch.where(func_int[..., None] > 0.0, cdf_n, uniform)
-        return Distribution1D(func=f, cdf=cdf_n, func_int=func_int)
+    def build(f, device="cpu") -> "Distribution1D":
+        f = np.asarray(f, np.float32)
+        cdf, func_int = _cdf_host(f)
+        t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+        return Distribution1D(func=t(f), cdf=t(cdf), func_int=t(func_int))
+
+    def _offset(self, u):
+        n = self.func.shape[-1]
+        off = torch.searchsorted(self.cdf, u.contiguous(), right=True) - 1
+        return off.clamp(0, n - 1)
+
+    def sample_continuous(self, u):
+        """u (R,) → (x in [0, 1), pdf, offset) (montecarlo.h:58-79)."""
+        n = self.func.shape[-1]
+        off = self._offset(u)
+        c0, c1 = self.cdf[off], self.cdf[off + 1]
+        du = (u - c0) / torch.clamp(c1 - c0, min=1e-20)
+        fi = torch.clamp(self.func_int, min=1e-20)
+        return (off + du) / n, self.func[off] / fi, off
 
     def sample_discrete(self, u):
         """u (...,) → (index, pmf) (montecarlo.h:81-92)."""
-        n = self.func.shape[-1]
-        off = torch.searchsorted(self.cdf, u.contiguous(), right=True) - 1
-        off = off.clamp(0, n - 1)
+        off = self._offset(u)
+        return off, self.discrete_pdf(off)
+
+    def discrete_pdf(self, index):
         fi = torch.clamp(self.func_int, min=1e-20)
-        return off, self.func[off] / (fi * n)
+        return self.func[index] / (fi * self.func.shape[-1])
+
+
+@dataclasses.dataclass
+class Distribution2D:
+    """Product distribution over the unit square (montecarlo.h:134-158):
+    conditional CDFs over x per row, a marginal CDF over y; built on the
+    host as ``Distribution1D``."""
+
+    func: torch.Tensor  # (ny, nx)
+    cond_cdf: torch.Tensor  # (ny, nx+1)
+    cond_int: torch.Tensor  # (ny,)
+    marg_func: torch.Tensor  # (ny,)
+    marg_cdf: torch.Tensor  # (ny+1,)
+    marg_int: torch.Tensor  # ()
+
+    @staticmethod
+    def build(f, device="cpu") -> "Distribution2D":
+        f = np.asarray(f, np.float32)
+        cond_cdf, cond_int = _cdf_host(f)
+        marg_cdf, marg_int = _cdf_host(cond_int)
+        t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+        return Distribution2D(func=t(f), cond_cdf=t(cond_cdf), cond_int=t(cond_int),
+                              marg_func=t(cond_int), marg_cdf=t(marg_cdf),
+                              marg_int=t(marg_int))
+
+    def sample_continuous(self, u0, u1):
+        """(u0, u1) (R,) → ((u, v), pdf). The row's column is the count of
+        its CDF entries ≤ u0, as the JAX package takes it."""
+        ny, nx = self.func.shape
+        oy = (torch.searchsorted(self.marg_cdf, u1.contiguous(), right=True) - 1).clamp(0, ny - 1)
+        c0, c1 = self.marg_cdf[oy], self.marg_cdf[oy + 1]
+        dv = (u1 - c0) / torch.clamp(c1 - c0, min=1e-20)
+        v = (oy + dv) / ny
+        pdf_y = self.marg_func[oy] / torch.clamp(self.marg_int, min=1e-20)
+        row_cdf = self.cond_cdf[oy]
+        ox = ((row_cdf <= u0[:, None]).sum(-1) - 1).clamp(0, nx - 1)
+        r0 = row_cdf.gather(1, ox[:, None])[:, 0]
+        r1 = row_cdf.gather(1, (ox + 1)[:, None])[:, 0]
+        du = (u0 - r0) / torch.clamp(r1 - r0, min=1e-20)
+        u = (ox + du) / nx
+        pdf_x = self.func[oy, ox] / torch.clamp(self.cond_int[oy], min=1e-20)
+        return (u, v), pdf_x * pdf_y
+
+    def pdf(self, u, v):
+        """(montecarlo.cpp Distribution2D::Pdf)."""
+        ny, nx = self.func.shape
+        iu = (u * nx).to(torch.int64).clamp(0, nx - 1)
+        iv = (v * ny).to(torch.int64).clamp(0, ny - 1)
+        return self.func[iv, iu] / torch.clamp(self.marg_int, min=1e-20)
 
 
 def concentric_sample_disk(u1, u2):
@@ -79,6 +156,13 @@ def cosine_sample_hemisphere(u1, u2):
     x, y = concentric_sample_disk(u1, u2)
     z = torch.sqrt(torch.clamp(1.0 - x * x - y * y, min=0.0))
     return torch.stack([x, y, z], -1)
+
+
+def uniform_sample_hemisphere(u1, u2):
+    z = u1
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * math.pi * u2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], -1)
 
 
 def uniform_sample_sphere(u1, u2):

@@ -1,13 +1,14 @@
 """Spectra as a trailing wavelength axis (..., n_bins).
 
-Port of ``pbrt_tpu/core/spectrum.py`` for the slice: the per-config tables
-(bin-averaged CIE curves and the reference's 14 Smits basis SPDs), RGB/XYZ
-→ spectrum for reflectances and illuminants, SPD resampling, blackbody,
-and ``luminance`` on device tensors.
+Port of ``pbrt_tpu/core/spectrum.py``: the per-config tables (bin-averaged
+CIE curves and the reference's 14 Smits basis SPDs), RGB/XYZ → spectrum
+for reflectances and illuminants, SPD resampling, blackbody, and
+``luminance``, ``to_xyz`` and ``to_rgb`` on device tensors.
 
-The table construction and ``from_rgb`` run on the host in numpy, in the
-same float32 operation order as the JAX package, since the parser resolves
-every spectral parameter at parse time (reference: SampledSpectrum::Init,
+The tables are built on the host in numpy; RGB → spectrum
+(``rgb_to_spectrum``) keeps the JAX package's float32 operation order,
+and the parser resolves every spectral parameter with it on the host at
+parse time (``from_rgb``; reference: SampledSpectrum::Init,
 spectrum.h:297-351; FromRGB, spectrum.cpp:92-180).
 """
 
@@ -95,35 +96,38 @@ def tables(config: SpectralConfig = DEFAULT_SPECTRAL) -> dict:
                 illum_basis=f32(illum))
 
 
-def from_rgb(rgb, kind: str = "reflectance",
-             config: SpectralConfig = DEFAULT_SPECTRAL) -> np.ndarray:
-    """(..., 3) RGB → (..., n_bins) float32 spectrum, Smits-style: white
-    + secondary + primary with the reference's basis SPDs, scaled by .94
-    (reflectance) or .86445 (illuminant) and clamped at 0."""
+def rgb_to_spectrum(rgb: torch.Tensor, kind: str = "reflectance",
+                    config: SpectralConfig = DEFAULT_SPECTRAL) -> torch.Tensor:
+    """(..., 3) RGB tensor → (..., n_bins) spectrum on its device,
+    Smits-style: white + secondary + primary with the reference's basis
+    SPDs, scaled by .94 (reflectance) or .86445 (illuminant) and clamped at
+    0, in the JAX package's float32 operation order."""
     t = tables(config)
-    basis, scale = ((t["refl_basis"], np.float32(0.94))
-                    if kind == "reflectance"
-                    else (t["illum_basis"], np.float32(0.86445)))
-    white, cyan, magenta, yellow, red, green, blue = basis
-    rgb = np.asarray(rgb, np.float32)
+    basis, scale = ((t["refl_basis"], 0.94) if kind == "reflectance"
+                    else (t["illum_basis"], 0.86445))
+    white, cyan, magenta, yellow, red, green, blue = torch.as_tensor(
+        basis, dtype=rgb.dtype, device=rgb.device)
     r, g, b = rgb[..., 0:1], rgb[..., 1:2], rgb[..., 2:3]
 
     def branch(lo, mid, hi, sec, prim):
         return lo * white + (mid - lo) * sec + (hi - mid) * prim
 
-    out = np.where(
-        (r <= g) & (r <= b),
-        np.where(g <= b, branch(r, g, b, cyan, blue),
-                 branch(r, b, g, cyan, green)),
-        np.where(
-            (g <= r) & (g <= b),
-            np.where(r <= b, branch(g, r, b, magenta, blue),
-                     branch(g, b, r, magenta, red)),
-            np.where(r <= g, branch(b, r, g, yellow, green),
-                     branch(b, g, r, yellow, red)),
-        ),
-    )
-    return np.maximum(out * scale, np.float32(0.0)).astype(np.float32)
+    w = torch.where
+    out = w((r <= g) & (r <= b),
+            w(g <= b, branch(r, g, b, cyan, blue), branch(r, b, g, cyan, green)),
+            w((g <= r) & (g <= b),
+              w(r <= b, branch(g, r, b, magenta, blue), branch(g, b, r, magenta, red)),
+              w(r <= g, branch(b, r, g, yellow, green), branch(b, g, r, yellow, red))))
+    return torch.clamp(out * scale, min=0.0)
+
+
+def from_rgb(rgb, kind: str = "reflectance",
+             config: SpectralConfig = DEFAULT_SPECTRAL) -> np.ndarray:
+    """(..., 3) RGB → (..., n_bins) float32 spectrum on the host
+    (``rgb_to_spectrum`` on the CPU; the parser resolves every spectral
+    parameter with it at parse time)."""
+    rgb = torch.as_tensor(np.asarray(rgb, np.float32))
+    return rgb_to_spectrum(rgb, kind, config).numpy()
 
 
 def from_xyz(xyz, kind: str = "reflectance",
@@ -160,3 +164,15 @@ def luminance(s: torch.Tensor, config: SpectralConfig = DEFAULT_SPECTRAL):
     t = tables(config)
     w = torch.as_tensor(t["Y"] / t["yint"], dtype=s.dtype, device=s.device)
     return s @ w
+
+
+def to_xyz(s: torch.Tensor, config: SpectralConfig = DEFAULT_SPECTRAL):
+    """(..., n_bins) → (..., 3) XYZ (reference: spectrum.h:352-362)."""
+    m = torch.as_tensor(tables(config)["xyz_matrix"], dtype=s.dtype, device=s.device)
+    return s @ m
+
+
+def to_rgb(s: torch.Tensor, config: SpectralConfig = DEFAULT_SPECTRAL):
+    """(..., n_bins) → (..., 3) linear RGB (reference: spectrum.h:424-428)."""
+    xyz = to_xyz(s, config)
+    return xyz @ torch.as_tensor(XYZ_TO_RGB, dtype=s.dtype, device=s.device).T

@@ -116,6 +116,28 @@ def write_dat(state: FilmState, cfg: FilmConfig, path: str | None = None):
     return path
 
 
+def write_pfm(path: str, rgb: np.ndarray):
+    """(H, W, 3) float image as little-endian PFM, bottom row first
+    (core/imageio.cpp WritePFM)."""
+    H, W, _ = rgb.shape
+    with open(path, "wb") as f:
+        f.write(f"PF\n{W} {H}\n-1.000000\n".encode())
+        f.write(np.ascontiguousarray(rgb[::-1]).astype("<f4").tobytes())
+    return path
+
+
+def read_pfm(path: str) -> np.ndarray:
+    """PFM → (H, W, 3) float32, top row first; the scale's sign gives the
+    byte order (negative: little-endian)."""
+    with open(path, "rb") as f:
+        if f.readline().strip() != b"PF":
+            raise ValueError(f"{path}: not a colour PFM file")
+        W, H = map(int, f.readline().split())
+        scale = float(f.readline())
+        data = np.frombuffer(f.read(W * H * 3 * 4), dtype="<f4" if scale < 0 else ">f4")
+    return data.reshape(H, W, 3)[::-1].astype(np.float32)
+
+
 def read_dat(path: str):
     """Read a ``.dat`` back → ((H, W, S) float64 array, header dict)."""
     with open(path, "rb") as f:

@@ -1,0 +1,244 @@
+"""Image I/O: EXR (scanline NONE/ZIP/ZIPS, HALF/FLOAT/UINT), TGA and PFM.
+
+Port of ``pbrt_tpu/film/imageio.py`` (reference: src/core/imageio.{h,cpp},
+ReadImage dispatching on the extension): a minimal OpenEXR 2.0 scanline
+codec in numpy (zlib and the EXR byte predictor / deinterleave), the TGA
+reader with its sRGB decode, and PFM through ``film/film.py``. Host-side
+and numpy only. PNG and JPEG need PIL, which the port does not take on:
+``read_image`` refuses them with a ``ValueError``.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+import zlib
+
+import numpy as np
+
+_EXR_MAGIC = 0x01312F76
+_PT_UINT, _PT_HALF, _PT_FLOAT = 0, 1, 2
+_DTYPES = {_PT_UINT: np.uint32, _PT_HALF: np.float16, _PT_FLOAT: np.float32}
+
+
+def _read_cstr(buf, i):
+    e = buf.index(b"\0", i)
+    return buf[i:e].decode("latin-1"), e + 1
+
+
+def _parse_channels(val: bytes):
+    chans = []
+    i = 0
+    while i < len(val) and val[i] != 0:
+        name, i = _read_cstr(val, i)
+        ptype, _, x_samp, y_samp = struct.unpack_from("<iiii", val, i)
+        i += 16
+        chans.append((name, ptype))
+    return chans
+
+
+def _predictor_undo(data: bytes) -> bytes:
+    """EXR byte predictor decode: out[0]=raw[0]; out[i]=out[i-1]+raw[i]-128."""
+    raw = np.frombuffer(bytes(data), np.uint8).astype(np.int64)
+    deltas = raw.copy()
+    deltas[1:] -= 128
+    out = np.cumsum(deltas) % 256
+    return out.astype(np.uint8).tobytes()
+
+
+def _deinterleave(data: bytes) -> bytes:
+    n = len(data)
+    half = (n + 1) // 2
+    out = np.empty(n, np.uint8)
+    a = np.frombuffer(data, np.uint8)
+    out[0::2] = a[:half]
+    out[1::2] = a[half : half + n // 2]
+    return out.tobytes()
+
+
+def _interleave(data: bytes) -> bytes:
+    a = np.frombuffer(data, np.uint8)
+    n = len(a)
+    half = (n + 1) // 2
+    out = np.empty(n, np.uint8)
+    out[:half] = a[0::2]
+    out[half:] = a[1::2]
+    return out.tobytes()
+
+
+def _predictor_apply(data: bytes) -> bytes:
+    a = np.frombuffer(data, np.uint8).astype(np.int64)
+    d = np.empty_like(a)
+    d[0] = a[0]
+    d[1:] = (a[1:] - a[:-1] + 128) % 256
+    return d.astype(np.uint8).tobytes()
+
+
+def read_exr(path: str) -> np.ndarray:
+    """Read a scanline EXR → (H, W, C) float32 with channels ordered
+    R, G, B[, A] when present (else alphabetical)."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    magic, version = struct.unpack_from("<ii", buf, 0)
+    if magic != _EXR_MAGIC:
+        raise ValueError(f"{path}: not an EXR file")
+    if version & 0x200:
+        raise ValueError(f"{path}: tiled EXR not supported")
+    i = 8
+    attrs = {}
+    while True:
+        name, i = _read_cstr(buf, i)
+        if not name:
+            break
+        typ, i = _read_cstr(buf, i)
+        size = struct.unpack_from("<i", buf, i)[0]
+        i += 4
+        attrs[name] = (typ, buf[i : i + size])
+        i += size
+    chans = _parse_channels(attrs["channels"][1])
+    comp = attrs["compression"][1][0]
+    x0, y0, x1, y1 = struct.unpack("<4i", attrs["dataWindow"][1])
+    W = x1 - x0 + 1
+    H = y1 - y0 + 1
+    if comp == 0:
+        lines_per_chunk = 1
+    elif comp == 2:  # ZIPS
+        lines_per_chunk = 1
+    elif comp == 3:  # ZIP
+        lines_per_chunk = 16
+    else:
+        raise ValueError(f"{path}: compression {comp} not supported (NONE/ZIP only)")
+    n_chunks = (H + lines_per_chunk - 1) // lines_per_chunk
+    offsets = struct.unpack_from(f"<{n_chunks}q", buf, i)
+    bytes_per_px = sum(np.dtype(_DTYPES[pt]).itemsize for _, pt in chans)
+    out = {name: np.empty((H, W), _DTYPES[pt]) for name, pt in chans}
+    for ci, off in enumerate(offsets):
+        y, nbytes = struct.unpack_from("<ii", buf, off)
+        data = buf[off + 8 : off + 8 + nbytes]
+        ny = min(lines_per_chunk, y1 - y + 1)
+        raw_size = W * bytes_per_px * ny
+        if comp in (2, 3):
+            if nbytes < raw_size:
+                data = zlib.decompress(data)
+                data = _deinterleave(_predictor_undo(bytearray(data)))
+        # scanline layout: per line, per channel (file order), W values
+        pos = 0
+        for line in range(ny):
+            for name, pt in chans:
+                dt = np.dtype(_DTYPES[pt]).newbyteorder("<")
+                n = W * dt.itemsize
+                out[name][y - y0 + line] = np.frombuffer(data[pos : pos + n], dt)
+                pos += n
+    names = [c[0] for c in chans]
+    order = [n for n in ("R", "G", "B", "A", "Y") if n in names]
+    order += [n for n in sorted(names) if n not in order]
+    planes = [out[n].astype(np.float32) for n in order]
+    return np.stack(planes, axis=-1)
+
+
+def write_exr(path: str, img: np.ndarray, half: bool = True):
+    """Write (H, W, C) as an uncompressed scanline EXR (C ∈ {1, 3, 4})."""
+    img = np.asarray(img, np.float32)
+    if img.ndim == 2:
+        img = img[..., None]
+    H, W, C = img.shape
+    names = {1: ["Y"], 3: ["B", "G", "R"], 4: ["A", "B", "G", "R"]}[C]
+    src_idx = {1: [0], 3: [2, 1, 0], 4: [3, 2, 1, 0]}[C]
+    pt = _PT_HALF if half else _PT_FLOAT
+    dt = np.dtype(_DTYPES[pt]).newbyteorder("<")
+
+    def attr(name, typ, val):
+        return (
+            name.encode() + b"\0" + typ.encode() + b"\0"
+            + struct.pack("<i", len(val)) + val
+        )
+
+    chlist = b""
+    for n in names:
+        chlist += n.encode() + b"\0" + struct.pack("<iiii", pt, 0, 1, 1)
+    chlist += b"\0"
+    header = struct.pack("<ii", _EXR_MAGIC, 2)
+    header += attr("channels", "chlist", chlist)
+    header += attr("compression", "compression", b"\0")
+    box = struct.pack("<4i", 0, 0, W - 1, H - 1)
+    header += attr("dataWindow", "box2i", box)
+    header += attr("displayWindow", "box2i", box)
+    header += attr("lineOrder", "lineOrder", b"\0")
+    header += attr("pixelAspectRatio", "float", struct.pack("<f", 1.0))
+    header += attr("screenWindowCenter", "v2f", struct.pack("<2f", 0, 0))
+    header += attr("screenWindowWidth", "float", struct.pack("<f", 1.0))
+    header += b"\0"
+    line_bytes = W * dt.itemsize * len(names)
+    table_start = len(header)
+    data_start = table_start + 8 * H
+    offsets = [data_start + y * (8 + line_bytes) for y in range(H)]
+    with open(path, "wb") as f:
+        f.write(header)
+        f.write(struct.pack(f"<{H}q", *offsets))
+        for y in range(H):
+            f.write(struct.pack("<ii", y, line_bytes))
+            for si in src_idx:
+                f.write(img[y, :, si].astype(dt).tobytes())
+    return path
+
+
+def read_tga(path: str) -> np.ndarray:
+    """Minimal TGA reader (types 2/10, 24/32bpp) → (H, W, 3|4) float32 with
+    sRGB→linear decode (reference: imageio.cpp TGA gamma handling)."""
+    with open(path, "rb") as f:
+        hdr = f.read(18)
+        idlen, cmap_type, img_type = hdr[0], hdr[1], hdr[2]
+        W = struct.unpack_from("<H", hdr, 12)[0]
+        H = struct.unpack_from("<H", hdr, 14)[0]
+        bpp = hdr[16]
+        desc = hdr[17]
+        f.read(idlen)
+        nch = bpp // 8
+        if img_type == 2:
+            data = np.frombuffer(f.read(W * H * nch), np.uint8).reshape(H, W, nch)
+        elif img_type == 10:  # RLE
+            out = np.empty((H * W, nch), np.uint8)
+            raw = f.read()
+            pos = 0
+            px = 0
+            while px < H * W:
+                pkt = raw[pos]
+                pos += 1
+                cnt = (pkt & 0x7F) + 1
+                if pkt & 0x80:
+                    val = np.frombuffer(raw[pos : pos + nch], np.uint8)
+                    pos += nch
+                    out[px : px + cnt] = val
+                else:
+                    out[px : px + cnt] = np.frombuffer(
+                        raw[pos : pos + cnt * nch], np.uint8
+                    ).reshape(cnt, nch)
+                    pos += cnt * nch
+                px += cnt
+            data = out.reshape(H, W, nch)
+        else:
+            raise ValueError(f"{path}: TGA type {img_type} unsupported")
+    if not (desc & 0x20):  # bottom-up origin
+        data = data[::-1]
+    # BGR(A) → RGB(A)
+    if nch >= 3:
+        data = data[..., [2, 1, 0] + ([3] if nch == 4 else [])]
+    lin = (data.astype(np.float32) / 255.0) ** 2.2
+    return lin
+
+
+def read_image(path: str) -> np.ndarray:
+    """(H, W, C) float32 linear, by extension (imageio.cpp:31-60)."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".exr":
+        return read_exr(path)
+    if ext == ".tga":
+        return read_tga(path)
+    if ext == ".pfm":
+        from pbrt_torch.film.film import read_pfm
+
+        return read_pfm(path)
+    if ext in (".png", ".jpg", ".jpeg", ".bmp"):
+        raise ValueError(f"{path}: {ext} images need PIL, which the port does not "
+                         "use; convert the map to .exr, .pfm or .tga")
+    raise ValueError(f"unsupported image format {ext!r}")

@@ -44,6 +44,12 @@ Written differently from the reference on purpose:
 - emission and the MIS pdf of a hit area light read its own light-table
   row (``lights/table.py``);
 - textures, volumes and the merged shadow+closest batch are not ported.
+
+A ray that leaves the scene collects the infinite lights' radiance; a
+mix material's lanes (``materials/table.py:MixLane``) and the measured
+lobes' pools go through NEE and BSDF sampling as any other row's, and
+transmitted continuations leave from the far side of the surface
+(``offset_ray_origin`` picks its side by the direction).
 """
 
 from __future__ import annotations
@@ -165,8 +171,20 @@ def trace_radiance(scene: RenderScene, rays: geom.Ray, cfg: IntegratorConfig,
 
     def accumulate_hit(L, ray, hit, si, throughput, alive, specular_bounce,
                        prev_bsdf_pdf):
-        """Emissive-hit accumulation with MIS weights (no env lights)."""
-        if lt.count == 0 or lights_mod.AREA not in lt.active_types:
+        """Escaped rays' environment radiance and emissive hits, each with
+        its MIS weight (path.py:440-494). The escape weight takes the pdf
+        of the first infinite light only, while the radiance sums them all
+        (path.py:454-458), as the JAX package does."""
+        if lights_mod.INFINITE in lt.active_types:
+            first = torch.full_like(si.area_light, lt.infinite_rows[0])
+            pdf_env = lights_mod.pdf_li(lt, first, ray.direction)
+            w_env = torch.where(
+                specular_bounce, 1.0,
+                smp.power_heuristic(1.0, prev_bsdf_pdf, 1.0, pdf_env / n_lights))
+            le_bg = lights_mod.le_escaped(lt, ray.direction)
+            L = L + torch.where((alive & ~si.valid)[:, None],
+                                throughput * le_bg * w_env[:, None], 0.0)
+        if lights_mod.AREA not in lt.active_types:
             return L
         le = lights_mod.emitted_radiance(lt, si.area_light, si.ng, si.wo)
         pdf_light_hit = lights_mod.pdf_li_hit(

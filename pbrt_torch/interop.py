@@ -18,14 +18,25 @@ Keys (shapes as in the JAX package's tables):
   tri_mesh_id`` (T,), ``quad_type quad_material quad_area_light
   quad_mesh_id quad_reverse`` (Q,), ``quad_o2w quad_w2o`` (Q, 4, 4),
   ``quad_params`` (Q, 8), ``wide_rows`` (M, 80), ``wide_stack`` ();
-- materials: ``mat_n_lobes`` (M,), ``mat_lobe_type`` (M, 4) as indices
-  into ``mat_active_lobes`` (the JAX table's compact codes, -1 pad),
-  ``mat_kd mat_ks mat_kr`` (M, S), ``mat_exp_u mat_eta`` (M,);
+- materials: ``mat_kind mat_n_lobes`` (M,), ``mat_lobe_type`` (M, 4) as
+  indices into ``mat_active_lobes`` (the JAX table's compact codes, -1
+  pad), ``mat_kd mat_ks mat_kr mat_kt mat_eta_spec mat_k_spec
+  mat_ss_sigma_a mat_ss_sigma_s mat_mix_amt`` (M, S), ``mat_sigma
+  mat_exp_u mat_exp_v mat_eta mat_ss_scale mat_irreg_offset
+  mat_irreg_count mat_merl_offset mat_mix_m1 mat_mix_m2`` (M,), the
+  measured pools ``mat_irreg_points`` (P, 3), ``mat_irreg_spectra`` (P, S),
+  ``mat_merl_rgb`` (Q, 3);
 - lights: ``light_type light_shape_kind light_quad_idx light_tri_start
-  light_tri_count light_cdf_offset`` (L,), ``light_cos_total
-  light_cos_falloff light_total_area`` (L,), ``light_pos light_dirw``
-  (L, 3), ``light_emit`` (L, S), ``light_tri_cdf`` (K,), in the JAX
-  package's row order: ``LightSource`` rows, then the area lights;
+  light_tri_count light_cdf_offset light_env_id light_lmap_id`` (L,),
+  ``light_cos_total light_cos_falloff light_total_area light_proj_invtan``
+  (L,), ``light_pos light_dirw`` (L, 3), ``light_emit`` (L, S),
+  ``light_l2w light_w2l`` (L, 4, 4), ``light_proj_screen`` (L, 4),
+  ``light_tri_cdf`` (K,), ``light_env_map`` (H, W, S), ``light_lmap`` (P,
+  Hm, Wm, S) and the env map's distribution as the JAX package built it,
+  ``light_env_func`` (H, W), ``light_env_cond_cdf`` (H, W+1),
+  ``light_env_cond_int light_env_marg_func`` (H,), ``light_env_marg_cdf``
+  (H+1,), ``light_env_marg_int`` (); rows in the JAX package's order:
+  ``LightSource`` rows, then the area lights;
 - camera: ``cam_raster_to_camera cam_to_world`` (4, 4), ``cam_lens_radius
   cam_focal_distance cam_shutter_open cam_shutter_close cam_fov`` ();
 - film: ``film_xres film_yres film_n_bins`` (), ``filter_kind`` (str),
@@ -39,11 +50,12 @@ import torch
 
 from pbrt_torch.accel.intersect import SPHERE, SceneGeometry
 from pbrt_torch.cameras.cameras import PerspectiveCamera
+from pbrt_torch.core.sampling import Distribution2D
 from pbrt_torch.core.filters import Filter
 from pbrt_torch.film.film import FilmConfig
 from pbrt_torch.integrators.path import RenderScene
 from pbrt_torch.lights import table as lt_mod
-from pbrt_torch.materials.table import MaterialTable
+from pbrt_torch.materials.table import MIXMAT, MaterialTable
 
 _GEOMETRY_F32 = ("tri_v0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
                  "tri_uv0", "tri_uv1", "tri_uv2", "quad_o2w", "quad_w2o",
@@ -51,6 +63,14 @@ _GEOMETRY_F32 = ("tri_v0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
 _GEOMETRY_I64 = ("tri_material", "tri_area_light", "tri_mesh_id",
                  "quad_type", "quad_material", "quad_area_light",
                  "quad_mesh_id")
+_MATERIAL_F32 = ("kd", "ks", "kr", "kt", "sigma", "exp_u", "exp_v", "eta", "eta_spec",
+                 "k_spec", "irreg_points", "irreg_spectra", "merl_rgb", "ss_sigma_a",
+                 "ss_sigma_s", "ss_scale", "mix_amt")
+_MATERIAL_I64 = ("kind", "irreg_offset", "irreg_count", "merl_offset", "mix_m1", "mix_m2")
+_LIGHT_F32 = ("emit", "pos", "dirw", "cos_total", "cos_falloff", "total_area", "tri_cdf",
+              "l2w", "w2l", "env_map", "lmap", "proj_screen", "proj_invtan")
+_LIGHT_I64 = ("tri_start", "tri_count", "cdf_offset", "env_id", "lmap_id")
+_ENV_DIST = ("func", "cond_cdf", "cond_int", "marg_func", "marg_cdf", "marg_int")
 
 
 def key_from_numpy(data, device="cpu") -> torch.Tensor:
@@ -65,9 +85,6 @@ def _lights_from_numpy(arrays, f32, i64) -> lt_mod.LightTable:
     ltype = np.asarray(arrays["light_type"], np.int64)
     kind = np.asarray(arrays["light_shape_kind"], np.int64)
     qidx = np.asarray(arrays["light_quad_idx"], np.int64)
-    bad = set(ltype.tolist()) - {lt_mod.POINT, lt_mod.SPOT, lt_mod.DISTANT, lt_mod.AREA}
-    if bad:
-        raise NotImplementedError(f"light types {sorted(bad)} are not ported yet")
     area = ltype == lt_mod.AREA
     sphere = area & (kind == lt_mod.SHAPE_SPHERE)
     if np.any(area & ~sphere & (kind != lt_mod.SHAPE_MESH)):
@@ -75,14 +92,12 @@ def _lights_from_numpy(arrays, f32, i64) -> lt_mod.LightTable:
     if np.any(np.asarray(arrays["quad_type"])[qidx[sphere]] != SPHERE):
         raise NotImplementedError("area lights on non-sphere quadrics (the JAX "
                                   "package samples them as spheres)")
+    # the JAX package's own env CDFs, so sampling compares bit for bit
+    env_dist = Distribution2D(**{k: f32(arrays[f"light_env_{k}"]) for k in _ENV_DIST})
     return lt_mod.LightTable(
-        type=i64(ltype), emit=f32(arrays["light_emit"]), pos=f32(arrays["light_pos"]),
-        dirw=f32(arrays["light_dirw"]), cos_total=f32(arrays["light_cos_total"]),
-        cos_falloff=f32(arrays["light_cos_falloff"]), shape_kind=i64(kind),
-        quad_idx=i64(qidx), tri_start=i64(arrays["light_tri_start"]),
-        tri_count=i64(arrays["light_tri_count"]), cdf_offset=i64(arrays["light_cdf_offset"]),
-        total_area=f32(arrays["light_total_area"]),
-        tri_cdf=f32(arrays["light_tri_cdf"]),
+        type=i64(ltype), shape_kind=i64(kind), quad_idx=i64(qidx), env_dist=env_dist,
+        **{k: f32(arrays[f"light_{k}"]) for k in _LIGHT_F32},
+        **{k: i64(arrays[f"light_{k}"]) for k in _LIGHT_I64},
     )
 
 
@@ -106,12 +121,13 @@ def scene_from_numpy(arrays: dict, device):
     codes = np.where(compact >= 0,
                      np.asarray(active, np.int64)[np.clip(compact, 0, None)], -1)
     n_lobes = np.asarray(arrays["mat_n_lobes"], np.int64)
+    mat_kind = np.asarray(arrays["mat_kind"], np.int64)
     materials = MaterialTable(
-        n_lobes=i64(n_lobes), lobe_type=i64(codes), kd=f32(arrays["mat_kd"]),
-        ks=f32(arrays["mat_ks"]), kr=f32(arrays["mat_kr"]),
-        exp_u=f32(arrays["mat_exp_u"]), eta=f32(arrays["mat_eta"]),
+        n_lobes=i64(n_lobes), lobe_type=i64(codes),
+        **{k: f32(arrays[f"mat_{k}"]) for k in _MATERIAL_F32},
+        **{k: i64(arrays[f"mat_{k}"]) for k in _MATERIAL_I64},
         active_lobes=tuple(sorted(set(active))),
-        max_lobes=int(max(n_lobes.max(), 1)),
+        max_lobes=int(max(n_lobes.max(), 1)), has_mix=bool((mat_kind == MIXMAT).any()),
     )
 
     lights = _lights_from_numpy(arrays, f32, i64)

@@ -1,13 +1,19 @@
-"""Light table: point, spot and distant lights, and diffuse area lights on
-spheres and triangle meshes.
+"""Light table: point, spot, distant, infinite, projection and
+goniometric lights, and diffuse area lights on spheres and triangle meshes.
 
-Port of the slice's part of ``pbrt_tpu/lights/table.py`` (reference:
-src/lights/{point,spot,distant,diffuse}.cpp, with Sphere::Sample(p, ...)
-cone sampling, src/shapes/sphere.cpp:230-270, and ShapeSet area sampling,
-core/light.cpp:36-70): ``sample_li`` (:335), ``pdf_li_hit`` (:648),
-``emitted_radiance`` (:637) and uniform light selection. Infinite,
-projection and goniometric lights wait for later slices; the builder and
-``interop`` refuse them.
+Port of ``pbrt_tpu/lights/table.py`` (reference: src/lights/{point,spot,
+distant,infinite,projection,goniometric,diffuse}.cpp, with
+Sphere::Sample(p, ...) cone sampling, src/shapes/sphere.cpp:230-270, and
+ShapeSet area sampling, core/light.cpp:36-70): ``sample_li`` (:335),
+``pdf_li``'s infinite-light half (:590-606), ``le_escaped`` (:616),
+``pdf_li_hit`` (:648) and ``emitted_radiance`` (:637). ``sample_le``
+(:547) waits for photon mapping, IGI and BDPT, its only users.
+
+The infinite light is constant or maps a lat-long image (``env_map``, one
+per table: as in the JAX package, only the first mapped light keeps its
+map) sampled through a ``Distribution2D`` of the map's mean over bins
+(infinite.cpp:77-95, 187-229). Projection and goniometric lights look up
+stacked maps of one common size (``lmap``) bilinearly.
 
 Rows are in the JAX package's order: every ``LightSource`` first, then the
 area lights in shape order. A surface's ``area_light`` index counts area
@@ -31,7 +37,7 @@ from pbrt_torch.core import geometry as geom
 from pbrt_torch.core import sampling as smp
 
 # the JAX package's light type codes (lights/table.py:28)
-POINT, SPOT, DISTANT, AREA = 0, 1, 2, 3
+POINT, SPOT, DISTANT, AREA, INFINITE, PROJECTION, GONIO = range(7)
 #: area-light shape kinds: a sphere quadric row, a triangle range
 SHAPE_SPHERE, SHAPE_MESH = 1, 2
 
@@ -51,6 +57,15 @@ class LightTable:
     cdf_offset: torch.Tensor  # (L,) i64 offset into tri_cdf
     total_area: torch.Tensor  # (L,)
     tri_cdf: torch.Tensor  # (K,) the mesh lights' inclusive area CDFs, concatenated
+    l2w: torch.Tensor  # (L, 4, 4) light to world
+    w2l: torch.Tensor  # (L, 4, 4)
+    env_id: torch.Tensor  # (L,) i64 0: the light maps env_map; -1 constant
+    env_map: torch.Tensor  # (H, W, S) lat-long radiance ((1, 1, S) ones if none)
+    env_dist: smp.Distribution2D  # over (u, v) of env_map's mean + 1e-6
+    lmap_id: torch.Tensor  # (L,) i64 projection / goniometric map, -1 none
+    lmap: torch.Tensor  # (P, Hm, Wm, S) ((1, 1, 1, S) ones if none)
+    proj_screen: torch.Tensor  # (L, 4) x0, x1, y0, y1 of the projection's screen
+    proj_invtan: torch.Tensor  # (L,) 1/tan(fov/2)
     # host-side, derived from the rows:
     #: the row of area light 0 (the LightSource rows before it)
     area_row0: int = dataclasses.field(init=False)
@@ -60,6 +75,9 @@ class LightTable:
     area_shapes: frozenset = dataclasses.field(init=False)
     #: (row, cdf_offset, tri_count) of each mesh area light
     mesh_segments: tuple = dataclasses.field(init=False)
+    #: the infinite lights' rows, and whether each maps env_map
+    infinite_rows: tuple = dataclasses.field(init=False)
+    infinite_mapped: tuple = dataclasses.field(init=False)
 
     def __post_init__(self):
         typ, kind = self.type.tolist(), self.shape_kind.tolist()
@@ -69,6 +87,9 @@ class LightTable:
         self.active_types = tuple(sorted(set(typ)))
         self.area_shapes = frozenset(kind[i] for i in area)
         self.mesh_segments = tuple((i, off[i], cnt[i]) for i in area if kind[i] == SHAPE_MESH)
+        env = self.env_id.tolist()
+        self.infinite_rows = tuple(i for i, t in enumerate(typ) if t == INFINITE)
+        self.infinite_mapped = tuple(env[i] >= 0 for i in self.infinite_rows)
 
     @property
     def count(self) -> int:
@@ -203,6 +224,98 @@ def _area(lt, g, li, p, u1, u2):
                  for a, b in zip(s, m))
 
 
+def _rot(m, v):
+    """The rotation part of (R, 4, 4) matrices, or of one (4, 4), applied
+    to v (R, 3)."""
+    return (m[..., :3, 0] * v[:, 0:1] + m[..., :3, 1] * v[:, 1:2]) + m[..., :3, 2] * v[:, 2:3]
+
+
+def _env_texel(lt: LightTable, u, v):
+    """env_map's texel at (u, v), nearest (floor), clamped."""
+    H, W = lt.env_map.shape[0], lt.env_map.shape[1]
+    x = (u * W).to(torch.int64).clamp(0, W - 1)
+    y = (v * H).to(torch.int64).clamp(0, H - 1)
+    return lt.env_map[y, x]
+
+
+def _infinite(lt: LightTable, li, emit, u1, u2):
+    """(infinite.cpp:187-229): a direction from the map's Distribution2D
+    (pdf over the sphere pdf_uv / (2π² sin θ)) for a mapped light, a
+    uniform one for a constant light; only the cases the table holds are
+    evaluated."""
+    mapped = set(lt.infinite_mapped)
+    out = None
+    if True in mapped:
+        (u, v), pdf_uv = lt.env_dist.sample_continuous(u1, u2)
+        theta = v * math.pi
+        phi = u * 2.0 * math.pi
+        st, ct = torch.sin(theta), torch.cos(theta)
+        wi_l = torch.stack([st * torch.cos(phi), st * torch.sin(phi), ct], -1)
+        pdf = pdf_uv / torch.clamp(2.0 * math.pi * math.pi * st, min=1e-9)
+        out = (_rot(lt.l2w[li], wi_l), _env_texel(lt, u, v) * emit, pdf)
+    if False in mapped:
+        const = (smp.uniform_sample_sphere(u1, u2), emit,
+                 torch.full_like(u1, smp.UNIFORM_SPHERE_PDF))
+        if out is None:
+            out = const
+        else:
+            has_env = lt.env_id[li] >= 0
+            out = tuple(torch.where(has_env[:, None] if a.dim() == 2 else has_env, a, b)
+                        for a, b in zip(out, const))
+    return out + (torch.full_like(u1, math.inf),)
+
+
+def _light_dir(lt: LightTable, li, wi):
+    """The direction from the light to p (−wi) in the light's frame."""
+    return _rot(lt.w2l[li], -wi)
+
+
+def _lmap_bilinear(lt: LightTable, mi, u, v):
+    """Bilinear lookup of the stacked projection / goniometric maps (R, S)."""
+    H, W = lt.lmap.shape[1], lt.lmap.shape[2]
+    mi = mi.clamp(min=0)
+    x = torch.clamp(u * W - 0.5, 0.0, W - 1.0)
+    y = torch.clamp(v * H - 0.5, 0.0, H - 1.0)
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    x1 = torch.clamp(x0 + 1, max=W - 1)
+    y1 = torch.clamp(y0 + 1, max=H - 1)
+    fx, fy = (x - x0)[:, None], (y - y0)[:, None]
+    m = lt.lmap
+    return (m[mi, y0, x0] * (1 - fx) * (1 - fy) + m[mi, y0, x1] * fx * (1 - fy)
+            + m[mi, y1, x0] * (1 - fx) * fy + m[mi, y1, x1] * fx * fy)
+
+
+def _projection(lt: LightTable, li, emit, p):
+    """(lights/projection.cpp Projection + Sample_L): a point light scaled
+    by the texel its perspective screen shows toward p, 0 outside it."""
+    wi, dist, dist2 = _toward(lt.pos[li], p)
+    wl = _light_dir(lt, li, wi)
+    z = wl[:, 2]
+    invt = lt.proj_invtan[li]
+    zs = torch.where(z.abs() < 1e-9, 1e-9, z)
+    xs = wl[:, 0] / zs * invt
+    ys = wl[:, 1] / zs * invt
+    x0, x1, y0, y1 = lt.proj_screen[li].unbind(-1)
+    inside = (z > 1e-3) & (xs >= x0) & (xs <= x1) & (ys >= y0) & (ys <= y1)
+    u = torch.clamp((xs - x0) / torch.clamp(x1 - x0, min=1e-9), 0.0, 1.0)
+    v = torch.clamp((ys - y0) / torch.clamp(y1 - y0, min=1e-9), 0.0, 1.0)
+    texel = _lmap_bilinear(lt, lt.lmap_id[li], u, v)
+    L = torch.where(inside, 1.0, 0.0)[:, None] * texel * emit / dist2[:, None]
+    return wi, L, dist
+
+
+def _gonio(lt: LightTable, li, emit, p):
+    """(lights/goniometric.cpp Scale): a point light scaled by its
+    photometric map, looked up with y and z swapped."""
+    wi, dist, dist2 = _toward(lt.pos[li], p)
+    wl = geom.normalize(_light_dir(lt, li, wi))
+    theta = torch.acos(torch.clamp(wl[:, 1], -1.0, 1.0))
+    phi = geom.phi_of(wl[:, 0], wl[:, 2])
+    texel = _lmap_bilinear(lt, lt.lmap_id[li], phi / (2.0 * math.pi), theta / math.pi)
+    return wi, texel * emit / dist2[:, None], dist
+
+
 def sample_li(lt: LightTable, g, light_idx, p, u1, u2) -> LightSample:
     """Sample light ``light_idx`` (R,) as seen from p (R, 3) with the
     uniforms u1, u2 (R,)."""
@@ -221,8 +334,16 @@ def sample_li(lt: LightTable, g, light_idx, p, u1, u2) -> LightSample:
             res = (wi, emit, one, torch.full_like(u1, math.inf), True)
         elif code == AREA:
             res = _area(lt, g, light_idx, p, u1, u2) + (False,)
+        elif code == INFINITE:
+            res = _infinite(lt, light_idx, emit, u1, u2) + (False,)
+        elif code == PROJECTION:
+            wi, L, dist = _projection(lt, light_idx, emit, p)
+            res = (wi, L, one, dist, True)
+        elif code == GONIO:
+            wi, L, dist = _gonio(lt, light_idx, emit, p)
+            res = (wi, L, one, dist, True)
         else:
-            raise NotImplementedError(f"light type {code} is not ported yet")
+            raise ValueError(f"unknown light type {code}")
         res = res[:4] + (torch.full(u1.shape, res[4], dtype=torch.bool, device=u1.device),)
         if out is None:
             out = res
@@ -232,6 +353,38 @@ def sample_li(lt: LightTable, g, light_idx, p, u1, u2) -> LightSample:
                         for a, b in zip(res, out))
     wi, L, pdf, dist, is_delta = out
     return LightSample(wi=wi, L=L, pdf=pdf, dist=dist, is_delta=is_delta)
+
+
+def pdf_li(lt: LightTable, light_idx, wi):
+    """The solid-angle pdf ``sample_li`` gives direction wi for an infinite
+    light (lights/table.py:590-606; its area half is ``pdf_li_hit``'s): the
+    map's pdf_uv / (2π² sin θ), or 1/4π for a constant light; 0 for other
+    types."""
+    inf = lt.type[light_idx] == INFINITE
+    pdf = torch.full_like(wi[:, 0], smp.UNIFORM_SPHERE_PDF)
+    if True in lt.infinite_mapped:
+        wl = _rot(lt.w2l[light_idx], wi)
+        theta = torch.acos(torch.clamp(wl[:, 2], -1.0, 1.0))
+        p_uv = lt.env_dist.pdf(geom.phi_of(wl[:, 0], wl[:, 1]) / (2.0 * math.pi),
+                               theta / math.pi)
+        env = p_uv / torch.clamp(2.0 * math.pi * math.pi * torch.sin(theta), min=1e-9)
+        pdf = torch.where(lt.env_id[light_idx] >= 0, env, pdf)
+    return torch.where(inf, pdf, 0.0)
+
+
+def le_escaped(lt: LightTable, d):
+    """Σ over the infinite lights of the radiance an escaped ray of
+    direction d (R, 3) sees (samplerrenderer.cpp:241-242), in row order."""
+    total = torch.zeros(d.shape[:1] + lt.emit.shape[1:], dtype=d.dtype, device=d.device)
+    for row, mapped in zip(lt.infinite_rows, lt.infinite_mapped):
+        if mapped:
+            w = geom.normalize(_rot(lt.w2l[row], d))
+            u = geom.phi_of(w[:, 0], w[:, 1]) / (2.0 * math.pi)
+            v = torch.acos(torch.clamp(w[:, 2], -1.0, 1.0)) / math.pi
+            total = total + _env_texel(lt, u, v) * lt.emit[row]
+        else:
+            total = total + lt.emit[row]
+    return total
 
 
 def pdf_li_hit(lt: LightTable, g, light_idx, p_shade, d, t_hit, n_light):

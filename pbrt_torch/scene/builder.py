@@ -8,20 +8,26 @@ and lights become tables, and the camera, film, filter, sampler and
 integrator are configured.
 
 What the slices cover: ``trianglemesh`` and the six quadrics (sphere,
-cylinder, disk, cone, paraboloid, hyperboloid); ``matte`` (Lambertian),
-``plastic`` and ``mirror`` materials with constant parameters; point, spot
-and distant lights; diffuse area lights on spheres and triangle meshes;
-the ``perspective`` camera with a static transform; every filter; the
-``lowdiscrepancy`` sampler; the ``path``, ``directlighting``, ``whitted``,
-``ambientocclusion`` and ``metadata`` integrators; the BVH accelerator with
-SAH splits. Anything else raises ``NotImplementedError`` instead of
-rendering something different. Area lights on non-sphere quadrics are
-refused: the JAX package samples such a light as a sphere of its radius.
+cylinder, disk, cone, paraboloid, hyperboloid); every material of the JAX
+package with constant parameters, ``mix`` of two named materials
+included; point, spot, distant, infinite (constant or lat-long mapped),
+projection and goniometric lights; diffuse area lights on spheres and
+triangle meshes; the ``perspective`` camera with a static transform; every
+filter; the ``lowdiscrepancy`` sampler; the ``path``, ``directlighting``,
+``whitted``, ``ambientocclusion`` and ``metadata`` integrators; the BVH
+accelerator with SAH splits. Anything else raises ``NotImplementedError``
+instead of rendering something different: textured materials, a mix whose
+sub-material is a mix (the JAX package renders the inner mix black), and
+area lights on non-sphere quadrics (the JAX package samples such a light
+as a sphere of its radius). A light map that fails to load warns and the
+light is constant, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import struct
+import zlib
 
 import numpy as np
 import torch
@@ -32,14 +38,18 @@ from pbrt_torch.accel.intersect import (CONE, CYLINDER, DISK, HYPERBOLOID,
                                         PARABOLOID, SPHERE, SceneGeometry)
 from pbrt_torch.accel.wide import LEAF_TRIS, build_wide_bvh
 from pbrt_torch.cameras.cameras import make_camera
+from pbrt_torch.core import sampling as smp
+from pbrt_torch.core import spectrum as spec
 from pbrt_torch.core import transform as xf
 from pbrt_torch.core.filters import make_filter
 from pbrt_torch.film.film import FilmConfig
+from pbrt_torch.film.imageio import read_image
 from pbrt_torch.integrators.path import KINDS, IntegratorConfig, RenderScene
 from pbrt_torch.lights import table as lt_mod
 from pbrt_torch.materials.table import build_material_table
 from pbrt_torch.scene.api import SceneDescription
 from pbrt_torch.shapes.mesh import make_mesh
+from pbrt_torch.utils import error as err
 
 
 @dataclasses.dataclass
@@ -106,8 +116,18 @@ def _quadric_params(rec) -> np.ndarray:
     return prm
 
 
-def _light_source_row(rec) -> dict:
-    """One ``LightSource`` as a light-table row (builder.py:878-916)."""
+def _read_light_map(path: str, what: str):
+    """The map's (H, W, C) linear RGB, or None with a warning where it does
+    not load (the JAX package then keeps the light constant)."""
+    try:
+        return read_image(path)
+    except (OSError, ValueError, KeyError, IndexError, struct.error, zlib.error) as e:
+        err.warning(f"{what} {path!r}: {e}; using constant")
+        return None
+
+
+def _light_source_row(rec, cfg) -> dict:
+    """One ``LightSource`` as a light-table row (builder.py:878-992)."""
     p = rec.params
     l2w = rec.light_to_world
     t = rec.light_type
@@ -116,13 +136,13 @@ def _light_source_row(rec) -> dict:
         frm = p.find_one_point("from", (0.0, 0.0, 0.0))
         pos = frm @ l2w[:3, :3].T + l2w[:3, 3]
         if t == "point":
-            return dict(type=lt_mod.POINT, emit=I, pos=pos)
+            return dict(type=lt_mod.POINT, emit=I, pos=pos, l2w=l2w)
         tow = p.find_one_point("to", (0.0, 0.0, 1.0)) @ l2w[:3, :3].T + l2w[:3, 3]
         d = tow - pos
         d = d / max(np.linalg.norm(d), 1e-12)
         cone = p.find_one_float("coneangle", 30.0)
         delta = p.find_one_float("conedeltaangle", 5.0)
-        return dict(type=lt_mod.SPOT, emit=I, pos=pos, dirw=d,
+        return dict(type=lt_mod.SPOT, emit=I, pos=pos, dirw=d, l2w=l2w,
                     cos_total=np.cos(np.deg2rad(cone)),
                     cos_falloff=np.cos(np.deg2rad(cone - delta)))
     if t == "distant":
@@ -130,16 +150,78 @@ def _light_source_row(rec) -> dict:
         frm = p.find_one_point("from", (0.0, 0.0, 0.0))
         to = p.find_one_point("to", (0.0, 0.0, 1.0))
         d = (to - frm) @ l2w[:3, :3].T
-        return dict(type=lt_mod.DISTANT, emit=L, dirw=d / max(np.linalg.norm(d), 1e-12))
+        return dict(type=lt_mod.DISTANT, emit=L, dirw=d / max(np.linalg.norm(d), 1e-12),
+                    l2w=l2w)
+    if t == "infinite":
+        L = p.find_one_spectrum("L", 1.0, "illuminant") * p.find_one_float("scale", 1.0)
+        # infinite.cpp:60-77: the map's texels are scaled by L.ToRGB() and
+        # read back as illuminant spectra, and a constant light's L takes
+        # the same RGB roundtrip (a white L becomes RGB (1.202, .947, .905))
+        L_rgb = spec.to_rgb(torch.as_tensor(np.asarray(L, np.float32)), cfg).numpy()
+        mapname = p.find_one_filename("mapname", "")
+        img = _read_light_map(mapname, "infinite light map") if mapname else None
+        if img is not None:
+            try:
+                img = img * L_rgb[None, None, :]
+            except ValueError as e:  # a 2- or 4-channel map
+                err.warning(f"infinite light map {mapname!r}: {e}; using constant")
+                img = None
+        if img is not None:
+            env = spec.from_rgb(img, "illuminant", cfg)
+            return dict(type=lt_mod.INFINITE, emit=np.ones(cfg.n_bins, np.float32),
+                        l2w=l2w, env=env)
+        emit = spec.from_rgb(np.maximum(L_rgb, 0.0).astype(np.float32), "illuminant", cfg)
+        return dict(type=lt_mod.INFINITE, emit=emit, l2w=l2w)
+    if t in ("projection", "goniometric"):
+        I = p.find_one_spectrum("I", 1.0, "illuminant") * p.find_one_float("scale", 1.0)
+        mapname = p.find_one_filename("mapname", "")
+        rgb = _read_light_map(mapname, "light map") if mapname else None
+        img = (spec.from_rgb(rgb, "illuminant", cfg) if rgb is not None
+               else np.ones((1, 1, cfg.n_bins), np.float32))
+        row = dict(emit=I, pos=l2w[:3, 3], l2w=l2w, lmap=img)
+        if t == "goniometric":
+            return dict(row, type=lt_mod.GONIO)
+        # the perspective screen window (projection.cpp constructor)
+        fov = p.find_one_float("fov", 45.0)
+        aspect = img.shape[1] / img.shape[0]
+        screen = ((-aspect, aspect, -1.0, 1.0) if aspect > 1.0
+                  else (-1.0, 1.0, -1.0 / aspect, 1.0 / aspect))
+        return dict(row, type=lt_mod.PROJECTION, proj_screen=screen,
+                    proj_invtan=1.0 / np.tan(0.5 * np.deg2rad(fov)))
     _not_ported(f"light {t!r}")
+
+
+def _stack_maps(lmaps, S):
+    """Projection / goniometric maps stacked at their common (largest)
+    size, each resized by host bilinear interpolation (builder.py:843)."""
+    if not lmaps:
+        return np.ones((1, 1, 1, S), np.float32)
+    Hm = max(m.shape[0] for m in lmaps)
+    Wm = max(m.shape[1] for m in lmaps)
+    out = []
+    for m in lmaps:
+        if m.shape[:2] != (Hm, Wm):
+            ys = np.clip((np.arange(Hm) + 0.5) * m.shape[0] / Hm - 0.5, 0, m.shape[0] - 1)
+            xs = np.clip((np.arange(Wm) + 0.5) * m.shape[1] / Wm - 0.5, 0, m.shape[1] - 1)
+            y0 = np.floor(ys).astype(int)
+            y1 = np.minimum(y0 + 1, m.shape[0] - 1)
+            x0 = np.floor(xs).astype(int)
+            x1 = np.minimum(x0 + 1, m.shape[1] - 1)
+            fy = (ys - y0)[:, None, None]
+            fx = (xs - x0)[None, :, None]
+            m = (m[y0][:, x0] * (1 - fy) * (1 - fx) + m[y0][:, x1] * (1 - fy) * fx
+                 + m[y1][:, x0] * fy * (1 - fx) + m[y1][:, x1] * fy * fx)
+        out.append(m.astype(np.float32))
+    return np.stack(out)
 
 
 def _light_table(rows: list, n_bins: int, dev) -> lt_mod.LightTable:
     """Light-table rows (``LightSource`` rows first, then area lights) →
     the device table, laid out as the JAX package's ``_build_lights``
-    (builder.py:1014-1071). A scene without lights gets an empty table."""
+    (builder.py:1014-1113). A scene without lights gets an empty table."""
     L = len(rows)
     typ = np.zeros(L, np.int64)
+    l2w = np.tile(np.eye(4, dtype=np.float32), (L, 1, 1))
     emit = np.zeros((L, n_bins), np.float32)
     pos = np.zeros((L, 3), np.float32)
     dirw = np.tile(np.asarray([0, 0, 1], np.float32), (L, 1))
@@ -148,9 +230,14 @@ def _light_table(rows: list, n_bins: int, dev) -> lt_mod.LightTable:
     shape_kind, quad_idx, tri_start, tri_count, cdf_offset = (
         np.zeros(L, np.int64) for _ in range(5))
     total_area = np.ones(L, np.float32)
-    cdfs = []
+    env_id = np.full(L, -1, np.int64)
+    lmap_id = np.full(L, -1, np.int64)
+    proj_screen = np.tile(np.asarray([-1.0, 1.0, -1.0, 1.0], np.float32), (L, 1))
+    proj_invtan = np.ones(L, np.float32)
+    cdfs, lmaps, env_map = [], [], None
     for i, r in enumerate(rows):
         typ[i] = r["type"]
+        l2w[i] = r.get("l2w", np.eye(4))
         emit[i] = r["emit"]
         pos[i] = r.get("pos", (0, 0, 0))
         dirw[i] = r.get("dirw", (0, 0, 1))
@@ -165,7 +252,22 @@ def _light_table(rows: list, n_bins: int, dev) -> lt_mod.LightTable:
             areas = r["areas"]
             total_area[i] = float(areas.sum())
             cdfs.append(np.cumsum(areas) / max(areas.sum(), 1e-20))
+        # one env map per table: a later mapped light stays at its L of
+        # ones, unmapped (the JAX package's rule)
+        if r.get("env") is not None and env_map is None:
+            env_map = r["env"]
+            env_id[i] = 0
+        if r.get("lmap") is not None:
+            lmap_id[i] = len(lmaps)
+            lmaps.append(r["lmap"])
+            proj_screen[i] = r.get("proj_screen", (-1.0, 1.0, -1.0, 1.0))
+            proj_invtan[i] = r.get("proj_invtan", 1.0)
     tri_cdf = np.concatenate(cdfs).astype(np.float32) if cdfs else np.zeros(1, np.float32)
+    if env_map is None:
+        env_map = np.ones((1, 1, n_bins), np.float32)
+        env_lum = np.ones((1, 1), np.float32)
+    else:
+        env_lum = env_map.mean(axis=-1) + 1e-6
     t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
     i64 = torch.int64
     return lt_mod.LightTable(
@@ -174,7 +276,36 @@ def _light_table(rows: list, n_bins: int, dev) -> lt_mod.LightTable:
         shape_kind=t(shape_kind, i64), quad_idx=t(quad_idx, i64),
         tri_start=t(tri_start, i64), tri_count=t(tri_count, i64),
         cdf_offset=t(cdf_offset, i64), total_area=t(total_area), tri_cdf=t(tri_cdf),
+        l2w=t(l2w), w2l=t(np.linalg.inv(l2w)), env_id=t(env_id, i64), env_map=t(env_map),
+        env_dist=smp.Distribution2D.build(env_lum, dev), lmap_id=t(lmap_id, i64),
+        lmap=t(_stack_maps(lmaps, n_bins)), proj_screen=t(proj_screen),
+        proj_invtan=t(proj_invtan),
     )
+
+
+def _mix_rows(mat_records, mat_id_for, named) -> dict:
+    """{row of a ``mix`` record: (row of namedmaterial1, of namedmaterial2)}
+    (builder.py:631-652): sub-materials used by no shape get rows of their
+    own; a name that is not found warns and takes the mix's own row, as in
+    the JAX package. A sub-material that is itself a mix is refused."""
+    rows = {}
+    for i, m in enumerate(list(mat_records)):
+        if m.mat_type != "mix":
+            continue
+        pair = []
+        for pname in ("namedmaterial1", "namedmaterial2"):
+            nm = m.params.find_one_string(pname, "")
+            sub = named.get(nm)
+            if sub is None or sub is m:
+                err.warning(f"mix material: named material {nm!r} not found")
+                pair.append(i)
+            elif sub.mat_type == "mix":
+                _not_ported(f"a mix of mixes ({nm!r} in {m.name!r}; the JAX package "
+                            "renders the inner mix black)")
+            else:
+                pair.append(mat_id_for(sub))
+        rows[i] = tuple(pair)
+    return rows
 
 
 def _integrator_config(name: str, params, n_bins: int) -> IntegratorConfig:
@@ -203,7 +334,7 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
         _not_ported("object instancing")
     if desc.volumes:
         _not_ported("participating media")
-    light_rows = [_light_source_row(rec) for rec in desc.lights]
+    light_rows = [_light_source_row(rec, cfg) for rec in desc.lights]
     if desc.accelerator[0] != "bvh" or desc.accelerator[1].find_one_string(
             "splitmethod", "sah") != "sah":
         _not_ported("accelerators other than the SAH BVH")
@@ -323,7 +454,8 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
             al, type=lt_mod.AREA,
             emit=lp.find_one_spectrum("L", 1.0, "illuminant") * lp.find_one_float("scale", 1.0)))
     lights = _light_table(light_rows, S, dev)
-    materials = build_material_table(mat_records, cfg, dev)
+    mix_rows = _mix_rows(mat_records, mat_id_for, desc.named_materials)
+    materials = build_material_table(mat_records, cfg, dev, mix_rows)
     scene = RenderScene(geometry=geometry, materials=materials, lights=lights)
 
     film_name, film_params = desc.film

@@ -158,15 +158,19 @@ def test_unported_features_raise():
                                      'SurfaceIntegrator "igi"')
     with pytest.raises(NotImplementedError):
         tbuild(tload(text), device="cpu")
-    text = tiny_scene_text().replace('Material "mirror"', 'Material "glass"')
-    with pytest.raises(NotImplementedError):
-        tbuild(tload(text), device="cpu")
-    # lights not ported yet, and an area light on a disk (the JAX package
-    # samples it as a sphere)
-    for light in ('LightSource "infinite" "rgb L" [1 1 1]',
-                  'LightSource "goniometric" "rgb I" [1 1 1]',
-                  'LightSource "projection" "rgb I" [1 1 1]',
-                  'AreaLightSource "area" "rgb L" [1 1 1]\nShape "disk" "float radius" [.5]'):
-        text = tiny_scene_text().replace("WorldBegin", f"WorldBegin\n{light}", 1)
+    # a textured material, a mix of mixes (the JAX package renders the inner
+    # mix black) and an area light on a disk (the JAX package samples it as
+    # a sphere)
+    textured = ('Texture "checks" "spectrum" "checkerboard"\n'
+                'Material "matte" "texture Kd" "checks"')
+    nested = ('MakeNamedMaterial "a" "string type" ["matte"]\n'
+              'MakeNamedMaterial "b" "string type" ["glass"]\n'
+              'MakeNamedMaterial "ab" "string type" ["mix"] "string namedmaterial1" ["a"] '
+              '"string namedmaterial2" ["b"]\n'
+              'Material "mix" "string namedmaterial1" ["ab"] "string namedmaterial2" ["a"]')
+    disk = 'AreaLightSource "area" "rgb L" [1 1 1]\nShape "disk" "float radius" [.5]'
+    for extra in (textured + '\nShape "sphere" "float radius" [.3]',
+                  nested + '\nShape "sphere" "float radius" [.3]', disk):
+        text = tiny_scene_text().replace("WorldBegin", f"WorldBegin\n{extra}", 1)
         with pytest.raises(NotImplementedError):
             tbuild(tload(text), device="cpu")

@@ -1,7 +1,8 @@
 """Shared helpers for the port's parity tests (tests/test_torch_*.py): the
 JAX package's built scene as the plain arrays ``pbrt_torch.interop``
-takes, the tiny built-in scene's text at a chosen size, and the tiny
-scene with every ported light and quadric added."""
+takes, the tiny built-in scene's text at a chosen size, the tiny scene
+with every ported light and quadric added, and the tiny scene made a
+materials-and-environment scene."""
 
 from __future__ import annotations
 
@@ -15,7 +16,14 @@ _GEOMETRY = ("tri_v0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
              "quad_w2o", "quad_params", "quad_material", "quad_area_light",
              "quad_mesh_id", "quad_reverse", "wide_rows")
 _LIGHTS = ("type", "emit", "pos", "dirw", "cos_total", "cos_falloff", "shape_kind",
-           "quad_idx", "tri_start", "tri_count", "cdf_offset", "total_area", "tri_cdf")
+           "quad_idx", "tri_start", "tri_count", "cdf_offset", "total_area", "tri_cdf",
+           "l2w", "w2l", "env_id", "env_map", "lmap_id", "lmap", "proj_screen",
+           "proj_invtan")
+_MATERIALS = ("kind", "n_lobes", "lobe_type", "kd", "ks", "kr", "kt", "sigma", "exp_u",
+              "exp_v", "eta", "eta_spec", "k_spec", "irreg_offset", "irreg_count",
+              "merl_offset", "irreg_points", "irreg_spectra", "merl_rgb", "ss_sigma_a",
+              "ss_sigma_s", "ss_scale", "mix_m1", "mix_m2", "mix_amt")
+_ENV_DIST = ("func", "cond_cdf", "cond_int", "marg_func", "marg_cdf", "marg_int")
 
 
 def tiny_scene_text(xres=16, yres=16, spp=2, max_depth=4) -> str:
@@ -39,11 +47,10 @@ def jax_scene_arrays(built) -> dict:
     out = {k: a(getattr(g, k)) for k in _GEOMETRY}
     out["wide_stack"] = g.wide_stack
     out.update(
-        mat_n_lobes=a(mt.n_lobes), mat_lobe_type=a(mt.lobe_type),
-        mat_active_lobes=np.asarray(mt.active_lobes), mat_kd=a(mt.kd),
-        mat_ks=a(mt.ks), mat_kr=a(mt.kr), mat_exp_u=a(mt.exp_u),
-        mat_eta=a(mt.eta),
+        mat_active_lobes=np.asarray(mt.active_lobes),
+        **{f"mat_{k}": a(getattr(mt, k)) for k in _MATERIALS},
         **{f"light_{k}": a(getattr(lt, k)) for k in _LIGHTS},
+        **{f"light_env_{k}": a(getattr(lt.env_dist, k)) for k in _ENV_DIST},
         cam_raster_to_camera=a(cam.raster_to_camera),
         cam_to_world=a(cam.cam_to_world.m_start),
         cam_lens_radius=a(cam.lens_radius),
@@ -114,3 +121,87 @@ def lights_scene_text(xres=16, yres=16, spp=1, max_depth=4, integrator="path") -
     text = tiny_scene_text(xres, yres, spp, max_depth)
     text = text.replace('SurfaceIntegrator "path"', f'SurfaceIntegrator "{integrator}"')
     return text.replace("WorldBegin", "WorldBegin\n" + LIGHTS_AND_QUADRICS, 1)
+
+
+#: what ``materials_scene_text`` adds to the tiny scene: the infinite,
+#: projection and goniometric lights of ``chip_smoke.MATERIALS_AND_ENV``
+#: (the same generated maps), an uber back wall, two rows of small spheres
+#: in shinymetal, anisoward, Oren–Nayar matte, translucent, a mix of a
+#: named plastic and a named glass and both measured formats, and the
+#: generated blob (2,880 triangles) in metal at roughness .001
+MATERIALS_AND_ENV = """
+AttributeBegin
+  Rotate -90 1 0 0
+  LightSource "infinite" "rgb L" [1 1 1] "string mapname" ["@DIR@/env.exr"]
+AttributeEnd
+AttributeBegin
+  Translate -.5 3 -1.5
+  Rotate 90 1 0 0
+  LightSource "projection" "rgb I" [40 40 40] "float fov" [30]
+    "string mapname" ["@DIR@/projection.exr"]
+AttributeEnd
+AttributeBegin
+  Translate 1.2 1.5 -2.5
+  LightSource "goniometric" "rgb I" [5 5 5] "string mapname" ["@DIR@/gonio.exr"]
+AttributeEnd
+MakeNamedMaterial "red plastic" "string type" ["plastic"] "color Kd" [.6 .1 .1]
+  "color Ks" [.3 .3 .3] "float roughness" [.02]
+MakeNamedMaterial "clear glass" "string type" ["glass"] "float index" [1.5]
+AttributeBegin
+  Material "uber" "color Kd" [.3 .3 .3] "color Ks" [.2 .2 .2] "color Kr" [.2 .2 .2]
+    "color Kt" [.3 .3 .3] "float roughness" [.05] "float index" [1.5]
+  Shape "trianglemesh" "point P" [-8 -1 4  8 -1 4  8 5 4  -8 5 4] "integer indices" [0 2 1 0 3 2]
+AttributeEnd
+@SPHERES@
+AttributeBegin
+  Material "metal" "float roughness" [.001]
+  Translate -1.6 -1 .8
+  Rotate -90 1 0 0
+  Scale .012 .012 .012
+  @BLOB@
+AttributeEnd
+"""
+_SPHERE_MATERIALS = (
+    'Material "shinymetal" "color Ks" [.8 .6 .3] "color Kr" [.5 .5 .5] "float roughness" [.05]',
+    'Material "anisoward" "color Kd" [.2 .3 .5] "color Ks" [.4 .4 .4] "float alphaU" [.05] '
+    '"float alphaV" [.3]',
+    'Material "matte" "color Kd" [.7 .7 .5] "float sigma" [20]',
+    'Material "translucent" "color Kd" [.5 .6 .4] "color Ks" [.3 .3 .3] '
+    '"color reflect" [.5 .5 .5] "color transmit" [.5 .5 .5] "float roughness" [.1]',
+    'Material "mix" "string namedmaterial1" ["red plastic"] '
+    '"string namedmaterial2" ["clear glass"] "float amount" [.3]',
+    'Material "measured" "string filename" ["@DIR@/generated.brdf"]',
+    'Material "measured" "string filename" ["@DIR@/generated.merl"]',
+)
+#: the spheres' centres, radius .45 on the floor (y = −1), in two rows: as
+#: large as the frame allows, since a sphere's normal carries the hit
+#: point's rounding times t/r, and a glossy lobe carries that times its
+#: exponent
+_SPHERE_AT = ((-.95, -2.0), (0, -2.0), (.95, -2.0), (-1.5, -.6), (-.5, -.6), (.5, -.6),
+              (1.5, -.6))
+
+
+def materials_scene_text(directory: str, xres=16, yres=16, max_depth=3,
+                         integrator="path") -> str:
+    """The tiny scene with ``MATERIALS_AND_ENV`` added (the generated files
+    in ``directory``), its floor in substrate and its plastic sphere in
+    glass, moved back behind the spheres; the mirror sphere stays."""
+    import chip_smoke
+
+    P, idx = chip_smoke.blob_mesh(chip_smoke.SMALL_BLOB_FREQ)
+    blob = ('Shape "trianglemesh" "point P" [' + " ".join(f"{v:.6g}" for v in P.ravel())
+            + '] "integer indices" [' + " ".join(map(str, idx.ravel())) + "]")
+    spheres = "".join(f"AttributeBegin\n  {m}\n  Translate {x} -.55 {z}\n"
+                      f"  Shape \"sphere\" \"float radius\" [.45]\nAttributeEnd\n"
+                      for m, (x, z) in zip(_SPHERE_MATERIALS, _SPHERE_AT))
+    extra = MATERIALS_AND_ENV.replace("@SPHERES@", spheres).replace("@BLOB@", blob)
+    text = tiny_scene_text(xres, yres, 1, max_depth)
+    text = text.replace('SurfaceIntegrator "path"', f'SurfaceIntegrator "{integrator}"')
+    text = text.replace('Material "matte" "color Kd" [.6 .6 .6]',
+                        'Material "substrate" "color Kd" [.5 .5 .8] "color Ks" [.5 .5 .5] '
+                        '"float uroughness" [.05] "float vroughness" [.05]')
+    text = text.replace('Material "plastic" "color Kd" [.4 .2 .2] "color Ks" [.5 .5 .5]\n'
+                        '        "float roughness" [.05]',
+                        'Material "glass" "float index" [1.5]\n      Translate 0 0 1.6')
+    text = text.replace("WorldBegin", "WorldBegin\n" + extra, 1)
+    return text.replace("@DIR@", directory)
