@@ -78,7 +78,25 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    host-to-device copies, film and ``.dat`` checks); then its 16² version
    (2,880-triangle blobs) rendered on the card and on the CPU, from the
    same primary-sample array and by ``render(seed=...)``;
-10. the ``kernels`` JSON line (see PERF.md for the fields), then the result.
+10. textures — ``goldens/metal.pbrt`` as written (its text read from the
+   repository; the files it reads, not in the repository, generated from a
+   fixed seed into a temporary directory by ``write_texture_data``: a
+   300×200 line image, a 1024×512 lat-long sky, gold's η and k curves and a
+   64,980-triangle stand-in teapot), built with no warning (every image
+   loaded), at its 256², 16 spp, ``path``, after a warm-up sample, counted
+   and profiled as in phase 7; the same scene at 1 spp with its three
+   textures replaced by Kd .5 and no bump map, its launches per chunk and
+   kernel time beside the textured frame's; the texture-kinds scene
+   (``TEXTURE_KINDS``: the 512² scene with generated blobs, its floor in an
+   imagemap under EWA at grazing angles, its wall in a 2D checkerboard, the
+   blobs in a 3D checkerboard and marble, twelve spheres in dots, fbm,
+   wrinkled, windy, bilerp, uv, mix and scale textures under the uv,
+   spherical and planar mappings, a normal map, a bump map and a mix
+   material with textured sub-materials) with ``path`` at 1 spp, counted
+   and profiled; then both at 16² (2,880-triangle teapot and blobs) on the
+   card and on the CPU, from the same primary-sample arrays and by
+   ``render(seed=...)``, each comparison pooled over 8 waves or seeds;
+11. the ``kernels`` JSON line (see PERF.md for the fields), then the result.
 
 The real-size scene is ``goldens/killeroo-simple.pbrt`` (its text is kept
 here) at 512²; each ``Include "geometry/killeroo.pbrt"`` (geometry not in
@@ -158,6 +176,11 @@ AO_CHECKED = (1, 4, 64)
 AO_TIMED = 4
 #: tolerance of the card-vs-CPU renders of the tiny scene
 REF_RTOL, REF_ATOL, REF_PIXELS, REF_BIN_REL = 1e-4, 1e-6, 0.99, 1e-3
+#: waves (and render seeds) pooled in each 16² textured comparison: a
+#: textured killeroo-scale scene has a few lanes in a thousand whose later
+#: bounces an ulp of difference sends elsewhere (unfiltered lookups past the
+#: first hit); 256 lanes would hold the 99% rule to 2 such lanes, 2,048 to 20
+TEXTURE_REF_WAVES = 8
 
 KILLEROO_SIMPLE = """
 LookAt 400 20 30   0 63 -110   0 0 1
@@ -486,6 +509,163 @@ def lights_scene_text(text: str, integrator: str = "directlighting") -> str:
     return text.replace("WorldBegin", "WorldBegin" + LIGHTS_AND_QUADRICS, 1)
 
 
+#: what the texture-kinds scene adds to the real-size scene, right after
+#: WorldBegin: its textures (@DIR@ is the directory of the generated
+#: images), then twelve spheres ~200 units in front of the camera, each in
+#: one more texture kind, mapping or map: dots (uv), fbm, wrinkled and windy
+#: (3D), bilerp (spherical, about the sphere's centre), uv (planar), a mix
+#: of a spherical checkerboard and fbm, a scaled imagemap, a normal map, a
+#: bump map, a mix material whose sub-materials have textured Kd, and a 2D
+#: checkerboard of two constants
+TEXTURE_KINDS = """
+Texture "floor-map" "color" "imagemap" "string filename" ["@DIR@/textures/lines.exr"]
+    "float uscale" [5] "float vscale" [5]
+Texture "wall-checks" "color" "checkerboard" "float uscale" [4] "float vscale" [4]
+    "rgb tex1" [.8 .8 .7] "rgb tex2" [.2 .25 .4]
+Texture "dots" "color" "dots" "float uscale" [8] "float vscale" [6] "rgb tex1" [.9 .3 .1]
+    "rgb tex2" [.2 .5 .7]
+TransformBegin
+Scale 20 20 20
+Texture "checks3d" "color" "checkerboard" "integer dimension" [3] "rgb tex1" [.8 .7 .2]
+    "rgb tex2" [.1 .3 .5]
+Texture "fbm" "color" "fbm"
+Texture "wrinkled" "color" "wrinkled"
+Texture "windy" "color" "windy"
+Texture "marble" "color" "marble" "rgb tex1" [.85 .8 .75] "rgb tex2" [.3 .15 .1]
+    "float variation" [.5]
+Texture "wrinkle-base" "float" "wrinkled"
+TransformEnd
+Texture "bump-wrinkle" "float" "scale" "texture tex1" "wrinkle-base" "float tex2" [.05]
+TransformBegin
+Translate 202 -6 -56
+Rotate 90 1 0 0
+Texture "bilerp" "color" "bilerp" "string mapping" ["spherical"] "rgb tex1" [.9 .8 .1]
+    "rgb tex2" [.1 .3 .9]
+TransformEnd
+TransformBegin
+Translate 204 58 -56
+Rotate 90 1 0 0
+Texture "checks-sph" "color" "checkerboard" "string mapping" ["spherical"]
+    "float uscale" [8] "float vscale" [8] "rgb tex1" [.9 .9 .9] "rgb tex2" [.1 .1 .1]
+TransformEnd
+TransformBegin
+Translate 203 26 -56
+Scale 10 10 10
+Texture "uv-planar" "color" "uv" "string mapping" ["planar"]
+TransformEnd
+Texture "mixed" "color" "mix" "texture tex1" "checks-sph" "texture tex2" "fbm" "float amount" [.35]
+Texture "scaled-map" "color" "scale" "texture tex1" "floor-map" "rgb tex2" [.7 .9 .6]
+Texture "nmap" "color" "imagemap" "string filename" ["@DIR@/textures/normal.exr"]
+    "float uscale" [3] "float vscale" [2]
+MakeNamedMaterial "dotted" "string type" ["matte"] "texture Kd" "dots"
+MakeNamedMaterial "veined" "string type" ["plastic"] "texture Kd" "marble"
+    "color Ks" [.3 .3 .3] "float roughness" [.05]
+@SPHERES@
+"""
+_TEXTURE_SPHERE_MATERIALS = (
+    'Material "matte" "texture Kd" "dots"',
+    'Material "matte" "texture Kd" "fbm"',
+    'Material "matte" "texture Kd" "wrinkled"',
+    'Material "matte" "texture Kd" "windy"',
+    'Material "matte" "texture Kd" "bilerp"',
+    'Material "matte" "texture Kd" "uv-planar"',
+    'Material "plastic" "texture Kd" "mixed" "color Ks" [.4 .4 .4] "float roughness" [.03]',
+    'Material "matte" "texture Kd" "scaled-map"',
+    'Material "matte" "color Kd" [.6 .6 .6] "texture normalmap" "nmap"',
+    'Material "plastic" "color Kd" [.5 .4 .3] "color Ks" [.3 .3 .3] "float roughness" [.05]\n'
+    '    "texture bumpmap" "bump-wrinkle"',
+    'Material "mix" "string namedmaterial1" ["dotted"] "string namedmaterial2" ["veined"]\n'
+    '    "float amount" [.4]',
+    'Material "matte" "texture Kd" "wall-checks"',
+)
+#: the spheres' centres, three rows of four (the second row's first,
+#: second and third centres are the spherical, planar and spherical
+#: textures' origins; the spherical frames have their poles on the
+#: spheres' sides, since the mapping's θ = acos(z / r) is ill-conditioned
+#: at a pole)
+_TEXTURE_SPHERE_AT = tuple((196 + 6 * r + k, -6 + 32 * k, -18 - 38 * r)
+                           for r in range(3) for k in range(4))
+#: killeroo-simple's materials as the texture-kinds scene changes them: the
+#: floor in an imagemap, the wall in a 2D checkerboard, one blob in a 3D
+#: checkerboard, the other in marble
+TEXTURE_SWAPS = (
+    ('Material "matte" "color Kd" [.5 .5 .8]', 'Material "matte" "texture Kd" "floor-map"'),
+    ('Shape "trianglemesh" "point P" [ -400',
+     'Material "matte" "texture Kd" "wall-checks"\nShape "trianglemesh" "point P" [ -400'),
+    ('Material "plastic" "color Kd" [.4 .2 .2] "color Ks" [.5 .5 .5]\n        "float roughness" [.025]',
+     'Material "plastic" "texture Kd" "checks3d" "color Ks" [.3 .3 .3] "float roughness" [.05]'),
+    ('Material "plastic" "color Ks" [.3 .3 .3] "color Kd" [.4 .5 .4]\n        "float roughness" [.15]',
+     'Material "matte" "texture Kd" "marble"'),
+)
+
+
+def texture_kinds_text(text: str, directory: str, integrator: str = "path") -> str:
+    """A real-size scene's text made the texture-kinds scene (images under
+    ``directory``/textures) with the given surface integrator."""
+    for old, new in TEXTURE_SWAPS:
+        if old not in text:
+            raise ValueError(f"the scene text has no {old!r}")
+        text = text.replace(old, new, 1)
+    spheres = "".join(f"AttributeBegin\n{m}\nTranslate {x} {y} {z}\n"
+                      f'Shape "sphere" "float radius" [14]\nAttributeEnd\n'
+                      for m, (x, y, z) in zip(_TEXTURE_SPHERE_MATERIALS, _TEXTURE_SPHERE_AT))
+    text = text.replace('SurfaceIntegrator "directlighting"', f'SurfaceIntegrator "{integrator}"')
+    return text.replace("WorldBegin", "WorldBegin" + TEXTURE_KINDS.replace("@DIR@", directory)
+                        .replace("@SPHERES@", spheres), 1)
+
+
+def write_texture_data(directory: str, teapot_freq: int = 57, seed: int = 13):
+    """What ``goldens/metal.pbrt`` reads (its files are not in the
+    repository), generated from a fixed numpy seed under ``directory``:
+    ``textures/lines.exr`` (300×200, not a power of two, so the Lanczos
+    resample runs: soft wavy lines), ``textures/grace_latlong.exr``
+    (1024×512 lat-long sky with a bright Gaussian patch),
+    ``spds/metals/Au.eta.spd`` and ``Au.k.spd`` (smooth two-column curves
+    over 380–720 nm, gold's shape), ``geometry/room-teapot.pbrt``
+    (``blob_mesh(teapot_freq)`` of radius 3 standing on y = 0: 64,980
+    triangles at the default frequency) and, for the texture-kinds scene,
+    ``textures/normal.exr`` (a 64×64 tangent-space normal map)."""
+    from pbrt_torch.film.imageio import write_exr
+
+    rng = np.random.default_rng(seed)
+    for sub in ("textures", "spds/metals", "geometry"):
+        os.makedirs(os.path.join(directory, sub), exist_ok=True)
+    # smooth images, lines 100 texels apart: past the first hit a lookup has
+    # no footprint and reads level 0, and after the teapot's near-mirror
+    # reflection an ulp of difference (the card's arithmetic is not the
+    # CPU's) moves a grazing floor hit by many ulps; the lookup then moves
+    # by the image's slope times that shift, which sharp lines or a
+    # hard-edged patch carry past the card-vs-CPU tolerance on a few per
+    # cent of metal.pbrt's lanes (phase 5's and 10's logs give each scene's
+    # CPU against itself with the image samples an ulp over)
+    yy, xx = np.mgrid[0:200, 0:300].astype(np.float32)
+    lines = 0.35 + 0.25 * (1.0 + np.cos(xx * (2 * np.pi / 100) + 0.3 * np.sin(yy / 15)))
+    img = np.stack([lines, lines * (0.8 + 0.2 * yy / 200), lines * 0.7], -1).astype(np.float32)
+    write_exr(os.path.join(directory, "textures", "lines.exr"), img, half=False)
+    v = (np.arange(512) + 0.5) / 512
+    u = (np.arange(1024) + 0.5) / 1024
+    sky = np.empty((512, 1024, 3), np.float32)
+    sky[:] = (0.2 + 0.8 * (1.0 - v))[:, None, None] * np.array([0.55, 0.7, 1.0], np.float32)
+    patch = np.exp(-((v[:, None] - 0.25) ** 2 + (u[None, :] - 0.3) ** 2) / 0.0008)
+    sky += patch[..., None] * np.array([60.0, 55.0, 45.0], np.float32)
+    write_exr(os.path.join(directory, "textures", "grace_latlong.exr"), sky, half=False)
+    lam = np.linspace(380.0, 720.0, 35)
+    t = (lam - 380.0) / 340.0
+    for name, vals in (("eta", 1.45 - 1.25 * t ** 0.7), ("k", 1.8 + 2.7 * t)):
+        with open(os.path.join(directory, "spds", "metals", f"Au.{name}.spd"), "w") as f:
+            f.write("\n".join(f"{a:g} {b:.6g}" for a, b in zip(lam, vals)) + "\n")
+    P, idx = blob_mesh(teapot_freq, radius=3.0)
+    P = np.stack([P[:, 0], P[:, 2], -P[:, 1]], -1)  # stand on y = 0 (a rotation)
+    with open(os.path.join(directory, "geometry", "room-teapot.pbrt"), "w") as f:
+        f.write('Shape "trianglemesh" "point P" [' + " ".join(f"{x:.6g}" for x in P.ravel())
+                + ']\n  "integer indices" [' + " ".join(map(str, idx.ravel())) + "]\n")
+    ny, nx = np.mgrid[0:64, 0:64] * (2 * np.pi / 64)
+    n = np.stack([0.35 * np.sin(2 * nx), 0.35 * np.cos(3 * ny), np.ones_like(nx)], -1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    write_exr(os.path.join(directory, "textures", "normal.exr"),
+              (0.5 + 0.5 * n).astype(np.float32), half=False)
+
+
 _T0 = time.time()
 
 
@@ -655,6 +835,122 @@ def materials_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
                     spp=1, chunk_pixels=256)
 
 
+#: goldens/metal.pbrt's three texture bindings and their declarations, and
+#: what the untextured frame puts in their place (Kd .5, no bump map)
+METAL_TEXTURE_LINES = (
+    ('Texture "tmap" "color" "imagemap" "string filename" "textures/lines.exr"\n'
+     '\t"float uscale" 60 "float vscale" 60\n', ''),
+    ('Texture "tbump-tex" "float" "imagemap" "string filename" "textures/lines.exr"\n'
+     '\t"float uscale" 60 "float vscale" 60\n', ''),
+    ('Texture "sbump" "float" "scale" "texture tex1" "tbump-tex"\n\t"float  tex2" [-.25]\n', ''),
+    ('"texture Kd" "tmap"', '"color Kd" [.5 .5 .5]'),
+    ('"texture bumpmap" "sbump"', ''),
+)
+
+
+def load_checked(path, dev, what):
+    """Builds the scene file ``path`` on ``dev`` and fails on any warning
+    (an image texture that did not load would render black with one)."""
+    import warnings
+
+    from pbrt_torch.scene.api import load_scene
+    from pbrt_torch.scene.builder import build
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        built = build(load_scene(path), device=dev)
+    if caught:
+        raise SystemExit(f"{what}: warnings while building: "
+                         + "; ".join(str(w.message) for w in caught))
+    return built
+
+
+def textures_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
+    """Phase 10: ``goldens/metal.pbrt`` as written (its files generated
+    into ``data_dir``) at its 256², 16 spp, then at 1 spp without its
+    textures; the texture-kinds scene at 512²; both at 16² on the card and
+    on the CPU."""
+    t0 = time.time()
+    write_texture_data(data_dir)
+    with open(os.path.join(HERE, "goldens", "metal.pbrt")) as f:
+        metal = f.read()
+    metal_path = os.path.join(data_dir, "metal.pbrt")
+    with open(metal_path, "w") as f:
+        f.write(metal)
+    built = load_checked(metal_path, dev, "goldens/metal.pbrt")
+    sc, fc, ic = built.scene, built.film_config, built.integrator
+    tt, g, lt = sc.textures, sc.geometry, sc.lights
+    images = [r for r, k in enumerate(tt.kinds) if k == 4]
+    log("scene", f"goldens/metal.pbrt as written: {g.num_triangles} triangles, texture kinds "
+        f"{list(tt.kinds)}, texture rows bound {sc.materials.tex_rows}, image rows {images} "
+        f"with {tt.img_n_levels[images].tolist()} mip levels from "
+        f"{tt.img_w[images].tolist()}x{tt.img_h[images].tolist()}, pool {tt.pool_rgb.shape[0]} "
+        f"texels, env map {tuple(lt.env_map.shape)}, pixel spread {sc.pixel_spread:.6g}, "
+        f"{ic.kind} depth {ic.max_depth}, {fc.xres}x{fc.yres}, {built.pixel_samples} spp; files "
+        f"generated and scene built in {time.time() - t0:.1f} s")
+    if not (sc.has_textures and sc.materials.has_bump and len(images) == 2
+            and tt.pool_rgb.shape[0] > 1 and (tt.img_offset[images] > 0).all()
+            and tuple(lt.env_map.shape[:2]) == (512, 1024) and ic.kind == "path"
+            and (fc.xres, fc.yres, built.pixel_samples) == (256, 256, 16)
+            and g.num_triangles == 2 + 20 * 57 ** 2):
+        raise SystemExit("goldens/metal.pbrt did not build as written with its generated files")
+    spp = built.pixel_samples
+    _, sec, _, _ = drive("goldens/metal.pbrt as written", built, spp)
+    textured = profile_frame("goldens/metal.pbrt as written (path)", built, sec / spp * 1e3)
+    plain = metal
+    for old, new in METAL_TEXTURE_LINES:
+        if old not in plain:
+            raise ValueError(f"goldens/metal.pbrt has no {old!r}")
+        plain = plain.replace(old, new, 1)
+    plain_path = os.path.join(data_dir, "metal-untextured.pbrt")
+    with open(plain_path, "w") as f:
+        f.write(plain)
+    bu = load_checked(plain_path, dev, "metal.pbrt without textures")
+    if bu.scene.has_textures:
+        raise SystemExit("the untextured metal.pbrt still has textures")
+    _, sec_u, _, _ = drive("goldens/metal.pbrt without its textures", bu, 1)
+    untextured = profile_frame("goldens/metal.pbrt without its textures", bu, sec_u * 1e3)
+    log("textures", f"goldens/metal.pbrt, 1-spp frame: textured {textured['per_chunk']:.1f} "
+        f"launches per chunk and {textured['ms']:.1f} ms of kernel time, against "
+        f"{untextured['per_chunk']:.1f} and {untextured['ms']:.1f} ms with Kd .5 and no bump map "
+        f"({textured['per_chunk'] / untextured['per_chunk']:.2f}x the launches, "
+        f"{textured['ms'] / untextured['ms']:.2f}x the kernel time)")
+    del built, bu
+
+    text, _ = real_scene_text()
+    kinds_path = os.path.join(data_dir, "kinds.pbrt")
+    with open(kinds_path, "w") as f:
+        f.write(texture_kinds_text(text, data_dir))
+    kinds = load_checked(kinds_path, dev, "texture-kinds scene")
+    tt = kinds.scene.textures
+    log("scene", f"texture-kinds scene: {kinds.scene.geometry.num_triangles} triangles, "
+        f"{kinds.scene.geometry.num_quadrics} spheres, texture kinds {sorted(set(tt.kinds))}, "
+        f"mappings {sorted(set(tt.mappings))}, rows bound {kinds.scene.materials.tex_rows}")
+    if set(tt.kinds) != set(range(1, 13)) or set(tt.mappings) != {0, 1, 3}:
+        raise SystemExit("the texture-kinds scene lacks a texture kind or mapping")
+    _, sec_k, _, _ = drive("texture-kinds scene with path", kinds, 1)
+    profile_frame("texture-kinds scene with path", kinds, sec_k * 1e3)
+    del kinds
+    import torch
+
+    torch.cuda.empty_cache()
+
+    small = os.path.join(data_dir, "small")
+    write_texture_data(small, teapot_freq=SMALL_BLOB_FREQ)
+    small_metal = os.path.join(small, "metal16.pbrt")
+    with open(small_metal, "w") as f:
+        f.write(metal.replace('"integer xresolution" [256] "integer yresolution" [256]',
+                              '"integer xresolution" [16] "integer yresolution" [16]'))
+    card_vs_cpu(f"goldens/metal.pbrt ({20 * SMALL_BLOB_FREQ ** 2}-triangle teapot)", None,
+                spp=2, chunk_pixels=256, scene_path=small_metal, waves=TEXTURE_REF_WAVES)
+    small_text, _ = real_scene_text(SMALL_BLOB_FREQ, res=16)
+    kinds_path = os.path.join(small, "kinds16.pbrt")
+    with open(kinds_path, "w") as f:
+        f.write(texture_kinds_text(small_text, small))
+    card_vs_cpu(f"texture-kinds scene ({20 * SMALL_BLOB_FREQ ** 2}-triangle blobs)", None,
+                spp=1, chunk_pixels=256, scene_path=kinds_path, waves=TEXTURE_REF_WAVES)
+
+
 def main() -> int:
     import torch
 
@@ -680,7 +976,7 @@ def main() -> int:
     from pbrt_torch.film import film as film_mod
     from pbrt_torch.integrators.path import PrimarySource, trace_radiance
     from pbrt_torch.renderers.sampler import render, render_wave
-    from pbrt_torch.scene.api import load_scene_string
+    from pbrt_torch.scene.api import load_scene, load_scene_string
     from pbrt_torch.scene.builder import build
     from pbrt_torch.scripts import gather_lab as gl
     from pbrt_torch.utils import native, timing
@@ -1063,8 +1359,8 @@ def main() -> int:
 
     def agree(what, fg, fc):
         px_close = float(np.isclose(fg, fc, rtol=REF_RTOL, atol=REF_ATOL).all(-1).mean())
-        bin_rel = float(np.abs(fg.mean((0, 1)) - fc.mean((0, 1))).max()
-                        / max(np.abs(fc.mean((0, 1))).max(), 1e-30))
+        mg, mc = (f.reshape(-1, f.shape[-1]).mean(0) for f in (fg, fc))
+        bin_rel = float(np.abs(mg - mc).max() / max(np.abs(mc).max(), 1e-30))
         log("reference", f"{what}: pixels close (rtol {REF_RTOL:g}) {px_close:.4f}, "
             f"per-bin mean rel diff {bin_rel:.3g}, equal bit for bit "
             f"{bool(np.array_equal(fg, fc))}")
@@ -1072,32 +1368,47 @@ def main() -> int:
                 or not fg.sum() > 0):
             raise SystemExit(f"{what}: the renders disagree")
 
-    def card_vs_cpu(label, text, spp=2, chunk_pixels=40):
-        """One wave from the same primary-sample array, then render(seed=0,
-        spp) in chunks of ``chunk_pixels``, on the card and on the CPU."""
-        pair = [build(load_scene_string(text), device=d) for d in (dev, "cpu")]
+    def card_vs_cpu(label, text, spp=2, chunk_pixels=40, scene_path=None, waves=1):
+        """``waves`` waves, each from one primary-sample array on the card
+        and on the CPU, then render(seed, spp) for seeds 0 to waves − 1 in
+        chunks of ``chunk_pixels``, on both, each comparison pooled over
+        its waves; the scene is ``text``, or the file ``scene_path``."""
+        pair = [build(load_scene(scene_path) if scene_path else load_scene_string(text),
+                      device=d) for d in (dev, "cpu")]
         ic, fc = pair[0].integrator, pair[0].film_config
         n_px = fc.xres * fc.yres
         width = (PrimarySource.CAMERA_DIMS + 2 * ic.ao_nsamples
                  if ic.kind == "ambientocclusion" else PrimarySource.n_dims(
                      0 if ic.kind == "metadata" else ic.max_depth))
-        u_np = rs.random((n_px, width), dtype=np.float32)
         yy, xx = np.divmod(np.arange(n_px), fc.xres)
-        films = []
-        for b in pair:
-            st = film_mod.init_film(b.film_config, b.device)
-            render_wave(st, b.scene, b.camera, b.filter_table,
-                        torch.as_tensor(xx, device=b.device),
-                        torch.as_tensor(yy, device=b.device), b.integrator,
-                        b.film_config, torch.as_tensor(u_np, device=b.device))
-            films.append(st.pixels.cpu().numpy())
+        films = [[], [], []]
+        for _ in range(waves):
+            u_np = rs.random((n_px, width), dtype=np.float32)
+            # the scene's own conditioning: the CPU again, each image sample
+            # one ulp over (not checked; what an ulp of difference does)
+            u_ulp = u_np.copy()
+            u_ulp[:, :2] = np.nextafter(u_ulp[:, :2], np.float32(1))
+            for slot, (b, u_) in enumerate(((pair[0], u_np), (pair[1], u_np),
+                                            (pair[1], u_ulp))):
+                st = film_mod.init_film(b.film_config, b.device)
+                render_wave(st, b.scene, b.camera, b.filter_table,
+                            torch.as_tensor(xx, device=b.device),
+                            torch.as_tensor(yy, device=b.device), b.integrator,
+                            b.film_config, torch.as_tensor(u_, device=b.device))
+                films[slot].append(st.pixels.cpu().numpy())
+        films = [np.stack(f) for f in films]
         what = f"{label} {fc.xres}x{fc.yres}, {ic.kind}" + (
             f" ({ic.metadata_channel})" if ic.kind == "metadata" else "")
-        agree(f"{what}, same uniforms, card vs CPU", *films)
-        keyed = [render(b, spp=spp, seed=0, chunk_pixels=chunk_pixels).pixels.cpu().numpy()
-                 for b in pair]
-        agree(f"{what}, render(seed=0, spp={spp}), card vs CPU", *keyed)
-        return pair[0], keyed[0]
+        pooled = f", {waves} waves pooled" if waves > 1 else ""
+        own = float(np.isclose(films[2], films[1], rtol=REF_RTOL, atol=REF_ATOL).all(-1).mean())
+        log("reference", f"{what}{pooled}: the CPU against itself with each image sample one "
+            f"ulp over: pixels close (rtol {REF_RTOL:g}) {own:.4f}")
+        agree(f"{what}, same uniforms{pooled}, card vs CPU", films[0], films[1])
+        keyed = [np.stack([render(b, spp=spp, seed=sd, chunk_pixels=chunk_pixels)
+                           .pixels.cpu().numpy() for sd in range(waves)]) for b in pair]
+        seeds = "seed=0" if waves == 1 else f"seed=0..{waves - 1}"
+        agree(f"{what}, render({seeds}, spp={spp}), card vs CPU", *keyed)
+        return pair[0], keyed[0][0]
 
     tiny_gpu, tiny_keyed = card_vs_cpu("tiny scene", TINY_SCENE)
     agree("tiny scene 16x16, path, render(seed=0, spp=2) on the card, chunk_pixels 40 vs 64",
@@ -1147,6 +1458,9 @@ def main() -> int:
     # ---- 7. the main path -------------------------------------------------
     n_chunks = -(-W * H // CHUNK)
 
+    def chunks_of(b):
+        return -(-b.film_config.xres * b.film_config.yres // CHUNK)
+
     def drive(label, b, spp, warm=True):
         """Renders ``b`` at ``spp`` (after one warm-up sample) with every
         launch counter set to 0 just before and read just after, and the
@@ -1171,6 +1485,7 @@ def main() -> int:
         n_calls = isect.calls["intersect"]
         sec = ev[0].elapsed_time(ev[1]) / 1e3
         ic = b.integrator
+        W, H = b.film_config.xres, b.film_config.yres
         finite = bool(torch.isfinite(film.pixels).all())
         total = float(film.pixels.double().sum())
         with tempfile.TemporaryDirectory() as tmp:
@@ -1195,7 +1510,7 @@ def main() -> int:
             raise SystemExit(f"{label}: the path did not launch the closest-hit traversal")
         if launches["traverse_closest"] + launches["traverse_any"] != n_calls:
             raise SystemExit(f"{label}: traversal launches do not match intersect calls")
-        if (launches["keyed_scrambles"] != 1 or launches[keyed] != spp * n_chunks
+        if (launches["keyed_scrambles"] != 1 or launches[keyed] != spp * chunks_of(b)
                 or launches[other] != 0):
             raise SystemExit(f"{label}: the keyed kernels did not launch once per render "
                              "and once per wave and chunk")
@@ -1215,6 +1530,9 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     def profile_frame(label, b, frame_ms):
+        """→ {"ms": kernel time, "per_chunk": launches per chunk} of one
+        1-spp frame of ``b`` under the profiler."""
+        nc = chunks_of(b)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             render(b, spp=1, seed=3, chunk_pixels=CHUNK)
             sync()
@@ -1233,7 +1551,7 @@ def main() -> int:
         n_launch = sum(x[2] for x in kern)
         htod = sum(x[2] for x in kern if x[0].startswith("Memcpy HtoD"))
         log("profile", f"{label}, 1 spp: kernel time {dev_ms:.1f} ms in {n_launch} launches "
-            f"({n_launch / n_chunks:.1f} per {CHUNK}-lane chunk, {n_chunks} chunks; of them "
+            f"({n_launch / nc:.1f} per {CHUNK}-lane chunk, {nc} chunks; of them "
             f"{htod} host-to-device copies, none from the sampler) "
             f"= {100 * dev_ms / frame_ms:.1f}% of the unprofiled {frame_ms:.1f} ms "
             f"frame (device idle the rest); traversal kernels {trav_ms:.3f} ms "
@@ -1243,6 +1561,7 @@ def main() -> int:
             f"keyed-uniform kernels {rng_ms:.3f} ms")
         for k, ms_, cnt in sorted(kern, key=lambda x: -x[1])[:8]:
             log("profile", f"  {ms_:8.2f} ms  {cnt:6d}x  {k[:90]}")
+        return {"ms": dev_ms, "per_chunk": n_launch / nc}
 
     spp = 4
     ic0 = built.integrator
@@ -1305,7 +1624,14 @@ def main() -> int:
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
-    # ---- 10. kernels line -------------------------------------------------
+    # ---- 10. textures: goldens/metal.pbrt and the texture-kinds scene ------
+    data_dir = tempfile.mkdtemp(prefix="chip_smoke_textures_")
+    try:
+        textures_phase(dev, data_dir, drive, profile_frame, card_vs_cpu)
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+    # ---- 11. kernels line -------------------------------------------------
     src = "pbrt_torch/csrc/traverse.cu"
     rep = "pbrt_tpu/accel/pallas_step.py:36"
     kernels = []

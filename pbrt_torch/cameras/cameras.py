@@ -1,10 +1,10 @@
 """Perspective camera (port of ``pbrt_tpu/cameras/cameras.py``'s
 ``ProjectiveCamera`` for kind "perspective"; reference:
-src/cameras/perspective.cpp:55-97, thin lens included).
+src/cameras/perspective.cpp:55-130, thin lens and ray differentials
+included).
 
-Ray differentials (they only feed texture filtering), orthographic,
-pinhole, environment and the lens-simulation cameras wait for later
-slices. The camera-to-world transform is static.
+Orthographic, pinhole, environment and the lens-simulation cameras wait
+for later slices. The camera-to-world transform is static.
 """
 
 from __future__ import annotations
@@ -66,6 +66,20 @@ class PerspectiveCamera:
         o_w = xf.apply_point(self.cam_to_world, o)
         d_w = xf.apply_vector(self.cam_to_world, d)
         return geom.Ray.make(o_w, d_w, time=time)
+
+    def ray_differentials(self, px, py, ray: geom.Ray):
+        """The rays one raster pixel over in x and in y: the same origin,
+        directions through the shifted film points
+        (GenerateRayDifferential, perspective.cpp:99-130; the JAX
+        package's cameras.py:97-119). → world (rx_o, rx_d, ry_o, ry_d)."""
+        p_ras = torch.stack([px, py, torch.zeros_like(px)], -1)
+        p_cam = xf.apply_point(self.raster_to_camera, p_ras)
+        one = torch.eye(3, dtype=p_ras.dtype, device=p_ras.device)
+        dx = xf.apply_point(self.raster_to_camera, p_ras + one[0]) - p_cam
+        dy = xf.apply_point(self.raster_to_camera, p_ras + one[1]) - p_cam
+        rx_d = xf.apply_vector(self.cam_to_world, geom.normalize(p_cam + dx))
+        ry_d = xf.apply_vector(self.cam_to_world, geom.normalize(p_cam + dy))
+        return ray.origin, rx_d, ray.origin, ry_d
 
 
 def make_camera(name, params, cam_to_world: np.ndarray, xres: int, yres: int,

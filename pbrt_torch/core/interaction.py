@@ -1,10 +1,16 @@
 """Surface interactions reconstructed from (t, prim, b1, b2) hits.
 
-Port of ``pbrt_tpu/core/interaction.py`` for triangles and quadrics, the
-fields the integrators read (reference: DifferentialGeometry and
-Intersection, src/core/{diffgeom,intersection}.h). Texture footprints and
-the bump-mapping partials (dpdv, dndu, dndv, uv differentials) wait for the
-texture slice.
+Port of ``pbrt_tpu/core/interaction.py`` for triangles and quadrics
+(reference: DifferentialGeometry and Intersection,
+src/core/{diffgeom,intersection}.h).
+
+Scenes with textures ask for more (``partials``): ∂p/∂v and the shading
+normal's ∂n/∂u, ∂n/∂v from the uv-edge system (the bump chain's inputs),
+and, given camera ray differentials or a pixel cone spread, the hit's
+footprint in uv: the per-pixel-axis differentials (du/dx, dv/dx),
+(du/dy, dv/dy), the minor radius and the major axis. Quadrics get ∂p/∂v
+alone and no footprint, as in the JAX package. Other scenes compute none
+of it.
 """
 
 from __future__ import annotations
@@ -35,9 +41,23 @@ class SurfaceInteraction:
     mesh_id: torch.Tensor  # (R,) i64
     prim: torch.Tensor  # (R,) i32
     ray_epsilon: torch.Tensor  # (R,)
+    # with ``partials`` only (scenes with textures):
+    dpdv: torch.Tensor = None  # (R, 3) world units per uv unit
+    dndu: torch.Tensor = None  # (R, 3)
+    dndv: torch.Tensor = None  # (R, 3)
+    uv_sigma: torch.Tensor = None  # (R,) footprint's minor radius in uv
+    uv_major: torch.Tensor = None  # (R, 2) footprint's major axis in uv
+    duvdx: torch.Tensor = None  # (R, 2) (du/dx, dv/dx)
+    duvdy: torch.Tensor = None  # (R, 2) (du/dy, dv/dy)
 
 
-def surface_interaction(g: SceneGeometry, ray: geom.Ray, hit: Hit) -> SurfaceInteraction:
+def surface_interaction(g: SceneGeometry, ray: geom.Ray, hit: Hit, spread=None, diffs=None,
+                        partials: bool = False) -> SurfaceInteraction:
+    """The hit's differential geometry. With ``partials``: dpdv, dndu,
+    dndv and the uv footprint, from the camera ray differentials ``diffs``
+    (rx_o, rx_d, ry_o, ry_d), world (R, 3) each, projected on the hit's
+    tangent plane (diffgeom.cpp:63-100), else from the cone of half-width
+    ``spread`` per unit distance, else zero (interaction.py:162-331)."""
     T = g.num_triangles
     Q = g.num_quadrics
     valid = hit.valid
@@ -70,6 +90,10 @@ def surface_interaction(g: SceneGeometry, ray: geom.Ray, hit: Hit) -> SurfaceInt
         invp = torch.where(okp, 1.0 / torch.where(okp, detp, 1.0), 0.0)
         dpdu_p = (duv2[:, 1:2] * e1 - duv1[:, 1:2] * e2) * invp[:, None]
         dpdu_t = torch.where(okp[:, None], dpdu_p, geom.normalize(e1))
+        if partials:
+            tri_extra = _triangle_partials(
+                hit, p, wo, e1, e2, n1 - n0, n2 - n0, ng_t, dpdu_t, duv1, duv2, okp, invp,
+                spread, diffs)
         mat_t = g.tri_material[ti]
         al_t = g.tri_area_light[ti]
         mid_t = g.tri_mesh_id[ti]
@@ -95,13 +119,21 @@ def surface_interaction(g: SceneGeometry, ray: geom.Ray, hit: Hit) -> SurfaceInt
         dpdu_q = geom.normalize(torch.einsum("rij,rj->ri", o2w[:, :3, :3],
                                              dpdu_obj))
         uv_q = torch.stack([hit.b1, hit.b2], -1)
+        if partials:
+            dpdv_q = geom.normalize(geom.cross(dpdu_q, n_w))
         mat_q = g.quad_material[qi]
         al_q = g.quad_area_light[qi]
         mid_q = g.quad_mesh_id[qi]
 
+    extra = {}
     if T > 0 and Q > 0:
         is_tri1 = hit.prim < T
         is_tri = is_tri1[:, None]
+        if partials:
+            # quadric lanes: no normal derivatives and no footprint
+            extra = {k: torch.where(is_tri if v.dim() == 2 else is_tri1, v, 0.0)
+                     for k, v in tri_extra.items() if k != "dpdv"}
+            extra["dpdv"] = torch.where(is_tri, tri_extra["dpdv"], dpdv_q)
         ng = torch.where(is_tri, ng_t, n_w)
         ns = torch.where(is_tri, ns_t, n_w)
         uv = torch.where(is_tri, uv_t, uv_q)
@@ -112,17 +144,83 @@ def surface_interaction(g: SceneGeometry, ray: geom.Ray, hit: Hit) -> SurfaceInt
     elif T > 0:
         ng, ns, uv, dpdu = ng_t, ns_t, uv_t, dpdu_t
         material, area_light, mesh_id = mat_t, al_t, mid_t
+        if partials:
+            extra = tri_extra
     else:
         ng, ns, uv, dpdu = n_w, n_w, uv_q, dpdu_q
         material, area_light, mesh_id = mat_q, al_q, mid_q
+        if partials:
+            z2 = torch.zeros_like(uv_q)
+            extra = dict(dpdv=dpdv_q, dndu=torch.zeros_like(p), dndv=torch.zeros_like(p),
+                         uv_sigma=torch.zeros_like(hit.t), uv_major=z2, duvdx=z2, duvdy=z2)
 
     return SurfaceInteraction(
         valid=valid, t=hit.t, p=p, ng=ng, ns=ns, uv=uv, dpdu=dpdu, wo=wo,
         material=torch.where(valid, material, neg1),
         area_light=torch.where(valid, area_light, neg1),
         mesh_id=torch.where(valid, mesh_id, neg1),
-        prim=hit.prim, ray_epsilon=1e-3 * hit.t.abs(),
+        prim=hit.prim, ray_epsilon=1e-3 * hit.t.abs(), **extra,
     )
+
+
+def _triangle_partials(hit, p, wo, e1, e2, dn1, dn2, ng, dpdu, duv1, duv2, okp, invp,
+                       spread, diffs) -> dict:
+    """A triangle hit's dpdv, dndu, dndv (the uv-edge system that gives
+    dpdu; Triangle::GetShadingGeometry) and its uv footprint
+    (interaction.py:125-260)."""
+    inv = invp[:, None]
+    ok = okp[:, None]
+    out = dict(
+        dpdv=torch.where(ok, (-duv2[:, 0:1] * e1 + duv1[:, 0:1] * e2) * inv,
+                         geom.cross(ng, geom.normalize(e1))),
+        dndu=torch.where(ok, (duv2[:, 1:2] * dn1 - duv1[:, 1:2] * dn2) * inv, 0.0),
+        dndv=torch.where(ok, (-duv2[:, 0:1] * dn1 + duv1[:, 0:1] * dn2) * inv, 0.0),
+    )
+    if spread is None and diffs is None:
+        z2 = torch.zeros_like(duv1)
+        return dict(out, uv_sigma=torch.zeros_like(hit.t), uv_major=z2, duvdx=z2, duvdy=z2)
+    # world → uv through the barycentric solve on the edge Gram matrix
+    g11, g12, g22 = geom.dot(e1, e1), geom.dot(e1, e2), geom.dot(e2, e2)
+    det = torch.clamp(g11 * g22 - g12 * g12, min=1e-20)
+
+    def to_uv(delta):
+        d1, d2 = geom.dot(e1, delta), geom.dot(e2, delta)
+        a = (g22 * d1 - g12 * d2) / det
+        b = (g11 * d2 - g12 * d1) / det
+        return a[:, None] * duv1 + b[:, None] * duv2
+
+    if diffs is not None:
+        # the offset rays meet the tangent plane; a lane parallel to it or
+        # not finite gets zero differentials (the reference's unsolved case)
+        rx_o, rx_d, ry_o, ry_d = diffs
+        d_pl = geom.dot(ng, p)
+
+        def proj_delta(o_, dr):
+            den = geom.dot(ng, dr)
+            ok_ = den.abs() > 1e-12
+            tpr = (d_pl - geom.dot(ng, o_)) / torch.where(ok_, den, 1.0)
+            dp = o_ + tpr[:, None] * dr - p
+            good = (ok_ & torch.isfinite(tpr))[:, None]
+            return torch.where(good & torch.isfinite(dp), dp, 0.0)
+
+        ax1 = to_uv(proj_delta(rx_o, rx_d))
+        ax2 = to_uv(proj_delta(ry_o, ry_d))
+        ax1 = torch.where(torch.isfinite(ax1), ax1, 0.0)
+        ax2 = torch.where(torch.isfinite(ax2), ax2, 0.0)
+    else:
+        # the cone's circular section on the surface: minor axis across the
+        # view direction, major along it stretched by 1/cos θ
+        w_fp = torch.where(torch.isfinite(hit.t), hit.t, 0.0).abs() * spread
+        perp = geom.cross(ng, wo)
+        pl = geom.length(perp)[:, None]
+        perp = torch.where(pl > 1e-8, perp / torch.clamp(pl, min=1e-20), dpdu)
+        par = geom.normalize(geom.cross(perp, ng))
+        cos_i = torch.clamp(geom.absdot(wo, ng), 1e-3, 1.0)
+        ax1 = to_uv(w_fp[:, None] * perp)
+        ax2 = to_uv((w_fp / cos_i)[:, None] * par)
+    l1, l2 = geom.length(ax1), geom.length(ax2)
+    return dict(out, uv_sigma=torch.minimum(l1, l2),
+                uv_major=torch.where((l1 >= l2)[:, None], ax1, ax2), duvdx=ax1, duvdy=ax2)
 
 
 def _quadric_gradient(code, p_obj, prm):

@@ -43,7 +43,15 @@ Written differently from the reference on purpose:
   second time, which changes nothing);
 - emission and the MIS pdf of a hit area light read its own light-table
   row (``lights/table.py``);
-- textures, volumes and the merged shadow+closest batch are not ported.
+- volumes and the merged shadow+closest batch are not ported.
+
+Textures (``apply_textures``, path.py:267-374) bind Kd and Ks per lane,
+the fork's normal map, and pbrt's Material::Bump chain, before the
+shading frame is built, in every kind that shades in the bounce loop.
+Their footprint comes from the camera rays' differentials at the first
+hit only (later bounces get none: unfiltered lookups and the bump
+chain's .01 offsets), or from the pixel cone where no differentials are
+given. A scene without textures computes none of it.
 
 A ray that leaves the scene collects the infinite lights' radiance; a
 mix material's lanes (``materials/table.py:MixLane``) and the measured
@@ -67,6 +75,7 @@ from pbrt_torch.core import spectrum as spec
 from pbrt_torch.core.interaction import offset_ray_origin, surface_interaction
 from pbrt_torch.lights import table as lights_mod
 from pbrt_torch.materials import table as mat_mod
+from pbrt_torch.textures import texture as tex_mod
 
 #: the integrator kinds the port renders
 KINDS = ("path", "directlighting", "whitted", "ambientocclusion", "metadata")
@@ -79,6 +88,11 @@ class RenderScene:
     geometry: SceneGeometry
     materials: mat_mod.MaterialTable
     lights: lights_mod.LightTable
+    textures: tex_mod.TextureTable | None = None
+    has_textures: bool = False
+    #: the pixel cone's half-width per unit distance, for texture footprints
+    #: without ray differentials (0: no footprint)
+    pixel_spread: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,10 +165,74 @@ def _nee_one_light(scene: RenderScene, si, lm, wo_local, frame, source,
     return torch.where(ok[:, None], contrib * n_lights, 0.0)
 
 
+def apply_textures(scene: RenderScene, si, lm):
+    """Texture-bound Kd and Ks (clamped at 0, per sub-row of a mix lane),
+    the normal map (evaluated without a footprint; it takes precedence
+    where it is not black) and the bump map's displaced partials
+    (Material::Bump, material.cpp:40-84) → (si, lm) (path.py:267-374)."""
+    tt, mats = scene.textures, scene.materials
+    rows = mats.tex_rows
+    mi = si.material.clamp(min=0)
+    fp = (si.uv_sigma, si.uv_major) if scene.pixel_spread > 0.0 else (None, None)
+
+    def override(cur, col, mat_rows):
+        if cur is None or not rows[col]:  # a field no lobe reads, or no texture
+            return cur
+        tid = getattr(mats, col)[mat_rows]
+        val = torch.clamp(tex_mod.eval_spectrum(tt, tid, si.uv, si.p, *fp, rows=rows[col]),
+                          min=0.0)
+        return torch.where((tid >= 0)[:, None], val, cur)
+
+    def apply_one(lane, mat_rows):
+        return dataclasses.replace(lane, kd=override(lane.kd, "kd_tex", mat_rows),
+                                   ks=override(lane.ks, "ks_tex", mat_rows))
+
+    if isinstance(lm, mat_mod.MixLane):
+        lm = dataclasses.replace(lm, lm1=apply_one(lm.lm1, lm.m1), lm2=apply_one(lm.lm2, lm.m2))
+    else:
+        lm = apply_one(lm, mi)
+    use_nm = None
+    if rows["normal_tex"]:
+        # the fork's normal map: a tangent-space normal from RGB
+        ntid = mats.normal_tex[mi]
+        nm_spec = tex_mod.eval_spectrum(tt, ntid, si.uv, si.p, rows=rows["normal_tex"])
+        t = 2.0 * spec.to_rgb(nm_spec) - 1.0
+        ss0, ts0 = bxdf.make_shading_frame(si.ns, si.dpdu)
+        n_new = geom.normalize(t[:, 0:1] * ss0 + t[:, 1:2] * ts0 + t[:, 2:3] * si.ns)
+        use_nm = (ntid >= 0) & (nm_spec > 1e-6).any(-1)
+        si = dataclasses.replace(si, ns=torch.where(use_nm[:, None], n_new, si.ns))
+    if mats.has_bump:
+        btid = mats.bump_tex[mi]
+        has_b = btid >= 0 if use_nm is None else (btid >= 0) & ~use_nm
+        # per-axis offsets from the uv differentials, .01 without them
+        du = 0.5 * (si.duvdx[:, 0].abs() + si.duvdy[:, 0].abs())
+        dv = 0.5 * (si.duvdx[:, 1].abs() + si.duvdy[:, 1].abs())
+        du = torch.where(du > 1e-9, du, 0.01)
+        dv = torch.where(dv > 1e-9, dv, 0.01)
+        # the displacement at p, at u + du and at v + dv, in one evaluation
+        zero = torch.zeros_like(du)
+        uv3 = torch.cat([si.uv, si.uv + torch.stack([du, zero], -1),
+                         si.uv + torch.stack([zero, dv], -1)])
+        p3 = torch.cat([si.p, si.p + du[:, None] * si.dpdu, si.p + dv[:, None] * si.dpdv])
+        fp3 = [None if x is None else torch.cat([x, x, x]) for x in fp]
+        d0, d_u, d_v = tex_mod.eval_float(tt, btid.repeat(3), uv3, p3, *fp3,
+                                          rows=rows["bump_tex"]).chunk(3)
+        dpdu_b = si.dpdu + ((d_u - d0) / du)[:, None] * si.ns + d0[:, None] * si.dndu
+        dpdv_b = si.dpdv + ((d_v - d0) / dv)[:, None] * si.ns + d0[:, None] * si.dndv
+        n_b = geom.face_forward(geom.normalize(geom.cross(dpdu_b, dpdv_b)), si.ng)
+        hb = has_b[:, None]
+        si = dataclasses.replace(si, ns=torch.where(hb, n_b, si.ns),
+                                 dpdu=torch.where(hb, dpdu_b, si.dpdu),
+                                 dpdv=torch.where(hb, dpdv_b, si.dpdv))
+    return si, lm
+
+
 def trace_radiance(scene: RenderScene, rays: geom.Ray, cfg: IntegratorConfig,
-                   uniforms: torch.Tensor):
+                   uniforms: torch.Tensor, diffs=None):
     """(R,) rays → (L (R, S), first_hit_t (R,)). ``uniforms`` is the kind's
-    primary-sample array (see the module docstring)."""
+    primary-sample array (see the module docstring); ``diffs``: the camera
+    rays' differentials (rx_o, rx_d, ry_o, ry_d), read by textures at the
+    first hit."""
     if cfg.kind == "metadata":
         return _metadata_li(scene, rays, cfg)
     if cfg.kind == "ambientocclusion":
@@ -205,9 +283,17 @@ def trace_radiance(scene: RenderScene, rays: geom.Ray, cfg: IntegratorConfig,
     prev_bsdf_pdf = torch.ones(R, dtype=torch.float32, device=dev)
     first_hit_t = torch.zeros(R, dtype=torch.float32, device=dev)
     gather_only = torch.zeros(R, dtype=torch.bool, device=dev)
+    spread = scene.pixel_spread if scene.pixel_spread > 0.0 else None
     for bounce in range(cfg.max_depth):
         hit = intersect(g, ray)
-        si = surface_interaction(g, ray, hit)
+        if scene.has_textures:
+            # differentials hold for the camera rays only: later bounces get
+            # no footprint where they were given (path.py:540-556)
+            si = surface_interaction(g, ray, hit, partials=True,
+                                     spread=spread if bounce == 0 or diffs is None else None,
+                                     diffs=diffs if bounce == 0 else None)
+        else:
+            si = surface_interaction(g, ray, hit)
         if bounce == 0:
             first_hit_t = torch.where(si.valid, hit.t, 0.0)
         L = accumulate_hit(L, ray, hit, si, throughput, alive,
@@ -216,6 +302,8 @@ def trace_radiance(scene: RenderScene, rays: geom.Ray, cfg: IntegratorConfig,
         alive = alive & si.valid & ~gather_only
 
         lm = mat_mod.gather_lane(scene.materials, si.material)
+        if scene.has_textures:
+            si, lm = apply_textures(scene, si, lm)
         ss, ts = bxdf.make_shading_frame(si.ns, si.dpdu)
         frame = (ss, ts, si.ns)
         wo_local = bxdf.world_to_local(si.wo, ss, ts, si.ns)

@@ -25,7 +25,15 @@ Keys (shapes as in the JAX package's tables):
   mat_exp_u mat_exp_v mat_eta mat_ss_scale mat_irreg_offset
   mat_irreg_count mat_merl_offset mat_mix_m1 mat_mix_m2`` (M,), the
   measured pools ``mat_irreg_points`` (P, 3), ``mat_irreg_spectra`` (P, S),
-  ``mat_merl_rgb`` (Q, 3);
+  ``mat_merl_rgb`` (Q, 3), the texture rows ``mat_kd_tex mat_ks_tex
+  mat_sigma_tex mat_bump_tex mat_normal_tex`` (M,);
+- textures: the texture table's fields as ``tex_<field>`` (the JAX
+  package's ``TextureTable`` names: ``tex_kind tex_mapping tex_ref1
+  tex_ref2 tex_f1 tex_f2 tex_img_offset tex_img_w tex_img_h
+  tex_img_n_levels`` (K,), ``tex_uv_xform`` (K, 4), ``tex_world_to_tex``
+  (K, 4, 4), ``tex_c1 tex_c2`` (K, S), ``tex_img_level_off`` (K, 14),
+  ``tex_pool_rgb`` (P, 3), ``tex_perm`` (512,)), ``has_textures`` and
+  ``pixel_spread`` ();
 - lights: ``light_type light_shape_kind light_quad_idx light_tri_start
   light_tri_count light_cdf_offset light_env_id light_lmap_id`` (L,),
   ``light_cos_total light_cos_falloff light_total_area light_proj_invtan``
@@ -55,7 +63,8 @@ from pbrt_torch.core.filters import Filter
 from pbrt_torch.film.film import FilmConfig
 from pbrt_torch.integrators.path import RenderScene
 from pbrt_torch.lights import table as lt_mod
-from pbrt_torch.materials.table import MIXMAT, MaterialTable
+from pbrt_torch.materials.table import MIXMAT, TEXTURE_COLUMNS, MaterialTable
+from pbrt_torch.textures.texture import table_from_numpy
 
 _GEOMETRY_F32 = ("tri_v0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
                  "tri_uv0", "tri_uv1", "tri_uv2", "quad_o2w", "quad_w2o",
@@ -125,7 +134,7 @@ def scene_from_numpy(arrays: dict, device):
     materials = MaterialTable(
         n_lobes=i64(n_lobes), lobe_type=i64(codes),
         **{k: f32(arrays[f"mat_{k}"]) for k in _MATERIAL_F32},
-        **{k: i64(arrays[f"mat_{k}"]) for k in _MATERIAL_I64},
+        **{k: i64(arrays[f"mat_{k}"]) for k in _MATERIAL_I64 + TEXTURE_COLUMNS},
         active_lobes=tuple(sorted(set(active))),
         max_lobes=int(max(n_lobes.max(), 1)), has_mix=bool((mat_kind == MIXMAT).any()),
     )
@@ -148,5 +157,9 @@ def scene_from_numpy(arrays: dict, device):
                       ywidth=float(arrays["filter_ywidth"])),
         fov=float(arrays["cam_fov"]),
     )
-    scene = RenderScene(geometry=geometry, materials=materials, lights=lights)
+    textures = table_from_numpy(
+        {k[len("tex_"):]: v for k, v in arrays.items() if k.startswith("tex_")}, dev)
+    scene = RenderScene(geometry=geometry, materials=materials, lights=lights,
+                        textures=textures, has_textures=bool(arrays["has_textures"]),
+                        pixel_spread=float(arrays["pixel_spread"]))
     return scene, camera, film

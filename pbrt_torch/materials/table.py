@@ -20,9 +20,17 @@ evaluates every code the table holds once on every lane and picks, per
 slot, the lane's own (masked evaluation, as the JAX package's
 ``lax.switch`` under ``vmap``).
 
-Refused (``NotImplementedError``): textured parameters, and a mix whose
-sub-material is itself a mix (the JAX package renders such an inner mix as
-a black Lambertian, its row's own placeholder lobe).
+Texture bindings: a row names the texture rows of its Kd, Ks, bump map
+and normal map (``kd_tex`` ... ``normal_tex``, -1 for none;
+``integrators/path.py:apply_textures`` evaluates them). As in the JAX
+package, only these four take a texture (``sigma_tex`` is allocated and
+never set); every other texture-bound parameter (Kr, Kt, roughness,
+sigma, a mix's amount) takes its constant default, and a texture-bound Kd
+or Ks switches on plastic's and uber's lobe even where the constant is 0.
+
+Refused (``NotImplementedError``): a mix whose sub-material is itself a
+mix (the JAX package renders such an inner mix as a black Lambertian, its
+row's own placeholder lobe).
 """
 
 from __future__ import annotations
@@ -72,6 +80,8 @@ _COPPER_LAM = [400.0, 450.0, 500.0, 550.0, 600.0, 650.0, 700.0]
 _COPPER_N = [1.18, 1.15, 1.12, 0.79, 0.37, 0.23, 0.21]
 _COPPER_K = [2.21, 2.40, 2.60, 2.78, 3.27, 3.64, 4.05]
 
+#: the material table's texture-id columns
+TEXTURE_COLUMNS = ("kd_tex", "ks_tex", "sigma_tex", "bump_tex", "normal_tex")
 #: the row fields each lobe code reads; a lane gathers those of the codes
 #: its table holds (the rest stay None)
 _LOBE_FIELDS = {
@@ -114,12 +124,28 @@ class MaterialTable:
     mix_m1: torch.Tensor  # (M,) i64 row of namedmaterial1 (the row itself if not a mix)
     mix_m2: torch.Tensor  # (M,) i64
     mix_amt: torch.Tensor  # (M, S) amount (1 for rows that are not mixes)
+    kd_tex: torch.Tensor  # (M,) i64 texture row of Kd, -1 = the constant
+    ks_tex: torch.Tensor  # (M,) i64
+    sigma_tex: torch.Tensor  # (M,) i64, always -1 (as the JAX package's)
+    bump_tex: torch.Tensor  # (M,) i64 float texture of the bump map
+    normal_tex: torch.Tensor  # (M,) i64 spectrum texture of the normal map
     #: host-side: the lobe codes present (only those are evaluated)
     active_lobes: tuple = (L_LAMBERT,)
     #: host-side: the most lobes any row uses (bounds the slot loops)
     max_lobes: int = 1
     #: host-side: the table has a mix row (gather_lane returns MixLane)
     has_mix: bool = False
+    #: host-side, derived: {"kd_tex": rows, ...}, the texture rows each
+    #: column names (the kinds a texture evaluation must compute)
+    tex_rows: dict = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        self.tex_rows = {k: tuple(sorted({int(i) for i in getattr(self, k).tolist() if i >= 0}))
+                         for k in TEXTURE_COLUMNS}
+
+    @property
+    def has_bump(self) -> bool:
+        return bool(self.tex_rows["bump_tex"])
 
     @property
     def count(self) -> int:
@@ -447,10 +473,12 @@ def _load_measured(fn, config):
     return "merl", meas.load_merl(fn)
 
 
-def build_material_table(records, config, device, mix_rows=None) -> MaterialTable:
+def build_material_table(records, config, device, mix_rows=None,
+                         texture_index=None) -> MaterialTable:
     """Material records (scene/api.py) → table rows. ``mix_rows`` maps the
     row of each ``mix`` record to its (namedmaterial1, namedmaterial2) rows
-    (the builder resolves them; ``scene/builder.py``)."""
+    (the builder resolves them; ``scene/builder.py``); ``texture_index``
+    maps (data type, name) to texture rows (``textures/texture.py``)."""
     S = config.n_bins
     M = max(len(records), 1)
     mix_rows = mix_rows or {}
@@ -476,16 +504,25 @@ def build_material_table(records, config, device, mix_rows=None) -> MaterialTabl
     irreg_pts_pool = [np.zeros((1, 3), np.float32)]
     irreg_spec_pool = [np.zeros((1, S), np.float32)]
     merl_pool = [np.zeros((1, 3), np.float32)]
+    tex = {k: np.full(M, -1, np.int64) for k in TEXTURE_COLUMNS}
     rough_exp = lambda r: 1.0 / max(r, 1e-4)
+
+    def tex_id(p, pname, data_type="spectrum"):
+        tname = p.find_texture(pname)
+        if texture_index is None or tname is None:
+            return -1
+        return texture_index.get((data_type, tname), -1)
 
     for i, rec in enumerate(records):
         p = rec.params
         mt = rec.mat_type
         lobes = []
-        textured = [n for n, (ptype, _) in p.entries.items() if ptype == "texture"]
-        if textured:
-            raise NotImplementedError(f"textured materials are not ported yet ({mt!r}: "
-                                      f"{', '.join(textured)})")
+        # materials/table.py:663-667: only these four bind a texture
+        tex["kd_tex"][i] = tex_id(p, "Kd")
+        tex["ks_tex"][i] = tex_id(p, "Ks")
+        tex["bump_tex"][i] = tex_id(p, "bumpmap", "float")
+        tex["normal_tex"][i] = tex_id(p, "normalmap")
+        kd_bound, ks_bound = tex["kd_tex"][i] >= 0, tex["ks_tex"][i] >= 0
         if mt == "matte":
             kind[i] = MATTE
             kd[i] = p.find_one_spectrum("Kd", 0.5)
@@ -497,9 +534,9 @@ def build_material_table(records, config, device, mix_rows=None) -> MaterialTabl
             ks[i] = p.find_one_spectrum("Ks", 0.25)
             exp_u[i] = exp_v[i] = rough_exp(p.find_one_float("roughness", 0.1))
             eta[i] = 1.5
-            if kd[i].any():
+            if kd[i].any() or kd_bound:
                 lobes.append(L_LAMBERT)
-            if ks[i].any():
+            if ks[i].any() or ks_bound:
                 lobes.append(L_BLINN_DIEL)
         elif mt == "glass":
             kind[i] = GLASS
@@ -554,9 +591,10 @@ def build_material_table(records, config, device, mix_rows=None) -> MaterialTabl
             kt[i] = p.find_one_spectrum("Kt", 0.0)
             exp_u[i] = exp_v[i] = rough_exp(p.find_one_float("roughness", 0.1))
             eta[i] = p.find_one_float("index", 1.5)
-            for field, code in ((kd, L_LAMBERT), (ks, L_BLINN_DIEL),
-                                (kr, L_SPEC_REFL_DIEL), (kt, L_SPEC_TRANS)):
-                if field[i].any():
+            for on, code in ((kd[i].any() or kd_bound, L_LAMBERT),
+                             (ks[i].any() or ks_bound, L_BLINN_DIEL),
+                             (kr[i].any(), L_SPEC_REFL_DIEL), (kt[i].any(), L_SPEC_TRANS)):
+                if on:
                     lobes.append(code)
         elif mt == "translucent":
             kind[i] = TRANSLUCENT
@@ -655,6 +693,7 @@ def build_material_table(records, config, device, mix_rows=None) -> MaterialTabl
         irreg_spectra=t(np.concatenate(irreg_spec_pool)),
         merl_rgb=t(np.concatenate(merl_pool)), ss_sigma_a=t(ss_sigma_a),
         ss_sigma_s=t(ss_sigma_s), ss_scale=t(ss_scale), mix_m1=t(mix_m1),
-        mix_m2=t(mix_m2), mix_amt=t(mix_amt), active_lobes=active,
+        mix_m2=t(mix_m2), mix_amt=t(mix_amt), **{k: t(v) for k, v in tex.items()},
+        active_lobes=active,
         max_lobes=int(max(n_lobes.max(), 1)), has_mix=bool((kind == MIXMAT).any()),
     )

@@ -20,9 +20,16 @@ sample's two uniforms, for ``metadata`` nothing more. So a seed gives the
 JAX package's image, on the CPU and on the card, whatever
 ``chunk_pixels`` is. Padded tail lanes repeat the last pixel, and so its
 keys; their weight is 0.
+
+A scene with textures also gets the camera rays' differentials, scaled
+about each ray by 1/√spp (ScaleDifferentials, samplerrenderer.cpp:91;
+sampler.py:133-144); they set the texture footprint of the first hit.
+Other scenes build none.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -41,16 +48,32 @@ def wave_uniforms(icfg, root, pixel_index, scrambles, sample: int):
     return rng.primary_uniforms(root, pixel_index, scrambles, sample, depth)
 
 
+def ray_differentials(camera, px, py, rays, scale: float):
+    """The camera's one-pixel differentials scaled about each ray by
+    ``scale`` (sampler.py:133-144)."""
+    rx_o, rx_d, ry_o, ry_d = camera.ray_differentials(px, py, rays)
+    if scale != 1.0:
+        o0, d0 = rays.origin, rays.direction
+        rx_o = o0 + (rx_o - o0) * scale
+        ry_o = o0 + (ry_o - o0) * scale
+        rx_d = d0 + (rx_d - d0) * scale
+        ry_d = d0 + (ry_d - d0) * scale
+    return rx_o, rx_d, ry_o, ry_d
+
+
 def render_wave(film_state, scene, camera, filter_table, pixel_x, pixel_y,
-                icfg, film_cfg, uniforms, sample_scale=None):
+                icfg, film_cfg, uniforms, sample_scale=None, diff_scale: float = 1.0):
     """One wave for one pixel chunk; ``uniforms`` is the integrator's
-    primary-sample array (camera columns first; ``wave_uniforms``). Updates
+    primary-sample array (camera columns first; ``wave_uniforms``);
+    ``diff_scale`` scales a textured scene's ray differentials. Updates
     the film in place and returns it."""
     px = pixel_x.to(torch.float32) + uniforms[:, 0]
     py = pixel_y.to(torch.float32) + uniforms[:, 1]
     rays = camera.generate_rays(px, py, uniforms[:, 2], uniforms[:, 3],
                                 uniforms[:, 4])
-    L, first_t = trace_radiance(scene, rays, icfg, uniforms)
+    diffs = (ray_differentials(camera, px, py, rays, diff_scale) if scene.has_textures
+             else None)
+    L, first_t = trace_radiance(scene, rays, icfg, uniforms, diffs=diffs)
     bad = torch.isnan(L) | (L < 0.0) | torch.isinf(L)
     L = torch.where(bad, 0.0, L)
     return film_mod.add_samples(
@@ -59,9 +82,12 @@ def render_wave(film_state, scene, camera, filter_table, pixel_x, pixel_y,
     )
 
 
-def render(built, spp=None, seed: int = 0, chunk_pixels: int | None = None):
+def render(built, spp=None, seed: int = 0, chunk_pixels: int | None = None,
+           diff_spp: int | None = None):
     """All sample waves × pixel chunks → the film. Runs on the device the
-    built scene lives on."""
+    built scene lives on. ``diff_spp`` (default: ``spp``) sets the texture
+    footprint's scale, 1/√diff_spp of a pixel, so a test can give a
+    golden's filter width at fewer samples (sampler.py:256-285)."""
     if built.sampler_name not in ("lowdiscrepancy",):
         raise NotImplementedError(
             f"sampler {built.sampler_name!r} is not ported yet")
@@ -69,6 +95,12 @@ def render(built, spp=None, seed: int = 0, chunk_pixels: int | None = None):
     cfg = built.film_config
     icfg = built.integrator
     spp = spp if spp is not None else built.pixel_samples
+    dspp = diff_spp if diff_spp is not None else spp
+    diff_scale = 1.0 / float(np.sqrt(max(dspp, 1)))
+    scene = built.scene
+    if scene.pixel_spread > 0.0 and dspp > 1:  # the cone footprint's width
+        scene = dataclasses.replace(scene, pixel_spread=scene.pixel_spread
+                                    / float(np.sqrt(dspp)))
     x0, x1, y0, y1 = cfg.pixel_bounds
     gx, gy = np.meshgrid(np.arange(x0, x1), np.arange(y0, y1))
     all_x, all_y = gx.ravel(), gy.ravel()
@@ -92,6 +124,6 @@ def render(built, spp=None, seed: int = 0, chunk_pixels: int | None = None):
     for s in range(spp):
         for c in range(n_chunks):
             u = wave_uniforms(icfg, root, pix[c], scrambles[c], s)
-            render_wave(state, built.scene, built.camera, table, xs[c], ys[c],
-                        icfg, cfg, u, sample_scale=mask[c])
+            render_wave(state, scene, built.camera, table, xs[c], ys[c],
+                        icfg, cfg, u, sample_scale=mask[c], diff_scale=diff_scale)
     return state

@@ -9,18 +9,23 @@ integrator are configured.
 
 What the slices cover: ``trianglemesh`` and the six quadrics (sphere,
 cylinder, disk, cone, paraboloid, hyperboloid); every material of the JAX
-package with constant parameters, ``mix`` of two named materials
-included; point, spot, distant, infinite (constant or lat-long mapped),
-projection and goniometric lights; diffuse area lights on spheres and
-triangle meshes; the ``perspective`` camera with a static transform; every
-filter; the ``lowdiscrepancy`` sampler; the ``path``, ``directlighting``,
-``whitted``, ``ambientocclusion`` and ``metadata`` integrators; the BVH
-accelerator with SAH splits. Anything else raises ``NotImplementedError``
-instead of rendering something different: textured materials, a mix whose
-sub-material is a mix (the JAX package renders the inner mix black), and
-area lights on non-sphere quadrics (the JAX package samples such a light
-as a sphere of its radius). A light map that fails to load warns and the
-light is constant, as in the JAX package.
+package, ``mix`` of two named materials included, with Kd, Ks, bump and
+normal maps bound to textures; the texture records visible to every
+material, as one texture table (every kind under the uv, spherical and
+planar mappings); point, spot, distant, infinite (constant or lat-long
+mapped), projection and goniometric lights; diffuse area lights on spheres
+and triangle meshes; the ``perspective`` camera with a static transform;
+every filter; the ``lowdiscrepancy`` sampler; the ``path``,
+``directlighting``, ``whitted``, ``ambientocclusion`` and ``metadata``
+integrators; the BVH accelerator with SAH splits. Anything else raises
+``NotImplementedError`` instead of rendering something different: a mix
+whose sub-material is a mix (the JAX package renders the inner mix
+black), area lights on non-sphere quadrics (the JAX package samples such
+a light as a sphere of its radius), cylindrical texture mapping (evaluated
+as planar there) and texture references nested deeper than one level
+(read as 0 there). A light map that fails to load warns and the light is
+constant, and an image texture that fails to load warns and is black, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from pbrt_torch.lights import table as lt_mod
 from pbrt_torch.materials.table import build_material_table
 from pbrt_torch.scene.api import SceneDescription
 from pbrt_torch.shapes.mesh import make_mesh
+from pbrt_torch.textures.texture import build_texture_table
 from pbrt_torch.utils import error as err
 
 
@@ -455,8 +461,16 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
             emit=lp.find_one_spectrum("L", 1.0, "illuminant") * lp.find_one_float("scale", 1.0)))
     lights = _light_table(light_rows, S, dev)
     mix_rows = _mix_rows(mat_records, mat_id_for, desc.named_materials)
-    materials = build_material_table(mat_records, cfg, dev, mix_rows)
-    scene = RenderScene(geometry=geometry, materials=materials, lights=lights)
+    # every material's texture environment, float records first, a
+    # spectrum texture of the same name over it (builder.py:654-659)
+    tex_records = {}
+    for m in mat_records:
+        tex_records.update(m.float_textures)
+        tex_records.update(m.spectrum_textures)
+    textures, tex_index = build_texture_table(tex_records, cfg, dev)
+    materials = build_material_table(mat_records, cfg, dev, mix_rows, tex_index)
+    scene = RenderScene(geometry=geometry, materials=materials, lights=lights,
+                        textures=textures, has_textures=bool(tex_records))
 
     film_name, film_params = desc.film
     filt = make_filter(
@@ -477,6 +491,10 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
     camera = make_camera(cam_name, cam_params, c2w, film_cfg.xres,
                          film_cfg.yres, dev)
     film_cfg = dataclasses.replace(film_cfg, fov=camera.fov_deg)
+    if 0.0 < camera.fov_deg < 360.0 and scene.has_textures:
+        # the pixel cone over the shorter image axis (builder.py:704-711)
+        res_short = max(min(film_cfg.xres, film_cfg.yres), 1)
+        scene.pixel_spread = float(2.0 * np.tan(np.deg2rad(camera.fov_deg) / 2.0) / res_short)
 
     sampler_name, sampler_params = desc.sampler
     integrator = _integrator_config(*desc.surface_integrator, S)

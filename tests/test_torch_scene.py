@@ -158,10 +158,10 @@ def test_unported_features_raise():
                                      'SurfaceIntegrator "igi"')
     with pytest.raises(NotImplementedError):
         tbuild(tload(text), device="cpu")
-    # a textured material, a mix of mixes (the JAX package renders the inner
-    # mix black) and an area light on a disk (the JAX package samples it as
-    # a sphere)
-    textured = ('Texture "checks" "spectrum" "checkerboard"\n'
+    # a texture under cylindrical mapping (the JAX package evaluates it as
+    # planar), a mix of mixes (the JAX package renders the inner mix black)
+    # and an area light on a disk (the JAX package samples it as a sphere)
+    textured = ('Texture "checks" "spectrum" "checkerboard" "string mapping" ["cylindrical"]\n'
                 'Material "matte" "texture Kd" "checks"')
     nested = ('MakeNamedMaterial "a" "string type" ["matte"]\n'
               'MakeNamedMaterial "b" "string type" ["glass"]\n'

@@ -22,7 +22,11 @@ _LIGHTS = ("type", "emit", "pos", "dirw", "cos_total", "cos_falloff", "shape_kin
 _MATERIALS = ("kind", "n_lobes", "lobe_type", "kd", "ks", "kr", "kt", "sigma", "exp_u",
               "exp_v", "eta", "eta_spec", "k_spec", "irreg_offset", "irreg_count",
               "merl_offset", "irreg_points", "irreg_spectra", "merl_rgb", "ss_sigma_a",
-              "ss_sigma_s", "ss_scale", "mix_m1", "mix_m2", "mix_amt")
+              "ss_sigma_s", "ss_scale", "mix_m1", "mix_m2", "mix_amt", "kd_tex", "ks_tex",
+              "sigma_tex", "bump_tex", "normal_tex")
+_TEXTURES = ("kind", "mapping", "uv_xform", "world_to_tex", "c1", "c2", "f1", "f2", "ref1",
+             "ref2", "img_offset", "img_w", "img_h", "img_level_off", "img_n_levels",
+             "pool_rgb", "perm")
 _ENV_DIST = ("func", "cond_cdf", "cond_int", "marg_func", "marg_cdf", "marg_int")
 
 
@@ -51,6 +55,8 @@ def jax_scene_arrays(built) -> dict:
         **{f"mat_{k}": a(getattr(mt, k)) for k in _MATERIALS},
         **{f"light_{k}": a(getattr(lt, k)) for k in _LIGHTS},
         **{f"light_env_{k}": a(getattr(lt.env_dist, k)) for k in _ENV_DIST},
+        **{f"tex_{k}": a(getattr(built.scene.textures, k)) for k in _TEXTURES},
+        has_textures=built.scene.has_textures, pixel_spread=built.scene.pixel_spread,
         cam_raster_to_camera=a(cam.raster_to_camera),
         cam_to_world=a(cam.cam_to_world.m_start),
         cam_lens_radius=a(cam.lens_radius),
@@ -204,4 +210,60 @@ def materials_scene_text(directory: str, xres=16, yres=16, max_depth=3,
                         '        "float roughness" [.05]',
                         'Material "glass" "float index" [1.5]\n      Translate 0 0 1.6')
     text = text.replace("WorldBegin", "WorldBegin\n" + extra, 1)
+    return text.replace("@DIR@", directory)
+
+
+#: what ``texture_scene_text`` adds to the tiny scene: goldens/metal.pbrt's
+#: floor textures at the tiny scale (an imagemap Kd, a scaled imagemap bump
+#: map), a checkerboard, a normal map and dots; a quad with the normal map
+#: and one in a mix of a named matte with dotted Kd and a named plastic
+#: with checkered Ks (images under @DIR@/textures, from
+#: ``chip_smoke.write_texture_data``). Quads, not spheres: a float32 sphere
+#: hit rounds differently under XLA's contracted multiply-adds, and near a
+#: silhouette a normal map carries that past the stated tolerance
+TEXTURES = """
+Texture "tmap" "color" "imagemap" "string filename" ["@DIR@/textures/lines.exr"]
+  "float uscale" [6] "float vscale" [6]
+Texture "tbump-tex" "float" "imagemap" "string filename" ["@DIR@/textures/lines.exr"]
+  "float uscale" [6] "float vscale" [6]
+Texture "sbump" "float" "scale" "texture tex1" "tbump-tex" "float tex2" [-.02]
+Texture "checks" "color" "checkerboard" "float uscale" [8] "float vscale" [4]
+  "rgb tex1" [.8 .2 .1] "rgb tex2" [.1 .2 .7]
+Texture "nmap" "color" "imagemap" "string filename" ["@DIR@/textures/normal.exr"]
+  "float uscale" [2] "float vscale" [2]
+Texture "dots" "color" "dots" "float uscale" [6] "float vscale" [6] "rgb tex1" [.9 .8 .2]
+  "rgb tex2" [.2 .4 .6]
+MakeNamedMaterial "dotted" "string type" ["matte"] "texture Kd" "dots"
+MakeNamedMaterial "checked" "string type" ["plastic"] "color Kd" [.1 .1 .1]
+  "texture Ks" "checks" "float roughness" [.08]
+AttributeBegin
+  Material "matte" "color Kd" [.6 .6 .6] "texture normalmap" "nmap"
+  Shape "trianglemesh" "point P" [-3.4 -1 .6  -1.3 -1 -.4  -1.3 1.2 -.4  -3.4 1.2 .6]
+    "integer indices" [0 1 2 0 2 3] "float uv" [0 0 1 0 1 1 0 1]
+AttributeEnd
+AttributeBegin
+  Material "mix" "string namedmaterial1" ["dotted"] "string namedmaterial2" ["checked"]
+    "float amount" [.4]
+  Shape "trianglemesh" "point P" [-1.3 -1 -2.1  -.2 -1 -2.5  -.2 .1 -2.5  -1.3 .1 -2.1]
+    "integer indices" [0 1 2 0 2 3] "float uv" [0 0 1 0 1 1 0 1]
+AttributeEnd
+"""
+
+
+def texture_scene_text(directory: str, xres=16, yres=16, max_depth=3,
+                       integrator="path") -> str:
+    """The tiny scene with ``TEXTURES`` added, its floor in substrate with
+    the imagemap Kd and the bump map (and uv over it), its plastic sphere in
+    the checkerboard."""
+    text = tiny_scene_text(xres, yres, 1, max_depth)
+    text = text.replace('SurfaceIntegrator "path"', f'SurfaceIntegrator "{integrator}"')
+    text = text.replace('Material "matte" "color Kd" [.6 .6 .6]',
+                        'Material "substrate" "texture Kd" "tmap" "color Ks" [.5 .5 .5]\n'
+                        '  "float uroughness" [.05] "float vroughness" [.05] '
+                        '"texture bumpmap" "sbump"')
+    text = text.replace('"integer indices" [0 1 2 2 3 0]',
+                        '"integer indices" [0 1 2 2 3 0] "float uv" [0 0 1 0 1 1 0 1]', 1)
+    text = text.replace('Material "plastic" "color Kd" [.4 .2 .2]',
+                        'Material "plastic" "texture Kd" "checks"')
+    text = text.replace("WorldBegin", "WorldBegin\n" + TEXTURES, 1)
     return text.replace("@DIR@", directory)
