@@ -72,7 +72,8 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    generated from a fixed seed into a temporary directory): the
    closest-hit and any-hit kernels against their plain versions, bit for
    bit, on 1,048,576 of its first reflected and transmitted rays; then
-   ``path`` (depth 5) and ``directlighting`` at 1 spp after a warm-up
+   ``path`` and ``directlighting`` at depth 2 (``SCENE_DEPTH``, cut from
+   5 to keep the script within half its limit), 1 spp, after a warm-up
    sample, each counted and profiled as in phase 7 (camera paths/s,
    launches per chunk, kernel time with the closest / any split,
    host-to-device copies, film and ``.dat`` checks); then its 16² version
@@ -92,11 +93,29 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    blobs in a 3D checkerboard and marble, twelve spheres in dots, fbm,
    wrinkled, windy, bilerp, uv, mix and scale textures under the uv,
    spherical and planar mappings, a normal map, a bump map and a mix
-   material with textured sub-materials) with ``path`` at 1 spp, counted
+   material with textured sub-materials) with ``path`` at depth 2
+   (``SCENE_DEPTH``, cut from 5) and 1 spp, counted
    and profiled; then both at 16² (2,880-triangle teapot and blobs) on the
    card and on the CPU, from the same primary-sample arrays and by
    ``render(seed=...)``, each comparison pooled over 8 waves or seeds;
-11. the ``kernels`` JSON line (see PERF.md for the fields), then the result.
+11. motion and instancing — ``goldens/anim-killeroos-moving.pbrt`` as
+   written (its text read from the repository, each killeroo the generated
+   blob; 256², 8 spp, ``directlighting``, both blobs moving), counted and
+   profiled as in phase 7, then with its shutter pinned at 0 (the frames
+   must differ: the smear); 64 static ``ObjectInstance``s of one blob on an
+   8×8 grid (each turned and scaled) in the killeroo-simple scene at 512²,
+   ``path`` depth 5, 1 spp, counted and profiled, with the geometry's
+   device bytes against 64 flattened copies (computed); the motion kernels
+   against their plain versions on 1,048,576 of the motion scene's rays
+   (camera rays at their own shutter times, bounce rays from their first
+   hits), on 1, 7 and 4,093 lanes, and closest hit against
+   ``intersect_brute`` on the lerped triangles; the instance kernels on
+   1,048,576 rays of the instanced scene (the instance included); each
+   timed on a 32,768-lane permuted set with its bound; the 16² motion scene
+   and an 8-use instanced scene card vs CPU (8 waves and 8 seeds pooled),
+   the 8-use scene against its flattened copy; then the static kernels
+   re-timed on phase 3's sets;
+12. the ``kernels`` JSON line (see PERF.md for the fields), then the result.
 
 The real-size scene is ``goldens/killeroo-simple.pbrt`` (its text is kept
 here) at 512²; each ``Include "geometry/killeroo.pbrt"`` (geometry not in
@@ -143,6 +162,25 @@ LANE_BYTES_STEP = 36 + 8 + 2 + 32 + 20
 #: fields of 8 floats (6 bounds and the refs), a leaf step all 10
 NODE_ROW_BYTES = 7 * 8 * 4
 LEAF_ROW_BYTES = 10 * 8 * 4
+#: a motion step also reads the deltas of the fields it lerps: a node row's
+#: 6 box fields, a leaf row's 9 triangle fields; each lerp is a multiply and
+#: an add per slot and field
+NODE_DELTA_BYTES = 6 * 8 * 4
+LEAF_DELTA_BYTES = 9 * 8 * 4
+OPS_NODE_LERP = 8 * 6 * 2
+OPS_LEAF_LERP = 8 * 9 * 2
+#: per lane, besides the traversal's: the shutter weight in (motion), the
+#: instance out (instance phase)
+LANE_BYTES_MOTION = LANE_BYTES_TRAVERSE + 4
+LANE_BYTES_INSTANCES = LANE_BYTES_TRAVERSE + 4
+#: an instance-table row the phase reads: w2o's 12 used floats, the box's
+#: 6 and the root
+INSTANCE_ROW_BYTES = (12 + 6 + 1) * 4
+#: per lane and instance, the box test (6 sub, 6 mul, 10 min/max, 2 max/min
+#: with tmin and t_best, 1 compare); per walked lane and instance, the ray's
+#: transform (18 mul, 15 add) and 1/d (3 divisions, 3 adds, 6 compares)
+OPS_PRUNE = 6 + 6 + 10 + 2 + 1
+OPS_INSTANCE_RAY = 18 + 15 + 3 + 3 + 6
 RNG_DEPTH = 5
 #: rounds of queued_ms for the keyed kernels (median, min–max)
 RNG_ROUNDS = 5
@@ -181,6 +219,11 @@ REF_RTOL, REF_ATOL, REF_PIXELS, REF_BIN_REL = 1e-4, 1e-6, 0.99, 1e-3
 #: bounces an ulp of difference sends elsewhere (unfiltered lookups past the
 #: first hit); 256 lanes would hold the 99% rule to 2 such lanes, 2,048 to 20
 TEXTURE_REF_WAVES = 8
+#: depth of the 512² materials-and-environment and texture-kinds frames
+#: (phases 9 and 10; cut from 5): a profiled frame's processing time
+#: grows with its launches (~346,000 at depth 5 on the materials scene,
+#: ~86 s each), and the script stays within half its time limit
+SCENE_DEPTH = 2
 
 KILLEROO_SIMPLE = """
 LookAt 400 20 30   0 63 -110   0 0 1
@@ -492,14 +535,63 @@ def real_scene_text(freq: int = 57, res: int = 512):
     """The real-size scene's text with the generated blob at ``freq`` and
     the film at res × res; → (text, triangles per blob)."""
     P, idx = blob_mesh(freq)
-    mesh = ('Shape "trianglemesh" "point P" ['
-            + " ".join(f"{v:.6g}" for v in P.ravel())
-            + ']\n  "integer indices" [' + " ".join(map(str, idx.ravel()))
-            + "]\n")
+    mesh = mesh_text(P, idx)
     text = KILLEROO_SIMPLE.replace("@MESH@", mesh).replace(
         '"integer xresolution" [512] "integer yresolution" [512]',
         f'"integer xresolution" [{res}] "integer yresolution" [{res}]')
     return text, len(idx)
+
+
+def mesh_text(P, idx) -> str:
+    return ('Shape "trianglemesh" "point P" [' + " ".join(f"{v:.6g}" for v in P.ravel())
+            + ']\n  "integer indices" [' + " ".join(map(str, idx.ravel())) + "]\n")
+
+
+#: goldens/anim-killeroos-moving.pbrt's reference to the absent geometry
+ANIM_INCLUDE = 'Include "geometry/killeroo.pbrt"'
+
+
+def anim_scene_text(freq: int = 57, res: int | None = None) -> str:
+    """``goldens/anim-killeroos-moving.pbrt`` as written (its text read from
+    the repository), each ``Include "geometry/killeroo.pbrt"`` the
+    generated blob at ``freq``; the film at res × res if given."""
+    with open(os.path.join(HERE, "goldens", "anim-killeroos-moving.pbrt")) as f:
+        text = f.read()
+    if text.count(ANIM_INCLUDE) != 2:
+        raise ValueError("goldens/anim-killeroos-moving.pbrt: expected two killeroo includes")
+    text = text.replace(ANIM_INCLUDE, mesh_text(*blob_mesh(freq)))
+    if res is not None:
+        text = text.replace('"integer xresolution" [256] "integer yresolution" [256]',
+                            f'"integer xresolution" [{res}] "integer yresolution" [{res}]')
+    return text
+
+
+def instanced_scene_text(freq: int = 57, res: int = 512, grid=(8, 8),
+                         flatten: bool = False) -> str:
+    """The killeroo-simple scene (``path``, depth 5) with its two blobs
+    replaced by one blob declared in ``ObjectBegin "blob"`` and used by
+    static ``ObjectInstance``s on a grid of nx × ny, 40 units apart in
+    the blobs' frame, each use turned about z by its own angle and scaled
+    by .3; ``flatten`` writes each use's mesh out in its place instead."""
+    mesh = mesh_text(*blob_mesh(freq))
+    head = KILLEROO_SIMPLE[:KILLEROO_SIMPLE.index("AttributeBegin\nScale .5 .5 .5")]
+    head = head.replace('SurfaceIntegrator "directlighting"',
+                        'SurfaceIntegrator "path" "integer maxdepth" [5]').replace(
+        '"integer xresolution" [512] "integer yresolution" [512]',
+        f'"integer xresolution" [{res}] "integer yresolution" [{res}]')
+    material = ('Material "plastic" "color Kd" [.4 .2 .2] "color Ks" [.5 .5 .5] '
+                '"float roughness" [.025]\n')
+    nx, ny = grid
+    uses = []
+    for k in range(nx * ny):
+        i, j = divmod(k, ny)
+        x, y = -20 * (nx - 1) + 40 * i, 200 - 20 * (ny - 1) + 40 * j
+        uses.append(f"AttributeBegin\n  Translate {x} {y} -140\n  Rotate {(47 * k) % 360} 0 0 1\n"
+                    f"  Scale .3 .3 .3\n  {mesh if flatten else 'ObjectInstance \"blob\"'}\n"
+                    "AttributeEnd\n")
+    obj = "" if flatten else f'ObjectBegin "blob"\n{mesh}ObjectEnd\n'
+    return (head + material + obj + "AttributeBegin\nScale .5 .5 .5\nRotate -60 0 0 1\n"
+            + "".join(uses) + "AttributeEnd\nWorldEnd\n")
 
 
 def lights_scene_text(text: str, integrator: str = "directlighting") -> str:
@@ -821,8 +913,9 @@ def materials_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
     del kc, pc, ka, pa, q, qa
 
     for kind in ("path", "directlighting"):
-        b = dataclasses.replace(built, integrator=dataclasses.replace(built.integrator, kind=kind))
-        label = f"materials and environment with {kind}"
+        b = dataclasses.replace(built, integrator=dataclasses.replace(
+            built.integrator, kind=kind, max_depth=SCENE_DEPTH))
+        label = f"materials and environment with {kind}, depth {SCENE_DEPTH}"
         _, sec, _, _ = drive(label, b, 1)
         profile_frame(label, b, sec * 1e3)
     del built, b
@@ -928,8 +1021,11 @@ def textures_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
         f"mappings {sorted(set(tt.mappings))}, rows bound {kinds.scene.materials.tex_rows}")
     if set(tt.kinds) != set(range(1, 13)) or set(tt.mappings) != {0, 1, 3}:
         raise SystemExit("the texture-kinds scene lacks a texture kind or mapping")
-    _, sec_k, _, _ = drive("texture-kinds scene with path", kinds, 1)
-    profile_frame("texture-kinds scene with path", kinds, sec_k * 1e3)
+    kinds = dataclasses.replace(kinds, integrator=dataclasses.replace(
+        kinds.integrator, max_depth=SCENE_DEPTH))
+    label = f"texture-kinds scene with path, depth {SCENE_DEPTH}"
+    _, sec_k, _, _ = drive(label, kinds, 1)
+    profile_frame(label, kinds, sec_k * 1e3)
     del kinds
     import torch
 
@@ -951,6 +1047,309 @@ def textures_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
                 spp=1, chunk_pixels=256, scene_path=kinds_path, waves=TEXTURE_REF_WAVES)
 
 
+def camera_and_bounce_rays(built, dev, n_lanes: int, gen, times: bool):
+    """``n_lanes`` rays of a built scene: camera rays through jittered
+    pixels (each at its own uniform shutter time if ``times``), then
+    cosine-distributed bounce rays from their first hits, at their camera
+    ray's time; → (o, d, time, the camera rays, their interactions)."""
+    import torch
+
+    from pbrt_torch.accel import intersect as isect
+    from pbrt_torch.bsdf import bxdf
+    from pbrt_torch.core import sampling as smp
+    from pbrt_torch.core.interaction import offset_ray_origin, surface_interaction
+
+    W, H = built.film_config.xres, built.film_config.yres
+    g = built.scene.geometry
+    n_cam = n_lanes // 2
+    pix = torch.arange(n_cam, device=dev) % (W * H)
+    px = (pix % W).float() + torch.rand(n_cam, generator=gen, device=dev)
+    py = (pix // W).float() + torch.rand(n_cam, generator=gen, device=dev)
+    z = torch.zeros(n_cam, device=dev)
+    u_time = torch.rand(n_cam, generator=gen, device=dev) if times else z
+    cam = built.camera.generate_rays(px, py, z, z, u_time)
+    si = surface_interaction(g, cam, isect.intersect(g, cam))
+    hits = torch.nonzero(si.valid).squeeze(1)
+    src = hits[torch.arange(n_lanes - n_cam, device=dev) % hits.numel()]
+    ss, ts = bxdf.make_shading_frame(si.ns[src], si.dpdu[src])
+    u1 = torch.rand(src.numel(), generator=gen, device=dev)
+    u2 = torch.rand(src.numel(), generator=gen, device=dev)
+    w = bxdf.local_to_world(smp.cosine_sample_hemisphere(u1, u2), ss, ts, si.ns[src])
+    ob = offset_ray_origin(si.p[src], si.ng[src], w, si.ray_epsilon[src])
+    return (torch.cat([cam.origin, ob]).contiguous(), torch.cat([cam.direction, w]).contiguous(),
+            torch.cat([cam.time, cam.time[src]]).contiguous(), cam, si)
+
+
+def geometry_bytes(g) -> int:
+    """Device bytes of a SceneGeometry's tensors."""
+    import torch
+
+    return sum(v.numel() * v.element_size() for v in vars(g).values() if torch.is_tensor(v))
+
+
+def motion_instancing_phase(dev, drive, profile_frame, card_vs_cpu):
+    """Phase 11: ``goldens/anim-killeroos-moving.pbrt`` as written (and
+    with its shutter pinned), 64 instanced killeroos at 512², the motion
+    and instance kernels against their plain versions and timed, and the
+    16² references. → the four kernels' entries of the kernels line."""
+    import torch
+
+    from pbrt_torch.accel import intersect as isect
+    from pbrt_torch.accel import traverse_cuda as tc
+    from pbrt_torch.core import geometry as geom
+    from pbrt_torch.renderers.sampler import render
+    from pbrt_torch.scene.api import load_scene_string
+    from pbrt_torch.scene.builder import build
+    from pbrt_torch.utils import timing
+    from pbrt_torch.utils.timing import cuda_ms, queued_ms
+
+    sync = torch.cuda.synchronize
+    bits = lambda k, p: all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                            for a, b in zip(k, p))
+    entries = {}
+
+    # ---- (a) goldens/anim-killeroos-moving.pbrt as written --------------
+    t0 = time.time()
+    text = anim_scene_text()
+    built = build(load_scene_string(text), device=dev)
+    g, ic, fc = built.scene.geometry, built.integrator, built.film_config
+    moving = int((g.tri_motion.abs().sum(1) > 0).sum())
+    log("scene", f"goldens/anim-killeroos-moving.pbrt as written: {g.num_triangles} triangles "
+        f"({moving} moving), {g.num_quadrics} sphere, motion interval {g.motion_span}, "
+        f"{g.wide_rows.shape[0]} wide rows with their deltas, wide_stack {g.wide_stack}, "
+        f"{ic.kind} depth {ic.max_depth}, {fc.xres}x{fc.yres}, {built.pixel_samples} spp; "
+        f"built in {time.time() - t0:.1f} s")
+    if not (g.has_motion and moving == 2 * 20 * 57 ** 2 and g.num_triangles == moving + 4
+            and ic.kind == "directlighting" and (fc.xres, fc.yres) == (256, 256)
+            and built.pixel_samples == 8):
+        raise SystemExit("goldens/anim-killeroos-moving.pbrt did not build as written")
+    spp = built.pixel_samples
+    film, sec, launches, _ = drive("anim-killeroos-moving as written", built, spp)
+    if (launches["traverse_closest_motion"] == 0 or launches["traverse_any_motion"] == 0
+            or launches["traverse_closest"] or launches["traverse_any"]):
+        raise SystemExit("the motion scene did not launch the motion kernels alone")
+    motion_launches = launches
+    profile_frame("anim-killeroos-moving as written (directlighting)", built, sec / spp * 1e3)
+    pinned = text.replace('Camera "perspective" "float fov" [39]',
+                          'Camera "perspective" "float fov" [39] "float shutteropen" [0] '
+                          '"float shutterclose" [0]')
+    fp = render(build(load_scene_string(pinned), device=dev), spp=spp, seed=0, chunk_pixels=CHUNK)
+    sync()
+    rel = float((film.pixels - fp.pixels).abs().sum() / fp.pixels.abs().sum())
+    a, b = film.pixels.sum(-1), fp.pixels.sum(-1)
+    px_diff = float(((a - b).abs() > 0.05 * torch.maximum(a, b).clamp(min=1e-12)).float().mean())
+    log("motion", f"anim-killeroos-moving, {spp} spp, seed 0: film against the shutter pinned "
+        f"at 0 (shutteropen = shutterclose = 0): L1 difference {rel:.4f} of the pinned film's, "
+        f"{100 * px_diff:.2f}% of pixels differ by more than 5%; film sums "
+        f"{float(film.pixels.double().sum()):.6g} and {float(fp.pixels.double().sum()):.6g}")
+    if px_diff < 0.02:
+        raise SystemExit("the motion scene's frame equals the pinned one: no smear")
+    del fp
+
+    # ---- (c) the motion kernels on 1,048,576 of its rays ----------------
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    o, d, t_ray, _, si = camera_and_bounce_rays(built, dev, N_LANES, gen, times=True)
+    n_hits = int(si.valid.sum())
+    R = o.shape[0]
+    tw = isect.motion_weight(g, t_ray).contiguous()
+    inv = isect.make_inv_dir(d).contiguous()
+    tmin = torch.zeros(R, device=dev)
+    tmax = torch.full((R,), float("inf"), device=dev)
+    q = [x.contiguous() for x in isect.quad_best(g, o, d, tmin, tmax)]
+    rows, mrows, ws = g.wide_rows, g.wide_motion, g.wide_stack
+    mo = dict(motion_rows=mrows, tw=tw)
+    kc = tc.traverse(rows, ws, o, d, inv, tmin, tmax, *q, any_hit=False, **mo)
+    pc = tc.traverse_plain(rows, ws, o, d, inv, tmin, tmax, *q, any_hit=False, **mo)
+    scale = torch.where(torch.rand(R, generator=gen, device=dev) < 0.5, 0.5, 1.5)
+    tmax_a = torch.where(torch.isfinite(pc[0]), pc[0] * scale, 1e30).contiguous()
+    qa = [x.contiguous() for x in isect.quad_best(g, o, d, tmin, tmax_a)]
+    ka = tc.traverse(rows, ws, o, d, inv, tmin, tmax_a, *qa, any_hit=True, **mo)
+    pa = tc.traverse_plain(rows, ws, o, d, inv, tmin, tmax_a, *qa, any_hit=True, **mo)
+    sync()
+    eq = {"closest": bits(kc, pc), "any": bits(ka, pa)}
+    fin, fa = torch.isfinite(pc[0]), pa[1] >= 0
+    errs = {"traverse_closest_motion": float((kc[0][fin] - pc[0][fin]).abs().max()),
+            "traverse_any_motion": float((ka[0][fa] - pa[0][fa]).abs().max()) if fa.any() else 0.0}
+    ragged = True
+    for n in (1, 7, 4093):
+        cut = lambda xs: [x[:n].contiguous() for x in xs]
+        for any_hit, tm, seeds in ((False, tmax, q), (True, tmax_a, qa)):
+            a = cut((o, d, inv, tmin, tm, *seeds))
+            mt = dict(motion_rows=mrows, tw=tw[:n].contiguous())
+            ragged &= bits(tc.traverse(rows, ws, *a, any_hit=any_hit, **mt),
+                           tc.traverse_plain(rows, ws, *a, any_hit, **mt))
+    sel = torch.randperm(R, generator=gen, device=dev)[:BRUTE_LANES]
+    hb = isect.intersect_brute(g, geom.Ray.make(o[sel], d[sel], time=t_ray[sel]))
+    sync()
+    kv, bv = kc[1][sel] >= 0, hb.prim >= 0
+    v = kv & bv
+    brute_rel = float(((kc[0][sel][v] - hb.t[v]).abs() / hb.t[v].abs()).max()) if v.any() else 0.0
+    log("kernels", f"motion kernels vs plain on {R} rays of anim-killeroos-moving ({R // 2} "
+        f"camera rays at their own shutter times, {R - R // 2} bounce rays from {n_hits} first "
+        f"hits): equal bit for bit {eq}; on 1, 7 and 4093 lanes {ragged}; closest hits "
+        f"{int((pc[1] >= 0).sum())}, occluded {int(fa.sum())}; closest hit vs intersect_brute "
+        f"on the lerped triangles, {BRUTE_LANES} lanes: valid equal {bool(torch.equal(kv, bv))}, "
+        f"max rel t diff {brute_rel:.3g}, prim equal on "
+        f"{float((kc[1][sel] == hb.prim).float().mean()):.6f}")
+    if not (all(eq.values()) and ragged and torch.equal(kv, bv) and brute_rel <= 1e-6):
+        raise SystemExit("a motion kernel disagrees with its plain version or intersect_brute")
+    sub = torch.randperm(R, generator=gen, device=dev)[:CHUNK]
+    pick = lambda x: x[sub].contiguous()
+    so, sd, sinv, stmin = pick(o), pick(d), pick(inv), pick(tmin)
+    for key, any_hit, tm, seeds in (("traverse_closest_motion", False, tmax, q),
+                                    ("traverse_any_motion", True, tmax_a, qa)):
+        targs = (rows, ws, so, sd, sinv, stmin, pick(tm), *[pick(x) for x in seeds])
+        mt = dict(motion_rows=mrows, tw=pick(tw))
+        # one plain call, timed, counts the work for the bound as it goes
+        # (the walk of the longest ray sets its time: tens of seconds here)
+        stats = {}
+        plain_ms = cuda_ms(lambda: tc.traverse_plain(*targs, any_hit, stats=stats, **mt),
+                           n=1, warm=0)
+        ms, host_ms = queued_ms(lambda: tc.traverse(*targs, any_hit=any_hit, **mt))
+        static_ms, _ = queued_ms(lambda: tc.traverse(*targs, any_hit=any_hit))
+        nbytes = (CHUNK * LANE_BYTES_MOTION
+                  + stats["node_rows"] * (NODE_ROW_BYTES + NODE_DELTA_BYTES)
+                  + stats["leaf_rows"] * (LEAF_ROW_BYTES + LEAF_DELTA_BYTES))
+        ops = (stats["node_steps"] * (OPS_NODE_STEP + OPS_NODE_LERP)
+               + stats["leaf_steps"] * (OPS_LEAF_STEP + OPS_LEAF_LERP))
+        b_ms, b_by = timing.bound_ms(nbytes, ops)
+        entries[key] = dict(launches=motion_launches[key], max_abs_err=errs[key], ms=ms,
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        summ = step_summary(stats["lane_steps"], ms)
+        log("timing", f"{key}, permuted set of anim-killeroos-moving, {CHUNK} lanes: {ms:.4f} ms "
+            f"(plain {plain_ms:.2f} ms with its step counting, host enqueue {host_ms:.4f} ms); "
+            f"the static kernel on "
+            f"the same lanes (shutter-start rows) {static_ms:.4f} ms; {stats['node_steps']} node + "
+            f"{stats['leaf_steps']} leaf steps, {stats['node_rows']} node + {stats['leaf_rows']} "
+            f"leaf distinct rows with their deltas, {nbytes} bytes; bound {b_ms:.5f} ms "
+            f"({b_by}), kernel / bound {ms / b_ms:.1f}x; steps per lane mean "
+            f"{summ['mean']:.3f}, max {summ['max']}")
+    del built, kc, pc, ka, pa, q, qa, o, d, inv, tmin, tmax, tmax_a, tw, film
+    torch.cuda.empty_cache()
+
+    # ---- (b) 64 instanced killeroos --------------------------------------
+    t0 = time.time()
+    bi = build(load_scene_string(instanced_scene_text()), device=dev)
+    gi = bi.scene.geometry
+    n_obj = gi.num_triangles - 4
+    used = geometry_bytes(gi)
+    # 64 flattened copies, computed: per copy its triangles' 9 float rows
+    # of 3 or 2 and 3 int64 ids, and its table's rows
+    per_tri = (6 * 3 + 3 * 2) * 4 + 3 * 8
+    flat = (used - n_obj * per_tri - gi.inst_rows.numel() * 4
+            + gi.num_instances * (n_obj * per_tri + gi.inst_rows.numel() * 4))
+    log("scene", f"64 instanced killeroos: {gi.num_instances} uses of one {n_obj}-triangle "
+        f"blob, {gi.inst_rows.shape[0]} BLAS rows (inst_stack {gi.inst_stack}), "
+        f"{gi.num_triangles - n_obj} world triangles in {gi.wide_rows.shape[0]} rows; geometry "
+        f"tables on the device {used / 2**20:.2f} MiB against {flat / 2**20:.2f} MiB for 64 "
+        f"flattened copies (computed: {per_tri} B per triangle, 320 B per row; "
+        f"{flat / used:.1f}x); built in {time.time() - t0:.1f} s")
+    if gi.num_instances != 64 or n_obj != 20 * 57 ** 2:
+        raise SystemExit("the instanced scene did not build 64 uses of one blob")
+    film_i, sec_i, li, _ = drive("64 instanced killeroos with path", bi, 1)
+    if li["traverse_instances_closest"] == 0 or li["traverse_instances_any"] == 0:
+        raise SystemExit("the instanced scene did not launch the instance kernels")
+    profile_frame("64 instanced killeroos with path", bi, sec_i * 1e3)
+
+    gen.manual_seed(12)
+    o, d, _, _, si = camera_and_bounce_rays(bi, dev, N_LANES, gen, times=False)
+    n_hits = int(si.valid.sum())
+    R = o.shape[0]
+    inv = isect.make_inv_dir(d).contiguous()
+    tmin = torch.zeros(R, device=dev)
+    tmax = torch.full((R,), float("inf"), device=dev)
+    g = gi
+    q = [x.contiguous() for x in isect.quad_best(g, o, d, tmin, tmax)]
+    world = tc.traverse(g.wide_rows, g.wide_stack, o, d, inv, tmin, tmax, *q, any_hit=False)
+    itab = (g.inst_rows, g.inst_stack, g.inst_w2o, g.inst_lo, g.inst_hi, g.inst_root)
+    ki = tc.traverse_instances(*itab, o, d, inv, tmin, tmax, *world, any_hit=False)
+    pi = tc.traverse_instances_plain(*itab, o, d, inv, tmin, tmax, *world, False)
+    scale = torch.where(torch.rand(R, generator=gen, device=dev) < 0.5, 0.5, 1.5)
+    tmax_a = torch.where(torch.isfinite(pi[0]), pi[0] * scale, 1e30).contiguous()
+    qa = [x.contiguous() for x in isect.quad_best(g, o, d, tmin, tmax_a)]
+    world_a = tc.traverse(g.wide_rows, g.wide_stack, o, d, inv, tmin, tmax_a, *qa, any_hit=True)
+    kia = tc.traverse_instances(*itab, o, d, inv, tmin, tmax_a, *world_a, any_hit=True)
+    pia = tc.traverse_instances_plain(*itab, o, d, inv, tmin, tmax_a, *world_a, True)
+    sync()
+    eq = {"closest": bits(ki, pi), "any": bits(kia, pia)}
+    fin, fa = torch.isfinite(pi[0]), pia[1] >= 0
+    errs = {"traverse_instances_closest": float((ki[0][fin] - pi[0][fin]).abs().max()),
+            "traverse_instances_any": (float((kia[0][fa] - pia[0][fa]).abs().max())
+                                       if fa.any() else 0.0)}
+    ragged = True
+    for n in (1, 7, 4093):
+        cut = lambda xs: [x[:n].contiguous() for x in xs]
+        for any_hit, tm, seeds in ((False, tmax, world), (True, tmax_a, world_a)):
+            a = cut((o, d, inv, tmin, tm, *seeds))
+            ragged &= bits(tc.traverse_instances(*itab, *a, any_hit=any_hit),
+                           tc.traverse_instances_plain(*itab, *a, any_hit))
+    sync()
+    n_inst = int((pi[4] >= 0).sum())
+    log("kernels", f"instance kernels vs plain on {R} rays of the instanced scene ({R // 2} "
+        f"camera rays, {R - R // 2} bounce rays from {n_hits} first hits), seeded with the "
+        f"world walk: t, prim, b1, b2 and inst equal bit for bit {eq}; on 1, 7 and 4093 lanes "
+        f"{ragged}; closest hits {int((pi[1] >= 0).sum())}, {n_inst} of them instanced, on "
+        f"{len(set(pi[4].tolist())) - 1} distinct uses; occluded {int(fa.sum())}")
+    if not (all(eq.values()) and ragged and n_inst > 0):
+        raise SystemExit("an instance kernel disagrees with its plain version")
+    sub = torch.randperm(R, generator=gen, device=dev)[:CHUNK]
+    pick = lambda x: x[sub].contiguous()
+    for key, any_hit, tm, seeds in (("traverse_instances_closest", False, tmax, world),
+                                    ("traverse_instances_any", True, tmax_a, world_a)):
+        targs = (*itab, pick(o), pick(d), pick(inv), pick(tmin), pick(tm),
+                 *[pick(x) for x in seeds])
+        stats = {}
+        plain_ms = cuda_ms(lambda: tc.traverse_instances_plain(*targs, any_hit, stats=stats),
+                           n=1, warm=0)
+        ms, host_ms = queued_ms(lambda: tc.traverse_instances(*targs, any_hit=any_hit))
+        nbytes = (CHUNK * LANE_BYTES_INSTANCES + g.num_instances * INSTANCE_ROW_BYTES
+                  + stats.get("node_rows", 0) * NODE_ROW_BYTES
+                  + stats.get("leaf_rows", 0) * LEAF_ROW_BYTES)
+        ops = (stats["prunes"] * OPS_PRUNE + stats["walks"] * OPS_INSTANCE_RAY
+               + stats.get("node_steps", 0) * OPS_NODE_STEP
+               + stats.get("leaf_steps", 0) * OPS_LEAF_STEP)
+        b_ms, b_by = timing.bound_ms(nbytes, ops)
+        entries[key] = dict(launches=li[key], max_abs_err=errs[key], ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by)
+        log("timing", f"{key}, permuted set of the instanced scene, {CHUNK} lanes, "
+            f"{g.num_instances} instances: {ms:.4f} ms (plain {plain_ms:.2f} ms with its step "
+            f"counting, host enqueue "
+            f"{host_ms:.4f} ms); {stats['prunes']} box tests, {stats['walks']} walks, "
+            f"{stats.get('node_steps', 0)} node + {stats.get('leaf_steps', 0)} leaf steps, "
+            f"{stats.get('node_rows', 0)} node + {stats.get('leaf_rows', 0)} leaf distinct "
+            f"rows, {nbytes} bytes, {ops} operations; bound {b_ms:.5f} ms ({b_by}), "
+            f"kernel / bound {ms / b_ms:.1f}x")
+    del bi, gi, g, world, world_a, ki, pi, kia, pia, o, d, inv, film_i
+    torch.cuda.empty_cache()
+
+    # ---- (d) 16² references ----------------------------------------------
+    card_vs_cpu(f"anim-killeroos-moving ({20 * SMALL_BLOB_FREQ ** 2}-triangle blobs)",
+                anim_scene_text(SMALL_BLOB_FREQ, res=16), spp=1, chunk_pixels=256,
+                waves=TEXTURE_REF_WAVES)
+    small = instanced_scene_text(SMALL_BLOB_FREQ, res=16, grid=(4, 2))
+    card_vs_cpu(f"8 instanced blobs ({20 * SMALL_BLOB_FREQ ** 2} triangles each)", small,
+                spp=1, chunk_pixels=256, waves=TEXTURE_REF_WAVES)
+    pair = [build(load_scene_string(t_), device=dev) for t_ in
+            (small, instanced_scene_text(SMALL_BLOB_FREQ, res=16, grid=(4, 2), flatten=True))]
+    gen.manual_seed(13)
+    o, d, _, _, _ = camera_and_bounce_rays(pair[1], dev, 8192, gen, times=False)
+    ray = geom.Ray.make(o, d)
+    hi, hf = (isect.intersect(b.scene.geometry, ray) for b in pair)
+    v = hf.valid
+    t_rel = float(((hi.t[v] - hf.t[v]).abs() / hf.t[v]).max())
+    films = [np.stack([render(b, spp=1, seed=sd, chunk_pixels=256).pixels.cpu().numpy()
+                       for sd in range(TEXTURE_REF_WAVES)]) for b in pair]
+    close = float(np.isclose(films[0], films[1], rtol=1e-3, atol=1e-3).all(-1).mean())
+    log("reference", f"8 instanced blobs 16x16 against the same scene flattened, on the card: "
+        f"8,192 rays hit equal {bool(torch.equal(hi.valid, hf.valid))}, max rel t diff "
+        f"{t_rel:.3g} (rtol 2e-4); render(seed=0..{TEXTURE_REF_WAVES - 1}, spp=1) pixels "
+        f"close (rtol 1e-3, atol 1e-3) {close:.4f}")
+    if not (torch.equal(hi.valid, hf.valid) and t_rel <= 2e-4 and close >= REF_PIXELS):
+        raise SystemExit("the instanced scene disagrees with its flattened copy")
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -968,11 +1367,9 @@ def main() -> int:
 
     from pbrt_torch.accel import intersect as isect
     from pbrt_torch.accel import traverse_cuda as tc
-    from pbrt_torch.bsdf import bxdf
     from pbrt_torch.core import geometry as geom
     from pbrt_torch.core import rng
     from pbrt_torch.core import sampling as smp
-    from pbrt_torch.core.interaction import offset_ray_origin, surface_interaction
     from pbrt_torch.film import film as film_mod
     from pbrt_torch.integrators.path import PrimarySource, trace_radiance
     from pbrt_torch.renderers.sampler import render, render_wave
@@ -1034,22 +1431,8 @@ def main() -> int:
     gen.manual_seed(1)
     W, H = built.film_config.xres, built.film_config.yres
     n_cam = N_LANES // 2
-    pix = torch.arange(n_cam, device=dev) % (W * H)
-    px = (pix % W).float() + torch.rand(n_cam, generator=gen, device=dev)
-    py = (pix // W).float() + torch.rand(n_cam, generator=gen, device=dev)
-    z = torch.zeros(n_cam, device=dev)
-    cam = built.camera.generate_rays(px, py, z, z, z)
-    hit0 = isect.intersect(g, cam)
-    si = surface_interaction(g, cam, hit0)
+    o, d, _, cam, si = camera_and_bounce_rays(built, dev, N_LANES, gen, times=False)
     hits = torch.nonzero(si.valid).squeeze(1)
-    src = hits[torch.arange(N_LANES - n_cam, device=dev) % hits.numel()]
-    ss, ts = bxdf.make_shading_frame(si.ns[src], si.dpdu[src])
-    u1 = torch.rand(src.numel(), generator=gen, device=dev)
-    u2 = torch.rand(src.numel(), generator=gen, device=dev)
-    w = bxdf.local_to_world(smp.cosine_sample_hemisphere(u1, u2), ss, ts, si.ns[src])
-    ob = offset_ray_origin(si.p[src], si.ng[src], w, si.ray_epsilon[src])
-    o = torch.cat([cam.origin, ob]).contiguous()
-    d = torch.cat([cam.direction, w]).contiguous()
     inv = isect.make_inv_dir(d).contiguous()
     R = o.shape[0]
     tmin = torch.zeros(R, device=dev)
@@ -1471,7 +1854,7 @@ def main() -> int:
             sync()
         tc.reset_launches()
         rng.reset_launches()
-        isect.calls["intersect"] = 0
+        isect.calls["intersect"] = isect.calls["instances"] = 0
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         # the sampler's torch path, counted where every camera column would pass
         with mock.patch.object(smp, "camera_uniforms", wraps=smp.camera_uniforms) as cu, \
@@ -1483,6 +1866,7 @@ def main() -> int:
         sampler_calls = {"camera_uniforms": cu.call_count, "_bits_to_unit": bu.call_count}
         launches = {**tc.launches, **rng.launches}
         n_calls = isect.calls["intersect"]
+        n_inst_calls = isect.calls["instances"]
         sec = ev[0].elapsed_time(ev[1]) / 1e3
         ic = b.integrator
         W, H = b.film_config.xres, b.film_config.yres
@@ -1497,18 +1881,23 @@ def main() -> int:
         log("render", f"{label}: {ic.kind}, {W}x{H}, {spp} spp, {what}, {ic.n_bins} bins, "
             f"chunk {CHUNK}: {sec:.3f} s, {W * H * spp / sec:.1f} camera paths/s on {name} "
             f"({smi})")
-        log("render", f"{label}: launches {launches}, intersect calls {n_calls}, per frame "
-            f"(1 spp): closest {launches['traverse_closest'] / spp:.1f}, any "
-            f"{launches['traverse_any'] / spp:.1f}, keyed uniforms "
+        variants = "".join(f", {k} {launches[k] / spp:.1f}" for k in tc.KERNEL_NAMES
+                           if k not in ("wide_step", "traverse_closest", "traverse_any")
+                           and launches[k])
+        log("render", f"{label}: launches {launches}, intersect calls {n_calls} (with "
+            f"instances {n_inst_calls}), per frame (1 spp): closest "
+            f"{launches['traverse_closest'] / spp:.1f}, any "
+            f"{launches['traverse_any'] / spp:.1f}{variants}, keyed uniforms "
             f"{launches['keyed_uniforms'] / spp:.1f}, keyed AO uniforms "
             f"{launches['keyed_ao_uniforms'] / spp:.1f}; film finite {finite}, sum "
             f"{total:.6g}, .dat round trip {dat_ok}; sampler torch ops on the card "
             f"{sampler_calls}")
         keyed = "keyed_ao_uniforms" if ic.kind == "ambientocclusion" else "keyed_uniforms"
         other = "keyed_uniforms" if keyed == "keyed_ao_uniforms" else "keyed_ao_uniforms"
-        if launches["traverse_closest"] == 0:
-            raise SystemExit(f"{label}: the path did not launch the closest-hit traversal")
-        if launches["traverse_closest"] + launches["traverse_any"] != n_calls:
+        if not any(launches[k] for k in tc.KERNEL_NAMES if "closest" in k):
+            raise SystemExit(f"{label}: the path did not launch a closest-hit traversal")
+        if (sum(launches[k] for k in tc.WORLD_KERNELS) != n_calls
+                or sum(launches[k] for k in tc.INSTANCE_KERNELS) != n_inst_calls):
             raise SystemExit(f"{label}: traversal launches do not match intersect calls")
         if (launches["keyed_scrambles"] != 1 or launches[keyed] != spp * chunks_of(b)
                 or launches[other] != 0):
@@ -1540,12 +1929,21 @@ def main() -> int:
                 for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
         dev_ms = sum(x[1] for x in kern)
+        # each traversal kernel's (ms, launches); the closest-hit and the
+        # any-hit side each summed over their static, motion and instance
+        # kernels, of which the frame must show one at least
+        per = {}
+        for key, kname in tc.KERNEL_NAMES.items():
+            ev = [x for x in kern if kname in x[0]]
+            if ev and key != "wide_step":
+                per[key] = (sum(x[1] for x in ev), sum(x[2] for x in ev))
         trav = {}
-        for key in ("traverse_closest", "traverse_any"):
-            ev = [x for x in kern if tc.KERNEL_NAMES[key] in x[0]]
-            if not ev:
-                raise SystemExit(f"{label}: the profile shows no {tc.KERNEL_NAMES[key]} event")
-            trav[key] = (sum(x[1] for x in ev), sum(x[2] for x in ev))
+        for side in ("closest", "any"):
+            keys = [k for k in per if k.endswith(side) or f"_{side}_" in k]
+            if not keys:
+                raise SystemExit(f"{label}: the profile shows no {side}-hit traversal event")
+            trav["traverse_" + side] = (sum(per[k][0] for k in keys),
+                                        sum(per[k][1] for k in keys))
         trav_ms = sum(v[0] for v in trav.values())
         rng_ms = sum(x[1] for x in kern if "keyed_" in x[0])
         n_launch = sum(x[2] for x in kern)
@@ -1557,7 +1955,8 @@ def main() -> int:
             f"frame (device idle the rest); traversal kernels {trav_ms:.3f} ms "
             f"({100 * trav_ms / max(dev_ms, 1e-9):.1f}% of kernel time): closest hit "
             f"{trav['traverse_closest'][0]:.3f} ms in {trav['traverse_closest'][1]} launches, "
-            f"any hit {trav['traverse_any'][0]:.3f} ms in {trav['traverse_any'][1]} launches; "
+            f"any hit {trav['traverse_any'][0]:.3f} ms in {trav['traverse_any'][1]} launches "
+            f"({', '.join(f'{k} {v[0]:.3f} ms in {v[1]}' for k, v in per.items())}); "
             f"keyed-uniform kernels {rng_ms:.3f} ms")
         for k, ms_, cnt in sorted(kern, key=lambda x: -x[1])[:8]:
             log("profile", f"  {ms_:8.2f} ms  {cnt:6d}x  {k[:90]}")
@@ -1631,7 +2030,21 @@ def main() -> int:
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
-    # ---- 11. kernels line -------------------------------------------------
+    # ---- 11. motion and instancing ---------------------------------------
+    motion_inst = motion_instancing_phase(dev, drive, profile_frame, card_vs_cpu)
+    # the static kernels again on phase 3's two sets, after the new ones
+    for set_name, idx in lane_sets.items():
+        a = set_args(idx)
+        line = []
+        for key, any_hit in (("traverse_closest", False), ("traverse_any", True)):
+            tm, seeds = (a["tmax_a"], a["qa"]) if any_hit else (a["tmax"], a["q"])
+            targs = (rows, ws, a["o"], a["d"], a["inv"], a["tmin"], tm, *seeds)
+            line.append(f"{key} {queued_ms(lambda: tc.traverse(*targs, any_hit=any_hit))[0]:.4f} ms")
+        log("timing", f"static kernels re-timed on phase 3's {set_name} set, {CHUNK} lanes: "
+            + ", ".join(line) + f" (phase 3: {times['traverse_closest']['ms']:.4f}, "
+            f"{times['traverse_any']['ms']:.4f} ms on the permuted set)")
+
+    # ---- 12. kernels line -------------------------------------------------
     src = "pbrt_torch/csrc/traverse.cu"
     rep = "pbrt_tpu/accel/pallas_step.py:36"
     kernels = []
@@ -1655,6 +2068,12 @@ def main() -> int:
         replaces="scripts/pallas_gather_lab.py:78", launches=lab_launches,
         max_abs_err=err_lab, ms=lab["ms"], plain_ms=lab["plain_ms"],
         bound_ms=lab["bound_ms"], bound_by=lab["bound_by"], library_ms=None))
+    for key, entry in motion_inst.items():
+        kernels.append(dict(name=key, route="cuda", source=src, replaces=rep,
+                            launches=entry["launches"], max_abs_err=entry["max_abs_err"],
+                            ms=entry["ms"], plain_ms=entry["plain_ms"],
+                            bound_ms=entry["bound_ms"], bound_by=entry["bound_by"],
+                            library_ms=None))
     step_line = dict(
         name="wide_step", route="cuda", source=src, replaces=rep,
         launches=launches["wide_step"], max_abs_err=err_step, ms=st_ms,
@@ -1668,7 +2087,12 @@ def main() -> int:
         "keyed_* replace XLA's threefry at the file:line given, not a Pallas "
         "kernel; the traversal's and keyed_uniforms' launches are those of the "
         "directlighting and path renders (4 spp each), keyed_ao_uniforms' those "
-        "of the ambient-occlusion render (1 spp); gather_lab's launches are "
+        "of the ambient-occlusion render (1 spp); the motion kernels' launches are "
+        "those of goldens/anim-killeroos-moving.pbrt as written (8 spp), the "
+        "instance kernels' those of the 64 instanced killeroos (1 spp), each "
+        "timed on its own scene's permuted set, its plain_ms one call of the "
+        "plain version, which counts the work for the bound as it goes; "
+        "gather_lab's launches are "
         "those of the lab's own path")
     print("step " + json.dumps(step_line), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,10 +7,21 @@ global: [0, T) triangles, [T, T+Q) quadrics.
 
 ``intersect`` keeps the JAX contract of ``_traverse_wide_batch``: quadrics
 are tested densely first (``quad_best``, torch ops) and their result seeds
-``t_best`` so the tree prunes on it; the triangles are found by the wide
-traversal (``traverse_cuda.traverse``: the CUDA kernel on a card, its plain
-version on the CPU). All six quadric types are ported: sphere, cylinder,
-disk, cone, paraboloid and hyperboloid.
+``t_best`` so the tree prunes on it; the world triangles are found by the
+wide traversal (``traverse_cuda.traverse``: the CUDA kernel on a card, its
+plain version on the CPU), each row lerped by the ray's shutter weight
+(``motion_weight``) in a motion scene; then, in a scene with instances,
+the instance phase walks the shared object tables
+(``traverse_cuda.traverse_instances``), seeded with that result, and
+``Hit.inst`` names the instance of each hit. All six quadric types are
+ported: sphere, cylinder, disk, cone, paraboloid and hyperboloid.
+
+Motion blur is the JAX package's: per-triangle shutter-end deltas of
+[v0, e1, e2] (and of the vertex normals) lerped by the ray's time, an
+Embree-style vertex buffer, one motion interval per scene. Instancing:
+the object-space triangles of objects used by at least two static
+``ObjectInstance``s sit at [T_world, T) of the triangle tables, their
+tables concatenated in ``inst_rows``, one instance-table row per use.
 """
 
 from __future__ import annotations
@@ -18,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from pbrt_torch.accel import traverse_cuda
@@ -26,9 +38,10 @@ from pbrt_torch.core import geometry as geom
 # quadric type codes (intersect.py:44)
 SPHERE, CYLINDER, DISK, CONE, PARABOLOID, HYPERBOLOID = range(6)
 
-#: intersect calls that ran a wide traversal (the traversal kernels' launch
-#: counts must add up to this on a card)
-calls = {"intersect": 0}
+#: intersect calls that ran the world walk, and those that ran the instance
+#: phase (on a card, the launches of ``traverse_cuda.WORLD_KERNELS`` and of
+#: ``INSTANCE_KERNELS`` add up to these)
+calls = {"intersect": 0, "instances": 0}
 
 
 @dataclasses.dataclass
@@ -58,11 +71,39 @@ class SceneGeometry:
     quad_reverse: torch.Tensor  # (Q,) bool
     wide_rows: torch.Tensor | None  # (M, 80) f32
     wide_stack: int = 8  # exact worst-case stack need of this table
+    # motion blur: shutter-end deltas, lerped by motion_weight(ray.time)
+    tri_motion: torch.Tensor | None = None  # (T, 9) of [v0, e1, e2]
+    tri_n_motion: torch.Tensor | None = None  # (T, 9) of [n0, n1, n2]
+    motion_time: torch.Tensor | None = None  # (2,) the interval's times
+    wide_motion: torch.Tensor | None = None  # (M, 80) of each wide row
+    # instancing: object tables and one row per static use
+    inst_rows: torch.Tensor | None = None  # (Mi, 80) the BLAS tables
+    inst_o2w: torch.Tensor | None = None  # (I, 4, 4)
+    inst_w2o: torch.Tensor | None = None  # (I, 4, 4)
+    inst_root: torch.Tensor | None = None  # (I,) int32 BLAS root row
+    inst_lo: torch.Tensor | None = None  # (I, 3) world bounds of each use
+    inst_hi: torch.Tensor | None = None  # (I, 3)
+    inst_mesh_id: torch.Tensor | None = None  # (I,) i64, one per use
+    inst_stack: int = 8  # the BLAS tables' largest stack need
     #: host-side, derived: the quadric type codes present (only those are tested)
     quad_active_types: tuple = dataclasses.field(init=False)
+    #: host-side, derived: (t0, span) of motion_weight, float32 values
+    motion_span: tuple | None = dataclasses.field(init=False)
 
     def __post_init__(self):
         self.quad_active_types = tuple(sorted(set(self.quad_type.tolist())))
+        self.motion_span = None
+        if self.motion_time is not None:
+            t0, t1 = np.asarray(self.motion_time.cpu(), np.float32)
+            self.motion_span = (float(t0), float(np.maximum(t1 - t0, np.float32(1e-9))))
+
+    @property
+    def has_motion(self) -> bool:
+        return self.motion_time is not None
+
+    @property
+    def num_instances(self) -> int:
+        return 0 if self.inst_root is None else self.inst_root.shape[0]
 
     @property
     def num_triangles(self) -> int:
@@ -79,16 +120,24 @@ class Hit:
     prim: torch.Tensor  # (R,) i32, -1 = miss
     b1: torch.Tensor  # (R,) barycentric / quadric u
     b2: torch.Tensor  # (R,) barycentric / quadric v
+    #: (R,) int32 instance of the hit, -1 = not instanced; None in a scene
+    #: without instances
+    inst: torch.Tensor | None = None
 
     @property
     def valid(self):
         return self.prim >= 0
 
 
-def make_inv_dir(d):
-    """1/d with near-zero components mapped to ±1e20 (intersect.py:395)."""
-    big = torch.tensor(1e20, dtype=d.dtype, device=d.device)
-    return torch.where(d.abs() < 1e-20, big * torch.sign(d + 1e-30), 1.0 / d)
+#: 1/d with near-zero components mapped to ±1e20 (intersect.py:395)
+make_inv_dir = traverse_cuda.inv_dir
+
+
+def motion_weight(g: SceneGeometry, time):
+    """The ray's time in the scene's motion interval → the lerp weight in
+    [0, 1] (intersect.py:1396-1399)."""
+    t0, span = g.motion_span
+    return torch.clamp((time - t0) / span, 0.0, 1.0)
 
 
 def _quadratic(a, b, c):
@@ -213,7 +262,10 @@ def quad_best(g: SceneGeometry, o, d, tmin, tmax):
 
 
 def intersect(g: SceneGeometry, ray: geom.Ray, any_hit: bool = False) -> Hit:
-    """Batched closest-hit (or any-hit) intersection (scene.h:42-53)."""
+    """Batched closest-hit (or any-hit) intersection (scene.h:42-53),
+    dispatched as ``_intersect_impl`` (intersect.py:1345-1367): the
+    quadrics, the world walk (lerped by ``motion_weight`` in a motion
+    scene), then the instance phase."""
     R = ray.origin.shape[0]
     dev = ray.origin.device
     tmax = ray.tmax.to(torch.float32)
@@ -225,18 +277,29 @@ def intersect(g: SceneGeometry, ray: geom.Ray, any_hit: bool = False) -> Hit:
         qp = torch.full((R,), -1, dtype=torch.int32, device=dev)
         qb1 = torch.zeros(R, dtype=torch.float32, device=dev)
         qb2 = torch.zeros(R, dtype=torch.float32, device=dev)
-    if g.num_triangles == 0 or g.wide_rows is None:
+    world = g.num_triangles > 0 and g.wide_rows is not None
+    if not world and g.inst_rows is None:
         return Hit(qt, qp, qb1, qb2)
-    calls["intersect"] += 1
     o = ray.origin.contiguous()
     d = ray.direction.contiguous()
     inv = make_inv_dir(d).contiguous()
-    t, prim, b1, b2 = traverse_cuda.traverse(
-        g.wide_rows, g.wide_stack, o, d, inv, ray.tmin.contiguous(),
-        tmax.contiguous(), qt.contiguous(), qp.contiguous(),
-        qb1.contiguous(), qb2.contiguous(), any_hit,
-    )
-    return Hit(t, prim, b1, b2)
+    tmin = ray.tmin.contiguous()
+    tmax = tmax.contiguous()
+    hit = (qt.contiguous(), qp.contiguous(), qb1.contiguous(), qb2.contiguous())
+    if world:
+        calls["intersect"] += 1
+        motion = {}
+        if g.has_motion:
+            motion = dict(motion_rows=g.wide_motion,
+                          tw=motion_weight(g, ray.time).contiguous())
+        hit = traverse_cuda.traverse(g.wide_rows, g.wide_stack, o, d, inv, tmin, tmax,
+                                     *hit, any_hit, **motion)
+    if g.inst_rows is None:
+        return Hit(*hit)
+    calls["instances"] += 1
+    return Hit(*traverse_cuda.traverse_instances(
+        g.inst_rows, g.inst_stack, g.inst_w2o, g.inst_lo, g.inst_hi, g.inst_root,
+        o, d, inv, tmin, tmax, *hit, any_hit))
 
 
 def intersect_brute(g: SceneGeometry, ray: geom.Ray, chunk: int = 2048) -> Hit:
@@ -244,7 +307,10 @@ def intersect_brute(g: SceneGeometry, ray: geom.Ray, chunk: int = 2048) -> Hit:
     renderers/aggregatetest.cpp:53-112; JAX ``intersect_brute``). Triangles
     use the unpacked Möller–Trumbore of ``_tri_test`` (intersect.py:215),
     vectorized over ``chunk`` triangles at a time; the nearest hit wins and
-    the lowest prim id wins a tie, as in the JAX prim-order loop."""
+    the lowest prim id wins a tie, as in the JAX prim-order loop. In a
+    motion scene each ray tests the triangles lerped to its weight, the
+    product rounded, then added, as the traversal lerps. Instanced objects
+    are not covered: their triangles are in object space."""
     o, d = ray.origin, ray.direction
     R = o.shape[0]
     dev = o.device
@@ -253,10 +319,18 @@ def intersect_brute(g: SceneGeometry, ray: geom.Ray, chunk: int = 2048) -> Hit:
     x1 = torch.zeros(R, dtype=torch.float32, device=dev)
     x2 = torch.zeros(R, dtype=torch.float32, device=dev)
     inf = torch.tensor(math.inf, dtype=torch.float32, device=dev)
+    tw = motion_weight(g, ray.time) if g.has_motion else None
     for s in range(0, g.num_triangles, chunk):
-        v0 = g.tri_v0[s:s + chunk][None]
-        e1 = g.tri_e1[s:s + chunk][None]
-        e2 = g.tri_e2[s:s + chunk][None]
+        if tw is None:
+            v0 = g.tri_v0[s:s + chunk][None]
+            e1 = g.tri_e1[s:s + chunk][None]
+            e2 = g.tri_e2[s:s + chunk][None]
+        else:
+            w = tw[:, None, None]
+            dm = g.tri_motion[s:s + chunk][None]
+            v0 = g.tri_v0[s:s + chunk][None] + w * dm[..., 0:3]
+            e1 = g.tri_e1[s:s + chunk][None] + w * dm[..., 3:6]
+            e2 = g.tri_e2[s:s + chunk][None] + w * dm[..., 6:9]
         dd = d[:, None, :]
         pv = geom.cross(dd.expand(-1, e2.shape[1], -1), e2.expand(R, -1, -1))
         det = geom.dot(e1, pv)

@@ -13,16 +13,24 @@ threads, the sort as 6 layers of shuffles (``SORT8_LAYERS``), the leaf's
 nearest slot as a 3-round (t, slot) butterfly, the stack in shared memory;
 the 4 groups of a warp step together, so every shuffle spans the warp.
 
-Three wrappers, each with a launch counter (``launches``):
+Wrappers, each kernel with a launch counter (``launches``):
 
 - ``step`` — one interpret step with ``step_interpret``'s contract, any R;
 - ``traverse(..., any_hit=False)`` — closest hit, one 8-lane group per ray;
-- ``traverse(..., any_hit=True)`` — any hit.
+- ``traverse(..., any_hit=True)`` — any hit;
+- ``traverse(..., motion_rows=, tw=)`` — the same walks on a motion scene,
+  each row lerped by the ray's shutter weight before the step
+  (``intersect.py:873-874``): ``traverse_{closest,any}_motion``;
+- ``traverse_instances`` — the instance phase (``intersect.py:1060-1108``),
+  one launch for all instances, seeded with the world walk's result:
+  ``traverse_instances_{closest,any}``, which also give each lane's
+  instance (−1 where no instance changed the hit).
 
 Each takes its plain version when the tensors lie on the CPU and launches
 its kernel when they lie on a CUDA device; a CUDA tensor never falls back.
-The plain versions (``step_plain``, ``traverse_plain``) repeat the kernels'
-arithmetic in the same operation order, the sort by the same layers and
+The plain versions (``step_plain``, ``traverse_plain``,
+``traverse_instances_plain``) repeat the kernels' arithmetic in the same
+operation order, the sort by the same layers and
 the leaf pick by the same butterfly, so on the card the two agree bit for
 bit; the CPU tests and ``chip_smoke.py`` hold the kernels to them.
 
@@ -54,10 +62,19 @@ SORT8 = tuple(pair for layer in SORT8_LAYERS for pair in layer)
 #: a substring of each kernel's name, as a profiler reports it
 KERNEL_NAMES = {"wide_step": "wide_step_kernel",
                 "traverse_closest": "traverse_closest_kernel",
-                "traverse_any": "traverse_any_kernel"}
+                "traverse_any": "traverse_any_kernel",
+                "traverse_closest_motion": "traverse_closest_motion_kernel",
+                "traverse_any_motion": "traverse_any_motion_kernel",
+                "traverse_instances_closest": "traverse_instances_closest_kernel",
+                "traverse_instances_any": "traverse_instances_any_kernel"}
+#: the world walk's kernels (one launch per ``intersect`` call with a
+#: world table) and the instance phase's (one per call with instances)
+WORLD_KERNELS = ("traverse_closest", "traverse_any", "traverse_closest_motion",
+                 "traverse_any_motion")
+INSTANCE_KERNELS = ("traverse_instances_closest", "traverse_instances_any")
 
 #: kernel launches per wrapper (the plain versions count nothing)
-launches = {"wide_step": 0, "traverse_closest": 0, "traverse_any": 0}
+launches = dict.fromkeys(KERNEL_NAMES, 0)
 
 
 def reset_launches():
@@ -173,29 +190,19 @@ def step_plain(row, o, d, inv, tmin, t_best, is_node, act):
     )
 
 
-def traverse_plain(rows, wide_stack, o, d, inv, tmin, tmax, t0, p0, b10,
-                   b20, any_hit: bool, stats: dict | None = None):
-    """Batched walk of every lane to completion, a Python loop over steps
-    with the active lanes compacted each step. Same result contract as the
-    kernels: (t, prim, b1, b2), seeded with (t0, p0, b10, b20).
-
-    ``stats`` (optional dict) receives the work this batch needed:
-    ``node_steps``, ``leaf_steps``, ``node_rows`` (distinct rows read only
-    as a node: a step reads their 7 node fields), ``leaf_rows`` (distinct
-    rows read as a leaf: all 10 fields) and ``lane_steps`` ((R,) int64,
-    each lane's steps); a dict passed again adds the next batch's counts
-    (lane by lane, for the same R)."""
+def _walk_plain(rows, wide_stack, o, d, inv, tmin, state, idx, root: int,
+                any_hit: bool, motion_rows=None, tw=None, stats=None):
+    """Walks lanes ``idx`` from row ``root`` to completion, a Python loop
+    over steps with the active lanes compacted each step, updating
+    ``state`` = [t, prim, b1, b2] in place. With ``motion_rows``, each
+    gathered row is lerped by the lane's ``tw`` first (the product rounded,
+    then added). → (node_steps, leaf_steps, touched, lane_steps)."""
+    t, prim, b1, b2 = state
     R = o.shape[0]
     dev = o.device
-    t, prim = t0.clone(), p0.clone()
-    b1, b2 = b10.clone(), b20.clone()
-    cur = torch.zeros(R, dtype=torch.int64, device=dev)
+    cur = torch.full((R,), root, dtype=torch.int64, device=dev)
     stack = torch.zeros((R, max(wide_stack, 1)), dtype=torch.int64, device=dev)
     sp = torch.zeros(R, dtype=torch.int64, device=dev)
-    run = tmax != 0.0
-    if any_hit:
-        run = run & (prim < 0)
-    idx = torch.nonzero(run).squeeze(1)
     touched = lane_steps = None
     if stats is not None:
         # rows read as a node, rows read as a leaf
@@ -212,7 +219,10 @@ def traverse_plain(rows, wide_stack, o, d, inv, tmin, tmax, t0, p0, b10,
             n_node += nn
             n_leaf += idx.numel() - nn
             lane_steps[idx] += 1
-        rt = rows[ridx].T
+        row = rows[ridx]
+        if motion_rows is not None:
+            row = row + tw[idx][:, None] * motion_rows[ridx]
+        rt = row.T
         oi, di, ii = o[idx], d[idx], inv[idx]
         tb = t[idx]
         refs, n_hit, tsel, psel, b1s, b2s = _interpret(
@@ -243,14 +253,113 @@ def traverse_plain(rows, wide_stack, o, d, inv, tmin, tmax, t0, p0, b10,
         if any_hit:
             done = done | (prim[idx] >= 0)
         idx = idx[~done]
+    return n_node, n_leaf, touched, lane_steps
+
+
+def _add_stats(stats, n_node, n_leaf, touched, lane_steps):
+    stats["node_steps"] = stats.get("node_steps", 0) + n_node
+    stats["leaf_steps"] = stats.get("leaf_steps", 0) + n_leaf
+    stats["node_rows"] = stats.get("node_rows", 0) + int((touched[0] & ~touched[1]).sum())
+    stats["leaf_rows"] = stats.get("leaf_rows", 0) + int(touched[1].sum())
+    stats["lane_steps"] = stats.get("lane_steps", 0) + lane_steps
+
+
+def traverse_plain(rows, wide_stack, o, d, inv, tmin, tmax, t0, p0, b10,
+                   b20, any_hit: bool, stats: dict | None = None,
+                   motion_rows=None, tw=None):
+    """Batched walk of every lane to completion. Same result contract as
+    the kernels: (t, prim, b1, b2), seeded with (t0, p0, b10, b20). With
+    ``motion_rows`` (M, 80) and ``tw`` (R,), every row is lerped by the
+    lane's weight before its step, node rows included.
+
+    ``stats`` (optional dict) receives the work this batch needed:
+    ``node_steps``, ``leaf_steps``, ``node_rows`` (distinct rows read only
+    as a node: a step reads their 7 node fields), ``leaf_rows`` (distinct
+    rows read as a leaf: all 10 fields) and ``lane_steps`` ((R,) int64,
+    each lane's steps); a dict passed again adds the next batch's counts
+    (lane by lane, for the same R)."""
+    state = [t0.clone(), p0.clone(), b10.clone(), b20.clone()]
+    run = tmax != 0.0
+    if any_hit:
+        run = run & (state[1] < 0)
+    work = _walk_plain(rows, wide_stack, o, d, inv, tmin, state,
+                       torch.nonzero(run).squeeze(1), 0, any_hit, motion_rows, tw,
+                       stats)
     if stats is not None:
-        stats["node_steps"] = stats.get("node_steps", 0) + n_node
-        stats["leaf_steps"] = stats.get("leaf_steps", 0) + n_leaf
-        stats["node_rows"] = stats.get("node_rows", 0) + int(
-            (touched[0] & ~touched[1]).sum())
-        stats["leaf_rows"] = stats.get("leaf_rows", 0) + int(touched[1].sum())
-        stats["lane_steps"] = stats.get("lane_steps", 0) + lane_steps
-    return t, prim, b1, b2
+        _add_stats(stats, *work)
+    return tuple(state)
+
+
+def instance_rays(w2o, o, d):
+    """Rays moved into an instance's space by its (4, 4) ``w2o``: o M^T + t
+    and d M^T, the direction unnormalized (so t is unchanged), each
+    component summed as ((x m0 + y m1) + z m2) + m3, the kernel's order."""
+    ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
+    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+    o2 = torch.stack([ox * w2o[r, 0] + oy * w2o[r, 1] + oz * w2o[r, 2] + w2o[r, 3]
+                      for r in range(3)], -1)
+    d2 = torch.stack([dx * w2o[r, 0] + dy * w2o[r, 1] + dz * w2o[r, 2]
+                      for r in range(3)], -1)
+    return o2, d2
+
+
+def inv_dir(d):
+    """1/d with near-zero components mapped to ±1e20 (intersect.py:395)."""
+    big = torch.tensor(1e20, dtype=d.dtype, device=d.device)
+    return torch.where(d.abs() < 1e-20, big * torch.sign(d + 1e-30), 1.0 / d)
+
+
+def instance_prune(lo, hi, o, inv, tmin, t_best):
+    """Lanes whose world ray enters the instance's world box (lo, hi (3,))
+    before their best hit (intersect.py:1078-1082)."""
+    t0 = (lo - o) * inv
+    t1 = (hi - o) * inv
+    mn, mx = torch.minimum, torch.maximum
+    tn = mx(mx(mn(t0[:, 0], t1[:, 0]), mn(t0[:, 1], t1[:, 1])), mn(t0[:, 2], t1[:, 2]))
+    tf = mn(mn(mx(t0[:, 0], t1[:, 0]), mx(t0[:, 1], t1[:, 1])), mx(t0[:, 2], t1[:, 2]))
+    return mx(tn, tmin) <= mn(tf, t_best)
+
+
+def traverse_instances_plain(rows, stack, w2o, lo, hi, root, o, d, inv, tmin,
+                             tmax, t0, p0, b10, b20, any_hit: bool,
+                             stats: dict | None = None):
+    """The instance phase: for instances i = 0 .. I−1 in order, the lanes
+    that the world box of i does not prune walk the shared table ``rows``
+    from ``root[i]`` with their ray in the instance's space. Seeded with
+    the world walk's (t0, p0, b10, b20); → (t, prim, b1, b2, inst), inst
+    (R,) int32 the last instance that changed a lane's t or prim, else −1.
+    ``stats`` as ``traverse_plain``'s over all the walks (a row read by
+    several counted once), with ``prunes`` (lane-instance box tests) and
+    ``walks`` (lane-instance walks)."""
+    state = [t0.clone(), p0.clone(), b10.clone(), b20.clone()]
+    t, prim = state[0], state[1]
+    inst = torch.full_like(p0, -1)
+    go = tmax != 0.0
+    roots = root.tolist()
+    total = [0, 0, None, None]  # the walks' work, rows counted once
+    for i in range(len(roots)):
+        run = go & instance_prune(lo[i], hi[i], o, inv, tmin, t)
+        if any_hit:
+            run = run & (prim < 0)
+        idx = torch.nonzero(run).squeeze(1)
+        if stats is not None:
+            stats["prunes"] = stats.get("prunes", 0) + int(go.sum())
+            stats["walks"] = stats.get("walks", 0) + idx.numel()
+        if not idx.numel():
+            continue
+        o2, d2 = instance_rays(w2o[i], o, d)
+        t_was, p_was = t.clone(), prim.clone()
+        work = _walk_plain(rows, stack, o2, d2, inv_dir(d2), tmin, state, idx, roots[i],
+                           any_hit, stats=stats)
+        if stats is not None:
+            total[0] += work[0]
+            total[1] += work[1]
+            total[2] = work[2] if total[2] is None else total[2] | work[2]
+            total[3] = work[3] if total[3] is None else total[3] + work[3]
+        inst = torch.where((t != t_was) | (prim != p_was), i, inst)
+    if stats is not None and total[2] is not None:
+        _add_stats(stats, *total)
+    return (*state, inst)
 
 
 # ---------------------------------------------------------------------------
@@ -292,13 +401,14 @@ def step(row, o, d, inv, tmin, t_best, is_node, act):
 
 
 def traverse(rows, wide_stack, o, d, inv, tmin, tmax, t0, p0, b10, b20,
-             any_hit: bool, fmad: bool = False):
+             any_hit: bool, fmad: bool = False, motion_rows=None, tw=None):
     """Closest-hit (or any-hit) walk over the wide table; (t0, p0, b10,
-    b20) seed the result (the quadric hit) and bound the search.
+    b20) seed the result (the quadric hit) and bound the search. With
+    ``motion_rows`` and ``tw`` it launches the motion kernel.
     ``fmad=True`` launches the FMA-contracted build (measurement only)."""
     if o.device.type == "cpu":
         return traverse_plain(rows, wide_stack, o, d, inv, tmin, tmax, t0,
-                              p0, b10, b20, any_hit)
+                              p0, b10, b20, any_hit, motion_rows=motion_rows, tw=tw)
     if o.device.type != "cuda":
         raise ValueError(f"traverse: unsupported device {o.device}")
     from pbrt_torch.utils import native
@@ -307,31 +417,82 @@ def traverse(rows, wide_stack, o, d, inv, tmin, tmax, t0, p0, b10, b20,
     dev = o.device
     f32 = torch.float32
     native.check_tensor("rows", rows, f32, (rows.shape[0], 80), dev)
-    for nm, x in (("o", o), ("d", d), ("inv", inv)):
-        native.check_tensor(nm, x, f32, (R, 3), dev)
-    for nm, x in (("tmin", tmin), ("tmax", tmax), ("t0", t0), ("b10", b10),
-                  ("b20", b20)):
-        native.check_tensor(nm, x, f32, (R,), dev)
-    native.check_tensor("p0", p0, torch.int32, (R,), dev)
+    if (motion_rows is None) != (tw is None):
+        raise ValueError("traverse: motion_rows and tw go together")
+    motion = motion_rows is not None
+    if motion:
+        native.check_tensor("motion_rows", motion_rows, f32, tuple(rows.shape), dev)
+        native.check_tensor("tw", tw, f32, (R,), dev)
+    _check_rays(native, R, dev, o, d, inv, tmin, tmax, t0, p0, b10, b20)
     lib = native.kernel_lib("traverse.cu", fmad)
-    cap = lib.pbrt_torch_max_stack()
-    if wide_stack > cap:
-        raise ValueError(
-            f"wide_stack {wide_stack} exceeds the kernel's stack cap {cap}"
-        )
-    # the entry refuses (as a launch error) a block's stacks, 16 rays ×
-    # wide_stack ints, that exceed the device's shared memory per block
-    t = torch.empty(R, dtype=f32, device=dev)
-    prim = torch.empty(R, dtype=torch.int32, device=dev)
-    b1 = torch.empty(R, dtype=f32, device=dev)
-    b2 = torch.empty(R, dtype=f32, device=dev)
+    _check_stack(lib, wide_stack)
+    t, prim, b1, b2 = _hit_outputs(R, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = [x.data_ptr() for x in (rows, o, d, inv, tmin, tmax, t0, p0, b10,
-                                   b20, t, prim, b1, b2)]
-    if any_hit:
-        fn, key = lib.pbrt_torch_traverse_any, "traverse_any"
-    else:
-        fn, key = lib.pbrt_torch_traverse_closest, "traverse_closest"
-    native.check_launch(fn(*ptrs, R, int(wide_stack), stream), f"{key} launch")
+    ins = (rows, *((motion_rows, tw) if motion else ()), o, d, inv, tmin, tmax,
+           t0, p0, b10, b20)
+    ptrs = [x.data_ptr() for x in (*ins, t, prim, b1, b2)]
+    key = ("traverse_any" if any_hit else "traverse_closest") + ("_motion" if motion else "")
+    native.check_launch(getattr(lib, "pbrt_torch_" + key)(*ptrs, R, int(wide_stack), stream),
+                        f"{key} launch")
     launches[key] += 1
     return t, prim, b1, b2
+
+
+def traverse_instances(rows, stack, w2o, lo, hi, root, o, d, inv, tmin, tmax,
+                       t0, p0, b10, b20, any_hit: bool):
+    """The instance phase over the shared BLAS table ``rows`` (see
+    ``traverse_instances_plain``): one launch for all instances.
+    w2o (I, 4, 4), lo / hi (I, 3) f32, root (I,) int32."""
+    if o.device.type == "cpu":
+        return traverse_instances_plain(rows, stack, w2o, lo, hi, root, o, d, inv,
+                                        tmin, tmax, t0, p0, b10, b20, any_hit)
+    if o.device.type != "cuda":
+        raise ValueError(f"traverse_instances: unsupported device {o.device}")
+    from pbrt_torch.utils import native
+
+    R = o.shape[0]
+    dev = o.device
+    f32 = torch.float32
+    I = root.shape[0]
+    native.check_tensor("rows", rows, f32, (rows.shape[0], 80), dev)
+    native.check_tensor("w2o", w2o, f32, (I, 4, 4), dev)
+    native.check_tensor("lo", lo, f32, (I, 3), dev)
+    native.check_tensor("hi", hi, f32, (I, 3), dev)
+    native.check_tensor("root", root, torch.int32, (I,), dev)
+    _check_rays(native, R, dev, o, d, inv, tmin, tmax, t0, p0, b10, b20)
+    lib = native.kernel_lib("traverse.cu")
+    _check_stack(lib, stack)
+    t, prim, b1, b2 = _hit_outputs(R, dev)
+    inst = torch.empty(R, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    key = "traverse_instances_any" if any_hit else "traverse_instances_closest"
+    head = [x.data_ptr() for x in (rows, w2o, lo, hi, root)]
+    tail = [x.data_ptr() for x in (o, d, inv, tmin, tmax, t0, p0, b10, b20, t, prim, b1,
+                                   b2, inst)]
+    native.check_launch(getattr(lib, "pbrt_torch_" + key)(*head, I, *tail, R, int(stack),
+                                                          stream), f"{key} launch")
+    launches[key] += 1
+    return t, prim, b1, b2, inst
+
+
+def _check_rays(native, R, dev, o, d, inv, tmin, tmax, t0, p0, b10, b20):
+    for nm, x in (("o", o), ("d", d), ("inv", inv)):
+        native.check_tensor(nm, x, torch.float32, (R, 3), dev)
+    for nm, x in (("tmin", tmin), ("tmax", tmax), ("t0", t0), ("b10", b10),
+                  ("b20", b20)):
+        native.check_tensor(nm, x, torch.float32, (R,), dev)
+    native.check_tensor("p0", p0, torch.int32, (R,), dev)
+
+
+def _check_stack(lib, stack):
+    # the entry also refuses (as a launch error) a block's stacks, 16 rays ×
+    # stack ints, that exceed the device's shared memory per block
+    cap = lib.pbrt_torch_max_stack()
+    if stack > cap:
+        raise ValueError(f"stack {stack} exceeds the kernel's stack cap {cap}")
+
+
+def _hit_outputs(R, dev):
+    f32 = torch.float32
+    return (torch.empty(R, dtype=f32, device=dev), torch.empty(R, dtype=torch.int32, device=dev),
+            torch.empty(R, dtype=f32, device=dev), torch.empty(R, dtype=f32, device=dev))

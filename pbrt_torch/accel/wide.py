@@ -14,9 +14,14 @@ Row layout (W = 80 float32, every field an 8-wide block):
 
 Child ref encoding (exact small integers in f32): ref >= 0 is a node row,
 ref < 0 the leaf row -(ref+1). Empty child slots carry an inverted box
-(lo=+1e30, hi=-1e30) so the slab test never reports them. Motion rows and
-the instancing offsets of the JAX builder wait for motion blur and
-instancing.
+(lo=+1e30, hi=-1e30) so the slab test never reports them.
+
+Motion blur: ``motion_rows`` (M, 80) holds each row's shutter-end deltas
+in the same slot-major layout, the triangles' [v0, e1, e2] deltas in a
+leaf row and zeros elsewhere (node rows, ids, pads); the traversal lerps
+``row + tw * delta``. Instancing: ``row_base`` / ``pid_base`` offset the
+child refs and triangle ids, so several objects' tables concatenate into
+one shared table.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ LEAF_TRIS = 8
 @dataclasses.dataclass
 class WideBVH:
     rows: np.ndarray            # (M, 80) f32 unified node/leaf table
+    motion_rows: np.ndarray | None = None  # (M, 80) shutter-end deltas
     #: exact worst-case traversal stack need of THIS tree: ordered descent
     #: pushes ≤ children-1 entries per node, so the bound is
     #: max over root→node paths of Σ (n_children−1). Sizing the register
@@ -41,9 +47,19 @@ class WideBVH:
     max_stack: int = 8
 
 
-def _compute_max_stack(rows: np.ndarray) -> int:
-    """f(node) = (n_children−1) + max_k f(child_k); f(leaf) = 0."""
+def _compute_max_stack(rows: np.ndarray, row_base: int = 0) -> int:
+    """f(node) = (n_children−1) + max_k f(child_k); f(leaf) = 0. A table
+    built at ``row_base`` holds node refs ``row_base`` on, so the walk
+    shifts them back (the JAX package's follows them unshifted, which
+    agrees at ``row_base`` 0: every table but a second instanced
+    object's)."""
     memo: dict[int, int] = {}
+
+    def node_refs(n):
+        refs = rows[n, 48:56].astype(np.int64)
+        valid = rows[n, 0:8] <= rows[n, 8:16]
+        return [int(r) - row_base if r >= 0 else -1 for r, v in zip(refs, valid) if v]
+
     # iterative DFS (trees can exceed the recursion limit)
     order: list[int] = []
     seen = set()
@@ -54,22 +70,13 @@ def _compute_max_stack(rows: np.ndarray) -> int:
             continue
         seen.add(n)
         order.append(n)
-        refs = rows[n, 48:56].astype(np.int64)
-        valid = rows[n, 0:8] <= rows[n, 8:16]
-        for j in range(8):
-            if valid[j] and refs[j] >= 0:
-                st.append(int(refs[j]))
+        st.extend(r for r in node_refs(n) if r >= 0)
     for n in reversed(order):
-        refs = rows[n, 48:56].astype(np.int64)
-        valid = rows[n, 0:8] <= rows[n, 8:16]
-        kids = [int(r) for r, v in zip(refs, valid) if v]
+        kids = node_refs(n)
         if not kids:
             memo[n] = 0
             continue
-        best = 0
-        for r in kids:
-            best = max(best, memo.get(r, 0) if r >= 0 else 0)
-        memo[n] = (len(kids) - 1) + best
+        memo[n] = (len(kids) - 1) + max(memo.get(r, 0) if r >= 0 else 0 for r in kids)
     return max(memo.get(0, 0), 1)
 
 
@@ -78,11 +85,16 @@ def build_wide_bvh(
     tri_v0: np.ndarray,   # (T, 3)
     tri_e1: np.ndarray,
     tri_e2: np.ndarray,
+    tri_motion: np.ndarray | None = None,  # (T, 9) deltas of [v0, e1, e2]
+    row_base: int = 0,
+    pid_base: int = 0,
 ) -> WideBVH:
     """Collapse a binary BVH over triangles into the unified wide table.
 
     ``tree.prim_order`` must index triangles (the binary tree is built over
-    triangles only; quadrics are tested densely outside the BVH)."""
+    triangles only; quadrics are tested densely outside the BVH).
+    ``tri_motion`` gives ``motion_rows``; ``row_base`` / ``pid_base``
+    offset the child refs and triangle ids (wide.py:88-242)."""
     second = tree.node_second
     count = tree.node_count
     lo = tree.node_lo
@@ -104,9 +116,11 @@ def build_wide_bvh(
             subtree[n] = subtree[n + 1] + subtree[second[n]]
 
     rows: list[np.ndarray] = []
+    motion: list[np.ndarray] = []
 
     def alloc() -> int:
         rows.append(None)
+        motion.append(np.zeros(W_ROW, np.float32))
         return len(rows) - 1
 
     def collect_prims(bnode: int) -> list[int]:
@@ -129,13 +143,18 @@ def build_wide_bvh(
         prims = collect_prims(bnode)
         assert len(prims) <= LEAF_TRIS
         row = np.zeros(W_ROW, np.float32)
+        mrow = motion[r]
         row[72:80] = -1.0
         for j, t in enumerate(prims):
             for ax in range(3):
                 row[8 * ax + j] = tri_v0[t][ax]
                 row[24 + 8 * ax + j] = tri_e1[t][ax]
                 row[48 + 8 * ax + j] = tri_e2[t][ax]
-            row[72 + j] = float(t)
+                if tri_motion is not None:
+                    mrow[8 * ax + j] = tri_motion[t][ax]
+                    mrow[24 + 8 * ax + j] = tri_motion[t][3 + ax]
+                    mrow[48 + 8 * ax + j] = tri_motion[t][6 + ax]
+            row[72 + j] = float(t + pid_base)
         rows[r] = row
         return r
 
@@ -175,7 +194,7 @@ def build_wide_bvh(
         row[16], row[24] = lo[0][1], hi[0][1]
         row[32], row[40] = lo[0][2], hi[0][2]
         row[48:56] = 0.0
-        row[48] = float(-(lr + 1))
+        row[48] = float(-(lr + row_base + 1))
         rows[root_row] = row
     else:
         work = [(root_row, 0)]
@@ -194,16 +213,17 @@ def build_wide_bvh(
                 row[16 + j], row[24 + j] = lo[s][1], hi[s][1]
                 row[32 + j], row[40 + j] = lo[s][2], hi[s][2]
                 if count[s] > 0 or is_leaf_slot(s):
-                    row[48 + j] = float(-(leaf_row(s) + 1))
+                    row[48 + j] = float(-(leaf_row(s) + row_base + 1))
                 else:
                     c = alloc()
                     work.append((c, s))
-                    row[48 + j] = float(c)
+                    row[48 + j] = float(c + row_base)
             rows[r] = row
 
     out = np.stack(rows).astype(np.float32)
+    mout = np.stack(motion) if tri_motion is not None else None
     assert out.shape[0] < (1 << 24), "row index exceeds exact-f32 range"
-    need = _compute_max_stack(out)
+    need = _compute_max_stack(out, row_base)
     # round up to a sublane multiple; floor of 8
     need = max(8, ((need + 7) // 8) * 8)
-    return WideBVH(rows=out, max_stack=need)
+    return WideBVH(rows=out, motion_rows=mout, max_stack=need)

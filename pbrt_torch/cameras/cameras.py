@@ -4,7 +4,9 @@ src/cameras/perspective.cpp:55-130, thin lens and ray differentials
 included).
 
 Orthographic, pinhole, environment and the lens-simulation cameras wait
-for later slices. The camera-to-world transform is static.
+for later slices. An animated camera-to-world transform is interpolated
+at each ray's time (``AnimatedTransform.interpolate``, cameras.py:91-95,
+:111); a static one is applied as its single matrix.
 """
 
 from __future__ import annotations
@@ -41,12 +43,17 @@ def _screen_to_raster(xres, yres, window):
 @dataclasses.dataclass
 class PerspectiveCamera:
     raster_to_camera: torch.Tensor  # (4, 4) f32
-    cam_to_world: torch.Tensor  # (4, 4) f32, static
+    cam_to_world: torch.Tensor  # (4, 4) f32, the shutter-open keyframe
     lens_radius: float
     focal_distance: float
     shutter_open: float
     shutter_close: float
     fov_deg: float = 0.0
+    #: the animated camera-to-world transform; None when it is static
+    motion: xf.AnimatedTransform | None = None
+
+    def _c2w(self, time):
+        return self.cam_to_world if self.motion is None else self.motion.interpolate(time)
 
     def generate_rays(self, px, py, u_lens1, u_lens2, u_time) -> geom.Ray:
         """px, py: (R,) continuous raster coordinates; uniforms (R,)."""
@@ -63,8 +70,9 @@ class PerspectiveCamera:
             o = torch.stack([lx, ly, torch.zeros_like(lx)], -1)
             d = geom.normalize(p_focus - o)
         time = self.shutter_open + u_time * (self.shutter_close - self.shutter_open)
-        o_w = xf.apply_point(self.cam_to_world, o)
-        d_w = xf.apply_vector(self.cam_to_world, d)
+        c2w = self._c2w(time)
+        o_w = xf.apply_point(c2w, o)
+        d_w = xf.apply_vector(c2w, d)
         return geom.Ray.make(o_w, d_w, time=time)
 
     def ray_differentials(self, px, py, ray: geom.Ray):
@@ -77,13 +85,14 @@ class PerspectiveCamera:
         one = torch.eye(3, dtype=p_ras.dtype, device=p_ras.device)
         dx = xf.apply_point(self.raster_to_camera, p_ras + one[0]) - p_cam
         dy = xf.apply_point(self.raster_to_camera, p_ras + one[1]) - p_cam
-        rx_d = xf.apply_vector(self.cam_to_world, geom.normalize(p_cam + dx))
-        ry_d = xf.apply_vector(self.cam_to_world, geom.normalize(p_cam + dy))
+        c2w = self._c2w(ray.time)
+        rx_d = xf.apply_vector(c2w, geom.normalize(p_cam + dx))
+        ry_d = xf.apply_vector(c2w, geom.normalize(p_cam + dy))
         return ray.origin, rx_d, ray.origin, ry_d
 
 
-def make_camera(name, params, cam_to_world: np.ndarray, xres: int, yres: int,
-                device) -> PerspectiveCamera:
+def make_camera(name, params, cam_to_world: xf.AnimatedTransform, xres: int,
+                yres: int, device) -> PerspectiveCamera:
     if name != "perspective":
         raise NotImplementedError(f"camera {name!r} is not ported yet")
     window = screen_window(xres, yres, params)
@@ -93,7 +102,8 @@ def make_camera(name, params, cam_to_world: np.ndarray, xres: int, yres: int,
     r2c = xf.inverse(c2s) @ xf.inverse(s2r)
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
     return PerspectiveCamera(
-        raster_to_camera=f32(r2c), cam_to_world=f32(cam_to_world),
+        raster_to_camera=f32(r2c), cam_to_world=f32(cam_to_world.m_start),
+        motion=None if cam_to_world.is_static else cam_to_world,
         lens_radius=float(np.float32(params.find_one_float("lensradius", 0.0))),
         focal_distance=float(np.float32(params.find_one_float("focaldistance", 1e30))),
         shutter_open=params.find_one_float("shutteropen", 0.0),

@@ -11,6 +11,14 @@ footprint in uv: the per-pixel-axis differentials (du/dx, dv/dx),
 (du/dy, dv/dy), the minor radius and the major axis. Quadrics get ∂p/∂v
 alone and no footprint, as in the JAX package. Other scenes compute none
 of it.
+
+In a motion scene a triangle's edges and vertex normals are lerped to the
+ray's time (interaction.py:107-117); the hit point is the ray's. An
+instanced hit's normals, tangents and normal derivatives are rotated by
+its instance's matrices (:160-190): normals and their derivatives by the
+inverse transpose, tangents unnormalized; each use takes its own mesh id.
+Its footprint then solves against the object-space edges, as the JAX
+package's does (ROADMAP Queue 3, fact 15).
 """
 
 from __future__ import annotations
@@ -20,7 +28,8 @@ import dataclasses
 import torch
 
 from pbrt_torch.accel.intersect import (CONE, CYLINDER, DISK, HYPERBOLOID,
-                                        PARABOLOID, SPHERE, Hit, SceneGeometry)
+                                        PARABOLOID, SPHERE, Hit, SceneGeometry,
+                                        motion_weight)
 from pbrt_torch.core import geometry as geom
 
 
@@ -76,6 +85,14 @@ def surface_interaction(g: SceneGeometry, ray: geom.Ray, hit: Hit, spread=None, 
         e1, e2 = g.tri_e1[ti], g.tri_e2[ti]
         n0, n1, n2 = g.tri_n0[ti], g.tri_n1[ti], g.tri_n2[ti]
         uv0, uv1, uv2 = g.tri_uv0[ti], g.tri_uv1[ti], g.tri_uv2[ti]
+        if g.has_motion:
+            tw = motion_weight(g, ray.time)[:, None]
+            dm, dn = g.tri_motion[ti], g.tri_n_motion[ti]
+            e1 = e1 + tw * dm[:, 3:6]
+            e2 = e2 + tw * dm[:, 6:9]
+            n0 = n0 + tw * dn[:, 0:3]
+            n1 = n1 + tw * dn[:, 3:6]
+            n2 = n2 + tw * dn[:, 6:9]
         ng_t = geom.normalize(geom.cross(e1, e2))
         ns_t = geom.normalize(b0[:, None] * n0 + b1[:, None] * n1
                               + b2[:, None] * n2)
@@ -91,12 +108,28 @@ def surface_interaction(g: SceneGeometry, ray: geom.Ray, hit: Hit, spread=None, 
         dpdu_p = (duv2[:, 1:2] * e1 - duv1[:, 1:2] * e2) * invp[:, None]
         dpdu_t = torch.where(okp[:, None], dpdu_p, geom.normalize(e1))
         if partials:
-            tri_extra = _triangle_partials(
-                hit, p, wo, e1, e2, n1 - n0, n2 - n0, ng_t, dpdu_t, duv1, duv2, okp, invp,
-                spread, diffs)
+            tri_extra = _triangle_uv_partials(e1, e2, n1 - n0, n2 - n0, ng_t, duv1, duv2,
+                                              okp, invp)
         mat_t = g.tri_material[ti]
         al_t = g.tri_area_light[ti]
         mid_t = g.tri_mesh_id[ti]
+        if hit.inst is not None and g.inst_rows is not None:
+            ii = hit.inst.clamp(min=0).to(torch.int64)
+            w2o_r = g.inst_w2o[ii][:, :3, :3]
+            o2w_r = g.inst_o2w[ii][:, :3, :3]
+            is_inst = (hit.inst >= 0)[:, None]
+            normal = lambda n: torch.einsum("ri,rij->rj", n, w2o_r)
+            tangent = lambda v: torch.einsum("rij,rj->ri", o2w_r, v)
+            ns_t = torch.where(is_inst, geom.normalize(normal(ns_t)), ns_t)
+            ng_t = torch.where(is_inst, geom.normalize(normal(ng_t)), ng_t)
+            dpdu_t = torch.where(is_inst, tangent(dpdu_t), dpdu_t)
+            if partials:
+                for k, f in (("dpdv", tangent), ("dndu", normal), ("dndv", normal)):
+                    tri_extra[k] = torch.where(is_inst, f(tri_extra[k]), tri_extra[k])
+            mid_t = torch.where(hit.inst >= 0, g.inst_mesh_id[ii], mid_t)
+        if partials:
+            tri_extra.update(_footprint(hit, p, wo, e1, e2, ng_t, dpdu_t, duv1, duv2,
+                                        spread, diffs))
 
     if Q > 0:
         qi = (prim_safe - T).clamp(0, Q - 1)
@@ -163,22 +196,25 @@ def surface_interaction(g: SceneGeometry, ray: geom.Ray, hit: Hit, spread=None, 
     )
 
 
-def _triangle_partials(hit, p, wo, e1, e2, dn1, dn2, ng, dpdu, duv1, duv2, okp, invp,
-                       spread, diffs) -> dict:
-    """A triangle hit's dpdv, dndu, dndv (the uv-edge system that gives
-    dpdu; Triangle::GetShadingGeometry) and its uv footprint
-    (interaction.py:125-260)."""
+def _triangle_uv_partials(e1, e2, dn1, dn2, ng, duv1, duv2, okp, invp) -> dict:
+    """A triangle hit's dpdv, dndu, dndv: the uv-edge system that gives
+    dpdu (Triangle::GetShadingGeometry; interaction.py:125-158)."""
     inv = invp[:, None]
     ok = okp[:, None]
-    out = dict(
+    return dict(
         dpdv=torch.where(ok, (-duv2[:, 0:1] * e1 + duv1[:, 0:1] * e2) * inv,
                          geom.cross(ng, geom.normalize(e1))),
         dndu=torch.where(ok, (duv2[:, 1:2] * dn1 - duv1[:, 1:2] * dn2) * inv, 0.0),
         dndv=torch.where(ok, (-duv2[:, 0:1] * dn1 + duv1[:, 0:1] * dn2) * inv, 0.0),
     )
+
+
+def _footprint(hit, p, wo, e1, e2, ng, dpdu, duv1, duv2, spread, diffs) -> dict:
+    """A triangle hit's uv footprint (interaction.py:191-260): the minor
+    radius, the major axis and the per-pixel-axis differentials."""
     if spread is None and diffs is None:
         z2 = torch.zeros_like(duv1)
-        return dict(out, uv_sigma=torch.zeros_like(hit.t), uv_major=z2, duvdx=z2, duvdy=z2)
+        return dict(uv_sigma=torch.zeros_like(hit.t), uv_major=z2, duvdx=z2, duvdy=z2)
     # world → uv through the barycentric solve on the edge Gram matrix
     g11, g12, g22 = geom.dot(e1, e1), geom.dot(e1, e2), geom.dot(e2, e2)
     det = torch.clamp(g11 * g22 - g12 * g12, min=1e-20)
@@ -219,7 +255,7 @@ def _triangle_partials(hit, p, wo, e1, e2, dn1, dn2, ng, dpdu, duv1, duv2, okp, 
         ax1 = to_uv(w_fp[:, None] * perp)
         ax2 = to_uv((w_fp / cos_i)[:, None] * par)
     l1, l2 = geom.length(ax1), geom.length(ax2)
-    return dict(out, uv_sigma=torch.minimum(l1, l2),
+    return dict(uv_sigma=torch.minimum(l1, l2),
                 uv_major=torch.where((l1 >= l2)[:, None], ax1, ax2), duvdx=ax1, duvdy=ax2)
 
 

@@ -2,9 +2,12 @@
 application to device tensors. Port of ``pbrt_tpu/core/transform.py``
 (reference: src/core/transform.{h,cpp}).
 
-``AnimatedTransform`` is carried as its static keyframe pair only: the
-slice renders static cameras and shapes, and ``interpolate`` raises on a
-pair whose keyframes differ (motion blur is not ported yet).
+``AnimatedTransform`` (transform.h:291-319, transform.cpp:478-600): two
+keyframes decomposed on the host into translation, rotation quaternion
+and scale (``decompose``, numpy, in the JAX package's operation order),
+interpolated per ray on the device (translation and scale lerped, the
+rotation slerped along the shorter arc). A static pair returns its single
+keyframe and runs no per-ray math.
 """
 
 from __future__ import annotations
@@ -110,31 +113,145 @@ def apply_bbox(m: np.ndarray, lo, hi):
 
 
 def apply_point(m: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """(4, 4) m on points (..., 3), with the homogeneous divide."""
-    r = p @ m[:3, :3].T + m[:3, 3]
-    w = p @ m[3, :3] + m[3, 3]
+    """(4, 4) m, or per-point (..., 4, 4), on points (..., 3), with the
+    homogeneous divide."""
+    if m.dim() == 2:
+        r = p @ m[:3, :3].T + m[:3, 3]
+        w = p @ m[3, :3] + m[3, 3]
+    else:
+        r = torch.einsum("...ij,...j->...i", m[..., :3, :3], p) + m[..., :3, 3]
+        w = torch.einsum("...j,...j->...", m[..., 3, :3], p) + m[..., 3, 3]
     return r / w[..., None]
 
 
 def apply_vector(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    return v @ m[:3, :3].T
+    if m.dim() == 2:
+        return v @ m[:3, :3].T
+    return torch.einsum("...ij,...j->...i", m[..., :3, :3], v)
+
+
+# ---------------------------------------------------------------------------
+# quaternions, (w, x, y, z) order
+# ---------------------------------------------------------------------------
+
+
+def quat_from_matrix(m: np.ndarray) -> np.ndarray:
+    """Rotation matrix → unit quaternion (quaternion.cpp:63-107); host."""
+    m = np.asarray(m, np.float64)
+    tr = m[0, 0] + m[1, 1] + m[2, 2]
+    if tr > 0.0:
+        s = np.sqrt(tr + 1.0)
+        w = s / 2.0
+        s = 0.5 / s
+        return np.array(
+            [w, (m[2, 1] - m[1, 2]) * s, (m[0, 2] - m[2, 0]) * s, (m[1, 0] - m[0, 1]) * s]
+        )
+    i = int(np.argmax([m[0, 0], m[1, 1], m[2, 2]]))
+    j, k = (i + 1) % 3, (i + 2) % 3
+    s = np.sqrt(max(m[i, i] - (m[j, j] + m[k, k]) + 1.0, 0.0))
+    q = np.zeros(4)
+    q[1 + i] = s * 0.5
+    if s != 0.0:
+        s = 0.5 / s
+    q[0] = (m[k, j] - m[j, k]) * s
+    q[1 + j] = (m[j, i] + m[i, j]) * s
+    q[1 + k] = (m[k, i] + m[i, k]) * s
+    return q
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternions (..., 4) → rotation matrices (..., 4, 4)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    r = torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], -1),
+        torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)], -1),
+        torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], -1),
+    ], -2)
+    m = torch.zeros(q.shape[:-1] + (4, 4), dtype=q.dtype, device=q.device)
+    m[..., :3, :3] = r
+    m[..., 3, 3] = 1.0
+    return m
+
+
+def slerp(t: torch.Tensor, q0: torch.Tensor, q1: torch.Tensor) -> torch.Tensor:
+    """Spherical linear interpolation (quaternion.cpp:47-60) of (4,) q0, q1
+    at weights t (R,) → (R, 4); normalized lerp where they nearly agree."""
+    cos_theta = torch.sum(q0 * q1, -1)
+    q1 = torch.where(cos_theta < 0.0, -q1, q1)  # the shorter arc
+    cos_theta = cos_theta.abs()
+    theta = torch.arccos(torch.clamp(cos_theta, -1.0, 1.0))
+    sin_theta = torch.sin(theta)
+    safe_sin = torch.where(sin_theta < 1e-6, 1.0, sin_theta)
+    w0 = torch.sin((1.0 - t) * theta) / safe_sin
+    w1 = torch.sin(t * theta) / safe_sin
+    q_slerp = w0[..., None] * q0 + w1[..., None] * q1
+    q = q0 + t[..., None] * (q1 - q0)
+    q_lerp = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    return torch.where(cos_theta > 0.9995, q_lerp, q_slerp)
+
+
+def decompose(m: np.ndarray):
+    """M → (T, R quaternion, S) by the polar decomposition's iteration
+    (AnimatedTransform::Decompose, transform.cpp:496-538); host."""
+    m = np.asarray(m, np.float64)
+    T = m[:3, 3].copy()
+    M3 = m[:3, :3].copy()
+    R = M3.copy()
+    for _ in range(100):
+        Rnext = 0.5 * (R + np.linalg.inv(R.T))
+        if np.abs(Rnext - R).max() < 1e-7:
+            R = Rnext
+            break
+        R = Rnext
+    S = np.linalg.inv(R) @ M3
+    Rm = identity()
+    Rm[:3, :3] = R
+    return T, quat_from_matrix(Rm), S
 
 
 @dataclasses.dataclass
 class AnimatedTransform:
-    """Two keyframe matrices and their times; static pairs only."""
+    """Two keyframes as translation (2, 3), rotation quaternions (2, 4)
+    and scale matrices (2, 3, 3), float32, with their times and the full
+    keyframe matrices. ``is_static``: identical keyframes, so
+    ``interpolate`` returns ``m_start`` and runs no per-ray math."""
 
-    m_start: np.ndarray
+    T: np.ndarray
+    R: np.ndarray
+    S: np.ndarray
+    times: np.ndarray  # (2,)
+    m_start: np.ndarray  # (4, 4) f32
     m_end: np.ndarray
-    times: tuple = (0.0, 1.0)
+    is_static: bool
 
-    @property
-    def is_static(self) -> bool:
-        return bool(np.allclose(self.m_start, self.m_end, atol=1e-12))
+    @staticmethod
+    def from_matrices(m0, m1, t0: float, t1: float) -> "AnimatedTransform":
+        T0, R0, S0 = decompose(m0)
+        T1, R1, S1 = decompose(m1)
+        if np.dot(R0, R1) < 0.0:  # the shorter rotation arc (transform.cpp:489-493)
+            R1 = -R1
+        f32 = lambda a: np.asarray(a, np.float32)
+        return AnimatedTransform(
+            T=f32(np.stack([T0, T1])), R=f32(np.stack([R0, R1])), S=f32(np.stack([S0, S1])),
+            times=f32([t0, t1]), m_start=f32(m0), m_end=f32(m1),
+            is_static=bool(np.allclose(m0, m1, atol=1e-12)))
 
-    def static_matrix(self) -> np.ndarray:
-        if not self.is_static:
-            raise NotImplementedError(
-                "animated transforms (motion blur) are not ported yet"
-            )
-        return self.m_start
+    def interpolate(self, time: torch.Tensor) -> torch.Tensor:
+        """time (R,) → (R, 4, 4) on its device; a static transform gives
+        its (4, 4) keyframe."""
+        t = lambda a: torch.as_tensor(a, device=time.device)
+        if self.is_static:
+            return t(self.m_start)
+        t0, t1 = float(self.times[0]), float(self.times[1])
+        span = np.float32(max(np.float32(t1) - np.float32(t0), np.float32(1e-20)))
+        dt = torch.clamp((time - t0) / float(span), 0.0, 1.0)
+        Tk, Sk = t(self.T), t(self.S)
+        trans = (1.0 - dt)[..., None] * Tk[0] + dt[..., None] * Tk[1]
+        rot = slerp(dt, t(self.R[0]), t(self.R[1]))
+        sc = (1.0 - dt)[..., None, None] * Sk[0] + dt[..., None, None] * Sk[1]
+        m3 = quat_to_matrix(rot)[..., :3, :3] @ sc
+        out = torch.zeros(dt.shape + (4, 4), dtype=m3.dtype, device=time.device)
+        out[..., :3, :3] = m3
+        out[..., :3, 3] = trans
+        out[..., 3, 3] = 1.0
+        return out

@@ -50,6 +50,33 @@
 // around a shuffle or ballot is therefore uniform across the warp, so they
 // all name the full warp, and the compiler emits them without the
 // convergence checks that a per-group mask in divergent code costs.
+//
+// Two more uses of the same step, each its own kernel:
+// - Motion blur (traverse_{closest,any}_motion_kernel, the kMotion flag of
+//   one template, so the static kernels compile as before). The JAX package
+//   lerps each gathered row by the ray's shutter weight before the step,
+//   row + tw * wide_motion[row] (intersect.py:873-874). Here lane k forms
+//   that sum for the fields of its own slot as it loads them: the product
+//   rounded, then added (-fmad=false), as the plain version does. Node rows
+//   are lerped too, although their deltas are zero: a box corner of -0
+//   becomes +0 there, and lerping keeps every bit of the plain version's
+//   without an argument about which signed zero reaches a key. The child
+//   refs and triangle ids are not lerped: their deltas are zero, tw lies in
+//   [0, 1] (motion_weight clamps it), so ref + tw * 0 == ref, and they are
+//   integers, never -0. Bound: twice the row bytes of a static walk, each
+//   step reads its row's deltas beside it.
+// - Memory-shared instancing (traverse_instances_{closest,any}_kernel):
+//   the JAX package's third phase (intersect.py:1060-1108), one launch for
+//   every instance, seeded with the world walk's (t, prim, b1, b2). In
+//   instance order a group moves its ray into the instance's space
+//   (o M^T + t and d M^T by inst_w2o, the direction unnormalized so t is
+//   unchanged), prunes the instance by its world box against the world
+//   ray and the current t_best (any-hit also once it has a hit), walks the
+//   object's table from its root row, and records the instance wherever t
+//   or prim changed. The instance table (w2o, box, root) stays in global
+//   memory behind __ldg: every group of a warp reads the same instance at
+//   the same time, so each field is one broadcast load, and the table
+//   needs no shared memory beside the stacks.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -112,6 +139,21 @@ struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz, tmin;
 };
 
+// A row field of lane k's slot, lerped by tw with its delta (mk, the same
+// offset in the motion table) in the motion kernels: the product rounded,
+// then added.
+template <bool kMotion>
+__device__ __forceinline__ float field(const float* __restrict__ rk,
+                                       const float* __restrict__ mk, float tw,
+                                       int f) {
+  const float v = __ldg(rk + f);
+  if constexpr (kMotion) {
+    return v + tw * __ldg(mk + f);
+  } else {
+    return v;
+  }
+}
+
 // The bits of this thread's group in a warp-wide ballot: lanes 8q .. 8q+7.
 __device__ __forceinline__ unsigned group_bits() {
   return 0xFFu << (threadIdx.x & 24);
@@ -133,15 +175,21 @@ __device__ __forceinline__ void sort_layer(int k, float& key, int& ref) {
 }
 
 // Node interpretation by lane k of a group, rk pointing at slot k of the
-// row (field f at rk[8f]): the slab test of child slot k, then the group's
-// sort. Returns n_hit; ref is the k-th child ref in sorted order. All 32
-// lanes of the warp call it together.
+// row (field f at rk[8f]; mk at its deltas when kMotion): the slab test of
+// child slot k, then the group's sort. Returns n_hit; ref is the k-th child
+// ref in sorted order. All 32 lanes of the warp call it together.
+template <bool kMotion>
 __device__ __forceinline__ int group_node(const float* __restrict__ rk,
-                                          const Ray& ray, float t_best,
-                                          bool act, int k, int& ref) {
-  const float lox = __ldg(rk), hix = __ldg(rk + 8);
-  const float loy = __ldg(rk + 16), hiy = __ldg(rk + 24);
-  const float loz = __ldg(rk + 32), hiz = __ldg(rk + 40);
+                                          const float* __restrict__ mk,
+                                          float tw, const Ray& ray,
+                                          float t_best, bool act, int k,
+                                          int& ref) {
+  const float lox = field<kMotion>(rk, mk, tw, 0);
+  const float hix = field<kMotion>(rk, mk, tw, 8);
+  const float loy = field<kMotion>(rk, mk, tw, 16);
+  const float hiy = field<kMotion>(rk, mk, tw, 24);
+  const float loz = field<kMotion>(rk, mk, tw, 32);
+  const float hiz = field<kMotion>(rk, mk, tw, 40);
   ref = static_cast<int>(__ldg(rk + 48));
   const float t0x = (lox - ray.ox) * ray.ix;
   const float t1x = (hix - ray.ox) * ray.ix;
@@ -179,14 +227,20 @@ struct LeafHit {
 // and with no accepted slot every tc is inf and slot 0 wins, as the argmin
 // of an all-inf vector in the JAX step. Every lane of the group returns the
 // same hit. All 32 lanes of the warp call it together.
+template <bool kMotion>
 __device__ __forceinline__ LeafHit group_leaf(const float* __restrict__ rk,
-                                              const Ray& ray, float t_best,
-                                              bool act, int k) {
-  const float v0x = __ldg(rk), v0y = __ldg(rk + 8), v0z = __ldg(rk + 16);
-  const float e1x = __ldg(rk + 24), e1y = __ldg(rk + 32);
-  const float e1z = __ldg(rk + 40);
-  const float e2x = __ldg(rk + 48), e2y = __ldg(rk + 56);
-  const float e2z = __ldg(rk + 64);
+                                              const float* __restrict__ mk,
+                                              float tw, const Ray& ray,
+                                              float t_best, bool act, int k) {
+  const float v0x = field<kMotion>(rk, mk, tw, 0);
+  const float v0y = field<kMotion>(rk, mk, tw, 8);
+  const float v0z = field<kMotion>(rk, mk, tw, 16);
+  const float e1x = field<kMotion>(rk, mk, tw, 24);
+  const float e1y = field<kMotion>(rk, mk, tw, 32);
+  const float e1z = field<kMotion>(rk, mk, tw, 40);
+  const float e2x = field<kMotion>(rk, mk, tw, 48);
+  const float e2y = field<kMotion>(rk, mk, tw, 56);
+  const float e2z = field<kMotion>(rk, mk, tw, 64);
   const int pid = static_cast<int>(__ldg(rk + 72));
   const float pvx = ray.dy * e2z - ray.dz * e2y;
   const float pvy = ray.dz * e2x - ray.dx * e2z;
@@ -277,8 +331,8 @@ __global__ void __launch_bounds__(kThreads) wide_step_kernel(
   const bool node = is_node[i];
   const bool a = act[i];
   int ref;
-  const int nh = group_node(rk, ray, tb, node && a, gi.k, ref);
-  const LeafHit h = group_leaf(rk, ray, tb, !node && a, gi.k);
+  const int nh = group_node<false>(rk, nullptr, 0.f, ray, tb, node && a, gi.k, ref);
+  const LeafHit h = group_leaf<false>(rk, nullptr, 0.f, ray, tb, !node && a, gi.k);
   if (!gi.live) return;
   refs[static_cast<size_t>(gi.k) * R + i] = ref;
   if (gi.k == 0) {
@@ -290,43 +344,28 @@ __global__ void __launch_bounds__(kThreads) wide_step_kernel(
   }
 }
 
-// One group walks one ray to completion (_step_control semantics):
-// descend to refs[0] when n_hit > 0 and push refs[1..n_hit-1] with the
-// nearest on top; pop otherwise; finish on a pop from an empty stack. The
-// quadric result seeds (t, prim, b1, b2); any-hit leaves at the first
-// prim >= 0; lanes with tmax == 0 leave at once. cur, sp, t_best, prim and
-// run are the same on all 8 lanes of a group; the loop runs while any group
-// of the warp runs (a group that is done, or past R, steps masked).
-template <bool kAnyHit>
-__device__ __forceinline__ void traverse_group(
-    const float* __restrict__ rows, const float* __restrict__ o,
-    const float* __restrict__ d, const float* __restrict__ inv,
-    const float* __restrict__ tmin, const float* __restrict__ tmax,
-    const float* __restrict__ t_in, const int* __restrict__ p_in,
-    const float* __restrict__ b1_in, const float* __restrict__ b2_in,
-    float* __restrict__ t_out, int* __restrict__ p_out,
-    float* __restrict__ b1_out, float* __restrict__ b2_out, int R,
-    int wide_stack) {
-  extern __shared__ int smem[];
-  GroupIndex gi;
-  if (!group_index(R, gi)) return;
-  const int k = gi.k;
-  const int i = gi.live ? gi.i : R - 1;
-  int* stack = smem + gi.g * wide_stack;
-  const float* rows_k = rows + k;  // slot k of row 0
-  const Ray ray = load_ray(o, d, inv, tmin, i);
-  float t_best = t_in[i];
-  int prim = p_in[i];
-  float bb1 = b1_in[i], bb2 = b2_in[i];
-  bool run = gi.live && tmax[i] != 0.f && !(kAnyHit && prim >= 0);
+// One group walks one ray from row cur to completion (_step_control
+// semantics): descend to refs[0] when n_hit > 0 and push refs[1..n_hit-1]
+// with the nearest on top; pop otherwise; finish on a pop from an empty
+// stack. (t_best, prim, bb1, bb2) hold the best hit so far; any-hit leaves
+// at the first prim >= 0. cur, sp, t_best, prim and run are the same on all
+// 8 lanes of a group; the loop runs while any group of the warp runs (a
+// group that is done, or past R, steps masked). rows_k and motion_k point
+// at slot k of row 0 of the table and of its deltas.
+template <bool kAnyHit, bool kMotion>
+__device__ __forceinline__ void walk(const float* __restrict__ rows_k,
+                                     const float* __restrict__ motion_k,
+                                     float tw, const Ray& ray, int* stack,
+                                     int k, bool run, int cur, float& t_best,
+                                     int& prim, float& bb1, float& bb2) {
   int sp = 0;
-  int cur = 0;  // row 0 is always a node row
   while (__any_sync(kWarp, run)) {
     const bool node = run && cur >= 0;
     if (__any_sync(kWarp, node)) {
+      const size_t off = static_cast<size_t>(node ? cur : 0) * kRow;
       int ref;
-      const int n_hit = group_node(
-          rows_k + static_cast<size_t>(node ? cur : 0) * kRow, ray, t_best,
+      const int n_hit = group_node<kMotion>(
+          rows_k + off, kMotion ? motion_k + off : nullptr, tw, ray, t_best,
           node, k, ref);
       const int nearest = __shfl_sync(kWarp, ref, 0, kGroup);
       const bool descend = node && n_hit > 0;
@@ -343,9 +382,10 @@ __device__ __forceinline__ void traverse_group(
     }
     const bool leaf = run && cur < 0;
     if (__any_sync(kWarp, leaf)) {
-      const LeafHit h = group_leaf(
-          rows_k + static_cast<size_t>(leaf ? -cur - 1 : 0) * kRow, ray,
-          t_best, leaf, k);
+      const size_t off = static_cast<size_t>(leaf ? -cur - 1 : 0) * kRow;
+      const LeafHit h = group_leaf<kMotion>(
+          rows_k + off, kMotion ? motion_k + off : nullptr, tw, ray, t_best,
+          leaf, k);
       if (leaf) {
         if (h.t < t_best) {
           t_best = h.t;
@@ -358,6 +398,37 @@ __device__ __forceinline__ void traverse_group(
       }
     }
   }
+}
+
+// The world walk: one group per ray from row 0 (always a node row). The
+// quadric result seeds (t, prim, b1, b2); any-hit lanes that already have a
+// hit and lanes with tmax == 0 leave at once. kMotion: each row lerped by
+// the ray's tw (motion_weight) with its deltas.
+template <bool kAnyHit, bool kMotion>
+__device__ __forceinline__ void traverse_group(
+    const float* __restrict__ rows, const float* __restrict__ motion,
+    const float* __restrict__ tw_in, const float* __restrict__ o,
+    const float* __restrict__ d, const float* __restrict__ inv,
+    const float* __restrict__ tmin, const float* __restrict__ tmax,
+    const float* __restrict__ t_in, const int* __restrict__ p_in,
+    const float* __restrict__ b1_in, const float* __restrict__ b2_in,
+    float* __restrict__ t_out, int* __restrict__ p_out,
+    float* __restrict__ b1_out, float* __restrict__ b2_out, int R,
+    int wide_stack) {
+  extern __shared__ int smem[];
+  GroupIndex gi;
+  if (!group_index(R, gi)) return;
+  const int k = gi.k;
+  const int i = gi.live ? gi.i : R - 1;
+  const Ray ray = load_ray(o, d, inv, tmin, i);
+  float t_best = t_in[i];
+  int prim = p_in[i];
+  float bb1 = b1_in[i], bb2 = b2_in[i];
+  const bool run = gi.live && tmax[i] != 0.f && !(kAnyHit && prim >= 0);
+  const float tw = kMotion ? tw_in[i] : 0.f;
+  walk<kAnyHit, kMotion>(rows + k, kMotion ? motion + k : nullptr, tw, ray,
+                         smem + gi.g * wide_stack, k, run, 0, t_best, prim,
+                         bb1, bb2);
   if (gi.live && k == 0) {
     t_out[i] = t_best;
     p_out[i] = prim;
@@ -366,10 +437,91 @@ __device__ __forceinline__ void traverse_group(
   }
 }
 
-// Two named kernels (not one template) so a profile tells them apart.
-#define PBRT_TRAVERSE_KERNEL(NAME, ANY)                                        \
+// make_inv_dir's rule (intersect.py:395): 1/d, or +-1e20 by the sign of
+// d + 1e-30 where |d| < 1e-20 (0 where that sum is 0).
+__device__ __forceinline__ float inv_dir(float v) {
+  const float s = v + 1e-30f;
+  const float sg = s > 0.f ? 1.f : (s < 0.f ? -1.f : 0.f);
+  return fabsf(v) < 1e-20f ? 1e20f * sg : 1.0f / v;
+}
+
+// The instance phase: after the world walk, seeded with its result, each
+// group visits instances 0 .. I-1 in order (the loop is uniform across the
+// warp). w2o is (I, 4, 4) row-major, lo / hi (I, 3), root (I,). inst_out
+// gets the last instance whose walk changed t or prim, else -1.
+template <bool kAnyHit>
+__device__ __forceinline__ void instances_group(
+    const float* __restrict__ rows, const float* __restrict__ w2o,
+    const float* __restrict__ lo, const float* __restrict__ hi,
+    const int* __restrict__ root, int I, const float* __restrict__ o,
+    const float* __restrict__ d, const float* __restrict__ inv,
+    const float* __restrict__ tmin, const float* __restrict__ tmax,
+    const float* __restrict__ t_in, const int* __restrict__ p_in,
+    const float* __restrict__ b1_in, const float* __restrict__ b2_in,
+    float* __restrict__ t_out, int* __restrict__ p_out,
+    float* __restrict__ b1_out, float* __restrict__ b2_out,
+    int* __restrict__ inst_out, int R, int stack_size) {
+  extern __shared__ int smem[];
+  GroupIndex gi;
+  if (!group_index(R, gi)) return;
+  const int k = gi.k;
+  const int i = gi.live ? gi.i : R - 1;
+  const Ray ray = load_ray(o, d, inv, tmin, i);
+  float t_best = t_in[i];
+  int prim = p_in[i];
+  float bb1 = b1_in[i], bb2 = b2_in[i];
+  int inst = -1;
+  const bool go = gi.live && tmax[i] != 0.f;
+  int* stack = smem + gi.g * stack_size;
+  for (int n = 0; n < I; ++n) {
+    // the world box against the world ray, pruned by the current best hit
+    const float* bl = lo + 3 * n;
+    const float* bh = hi + 3 * n;
+    const float t0x = (__ldg(bl) - ray.ox) * ray.ix;
+    const float t1x = (__ldg(bh) - ray.ox) * ray.ix;
+    const float t0y = (__ldg(bl + 1) - ray.oy) * ray.iy;
+    const float t1y = (__ldg(bh + 1) - ray.oy) * ray.iy;
+    const float t0z = (__ldg(bl + 2) - ray.oz) * ray.iz;
+    const float t1z = (__ldg(bh + 2) - ray.oz) * ray.iz;
+    const float tn = vmax(vmax(vmin(t0x, t1x), vmin(t0y, t1y)), vmin(t0z, t1z));
+    const float tf = vmin(vmin(vmax(t0x, t1x), vmax(t0y, t1y)), vmax(t0z, t1z));
+    const bool run = go && vmax(tn, ray.tmin) <= vmin(tf, t_best) &&
+                     !(kAnyHit && prim >= 0);
+    if (!__any_sync(kWarp, run)) continue;
+    // the ray in instance space: o M^T + t and d M^T, in the plain
+    // version's order ((x m0 + y m1) + z m2) + m3
+    const float* m = w2o + 16 * n;
+    Ray r2;
+    r2.ox = ray.ox * __ldg(m) + ray.oy * __ldg(m + 1) + ray.oz * __ldg(m + 2) + __ldg(m + 3);
+    r2.oy = ray.ox * __ldg(m + 4) + ray.oy * __ldg(m + 5) + ray.oz * __ldg(m + 6) + __ldg(m + 7);
+    r2.oz = ray.ox * __ldg(m + 8) + ray.oy * __ldg(m + 9) + ray.oz * __ldg(m + 10) + __ldg(m + 11);
+    r2.dx = ray.dx * __ldg(m) + ray.dy * __ldg(m + 1) + ray.dz * __ldg(m + 2);
+    r2.dy = ray.dx * __ldg(m + 4) + ray.dy * __ldg(m + 5) + ray.dz * __ldg(m + 6);
+    r2.dz = ray.dx * __ldg(m + 8) + ray.dy * __ldg(m + 9) + ray.dz * __ldg(m + 10);
+    r2.ix = inv_dir(r2.dx);
+    r2.iy = inv_dir(r2.dy);
+    r2.iz = inv_dir(r2.dz);
+    r2.tmin = ray.tmin;
+    const float t_was = t_best;
+    const int p_was = prim;
+    walk<kAnyHit, false>(rows + k, nullptr, 0.f, r2, stack, k, run,
+                         __ldg(root + n), t_best, prim, bb1, bb2);
+    if (t_best != t_was || prim != p_was) inst = n;
+  }
+  if (gi.live && k == 0) {
+    t_out[i] = t_best;
+    p_out[i] = prim;
+    b1_out[i] = bb1;
+    b2_out[i] = bb2;
+    inst_out[i] = inst;
+  }
+}
+
+// Named kernels (not one template) so a profile tells them apart.
+#define PBRT_TRAVERSE_KERNEL(NAME, ANY, MOTION)                                \
   __global__ void __launch_bounds__(kThreads) NAME(                           \
-      const float* __restrict__ rows, const float* __restrict__ o,            \
+      const float* __restrict__ rows, const float* __restrict__ motion,       \
+      const float* __restrict__ tw, const float* __restrict__ o,              \
       const float* __restrict__ d, const float* __restrict__ inv,             \
       const float* __restrict__ tmin, const float* __restrict__ tmax,         \
       const float* __restrict__ t_in, const int* __restrict__ p_in,           \
@@ -377,14 +529,74 @@ __device__ __forceinline__ void traverse_group(
       float* __restrict__ t_out, int* __restrict__ p_out,                     \
       float* __restrict__ b1_out, float* __restrict__ b2_out, int R,          \
       int wide_stack) {                                                       \
-    traverse_group<ANY>(rows, o, d, inv, tmin, tmax, t_in, p_in, b1_in,       \
-                        b2_in, t_out, p_out, b1_out, b2_out, R, wide_stack);  \
+    traverse_group<ANY, MOTION>(rows, motion, tw, o, d, inv, tmin, tmax,      \
+                                t_in, p_in, b1_in, b2_in, t_out, p_out,       \
+                                b1_out, b2_out, R, wide_stack);               \
   }
 
-PBRT_TRAVERSE_KERNEL(traverse_closest_kernel, false)
-PBRT_TRAVERSE_KERNEL(traverse_any_kernel, true)
+PBRT_TRAVERSE_KERNEL(traverse_closest_kernel, false, false)
+PBRT_TRAVERSE_KERNEL(traverse_any_kernel, true, false)
+PBRT_TRAVERSE_KERNEL(traverse_closest_motion_kernel, false, true)
+PBRT_TRAVERSE_KERNEL(traverse_any_motion_kernel, true, true)
 
 #undef PBRT_TRAVERSE_KERNEL
+
+// The instance phase's two kernels, written out (a profile tells them
+// apart by name).
+#define PBRT_INSTANCES_PARAMS                                                  \
+  const float *__restrict__ rows, const float *__restrict__ w2o,              \
+      const float *__restrict__ lo, const float *__restrict__ hi,             \
+      const int *__restrict__ root, int I, const float *__restrict__ o,       \
+      const float *__restrict__ d, const float *__restrict__ inv,             \
+      const float *__restrict__ tmin, const float *__restrict__ tmax,         \
+      const float *__restrict__ t_in, const int *__restrict__ p_in,           \
+      const float *__restrict__ b1_in, const float *__restrict__ b2_in,       \
+      float *__restrict__ t_out, int *__restrict__ p_out,                     \
+      float *__restrict__ b1_out, float *__restrict__ b2_out,                 \
+      int *__restrict__ inst_out, int R, int stack_size
+#define PBRT_INSTANCES_ARGS                                                    \
+  rows, w2o, lo, hi, root, I, o, d, inv, tmin, tmax, t_in, p_in, b1_in, b2_in, \
+      t_out, p_out, b1_out, b2_out, inst_out, R, stack_size
+
+__global__ void __launch_bounds__(kThreads) traverse_instances_closest_kernel(
+    PBRT_INSTANCES_PARAMS) {
+  instances_group<false>(PBRT_INSTANCES_ARGS);
+}
+
+__global__ void __launch_bounds__(kThreads) traverse_instances_any_kernel(
+    PBRT_INSTANCES_PARAMS) {
+  instances_group<true>(PBRT_INSTANCES_ARGS);
+}
+
+#undef PBRT_INSTANCES_PARAMS
+#undef PBRT_INSTANCES_ARGS
+
+// Sizes a launch's stacks (16 rays x stack ints of dynamic shared memory):
+// refuses a size the device cannot give a block, and raises the kernel's
+// limit only past the 48 KiB every kernel may use. -> bytes, or -1 with
+// the error in *err.
+template <typename Kernel>
+int stack_smem(Kernel kernel, int stack, cudaError_t* err) {
+  *err = cudaSuccess;
+  if (stack > kMaxStack) {
+    *err = cudaErrorInvalidValue;
+    return -1;
+  }
+  const int smem = kRaysPerBlock * (stack < 1 ? 1 : stack) * 4;
+  if (smem > kDefaultSmem) {
+    int dev = 0, optin = 0;
+    *err = cudaGetDevice(&dev);
+    if (*err == cudaSuccess)
+      *err = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (*err == cudaSuccess && smem > optin) *err = cudaErrorInvalidValue;
+    if (*err == cudaSuccess)
+      *err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (*err != cudaSuccess) return -1;
+  }
+  return smem;
+}
 
 inline int blocks_for(int R) { return (R + kRaysPerBlock - 1) / kRaysPerBlock; }
 
@@ -407,41 +619,67 @@ int pbrt_torch_wide_step(const float* row, const float* o, const float* d,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Each entry sizes the block's stacks (16 rays x wide_stack ints of dynamic
-// shared memory), refuses a size the device cannot give a block, and raises
-// the kernel's limit only past the 48 KiB every kernel may use.
-#define PBRT_TRAVERSE_ENTRY(NAME, KERNEL)                                     \
-  int NAME(const float* rows, const float* o, const float* d,                 \
+// Each traversal entry sizes its launch's stacks (stack_smem) and launches;
+// a size the device cannot give returns the error without a launch. The
+// static entries take no motion table (the kernels get null pointers).
+#define PBRT_TRAVERSE_ENTRY(NAME, KERNEL, MOTION_ARGS, MOTION_PTRS)           \
+  int NAME(const float* rows, MOTION_ARGS const float* o, const float* d,     \
            const float* inv, const float* tmin, const float* tmax,            \
            const float* t_in, const int* p_in, const float* b1_in,            \
            const float* b2_in, float* t_out, int* p_out, float* b1_out,       \
            float* b2_out, int R, int wide_stack, cudaStream_t stream) {       \
-    if (wide_stack > kMaxStack) return static_cast<int>(cudaErrorInvalidValue); \
+    cudaError_t e;                                                            \
+    const int smem = stack_smem(KERNEL, wide_stack, &e);                      \
+    if (smem < 0) return static_cast<int>(e);                                 \
     if (wide_stack < 1) wide_stack = 1;                                       \
-    const int smem = kRaysPerBlock * wide_stack * 4;                          \
-    if (smem > kDefaultSmem) {                                                \
-      int dev = 0, optin = 0;                                                 \
-      cudaError_t e = cudaGetDevice(&dev);                                    \
-      if (e == cudaSuccess)                                                   \
-        e = cudaDeviceGetAttribute(                                           \
-            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);            \
-      if (e != cudaSuccess) return static_cast<int>(e);                       \
-      if (smem > optin) return static_cast<int>(cudaErrorInvalidValue);       \
-      e = cudaFuncSetAttribute(KERNEL,                                        \
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,   \
-                               smem);                                         \
-      if (e != cudaSuccess) return static_cast<int>(e);                       \
-    }                                                                         \
     if (R > 0)                                                                \
       KERNEL<<<blocks_for(R), kThreads, smem, stream>>>(                      \
-          rows, o, d, inv, tmin, tmax, t_in, p_in, b1_in, b2_in, t_out,       \
-          p_out, b1_out, b2_out, R, wide_stack);                              \
+          rows, MOTION_PTRS, o, d, inv, tmin, tmax, t_in, p_in, b1_in, b2_in, \
+          t_out, p_out, b1_out, b2_out, R, wide_stack);                       \
     return static_cast<int>(cudaGetLastError());                              \
   }
 
-PBRT_TRAVERSE_ENTRY(pbrt_torch_traverse_closest, traverse_closest_kernel)
-PBRT_TRAVERSE_ENTRY(pbrt_torch_traverse_any, traverse_any_kernel)
+#define PBRT_NO_MOTION_ARGS
+#define PBRT_NO_MOTION_PTRS nullptr, nullptr
+#define PBRT_MOTION_ARGS const float *motion, const float *tw,
+#define PBRT_MOTION_PTRS motion, tw
+
+PBRT_TRAVERSE_ENTRY(pbrt_torch_traverse_closest, traverse_closest_kernel,
+                    PBRT_NO_MOTION_ARGS, PBRT_NO_MOTION_PTRS)
+PBRT_TRAVERSE_ENTRY(pbrt_torch_traverse_any, traverse_any_kernel,
+                    PBRT_NO_MOTION_ARGS, PBRT_NO_MOTION_PTRS)
+PBRT_TRAVERSE_ENTRY(pbrt_torch_traverse_closest_motion,
+                    traverse_closest_motion_kernel, PBRT_MOTION_ARGS,
+                    PBRT_MOTION_PTRS)
+PBRT_TRAVERSE_ENTRY(pbrt_torch_traverse_any_motion, traverse_any_motion_kernel,
+                    PBRT_MOTION_ARGS, PBRT_MOTION_PTRS)
 
 #undef PBRT_TRAVERSE_ENTRY
+
+#define PBRT_INSTANCES_ENTRY(NAME, KERNEL)                                     \
+  int NAME(const float* rows, const float* w2o, const float* lo,              \
+           const float* hi, const int* root, int I, const float* o,           \
+           const float* d, const float* inv, const float* tmin,               \
+           const float* tmax, const float* t_in, const int* p_in,             \
+           const float* b1_in, const float* b2_in, float* t_out, int* p_out,  \
+           float* b1_out, float* b2_out, int* inst_out, int R, int stack,     \
+           cudaStream_t stream) {                                             \
+    cudaError_t e;                                                            \
+    const int smem = stack_smem(KERNEL, stack, &e);                           \
+    if (smem < 0) return static_cast<int>(e);                                 \
+    if (stack < 1) stack = 1;                                                 \
+    if (R > 0)                                                                \
+      KERNEL<<<blocks_for(R), kThreads, smem, stream>>>(                      \
+          rows, w2o, lo, hi, root, I, o, d, inv, tmin, tmax, t_in, p_in,      \
+          b1_in, b2_in, t_out, p_out, b1_out, b2_out, inst_out, R, stack);    \
+    return static_cast<int>(cudaGetLastError());                              \
+  }
+
+PBRT_INSTANCES_ENTRY(pbrt_torch_traverse_instances_closest,
+                     traverse_instances_closest_kernel)
+PBRT_INSTANCES_ENTRY(pbrt_torch_traverse_instances_any,
+                     traverse_instances_any_kernel)
+
+#undef PBRT_INSTANCES_ENTRY
 
 }  // extern "C"

@@ -17,7 +17,13 @@ Keys (shapes as in the JAX package's tables):
   ``tri_uv0 tri_uv1 tri_uv2`` (T, 2), ``tri_material tri_area_light
   tri_mesh_id`` (T,), ``quad_type quad_material quad_area_light
   quad_mesh_id quad_reverse`` (Q,), ``quad_o2w quad_w2o`` (Q, 4, 4),
-  ``quad_params`` (Q, 8), ``wide_rows`` (M, 80), ``wide_stack`` ();
+  ``quad_params`` (Q, 8), ``wide_rows`` (M, 80, None where every
+  triangle is instanced), ``wide_stack`` ();
+  optionally, for motion blur, ``tri_motion tri_n_motion`` (T, 9),
+  ``motion_time`` (2,), ``wide_motion`` (M, 80), and for instancing
+  ``inst_rows`` (Mi, 80), ``inst_o2w inst_w2o`` (I, 4, 4), ``inst_root
+  inst_mesh_id`` (I,), ``inst_lo inst_hi`` (I, 3), ``inst_stack`` ()
+  (absent or None where the scene has none);
 - materials: ``mat_kind mat_n_lobes`` (M,), ``mat_lobe_type`` (M, 4) as
   indices into ``mat_active_lobes`` (the JAX table's compact codes, -1
   pad), ``mat_kd mat_ks mat_kr mat_kt mat_eta_spec mat_k_spec
@@ -47,6 +53,9 @@ Keys (shapes as in the JAX package's tables):
   ``LightSource`` rows, then the area lights;
 - camera: ``cam_raster_to_camera cam_to_world`` (4, 4), ``cam_lens_radius
   cam_focal_distance cam_shutter_open cam_shutter_close cam_fov`` ();
+  for an animated camera also its keyframes decomposed, ``cam_T`` (2, 3),
+  ``cam_R`` (2, 4), ``cam_S`` (2, 3, 3), ``cam_times`` (2,), and
+  ``cam_to_world_end`` (4, 4);
 - film: ``film_xres film_yres film_n_bins`` (), ``filter_kind`` (str),
   ``filter_xwidth filter_ywidth`` ().
 """
@@ -59,6 +68,7 @@ import torch
 from pbrt_torch.accel.intersect import SPHERE, SceneGeometry
 from pbrt_torch.cameras.cameras import PerspectiveCamera
 from pbrt_torch.core.sampling import Distribution2D
+from pbrt_torch.core.transform import AnimatedTransform
 from pbrt_torch.core.filters import Filter
 from pbrt_torch.film.film import FilmConfig
 from pbrt_torch.integrators.path import RenderScene
@@ -68,10 +78,18 @@ from pbrt_torch.textures.texture import table_from_numpy
 
 _GEOMETRY_F32 = ("tri_v0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
                  "tri_uv0", "tri_uv1", "tri_uv2", "quad_o2w", "quad_w2o",
-                 "quad_params", "wide_rows")
+                 "quad_params")
 _GEOMETRY_I64 = ("tri_material", "tri_area_light", "tri_mesh_id",
                  "quad_type", "quad_material", "quad_area_light",
                  "quad_mesh_id")
+#: the world table (None where every triangle is instanced), then the
+#: motion and instancing keys, each absent (or None) in a scene without
+_GEOMETRY_OPTIONAL = {"wide_rows": np.float32, "tri_motion": np.float32, "tri_n_motion": np.float32,
+                      "motion_time": np.float32, "wide_motion": np.float32,
+                      "inst_rows": np.float32, "inst_o2w": np.float32,
+                      "inst_w2o": np.float32, "inst_lo": np.float32,
+                      "inst_hi": np.float32, "inst_root": np.int32,
+                      "inst_mesh_id": np.int64}
 _MATERIAL_F32 = ("kd", "ks", "kr", "kt", "sigma", "exp_u", "exp_v", "eta", "eta_spec",
                  "k_spec", "irreg_points", "irreg_spectra", "merl_rgb", "ss_sigma_a",
                  "ss_sigma_s", "ss_scale", "mix_amt")
@@ -118,8 +136,12 @@ def scene_from_numpy(arrays: dict, device):
 
     geo = {k: f32(arrays[k]) for k in _GEOMETRY_F32}
     geo.update({k: i64(arrays[k]) for k in _GEOMETRY_I64})
+    geo.update({k: torch.as_tensor(np.array(arrays[k], dt), device=dev)
+                for k, dt in _GEOMETRY_OPTIONAL.items() if arrays.get(k) is not None})
+    if arrays.get("inst_stack") is not None:
+        geo["inst_stack"] = int(arrays["inst_stack"])
     geometry = SceneGeometry(
-        **geo,
+        **{"wide_rows": None, **geo},
         quad_reverse=torch.as_tensor(np.array(arrays["quad_reverse"], bool),
                                      device=dev),
         wide_stack=int(arrays["wide_stack"]),
@@ -149,6 +171,12 @@ def scene_from_numpy(arrays: dict, device):
         shutter_close=float(arrays["cam_shutter_close"]),
         fov_deg=float(arrays["cam_fov"]),
     )
+    if arrays.get("cam_T") is not None:
+        m0, m1 = (np.asarray(arrays[k], np.float32) for k in ("cam_to_world", "cam_to_world_end"))
+        motion = AnimatedTransform(
+            **{k: np.asarray(arrays[f"cam_{k}"], np.float32) for k in ("T", "R", "S", "times")},
+            m_start=m0, m_end=m1, is_static=bool(np.array_equal(m0, m1)))
+        camera.motion = None if motion.is_static else motion
     film = FilmConfig(
         xres=int(arrays["film_xres"]), yres=int(arrays["film_yres"]),
         n_bins=int(arrays["film_n_bins"]),

@@ -14,10 +14,20 @@ normal maps bound to textures; the texture records visible to every
 material, as one texture table (every kind under the uv, spherical and
 planar mappings); point, spot, distant, infinite (constant or lat-long
 mapped), projection and goniometric lights; diffuse area lights on spheres
-and triangle meshes; the ``perspective`` camera with a static transform;
+and triangle meshes; the ``perspective`` camera, static or animated;
 every filter; the ``lowdiscrepancy`` sampler; the ``path``,
 ``directlighting``, ``whitted``, ``ambientocclusion`` and ``metadata``
-integrators; the BVH accelerator with SAH splits. Anything else raises
+integrators; the BVH accelerator with SAH splits.
+
+Motion blur and instancing as the JAX package builds them (builder.py:
+154-518): an animated mesh keeps its start triangles plus their
+shutter-end deltas (one motion interval per scene, the last animated
+shape's), an animated quadric warns and keeps its start transform, and
+the world table is built over the union of both keyframes' bounds. An
+object used by at least two static ``ObjectInstance``s, with no quadric
+and no area light, keeps one object-space copy and its own table (the
+instance table has a row and a fresh mesh id per use); every other use is
+flattened into world shapes. Anything else raises
 ``NotImplementedError`` instead of rendering something different: a mix
 whose sub-material is a mix (the JAX package renders the inner mix
 black), area lights on non-sphere quadrics (the JAX package samples such
@@ -30,6 +40,7 @@ in the JAX package.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import struct
 import zlib
@@ -73,6 +84,114 @@ class BuiltScene:
 
 def _not_ported(what):
     raise NotImplementedError(f"{what} is not ported yet")
+
+
+def _mesh_triangles(rec, o2w):
+    """A ``trianglemesh`` record at ``o2w`` → (v0, e1, e2, (n0, n1, n2),
+    (uv0, uv1, uv2)) per triangle, in the mesh's float32, with face normals
+    where it has none (builder.py:235-276)."""
+    mesh = make_mesh(rec.params, o2w, rec.reverse_orientation)
+    idx, p = mesh.indices, mesh.positions
+    v0 = p[idx[:, 0]]
+    e1 = p[idx[:, 1]] - v0
+    e2 = p[idx[:, 2]] - v0
+    if mesh.normals is not None:
+        ns = tuple(mesh.normals[idx[:, k]] for k in range(3))
+    else:
+        fn = np.cross(e1, e2)
+        fn /= np.maximum(np.linalg.norm(fn, axis=-1, keepdims=True), 1e-20)
+        if rec.reverse_orientation:
+            fn = -fn
+        ns = (fn, fn, fn)
+    if mesh.uvs is not None:
+        uvs = tuple(mesh.uvs[idx[:, k]] for k in range(3))
+    else:
+        z = np.zeros((len(idx), 2), np.float32)
+        uvs = (z, z + [1.0, 0.0], z + [1.0, 1.0])
+    return v0, e1, e2, ns, uvs
+
+
+def _expand_instances(desc):
+    """Shape records with both keyframe transforms, and the static uses
+    that keep a shared object (builder.py:154-201): an object qualifies
+    when it has ≥ 2 static uses, only meshes, no animated record and no
+    area light; every other use is flattened (instance × object transform
+    at each keyframe). → ([(rec, o2w_start, o2w_end)], [(name, o2w)])."""
+    records = [(rec, rec.object_to_world.m[0], rec.object_to_world.m[1])
+               for rec in desc.shapes]
+    uses = collections.Counter(i.name for i in desc.instances)
+
+    def shared(name):
+        recs = desc.objects.get(name, [])
+        return bool(recs) and uses[name] >= 2 and all(
+            rec.shape_type not in _QUADRIC_TYPES and rec.area_light is None
+            and np.allclose(rec.object_to_world.m[0], rec.object_to_world.m[1], atol=1e-12)
+            for rec in recs)
+
+    tlas_uses = []
+    for inst in desc.instances:
+        m0, m1 = inst.instance_to_world.m
+        if np.allclose(m0, m1, atol=1e-12) and shared(inst.name):
+            tlas_uses.append((inst.name, m0))
+            continue
+        for rec in desc.objects.get(inst.name, []):
+            records.append((rec, m0 @ rec.object_to_world.m[0], m1 @ rec.object_to_world.m[1]))
+    return records, tlas_uses
+
+
+def _instance_tables(desc, tlas_uses, T, mat_id_for, tri):
+    """Each shared object's object-space triangles appended to ``tri``
+    after the T world ones, its table built at its row offset with ids from
+    T on, and the instance table (builder.py:372-499). → the geometry's
+    ``inst_*`` fields, as numpy arrays of their dtypes."""
+    obj_info, blas_rows, row_off = {}, [], 0
+    for name in dict.fromkeys(n for n, _ in tlas_uses):
+        ov0, oe1, oe2 = [], [], []
+        for rec in desc.objects[name]:
+            if rec.shape_type != "trianglemesh":
+                _not_ported(f"shape {rec.shape_type!r}")
+            v0, e1, e2, ns, uvs = _mesh_triangles(rec, rec.object_to_world.m[0])
+            cnt = len(v0)
+            for k, a in (("v0", v0), ("e1", e1), ("e2", e2), ("n0", ns[0]), ("n1", ns[1]),
+                         ("n2", ns[2]), ("uv0", uvs[0]), ("uv1", uvs[1]), ("uv2", uvs[2])):
+                tri[k].append(np.asarray(a, np.float32))
+            tri["mat"].append(np.full(cnt, mat_id_for(rec.material), np.int64))
+            tri["al"].append(np.full(cnt, -1, np.int64))
+            tri["mid"].append(np.full(cnt, rec.primitive_id, np.int64))
+            tri["dv"].append(np.zeros((cnt, 9), np.float32))
+            tri["dn"].append(np.zeros((cnt, 9), np.float32))
+            ov0.append(v0.astype(np.float32))
+            oe1.append(e1.astype(np.float32))
+            oe2.append(e2.astype(np.float32))
+        o_v0, o_e1, o_e2 = np.concatenate(ov0), np.concatenate(oe1), np.concatenate(oe2)
+        lo_o = np.minimum(np.minimum(o_v0, o_v0 + o_e1), o_v0 + o_e2)
+        hi_o = np.maximum(np.maximum(o_v0, o_v0 + o_e1), o_v0 + o_e2)
+        tree = bvh_mod.build_bvh(lo_o, hi_o, max_prims_in_node=LEAF_TRIS)
+        wide = build_wide_bvh(tree, o_v0, o_e1, o_e2, row_base=row_off, pid_base=T)
+        obj_info[name] = dict(root=row_off, stack=wide.max_stack,
+                              lo=lo_o.min(axis=0), hi=hi_o.max(axis=0))
+        blas_rows.append(wide.rows)
+        row_off += len(wide.rows)
+        T += len(o_v0)
+    # each use its own mesh id (TransformedPrimitive's primitiveId)
+    mid_base = 1 + max([int(r.primitive_id) for r in desc.shapes]
+                       + [int(r.primitive_id) for rs in desc.objects.values() for r in rs]
+                       + [0])
+    boxes = [xf.apply_bbox(m, obj_info[n]["lo"], obj_info[n]["hi"]) for n, m in tlas_uses]
+    # child refs and triangle ids are offset values kept in f32: guard the
+    # concatenated totals
+    assert row_off < (1 << 24), "instance BLAS row offset exceeds f32"
+    assert T < (1 << 24), "instanced triangle id exceeds exact-f32"
+    return dict(
+        inst_rows=np.concatenate(blas_rows),
+        inst_o2w=np.stack([m.astype(np.float32) for _, m in tlas_uses]),
+        inst_w2o=np.stack([np.linalg.inv(m).astype(np.float32) for _, m in tlas_uses]),
+        inst_root=np.asarray([obj_info[n]["root"] for n, _ in tlas_uses], np.int32),
+        inst_lo=np.stack([lo.astype(np.float32) for lo, _ in boxes]),
+        inst_hi=np.stack([hi.astype(np.float32) for _, hi in boxes]),
+        inst_mesh_id=np.arange(mid_base, mid_base + len(tlas_uses), dtype=np.int64),
+        inst_stack=max([info["stack"] for info in obj_info.values()] + [8]),
+    )
 
 
 _QUADRIC_TYPES = {"sphere": SPHERE, "cylinder": CYLINDER, "disk": DISK,
@@ -336,8 +455,6 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
     dev = resolve_device(device)
     cfg = desc.spectral_config
     S = cfg.n_bins
-    if desc.instances or desc.objects:
-        _not_ported("object instancing")
     if desc.volumes:
         _not_ported("participating media")
     light_rows = [_light_source_row(rec, cfg) for rec in desc.lights]
@@ -353,45 +470,40 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
             mat_records.append(m)
         return mat_index[id(m)]
 
+    shape_records, tlas_uses = _expand_instances(desc)
     tri = {k: [] for k in ("v0", "e1", "e2", "n0", "n1", "n2", "uv0", "uv1",
-                           "uv2", "mat", "al", "mid")}
+                           "uv2", "mat", "al", "mid", "dv", "dn")}
     quads, area_lights = [], []
     n_tris = 0
-    for rec in desc.shapes:
-        o2w, o2w_end = rec.object_to_world.m
-        if not np.allclose(o2w, o2w_end, atol=1e-12):
-            _not_ported("animated shapes (motion blur)")
+    any_motion, motion_times = False, (0.0, 1.0)
+    for rec, o2w, o2w_end in shape_records:
+        animated = not np.allclose(o2w, o2w_end, atol=1e-12)
         mat_i = mat_id_for(rec.material)
         al_id = len(area_lights) if rec.area_light is not None else -1
         if rec.area_light is not None and rec.area_light[0] != "area":
             _not_ported(f"area light {rec.area_light[0]!r}")
         if rec.shape_type == "trianglemesh":
-            mesh = make_mesh(rec.params, o2w, rec.reverse_orientation)
-            idx, p = mesh.indices, mesh.positions
-            v0 = p[idx[:, 0]]
-            e1 = p[idx[:, 1]] - v0
-            e2 = p[idx[:, 2]] - v0
-            if mesh.normals is not None:
-                n0, n1, n2 = (mesh.normals[idx[:, k]] for k in range(3))
-            else:
-                fn = np.cross(e1, e2)
-                fn /= np.maximum(np.linalg.norm(fn, axis=-1, keepdims=True), 1e-20)
-                if rec.reverse_orientation:
-                    fn = -fn
-                n0 = n1 = n2 = fn
-            if mesh.uvs is not None:
-                uv0, uv1, uv2 = (mesh.uvs[idx[:, k]] for k in range(3))
-            else:
-                z = np.zeros((len(idx), 2), np.float32)
-                uv0, uv1, uv2 = z, z + [1.0, 0.0], z + [1.0, 1.0]
-            count = len(idx)
+            v0, e1, e2, (n0, n1, n2), uvs = _mesh_triangles(rec, o2w)
+            count = len(v0)
             for k, a in (("v0", v0), ("e1", e1), ("e2", e2), ("n0", n0),
-                         ("n1", n1), ("n2", n2), ("uv0", uv0), ("uv1", uv1),
-                         ("uv2", uv2)):
+                         ("n1", n1), ("n2", n2), ("uv0", uvs[0]), ("uv1", uvs[1]),
+                         ("uv2", uvs[2])):
                 tri[k].append(np.asarray(a, np.float32))
             tri["mat"].append(np.full(count, mat_i, np.int64))
             tri["al"].append(np.full(count, al_id, np.int64))
             tri["mid"].append(np.full(count, rec.primitive_id, np.int64))
+            if animated:
+                # shutter-end deltas of [v0, e1, e2] and of the normals
+                # (builder.py:278-308); the interval is this shape's
+                any_motion, motion_times = True, tuple(rec.transform_times[:2])
+                v0e, e1e, e2e, (n0e, n1e, n2e), _ = _mesh_triangles(rec, o2w_end)
+                tri["dv"].append(np.concatenate([v0e - v0, e1e - e1, e2e - e2],
+                                                axis=1).astype(np.float32))
+                tri["dn"].append(np.concatenate([n0e - n0, n1e - n1, n2e - n2],
+                                                axis=1).astype(np.float32))
+            else:
+                tri["dv"].append(np.zeros((count, 9), np.float32))
+                tri["dn"].append(np.zeros((count, 9), np.float32))
             if al_id >= 0:
                 area_lights.append(dict(
                     rec=rec, shape_kind=lt_mod.SHAPE_MESH, tri_start=n_tris,
@@ -399,6 +511,9 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
                     areas=0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)))
             n_tris += count
         elif rec.shape_type in _QUADRIC_TYPES:
+            if animated:
+                err.warning(f"animated quadric {rec.shape_type!r}: motion blur is "
+                            "supported for meshes only; using the start transform")
             qtype = _QUADRIC_TYPES[rec.shape_type]
             if al_id >= 0 and qtype != SPHERE:
                 _not_ported(f"area lights on a {rec.shape_type!r} (the JAX package "
@@ -414,22 +529,38 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
         else:
             _not_ported(f"shape {rec.shape_type!r}")
 
+    T_world, Q = n_tris, len(quads)
+    inst = {}
+    if tlas_uses:
+        inst = _instance_tables(desc, tlas_uses, T_world, mat_id_for, tri)
+
     def cat(k, width, dtype=np.float32):
         if tri[k]:
             return np.concatenate(tri[k]).astype(dtype)
         return np.zeros((0,) + width, dtype)
 
     v0, e1, e2 = cat("v0", (3,)), cat("e1", (3,)), cat("e2", (3,))
-    T, Q = len(v0), len(quads)
-    wide_rows, wide_stack = None, 8
-    if T:
-        lo_t = np.minimum(np.minimum(v0, v0 + e1), v0 + e2)
-        hi_t = np.maximum(np.maximum(v0, v0 + e1), v0 + e2)
+    dv = cat("dv", (9,))
+    wide_rows = wide_motion = None
+    wide_stack = 8
+    if T_world:
+        # the world table over [0, T_world), on the union of the shutter's
+        # start and end bounds in a motion scene (builder.py:504-518)
+        w_v0, w_e1, w_e2 = v0[:T_world], e1[:T_world], e2[:T_world]
+        lo_t = np.minimum(np.minimum(w_v0, w_v0 + w_e1), w_v0 + w_e2)
+        hi_t = np.maximum(np.maximum(w_v0, w_v0 + w_e1), w_v0 + w_e2)
+        if any_motion:
+            w_dv = dv[:T_world]
+            v0e, e1e, e2e = w_v0 + w_dv[:, 0:3], w_e1 + w_dv[:, 3:6], w_e2 + w_dv[:, 6:9]
+            lo_t = np.minimum(lo_t, np.minimum(np.minimum(v0e, v0e + e1e), v0e + e2e))
+            hi_t = np.maximum(hi_t, np.maximum(np.maximum(v0e, v0e + e1e), v0e + e2e))
         tree = bvh_mod.build_bvh(lo_t, hi_t, max_prims_in_node=LEAF_TRIS)
-        wide = build_wide_bvh(tree, v0, e1, e2)
-        wide_rows, wide_stack = wide.rows, wide.max_stack
+        wide = build_wide_bvh(tree, w_v0, w_e1, w_e2,
+                              tri_motion=w_dv if any_motion else None)
+        wide_rows, wide_motion, wide_stack = wide.rows, wide.motion_rows, wide.max_stack
 
     t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+    opt = lambda a, dt=torch.float32: None if a is None else t(a, dt)
     i64 = torch.int64
     o2ws = np.asarray([q["o2w"] for q in quads]).reshape(Q, 4, 4)
     geometry = SceneGeometry(
@@ -450,8 +581,13 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
         quad_area_light=t([q["al"] for q in quads], i64),
         quad_mesh_id=t([q["mid"] for q in quads], i64),
         quad_reverse=t([bool(q["reverse"]) for q in quads], torch.bool),
-        wide_rows=None if wide_rows is None else t(wide_rows),
-        wide_stack=int(wide_stack),
+        wide_rows=opt(wide_rows), wide_stack=int(wide_stack),
+        tri_motion=t(dv) if any_motion else None,
+        tri_n_motion=t(cat("dn", (9,))) if any_motion else None,
+        motion_time=t(np.asarray(motion_times, np.float32)) if any_motion else None,
+        wide_motion=opt(wide_motion),
+        **{k: v if k == "inst_stack" else torch.as_tensor(v, device=dev)
+           for k, v in inst.items()},
     )
 
     for al in area_lights:
@@ -486,8 +622,8 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
         filename=film_params.find_one_string("filename", "pbrt.dat"),
     )
     cam_name, cam_params, cam2world_ts, times = desc.camera
-    c2w = xf.AnimatedTransform(cam2world_ts.m[0], cam2world_ts.m[1],
-                               tuple(times)).static_matrix()
+    c2w = xf.AnimatedTransform.from_matrices(cam2world_ts.m[0], cam2world_ts.m[1],
+                                             times[0], times[1])
     camera = make_camera(cam_name, cam_params, c2w, film_cfg.xres,
                          film_cfg.yres, dev)
     film_cfg = dataclasses.replace(film_cfg, fov=camera.fov_deg)

@@ -14,7 +14,12 @@ _GEOMETRY = ("tri_v0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
              "tri_uv0", "tri_uv1", "tri_uv2", "tri_material",
              "tri_area_light", "tri_mesh_id", "quad_type", "quad_o2w",
              "quad_w2o", "quad_params", "quad_material", "quad_area_light",
-             "quad_mesh_id", "quad_reverse", "wide_rows")
+             "quad_mesh_id", "quad_reverse")
+#: the world table (None where every triangle is instanced), the motion
+#: and instancing fields, None in a scene without them
+_GEOMETRY_OPTIONAL = ("wide_rows", "tri_motion", "tri_n_motion", "motion_time", "wide_motion",
+                      "inst_rows", "inst_o2w", "inst_w2o", "inst_root", "inst_lo",
+                      "inst_hi", "inst_mesh_id")
 _LIGHTS = ("type", "emit", "pos", "dirw", "cos_total", "cos_falloff", "shape_kind",
            "quad_idx", "tri_start", "tri_count", "cdf_offset", "total_area", "tri_cdf",
            "l2w", "w2l", "env_id", "env_map", "lmap_id", "lmap", "proj_screen",
@@ -50,6 +55,13 @@ def jax_scene_arrays(built) -> dict:
     a = np.asarray
     out = {k: a(getattr(g, k)) for k in _GEOMETRY}
     out["wide_stack"] = g.wide_stack
+    out.update({k: None if getattr(g, k) is None else a(getattr(g, k))
+                for k in _GEOMETRY_OPTIONAL})
+    out["inst_stack"] = g.inst_stack if g.inst_rows is not None else None
+    c2w = cam.cam_to_world
+    if not c2w.is_static:
+        out.update(cam_T=a(c2w.T), cam_R=a(c2w.R), cam_S=a(c2w.S), cam_times=a(c2w.times),
+                   cam_to_world_end=a(c2w.m_end))
     out.update(
         mat_active_lobes=np.asarray(mt.active_lobes),
         **{f"mat_{k}": a(getattr(mt, k)) for k in _MATERIALS},
