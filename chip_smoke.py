@@ -115,7 +115,27 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    and an 8-use instanced scene card vs CPU (8 waves and 8 seeds pooled),
    the 8-use scene against its flattened copy; then the static kernels
    re-timed on phase 3's sets;
-12. the ``kernels`` JSON line (see PERF.md for the fields), then the result.
+12. lens cameras and the spectral renderer — the 512² scene with its
+   camera replaced (``LENS_CAMERAS``; the lens and eye files, written by
+   ``write_lens_data`` into a temporary directory, are the D-Gauss F/2 of
+   US patent 2,673,491 at 50 mm and a generated 4-surface schematic eye):
+   (a) ``realisticDiffraction`` with diffraction and chromatic aberration
+   under ``Renderer "spectral"`` with 32 bands (``singleDirection``),
+   ``directlighting`` depth 5 as written, 1 spp, counted as in phase 7
+   (camera paths: pixels × bands), one chunk's band-0 wave profiled and
+   scaled to the frame; the closest-hit and any-hit kernels against their
+   plain versions on the frame's 262,144 lens rays of band 0, dead lanes
+   (direction 0) included, and the dead lanes' radiance (must be 0); the
+   keyed-normals kernel against its plain version on 1,048,576 lanes at 3
+   samples and on 1, 7 and 4,093 lanes, bit for bit, and timed in 5
+   rounds at 32,768 lanes × 11 tags with its bound; (b) ``realisticEye``
+   with ior1..ior4 spectra and a curved retina under the sampler renderer,
+   1 spp; (c) ``idealDiffraction``, ``orthographic``, ``pinhole`` and
+   ``environment`` at 1 spp, each with one chunk profiled, and the
+   ``cameras`` renderer on 2 transforms at 64²; (d) each camera, and the
+   spectral renderer at 4 bands, at 16² on the card and on the CPU, 8
+   waves and 8 seeds pooled;
+13. the ``kernels`` JSON line (see PERF.md for the fields), then the result.
 
 The real-size scene is ``goldens/killeroo-simple.pbrt`` (its text is kept
 here) at 512²; each ``Include "geometry/killeroo.pbrt"`` (geometry not in
@@ -214,6 +234,20 @@ AO_CHECKED = (1, 4, 64)
 AO_TIMED = 4
 #: tolerance of the card-vs-CPU renders of the tiny scene
 REF_RTOL, REF_ATOL, REF_PIXELS, REF_BIN_REL = 1e-4, 1e-6, 0.99, 1e-3
+#: the per-bin mean's tolerance for phase 12's 16² references: each view
+#: sees the light sphere (L = 2,000) in a few of its 8 × 256 lanes, and one
+#: such lane that the card and the CPU send apart moves a bin's mean by
+#: ~1.5e-3: a lens lane at an aperture rim or the TIR limit (the trace's
+#: acos, atan, sin and cos round differently by an ulp), an orthographic
+#: lane on the sphere's rim (its origin comes out of a matrix product
+#: summed in another order); PR 10's chip runs read 1.81e-3 (D-Gauss) and
+#: 1.39e-3 (orthographic) with 99.71% and 99.95% of the pixels close
+REF_BIN_REL_CAMERAS = 5e-3
+#: the same for the spectral renderer's 16² reference at 4 bands: each
+#: band's bins come from their own traces, so the largest bin difference is
+#: the worst of 4 such sets (PR 10, call 4: 5.25e-3, with 99.12% of the
+#: pixels and more of the (pixel, band) paths close)
+REF_BIN_REL_SPECTRAL = 1e-2
 #: waves (and render seeds) pooled in each 16² textured comparison: a
 #: textured killeroo-scale scene has a few lanes in a thousand whose later
 #: bounces an ulp of difference sends elsewhere (unfiltered lookups past the
@@ -454,6 +488,246 @@ def materials_scene_text(text: str, directory: str, integrator: str = "path") ->
     text = text.replace('SurfaceIntegrator "directlighting"', f'SurfaceIntegrator "{integrator}"')
     return text.replace("WorldBegin", "WorldBegin" + MATERIALS_AND_ENV.replace(
         "@DIR@", directory), 1)
+
+#: the keyed-normals kernel's float operations per normal: the uniform
+#: (subtract 1, multiply by 2, add minval, max), -u² (2), log1pf (counted
+#: as 16: libdevice's range reduction and polynomial), the negation, the
+#: branch test and w - 2.5 or √w - 3 (2), 8 Horner steps (2 each), p·u and
+#: ·√2
+OPS_NORMAL_F32 = 4 + 2 + 16 + 1 + 1 + 2 + 8 * 2 + 2
+#: a lens lane's normals kernel integer work: the (pixel, sample) key (2
+#: keys), then per tag its fold-in (a key and the tag's add) and 2 words
+OPS_NORMALS_LANE_KEY = 2 * (OPS_HASH + OPS_KEY_SCHEDULE)
+OPS_PER_NORMAL_TAG = 1 + OPS_HASH + OPS_KEY_SCHEDULE + 2 * OPS_PER_UNIFORM
+#: the realistic camera's tags (D-Gauss: 11 rows) the kernel is timed at
+NORMAL_TAGS = 11
+
+
+def lens_phase(dev, drive, profile_frame, card_vs_cpu, data_dir):
+    """Phase 12: killeroo-simple through the fork's lens cameras and the
+    spectral renderer, the keyed-normals kernel against its plain version
+    and timed, the traversal kernels on the lens rays (dead lanes
+    included), the other cameras and the cameras renderer, and the 16²
+    references. → the keyed-normals kernel's entry of the kernels line."""
+    import torch
+
+    from pbrt_torch.accel import intersect as isect
+    from pbrt_torch.accel import traverse_cuda as tc
+    from pbrt_torch.core import geometry as geom
+    from pbrt_torch.core import rng
+    from pbrt_torch.core import transform as xf
+    from pbrt_torch.film import film as film_mod
+    from pbrt_torch.integrators.path import trace_radiance
+    from pbrt_torch.renderers import dispatch
+    from pbrt_torch.renderers import sampler as sampler_mod
+    from pbrt_torch.renderers.spectral import render_spectral, spectral_options, spectral_wave
+    from pbrt_torch.scene.api import load_scene_string
+    from pbrt_torch.scene.builder import build
+    from pbrt_torch.utils import timing
+    from pbrt_torch.utils.timing import cuda_ms
+
+    sync = torch.cuda.synchronize
+    t_phase = time.time()
+    write_lens_data(data_dir)
+    text, _ = real_scene_text()
+
+    def chunk_wave(b, bands=0):
+        """One chunk's wave of ``b`` (chunk 0, sample 0): the sampler's, or
+        band 0 of ``bands`` of the spectral renderer's; → a callable."""
+        xs, ys, pix, mask, root, scr = sampler_mod.pixel_chunks(b, 3, CHUNK)
+        u = sampler_mod.wave_uniforms(b.integrator, root, pix[0], scr[0], 0)
+        noise = sampler_mod.camera_noise(b.camera, root, pix[0], 0)
+        st = film_mod.init_film(b.film_config, dev)
+        if bands:
+            cfg = spectral_options(b)[2]
+            return lambda: spectral_wave(st, b.scene, b.camera, b.filter_table, xs[0], ys[0],
+                                         b.integrator, b.film_config, u, noise, 0, bands, cfg,
+                                         sample_scale=mask[0])
+        return lambda: sampler_mod.render_wave(st, b.scene, b.camera, b.filter_table, xs[0],
+                                               ys[0], b.integrator, b.film_config, u,
+                                               sample_scale=mask[0], noise=noise)
+
+    def alive_share(b, n=CHUNK):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(5)
+        u = torch.rand((5, n), generator=gen, device=dev)
+        r = b.camera.generate_rays(u[0] * b.film_config.xres, u[1] * b.film_config.yres,
+                                   u[2], u[3], u[4])
+        return float((r.direction.norm(dim=-1) > 0.5).float().mean())
+
+    # ---- (a) the D-Gauss lens, diffraction and chromatic aberration, 32 bands
+    t0 = time.time()
+    spectral = 'Renderer "spectral" "integer nWaveBands" [32]'
+    built = build(load_scene_string(lens_scene_text(text, "realisticDiffraction", data_dir,
+                                                    spectral)), device=dev)
+    cam, ic, fc = built.camera, built.integrator, built.film_config
+    n_bands, method, _ = spectral_options(built)
+    log("scene", f"killeroo-simple through the D-Gauss F/2 (50 mm, {len(cam.el_radius)} rows, "
+        f"stop {cam.el_aperture[cam.el_radius == 0][0]:g} mm, f/{cam.f_stop:.3f}, film at "
+        f"{cam.film_distance:g} mm, diffraction {cam.diffraction}, chromatic "
+        f"{cam.chromatic}): {built.renderer_name} renderer, {n_bands} bands, {method}; "
+        f"{ic.kind} depth {ic.max_depth}, {fc.xres}x{fc.yres}; header focal length "
+        f"{fc.focal_length:g} mm, f-stop {fc.f_stop:.4f}; lanes alive "
+        f"{alive_share(built):.4f}; built in {time.time() - t0:.1f} s")
+    if not (built.renderer_name == "spectral" and n_bands == 32 and method == "singleDirection"
+            and (ic.kind, ic.max_depth) == ("directlighting", 5) and (fc.xres, fc.yres) ==
+            (512, 512) and len(cam.noise_tags) == NORMAL_TAGS and fc.focal_length == 50.0):
+        raise SystemExit("the D-Gauss spectral scene did not build as written")
+    film, sec, launches, _ = drive("killeroo-simple through the D-Gauss lens (spectral, 32 "
+                                   "bands)", built, 1, warm=False, renderer=render_spectral,
+                                   bands=n_bands)
+    normal_launches = launches["keyed_camera_normals"]
+    lit = (film.pixels.sum((0, 1)) > 0).tolist()
+    log("lens", f"D-Gauss spectral frame: {sum(lit)} of {len(lit)} bins lit; camera-normals "
+        f"launches {normal_launches} (one per sample and chunk, shared by the 32 bands)")
+    if not all(lit):
+        raise SystemExit("the spectral frame left a band empty")
+    profile_frame("D-Gauss lens, spectral band 0 of chunk 0", built, sec * 1e3,
+                  run=chunk_wave(built, n_bands), scale=chunks_of(built) * n_bands)
+
+    # the traversal kernels on the frame's band-0 lens rays, dead lanes included
+    xs, ys, pix, mask, root, scr = sampler_mod.pixel_chunks(built, 0, CHUNK)
+    rays = []
+    for c in range(xs.shape[0]):
+        u = sampler_mod.wave_uniforms(ic, root, pix[c], scr[c], 0)
+        r = cam.generate_rays(xs[c].float() + u[:, 0], ys[c].float() + u[:, 1], u[:, 2],
+                              u[:, 3], u[:, 4], wavelength=400.0,
+                              noise=sampler_mod.camera_noise(cam, root, pix[c], 0))
+        rays.append((r.origin, r.direction))
+    o = torch.cat([r[0] for r in rays]).contiguous()
+    d = torch.cat([r[1] for r in rays]).contiguous()
+    dead = d.norm(dim=-1) == 0.0
+    g = built.scene.geometry
+    inv = isect.make_inv_dir(d).contiguous()
+    R = o.shape[0]
+    tmin = torch.zeros(R, device=dev)
+    tmax = torch.full((R,), float("inf"), device=dev)
+    q = [x.contiguous() for x in isect.quad_best(g, o, d, tmin, tmax)]
+    eq = {}
+    for any_hit in (False, True):
+        args = (g.wide_rows, g.wide_stack, o, d, inv, tmin, tmax, *q)
+        k = tc.traverse(*args, any_hit=any_hit)
+        p = tc.traverse_plain(*args, any_hit=any_hit)
+        sync()
+        eq["any" if any_hit else "closest"] = (
+            all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(k, p)),
+            all(torch.equal(a[dead].view(torch.int32), b[dead].view(torch.int32))
+                for a, b in zip(k, p)), int((p[1][dead] >= 0).sum()))
+    sel = torch.nonzero(dead).squeeze(1)[:CHUNK]
+    u_dead = sampler_mod.wave_uniforms(ic, root, pix.reshape(-1)[sel], scr.reshape(-1, 6)[sel], 0)
+    L_dead = trace_radiance(built.scene, geom.Ray.make(o[sel].contiguous(), d[sel].contiguous()),
+                            ic, u_dead)[0]
+    log("lens", f"traversal kernels vs plain on the frame's {R} lens rays at 400 nm "
+        f"({int(dead.sum())} dead, direction 0; inverse direction ±1e20 there, finite slabs): "
+        + ", ".join(f"{k_} equal bit for bit {v[0]} (dead lanes {v[1]}, hits among them {v[2]}: "
+                    "the light sphere's solve at t ~1e24, as in the JAX package)"
+                    for k_, v in eq.items())
+        + f"; radiance of {sel.numel()} dead lanes: max {float(L_dead.abs().max()):.3g}")
+    if not all(v[0] and v[1] for v in eq.values()) or float(L_dead.abs().max()) != 0.0:
+        raise SystemExit("the traversal kernels disagree on lens rays, or dead lanes add light")
+
+    # ---- the keyed-normals kernel against its plain version, and timed -------
+    pix_all = torch.arange(N_LANES, dtype=torch.int64, device=dev)
+    pix_wrap = torch.cat([torch.tensor(PIXELS_WRAP, dtype=torch.int64, device=dev), pix_all])
+    err_n, n_cases = 0.0, 0
+    for p_, sample, tag0, n_tags in ([(pix_all, s_, rng.REALISTIC_NOISE_TAG, NORMAL_TAGS)
+                                      for s_ in (0, 3, 2**31 + 1)]
+                                     + [(pix_all, 0, rng.IDEAL_NOISE_TAG, 1)]
+                                     + [(pix_wrap[:n].contiguous(), 3, tag0_, t_)
+                                        for n in (1, 7, 4093)
+                                        for tag0_, t_ in ((1000, 11), (2000, 1), (1000, 17))]):
+        kn = rng.camera_normals(root, p_, sample, tag0, n_tags)
+        pn = rng.camera_normals_plain(root, p_, sample, tag0, n_tags)
+        if not torch.equal(kn.view(torch.int32), pn.view(torch.int32)):
+            raise SystemExit(f"keyed_camera_normals disagrees with its plain version on "
+                             f"{p_.numel()} lanes, sample {sample}, tags {tag0} + {n_tags}")
+        err_n = max(err_n, float((kn - pn).abs().max()))
+        n_cases += 1
+    big = rng.camera_normals(root, pix_all, 0, rng.REALISTIC_NOISE_TAG, NORMAL_TAGS)
+    sync()
+    log("rng", f"keyed_camera_normals vs plain: {n_cases} cases ({N_LANES} lanes x 11 tags at "
+        f"samples 0, 3, 2**31 + 1, and the ideal camera's tag; 1, 7 and 4,093 lanes with pixel "
+        f"indices up to 2**32 - 1 at 1, 11 and 17 tags): equal bit for bit; on {N_LANES} "
+        f"lanes mean {float(big.double().mean()):.5f}, std {float(big.double().std()):.5f}, "
+        f"range [{float(big.min()):.3f}, {float(big.max()):.3f}]")
+    del big
+    pix_c = pix_all[:CHUNK].contiguous()
+    nt = timing.queued_rounds(
+        lambda: rng.camera_normals(root, pix_c, 1, rng.REALISTIC_NOISE_TAG, NORMAL_TAGS),
+        RNG_ROUNDS)
+    n_plain = cuda_ms(lambda: rng.camera_normals_plain(root, pix_c, 1, rng.REALISTIC_NOISE_TAG,
+                                                       NORMAL_TAGS), n=5, warm=1)
+    n_bound, n_by = timing.bound_ms(
+        CHUNK * (8 + 4 * 2 * NORMAL_TAGS), f32_ops=CHUNK * NORMAL_TAGS * 2 * OPS_NORMAL_F32,
+        i32_ops=CHUNK * (OPS_NORMALS_LANE_KEY + NORMAL_TAGS * OPS_PER_NORMAL_TAG))
+    log("timing", f"keyed_camera_normals on {CHUNK} lanes x {NORMAL_TAGS} tags: median "
+        f"{nt['ms']:.5f} ms over {RNG_ROUNDS} rounds ({nt['min']:.5f}–{nt['max']:.5f}; plain "
+        f"{n_plain:.3f} ms, host enqueue {nt['host_ms']:.4f} ms); bound {n_bound:.5f} ms "
+        f"({n_by}), kernel / bound {nt['ms'] / n_bound:.2f}x")
+
+    # ---- (b) the schematic eye, the sampler renderer ----------------------
+    t0 = time.time()
+    eye = build(load_scene_string(lens_scene_text(text, "realisticEye", data_dir)), device=dev)
+    log("scene", f"killeroo-simple through the schematic eye ({len(eye.camera.el_rx)} rows, "
+        f"pupil {eye.camera.pupil_diameter:g} mm, retina radius {eye.camera.retina_radius:g} "
+        f"mm): {eye.renderer_name} renderer, media spectra ior1..ior4 at 400 nm "
+        f"{[round(float(v), 4) for v in eye.camera.ior_spectra[:4, 0]]}; lanes alive "
+        f"{alive_share(eye):.4f}; built in {time.time() - t0:.1f} s")
+    _, sec, _, _ = drive("killeroo-simple through the schematic eye", eye, 1, warm=False)
+    profile_frame("schematic eye, chunk 0", eye, sec * 1e3, run=chunk_wave(eye),
+                  scale=chunks_of(eye))
+    del eye
+
+    # ---- (c) the other cameras, then the cameras renderer -------------------
+    for name_ in ("idealDiffraction", "orthographic", "pinhole", "environment"):
+        b = build(load_scene_string(lens_scene_text(text, name_, data_dir)), device=dev)
+        _, sec, lk, _ = drive(f"killeroo-simple through the {name_} camera", b, 1, warm=False)
+        if name_ == "idealDiffraction":
+            normal_launches += lk["keyed_camera_normals"]
+        profile_frame(f"{name_} camera, chunk 0", b, sec * 1e3, run=chunk_wave(b),
+                      scale=chunks_of(b))
+    mats = [np.linalg.inv(xf.look_at(eye_, (0.0, 63.0, -110.0), (0.0, 0.0, 1.0)))
+            for eye_ in ((400.0, 20.0, 30.0), (300.0, -180.0, 60.0))]
+    with open(os.path.join(data_dir, "cams.txt"), "w") as f:
+        f.write("\n".join(" ".join(f"{v:.9g}" for v in m.ravel()) for m in mats))
+    small64, _ = real_scene_text(res=64)
+    views = build(load_scene_string(lens_scene_text(
+        small64, 'Camera "perspective" "float fov" [39]', data_dir,
+        f'Renderer "cameras" "string cameraTransforms" ["{data_dir}/cams.txt"]')), device=dev)
+    t0 = time.time()
+    outs = dispatch.render_scene(views, spp=1, outfile=os.path.join(data_dir, "views.dat"))
+    sync()
+    sums = [float(film_mod.read_dat(p_)[0].sum()) for p_ in outs if p_.endswith(".dat")]
+    log("render", f"cameras renderer, 64x64, 2 transforms, 1 spp: {time.time() - t0:.3f} s, "
+        f"outputs {[os.path.basename(p_) for p_ in outs]}, film sums {sums}")
+    if ([os.path.basename(p_) for p_ in outs] != ["views_cam0.dat", "views_cam0.exr",
+                                                 "views_cam1.dat", "views_cam1.exr"]
+            or not all(v > 0 for v in sums) or sums[0] == sums[1]):
+        raise SystemExit("the cameras renderer did not render its two views")
+
+    # ---- (d) 16² references ----------------------------------------------
+    small, _ = real_scene_text(SMALL_BLOB_FREQ, res=16)
+    for name_ in LENS_CAMERAS:
+        card_vs_cpu(f"{name_} camera ({20 * SMALL_BLOB_FREQ ** 2}-triangle blobs)",
+                    lens_scene_text(small, name_, data_dir), spp=1, chunk_pixels=256,
+                    waves=TEXTURE_REF_WAVES, bin_tol=REF_BIN_REL_CAMERAS)
+    card_vs_cpu(f"D-Gauss lens, spectral renderer, 4 bands ({20 * SMALL_BLOB_FREQ ** 2}"
+                "-triangle blobs)", lens_scene_text(
+                    small, "realisticDiffraction", data_dir,
+                    'Renderer "spectral" "integer nWaveBands" [4]'),
+                spp=1, chunk_pixels=256, waves=TEXTURE_REF_WAVES, renderer=render_spectral,
+                bin_tol=REF_BIN_REL_SPECTRAL, bands=4)
+    log("lens", f"phase 12 took {time.time() - t_phase:.1f} s")
+    return dict(name="keyed_camera_normals", route="cuda", source="pbrt_torch/csrc/rng.cu",
+                replaces="pbrt_tpu/cameras/realistic.py:248", launches=normal_launches,
+                max_abs_err=err_n, ms=nt["ms"], plain_ms=n_plain, bound_ms=n_bound,
+                bound_by=n_by, library_ms=None)
+
+
+def chunks_of(b) -> int:
+    """Chunks of ``CHUNK`` lanes in a frame of the built scene ``b``."""
+    return -(-b.film_config.xres * b.film_config.yres // CHUNK)
+
 
 TINY_SCENE = """
 LookAt 0 1.5 -5  0 0 0  0 1 0
@@ -1047,6 +1321,78 @@ def textures_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
                 spp=1, chunk_pixels=256, scene_path=kinds_path, waves=TEXTURE_REF_WAVES)
 
 
+#: the D-Gauss F/2 of US patent 2,673,491 scaled to 50 mm (the form
+#: pbrt-v3 ships as dgauss.50mm.dat): ten surfaces and the stop, front to
+#: back, as (radius, separation, n, aperture) rows after the focal length
+DGAUSS_50MM = """# focal length
+50
+# radius separation n aperture
+29.475 3.76 1.67 25.2
+84.83 0.12 1 25.2
+19.275 4.025 1.67 23
+40.77 3.275 1.699 23
+12.75 5.705 1 18
+0 4.5 0 17.1
+-14.495 1.18 1.603 17
+40.77 6.065 1.658 20
+-20.385 0.19 1 20
+437.065 3.22 1.717 20
+-39.73 5 1 20
+"""
+#: a generated 4-surface schematic eye in the Zemax sign convention (read
+#: with flipLensRadius): cornea front and back, the pupil, the lens front
+#: and back, as [radiusX radiusY thickness medium semi-diameter conicX
+#: conicY] rows after the effective focal length, front to back
+SCHEMATIC_EYE = """16.7
+-7.72 -7.72 0.55 1 5.0 0.26 0.26
+-6.50 -6.50 3.05 2 5.0 0 0
+0 0 0.0 0 2.0 0 0
+-10.2 -10.2 4.0 3 4.5 3.13 3.13
+6.0 6.0 0 4 4.5 1.0 1.0
+"""
+#: the eye's media (cornea, aqueous, lens, vitreous) as (λ nm, n) pairs
+EYE_MEDIA = {"ior1": (400, 1.3854, 550, 1.3771, 700, 1.3725),
+             "ior2": (400, 1.3436, 550, 1.3374, 700, 1.3339),
+             "ior3": (400, 1.4299, 550, 1.4200, 700, 1.4149),
+             "ior4": (400, 1.3424, 550, 1.3360, 700, 1.3325)}
+#: the lens cameras of phase 12 on the killeroo-simple scene (@DIR@: the
+#: directory of the generated files); the lens traces in millimetres of
+#: camera space, so the stack's front sits ~37 units ahead of the camera
+#: and the film distance sets how many lanes live (PERF.md §4)
+LENS_CAMERAS = {
+    "realisticDiffraction": (
+        'Camera "realisticDiffraction" "string specfile" ["@DIR@/dgauss.50mm.dat"] '
+        '"float filmdistance" [57] "float aperture_diameter" [17.1] "float filmdiag" [35] '
+        '"bool diffractionEnabled" ["true"] "bool chromaticAberrationEnabled" ["true"]'),
+    "realisticEye": (
+        'Camera "realisticEye" "string specfile" ["@DIR@/eye.dat"] "bool flipLensRadius" '
+        '["true"] "float retinaDistance" [16.32] "float retinaRadius" [12] '
+        '"float retinaSemiDiam" [6] "float pupilDiameter" [4] "float filmdiag" [12] '
+        + " ".join(f'"spectrum {k}" [{" ".join(map(str, v))}]' for k, v in EYE_MEDIA.items())),
+    "idealDiffraction": (
+        'Camera "idealDiffraction" "float focal_length" [50] "float filmdistance" [57] '
+        '"float aperture_diameter" [4] "float filmdiag" [35]'),
+    "orthographic": 'Camera "orthographic" "float screenwindow" [-160 160 -160 160]',
+    "pinhole": 'Camera "pinhole" "float filmdistance" [2.9]',
+    "environment": 'Camera "environment"',
+}
+
+
+def write_lens_data(directory: str):
+    """The lens and eye prescriptions of ``LENS_CAMERAS`` as files of floats
+    in ``directory``."""
+    for name, text in (("dgauss.50mm.dat", DGAUSS_50MM), ("eye.dat", SCHEMATIC_EYE)):
+        with open(os.path.join(directory, name), "w") as f:
+            f.write(text)
+
+
+def lens_scene_text(text: str, camera: str, directory: str, renderer: str = "") -> str:
+    """The killeroo-simple scene ``text`` seen through ``LENS_CAMERAS[camera]``
+    (or the directive ``camera``), with a ``Renderer`` directive."""
+    line = LENS_CAMERAS.get(camera, camera).replace("@DIR@", directory)
+    return text.replace('Camera "perspective" "float fov" [39]', f"{line}\n{renderer}")
+
+
 def camera_and_bounce_rays(built, dev, n_lanes: int, gen, times: bool):
     """``n_lanes`` rays of a built scene: camera rays through jittered
     pixels (each at its own uniform shutter time if ``times``), then
@@ -1372,7 +1718,7 @@ def main() -> int:
     from pbrt_torch.core import sampling as smp
     from pbrt_torch.film import film as film_mod
     from pbrt_torch.integrators.path import PrimarySource, trace_radiance
-    from pbrt_torch.renderers.sampler import render, render_wave
+    from pbrt_torch.renderers.sampler import camera_noise, render, render_wave
     from pbrt_torch.scene.api import load_scene, load_scene_string
     from pbrt_torch.scene.builder import build
     from pbrt_torch.scripts import gather_lab as gl
@@ -1740,22 +2086,29 @@ def main() -> int:
     # ---- 5. small reference: card vs CPU --------------------------------
     rs = np.random.default_rng(5)
 
-    def agree(what, fg, fc):
-        px_close = float(np.isclose(fg, fc, rtol=REF_RTOL, atol=REF_ATOL).all(-1).mean())
+    def agree(what, fg, fc, bin_tol=REF_BIN_REL, bands=1):
+        """Films of the card and the CPU agree: pixels close (each
+        (pixel, band) of ``bands`` equal groups of bins, one traced path of
+        the spectral renderer, when ``bands`` > 1) and per-bin means."""
+        close = np.isclose(fg, fc, rtol=REF_RTOL, atol=REF_ATOL)
+        px_close = float(close.reshape(*close.shape[:-1], bands, -1).all(-1).mean())
         mg, mc = (f.reshape(-1, f.shape[-1]).mean(0) for f in (fg, fc))
         bin_rel = float(np.abs(mg - mc).max() / max(np.abs(mc).max(), 1e-30))
-        log("reference", f"{what}: pixels close (rtol {REF_RTOL:g}) {px_close:.4f}, "
+        unit = "pixels" if bands == 1 else "(pixel, band) paths"
+        log("reference", f"{what}: {unit} close (rtol {REF_RTOL:g}) {px_close:.4f}, "
             f"per-bin mean rel diff {bin_rel:.3g}, equal bit for bit "
             f"{bool(np.array_equal(fg, fc))}")
-        if (px_close < REF_PIXELS or bin_rel > REF_BIN_REL or not np.isfinite(fg).all()
+        if (px_close < REF_PIXELS or bin_rel > bin_tol or not np.isfinite(fg).all()
                 or not fg.sum() > 0):
             raise SystemExit(f"{what}: the renders disagree")
 
-    def card_vs_cpu(label, text, spp=2, chunk_pixels=40, scene_path=None, waves=1):
-        """``waves`` waves, each from one primary-sample array on the card
-        and on the CPU, then render(seed, spp) for seeds 0 to waves − 1 in
-        chunks of ``chunk_pixels``, on both, each comparison pooled over
-        its waves; the scene is ``text``, or the file ``scene_path``."""
+    def card_vs_cpu(label, text, spp=2, chunk_pixels=40, scene_path=None, waves=1,
+                    renderer=render, bin_tol=REF_BIN_REL, bands=1):
+        """``waves`` waves, each from one primary-sample array (and a lens
+        camera's keyed normals of wave w's seed) on the card and on the
+        CPU, then ``renderer``(seed, spp) for seeds 0 to waves − 1 in chunks
+        of ``chunk_pixels``, on both, each comparison pooled over its
+        waves; the scene is ``text``, or the file ``scene_path``."""
         pair = [build(load_scene(scene_path) if scene_path else load_scene_string(text),
                       device=d) for d in (dev, "cpu")]
         ic, fc = pair[0].integrator, pair[0].film_config
@@ -1765,7 +2118,7 @@ def main() -> int:
                      0 if ic.kind == "metadata" else ic.max_depth))
         yy, xx = np.divmod(np.arange(n_px), fc.xres)
         films = [[], [], []]
-        for _ in range(waves):
+        for w in range(waves):
             u_np = rs.random((n_px, width), dtype=np.float32)
             # the scene's own conditioning: the CPU again, each image sample
             # one ulp over (not checked; what an ulp of difference does)
@@ -1774,10 +2127,12 @@ def main() -> int:
             for slot, (b, u_) in enumerate(((pair[0], u_np), (pair[1], u_np),
                                             (pair[1], u_ulp))):
                 st = film_mod.init_film(b.film_config, b.device)
+                pix_w = torch.as_tensor(yy * fc.xres + xx, device=b.device)
                 render_wave(st, b.scene, b.camera, b.filter_table,
                             torch.as_tensor(xx, device=b.device),
                             torch.as_tensor(yy, device=b.device), b.integrator,
-                            b.film_config, torch.as_tensor(u_, device=b.device))
+                            b.film_config, torch.as_tensor(u_, device=b.device),
+                            noise=camera_noise(b.camera, rng.root_key(w), pix_w, 0))
                 films[slot].append(st.pixels.cpu().numpy())
         films = [np.stack(f) for f in films]
         what = f"{label} {fc.xres}x{fc.yres}, {ic.kind}" + (
@@ -1786,11 +2141,12 @@ def main() -> int:
         own = float(np.isclose(films[2], films[1], rtol=REF_RTOL, atol=REF_ATOL).all(-1).mean())
         log("reference", f"{what}{pooled}: the CPU against itself with each image sample one "
             f"ulp over: pixels close (rtol {REF_RTOL:g}) {own:.4f}")
-        agree(f"{what}, same uniforms{pooled}, card vs CPU", films[0], films[1])
-        keyed = [np.stack([render(b, spp=spp, seed=sd, chunk_pixels=chunk_pixels)
+        agree(f"{what}, same uniforms{pooled}, card vs CPU", films[0], films[1], bin_tol)
+        keyed = [np.stack([renderer(b, spp=spp, seed=sd, chunk_pixels=chunk_pixels)
                            .pixels.cpu().numpy() for sd in range(waves)]) for b in pair]
         seeds = "seed=0" if waves == 1 else f"seed=0..{waves - 1}"
-        agree(f"{what}, render({seeds}, spp={spp}), card vs CPU", *keyed)
+        agree(f"{what}, {renderer.__name__}({seeds}, spp={spp}), card vs CPU", *keyed,
+              bin_tol, bands)
         return pair[0], keyed[0][0]
 
     tiny_gpu, tiny_keyed = card_vs_cpu("tiny scene", TINY_SCENE)
@@ -1841,16 +2197,15 @@ def main() -> int:
     # ---- 7. the main path -------------------------------------------------
     n_chunks = -(-W * H // CHUNK)
 
-    def chunks_of(b):
-        return -(-b.film_config.xres * b.film_config.yres // CHUNK)
-
-    def drive(label, b, spp, warm=True):
-        """Renders ``b`` at ``spp`` (after one warm-up sample) with every
-        launch counter set to 0 just before and read just after, and the
-        sampler's torch path counted; checks the film, the launches and
-        the .dat round trip. → (film, seconds, launches, intersect calls)."""
+    def drive(label, b, spp, warm=True, renderer=render, bands=1):
+        """Renders ``b`` at ``spp`` by ``renderer`` (after one warm-up
+        sample) with every launch counter set to 0 just before and read
+        just after, and the sampler's torch path counted; checks the film,
+        the launches and the .dat round trip. ``bands``: the waves each
+        camera sample traces (the spectral renderer's bands), counted as
+        camera paths. → (film, seconds, launches, intersect calls)."""
         if warm:
-            render(b, spp=1, seed=0, chunk_pixels=CHUNK)
+            renderer(b, spp=1, seed=0, chunk_pixels=CHUNK)
             sync()
         tc.reset_launches()
         rng.reset_launches()
@@ -1860,7 +2215,7 @@ def main() -> int:
         with mock.patch.object(smp, "camera_uniforms", wraps=smp.camera_uniforms) as cu, \
                 mock.patch.object(smp, "_bits_to_unit", wraps=smp._bits_to_unit) as bu:
             ev[0].record()
-            film = render(b, spp=spp, seed=0, chunk_pixels=CHUNK)
+            film = renderer(b, spp=spp, seed=0, chunk_pixels=CHUNK)
             ev[1].record()
             sync()
         sampler_calls = {"camera_uniforms": cu.call_count, "_bits_to_unit": bu.call_count}
@@ -1878,9 +2233,10 @@ def main() -> int:
             dat_ok = bool(np.array_equal(back, film.pixels.cpu().double().numpy()))
         what = {"ambientocclusion": f"{ic.ao_nsamples} AO samples",
                 "metadata": f"channel {ic.metadata_channel}"}.get(ic.kind, f"depth {ic.max_depth}")
-        log("render", f"{label}: {ic.kind}, {W}x{H}, {spp} spp, {what}, {ic.n_bins} bins, "
-            f"chunk {CHUNK}: {sec:.3f} s, {W * H * spp / sec:.1f} camera paths/s on {name} "
-            f"({smi})")
+        traced = f" x {bands} bands" if bands > 1 else ""
+        log("render", f"{label}: {ic.kind}, {W}x{H}, {spp} spp{traced}, {what}, {ic.n_bins} "
+            f"bins, chunk {CHUNK}: {sec:.3f} s, {W * H * spp * bands / sec:.1f} camera paths/s "
+            f"on {name} ({smi})")
         variants = "".join(f", {k} {launches[k] / spp:.1f}" for k in tc.KERNEL_NAMES
                            if k not in ("wide_step", "traverse_closest", "traverse_any")
                            and launches[k])
@@ -1889,7 +2245,8 @@ def main() -> int:
             f"{launches['traverse_closest'] / spp:.1f}, any "
             f"{launches['traverse_any'] / spp:.1f}{variants}, keyed uniforms "
             f"{launches['keyed_uniforms'] / spp:.1f}, keyed AO uniforms "
-            f"{launches['keyed_ao_uniforms'] / spp:.1f}; film finite {finite}, sum "
+            f"{launches['keyed_ao_uniforms'] / spp:.1f}, keyed camera normals "
+            f"{launches['keyed_camera_normals'] / spp:.1f}; film finite {finite}, sum "
             f"{total:.6g}, .dat round trip {dat_ok}; sampler torch ops on the card "
             f"{sampler_calls}")
         keyed = "keyed_ao_uniforms" if ic.kind == "ambientocclusion" else "keyed_uniforms"
@@ -1899,10 +2256,12 @@ def main() -> int:
         if (sum(launches[k] for k in tc.WORLD_KERNELS) != n_calls
                 or sum(launches[k] for k in tc.INSTANCE_KERNELS) != n_inst_calls):
             raise SystemExit(f"{label}: traversal launches do not match intersect calls")
+        noisy = len(b.camera.noise_tags) > 0
         if (launches["keyed_scrambles"] != 1 or launches[keyed] != spp * chunks_of(b)
-                or launches[other] != 0):
+                or launches[other] != 0
+                or launches["keyed_camera_normals"] != noisy * spp * chunks_of(b)):
             raise SystemExit(f"{label}: the keyed kernels did not launch once per render "
-                             "and once per wave and chunk")
+                             "and once per sample and chunk")
         if not (finite and total > 0.0 and dat_ok):
             raise SystemExit(f"{label}: the film is not finite, empty, or did not round-trip")
         if any(sampler_calls.values()):
@@ -1918,14 +2277,19 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def profile_frame(label, b, frame_ms):
+    def profile_frame(label, b, frame_ms, run=None, scale=1):
         """→ {"ms": kernel time, "per_chunk": launches per chunk} of one
-        1-spp frame of ``b`` under the profiler."""
+        1-spp frame of ``b`` under the profiler; or of ``run``, a part of
+        the frame done ``scale`` times in it (one chunk's wave), its times
+        and launches multiplied by ``scale``."""
         nc = chunks_of(b)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            render(b, spp=1, seed=3, chunk_pixels=CHUNK)
+            if run is None:
+                render(b, spp=1, seed=3, chunk_pixels=CHUNK)
+            else:
+                run()
             sync()
-        kern = [(e.key, e.self_device_time_total / 1e3, e.count)
+        kern = [(e.key, scale * e.self_device_time_total / 1e3, scale * e.count)
                 for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
         dev_ms = sum(x[1] for x in kern)
@@ -1948,7 +2312,8 @@ def main() -> int:
         rng_ms = sum(x[1] for x in kern if "keyed_" in x[0])
         n_launch = sum(x[2] for x in kern)
         htod = sum(x[2] for x in kern if x[0].startswith("Memcpy HtoD"))
-        log("profile", f"{label}, 1 spp: kernel time {dev_ms:.1f} ms in {n_launch} launches "
+        part = f" (one wave x {scale})" if scale != 1 else ""
+        log("profile", f"{label}, 1 spp{part}: kernel time {dev_ms:.1f} ms in {n_launch} launches "
             f"({n_launch / nc:.1f} per {CHUNK}-lane chunk, {nc} chunks; of them "
             f"{htod} host-to-device copies, none from the sampler) "
             f"= {100 * dev_ms / frame_ms:.1f}% of the unprofiled {frame_ms:.1f} ms "
@@ -2044,7 +2409,14 @@ def main() -> int:
             + ", ".join(line) + f" (phase 3: {times['traverse_closest']['ms']:.4f}, "
             f"{times['traverse_any']['ms']:.4f} ms on the permuted set)")
 
-    # ---- 12. kernels line -------------------------------------------------
+    # ---- 12. lens cameras and the spectral renderer ---------------------------
+    data_dir = tempfile.mkdtemp(prefix="chip_smoke_lens_")
+    try:
+        normals_entry = lens_phase(dev, drive, profile_frame, card_vs_cpu, data_dir)
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+    # ---- 13. kernels line -------------------------------------------------
     src = "pbrt_torch/csrc/traverse.cu"
     rep = "pbrt_tpu/accel/pallas_step.py:36"
     kernels = []
@@ -2063,6 +2435,7 @@ def main() -> int:
             name=key, route="cuda", source="pbrt_torch/csrc/rng.cu", replaces=rep_,
             launches=n_, max_abs_err=err_, ms=ms_, plain_ms=plain_,
             bound_ms=b_, bound_by=by_, library_ms=None))
+    kernels.append(normals_entry)
     kernels.append(dict(
         name="gather_lab", route="cuda", source="pbrt_torch/csrc/gather_lab.cu",
         replaces="scripts/pallas_gather_lab.py:78", launches=lab_launches,
@@ -2088,7 +2461,10 @@ def main() -> int:
         "kernel; the traversal's and keyed_uniforms' launches are those of the "
         "directlighting and path renders (4 spp each), keyed_ao_uniforms' those "
         "of the ambient-occlusion render (1 spp); the motion kernels' launches are "
-        "those of goldens/anim-killeroos-moving.pbrt as written (8 spp), the "
+        "those of goldens/anim-killeroos-moving.pbrt as written (8 spp), "
+        "keyed_camera_normals' those of the D-Gauss spectral frame and the "
+        "ideal-diffraction frame (1 spp each; torch.randn's Philox is another "
+        "function), the "
         "instance kernels' those of the 64 instanced killeroos (1 spp), each "
         "timed on its own scene's permuted set, its plain_ms one call of the "
         "plain version, which counts the work for the bound as it goes; "

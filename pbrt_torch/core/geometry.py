@@ -80,16 +80,23 @@ def phi_of(x, y):
 
 @dataclasses.dataclass
 class Ray:
-    """A batch of rays: origin/direction (R, 3); tmin/tmax/time (R,)."""
+    """A batch of rays: origin/direction (R, 3); tmin/tmax/time (R,).
+
+    ``wavelength`` (nm) is the fork's per-ray wavelength, 0 for a ray that
+    carries the whole spectrum (geometry.h:317; the JAX package's
+    ``Ray.wavelength``): an (R,) tensor where a lens camera sets it, else
+    the number 0.0, which costs no launch on the card."""
 
     origin: torch.Tensor
     direction: torch.Tensor
     tmin: torch.Tensor
     tmax: torch.Tensor
     time: torch.Tensor
+    wavelength: torch.Tensor | float = 0.0
 
     @staticmethod
-    def make(origin, direction, tmin=None, tmax=None, time=None) -> "Ray":
+    def make(origin, direction, tmin=None, tmax=None, time=None,
+             wavelength=None) -> "Ray":
         batch = origin.shape[:-1]
 
         def fill(x, default):
@@ -101,7 +108,8 @@ class Ray:
 
         return Ray(origin=origin, direction=direction.expand(origin.shape),
                    tmin=fill(tmin, 0.0), tmax=fill(tmax, math.inf),
-                   time=fill(time, 0.0))
+                   time=fill(time, 0.0),
+                   wavelength=0.0 if wavelength is None else fill(wavelength, 0.0))
 
     def at(self, t):
         return self.origin + t[..., None] * self.direction

@@ -37,7 +37,17 @@ plain versions here when they lie on the CPU; both give the same bits:
   ``uniform_per(bounce_key(pixel_sample_key(root, pixel, s), j,
   BSDF_SAMPLE), 2)`` that ``_ao_li`` draws (path.py:783-784);
 - ``pixel_scrambles`` — the (R, 6) scramble words of the lowdiscrepancy
-  camera sample, from sample 0's pixel key (sampler.py:122-127, :43-44).
+  camera sample, from sample 0's pixel key (sampler.py:122-127, :43-44);
+- ``camera_normals`` — the lens cameras' Gaussian noise for sample s,
+  (R, T, 2): ``jax.random.normal(fold_in(pixel_sample_key(root, pixel,
+  s), tag0 + t), (2,))`` for t < T (realistic.py:248-252: one tag per
+  lens element from 1000; :402-404: the ideal camera's tag 2000). A
+  normal is ``uniform(minval=nextafter(-1, 0), maxval=1)`` of the key's
+  bits, times √2 erf_inv, which XLA computes by Giles' single-precision
+  polynomial (``normals_from_bits``). The uniforms' bits are jax's; the
+  normals differ from jax's by at most 3 ulps on the CPU, where XLA fuses
+  the polynomial's steps into FMAs and has a log1p of its own. The kernel
+  and the plain version agree bit for bit on the card.
 
 There is no Pallas original: XLA computes threefry for the JAX package.
 Threefry's 20 rounds in torch ops are about a hundred small launches per
@@ -76,8 +86,25 @@ CAMERA_DIMS = 5
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
+#: the fold-in tags of the lens cameras' noise: the realistic camera's
+#: element i draws under 1000 + i, the ideal camera under 2000
+REALISTIC_NOISE_TAG = 1000
+IDEAL_NOISE_TAG = 2000
+
+#: Giles' erf_inv coefficients as XLA expands erf_inv in float32, highest
+#: degree first: for w = -log1p(-u²) < 5 (in w - 2.5), then for w ≥ 5 (in
+#: √w - 3)
+ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+                0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+                0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+#: float32 nextafter(-1, 0), the normal's uniform's minval, and √2
+NORMAL_LO = -0.99999994039535522
+SQRT2_F32 = 1.41421353816986084
+
 #: kernel launches per wrapper (the plain versions count nothing)
-launches = {"keyed_uniforms": 0, "keyed_scrambles": 0, "keyed_ao_uniforms": 0}
+launches = {"keyed_uniforms": 0, "keyed_scrambles": 0, "keyed_ao_uniforms": 0,
+            "keyed_camera_normals": 0}
 
 
 def reset_launches():
@@ -155,6 +182,22 @@ def uniform_per(keys: torch.Tensor, n: int) -> torch.Tensor:
     return _to_uniform(bits(keys, n))
 
 
+def normals_from_bits(b: torch.Tensor) -> torch.Tensor:
+    """32-bit words → ``jax.random.normal``'s float32s: the uniform on
+    [nextafter(-1, 0), 1) (``maxval - minval`` rounds to 2 in float32),
+    then √2 erf_inv by Giles' polynomial, step for step as
+    ``csrc/rng.cu:normal_from_bits``. |u| < 1, so erf_inv's ±1 edge case
+    never arises."""
+    u = torch.clamp(_to_uniform(b) * 2.0 + NORMAL_LO, min=NORMAL_LO)
+    w = -torch.log1p(-(u * u))
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(small, ERFINV_SMALL[0], ERFINV_LARGE[0])
+    for cs, cl in zip(ERFINV_SMALL[1:], ERFINV_LARGE[1:]):
+        p = torch.where(small, cs, cl) + p * w
+    return (p * u) * SQRT2_F32
+
+
 # ---------------------------------------------------------------------------
 # the render's keyed arrays: plain versions
 # ---------------------------------------------------------------------------
@@ -193,6 +236,15 @@ def pixel_scrambles_plain(root, pixel_index):
     """(R,) pixel indices → (R, 6) int64 scramble words (sample 0's key)."""
     keys = pixel_sample_key(root.to(pixel_index.device), pixel_index, 0)
     return bits(bounce_key(keys, 0, CAMERA), N_SCRAMBLES)
+
+
+def camera_normals_plain(root, pixel_index, sample: int, tag0: int, n_tags: int):
+    """(R,) pixel indices → the (R, n_tags, 2) float32 normals of sample
+    ``sample`` under fold-in tags ``tag0`` … ``tag0 + n_tags - 1``."""
+    dev = pixel_index.device
+    keys = pixel_sample_key(root.to(dev), pixel_index, sample)
+    tags = torch.arange(tag0, tag0 + n_tags, dtype=torch.int64, device=dev)
+    return normals_from_bits(bits(fold_in(keys[:, None, :], tags), 2))
 
 
 # ---------------------------------------------------------------------------
@@ -256,6 +308,26 @@ def ao_uniforms(root, pixel_index, scrambles, sample: int, n_ao: int):
         raise ValueError(f"ao_uniforms: unsupported device {pixel_index.device}")
     return _keyed_rows("pbrt_torch_keyed_ao_uniforms", "keyed_ao_uniforms", root,
                        pixel_index, scrambles, sample, int(n_ao), 2)
+
+
+def camera_normals(root, pixel_index, sample: int, tag0: int, n_tags: int):
+    """The lens cameras' noise; see ``camera_normals_plain`` for the
+    contract."""
+    if pixel_index.device.type == "cpu":
+        return camera_normals_plain(root, pixel_index, sample, tag0, n_tags)
+    if pixel_index.device.type != "cuda":
+        raise ValueError(f"camera_normals: unsupported device {pixel_index.device}")
+    if n_tags < 0 or not 0 <= tag0 <= tag0 + n_tags <= 2**32:
+        raise ValueError(f"camera_normals: tags {tag0} + [0, {n_tags}) outside uint32")
+    k0, k1, R, lib, stream = _launch_args(root, pixel_index, 2 * n_tags)
+    out = torch.empty((R, n_tags, 2), dtype=torch.float32, device=pixel_index.device)
+    if R == 0 or n_tags == 0:
+        return out
+    native.check_launch(lib.pbrt_torch_keyed_camera_normals(
+        k0, k1, pixel_index.data_ptr(), R, int(sample) & _M32, int(tag0), int(n_tags),
+        out.data_ptr(), stream), "keyed_camera_normals launch")
+    launches["keyed_camera_normals"] += 1
+    return out
 
 
 def pixel_scrambles(root, pixel_index):

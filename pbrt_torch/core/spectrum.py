@@ -159,6 +159,21 @@ def blackbody(temperature: float, config: SpectralConfig = DEFAULT_SPECTRAL,
     return np.asarray(vals, dtype=np.float32)
 
 
+def value_at_wavelength(s: torch.Tensor, wavelength, config: SpectralConfig = DEFAULT_SPECTRAL):
+    """The spectrum ``s`` (..., n_bins) at ``wavelength`` nm (a number or
+    (...,)), linear between bin i's value and bin i + 1's with t = (λ -
+    edge_i) / step (GetValueAtWavelength, spectrum.h:384-405). The last
+    bin reads itself where the reference reads one past the end (the JAX
+    package's spectrum.py:267-285 and its note at :30-32)."""
+    lam = torch.as_tensor(wavelength, dtype=s.dtype, device=s.device)
+    idx_f = (lam - config.lambda_start) / config.step
+    i = torch.floor(idx_f).to(torch.int64).clamp(0, config.n_bins - 1)
+    t = (idx_f - i).clamp(0.0, 1.0)
+    c0 = s.gather(-1, i[..., None])[..., 0]
+    c1 = s.gather(-1, (i + 1).clamp(max=config.n_bins - 1)[..., None])[..., 0]
+    return c0 + t * (c1 - c0)
+
+
 def luminance(s: torch.Tensor, config: SpectralConfig = DEFAULT_SPECTRAL):
     """y(): (..., n_bins) → (...) (reference: spectrum.h:417-422)."""
     t = tables(config)

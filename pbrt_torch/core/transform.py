@@ -93,6 +93,11 @@ def perspective(fov_deg, znear, zfar) -> np.ndarray:
     return scale(inv_tan, inv_tan, 1.0) @ persp
 
 
+def orthographic(znear, zfar) -> np.ndarray:
+    """Orthographic camera matrix (orthographic.cpp Orthographic())."""
+    return scale(1.0, 1.0, 1.0 / (zfar - znear)) @ translate((0.0, 0.0, -znear))
+
+
 def inverse(m: np.ndarray) -> np.ndarray:
     return np.linalg.inv(m)
 

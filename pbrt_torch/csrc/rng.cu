@@ -17,7 +17,21 @@
 //                     them (pbrt_tpu/integrators/path.py:783-784);
 //   keyed_scrambles — the 6 scramble words per pixel from sample 0's key,
 //                     tag 0 (CAMERA) (pbrt_tpu/renderers/sampler.py:43-44,
-//                     :122-127), written as int64 (the port's uint32 holder).
+//                     :122-127), written as int64 (the port's uint32 holder);
+//   keyed_camera_normals — the lens cameras' Gaussian noise, (R, T, 2): for
+//                     fold-in tag t0 + t, jax.random.normal(fold_in(key, t0 +
+//                     t), (2,)) with key the lane's (pixel, sample) key
+//                     (pbrt_tpu/cameras/realistic.py:248-252, T elements
+//                     under tags 1000 + i; :402-404, one under tag 2000).
+//                     jax.random.normal is uniform(minval = nextafter(-1, 0),
+//                     maxval = 1) of the same bits, then sqrt(2)·erf_inv; XLA
+//                     expands erf_inv into Giles' single-precision
+//                     polynomial on w = -log1p(-u²), two branches split at
+//                     w = 5, which is written out here and in
+//                     core/rng.py:normals_from_bits in the same order, with
+//                     the same log1pf (XLA's CPU backend fuses its Horner
+//                     steps into FMAs and has its own log1p: its normals
+//                     differ from these by at most 3 ulps).
 // The port's plain versions are pbrt_torch/core/rng.py and
 // core/sampling.py:camera_uniforms; rng.py's docstring gives the jax
 // semantics each step follows (fold_in = threefry(key, (0, data)); bits[i]
@@ -52,6 +66,14 @@
 //                     key; the block's words are staged in shared memory and
 //                     written out by consecutive threads as consecutive
 //                     16-byte pieces (two int64 words each).
+//   keyed_camera_normals — keyed_uniforms' design: one thread per lane, the
+//                     lane key once (2 hashes), then per tag its fold-in and
+//                     two hashes and two erf_inv polynomials (a log1pf, a
+//                     sqrtf on the far branch, 9 Horner steps); the same
+//                     warp tile and 16-byte copy-out, in passes of 16 tags.
+//                     A lane of the realistic camera's 11-row stack is 35
+//                     hashes and 22 normals, so it is bound by operations
+//                     like its siblings.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,6 +90,8 @@ constexpr int kScrambles = 6;
 constexpr int kPassBounces = 8;            // bounces per tile pass
 constexpr int kAoPerSample = 2;  // uniforms per AO sample
 constexpr int kPassSamples = 16;           // AO samples per tile pass
+constexpr int kNormalsPerTag = 2;          // jax.random.normal(key, (2,))
+constexpr int kPassTags = 16;              // camera-noise tags per tile pass
 
 constexpr uint32_t kBatchedTag = 15u;  // bounce 0 * 16 + reserved purpose 15
 constexpr uint32_t kCameraTag = 0u;    // bounce 0 * 16 + CAMERA
@@ -144,6 +168,34 @@ __host__ __device__ constexpr unsigned tile_cols(int D) {
 
 __host__ __device__ constexpr unsigned ao_tile_cols(int n) {
   return kCameraCols + kAoPerSample * (n < kPassSamples ? n : kPassSamples);
+}
+
+__host__ __device__ constexpr unsigned normal_tile_cols(int T) {
+  return kNormalsPerTag * (T < kPassTags ? T : kPassTags);
+}
+
+// Giles' erf_inv coefficients as XLA writes them (w < 5, then w >= 5),
+// highest degree first
+__constant__ float kErfInvSmall[9] = {
+    2.81022636e-08f, 3.43273939e-07f, -3.5233877e-06f, -4.39150654e-06f,
+    0.00021858087f, -0.00125372503f, -0.00417768164f, 0.246640727f, 1.50140941f};
+__constant__ float kErfInvLarge[9] = {
+    -0.000200214257f, 0.000100950558f, 0.00134934322f, -0.00367342844f,
+    0.00573950773f, -0.0076224613f, 0.00943887047f, 1.00167406f, 2.83297682f};
+
+// jax.random.normal's float32 from 32 bits: the uniform on
+// [nextafter(-1, 0), 1) (maxval - minval rounds to 2 in float32), then
+// sqrt(2) * erf_inv. |u| < 1 always, so erf_inv's ±1 edge case never arises.
+__device__ __forceinline__ float normal_from_bits(uint32_t r) {
+  const float lo = -0.99999994f;  // nextafter(-1, 0)
+  const float u = fmaxf(lo, uniform_from_bits(r) * 2.0f + lo);
+  float w = -log1pf(-(u * u));
+  const bool small = w < 5.0f;
+  w = small ? w - 2.5f : sqrtf(w) - 3.0f;
+  float p = small ? kErfInvSmall[0] : kErfInvLarge[0];
+#pragma unroll
+  for (int i = 1; i < 9; ++i) p = (small ? kErfInvSmall[i] : kErfInvLarge[i]) + p * w;
+  return (p * u) * 1.41421354f;  // float32(sqrt(2))
 }
 
 // camera_uniforms: image (0,2), lens (0,2), time
@@ -306,6 +358,44 @@ keyed_scrambles_kernel(uint32_t k0, uint32_t k1,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+keyed_camera_normals_kernel(uint32_t k0, uint32_t k1,
+                            const long long* __restrict__ pixel, int R,
+                            uint32_t sample, uint32_t tag0, int T,
+                            float* __restrict__ out) {
+  extern __shared__ float4 tiles[];  // kWarps tiles of kWarp × normal_tile_cols(T) floats
+  const unsigned lane = threadIdx.x % kWarp;
+  const unsigned warp = threadIdx.x / kWarp;
+  const unsigned base = (blockIdx.x * kWarps + warp) * kWarp;  // warp's first row
+  if (base >= static_cast<unsigned>(R)) return;  // the whole warp
+  const unsigned rows = min(static_cast<unsigned>(R) - base, static_cast<unsigned>(kWarp));
+  const bool live = lane < rows;
+  const unsigned width = kNormalsPerTag * T;
+  float* tile = reinterpret_cast<float*>(tiles) + warp * kWarp * normal_tile_cols(T);
+
+  uint32_t a = k0, c = k1;  // the lane key: (pixel, sample), as the sampler's keys
+  if (live) {
+    fold_in(a, c, static_cast<uint32_t>(pixel[base + lane]));
+    fold_in(a, c, sample);
+  }
+  for (int t0 = 0; t0 < T; t0 += kPassTags) {
+    const int nt = min(T - t0, kPassTags);
+    const unsigned cols = kNormalsPerTag * nt;  // this pass's columns
+    float* mine = tile + lane * cols;
+    if (live) {
+      for (int t = 0; t < nt; ++t) {
+        uint32_t ta = a, tc = c;
+        fold_in(ta, tc, tag0 + static_cast<uint32_t>(t0 + t));
+        mine[kNormalsPerTag * t] = normal_from_bits(bits_at(ta, tc, 0u));
+        mine[kNormalsPerTag * t + 1] = normal_from_bits(bits_at(ta, tc, 1u));
+      }
+    }
+    __syncwarp();
+    copy_tile_out(tile, out, base, rows, cols, width, kNormalsPerTag * t0, lane);
+    __syncwarp();
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -335,6 +425,16 @@ int pbrt_torch_keyed_scrambles(uint32_t k0, uint32_t k1, const long long* pixel,
   if (R > 0)
     keyed_scrambles_kernel<<<(R - 1) / kThreads + 1, kThreads, 0, stream>>>(
         k0, k1, pixel, R, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pbrt_torch_keyed_camera_normals(uint32_t k0, uint32_t k1, const long long* pixel,
+                                    int R, uint32_t sample, uint32_t tag0, int n_tags,
+                                    float* out, cudaStream_t stream) {
+  if (R > 0 && n_tags > 0)
+    keyed_camera_normals_kernel<<<(R - 1) / kThreads + 1, kThreads,
+                                  kThreads * normal_tile_cols(n_tags) * sizeof(float),
+                                  stream>>>(k0, k1, pixel, R, sample, tag0, n_tags, out);
   return static_cast<int>(cudaGetLastError());
 }
 

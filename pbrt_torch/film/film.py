@@ -34,6 +34,10 @@ class FilmConfig:
     filter: Filter = Filter()
     crop: tuple = (0.0, 1.0, 0.0, 1.0)
     filename: str = "out.dat"
+    #: the scene's film name ("image", "spectralImage",
+    #: "spectralImageNoCamera": the last also writes a depth EXR)
+    kind: str = "image"
+    #: the .dat header's lens metadata, from the camera
     focal_length: float = 0.0
     f_stop: float = 0.0
     fov: float = 0.0
@@ -114,6 +118,28 @@ def write_dat(state: FilmState, cfg: FilmConfig, path: str | None = None):
         f.write(f"{cfg.focal_length} {cfg.f_stop} {cfg.fov}\n".encode())
         f.write(np.transpose(data, (2, 1, 0)).astype("<f8").tobytes())
     return path
+
+
+def to_rgb_image(state: FilmState) -> np.ndarray:
+    """The weight-normalized linear RGB preview, (H, W, 3) float32 ≥ 0
+    (film/image.cpp:169-206; film.py:258-270)."""
+    from pbrt_torch.core import spectrum as spec
+
+    norm = state.pixels / torch.clamp(state.weight, min=1e-12)[..., None]
+    return np.maximum(spec.to_rgb(norm).detach().cpu().numpy(), 0.0)
+
+
+def write_depth_exr(state: FilmState, path: str):
+    """The ``spectralImageNoCamera`` film's depth sidecar: filter-weighted
+    first-hit distance over the weight, at least 0, in all three channels
+    of an EXR (spectralImageNoCamera.cpp:284-302, :388-390; film.py:
+    228-241)."""
+    from pbrt_torch.film.imageio import write_exr
+
+    w = state.weight.detach().to("cpu", torch.float64).numpy()
+    d = state.depth.detach().to("cpu", torch.float64).numpy() / np.maximum(w, 1e-12)
+    d = np.maximum(d, 0.0).astype(np.float32)
+    return write_exr(path, np.repeat(d[..., None], 3, axis=-1))
 
 
 def write_pfm(path: str, rgb: np.ndarray):

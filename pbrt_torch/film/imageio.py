@@ -3,9 +3,10 @@
 Port of ``pbrt_tpu/film/imageio.py`` (reference: src/core/imageio.{h,cpp},
 ReadImage dispatching on the extension): a minimal OpenEXR 2.0 scanline
 codec in numpy (zlib and the EXR byte predictor / deinterleave), the TGA
-reader with its sRGB decode, and PFM through ``film/film.py``. Host-side
-and numpy only. PNG and JPEG need PIL, which the port does not take on:
-``read_image`` refuses them with a ``ValueError``.
+reader with its sRGB decode, and PFM through ``film/film.py``; for output
+also 8-bit PNG and TGA writers. Host-side and numpy only. Reading PNG and
+JPEG, and writing JPEG, need PIL, which the port does not take on: those
+raise a ``ValueError``.
 """
 
 from __future__ import annotations
@@ -225,6 +226,58 @@ def read_tga(path: str) -> np.ndarray:
         data = data[..., [2, 1, 0] + ([3] if nch == 4 else [])]
     lin = (data.astype(np.float32) / 255.0) ** 2.2
     return lin
+
+
+def to_8bit(img: np.ndarray) -> np.ndarray:
+    """Linear (H, W, 3) → 8-bit with the 1/2.2 gamma (imageio.py:260)."""
+    return np.clip(np.asarray(img) ** (1 / 2.2) * 255.0, 0, 255).astype(np.uint8)
+
+
+def write_tga(path: str, img: np.ndarray):
+    """(H, W, 3) linear → uncompressed 24-bit TGA, top row first."""
+    u8 = to_8bit(img)
+    H, W, _ = u8.shape
+    with open(path, "wb") as f:
+        # no id, no colour map, type 2 (true colour), 24 bits, origin top left
+        f.write(struct.pack("<BBBHHBHHHHBB", 0, 0, 2, 0, 0, 0, 0, 0, W, H, 24, 0x20))
+        f.write(np.ascontiguousarray(u8[..., ::-1]).tobytes())  # BGR
+    return path
+
+
+def write_png(path: str, img: np.ndarray):
+    """(H, W, 3) linear → 8-bit RGB PNG (zlib, no filter)."""
+    u8 = to_8bit(img)
+    H, W, _ = u8.shape
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    rows = np.concatenate([np.zeros((H, 1), np.uint8), u8.reshape(H, W * 3)], axis=1)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(rows.tobytes())))
+        f.write(chunk(b"IEND", b""))
+    return path
+
+
+def write_image(path: str, img: np.ndarray):
+    """(H, W, 3) linear RGB by extension (imageio.py:249-263): EXR and PFM
+    as floats, PNG and TGA as 8 bits with the 1/2.2 gamma; JPEG needs PIL,
+    which the port does not use."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".exr":
+        return write_exr(path, img)
+    if ext == ".pfm":
+        from pbrt_torch.film.film import write_pfm
+
+        return write_pfm(path, np.asarray(img, np.float32))
+    if ext == ".png":
+        return write_png(path, img)
+    if ext == ".tga":
+        return write_tga(path, img)
+    raise ValueError(f"unsupported image format {ext!r}")
 
 
 def read_image(path: str) -> np.ndarray:

@@ -128,7 +128,8 @@ class PrimarySource:
 
 def _shadow_unoccluded(g, p, ng, wi, dist, eps):
     """Any-hit shadow rays; True where the light point is visible
-    (VisibilityTester::Unoccluded)."""
+    (VisibilityTester::Unoccluded). Their wavelength stays 0, as the JAX
+    package's (path.py:174)."""
     o = offset_ray_origin(p, ng, wi, eps)
     tmax = torch.where(torch.isfinite(dist), dist * (1.0 - 1e-3) - eps, 1e30)
     rays = geom.Ray(origin=o, direction=wi, tmin=torch.zeros_like(dist),
@@ -357,6 +358,7 @@ def trace_radiance(scene: RenderScene, rays: geom.Ray, cfg: IntegratorConfig,
             tmin=torch.zeros_like(ray.tmin),
             tmax=torch.where(alive, math.inf, 0.0),
             time=ray.time,
+            wavelength=ray.wavelength,
         )
     # one more intersection to collect Le on the last segment
     hit = intersect(g, ray)

@@ -51,22 +51,38 @@ Keys (shapes as in the JAX package's tables):
   ``light_env_cond_int light_env_marg_func`` (H,), ``light_env_marg_cdf``
   (H+1,), ``light_env_marg_int`` (); rows in the JAX package's order:
   ``LightSource`` rows, then the area lights;
-- camera: ``cam_raster_to_camera cam_to_world`` (4, 4), ``cam_lens_radius
-  cam_focal_distance cam_shutter_open cam_shutter_close cam_fov`` ();
-  for an animated camera also its keyframes decomposed, ``cam_T`` (2, 3),
-  ``cam_R`` (2, 4), ``cam_S`` (2, 3, 3), ``cam_times`` (2,), and
-  ``cam_to_world_end`` (4, 4);
+- camera: ``cam_class``, the JAX package's class name
+  (``ProjectiveCamera``, ``PinholeCamera``, ``EnvironmentCamera``,
+  ``RealisticDiffractionCamera``, ``IdealDiffractionCamera``,
+  ``RealisticEyeCamera``), and each of its fields under ``camera_key``'s
+  name (``cam_<field>``; ``cam_to_world`` the shutter-open keyframe,
+  (4, 4)): for a projective camera ``cam_raster_to_camera`` (4, 4),
+  ``cam_lens_radius cam_focal_distance cam_shutter_open
+  cam_shutter_close cam_fov_deg`` () and ``cam_kind``; for the lens
+  cameras the elements' (E,) arrays, the eye's ``ior_spectra`` (6, S),
+  the offsets and the statics; for an animated camera also its keyframes
+  decomposed, ``cam_T`` (2, 3), ``cam_R`` (2, 4), ``cam_S`` (2, 3, 3),
+  ``cam_times`` (2,), and ``cam_to_world_end`` (4, 4);
 - film: ``film_xres film_yres film_n_bins`` (), ``filter_kind`` (str),
-  ``filter_xwidth filter_ywidth`` ().
+  ``filter_xwidth filter_ywidth`` (), optionally ``film_kind`` (str) and
+  the header's ``film_focal_length film_f_stop`` ().
+
+``renderer_from_numpy`` takes ``renderer_name`` (str) and
+``renderer_params`` (the ``Renderer`` directive's entries, name → (type,
+values)) with ``renderer_search_dir`` and returns the port's pair.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from pbrt_torch.accel.intersect import SPHERE, SceneGeometry
-from pbrt_torch.cameras.cameras import PerspectiveCamera
+from pbrt_torch.cameras import cameras as cam_mod
+from pbrt_torch.cameras.eye import RealisticEyeCamera
+from pbrt_torch.cameras.realistic import IdealDiffractionCamera, RealisticDiffractionCamera
 from pbrt_torch.core.sampling import Distribution2D
 from pbrt_torch.core.transform import AnimatedTransform
 from pbrt_torch.core.filters import Filter
@@ -74,6 +90,7 @@ from pbrt_torch.film.film import FilmConfig
 from pbrt_torch.integrators.path import RenderScene
 from pbrt_torch.lights import table as lt_mod
 from pbrt_torch.materials.table import MIXMAT, TEXTURE_COLUMNS, MaterialTable
+from pbrt_torch.scene.paramset import ParamSet
 from pbrt_torch.textures.texture import table_from_numpy
 
 _GEOMETRY_F32 = ("tri_v0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
@@ -98,6 +115,58 @@ _LIGHT_F32 = ("emit", "pos", "dirw", "cos_total", "cos_falloff", "total_area", "
               "l2w", "w2l", "env_map", "lmap", "proj_screen", "proj_invtan")
 _LIGHT_I64 = ("tri_start", "tri_count", "cdf_offset", "env_id", "lmap_id")
 _ENV_DIST = ("func", "cond_cdf", "cond_int", "marg_func", "marg_cdf", "marg_int")
+
+
+CAMERA_CLASSES = {c.__name__: c for c in (
+    cam_mod.ProjectiveCamera, cam_mod.PinholeCamera, cam_mod.EnvironmentCamera,
+    RealisticDiffractionCamera, IdealDiffractionCamera, RealisticEyeCamera)}
+#: camera fields that live on the device
+_CAMERA_TENSORS = ("raster_to_camera", "cam_to_world", "ior_spectra")
+
+
+def camera_key(field: str) -> str:
+    """The array key of a camera field: ``cam_<field>``, and
+    ``cam_to_world`` for the transform's shutter-open keyframe."""
+    return field if field == "cam_to_world" else f"cam_{field}"
+
+
+def _camera_field(name: str, value, dev):
+    """One ``cam_<name>`` array → the port camera's field value: device
+    tensors, host float32 (int32 for media) element arrays, tuples of
+    numbers, or Python numbers."""
+    a = np.asarray(value)
+    if name in _CAMERA_TENSORS:
+        return torch.as_tensor(a.astype(np.float32), device=dev)
+    if name.startswith("el_"):
+        return a.astype(np.int32 if name == "el_medium" else np.float32)
+    if a.dtype.kind in "US":
+        return str(a)
+    if a.ndim:
+        return tuple(v.item() for v in a)
+    return a.item()
+
+
+def camera_from_numpy(arrays: dict, device):
+    """The port's camera from the ``cam_*`` arrays (see the module
+    docstring), on ``device``."""
+    dev = torch.device(device)
+    cls = CAMERA_CLASSES[str(arrays["cam_class"])]
+    camera = cls(**{f.name: _camera_field(f.name, arrays[camera_key(f.name)], dev)
+                    for f in dataclasses.fields(cls) if camera_key(f.name) in arrays})
+    if arrays.get("cam_T") is not None:
+        m0, m1 = (np.asarray(arrays[k], np.float32) for k in ("cam_to_world", "cam_to_world_end"))
+        motion = AnimatedTransform(
+            **{k: np.asarray(arrays[f"cam_{k}"], np.float32) for k in ("T", "R", "S", "times")},
+            m_start=m0, m_end=m1, is_static=bool(np.array_equal(m0, m1)))
+        camera.motion = None if motion.is_static else motion
+    return camera
+
+
+def renderer_from_numpy(arrays: dict):
+    """→ (renderer name, its ``ParamSet``)."""
+    return (str(arrays.get("renderer_name", "sampler")),
+            ParamSet(dict(arrays.get("renderer_params") or {}),
+                     search_dir=str(arrays.get("renderer_search_dir", "."))))
 
 
 def key_from_numpy(data, device="cpu") -> torch.Tensor:
@@ -129,7 +198,7 @@ def _lights_from_numpy(arrays, f32, i64) -> lt_mod.LightTable:
 
 
 def scene_from_numpy(arrays: dict, device):
-    """→ (RenderScene, PerspectiveCamera, FilmConfig) on ``device``."""
+    """→ (RenderScene, camera, FilmConfig) on ``device``."""
     dev = torch.device(device)
     f32 = lambda a: torch.as_tensor(np.array(a, np.float32), device=dev)
     i64 = lambda a: torch.as_tensor(np.array(a, np.int64), device=dev)
@@ -162,28 +231,17 @@ def scene_from_numpy(arrays: dict, device):
     )
 
     lights = _lights_from_numpy(arrays, f32, i64)
-    camera = PerspectiveCamera(
-        raster_to_camera=f32(arrays["cam_raster_to_camera"]),
-        cam_to_world=f32(arrays["cam_to_world"]),
-        lens_radius=float(arrays["cam_lens_radius"]),
-        focal_distance=float(arrays["cam_focal_distance"]),
-        shutter_open=float(arrays["cam_shutter_open"]),
-        shutter_close=float(arrays["cam_shutter_close"]),
-        fov_deg=float(arrays["cam_fov"]),
-    )
-    if arrays.get("cam_T") is not None:
-        m0, m1 = (np.asarray(arrays[k], np.float32) for k in ("cam_to_world", "cam_to_world_end"))
-        motion = AnimatedTransform(
-            **{k: np.asarray(arrays[f"cam_{k}"], np.float32) for k in ("T", "R", "S", "times")},
-            m_start=m0, m_end=m1, is_static=bool(np.array_equal(m0, m1)))
-        camera.motion = None if motion.is_static else motion
+    camera = camera_from_numpy(arrays, dev)
     film = FilmConfig(
         xres=int(arrays["film_xres"]), yres=int(arrays["film_yres"]),
         n_bins=int(arrays["film_n_bins"]),
         filter=Filter(kind=str(arrays["filter_kind"]),
                       xwidth=float(arrays["filter_xwidth"]),
                       ywidth=float(arrays["filter_ywidth"])),
-        fov=float(arrays["cam_fov"]),
+        fov=float(arrays["cam_fov_deg"]),
+        kind=str(arrays.get("film_kind", "image")),
+        focal_length=float(arrays.get("film_focal_length", 0.0)),
+        f_stop=float(arrays.get("film_f_stop", 0.0)),
     )
     textures = table_from_numpy(
         {k[len("tex_"):]: v for k, v in arrays.items() if k.startswith("tex_")}, dev)

@@ -23,8 +23,14 @@ keys; their weight is 0.
 
 A scene with textures also gets the camera rays' differentials, scaled
 about each ray by 1/√spp (ScaleDifferentials, samplerrenderer.cpp:91;
-sampler.py:133-144); they set the texture footprint of the first hit.
-Other scenes build none.
+sampler.py:133-144), where the camera has them (the projective ones); they
+set the texture footprint of the first hit. Other scenes build none.
+
+A lens camera with diffraction also takes, per wave and chunk, its keyed
+normals (``camera_noise``: one ``keyed_camera_normals`` launch on the
+card, from the same (pixel, sample) keys, sampler.py:132), and traces at
+its default wavelength (550 nm; the eye's 0 reads as 550), as the JAX
+sampler passes no wavelength.
 """
 
 from __future__ import annotations
@@ -48,6 +54,16 @@ def wave_uniforms(icfg, root, pixel_index, scrambles, sample: int):
     return rng.primary_uniforms(root, pixel_index, scrambles, sample, depth)
 
 
+def camera_noise(camera, root, pixel_index, sample: int):
+    """The camera's keyed normals of one wave, (R, T, 2), or None for a
+    camera without noise tags (every camera but the lens cameras with
+    diffraction)."""
+    tags = camera.noise_tags
+    if not len(tags):
+        return None
+    return rng.camera_normals(root, pixel_index, sample, tags.start, len(tags))
+
+
 def ray_differentials(camera, px, py, rays, scale: float):
     """The camera's one-pixel differentials scaled about each ray by
     ``scale`` (sampler.py:133-144)."""
@@ -62,17 +78,19 @@ def ray_differentials(camera, px, py, rays, scale: float):
 
 
 def render_wave(film_state, scene, camera, filter_table, pixel_x, pixel_y,
-                icfg, film_cfg, uniforms, sample_scale=None, diff_scale: float = 1.0):
+                icfg, film_cfg, uniforms, sample_scale=None, diff_scale: float = 1.0,
+                noise=None):
     """One wave for one pixel chunk; ``uniforms`` is the integrator's
     primary-sample array (camera columns first; ``wave_uniforms``);
-    ``diff_scale`` scales a textured scene's ray differentials. Updates
-    the film in place and returns it."""
+    ``diff_scale`` scales a textured scene's ray differentials; ``noise``
+    is the camera's (``camera_noise``). Updates the film in place and
+    returns it."""
     px = pixel_x.to(torch.float32) + uniforms[:, 0]
     py = pixel_y.to(torch.float32) + uniforms[:, 1]
     rays = camera.generate_rays(px, py, uniforms[:, 2], uniforms[:, 3],
-                                uniforms[:, 4])
-    diffs = (ray_differentials(camera, px, py, rays, diff_scale) if scene.has_textures
-             else None)
+                                uniforms[:, 4], noise=noise)
+    diffs = (ray_differentials(camera, px, py, rays, diff_scale)
+             if scene.has_textures and hasattr(camera, "ray_differentials") else None)
     L, first_t = trace_radiance(scene, rays, icfg, uniforms, diffs=diffs)
     bad = torch.isnan(L) | (L < 0.0) | torch.isinf(L)
     L = torch.where(bad, 0.0, L)
@@ -82,25 +100,13 @@ def render_wave(film_state, scene, camera, filter_table, pixel_x, pixel_y,
     )
 
 
-def render(built, spp=None, seed: int = 0, chunk_pixels: int | None = None,
-           diff_spp: int | None = None):
-    """All sample waves × pixel chunks → the film. Runs on the device the
-    built scene lives on. ``diff_spp`` (default: ``spp``) sets the texture
-    footprint's scale, 1/√diff_spp of a pixel, so a test can give a
-    golden's filter width at fewer samples (sampler.py:256-285)."""
-    if built.sampler_name not in ("lowdiscrepancy",):
-        raise NotImplementedError(
-            f"sampler {built.sampler_name!r} is not ported yet")
-    dev = built.device
+def pixel_chunks(built, seed: int, chunk_pixels: int | None):
+    """The film's pixels as chunks of ``chunk_pixels`` lanes (default
+    32,768), the last padded with its last pixel at weight 0, on the built
+    scene's device → (xs, ys, pixel indices, lane weights (C, chunk)
+    each, the root key, the (C, chunk, 6) scramble words)."""
     cfg = built.film_config
-    icfg = built.integrator
-    spp = spp if spp is not None else built.pixel_samples
-    dspp = diff_spp if diff_spp is not None else spp
-    diff_scale = 1.0 / float(np.sqrt(max(dspp, 1)))
-    scene = built.scene
-    if scene.pixel_spread > 0.0 and dspp > 1:  # the cone footprint's width
-        scene = dataclasses.replace(scene, pixel_spread=scene.pixel_spread
-                                    / float(np.sqrt(dspp)))
+    dev = built.device
     x0, x1, y0, y1 = cfg.pixel_bounds
     gx, gy = np.meshgrid(np.arange(x0, x1), np.arange(y0, y1))
     all_x, all_y = gx.ravel(), gy.ravel()
@@ -119,11 +125,34 @@ def render(built, spp=None, seed: int = 0, chunk_pixels: int | None = None,
         mask[-1, chunk - pad:] = 0.0
     root = rng.root_key(seed)
     scrambles = rng.pixel_scrambles(root, pix.reshape(-1)).view(n_chunks, chunk, -1)
-    state = film_mod.init_film(cfg, dev)
+    return xs, ys, pix, mask, root, scrambles
+
+
+def render(built, spp=None, seed: int = 0, chunk_pixels: int | None = None,
+           diff_spp: int | None = None):
+    """All sample waves × pixel chunks → the film. Runs on the device the
+    built scene lives on. ``diff_spp`` (default: ``spp``) sets the texture
+    footprint's scale, 1/√diff_spp of a pixel, so a test can give a
+    golden's filter width at fewer samples (sampler.py:256-285)."""
+    if built.sampler_name not in ("lowdiscrepancy",):
+        raise NotImplementedError(
+            f"sampler {built.sampler_name!r} is not ported yet")
+    cfg = built.film_config
+    icfg = built.integrator
+    spp = spp if spp is not None else built.pixel_samples
+    dspp = diff_spp if diff_spp is not None else spp
+    diff_scale = 1.0 / float(np.sqrt(max(dspp, 1)))
+    scene = built.scene
+    if scene.pixel_spread > 0.0 and dspp > 1:  # the cone footprint's width
+        scene = dataclasses.replace(scene, pixel_spread=scene.pixel_spread
+                                    / float(np.sqrt(dspp)))
+    xs, ys, pix, mask, root, scrambles = pixel_chunks(built, seed, chunk_pixels)
+    state = film_mod.init_film(cfg, built.device)
     table = built.filter_table
     for s in range(spp):
-        for c in range(n_chunks):
+        for c in range(xs.shape[0]):
             u = wave_uniforms(icfg, root, pix[c], scrambles[c], s)
             render_wave(state, scene, built.camera, table, xs[c], ys[c],
-                        icfg, cfg, u, sample_scale=mask[c], diff_scale=diff_scale)
+                        icfg, cfg, u, sample_scale=mask[c], diff_scale=diff_scale,
+                        noise=camera_noise(built.camera, root, pix[c], s))
     return state

@@ -14,7 +14,10 @@ normal maps bound to textures; the texture records visible to every
 material, as one texture table (every kind under the uv, spherical and
 planar mappings); point, spot, distant, infinite (constant or lat-long
 mapped), projection and goniometric lights; diffuse area lights on spheres
-and triangle meshes; the ``perspective`` camera, static or animated;
+and triangle meshes; every camera (perspective, orthographic, pinhole,
+environment, and the fork's realistic, ideal-diffraction and eye lens
+cameras), static or animated, with the lens metadata of the film header;
+the ``Renderer`` directive, recorded for ``renderers/dispatch.py``;
 every filter; the ``lowdiscrepancy`` sampler; the ``path``,
 ``directlighting``, ``whitted``, ``ambientocclusion`` and ``metadata``
 integrators; the BVH accelerator with SAH splits.
@@ -64,6 +67,7 @@ from pbrt_torch.integrators.path import KINDS, IntegratorConfig, RenderScene
 from pbrt_torch.lights import table as lt_mod
 from pbrt_torch.materials.table import build_material_table
 from pbrt_torch.scene.api import SceneDescription
+from pbrt_torch.scene.paramset import ParamSet
 from pbrt_torch.shapes.mesh import make_mesh
 from pbrt_torch.textures.texture import build_texture_table
 from pbrt_torch.utils import error as err
@@ -80,6 +84,9 @@ class BuiltScene:
     integrator: IntegratorConfig
     device: torch.device
     description: SceneDescription
+    #: the scene's ``Renderer`` directive (api.cpp:1333-1420)
+    renderer_name: str = "sampler"
+    renderer_params: ParamSet | None = None
 
 
 def _not_ported(what):
@@ -620,13 +627,17 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
         n_bins=S, filter=filt,
         crop=tuple(crop) if crop is not None else (0.0, 1.0, 0.0, 1.0),
         filename=film_params.find_one_string("filename", "pbrt.dat"),
+        kind=film_name,
     )
     cam_name, cam_params, cam2world_ts, times = desc.camera
     c2w = xf.AnimatedTransform.from_matrices(cam2world_ts.m[0], cam2world_ts.m[1],
                                              times[0], times[1])
     camera = make_camera(cam_name, cam_params, c2w, film_cfg.xres,
                          film_cfg.yres, dev)
-    film_cfg = dataclasses.replace(film_cfg, fov=camera.fov_deg)
+    # the film header's lens metadata, from the camera (builder.py:690-703)
+    film_cfg = dataclasses.replace(film_cfg, fov=camera.fov_deg,
+                                   focal_length=camera.focal_length_mm,
+                                   f_stop=camera.f_stop)
     if 0.0 < camera.fov_deg < 360.0 and scene.has_textures:
         # the pixel cone over the shorter image axis (builder.py:704-711)
         res_short = max(min(film_cfg.xres, film_cfg.yres), 1)
@@ -639,4 +650,5 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
         filter_table=t(filt.table()), sampler_name=sampler_name,
         pixel_samples=sampler_params.find_one_int("pixelsamples", 4),
         integrator=integrator, device=dev, description=desc,
+        renderer_name=desc.renderer[0], renderer_params=desc.renderer[1],
     )

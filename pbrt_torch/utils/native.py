@@ -60,6 +60,8 @@ KERNEL_ENTRIES = {
         "pbrt_torch_keyed_uniforms": [_u32, _u32, _vp, _vp, _ci, _u32, _ci, _vp, _vp],
         "pbrt_torch_keyed_ao_uniforms": [_u32, _u32, _vp, _vp, _ci, _u32, _ci, _vp, _vp],
         "pbrt_torch_keyed_scrambles": [_u32, _u32, _vp, _ci, _vp, _vp],
+        "pbrt_torch_keyed_camera_normals": [_u32, _u32, _vp, _ci, _u32, _u32, _ci, _vp,
+                                            _vp],
     },
     "gather_lab.cu": {
         "pbrt_torch_gather_lab": [_vp] * 5 + [_ci, _ci, _vp],

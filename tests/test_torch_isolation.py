@@ -36,6 +36,15 @@ def test_files_found():
     assert (ROOT / "pbrt_torch" / "accel" / "traverse_cuda.py") in FILES
 
 
+@pytest.mark.parametrize("module", ["cameras/realistic.py", "cameras/eye.py",
+                                    "renderers/spectral.py", "renderers/cameras_renderer.py",
+                                    "renderers/dispatch.py", "cli.py"])
+def test_lens_camera_and_renderer_modules_covered(module):
+    """The lens cameras, the renderers and the command line are among the
+    files checked above."""
+    assert ROOT / "pbrt_torch" / module in FILES
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import(path):
     bad = [m for m in _imports(path)

@@ -251,3 +251,79 @@ def test_ao_kernel_constants_are_the_plain_versions():
     assert "bits_at(sa, sc, 0u)" in body and "bits_at(sa, sc, 1u)" in body
     assert "kBatchedTag" not in body  # the lane key carries no purpose tag
     assert re.search(r"__global__ void __launch_bounds__\(kThreads\)\s+keyed_ao_uniforms_kernel\(", text)
+
+
+def _ulps(a, b):
+    """|a - b| in float32 units in the last place (ordered bit patterns)."""
+    ia, ib = (np.asarray(x, np.float32).view(np.int32).astype(np.int64) for x in (a, b))
+    ia, ib = (np.where(i < 0, -(2**31) - i, i) for i in (ia, ib))
+    return np.abs(ia - ib)
+
+
+@pytest.mark.parametrize("tag0,n_tags", [(trng.REALISTIC_NOISE_TAG, 11),
+                                         (trng.IDEAL_NOISE_TAG, 1), (7, 3)])
+@pytest.mark.parametrize("sample", [0, 5, 2**31 + 1])
+def test_camera_normals_match_jax(sample, tag0, n_tags):
+    """``camera_normals_plain`` against ``jax.random.normal(fold_in(key,
+    tag), (2,))`` on the sampler's (pixel, sample) keys, as the lens
+    cameras draw them (realistic.py:248-252, :402-404): the uniforms'
+    bits equal, the normals within 3 ulps (XLA fuses erf_inv's Horner
+    steps into FMAs and has its own log1p); the wrapper on CPU tensors is
+    the plain version and counts no launch."""
+    pix = np.concatenate([PIXELS, np.arange(3000, dtype=np.int64) * 7 + 1])
+    root = trng.root_key(17)
+    keys = jrng.pixel_sample_key(jrng.root_key(17), jnp.asarray(pix, jnp.uint32),
+                                 jnp.uint32(sample & 0xFFFFFFFF))
+    tags = [jnp.uint32(tag0 + t) for t in range(n_tags)]
+    lo = np.nextafter(np.float32(-1), np.float32(0))
+    per_key = lambda fn: jax.jit(jax.vmap(lambda k: jnp.stack([fn(jax.random.fold_in(k, t))
+                                                               for t in tags])))(keys)
+    jn = np.asarray(per_key(lambda k: jax.random.normal(k, (2,))))
+    ju = np.asarray(per_key(lambda k: jax.random.uniform(k, (2,), minval=lo, maxval=1.0)))
+    tpix = torch.as_tensor(pix)
+    tkeys = trng.fold_in(trng.pixel_sample_key(root, tpix, sample)[:, None, :],
+                         torch.arange(tag0, tag0 + n_tags))
+    tu = torch.clamp(trng._to_uniform(trng.bits(tkeys, 2)) * 2.0 + trng.NORMAL_LO,
+                     min=trng.NORMAL_LO)
+    _same_floats(tu.numpy(), ju)
+    before = dict(trng.launches)
+    for out in (trng.camera_normals_plain(root, tpix, sample, tag0, n_tags),
+                trng.camera_normals(root, tpix, sample, tag0, n_tags)):
+        assert out.shape == (len(pix), n_tags, 2) and out.dtype == torch.float32
+        assert _ulps(out.numpy(), jn).max() <= 3
+    assert trng.launches == before
+
+
+def test_normals_cover_both_erfinv_branches():
+    """Words whose uniforms reach |u| near 1 (w = -log1p(-u²) ≥ 5) take
+    the far branch: against ``jax.random.normal``'s transform of the same
+    words, within 3 ulps, and finite at the ends of the range."""
+    words = np.concatenate([np.array([0, 1, 2**31, 2**32 - 1, 2**32 - 512, 511], np.uint64),
+                            np.random.default_rng(4).integers(0, 2**32, 20000, np.uint64)])
+    lo = np.nextafter(np.float32(-1), np.float32(0))
+    f = ((words.astype(np.uint32) >> 9) | 0x3F800000).view(np.float32) - np.float32(1)
+    u = jnp.maximum(lo, jnp.asarray(f) * (jnp.float32(1.0) - lo) + lo)
+    ref = np.asarray(jax.jit(lambda x: jnp.float32(np.sqrt(2)) * jax.lax.erf_inv(x))(u))
+    out = trng.normals_from_bits(torch.as_tensor(words.astype(np.int64))).numpy()
+    assert np.isfinite(out).all() and _ulps(out, ref).max() <= 3
+    w = -np.log1p(-np.asarray(u, np.float64) ** 2)
+    assert (w >= 5).sum() >= 2 and (w < 5).sum() > 10000
+
+
+def test_camera_normals_kernel_constants_are_the_plain_versions():
+    """rng.cu's erf_inv coefficients, √2 and the uniform's minval, read as
+    text, are ``core/rng.py``'s float32 values; the kernel folds tag0 + t
+    into the (pixel, sample) lane key and draws counters 0 and 1."""
+    text = SOURCE.read_text()
+    for name, ref in (("kErfInvSmall", trng.ERFINV_SMALL), ("kErfInvLarge", trng.ERFINV_LARGE)):
+        body = re.search(rf"{name}\[9\] = \{{(.*?)\}};", text, re.S).group(1)
+        vals = [np.float32(v.strip().rstrip("f")) for v in body.split(",")]
+        assert vals == [np.float32(c) for c in ref]
+    assert np.float32(re.search(r"const float lo = ([-0-9.]+)f;", text).group(1)) == \
+        np.float32(trng.NORMAL_LO) == np.nextafter(np.float32(-1), np.float32(0))
+    assert np.float32(re.search(r"\(p \* u\) \* ([0-9.]+)f;", text).group(1)) == \
+        np.float32(trng.SQRT2_F32) == np.float32(np.sqrt(2))
+    assert _cu_int("kNormalsPerTag") == 2
+    body = re.search(r"keyed_camera_normals_kernel\(.*?\n}\n", text, re.S).group(0)
+    assert "tag0 + static_cast<uint32_t>(t0 + t)" in body and "kBatchedTag" not in body
+    assert "bits_at(ta, tc, 0u)" in body and "bits_at(ta, tc, 1u)" in body

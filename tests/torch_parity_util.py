@@ -59,6 +59,11 @@ def jax_scene_arrays(built) -> dict:
                 for k in _GEOMETRY_OPTIONAL})
     out["inst_stack"] = g.inst_stack if g.inst_rows is not None else None
     c2w = cam.cam_to_world
+    out.update(jax_camera_arrays(cam))
+    out.update(film_kind=fc.kind, film_focal_length=fc.focal_length, film_f_stop=fc.f_stop,
+               renderer_name=built.renderer_name,
+               renderer_params=dict(built.renderer_params.entries),
+               renderer_search_dir=built.renderer_params.search_dir)
     if not c2w.is_static:
         out.update(cam_T=a(c2w.T), cam_R=a(c2w.R), cam_S=a(c2w.S), cam_times=a(c2w.times),
                    cam_to_world_end=a(c2w.m_end))
@@ -69,16 +74,25 @@ def jax_scene_arrays(built) -> dict:
         **{f"light_env_{k}": a(getattr(lt.env_dist, k)) for k in _ENV_DIST},
         **{f"tex_{k}": a(getattr(built.scene.textures, k)) for k in _TEXTURES},
         has_textures=built.scene.has_textures, pixel_spread=built.scene.pixel_spread,
-        cam_raster_to_camera=a(cam.raster_to_camera),
-        cam_to_world=a(cam.cam_to_world.m_start),
-        cam_lens_radius=a(cam.lens_radius),
-        cam_focal_distance=a(cam.focal_distance),
-        cam_shutter_open=a(cam.shutter_open),
-        cam_shutter_close=a(cam.shutter_close), cam_fov=cam.fov_deg,
         film_xres=fc.xres, film_yres=fc.yres, film_n_bins=fc.n_bins,
         filter_kind=fc.filter.kind, filter_xwidth=fc.filter.xwidth,
         filter_ywidth=fc.filter.ywidth,
     )
+    return out
+
+
+def jax_camera_arrays(cam) -> dict:
+    """Any JAX camera → ``cam_class`` and ``cam_<field>`` for each of its
+    fields (``pbrt_torch.interop.camera_from_numpy``), ``cam_to_world``
+    its shutter-open keyframe."""
+    import dataclasses
+
+    from pbrt_torch.interop import camera_key
+
+    out = {"cam_class": type(cam).__name__}
+    for f in dataclasses.fields(cam):
+        v = getattr(cam, f.name)
+        out[camera_key(f.name)] = np.asarray(v.m_start if f.name == "cam_to_world" else v)
     return out
 
 
