@@ -135,7 +135,25 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    ``cameras`` renderer on 2 transforms at 64²; (d) each camera, and the
    spectral renderer at 4 bands, at 16² on the card and on the CPU, 8
    waves and 8 seeds pooled;
-13. the ``kernels`` JSON line (see PERF.md for the fields), then the result.
+13. samplers and media — killeroo-simple at 512² (``directlighting``
+   depth 5 as written, 32,768-lane chunks): (a) under the ``halton``,
+   ``bestcandidate``, ``stratified`` and ``random`` samplers, one timed
+   1-spp frame each after a warm-up, counted as in phase 7 (the threefry
+   torch ops among them), one chunk's wave profiled and scaled to the
+   frame; ``adaptive`` at 2 and 8 samples under ``contrast`` and
+   ``shapeid``, with the pixels supersampled, the waves and camera paths/s;
+   (b) in a water box around the whole scene (``WATER_VOLUME``: σa from a
+   generated absorption curve, σs, g 0.6; the transmittance from the camera
+   to the killeroos checked in [0.2, 0.6]) under ``single`` scattering, and
+   (c) the same box as a homogeneous fog with Le under ``emission``, 1 spp
+   each, counted and profiled; the sampler codes and the media block
+   against their plain versions, bit for bit, on 1,048,576 lanes and on
+   1, 7 and 4,093, at samples 0, 3 and 2**31 + 1, and timed in 5 rounds
+   with their bounds; the tiny scene at 16² under each sampler and in a
+   volume of each kind under both volume integrators, card vs CPU (waves
+   and seeds pooled); every view's CPU-against-itself per-bin difference
+   with each image sample one ulp over is logged beside it (phase 5 on);
+14. the ``kernels`` JSON line (see PERF.md for the fields), then the result.
 
 The real-size scene is ``goldens/killeroo-simple.pbrt`` (its text is kept
 here) at 512²; each ``Include "geometry/killeroo.pbrt"`` (geometry not in
@@ -724,6 +742,306 @@ def lens_phase(dev, drive, profile_frame, card_vs_cpu, data_dir):
                 bound_by=n_by, library_ms=None)
 
 
+#: phase 13's samplers (a): each sampler's line in place of killeroo's
+#: lowdiscrepancy one, and adaptive's at 2 and 8 samples
+PHASE13_SAMPLERS = ("halton", "bestcandidate", "stratified", "random")
+KILLEROO_SAMPLER = 'Sampler "lowdiscrepancy" "integer pixelsamples" [8]'
+ADAPTIVE_SAMPLER = ('Sampler "adaptive" "integer minsamples" [2] "integer maxsamples" [8] '
+                    '"string method" ["{}"]')
+#: the file:line of each sampler's branch in the JAX package's
+#: _sampler_uniforms (XLA ops there, not a Pallas kernel)
+SAMPLER_REPLACES = {"halton": "pbrt_tpu/renderers/sampler.py:49",
+                    "bestcandidate": "pbrt_tpu/renderers/sampler.py:63",
+                    "stratified": "pbrt_tpu/renderers/sampler.py:74",
+                    "random": "pbrt_tpu/renderers/sampler.py:84"}
+#: the box around the whole killeroo-simple scene (its floor and wall
+#: planes reach ±1,000), and the media of (b) and (c): water whose
+#: absorption curve (``write_water_curve``, a smooth stand-in for the fork's
+#: data, red absorbed most) and σs give a transmittance of about 0.35 from
+#: the camera to the killeroos (~430 units), and a homogeneous fog with Le
+MEDIA_BOX = '"point p0" [-1100 -1100 -1100] "point p1" [1100 1100 1100]'
+WATER_VOLUME = ('Volume "water" ' + MEDIA_BOX + ' "string absorptionCurveFile" ["@CURVE@"] '
+                '"string phaseFunctionFile" ["vsf.txt"] "spectrum sigma_s" [395 .0009 715 .0005] '
+                '"float g" [.6]')
+FOG_VOLUME = ('Volume "homogeneous" ' + MEDIA_BOX + ' "spectrum sigma_a" [395 .0012 715 .0018] '
+              '"spectrum sigma_s" [395 .0008 715 .0004] "spectrum Le" [395 .0005 715 .0003] '
+              '"float g" [.3]')
+#: the 16² references' volumes, one per kind, around the tiny scene
+REF_VOLUMES = {
+    "homogeneous": 'Volume "homogeneous" "point p0" [-30 -30 -30] "point p1" [30 30 30] '
+                   '"spectrum sigma_a" [395 .02 715 .03] "spectrum sigma_s" [395 .03 715 .01] '
+                   '"spectrum Le" [395 .01 715 .005] "float g" [.5]',
+    "exponential": 'Volume "exponential" "point p0" [-30 -1 -30] "point p1" [30 30 30] '
+                   '"float a" [.08] "float b" [.4] "vector updir" [0 1 0] '
+                   '"spectrum sigma_a" [395 .5 715 .3] "spectrum sigma_s" [395 .4 715 .6] '
+                   '"spectrum Le" [395 .05 715 .1] "float g" [-.3]',
+    "volumegrid": 'Volume "volumegrid" "point p0" [-4 -1 -3] "point p1" [4 5 6] '
+                  '"integer nx" [3] "integer ny" [2] "integer nz" [2] "float density" '
+                  '[.1 .4 .2 .05 .3 .6 .2 .1 .5 .3 .05 .2] "spectrum sigma_a" [395 .2 715 .1] '
+                  '"spectrum sigma_s" [395 .2 715 .3] "spectrum Le" [395 .02 715 .04]',
+    "water": 'Volume "water" "point p0" [-30 -30 -30] "point p1" [30 30 30] '
+             '"string absorptionCurveFile" ["@CURVE@"] "spectrum sigma_s" [395 .03 715 .02] '
+             '"float g" [.6]',
+}
+#: waves (and seeds) pooled per 16² reference (a single-scattering frame
+#: traces 32 shadow rays per camera lane, ~2 s on the CPU each), and their
+#: per-bin rule: phase 12's (``REF_BIN_REL_CAMERAS``). A few lanes in a
+#: thousand get the light (L = 12) on one device and not on the other; one
+#: such lane among 1,024 moves a bin's mean by ~2.7e-3. The lanes are
+#: logged; those of phase 12, traced call by call
+#: (``python -m pbrt_torch.scripts.reference_lanes``), part at a NEE shadow
+#: ray that grazes the light sphere, which one device finds occluding itself
+REF_WAVES_SAMPLERS, REF_WAVES_EMISSION, REF_WAVES_SINGLE = 8, 4, 3
+#: the media block's least operations per lane (rng.cu): the lane key (2
+#: keys); per jitter its tag (2), a key and a uniform; under single
+#: scattering bounce 0's VOLUME key, then per step its tag, a key and 3
+#: uniforms (the float subtract per uniform counted as a float op)
+OPS_VOLUME_KEY = OPS_HASH + OPS_KEY_SCHEDULE
+OPS_PER_JITTER = 2 + OPS_VOLUME_KEY + OPS_PER_UNIFORM
+OPS_PER_STEP = 2 + OPS_VOLUME_KEY + 3 * OPS_PER_UNIFORM
+
+
+def write_water_curve(path: str) -> str:
+    """The water absorption curve of phase 13: two columns (λ in nm, σa
+    per scene unit) over 395–715 nm, a logistic rise from blue to red."""
+    lam = np.linspace(395.0, 715.0, 65)
+    sigma = 0.0007 + 0.0028 / (1.0 + np.exp(-(lam - 590.0) / 30.0))
+    np.savetxt(path, np.stack([lam, sigma], -1), fmt="%.7f")
+    return path
+
+
+def media_scene_text(text: str, volume: str, integrator: str) -> str:
+    """``text`` with ``volume`` after WorldBegin under the volume
+    ``integrator``."""
+    return text.replace("WorldBegin", f'VolumeIntegrator "{integrator}"\nWorldBegin\n{volume}', 1)
+
+
+def camera_to_blob_transmittance(built, dev):
+    """(mean, min, max) over bins of the transmittance from the camera to
+    the generated blobs along the frame's camera rays that hit them first
+    (the meshes of more than 1,000 triangles), and their median distance."""
+    import torch
+
+    from pbrt_torch.accel.intersect import intersect
+    from pbrt_torch.media import volumes as vol_mod
+
+    fc, g = built.film_config, built.scene.geometry
+    ys, xs = torch.meshgrid(torch.arange(fc.yres, device=dev), torch.arange(fc.xres, device=dev),
+                            indexing="ij")
+    half = torch.full((xs.numel(),), 0.5, device=dev)
+    rays = built.camera.generate_rays(xs.reshape(-1) + 0.5, ys.reshape(-1) + 0.5, half, half, half)
+    hit = intersect(g, rays)
+    ids, counts = torch.unique(g.tri_mesh_id, return_counts=True)
+    blob_ids = ids[counts > 1000]
+    tri = (hit.prim >= 0) & (hit.prim < g.num_triangles)
+    on_blob = tri & torch.isin(g.tri_mesh_id[hit.prim.clamp(0, g.num_triangles - 1)], blob_ids)
+    o, d, t = rays.origin[on_blob], rays.direction[on_blob], hit.t[on_blob]
+    tr = vol_mod.transmittance(built.scene.volumes, o, d / d.norm(dim=-1, keepdim=True),
+                               torch.zeros_like(t), t * d.norm(dim=-1), torch.full_like(t, 0.5))
+    per_bin = tr.mean(0)
+    return (float(per_bin.mean()), float(per_bin.min()), float(per_bin.max()),
+            float((t * d.norm(dim=-1)).median()), int(on_blob.sum()))
+
+
+def media_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
+    """Phase 13: killeroo-simple under the halton, bestcandidate, stratified
+    and random samplers and the adaptive sampler (both methods), in water
+    under single scattering and in an emissive fog under emission; the
+    sampler codes and the media block against their plain versions and
+    timed; the 16² references. → the kernels line's entries."""
+    import torch
+
+    from pbrt_torch.core import rng
+    from pbrt_torch.film import film as film_mod
+    from pbrt_torch.renderers import sampler as sampler_mod
+    from pbrt_torch.scene.api import load_scene_string
+    from pbrt_torch.scene.builder import build
+    from pbrt_torch.utils import timing
+    from pbrt_torch.utils.timing import cuda_ms
+
+    sync = torch.cuda.synchronize
+    t_phase = time.time()
+    text, _ = real_scene_text()
+    if KILLEROO_SAMPLER not in text:
+        raise SystemExit("killeroo-simple's sampler line is not as written")
+    curve = write_water_curve(os.path.join(data_dir, "water_abs.txt"))
+
+    def chunk_wave(b):
+        """Chunk 0's wave of sample 0 of ``b``, its keyed arrays drawn
+        first; → a callable."""
+        xs, ys, pix, mask, root, scr = sampler_mod.pixel_chunks(b, 3, CHUNK)
+        ic = b.integrator
+        u = sampler_mod.wave_uniforms(ic, root, pix[0], scr[0], 0, b.sampler_name, 1)
+        media = sampler_mod.media_uniforms(b.scene, ic, root, pix[0], 0)
+        st = film_mod.init_film(b.film_config, dev)
+        return lambda: sampler_mod.render_wave(st, b.scene, b.camera, b.filter_table, xs[0],
+                                               ys[0], ic, b.film_config, u,
+                                               sample_scale=mask[0], media=media)
+
+    def frame(label, b):
+        """A warmed-up, timed 1-spp frame, then one chunk's wave profiled
+        and scaled to the frame → (launches, profile)."""
+        film, sec, launches, _ = drive(label, b, 1)
+        prof = profile_frame(f"{label}, chunk 0", b, sec * 1e3, run=chunk_wave(b),
+                             scale=chunks_of(b))
+        return film, sec, launches, prof
+
+    # ---- (a) the samplers ----------------------------------------------------
+    sampler_launches, kernels = {}, []
+    for sampler in PHASE13_SAMPLERS:
+        b = build(load_scene_string(text.replace(
+            KILLEROO_SAMPLER, f'Sampler "{sampler}" "integer pixelsamples" [8]')), device=dev)
+        if b.sampler_name != sampler:
+            raise SystemExit(f"the {sampler} scene did not build as written")
+        _, _, lk, _ = frame(f"killeroo-simple with the {sampler} sampler", b)
+        sampler_launches[sampler] = lk["keyed_uniforms"]
+    for method in ("contrast", "shapeid"):
+        b = build(load_scene_string(text.replace(KILLEROO_SAMPLER,
+                                                 ADAPTIVE_SAMPLER.format(method))), device=dev)
+        film, sec, lk, _ = drive(f"killeroo-simple with the adaptive sampler ({method})", b, 1)
+        a = film.adaptive
+        log("render", f"adaptive ({method}, minsamples 2, maxsamples 8): {a['need']} of "
+            f"{a['pixels']} pixels supersampled ({100 * a['need'] / a['pixels']:.2f}%), "
+            f"{a['waves']} waves, {a['waves'] * a['pixels'] / sec:.1f} camera paths/s traced, "
+            f"{(2 * a['pixels'] + 6 * a['need']) / sec:.1f} weighted; weight range "
+            f"[{float(film.weight.min()):.3f}, {float(film.weight.max()):.3f}]")
+        if not 0 < a["need"] < a["pixels"] or a["waves"] != 8:
+            raise SystemExit(f"adaptive ({method}) supersampled no pixel or every pixel")
+        sampler_launches["adaptive"] = sampler_launches.get("adaptive", 0) + lk["keyed_uniforms"]
+
+    # ---- (b) killeroo-simple in water, single scattering --------------------
+    water = build(load_scene_string(media_scene_text(
+        text, WATER_VOLUME.replace("@CURVE@", curve), "single")), device=dev)
+    vt = water.scene.volumes
+    tr_mean, tr_min, tr_max, dist, n_rays = camera_to_blob_transmittance(water, dev)
+    log("media", f"water box around killeroo-simple: σa from {os.path.basename(curve)} "
+        f"[{float(vt.sigma_a.min()):.5f}, {float(vt.sigma_a.max()):.5f}] per unit, σs "
+        f"[{float(vt.sigma_s.min()):.5f}, {float(vt.sigma_s.max()):.5f}], g {float(vt.g[0]):.2f}; "
+        f"transmittance camera to killeroo over {n_rays} camera rays (median distance "
+        f"{dist:.1f}): mean over bins {tr_mean:.4f}, bins {tr_min:.4f} to {tr_max:.4f}")
+    if not 0.2 <= tr_mean <= 0.6:
+        raise SystemExit(f"the water's transmittance to the killeroo, {tr_mean:.3f}, is outside "
+                         "[0.2, 0.6]")
+    film_w, _, lk_w, prof_w = frame("killeroo-simple in water (single scattering)", water)
+    # ---- (c) the same box as an emissive fog, emission ----------------------
+    fog = build(load_scene_string(media_scene_text(text, FOG_VOLUME, "emission")), device=dev)
+    film_f, _, lk_f, prof_f = frame("killeroo-simple in fog with Le (emission)", fog)
+    log("media", f"film sums: water {float(film_w.pixels.double().sum()):.6g}, fog "
+        f"{float(film_f.pixels.double().sum()):.6g}; launches per chunk water "
+        f"{prof_w['per_chunk']:.1f}, fog {prof_f['per_chunk']:.1f}; keyed_volume_uniforms "
+        f"launches {lk_w['keyed_volume_uniforms']} and {lk_f['keyed_volume_uniforms']}")
+
+    # ---- the new keyed cases against their plain versions -------------------
+    root = rng.root_key(0)
+    pix_all = torch.arange(N_LANES, dtype=torch.int64, device=dev)
+    pix_wrap = torch.cat([torch.tensor(PIXELS_WRAP, dtype=torch.int64, device=dev), pix_all])
+    scr_all = rng.pixel_scrambles(root, pix_all)
+    scr_wrap = rng.pixel_scrambles(root, pix_wrap)
+    err, n_cases = {}, 0
+    for p_, s_ in [(pix_all, scr_all)] + [(pix_wrap[:n].contiguous(), scr_wrap[:n].contiguous())
+                                          for n in (1, 7, 4093)]:
+        for sample in (0, 3, 2**31 + 1):
+            for sampler in PHASE13_SAMPLERS:
+                for spp in (1, 4) if p_.numel() == N_LANES else (1, 4, 9):
+                    cases = ((rng.primary_uniforms, rng.primary_uniforms_plain, RNG_DEPTH),
+                             (rng.ao_uniforms, rng.ao_uniforms_plain, AO_TIMED))
+                    for fn, plain, count in cases:
+                        k = fn(root, p_, s_, sample, count, sampler, spp)
+                        pl = plain(root, p_, s_, sample, count, sampler, spp)
+                        if not torch.equal(k.view(torch.int32), pl.view(torch.int32)):
+                            raise SystemExit(f"{fn.__name__} ({sampler}, spp {spp}) disagrees "
+                                             f"with its plain version on {p_.numel()} lanes, "
+                                             f"sample {sample}")
+                        err[sampler] = max(err.get(sampler, 0.0), float((k - pl).abs().max()))
+                        n_cases += 1
+            for n_j, single in ((RNG_DEPTH, True), (RNG_DEPTH, False), (1, True), (17, True)):
+                k = rng.volume_uniforms(root, p_, sample, n_j, single)
+                pl = rng.volume_uniforms_plain(root, p_, sample, n_j, single)
+                if not torch.equal(k.view(torch.int32), pl.view(torch.int32)):
+                    raise SystemExit(f"keyed_volume_uniforms ({n_j} jitters, single {single}) "
+                                     f"disagrees with its plain version on {p_.numel()} lanes, "
+                                     f"sample {sample}")
+                key = "volume" if single else "volume_emission"
+                err[key] = max(err.get(key, 0.0), float((k - pl).abs().max()))
+                n_cases += 1
+    sync()
+    log("rng", f"sampler codes (keyed_uniforms at depth {RNG_DEPTH}, keyed_ao_uniforms at "
+        f"{AO_TIMED} AO samples; halton, bestcandidate, stratified, random at spp 1, 4 (and 9 "
+        f"on the ragged sets)) and keyed_volume_uniforms (5 jitters with and without single "
+        f"scattering's 96 columns, 1 and 17 with them) vs plain: {n_cases} cases on "
+        f"{N_LANES} lanes and 1, 7, 4,093 lanes with pixel indices up to 2**32 - 1, samples 0, "
+        f"3, 2**31 + 1: equal bit for bit")
+
+    # ---- timed at the main path's width -------------------------------------
+    pix_c, scr_c = pix_all[:CHUNK].contiguous(), scr_all[:CHUNK].contiguous()
+    n_u = 7 * RNG_DEPTH
+    per_lane = {  # (bytes, f32 ops, i32 ops) of the camera columns
+        "halton": (48, 5 * 4, 5 * 3),
+        "bestcandidate": (48, 2 * 4 + OPS_CAMERA_F32 - 6, 2 * 3 + 3),
+        "stratified": (0, 5 + 4, OPS_VOLUME_KEY + 5 * OPS_PER_UNIFORM),
+        "random": (0, 5, OPS_VOLUME_KEY + 5 * OPS_PER_UNIFORM),
+    }
+    spread = lambda t: f"{t['min']:.5f}–{t['max']:.5f}"
+    for sampler in PHASE13_SAMPLERS:
+        tq = timing.queued_rounds(
+            lambda: rng.primary_uniforms(root, pix_c, scr_c, 1, RNG_DEPTH, sampler, 1), RNG_ROUNDS)
+        plain = cuda_ms(lambda: rng.primary_uniforms_plain(root, pix_c, scr_c, 1, RNG_DEPTH,
+                                                           sampler, 1), n=5, warm=1)
+        nb, f32, i32 = per_lane[sampler]
+        bound, by = timing.bound_ms(CHUNK * (8 + nb + 4 * (5 + n_u)), f32_ops=CHUNK * (n_u + f32),
+                                    i32_ops=CHUNK * (OPS_LANE_KEY + n_u * OPS_PER_UNIFORM + i32))
+        log("timing", f"keyed_uniforms ({sampler}) on {CHUNK} lanes, depth {RNG_DEPTH}: median "
+            f"{tq['ms']:.5f} ms over {RNG_ROUNDS} rounds ({spread(tq)}; plain {plain:.3f} ms, "
+            f"host enqueue {tq['host_ms']:.4f} ms); bound {bound:.5f} ms ({by}), kernel / bound "
+            f"{tq['ms'] / bound:.2f}x")
+        kernels.append(dict(
+            name=f"keyed_uniforms[{sampler}]", route="cuda", source="pbrt_torch/csrc/rng.cu",
+            replaces=SAMPLER_REPLACES[sampler], launches=sampler_launches[sampler],
+            max_abs_err=err[sampler], ms=tq["ms"], plain_ms=plain, bound_ms=bound, bound_by=by,
+            library_ms=None))
+    for key, single, launches, rep in (
+            ("keyed_volume_uniforms", True, lk_w["keyed_volume_uniforms"],
+             "pbrt_tpu/media/volumes.py:190"),
+            ("keyed_volume_uniforms[emission]", False, lk_f["keyed_volume_uniforms"],
+             "pbrt_tpu/integrators/path.py:228")):
+        tq = timing.queued_rounds(
+            lambda: rng.volume_uniforms(root, pix_c, 1, RNG_DEPTH, single), RNG_ROUNDS)
+        plain = cuda_ms(lambda: rng.volume_uniforms_plain(root, pix_c, 1, RNG_DEPTH, single),
+                        n=5, warm=1)
+        width = RNG_DEPTH + 96 * single
+        bound, by = timing.bound_ms(
+            CHUNK * (8 + 4 * width), f32_ops=CHUNK * width,
+            i32_ops=CHUNK * (OPS_AO_LANE_KEY + RNG_DEPTH * OPS_PER_JITTER
+                             + single * (OPS_VOLUME_KEY + 32 * OPS_PER_STEP)))
+        log("timing", f"{key} on {CHUNK} lanes, {width} columns: median {tq['ms']:.5f} ms over "
+            f"{RNG_ROUNDS} rounds ({spread(tq)}; plain {plain:.3f} ms, host enqueue "
+            f"{tq['host_ms']:.4f} ms); bound {bound:.5f} ms ({by}), kernel / bound "
+            f"{tq['ms'] / bound:.2f}x")
+        kernels.append(dict(
+            name=key, route="cuda", source="pbrt_torch/csrc/rng.cu", replaces=rep,
+            launches=launches, max_abs_err=err["volume" if single else "volume_emission"],
+            ms=tq["ms"], plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None))
+
+    # ---- 16² references -----------------------------------------------------
+    tiny = TINY_SCENE.replace('"path" "integer maxdepth" [5]',
+                              '"directlighting" "integer maxdepth" [2]')
+    line = 'Sampler "lowdiscrepancy" "integer pixelsamples" [1]'
+    for sampler in PHASE13_SAMPLERS + ("adaptive",):
+        extra = ' "integer minsamples" [2] "integer maxsamples" [4]' if sampler == "adaptive" else ""
+        spp = 4 if sampler in ("stratified", "adaptive") else 2  # a 2 × 2 grid; 2 → 4
+        card_vs_cpu(f"tiny scene, {sampler} sampler", tiny.replace(
+            line, f'Sampler "{sampler}" "integer pixelsamples" [{spp}]{extra}'), spp=spp,
+            chunk_pixels=256, waves=REF_WAVES_SAMPLERS, bin_tol=REF_BIN_REL_CAMERAS)
+    for kind, volume in REF_VOLUMES.items():
+        for integrator in ("emission", "single"):
+            card_vs_cpu(f"tiny scene in a {kind} volume, {integrator}", media_scene_text(
+                tiny, volume.replace("@CURVE@", curve), integrator), spp=1, chunk_pixels=256,
+                waves=REF_WAVES_SINGLE if integrator == "single" else REF_WAVES_EMISSION,
+                bin_tol=REF_BIN_REL_CAMERAS)
+    log("media", f"phase 13 took {time.time() - t_phase:.1f} s")
+    return kernels
+
+
 def chunks_of(b) -> int:
     """Chunks of ``CHUNK`` lanes in a frame of the built scene ``b``."""
     return -(-b.film_config.xres * b.film_config.yres // CHUNK)
@@ -1077,14 +1395,16 @@ def sass_per_hash(lib_path: str):
                           check=True).stdout
     out = {}
     for part in re.split(r"\n\s+Function : ", text)[1:]:
-        name = re.search(r"keyed_\w+?_kernel", part.split("\n", 1)[0])
+        # a templated kernel's instance: its sampler code, from the mangled
+        # name's template argument (ILi<code>E)
+        name = re.search(r"keyed_\w+?_kernel(?:ILi\d+E)?", part.split("\n", 1)[0])
         ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", part)
         hashes = sum(o.startswith("SHF.L.W") for o in ops) / 20
         if name and hashes:
             per = {k: sum(o.split(".")[0] == k for o in ops) / hashes
                    for k in ("SHF", "LOP3", "IADD3", "IMAD")}
             per["IMAD.IADD"] = sum(o == "IMAD.IADD" for o in ops) / hashes
-            out[name.group(0)] = (len(ops), hashes, per)
+            out[re.sub(r"ILi(\d+)E", r"<\1>", name.group(0))] = (len(ops), hashes, per)
     return out
 
 
@@ -1718,7 +2038,7 @@ def main() -> int:
     from pbrt_torch.core import sampling as smp
     from pbrt_torch.film import film as film_mod
     from pbrt_torch.integrators.path import PrimarySource, trace_radiance
-    from pbrt_torch.renderers.sampler import camera_noise, render, render_wave
+    from pbrt_torch.renderers.sampler import SURFACE_ONLY, camera_noise, render, render_wave
     from pbrt_torch.scene.api import load_scene, load_scene_string
     from pbrt_torch.scene.builder import build
     from pbrt_torch.scripts import gather_lab as gl
@@ -2095,9 +2415,18 @@ def main() -> int:
         mg, mc = (f.reshape(-1, f.shape[-1]).mean(0) for f in (fg, fc))
         bin_rel = float(np.abs(mg - mc).max() / max(np.abs(mc).max(), 1e-30))
         unit = "pixels" if bands == 1 else "(pixel, band) paths"
+        # the lanes behind the gap: the pixels furthest apart, (wave, y, x)
+        # with the card's and the CPU's radiance summed over the bins
+        gap = np.abs(fg - fc).sum(-1).reshape(-1)
+        worst = [(np.unravel_index(i, fg.shape[:-1]), fg.reshape(-1, fg.shape[-1])[i].sum(),
+                  fc.reshape(-1, fc.shape[-1])[i].sum()) for i in np.argsort(-gap)[:3]
+                 if gap[i] > 0 and not close.reshape(-1, close.shape[-1])[i].all()]
+        lanes = "; lanes apart: " + ", ".join(
+            f"{tuple(int(v) for v in at)} card {a:.4g} CPU {b:.4g}" for at, a, b in worst
+        ) if worst else ""
         log("reference", f"{what}: {unit} close (rtol {REF_RTOL:g}) {px_close:.4f}, "
             f"per-bin mean rel diff {bin_rel:.3g}, equal bit for bit "
-            f"{bool(np.array_equal(fg, fc))}")
+            f"{bool(np.array_equal(fg, fc))}{lanes}")
         if (px_close < REF_PIXELS or bin_rel > bin_tol or not np.isfinite(fg).all()
                 or not fg.sum() > 0):
             raise SystemExit(f"{what}: the renders disagree")
@@ -2116,10 +2445,15 @@ def main() -> int:
         width = (PrimarySource.CAMERA_DIMS + 2 * ic.ao_nsamples
                  if ic.kind == "ambientocclusion" else PrimarySource.n_dims(
                      0 if ic.kind == "metadata" else ic.max_depth))
+        # a scene with volumes: the media block, random too
+        media_w = (max(ic.max_depth, 1) + (rng.VOLUME_STEPS * rng.PER_VOLUME_STEP
+                                           if ic.volume_kind == "single" else 0)
+                   if pair[0].scene.has_volumes and ic.kind not in SURFACE_ONLY else 0)
         yy, xx = np.divmod(np.arange(n_px), fc.xres)
         films = [[], [], []]
         for w in range(waves):
             u_np = rs.random((n_px, width), dtype=np.float32)
+            m_np = rs.random((n_px, media_w), dtype=np.float32) if media_w else None
             # the scene's own conditioning: the CPU again, each image sample
             # one ulp over (not checked; what an ulp of difference does)
             u_ulp = u_np.copy()
@@ -2132,15 +2466,20 @@ def main() -> int:
                             torch.as_tensor(xx, device=b.device),
                             torch.as_tensor(yy, device=b.device), b.integrator,
                             b.film_config, torch.as_tensor(u_, device=b.device),
-                            noise=camera_noise(b.camera, rng.root_key(w), pix_w, 0))
+                            noise=camera_noise(b.camera, rng.root_key(w), pix_w, 0),
+                            media=None if m_np is None else torch.as_tensor(m_np,
+                                                                             device=b.device))
                 films[slot].append(st.pixels.cpu().numpy())
         films = [np.stack(f) for f in films]
         what = f"{label} {fc.xres}x{fc.yres}, {ic.kind}" + (
             f" ({ic.metadata_channel})" if ic.kind == "metadata" else "")
         pooled = f", {waves} waves pooled" if waves > 1 else ""
         own = float(np.isclose(films[2], films[1], rtol=REF_RTOL, atol=REF_ATOL).all(-1).mean())
+        m1, m2 = (f.reshape(-1, f.shape[-1]).mean(0) for f in (films[1], films[2]))
+        own_bin = float(np.abs(m2 - m1).max() / max(np.abs(m1).max(), 1e-30))
         log("reference", f"{what}{pooled}: the CPU against itself with each image sample one "
-            f"ulp over: pixels close (rtol {REF_RTOL:g}) {own:.4f}")
+            f"ulp over: pixels close (rtol {REF_RTOL:g}) {own:.4f}, per-bin mean rel diff "
+            f"{own_bin:.3g}")
         agree(f"{what}, same uniforms{pooled}, card vs CPU", films[0], films[1], bin_tol)
         keyed = [np.stack([renderer(b, spp=spp, seed=sd, chunk_pixels=chunk_pixels)
                            .pixels.cpu().numpy() for sd in range(waves)]) for b in pair]
@@ -2211,14 +2550,19 @@ def main() -> int:
         rng.reset_launches()
         isect.calls["intersect"] = isect.calls["instances"] = 0
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        # the sampler's torch path, counted where every camera column would pass
+        # the sampler's torch path, counted where every camera column would
+        # pass, and threefry in torch ops (the samplers' and the media's)
         with mock.patch.object(smp, "camera_uniforms", wraps=smp.camera_uniforms) as cu, \
-                mock.patch.object(smp, "_bits_to_unit", wraps=smp._bits_to_unit) as bu:
+                mock.patch.object(smp, "_bits_to_unit", wraps=smp._bits_to_unit) as bu, \
+                mock.patch.object(rng, "threefry2x32", wraps=rng.threefry2x32) as tf:
             ev[0].record()
             film = renderer(b, spp=spp, seed=0, chunk_pixels=CHUNK)
             ev[1].record()
             sync()
-        sampler_calls = {"camera_uniforms": cu.call_count, "_bits_to_unit": bu.call_count}
+        sampler_calls = {"camera_uniforms": cu.call_count, "_bits_to_unit": bu.call_count,
+                         "threefry2x32": tf.call_count}
+        # an adaptive render's waves (both passes); else one per sample
+        n_waves = film.adaptive["waves"] if film.adaptive else spp
         launches = {**tc.launches, **rng.launches}
         n_calls = isect.calls["intersect"]
         n_inst_calls = isect.calls["instances"]
@@ -2234,9 +2578,10 @@ def main() -> int:
         what = {"ambientocclusion": f"{ic.ao_nsamples} AO samples",
                 "metadata": f"channel {ic.metadata_channel}"}.get(ic.kind, f"depth {ic.max_depth}")
         traced = f" x {bands} bands" if bands > 1 else ""
-        log("render", f"{label}: {ic.kind}, {W}x{H}, {spp} spp{traced}, {what}, {ic.n_bins} "
-            f"bins, chunk {CHUNK}: {sec:.3f} s, {W * H * spp * bands / sec:.1f} camera paths/s "
-            f"on {name} ({smi})")
+        waves_txt = f" ({n_waves} waves)" if film.adaptive else ""
+        log("render", f"{label}: {ic.kind}, {W}x{H}, {spp} spp{traced}{waves_txt}, {what}, "
+            f"{ic.n_bins} bins, chunk {CHUNK}: {sec:.3f} s, "
+            f"{W * H * n_waves * bands / sec:.1f} camera paths/s on {name} ({smi})")
         variants = "".join(f", {k} {launches[k] / spp:.1f}" for k in tc.KERNEL_NAMES
                            if k not in ("wide_step", "traverse_closest", "traverse_any")
                            and launches[k])
@@ -2246,7 +2591,8 @@ def main() -> int:
             f"{launches['traverse_any'] / spp:.1f}{variants}, keyed uniforms "
             f"{launches['keyed_uniforms'] / spp:.1f}, keyed AO uniforms "
             f"{launches['keyed_ao_uniforms'] / spp:.1f}, keyed camera normals "
-            f"{launches['keyed_camera_normals'] / spp:.1f}; film finite {finite}, sum "
+            f"{launches['keyed_camera_normals'] / spp:.1f}, keyed volume uniforms "
+            f"{launches['keyed_volume_uniforms'] / spp:.1f}; film finite {finite}, sum "
             f"{total:.6g}, .dat round trip {dat_ok}; sampler torch ops on the card "
             f"{sampler_calls}")
         keyed = "keyed_ao_uniforms" if ic.kind == "ambientocclusion" else "keyed_uniforms"
@@ -2257,11 +2603,14 @@ def main() -> int:
                 or sum(launches[k] for k in tc.INSTANCE_KERNELS) != n_inst_calls):
             raise SystemExit(f"{label}: traversal launches do not match intersect calls")
         noisy = len(b.camera.noise_tags) > 0
-        if (launches["keyed_scrambles"] != 1 or launches[keyed] != spp * chunks_of(b)
+        media = b.scene.has_volumes and ic.kind not in SURFACE_ONLY
+        per_wave = n_waves * chunks_of(b)
+        if (launches["keyed_scrambles"] != 1 or launches[keyed] != per_wave
                 or launches[other] != 0
-                or launches["keyed_camera_normals"] != noisy * spp * chunks_of(b)):
+                or launches["keyed_camera_normals"] != noisy * per_wave
+                or launches["keyed_volume_uniforms"] != media * per_wave):
             raise SystemExit(f"{label}: the keyed kernels did not launch once per render "
-                             "and once per sample and chunk")
+                             "and once per wave and chunk")
         if not (finite and total > 0.0 and dat_ok):
             raise SystemExit(f"{label}: the film is not finite, empty, or did not round-trip")
         if any(sampler_calls.values()):
@@ -2416,7 +2765,14 @@ def main() -> int:
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
-    # ---- 13. kernels line -------------------------------------------------
+    # ---- 13. samplers and media ------------------------------------------------
+    data_dir = tempfile.mkdtemp(prefix="chip_smoke_media_")
+    try:
+        media_entries = media_phase(dev, data_dir, drive, profile_frame, card_vs_cpu)
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+    # ---- 14. kernels line -------------------------------------------------
     src = "pbrt_torch/csrc/traverse.cu"
     rep = "pbrt_tpu/accel/pallas_step.py:36"
     kernels = []
@@ -2436,6 +2792,7 @@ def main() -> int:
             launches=n_, max_abs_err=err_, ms=ms_, plain_ms=plain_,
             bound_ms=b_, bound_by=by_, library_ms=None))
     kernels.append(normals_entry)
+    kernels.extend(media_entries)
     kernels.append(dict(
         name="gather_lab", route="cuda", source="pbrt_torch/csrc/gather_lab.cu",
         replaces="scripts/pallas_gather_lab.py:78", launches=lab_launches,
@@ -2464,7 +2821,10 @@ def main() -> int:
         "those of goldens/anim-killeroos-moving.pbrt as written (8 spp), "
         "keyed_camera_normals' those of the D-Gauss spectral frame and the "
         "ideal-diffraction frame (1 spp each; torch.randn's Philox is another "
-        "function), the "
+        "function), keyed_uniforms[sampler]'s those of phase 13's frame with "
+        "that sampler (1 spp; adaptive's, not listed, its two 8-wave frames), "
+        "keyed_volume_uniforms' those of the water frame (single scattering) "
+        "and [emission]'s those of the fog frame (1 spp each), the "
         "instance kernels' those of the 64 instanced killeroos (1 spp), each "
         "timed on its own scene's permuted set, its plain_ms one call of the "
         "plain version, which counts the work for the bound as it goes; "

@@ -36,6 +36,29 @@ plain versions here when they lie on the CPU; both give the same bits:
   the camera columns, then for each AO sample j the two uniforms
   ``uniform_per(bounce_key(pixel_sample_key(root, pixel, s), j,
   BSDF_SAMPLE), 2)`` that ``_ao_li`` draws (path.py:783-784);
+- the camera columns of both arrays follow the scene's sampler
+  (``camera_columns_plain``, sampler.py:31-88): lowdiscrepancy's (0,2)
+  pairs and van der Corput time (``adaptive`` takes them too); halton's
+  radical inverses of n in bases 2, 3, 5, 7, 11, each shifted by the
+  unit float of a scramble word mod 1 (``uniform(k, (5,))`` draws the
+  first five of the six words); bestcandidate's table row shifted by the
+  unit floats of words 0 and 1, its lens the (0,2) pair of the same two
+  words and its time van der Corput of word 2; random's five uniforms of
+  the lane's (pixel, sample) key folded with tag 0 (CAMERA); stratified's
+  the same, the image pair moved into cell (n mod g, ⌊n / g⌋ mod g) of a
+  g = ⌊√spp⌋ grid, ``(cell + u) · float32(1 / g)``: XLA compiles the JAX
+  package's division by the constant g into that product. What is the same for every lane of a wave (the
+  radical inverses, the table row, the cell) is computed on the host once
+  per wave (``sampler_constants``) and given to kernel and plain version
+  alike;
+- ``volume_uniforms`` — a scene with volumes adds the (R, J [+ 96])
+  media block for sample s: for bounce b < J the transmittance jitter at
+  counter 0 of the lane key folded with b·16 + 8 (VOLUME; path.py:228-231;
+  column 0 is also the camera segment's jitter, path.py:754-755, and single
+  scattering's, volumes.py:192-194: under partitionable threefry the first
+  of n uniforms does not depend on n); under ``single`` then, for march
+  step k < 32, counters 0–2 of bounce 0's VOLUME key folded with k·16 + 2
+  (LIGHT_SAMPLE; volumes.py:205-206) at columns J + 3k … J + 3k + 2;
 - ``pixel_scrambles`` — the (R, 6) scramble words of the lowdiscrepancy
   camera sample, from sample 0's pixel key (sampler.py:122-127, :43-44);
 - ``camera_normals`` — the lens cameras' Gaussian noise for sample s,
@@ -56,6 +79,7 @@ call, and the camera columns about 430 more; each kernel is one.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from pbrt_torch.core import sampling as smp
@@ -102,9 +126,19 @@ ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
 NORMAL_LO = -0.99999994039535522
 SQRT2_F32 = 1.41421353816986084
 
+#: the keyed kernels' sampler codes (``adaptive`` samples as lowdiscrepancy)
+LOWDISCREPANCY, HALTON, BESTCANDIDATE, RANDOM, STRATIFIED = range(5)
+SAMPLER_CODES = {"lowdiscrepancy": LOWDISCREPANCY, "adaptive": LOWDISCREPANCY,
+                 "halton": HALTON, "bestcandidate": BESTCANDIDATE, "random": RANDOM,
+                 "stratified": STRATIFIED}
+#: march steps per volume segment (volumes.py TAU_STEPS) and the uniforms
+#: single scattering draws per step
+VOLUME_STEPS = 32
+PER_VOLUME_STEP = 3
+
 #: kernel launches per wrapper (the plain versions count nothing)
 launches = {"keyed_uniforms": 0, "keyed_scrambles": 0, "keyed_ao_uniforms": 0,
-            "keyed_camera_normals": 0}
+            "keyed_camera_normals": 0, "keyed_volume_uniforms": 0}
 
 
 def reset_launches():
@@ -213,14 +247,66 @@ def bounce_uniforms_plain(root, pixel_index, sample: int, max_depth: int):
     return _to_uniform(_bits_at(keys, cols))
 
 
-def primary_uniforms_plain(root, pixel_index, scrambles, sample: int, max_depth: int):
+def sampler_constants(sampler: str, sample: int, spp: int):
+    """(code, five float32 constants) of the camera columns of sample
+    ``sample`` under ``sampler`` (sampler.py:49-83): halton's radical
+    inverses of n; bestcandidate's row min(n, T − 1) of the spp-point table;
+    stratified's cell (n mod g, ⌊n / g⌋ mod g) and 1 / g, g = ⌊√spp⌋; zeros
+    otherwise. Raises on a sampler the port does not take."""
+    if sampler not in SAMPLER_CODES:
+        raise NotImplementedError(f"sampler {sampler!r} is not ported yet")
+    code, n = SAMPLER_CODES[sampler], int(sample) & _M32
+    c = np.zeros(5, np.float32)
+    if code == HALTON:
+        c[:] = [smp.radical_inverse(n, b) for b in smp.HALTON_BASES]
+    elif code == BESTCANDIDATE:
+        table = smp.best_candidate_table(max(spp, 1))
+        c[:2] = table[min(n, table.shape[0] - 1)]
+    elif code == STRATIFIED:
+        g = max(1, int(np.sqrt(spp)))
+        c[:3] = [n % g, n // g % g, np.float32(1.0 / g)]
+    return code, tuple(float(v) for v in c)
+
+
+def camera_columns_plain(root, pixel_index, scrambles, sample: int, code: int = LOWDISCREPANCY,
+                         consts=(0.0,) * 5):
+    """(R,) pixel indices and their (R, 6) scramble words → the (R, 5)
+    camera columns of sample ``sample`` under sampler ``code`` with the
+    wave's ``consts`` (``sampler_constants``; see the module docstring)."""
+    if code == LOWDISCREPANCY:
+        return smp.camera_uniforms(sample, scrambles)
+    wrap = lambda c, s: torch.clamp(torch.remainder(s + c, 1.0), max=smp.ONE_MINUS_EPS)
+    if code in (HALTON, BESTCANDIDATE):
+        shift = _to_uniform(scrambles[:, :5])
+        if code == HALTON:
+            return torch.stack([wrap(c, shift[:, j]) for j, c in enumerate(consts)], -1)
+        n = torch.full(scrambles.shape[:1], int(sample), dtype=torch.int64,
+                       device=scrambles.device)
+        lens = smp.sample02(n, scrambles[:, 0:2])
+        return torch.stack([wrap(consts[0], shift[:, 0]), wrap(consts[1], shift[:, 1]),
+                            lens[:, 0], lens[:, 1],
+                            smp.van_der_corput(n, scrambles[:, 2])], -1)
+    dev = pixel_index.device
+    u = uniform_per(bounce_key(pixel_sample_key(root.to(dev), pixel_index, sample), 0,
+                               CAMERA), CAMERA_DIMS)
+    if code == STRATIFIED:
+        u = torch.cat([((u[:, 0] + consts[0]) * consts[2])[:, None],
+                       ((u[:, 1] + consts[1]) * consts[2])[:, None], u[:, 2:]], -1)
+    return u
+
+
+def primary_uniforms_plain(root, pixel_index, scrambles, sample: int, max_depth: int,
+                           sampler: str = "lowdiscrepancy", spp: int = 1):
     """(R,) pixel indices and their (R, 6) scramble words → the wave's
-    (R, 5 + 7·max_depth) primary-sample array of sample ``sample``."""
-    return torch.cat([smp.camera_uniforms(sample, scrambles),
+    (R, 5 + 7·max_depth) primary-sample array of sample ``sample``, its
+    camera columns ``sampler``'s at ``spp`` samples per pixel."""
+    code, consts = sampler_constants(sampler, sample, spp)
+    return torch.cat([camera_columns_plain(root, pixel_index, scrambles, sample, code, consts),
                       bounce_uniforms_plain(root, pixel_index, sample, max_depth)], -1)
 
 
-def ao_uniforms_plain(root, pixel_index, scrambles, sample: int, n_ao: int):
+def ao_uniforms_plain(root, pixel_index, scrambles, sample: int, n_ao: int,
+                      sampler: str = "lowdiscrepancy", spp: int = 1):
     """(R,) pixel indices and their (R, 6) scramble words → ambient
     occlusion's (R, 5 + 2·n_ao) array of sample ``sample``: the camera
     columns, then AO sample j's two uniforms at columns 5 + 2j, 6 + 2j."""
@@ -228,8 +314,24 @@ def ao_uniforms_plain(root, pixel_index, scrambles, sample: int, n_ao: int):
     keys = pixel_sample_key(root.to(dev), pixel_index, sample)
     j = torch.arange(n_ao, dtype=torch.int64, device=dev)
     per = uniform_per(bounce_key(keys[:, None, :], j, BSDF_SAMPLE), 2)  # (R, n, 2)
-    return torch.cat([smp.camera_uniforms(sample, scrambles),
+    code, consts = sampler_constants(sampler, sample, spp)
+    return torch.cat([camera_columns_plain(root, pixel_index, scrambles, sample, code, consts),
                       per.reshape(pixel_index.shape[0], 2 * n_ao)], -1)
+
+
+def volume_uniforms_plain(root, pixel_index, sample: int, n_jitter: int, single: bool):
+    """(R,) pixel indices → the (R, n_jitter [+ 96]) media block of sample
+    ``sample`` (see the module docstring)."""
+    dev = pixel_index.device
+    keys = pixel_sample_key(root.to(dev), pixel_index, sample)
+    b = torch.arange(n_jitter, dtype=torch.int64, device=dev)
+    cols = [uniform_per(bounce_key(keys[:, None, :], b, VOLUME), 1)[..., 0]]
+    if single:
+        k = torch.arange(VOLUME_STEPS, dtype=torch.int64, device=dev)
+        k_v = bounce_key(keys, 0, VOLUME)
+        steps = uniform_per(bounce_key(k_v[:, None, :], k, LIGHT_SAMPLE), PER_VOLUME_STEP)
+        cols.append(steps.reshape(pixel_index.shape[0], VOLUME_STEPS * PER_VOLUME_STEP))
+    return torch.cat(cols, -1)
 
 
 def pixel_scrambles_plain(root, pixel_index):
@@ -268,12 +370,13 @@ def _launch_args(root, pixel_index, row_width: int):
 
 
 def _keyed_rows(entry: str, name: str, root, pixel_index, scrambles, sample: int,
-                count: int, per_count: int):
+                count: int, per_count: int, sampler: str, spp: int):
     """Launches a keyed kernel that writes CAMERA_DIMS + per_count·count
-    floats per lane (``count`` bounces or AO samples) → the (R, width)
-    array."""
+    floats per lane (``count`` bounces or AO samples), its camera columns
+    ``sampler``'s → the (R, width) array."""
     if count < 0:
         raise ValueError(f"{name}: count {count}, expected >= 0")
+    code, consts = sampler_constants(sampler, sample, spp)
     width = CAMERA_DIMS + per_count * count
     k0, k1, R, lib, stream = _launch_args(root, pixel_index, width)
     native.check_tensor("scrambles", scrambles, torch.int64, (R, N_SCRAMBLES),
@@ -283,31 +386,54 @@ def _keyed_rows(entry: str, name: str, root, pixel_index, scrambles, sample: int
         return out
     native.check_launch(getattr(lib, entry)(
         k0, k1, pixel_index.data_ptr(), scrambles.data_ptr(), R, int(sample) & _M32,
-        count, out.data_ptr(), stream), f"{name} launch")
+        count, code, *consts, out.data_ptr(), stream), f"{name} launch")
     launches[name] += 1
     return out
 
 
-def primary_uniforms(root, pixel_index, scrambles, sample: int, max_depth: int):
+def primary_uniforms(root, pixel_index, scrambles, sample: int, max_depth: int,
+                     sampler: str = "lowdiscrepancy", spp: int = 1):
     """The primary-sample array; see ``primary_uniforms_plain`` for the
     contract."""
     if pixel_index.device.type == "cpu":
-        return primary_uniforms_plain(root, pixel_index, scrambles, sample, max_depth)
+        return primary_uniforms_plain(root, pixel_index, scrambles, sample, max_depth,
+                                      sampler, spp)
     if pixel_index.device.type != "cuda":
         raise ValueError(f"primary_uniforms: unsupported device {pixel_index.device}")
     return _keyed_rows("pbrt_torch_keyed_uniforms", "keyed_uniforms", root, pixel_index,
-                       scrambles, sample, int(max_depth), PER_BOUNCE_USED)
+                       scrambles, sample, int(max_depth), PER_BOUNCE_USED, sampler, spp)
 
 
-def ao_uniforms(root, pixel_index, scrambles, sample: int, n_ao: int):
+def ao_uniforms(root, pixel_index, scrambles, sample: int, n_ao: int,
+                sampler: str = "lowdiscrepancy", spp: int = 1):
     """Ambient occlusion's array; see ``ao_uniforms_plain`` for the
     contract."""
     if pixel_index.device.type == "cpu":
-        return ao_uniforms_plain(root, pixel_index, scrambles, sample, n_ao)
+        return ao_uniforms_plain(root, pixel_index, scrambles, sample, n_ao, sampler, spp)
     if pixel_index.device.type != "cuda":
         raise ValueError(f"ao_uniforms: unsupported device {pixel_index.device}")
     return _keyed_rows("pbrt_torch_keyed_ao_uniforms", "keyed_ao_uniforms", root,
-                       pixel_index, scrambles, sample, int(n_ao), 2)
+                       pixel_index, scrambles, sample, int(n_ao), 2, sampler, spp)
+
+
+def volume_uniforms(root, pixel_index, sample: int, n_jitter: int, single: bool):
+    """The media block; see ``volume_uniforms_plain`` for the contract."""
+    if pixel_index.device.type == "cpu":
+        return volume_uniforms_plain(root, pixel_index, sample, n_jitter, single)
+    if pixel_index.device.type != "cuda":
+        raise ValueError(f"volume_uniforms: unsupported device {pixel_index.device}")
+    if n_jitter < 0:
+        raise ValueError(f"volume_uniforms: {n_jitter} jitters, expected >= 0")
+    width = n_jitter + (VOLUME_STEPS * PER_VOLUME_STEP if single else 0)
+    k0, k1, R, lib, stream = _launch_args(root, pixel_index, width)
+    out = torch.empty((R, width), dtype=torch.float32, device=pixel_index.device)
+    if R == 0 or width == 0:
+        return out
+    native.check_launch(lib.pbrt_torch_keyed_volume_uniforms(
+        k0, k1, pixel_index.data_ptr(), R, int(sample) & _M32, int(n_jitter), int(bool(single)),
+        out.data_ptr(), stream), "keyed_volume_uniforms launch")
+    launches["keyed_volume_uniforms"] += 1
+    return out
 
 
 def camera_normals(root, pixel_index, sample: int, tag0: int, n_tags: int):

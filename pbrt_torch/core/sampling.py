@@ -1,5 +1,6 @@
 """Monte Carlo sampling (port of ``pbrt_tpu/core/sampling.py``, the slices'
-subset: Distribution1D/2D, the warps, MIS and the (0,2)-sequence;
+subset: Distribution1D/2D, the warps, MIS, the Henyey–Greenstein pdf, the
+(0,2)-sequence, the radical inverse and the best-candidate table;
 reference: src/core/montecarlo.{h,cpp}).
 
 The (0,2)-sequence bit kernels work on int64 tensors holding uint32 values
@@ -10,6 +11,7 @@ to 32 bits, so the bits equal the reference's uint32 arithmetic.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -196,6 +198,13 @@ def power_heuristic(nf, f_pdf, ng, g_pdf):
     return (f * f) / torch.clamp(f * f + g * g, min=1e-20)
 
 
+def hg_pdf(cos_theta, g):
+    """Henyey–Greenstein phase function value, its own pdf (montecarlo.h
+    PhaseHG; sampling.py:235-238)."""
+    denom = 1.0 + g * g + 2.0 * g * cos_theta
+    return (1.0 - g * g) / (4.0 * math.pi * denom * torch.sqrt(torch.clamp(denom, min=1e-12)))
+
+
 def reverse_bits32(n: torch.Tensor) -> torch.Tensor:
     """Bit reversal of uint32 values held in int64."""
     n = n & _M32
@@ -246,3 +255,43 @@ def camera_uniforms(sample_idx: int, scrambles: torch.Tensor) -> torch.Tensor:
     lens = sample02(n, scrambles[:, 2:4])
     tim = van_der_corput(n, scrambles[:, 4])
     return torch.cat([img, lens, tim[:, None]], -1)
+
+
+#: the Halton sampler's bases: image (2, 3), lens (5, 7), time (11)
+HALTON_BASES = (2, 3, 5, 7, 11)
+
+
+def radical_inverse(n: int, base: int) -> np.float32:
+    """Radical inverse of sample ``n`` (uint32) in ``base``, on the host in
+    float32 step for step as the JAX package's (sampling.py:308-324): a
+    fixed ⌈32 / log2(base)⌉ digits, each ``val + d · inv_bi`` rounded
+    (XLA's CPU backend may fuse it into an FMA: the two can differ by an
+    ulp), capped below 1."""
+    n = int(n) & _M32
+    f = np.float32
+    inv_base = f(1.0 / base)
+    val, inv_bi = f(0.0), inv_base
+    for _ in range(max(1, int(math.ceil(32.0 / math.log2(base))))):
+        val = f(val + f(n % base) * inv_bi)
+        n //= base
+        inv_bi = f(inv_bi * inv_base)
+    return min(val, f(ONE_MINUS_EPS))
+
+
+@functools.lru_cache(maxsize=16)
+def best_candidate_table(n: int, seed: int = 0) -> np.ndarray:
+    """(n, 2) float32 points of Mitchell's best-candidate dart throwing
+    under the toroidal metric, numpy's ``default_rng(seed)``, cached per
+    sample count: the JAX package's table bit for bit (sampling.py:340-360;
+    reference: samplers/bestcandidate.cpp:40-120 reads a table made offline
+    by tools/samplepat.cpp)."""
+    rng = np.random.default_rng(seed)
+    pts = np.empty((max(n, 1), 2))
+    pts[0] = rng.uniform(0, 1, 2)
+    for i in range(1, n):
+        k = min(20 * i, 512)
+        cands = rng.uniform(0, 1, (k, 2))
+        d = np.abs(pts[None, :i, :] - cands[:, None, :])
+        d = np.minimum(d, 1.0 - d)
+        pts[i] = cands[np.argmax((d * d).sum(-1).min(1))]
+    return pts.astype(np.float32)

@@ -1,11 +1,11 @@
 // Keyed numbers on Hopper: threefry-2x32 keys from (pixel, sample, purpose)
-// and the render's two arrays of keyed numbers, bit-exact to jax.random and
-// to the JAX package's lowdiscrepancy sampler.
+// and the render's arrays of keyed numbers, bit-exact to jax.random and to
+// the JAX package's samplers.
 //
 // Replaces: no Pallas kernel. XLA computes these for the JAX package:
 //   keyed_uniforms  — a wave's (R, 5 + 7·D) primary-sample array: the
-//                     lowdiscrepancy camera sample from the pixel's scramble
-//                     words (pbrt_tpu/renderers/sampler.py:41-48), then
+//                     camera sample of the scene's sampler
+//                     (pbrt_tpu/renderers/sampler.py:31-88; below), then
 //                     BatchedKeySource's bounce uniforms
 //                     (pbrt_tpu/integrators/path.py:115-120: key (pixel,
 //                     sample, tag 15), 8 per bounce, the 8th, "spare",
@@ -23,6 +23,30 @@
 //                     t), (2,)) with key the lane's (pixel, sample) key
 //                     (pbrt_tpu/cameras/realistic.py:248-252, T elements
 //                     under tags 1000 + i; :402-404, one under tag 2000).
+//   keyed_volume_uniforms — a scene with volumes' (R, J [+ 96]) media
+//                     block: for bounce b < J the transmittance jitter at
+//                     counter 0 of the lane key folded with b·16 + 8
+//                     (VOLUME; pbrt_tpu/integrators/path.py:228-231, column
+//                     0 also the camera segment's, :754-755); under single
+//                     scattering then, per march step k < 32, counters 0-2
+//                     of bounce 0's VOLUME key folded with k·16 + 2
+//                     (pbrt_tpu/media/volumes.py:190-209).
+// The camera columns by sampler code (core/rng.py:camera_columns_plain;
+// the per-launch constants c[] are computed once per wave on the host, by
+// core/rng.py:sampler_constants):
+//   lowdiscrepancy (and adaptive) — (0,2) image and lens pairs and van der
+//                     Corput time from scramble words 0-4;
+//   halton          — min((c[j] + unit(scr[j])) mod 1, 1 - ulp), c[j] the
+//                     radical inverse of n in base 2, 3, 5, 7, 11;
+//   bestcandidate   — the table row (c[0], c[1]) shifted by unit(scr[0]),
+//                     unit(scr[1]) mod 1; lens the (0,2) pair of scr[0..1],
+//                     time van der Corput of scr[2];
+//   random          — 5 uniforms at counters 0-4 of the lane key (pixel, n)
+//                     folded with tag 0 (CAMERA);
+//   stratified      — the same, the image pair ((c[0] + u0) · c[2],
+//                     (c[1] + u1) · c[2]): the cell and float32(1 / g), g =
+//                     floor(sqrt(spp)) (XLA compiles the JAX package's
+//                     division by the constant g into this product).
 //                     jax.random.normal is uniform(minval = nextafter(-1, 0),
 //                     maxval = 1) of the same bits, then sqrt(2)·erf_inv; XLA
 //                     expands erf_inv into Giles' single-precision
@@ -66,6 +90,16 @@
 //                     key; the block's words are staged in shared memory and
 //                     written out by consecutive threads as consecutive
 //                     16-byte pieces (two int64 words each).
+//   the sampler codes — the camera columns of keyed_uniforms and
+//                     keyed_ao_uniforms take a code and 5 floats per launch;
+//                     random and stratified derive the lane's camera key (1
+//                     more hash) and hash 5 counters, the others read the
+//                     scramble words as before. Same tile and copy-out.
+//   keyed_volume_uniforms — keyed_uniforms' design: one thread per lane, the
+//                     lane key once (2 hashes), each jitter a fold-in and one
+//                     hash, each march step a fold-in of bounce 0's VOLUME key
+//                     and 3 hashes; the warp tile and copy-out in passes of
+//                     48 columns.
 //   keyed_camera_normals — keyed_uniforms' design: one thread per lane, the
 //                     lane key once (2 hashes), then per tag its fold-in and
 //                     two hashes and two erf_inv polynomials (a log1pf, a
@@ -97,6 +131,21 @@ constexpr uint32_t kBatchedTag = 15u;  // bounce 0 * 16 + reserved purpose 15
 constexpr uint32_t kCameraTag = 0u;    // bounce 0 * 16 + CAMERA
 constexpr uint32_t kAoPurpose = 3u;    // BSDF_SAMPLE: AO sample s folds in s * 16 + 3
 constexpr uint32_t kOneMinusEps = 0x3F7FFFFFu;  // largest float below 1
+constexpr uint32_t kVolumePurpose = 8u;  // VOLUME: bounce b folds in b * 16 + 8
+constexpr uint32_t kLightSamplePurpose = 2u;  // LIGHT_SAMPLE: step k folds in k * 16 + 2
+constexpr int kVolumeSteps = 32;  // march steps per segment (volumes.py TAU_STEPS)
+constexpr int kPerStep = 3;       // uniforms single scattering draws per step
+constexpr int kPassVolumeCols = 48;  // media-block columns per tile pass
+
+// the sampler codes (core/rng.py)
+enum : int { kLowDiscrepancy = 0, kHalton = 1, kBestCandidate = 2, kRandom = 3,
+             kStratified = 4 };
+
+// a wave's camera sampler: its code and per-launch constants
+struct CameraSampler {
+  int code;
+  float c[5];
+};
 
 __device__ __forceinline__ void mix(uint32_t& x0, uint32_t& x1, int r) {
   x0 += x1;
@@ -198,15 +247,56 @@ __device__ __forceinline__ float normal_from_bits(uint32_t r) {
   return (p * u) * 1.41421354f;  // float32(sqrt(2))
 }
 
-// camera_uniforms: image (0,2), lens (0,2), time
+// (c + s) mod 1, capped below 1: exact for c + s in [0, 2)
+__device__ __forceinline__ float wrap_unit(float c, float s) {
+  return fminf(fmodf(s + c, 1.0f), __uint_as_float(kOneMinusEps));
+}
+
+// the camera columns of sample n under sampler kCode; (a, c) is the lane
+// key (pixel, sample) before any purpose tag
+template <int kCode>
 __device__ __forceinline__ void camera_cols(float* dst, uint32_t sample,
-                                            const uint32_t* scr) {
+                                            const uint32_t* scr, uint32_t a,
+                                            uint32_t c, const CameraSampler& cs) {
+  if (kCode == kRandom || kCode == kStratified) {
+    fold_in(a, c, kCameraTag);
+#pragma unroll
+    for (int j = 0; j < kCameraCols; ++j) dst[j] = uniform_from_bits(bits_at(a, c, j));
+    if (kCode == kStratified) {
+      dst[0] = (dst[0] + cs.c[0]) * cs.c[2];
+      dst[1] = (dst[1] + cs.c[1]) * cs.c[2];
+    }
+    return;
+  }
+  if (kCode == kHalton) {
+#pragma unroll
+    for (int j = 0; j < kCameraCols; ++j) dst[j] = wrap_unit(cs.c[j], uniform_from_bits(scr[j]));
+    return;
+  }
   const uint32_t vdc = __brev(sample), sob = sobol2_word(sample);
+  if (kCode == kBestCandidate) {
+    dst[0] = wrap_unit(cs.c[0], uniform_from_bits(scr[0]));
+    dst[1] = wrap_unit(cs.c[1], uniform_from_bits(scr[1]));
+    dst[2] = unit_from_bits(vdc ^ scr[0]);
+    dst[3] = unit_from_bits(sob ^ scr[1]);
+    dst[4] = unit_from_bits(vdc ^ scr[2]);
+    return;
+  }
   dst[0] = unit_from_bits(vdc ^ scr[0]);
   dst[1] = unit_from_bits(sob ^ scr[1]);
   dst[2] = unit_from_bits(vdc ^ scr[2]);
   dst[3] = unit_from_bits(sob ^ scr[3]);
   dst[4] = unit_from_bits(vdc ^ scr[4]);
+}
+
+// the lane's scramble words, where sampler kCode reads them
+template <int kCode>
+__device__ __forceinline__ void load_scrambles(uint32_t* scr, const long long* scrambles,
+                                               unsigned row) {
+  if (kCode == kRandom || kCode == kStratified) return;
+#pragma unroll
+  for (int j = 0; j < kCameraCols; ++j)
+    scr[j] = static_cast<uint32_t>(scrambles[row * kScrambles + j]);
 }
 
 // A warp's tile of ``rows`` rows × ``cols`` columns (row-major, unpadded)
@@ -230,11 +320,13 @@ __device__ __forceinline__ void copy_tile_out(const float* tile, float* out,
   }
 }
 
+template <int kCode>
 __global__ void __launch_bounds__(kThreads)
 keyed_uniforms_kernel(uint32_t k0, uint32_t k1,
                       const long long* __restrict__ pixel,
                       const long long* __restrict__ scrambles, int R,
-                      uint32_t sample, int D, float* __restrict__ out) {
+                      uint32_t sample, int D, CameraSampler cs,
+                      float* __restrict__ out) {
   extern __shared__ float4 tiles[];  // kWarps tiles of kWarp × tile_cols(D) floats
   const unsigned lane = threadIdx.x % kWarp;
   const unsigned warp = threadIdx.x / kWarp;
@@ -246,14 +338,14 @@ keyed_uniforms_kernel(uint32_t k0, uint32_t k1,
   const unsigned width = kCameraCols + kUsed * D;
   float* tile = reinterpret_cast<float*>(tiles) + warp * kWarp * tile_cols(D);
 
-  uint32_t a = k0, c = k1;
+  uint32_t a = k0, c = k1, la = 0u, lc = 0u;  // (a, c): the bounce key; (la, lc): the lane key
   uint32_t scr[kCameraCols];
   if (live) {
-#pragma unroll
-    for (int j = 0; j < kCameraCols; ++j)
-      scr[j] = static_cast<uint32_t>(scrambles[row * kScrambles + j]);
+    load_scrambles<kCode>(scr, scrambles, row);
     fold_in(a, c, static_cast<uint32_t>(pixel[row]));
     fold_in(a, c, sample);
+    la = a;
+    lc = c;
     fold_in(a, c, kBatchedTag);
   }
 
@@ -266,7 +358,7 @@ keyed_uniforms_kernel(uint32_t k0, uint32_t k1,
     const unsigned col0 = p == 0 ? 0 : kCameraCols + kUsed * b0;
     float* mine = tile + lane * cols;  // the tile is the rows' block, row-major
     if (live) {
-      if (cam) camera_cols(mine, sample, scr);
+      if (cam) camera_cols<kCode>(mine, sample, scr, la, lc, cs);
       for (int b = 0; b < nb; ++b) {
         const uint32_t ctr = static_cast<uint32_t>((b0 + b) * kDrawn);
         float* dst = mine + cam + b * kUsed;
@@ -281,11 +373,13 @@ keyed_uniforms_kernel(uint32_t k0, uint32_t k1,
   }
 }
 
+template <int kCode>
 __global__ void __launch_bounds__(kThreads)
 keyed_ao_uniforms_kernel(uint32_t k0, uint32_t k1,
                          const long long* __restrict__ pixel,
                          const long long* __restrict__ scrambles, int R,
-                         uint32_t sample, int n, float* __restrict__ out) {
+                         uint32_t sample, int n, CameraSampler cs,
+                         float* __restrict__ out) {
   extern __shared__ float4 tiles[];  // kWarps tiles of kWarp × ao_tile_cols(n) floats
   const unsigned lane = threadIdx.x % kWarp;
   const unsigned warp = threadIdx.x / kWarp;
@@ -300,9 +394,7 @@ keyed_ao_uniforms_kernel(uint32_t k0, uint32_t k1,
   uint32_t a = k0, c = k1;  // the lane key: (pixel, sample), no purpose tag
   uint32_t scr[kCameraCols];
   if (live) {
-#pragma unroll
-    for (int j = 0; j < kCameraCols; ++j)
-      scr[j] = static_cast<uint32_t>(scrambles[row * kScrambles + j]);
+    load_scrambles<kCode>(scr, scrambles, row);
     fold_in(a, c, static_cast<uint32_t>(pixel[row]));
     fold_in(a, c, sample);
   }
@@ -316,7 +408,7 @@ keyed_ao_uniforms_kernel(uint32_t k0, uint32_t k1,
     const unsigned col0 = p == 0 ? 0 : kCameraCols + kAoPerSample * s0;
     float* mine = tile + lane * cols;
     if (live) {
-      if (cam) camera_cols(mine, sample, scr);
+      if (cam) camera_cols<kCode>(mine, sample, scr, a, c, cs);
       for (int s = 0; s < ns; ++s) {
         uint32_t sa = a, sc = c;
         fold_in(sa, sc, static_cast<uint32_t>(s0 + s) * 16u + kAoPurpose);
@@ -327,6 +419,59 @@ keyed_ao_uniforms_kernel(uint32_t k0, uint32_t k1,
     }
     __syncwarp();
     copy_tile_out(tile, out, base, rows, cols, width, col0, lane);
+    __syncwarp();
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+keyed_volume_uniforms_kernel(uint32_t k0, uint32_t k1,
+                             const long long* __restrict__ pixel, int R,
+                             uint32_t sample, int J, int single,
+                             float* __restrict__ out) {
+  extern __shared__ float4 tiles[];  // kWarps tiles of kWarp × min(width, 48) floats
+  const unsigned lane = threadIdx.x % kWarp;
+  const unsigned warp = threadIdx.x / kWarp;
+  const unsigned base = (blockIdx.x * kWarps + warp) * kWarp;  // warp's first row
+  if (base >= static_cast<unsigned>(R)) return;  // the whole warp
+  const unsigned rows = min(static_cast<unsigned>(R) - base, static_cast<unsigned>(kWarp));
+  const bool live = lane < rows;
+  const unsigned jitters = static_cast<unsigned>(J);
+  const unsigned width = jitters + (single ? kVolumeSteps * kPerStep : 0);
+  float* tile = reinterpret_cast<float*>(tiles)
+                + warp * kWarp * min(width, static_cast<unsigned>(kPassVolumeCols));
+
+  uint32_t a = k0, c = k1, va = 0u, vc = 0u;  // the lane key; bounce 0's VOLUME key
+  if (live) {
+    fold_in(a, c, static_cast<uint32_t>(pixel[base + lane]));
+    fold_in(a, c, sample);
+    va = a;
+    vc = c;
+    fold_in(va, vc, kVolumePurpose);
+  }
+  for (unsigned c0 = 0; c0 < width; c0 += kPassVolumeCols) {
+    const unsigned cols = min(width - c0, static_cast<unsigned>(kPassVolumeCols));
+    float* mine = tile + lane * cols;
+    if (live) {
+      uint32_t sa = 0u, sc = 0u;  // the current march step's key
+      for (unsigned q = 0; q < cols; ++q) {
+        const unsigned j = c0 + q;
+        if (j < jitters) {
+          uint32_t ja = a, jc = c;
+          fold_in(ja, jc, j * 16u + kVolumePurpose);
+          mine[q] = uniform_from_bits(bits_at(ja, jc, 0u));
+        } else {
+          const unsigned step = (j - jitters) / kPerStep, ctr = (j - jitters) % kPerStep;
+          if (ctr == 0 || q == 0) {
+            sa = va;
+            sc = vc;
+            fold_in(sa, sc, step * 16u + kLightSamplePurpose);
+          }
+          mine[q] = uniform_from_bits(bits_at(sa, sc, ctr));
+        }
+      }
+    }
+    __syncwarp();
+    copy_tile_out(tile, out, base, rows, cols, width, c0, lane);
     __syncwarp();
   }
 }
@@ -396,27 +541,76 @@ keyed_camera_normals_kernel(uint32_t k0, uint32_t k1,
   }
 }
 
+// the kernel instance of the sampler code (each its own camera columns, so
+// lowdiscrepancy's instance is the kernel without the other codes)
+template <template <int> class Launch, typename... Args>
+int by_code(int code, Args... args) {
+  switch (code) {
+    case kLowDiscrepancy: return Launch<kLowDiscrepancy>::run(args...);
+    case kHalton: return Launch<kHalton>::run(args...);
+    case kBestCandidate: return Launch<kBestCandidate>::run(args...);
+    case kRandom: return Launch<kRandom>::run(args...);
+    case kStratified: return Launch<kStratified>::run(args...);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int kCode>
+struct LaunchUniforms {
+  static int run(uint32_t k0, uint32_t k1, const long long* pixel, const long long* scrambles,
+                 int R, uint32_t sample, int max_depth, CameraSampler cs, float* out,
+                 cudaStream_t stream) {
+    if (R > 0)
+      keyed_uniforms_kernel<kCode><<<(R - 1) / kThreads + 1, kThreads,
+                                     kThreads * tile_cols(max_depth) * sizeof(float), stream>>>(
+          k0, k1, pixel, scrambles, R, sample, max_depth, cs, out);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+template <int kCode>
+struct LaunchAoUniforms {
+  static int run(uint32_t k0, uint32_t k1, const long long* pixel, const long long* scrambles,
+                 int R, uint32_t sample, int n_ao, CameraSampler cs, float* out,
+                 cudaStream_t stream) {
+    if (R > 0)
+      keyed_ao_uniforms_kernel<kCode><<<(R - 1) / kThreads + 1, kThreads,
+                                        kThreads * ao_tile_cols(n_ao) * sizeof(float), stream>>>(
+          k0, k1, pixel, scrambles, R, sample, n_ao, cs, out);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
 }  // namespace
 
 extern "C" {
 
 int pbrt_torch_keyed_uniforms(uint32_t k0, uint32_t k1, const long long* pixel,
                               const long long* scrambles, int R, uint32_t sample,
-                              int max_depth, float* out, cudaStream_t stream) {
-  if (R > 0)
-    keyed_uniforms_kernel<<<(R - 1) / kThreads + 1, kThreads,
-                            kThreads * tile_cols(max_depth) * sizeof(float), stream>>>(
-        k0, k1, pixel, scrambles, R, sample, max_depth, out);
-  return static_cast<int>(cudaGetLastError());
+                              int max_depth, int code, float c0, float c1, float c2,
+                              float c3, float c4, float* out, cudaStream_t stream) {
+  const CameraSampler cs{code, {c0, c1, c2, c3, c4}};
+  return by_code<LaunchUniforms>(code, k0, k1, pixel, scrambles, R, sample, max_depth, cs, out,
+                                 stream);
 }
 
 int pbrt_torch_keyed_ao_uniforms(uint32_t k0, uint32_t k1, const long long* pixel,
                                  const long long* scrambles, int R, uint32_t sample,
-                                 int n_ao, float* out, cudaStream_t stream) {
-  if (R > 0)
-    keyed_ao_uniforms_kernel<<<(R - 1) / kThreads + 1, kThreads,
-                               kThreads * ao_tile_cols(n_ao) * sizeof(float), stream>>>(
-        k0, k1, pixel, scrambles, R, sample, n_ao, out);
+                                 int n_ao, int code, float c0, float c1, float c2,
+                                 float c3, float c4, float* out, cudaStream_t stream) {
+  const CameraSampler cs{code, {c0, c1, c2, c3, c4}};
+  return by_code<LaunchAoUniforms>(code, k0, k1, pixel, scrambles, R, sample, n_ao, cs, out,
+                                   stream);
+}
+
+int pbrt_torch_keyed_volume_uniforms(uint32_t k0, uint32_t k1, const long long* pixel,
+                                     int R, uint32_t sample, int n_jitter, int single,
+                                     float* out, cudaStream_t stream) {
+  const int width = n_jitter + (single ? kVolumeSteps * kPerStep : 0);
+  if (R > 0 && width > 0)
+    keyed_volume_uniforms_kernel<<<(R - 1) / kThreads + 1, kThreads,
+                                   kThreads * min(width, kPassVolumeCols) * sizeof(float),
+                                   stream>>>(k0, k1, pixel, R, sample, n_jitter, single, out);
   return static_cast<int>(cudaGetLastError());
 }
 

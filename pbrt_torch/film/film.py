@@ -24,6 +24,8 @@ class FilmState:
     pixels: torch.Tensor  # (H, W, S) Σ filter-weighted radiance
     weight: torch.Tensor  # (H, W) Σ filter weights
     depth: torch.Tensor  # (H, W) Σ filter-weighted first-hit distances
+    #: an adaptive render's counts: pixels supersampled, pixels, waves
+    adaptive: dict | None = None
 
 
 @dataclasses.dataclass(frozen=True)

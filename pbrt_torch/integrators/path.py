@@ -43,7 +43,21 @@ Written differently from the reference on purpose:
   second time, which changes nothing);
 - emission and the MIS pdf of a hit area light read its own light-table
   row (``lights/table.py``);
-- volumes and the merged shadow+closest batch are not ported.
+- the merged shadow+closest batch is not ported.
+
+Participating media (``media/volumes.py``), where the scene has volumes,
+in ``path``, ``directlighting`` and ``whitted`` (``ambientocclusion`` and
+``metadata`` return before them, as in the JAX package): every NEE
+contribution is multiplied by the transmittance of its shadow segment,
+[0, dist] or [0, 1e4] toward an infinite distance (EstimateDirect's
+Renderer::Transmittance, integrator.cpp:130; path.py:224-235), and after
+the bounce loop the camera segment, [0, first hit] or [0, 1e4] on a miss,
+gives ``T·L + Lv`` from the ``emission`` or ``single`` volume integrator
+(samplerrenderer.cpp:244-246; path.py:748-771). Their uniforms come in a
+media block beside the primary-sample array (``core/rng.py``:
+``volume_uniforms``): bounce b's transmittance jitter in column b
+(column 0 is also the camera segment's), then single scattering's three
+per march step.
 
 Textures (``apply_textures``, path.py:267-374) bind Kd and Ks per lane,
 the fork's normal map, and pbrt's Material::Bump chain, before the
@@ -75,6 +89,7 @@ from pbrt_torch.core import spectrum as spec
 from pbrt_torch.core.interaction import offset_ray_origin, surface_interaction
 from pbrt_torch.lights import table as lights_mod
 from pbrt_torch.materials import table as mat_mod
+from pbrt_torch.media import volumes as vol_mod
 from pbrt_torch.textures import texture as tex_mod
 
 #: the integrator kinds the port renders
@@ -89,7 +104,9 @@ class RenderScene:
     materials: mat_mod.MaterialTable
     lights: lights_mod.LightTable
     textures: tex_mod.TextureTable | None = None
+    volumes: vol_mod.VolumeTable | None = None
     has_textures: bool = False
+    has_volumes: bool = False
     #: the pixel cone's half-width per unit distance, for texture footprints
     #: without ray differentials (0: no footprint)
     pixel_spread: float = 0.0
@@ -104,6 +121,7 @@ class IntegratorConfig:
     ao_nsamples: int = 4
     ao_maxdist: float = math.inf
     metadata_channel: str = "depth"  # depth | mesh_mask | material_mask
+    volume_kind: str = "emission"  # emission | single
     n_bins: int = 32
 
 
@@ -138,9 +156,10 @@ def _shadow_unoccluded(g, p, ng, wi, dist, eps):
 
 
 def _nee_one_light(scene: RenderScene, si, lm, wo_local, frame, source,
-                   bounce: int, active):
+                   bounce: int, active, media=None):
     """One-light NEE with MIS (delta lights weigh 1); (R, S) already times
-    the light count."""
+    the light count. With volumes, ``media[:, bounce]`` is the shadow
+    segment's transmittance jitter."""
     lt = scene.lights
     n_lights = lt.count
     ss, ts, ns = frame
@@ -157,6 +176,10 @@ def _nee_one_light(scene: RenderScene, si, lm, wo_local, frame, source,
     pdf_b = mat_mod.bsdf_pdf(lm, wo_local, wi_local)
     w_mis = torch.where(ls.is_delta, 1.0, smp.power_heuristic(1.0, ls.pdf, 1.0, pdf_b))
     contrib = f * ls.L * (cos_i * w_mis / torch.clamp(ls.pdf, min=1e-12))[:, None]
+    if scene.has_volumes:
+        t1 = torch.where(torch.isfinite(ls.dist), ls.dist, 1e4)
+        contrib = contrib * vol_mod.transmittance(scene.volumes, si.p, ls.wi,
+                                                  torch.zeros_like(t1), t1, media[:, bounce])
     # zero-contribution lanes get dist 0 → tmax 0 → no traversal
     visible = _shadow_unoccluded(
         scene.geometry, si.p, si.ng, ls.wi,
@@ -229,11 +252,11 @@ def apply_textures(scene: RenderScene, si, lm):
 
 
 def trace_radiance(scene: RenderScene, rays: geom.Ray, cfg: IntegratorConfig,
-                   uniforms: torch.Tensor, diffs=None):
+                   uniforms: torch.Tensor, diffs=None, media=None):
     """(R,) rays → (L (R, S), first_hit_t (R,)). ``uniforms`` is the kind's
     primary-sample array (see the module docstring); ``diffs``: the camera
     rays' differentials (rx_o, rx_d, ry_o, ry_d), read by textures at the
-    first hit."""
+    first hit; ``media``: the media block of a scene with volumes."""
     if cfg.kind == "metadata":
         return _metadata_li(scene, rays, cfg)
     if cfg.kind == "ambientocclusion":
@@ -247,6 +270,8 @@ def trace_radiance(scene: RenderScene, rays: geom.Ray, cfg: IntegratorConfig,
     lt = scene.lights
     n_lights = max(lt.count, 1)
     source = PrimarySource(uniforms)
+    if scene.has_volumes and media is None:
+        raise ValueError("a scene with volumes needs its media block")
 
     def accumulate_hit(L, ray, hit, si, throughput, alive, specular_bounce,
                        prev_bsdf_pdf):
@@ -312,7 +337,7 @@ def trace_radiance(scene: RenderScene, rays: geom.Ray, cfg: IntegratorConfig,
         nee_active = alive & ~mat_mod.has_delta_only(lm)
         if lt.count > 0:
             L = L + throughput * _nee_one_light(
-                scene, si, lm, wo_local, frame, source, bounce, nee_active)
+                scene, si, lm, wo_local, frame, source, bounce, nee_active, media)
 
         ub = source.get(bounce, PrimarySource.BSDF_SAMPLE, 3)
         wi_local, f, pdf, is_delta = mat_mod.bsdf_sample(
@@ -367,6 +392,20 @@ def trace_radiance(scene: RenderScene, rays: geom.Ray, cfg: IntegratorConfig,
         first_hit_t = torch.where(si.valid, hit.t, 0.0)
     L = accumulate_hit(L, ray, hit, si, throughput, alive, specular_bounce,
                        prev_bsdf_pdf)
+    if scene.has_volumes:
+        # the camera segment: T·L + Lv (path.py:748-771)
+        t_end = torch.where(first_hit_t > 0.0, first_hit_t, 1e4)
+        d = geom.normalize(rays.direction)
+        t0 = torch.zeros_like(t_end)
+        if cfg.volume_kind == "single":
+            n_j = media.shape[1] - vol_mod.TAU_STEPS * 3
+            Lv, tr = vol_mod.integrate_single_scattering(
+                scene.volumes, scene, rays.origin, d, t0, t_end, media[:, 0],
+                media[:, n_j:].reshape(R, vol_mod.TAU_STEPS, 3))
+        else:
+            Lv, tr = vol_mod.integrate_emission(scene.volumes, rays.origin, d, t0, t_end,
+                                                media[:, 0])
+        L = tr * L + Lv
     return L, first_hit_t
 
 

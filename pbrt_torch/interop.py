@@ -65,7 +65,17 @@ Keys (shapes as in the JAX package's tables):
   ``cam_times`` (2,), and ``cam_to_world_end`` (4, 4);
 - film: ``film_xres film_yres film_n_bins`` (), ``filter_kind`` (str),
   ``filter_xwidth filter_ywidth`` (), optionally ``film_kind`` (str) and
-  the header's ``film_focal_length film_f_stop`` ().
+  the header's ``film_focal_length film_f_stop`` ();
+- volumes, optionally (absent, None or with no region where the scene has
+  none): the JAX package's ``VolumeTable`` fields as ``vol_<field>``,
+  ``vol_kind`` (V,), ``vol_w2v`` (V, 4, 4), ``vol_lo vol_hi vol_updir``
+  (V, 3), ``vol_sigma_a vol_sigma_s vol_le`` (V, S), ``vol_g vol_exp_a
+  vol_exp_b vol_grid_offset`` (V,), ``vol_grid_n`` (V, 3), ``vol_pool``
+  (P,).
+
+``integrator_from_numpy`` takes the JAX package's ``IntegratorConfig``
+fields the port has, as ``icfg_<field>`` (``icfg_volume_kind`` among
+them), and returns the port's.
 
 ``renderer_from_numpy`` takes ``renderer_name`` (str) and
 ``renderer_params`` (the ``Renderer`` directive's entries, name → (type,
@@ -87,9 +97,10 @@ from pbrt_torch.core.sampling import Distribution2D
 from pbrt_torch.core.transform import AnimatedTransform
 from pbrt_torch.core.filters import Filter
 from pbrt_torch.film.film import FilmConfig
-from pbrt_torch.integrators.path import RenderScene
+from pbrt_torch.integrators.path import IntegratorConfig, RenderScene
 from pbrt_torch.lights import table as lt_mod
 from pbrt_torch.materials.table import MIXMAT, TEXTURE_COLUMNS, MaterialTable
+from pbrt_torch.media.volumes import VolumeTable
 from pbrt_torch.scene.paramset import ParamSet
 from pbrt_torch.textures.texture import table_from_numpy
 
@@ -197,6 +208,34 @@ def _lights_from_numpy(arrays, f32, i64) -> lt_mod.LightTable:
     )
 
 
+_VOLUME_F32 = ("w2v", "lo", "hi", "sigma_a", "sigma_s", "le", "g", "exp_a", "exp_b", "updir",
+               "pool")
+_VOLUME_I64 = ("grid_offset", "grid_n")
+
+
+def volumes_from_numpy(arrays: dict, device) -> VolumeTable | None:
+    """The ``vol_*`` arrays → the port's ``VolumeTable``, or None where the
+    scene has no region."""
+    kind = arrays.get("vol_kind")
+    if kind is None or len(kind) == 0:
+        return None
+    dev = torch.device(device)
+    return VolumeTable(
+        kinds=tuple(int(k) for k in np.asarray(kind)),
+        **{k: torch.as_tensor(np.array(arrays[f"vol_{k}"], np.float32), device=dev)
+           for k in _VOLUME_F32},
+        **{k: torch.as_tensor(np.array(arrays[f"vol_{k}"], np.int64), device=dev)
+           for k in _VOLUME_I64})
+
+
+def integrator_from_numpy(arrays: dict) -> IntegratorConfig:
+    """The ``icfg_*`` values → the port's ``IntegratorConfig`` (fields not
+    given keep their defaults)."""
+    return IntegratorConfig(**{f.name: type(f.default)(arrays[f"icfg_{f.name}"])
+                               for f in dataclasses.fields(IntegratorConfig)
+                               if f"icfg_{f.name}" in arrays})
+
+
 def scene_from_numpy(arrays: dict, device):
     """→ (RenderScene, camera, FilmConfig) on ``device``."""
     dev = torch.device(device)
@@ -245,7 +284,10 @@ def scene_from_numpy(arrays: dict, device):
     )
     textures = table_from_numpy(
         {k[len("tex_"):]: v for k, v in arrays.items() if k.startswith("tex_")}, dev)
+    volumes = volumes_from_numpy(arrays, dev)
     scene = RenderScene(geometry=geometry, materials=materials, lights=lights,
-                        textures=textures, has_textures=bool(arrays["has_textures"]),
+                        textures=textures, volumes=volumes,
+                        has_textures=bool(arrays["has_textures"]),
+                        has_volumes=volumes is not None,
                         pixel_spread=float(arrays["pixel_spread"]))
     return scene, camera, film

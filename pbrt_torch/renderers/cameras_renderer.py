@@ -25,7 +25,8 @@ def read_camera_file(path: str) -> list[np.ndarray]:
     return [vals[i:i + 16].reshape(4, 4) for i in range(0, len(vals), 16)]
 
 
-def render_cameras(built, spp=None, seed: int = 0, chunk_pixels: int | None = None):
+def render_cameras(built, spp=None, seed: int = 0, chunk_pixels: int | None = None,
+                   quick: bool = False):
     """One render per camera transform, each a static camera-to-world
     matrix in place of the scene's (camerasrenderer.cpp:242-300) →
     [(film, suffix), ...]."""
@@ -38,6 +39,7 @@ def render_cameras(built, spp=None, seed: int = 0, chunk_pixels: int | None = No
         c2w = torch.as_tensor(np.asarray(m, np.float32), device=built.device)
         camera = dataclasses.replace(built.camera, cam_to_world=c2w, motion=None)
         view = dataclasses.replace(built, camera=camera)
-        results.append((render(view, spp=spp, seed=seed, chunk_pixels=chunk_pixels),
+        results.append((render(view, spp=spp, seed=seed, chunk_pixels=chunk_pixels,
+                               quick=quick),
                         f"_cam{i}"))
     return results

@@ -20,7 +20,8 @@ NOT_PORTED = ("metropolis", "createprobes", "surfacepoints", "aggregatetest")
 def render_scene(built, spp=None, seed: int = 0, quick: bool = False,
                  outfile: str | None = None, chunk_pixels: int | None = None) -> list:
     """Runs the scene's renderer and writes its outputs → their paths.
-    ``quick`` renders 1 spp (pbrt's --quick)."""
+    ``quick`` renders 1 spp (pbrt's --quick; the adaptive sampler's
+    ``minsamples`` and ``maxsamples`` 1)."""
     if quick:
         spp = 1
     name = built.renderer_name
@@ -31,7 +32,7 @@ def render_scene(built, spp=None, seed: int = 0, quick: bool = False,
 
         outputs = []
         for state, suffix in render_cameras(built, spp=spp, seed=seed,
-                                            chunk_pixels=chunk_pixels):
+                                            chunk_pixels=chunk_pixels, quick=quick):
             outputs += write_outputs(built, state, outfile, suffix=suffix)
         return outputs
     if name in ("spectral", "spectralrenderer"):
@@ -41,7 +42,7 @@ def render_scene(built, spp=None, seed: int = 0, quick: bool = False,
     else:
         from pbrt_torch.renderers.sampler import render
 
-        state = render(built, spp=spp, seed=seed, chunk_pixels=chunk_pixels)
+        state = render(built, spp=spp, seed=seed, chunk_pixels=chunk_pixels, quick=quick)
     return write_outputs(built, state, outfile)
 
 

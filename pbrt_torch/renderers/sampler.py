@@ -1,12 +1,22 @@
 """Sampler renderer as sample waves over pixel chunks (port of
-``pbrt_tpu/renderers/sampler.py`` for the lowdiscrepancy sampler; reference:
-src/renderers/samplerrenderer.cpp:60-164, src/samplers/lowdiscrepancy.cpp).
+``pbrt_tpu/renderers/sampler.py``; reference:
+src/renderers/samplerrenderer.cpp:60-164, src/samplers/).
 
-One wave renders sample index n for every pixel of a chunk: the (0,2)
-sequence with per-pixel scrambles gives the camera sample (image x/y, lens
-u/v, time), the surface integrator traces it, NaN / negative / infinite
-radiance is zeroed (samplerrenderer.cpp:119-133), and the film takes the
-filter-weighted sample.
+One wave renders sample index n for every pixel of a chunk: the scene's
+sampler gives the camera sample (image x/y, lens u/v, time) —
+lowdiscrepancy's (0,2) sequence with per-pixel scrambles, halton,
+bestcandidate, random or stratified (``core/rng.py``) — the surface
+integrator traces it, NaN / negative / infinite radiance is zeroed
+(samplerrenderer.cpp:119-133), and the film takes the filter-weighted
+sample. ``adaptive`` (samplers/adaptive.cpp; sampler.py:365-437) samples as
+lowdiscrepancy in two passes: ``minsamples`` waves everywhere, keeping
+per pixel the luminance sum, minimum and maximum of its samples and the
+minimum and maximum id of the primitive its camera rays hit first (one
+more closest-hit traversal of the camera rays per wave, as the JAX
+package takes them); then, where the ``contrast`` or ``shapeid`` test asks
+for it, waves ``minsamples`` … ``maxsamples`` − 1, the other pixels'
+samples weighted 0. Its waves take spp = ``maxsamples``; ``quick`` makes
+both counts 1.
 
 Randomness is keyed as in the JAX package (sampler.py:119-132, :316-346),
 by threefry from the seed and each pixel's index ``y · W + x`` in the
@@ -16,7 +26,8 @@ primary-sample array, one kernel launch on the card (``wave_uniforms``):
 the camera columns from the scrambles, then for ``path``,
 ``directlighting`` and ``whitted`` the bounce block of sample n's key (the
 JAX package's ``BatchedKeySource``), for ``ambientocclusion`` each AO
-sample's two uniforms, for ``metadata`` nothing more. So a seed gives the
+sample's two uniforms, for ``metadata`` nothing more; a scene with volumes
+adds the media block (``media_uniforms``, one more launch). So a seed gives the
 JAX package's image, on the CPU and on the card, whatever
 ``chunk_pixels`` is. Padded tail lanes repeat the last pixel, and so its
 keys; their weight is 0.
@@ -36,22 +47,42 @@ sampler passes no wavelength.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
+from pbrt_torch.accel.intersect import intersect
 from pbrt_torch.core import rng
+from pbrt_torch.core import spectrum as spec
 from pbrt_torch.film import film as film_mod
 from pbrt_torch.integrators.path import trace_radiance
 
 
-def wave_uniforms(icfg, root, pixel_index, scrambles, sample: int):
-    """The integrator's primary-sample array of one wave (R pixels): one
-    keyed-kernel launch on the card."""
+#: integrator kinds that trace no volume
+SURFACE_ONLY = ("ambientocclusion", "metadata")
+
+
+def wave_uniforms(icfg, root, pixel_index, scrambles, sample: int,
+                  sampler: str = "lowdiscrepancy", spp: int = 1):
+    """The integrator's primary-sample array of one wave (R pixels), its
+    camera columns ``sampler``'s at ``spp``: one keyed-kernel launch on the
+    card."""
     if icfg.kind == "ambientocclusion":
-        return rng.ao_uniforms(root, pixel_index, scrambles, sample, icfg.ao_nsamples)
+        return rng.ao_uniforms(root, pixel_index, scrambles, sample, icfg.ao_nsamples,
+                               sampler, spp)
     depth = 0 if icfg.kind == "metadata" else icfg.max_depth
-    return rng.primary_uniforms(root, pixel_index, scrambles, sample, depth)
+    return rng.primary_uniforms(root, pixel_index, scrambles, sample, depth, sampler, spp)
+
+
+def media_uniforms(scene, icfg, root, pixel_index, sample: int):
+    """The wave's media block, or None for a scene without volumes or a
+    kind that traces none: one ``keyed_volume_uniforms`` launch on the
+    card."""
+    if not scene.has_volumes or icfg.kind in SURFACE_ONLY:
+        return None
+    return rng.volume_uniforms(root, pixel_index, sample, max(icfg.max_depth, 1),
+                               icfg.volume_kind == "single")
 
 
 def camera_noise(camera, root, pixel_index, sample: int):
@@ -79,21 +110,25 @@ def ray_differentials(camera, px, py, rays, scale: float):
 
 def render_wave(film_state, scene, camera, filter_table, pixel_x, pixel_y,
                 icfg, film_cfg, uniforms, sample_scale=None, diff_scale: float = 1.0,
-                noise=None):
+                noise=None, media=None, stats=None):
     """One wave for one pixel chunk; ``uniforms`` is the integrator's
     primary-sample array (camera columns first; ``wave_uniforms``);
     ``diff_scale`` scales a textured scene's ray differentials; ``noise``
-    is the camera's (``camera_noise``). Updates the film in place and
-    returns it."""
+    is the camera's (``camera_noise``), ``media`` the media block
+    (``media_uniforms``). Updates the film in place and returns it; with
+    ``stats`` (a list), appends each sample's luminance and the first
+    primitive its camera ray hits (adaptive sampling's inputs)."""
     px = pixel_x.to(torch.float32) + uniforms[:, 0]
     py = pixel_y.to(torch.float32) + uniforms[:, 1]
     rays = camera.generate_rays(px, py, uniforms[:, 2], uniforms[:, 3],
                                 uniforms[:, 4], noise=noise)
     diffs = (ray_differentials(camera, px, py, rays, diff_scale)
              if scene.has_textures and hasattr(camera, "ray_differentials") else None)
-    L, first_t = trace_radiance(scene, rays, icfg, uniforms, diffs=diffs)
+    L, first_t = trace_radiance(scene, rays, icfg, uniforms, diffs=diffs, media=media)
     bad = torch.isnan(L) | (L < 0.0) | torch.isinf(L)
     L = torch.where(bad, 0.0, L)
+    if stats is not None:
+        stats.append((spec.luminance(L), intersect(scene.geometry, rays).prim))
     return film_mod.add_samples(
         film_state, film_cfg, px, py, L, first_t, filter_table,
         sample_scale=sample_scale, pixel_ids=(pixel_x, pixel_y),
@@ -128,31 +163,102 @@ def pixel_chunks(built, seed: int, chunk_pixels: int | None):
     return xs, ys, pix, mask, root, scrambles
 
 
+def adaptive_counts(built, quick: bool = False):
+    """(minsamples, maxsamples, method) of the ``adaptive`` sampler
+    (sampler.py:376-381): at least 1 and minsamples; 1 and 1 with
+    ``quick``."""
+    sp = built.sampler_params
+    min_s = max(1, sp.find_one_int("minsamples", 4))
+    max_s = max(min_s, sp.find_one_int("maxsamples", 32))
+    method = sp.find_one_string("method", "contrast")
+    return (1, 1, method) if quick else (min_s, max_s, method)
+
+
+def need_supersampling(method: str, lum_sum, lum_min, lum_max, id_min, id_max, min_s: int):
+    """Adaptive's test per pixel (adaptive.cpp:140-165; sampler.py:411-417):
+    ``shapeid`` where the first hits' primitive ids differ, ``contrast``
+    where a sample's luminance is more than half the mean away from it."""
+    if method == "shapeid":
+        return id_min != id_max
+    avg = lum_sum / min_s
+    dev = torch.maximum(lum_max - avg, avg - lum_min)
+    return (avg > 0.0) & (dev / torch.clamp(avg, min=1e-20) > 0.5)
+
+
+def _render_adaptive(built, scene, state, chunks, quick: bool):
+    """Adaptive sampling's two passes (see the module docstring). Per-pixel
+    statistics live on the chunks' lanes; padded lanes are left out of the
+    count and weighted 0. The waves' ray differentials take spp =
+    maxsamples, as the JAX package's (sampler.py:136-137)."""
+    xs, ys, pix, mask, root, scrambles = chunks
+    cfg, icfg, cam = built.film_config, built.integrator, built.camera
+    min_s, max_s, method = adaptive_counts(built, quick)
+    diff_scale = 1.0 / float(np.sqrt(max_s))
+    dev = xs.device
+    lum_sum = torch.zeros(xs.shape, dtype=torch.float32, device=dev)
+    lum_min = torch.full(xs.shape, math.inf, dtype=torch.float32, device=dev)
+    lum_max = torch.full(xs.shape, -math.inf, dtype=torch.float32, device=dev)
+    id_min = torch.full(xs.shape, 2**30, dtype=torch.int64, device=dev)
+    id_max = torch.full(xs.shape, -(2**30), dtype=torch.int64, device=dev)
+
+    def wave(s, c, scale, stats=None):
+        u = wave_uniforms(icfg, root, pix[c], scrambles[c], s, built.sampler_name, max_s)
+        render_wave(state, scene, cam, built.filter_table, xs[c], ys[c], icfg, cfg, u,
+                    sample_scale=scale, diff_scale=diff_scale,
+                    noise=camera_noise(cam, root, pix[c], s),
+                    media=media_uniforms(scene, icfg, root, pix[c], s), stats=stats)
+
+    for s in range(min_s):
+        for c in range(xs.shape[0]):
+            stats = []
+            wave(s, c, mask[c], stats)
+            lum, prim = stats[0]
+            lum_sum[c] += lum
+            lum_min[c] = torch.minimum(lum_min[c], lum)
+            lum_max[c] = torch.maximum(lum_max[c], lum)
+            id_min[c] = torch.minimum(id_min[c], prim)
+            id_max[c] = torch.maximum(id_max[c], prim)
+    need = need_supersampling(method, lum_sum, lum_min, lum_max, id_min, id_max, min_s)
+    weight = need.to(torch.float32) * mask
+    n_need = int(weight.sum())
+    state.adaptive = {"need": n_need, "pixels": int(mask.sum()),
+                      "waves": max_s if n_need else min_s}
+    if not n_need:
+        return state
+    for s in range(min_s, max_s):
+        for c in range(xs.shape[0]):
+            wave(s, c, weight[c])
+    return state
+
+
 def render(built, spp=None, seed: int = 0, chunk_pixels: int | None = None,
-           diff_spp: int | None = None):
+           diff_spp: int | None = None, quick: bool = False):
     """All sample waves × pixel chunks → the film. Runs on the device the
     built scene lives on. ``diff_spp`` (default: ``spp``) sets the texture
     footprint's scale, 1/√diff_spp of a pixel, so a test can give a
-    golden's filter width at fewer samples (sampler.py:256-285)."""
-    if built.sampler_name not in ("lowdiscrepancy",):
-        raise NotImplementedError(
-            f"sampler {built.sampler_name!r} is not ported yet")
+    golden's filter width at fewer samples (sampler.py:256-285);
+    ``quick`` renders 1 spp (adaptive: 1 and 1). An adaptive render's film
+    carries ``adaptive``: the pixels supersampled, the pixels, the waves."""
     cfg = built.film_config
     icfg = built.integrator
-    spp = spp if spp is not None else built.pixel_samples
+    spp = 1 if quick else spp if spp is not None else built.pixel_samples
     dspp = diff_spp if diff_spp is not None else spp
     diff_scale = 1.0 / float(np.sqrt(max(dspp, 1)))
     scene = built.scene
     if scene.pixel_spread > 0.0 and dspp > 1:  # the cone footprint's width
         scene = dataclasses.replace(scene, pixel_spread=scene.pixel_spread
                                     / float(np.sqrt(dspp)))
-    xs, ys, pix, mask, root, scrambles = pixel_chunks(built, seed, chunk_pixels)
+    chunks = pixel_chunks(built, seed, chunk_pixels)
+    xs, ys, pix, mask, root, scrambles = chunks
     state = film_mod.init_film(cfg, built.device)
+    if built.sampler_name == "adaptive":
+        return _render_adaptive(built, scene, state, chunks, quick)
     table = built.filter_table
     for s in range(spp):
         for c in range(xs.shape[0]):
-            u = wave_uniforms(icfg, root, pix[c], scrambles[c], s)
+            u = wave_uniforms(icfg, root, pix[c], scrambles[c], s, built.sampler_name, spp)
             render_wave(state, scene, built.camera, table, xs[c], ys[c],
                         icfg, cfg, u, sample_scale=mask[c], diff_scale=diff_scale,
-                        noise=camera_noise(built.camera, root, pix[c], s))
+                        noise=camera_noise(built.camera, root, pix[c], s),
+                        media=media_uniforms(scene, icfg, root, pix[c], s))
     return state

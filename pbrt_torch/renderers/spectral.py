@@ -11,10 +11,13 @@ band s mod nWaveBands only. The radiance is cleaned of NaN, infinite and
 negative values, read at the traced wavelength (``value_at_wavelength``,
 :180) and written into the band's bins (:183-188), zero elsewhere.
 
-Within a sample, the bands share the primary-sample array and the lens
-camera's keyed normals, since the JAX package draws both from the same
-(pixel, sample) key: they are computed once per sample and chunk
-(``wave_uniforms``, ``camera_noise``) and read by every band. Chunks and
+Within a sample, the bands share the primary-sample array (its camera
+columns the scene's sampler's, ``adaptive`` taking lowdiscrepancy's with
+no second pass, as the JAX spectral renderer has none), the media block of
+a scene with volumes and the lens camera's keyed normals, since the JAX
+package draws them all from the same (pixel, sample) key: they are
+computed once per sample and chunk (``wave_uniforms``, ``media_uniforms``,
+``camera_noise``) and read by every band. Chunks and
 their padding are the sampler renderer's; textured scenes take the pixel
 cone footprint with no differentials, as the JAX package's spectral waves
 do.
@@ -29,7 +32,8 @@ from pbrt_torch.config import DEFAULT_SPECTRAL, SpectralConfig
 from pbrt_torch.core import spectrum as spec
 from pbrt_torch.film import film as film_mod
 from pbrt_torch.integrators.path import trace_radiance
-from pbrt_torch.renderers.sampler import camera_noise, pixel_chunks, wave_uniforms
+from pbrt_torch.renderers.sampler import (camera_noise, media_uniforms, pixel_chunks,
+                                          wave_uniforms)
 
 
 def band_wavelength(band: int, n_bands: int, config: SpectralConfig) -> float:
@@ -42,7 +46,7 @@ def band_wavelength(band: int, n_bands: int, config: SpectralConfig) -> float:
 
 def spectral_wave(film_state, scene, camera, filter_table, pixel_x, pixel_y, icfg,
                   film_cfg, uniforms, noise, band: int, n_bands: int, config,
-                  sample_scale=None):
+                  sample_scale=None, media=None):
     """One (sample, band) wave of one chunk: trace at the band's centre
     wavelength, write the radiance there into the band's bins (in place)."""
     px = pixel_x.to(torch.float32) + uniforms[:, 0]
@@ -50,7 +54,7 @@ def spectral_wave(film_state, scene, camera, filter_table, pixel_x, pixel_y, icf
     lam = torch.full_like(px, band_wavelength(band, n_bands, config))
     rays = camera.generate_rays(px, py, uniforms[:, 2], uniforms[:, 3], uniforms[:, 4],
                                 wavelength=lam, noise=noise)
-    L, first_t = trace_radiance(scene, rays, icfg, uniforms)
+    L, first_t = trace_radiance(scene, rays, icfg, uniforms, media=media)
     L = torch.where(torch.isnan(L) | (L < 0.0) | torch.isinf(L), 0.0, L)
     width = config.n_bins // n_bands
     L_band = torch.zeros_like(L)
@@ -78,19 +82,20 @@ def spectral_options(built):
 def render_spectral(built, spp=None, seed: int = 0, chunk_pixels: int | None = None):
     """Every sample × chunk × band wave → the film, on the built scene's
     device (spectral.py:96-157)."""
-    if built.sampler_name not in ("lowdiscrepancy",):
-        raise NotImplementedError(f"sampler {built.sampler_name!r} is not ported yet")
     n_bands, method, config = spectral_options(built)
     spp = spp if spp is not None else built.pixel_samples
+    sampler = built.sampler_name
     cfg, icfg, camera = built.film_config, built.integrator, built.camera
     xs, ys, pix, mask, root, scrambles = pixel_chunks(built, seed, chunk_pixels)
     state = film_mod.init_film(cfg, built.device)
     for s in range(spp):
         bands = range(n_bands) if method == "singleDirection" else (s % n_bands,)
         for c in range(xs.shape[0]):
-            u = wave_uniforms(icfg, root, pix[c], scrambles[c], s)
+            u = wave_uniforms(icfg, root, pix[c], scrambles[c], s, sampler, spp)
             noise = camera_noise(camera, root, pix[c], s)
+            media = media_uniforms(built.scene, icfg, root, pix[c], s)
             for b in bands:
                 spectral_wave(state, built.scene, camera, built.filter_table, xs[c], ys[c],
-                              icfg, cfg, u, noise, b, n_bands, config, sample_scale=mask[c])
+                              icfg, cfg, u, noise, b, n_bands, config, sample_scale=mask[c],
+                              media=media)
     return state

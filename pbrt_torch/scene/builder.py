@@ -18,9 +18,14 @@ and triangle meshes; every camera (perspective, orthographic, pinhole,
 environment, and the fork's realistic, ideal-diffraction and eye lens
 cameras), static or animated, with the lens metadata of the film header;
 the ``Renderer`` directive, recorded for ``renderers/dispatch.py``;
-every filter; the ``lowdiscrepancy`` sampler; the ``path``,
-``directlighting``, ``whitted``, ``ambientocclusion`` and ``metadata``
-integrators; the BVH accelerator with SAH splits.
+every filter; the ``lowdiscrepancy``, ``halton``, ``bestcandidate``,
+``random``, ``stratified`` and ``adaptive`` samplers (their parameters kept
+for the renderer); the ``path``, ``directlighting``, ``whitted``,
+``ambientocclusion`` and ``metadata`` integrators; the homogeneous,
+exponential, volumegrid and water volumes as one volume table, under the
+``emission`` or ``single`` volume integrator (any other name renders as
+``emission``, as in the JAX package, builder.py:732-733); the BVH
+accelerator with SAH splits.
 
 Motion blur and instancing as the JAX package builds them (builder.py:
 154-518): an animated mesh keeps its start triangles plus their
@@ -66,6 +71,7 @@ from pbrt_torch.film.imageio import read_image
 from pbrt_torch.integrators.path import KINDS, IntegratorConfig, RenderScene
 from pbrt_torch.lights import table as lt_mod
 from pbrt_torch.materials.table import build_material_table
+from pbrt_torch.media.volumes import build_volume_table
 from pbrt_torch.scene.api import SceneDescription
 from pbrt_torch.scene.paramset import ParamSet
 from pbrt_torch.shapes.mesh import make_mesh
@@ -87,6 +93,8 @@ class BuiltScene:
     #: the scene's ``Renderer`` directive (api.cpp:1333-1420)
     renderer_name: str = "sampler"
     renderer_params: ParamSet | None = None
+    #: the ``Sampler`` directive's parameters (adaptive's counts and method)
+    sampler_params: ParamSet = dataclasses.field(default_factory=ParamSet)
 
 
 def _not_ported(what):
@@ -440,10 +448,12 @@ def _mix_rows(mat_records, mat_id_for, named) -> dict:
     return rows
 
 
-def _integrator_config(name: str, params, n_bins: int) -> IntegratorConfig:
+def _integrator_config(name: str, params, n_bins: int,
+                       volume_name: str = "emission") -> IntegratorConfig:
     """The ``SurfaceIntegrator`` as an ``IntegratorConfig`` (builder.py:
-    716-741): ``nsamples`` and ``maxdist`` are ambient occlusion's, and the
-    metadata channel is read from ``strategy`` as the JAX package reads it."""
+    716-741): ``nsamples`` and ``maxdist`` are ambient occlusion's, the
+    metadata channel is read from ``strategy`` as the JAX package reads it,
+    and any ``VolumeIntegrator`` but ``single`` is ``emission``."""
     if name not in KINDS:
         _not_ported(f"surface integrator {name!r}")
     return IntegratorConfig(
@@ -452,6 +462,7 @@ def _integrator_config(name: str, params, n_bins: int) -> IntegratorConfig:
         ao_nsamples=params.find_one_int("nsamples", 4),
         ao_maxdist=params.find_one_float("maxdist", 1e30),
         metadata_channel=params.find_one_string("strategy", "depth"),
+        volume_kind="single" if volume_name == "single" else "emission",
         n_bins=n_bins,
     )
 
@@ -462,8 +473,6 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
     dev = resolve_device(device)
     cfg = desc.spectral_config
     S = cfg.n_bins
-    if desc.volumes:
-        _not_ported("participating media")
     light_rows = [_light_source_row(rec, cfg) for rec in desc.lights]
     if desc.accelerator[0] != "bvh" or desc.accelerator[1].find_one_string(
             "splitmethod", "sah") != "sah":
@@ -612,8 +621,10 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
         tex_records.update(m.spectrum_textures)
     textures, tex_index = build_texture_table(tex_records, cfg, dev)
     materials = build_material_table(mat_records, cfg, dev, mix_rows, tex_index)
+    volumes = build_volume_table(desc.volumes, cfg, dev) if desc.volumes else None
     scene = RenderScene(geometry=geometry, materials=materials, lights=lights,
-                        textures=textures, has_textures=bool(tex_records))
+                        textures=textures, volumes=volumes,
+                        has_textures=bool(tex_records), has_volumes=bool(desc.volumes))
 
     film_name, film_params = desc.film
     filt = make_filter(
@@ -644,11 +655,12 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
         scene.pixel_spread = float(2.0 * np.tan(np.deg2rad(camera.fov_deg) / 2.0) / res_short)
 
     sampler_name, sampler_params = desc.sampler
-    integrator = _integrator_config(*desc.surface_integrator, S)
+    integrator = _integrator_config(*desc.surface_integrator, S, desc.volume_integrator[0])
     return BuiltScene(
         scene=scene, camera=camera, film_config=film_cfg,
         filter_table=t(filt.table()), sampler_name=sampler_name,
         pixel_samples=sampler_params.find_one_int("pixelsamples", 4),
         integrator=integrator, device=dev, description=desc,
         renderer_name=desc.renderer[0], renderer_params=desc.renderer[1],
+        sampler_params=sampler_params,
     )

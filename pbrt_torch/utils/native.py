@@ -40,6 +40,8 @@ NVCC_FLAGS = [
 GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
 
 _vp, _ci, _u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+#: the keyed kernels' five per-launch sampler constants
+_f5 = (ctypes.c_float,) * 5
 #: each kernel source's entry points and their ctypes argument types (every
 #: pointer and the stream as ``c_void_p``); each returns ``cudaGetLastError()``
 #: (``pbrt_torch_max_stack`` its stack cap)
@@ -57,8 +59,11 @@ KERNEL_ENTRIES = {
         "pbrt_torch_max_stack": [],
     },
     "rng.cu": {
-        "pbrt_torch_keyed_uniforms": [_u32, _u32, _vp, _vp, _ci, _u32, _ci, _vp, _vp],
-        "pbrt_torch_keyed_ao_uniforms": [_u32, _u32, _vp, _vp, _ci, _u32, _ci, _vp, _vp],
+        "pbrt_torch_keyed_uniforms": [_u32, _u32, _vp, _vp, _ci, _u32, _ci, _ci, *_f5,
+                                      _vp, _vp],
+        "pbrt_torch_keyed_ao_uniforms": [_u32, _u32, _vp, _vp, _ci, _u32, _ci, _ci, *_f5,
+                                         _vp, _vp],
+        "pbrt_torch_keyed_volume_uniforms": [_u32, _u32, _vp, _ci, _u32, _ci, _ci, _vp, _vp],
         "pbrt_torch_keyed_scrambles": [_u32, _u32, _vp, _ci, _vp, _vp],
         "pbrt_torch_keyed_camera_normals": [_u32, _u32, _vp, _ci, _u32, _u32, _ci, _vp,
                                             _vp],

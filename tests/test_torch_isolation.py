@@ -38,7 +38,8 @@ def test_files_found():
 
 @pytest.mark.parametrize("module", ["cameras/realistic.py", "cameras/eye.py",
                                     "renderers/spectral.py", "renderers/cameras_renderer.py",
-                                    "renderers/dispatch.py", "cli.py"])
+                                    "renderers/dispatch.py", "cli.py", "media/volumes.py",
+                                    "media/__init__.py"])
 def test_lens_camera_and_renderer_modules_covered(module):
     """The lens cameras, the renderers and the command line are among the
     files checked above."""

@@ -327,3 +327,40 @@ def test_camera_normals_kernel_constants_are_the_plain_versions():
     body = re.search(r"keyed_camera_normals_kernel\(.*?\n}\n", text, re.S).group(0)
     assert "tag0 + static_cast<uint32_t>(t0 + t)" in body and "kBatchedTag" not in body
     assert "bits_at(ta, tc, 0u)" in body and "bits_at(ta, tc, 1u)" in body
+
+
+def test_sampler_and_volume_kernel_constants_are_the_plain_versions():
+    """rng.cu's sampler codes, the media block's purpose tags, its march
+    steps and uniforms per step, read as text, are ``core/rng.py``'s; the
+    volume kernel folds b·16 + VOLUME into the lane key for jitter b and
+    k·16 + LIGHT_SAMPLE into bounce 0's VOLUME key for step k."""
+    text = SOURCE.read_text()
+    enum = re.search(r"enum : int \{(.*?)\};", text, re.S).group(1)
+    codes = dict((k, int(v)) for k, v in re.findall(r"k(\w+) = (\d+)", enum))
+    assert codes == {"LowDiscrepancy": trng.LOWDISCREPANCY, "Halton": trng.HALTON,
+                     "BestCandidate": trng.BESTCANDIDATE, "Random": trng.RANDOM,
+                     "Stratified": trng.STRATIFIED}
+    assert _cu_int("kVolumePurpose") == trng.VOLUME == 8
+    assert _cu_int("kLightSamplePurpose") == trng.LIGHT_SAMPLE == 2
+    assert _cu_int("kVolumeSteps") == trng.VOLUME_STEPS == 32
+    assert _cu_int("kPerStep") == trng.PER_VOLUME_STEP == 3
+    body = re.search(r"keyed_volume_uniforms_kernel\(.*?\n}\n", text, re.S).group(0)
+    assert "j * 16u + kVolumePurpose" in body and "fold_in(va, vc, kVolumePurpose)" in body
+    assert "step * 16u + kLightSamplePurpose" in body and "kBatchedTag" not in body
+    assert re.search(r"__global__ void __launch_bounds__\(kThreads\)\s+"
+                     r"keyed_volume_uniforms_kernel\(", text)
+
+
+@pytest.mark.parametrize("sampler", ["halton", "bestcandidate", "random", "stratified"])
+def test_primary_array_keeps_its_bounce_block(sampler):
+    """Another sampler changes only the five camera columns: the bounce
+    block is lowdiscrepancy's, bit for bit, and a lowdiscrepancy array is
+    today's (the default arguments)."""
+    root, pix = trng.root_key(3), torch.as_tensor(PIXELS)
+    scr = trng.pixel_scrambles_plain(root, pix)
+    base = trng.primary_uniforms_plain(root, pix, scr, 5, 3)
+    np.testing.assert_array_equal(
+        base.numpy(), trng.primary_uniforms_plain(root, pix, scr, 5, 3, "lowdiscrepancy", 9).numpy())
+    other = trng.primary_uniforms_plain(root, pix, scr, 5, 3, sampler, 4)
+    np.testing.assert_array_equal(other[:, 5:].numpy(), base[:, 5:].numpy())
+    assert not torch.equal(other[:, :5], base[:, :5])

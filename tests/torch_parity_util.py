@@ -33,6 +33,10 @@ _TEXTURES = ("kind", "mapping", "uv_xform", "world_to_tex", "c1", "c2", "f1", "f
              "ref2", "img_offset", "img_w", "img_h", "img_level_off", "img_n_levels",
              "pool_rgb", "perm")
 _ENV_DIST = ("func", "cond_cdf", "cond_int", "marg_func", "marg_cdf", "marg_int")
+_VOLUMES = ("kind", "w2v", "lo", "hi", "sigma_a", "sigma_s", "le", "g", "exp_a", "exp_b",
+            "updir", "grid_offset", "grid_n", "pool")
+_INTEGRATOR = ("kind", "max_depth", "strategy", "rr_depth", "ao_nsamples", "ao_maxdist",
+               "metadata_channel", "volume_kind", "n_bins")
 
 
 def tiny_scene_text(xres=16, yres=16, spp=2, max_depth=4) -> str:
@@ -77,7 +81,11 @@ def jax_scene_arrays(built) -> dict:
         film_xres=fc.xres, film_yres=fc.yres, film_n_bins=fc.n_bins,
         filter_kind=fc.filter.kind, filter_xwidth=fc.filter.xwidth,
         filter_ywidth=fc.filter.ywidth,
+        **{f"icfg_{k}": getattr(built.integrator, k) for k in _INTEGRATOR},
     )
+    vt = built.scene.volumes
+    if built.scene.has_volumes:
+        out.update({f"vol_{k}": a(getattr(vt, k)) for k in _VOLUMES})
     return out
 
 
@@ -293,3 +301,39 @@ def texture_scene_text(directory: str, xres=16, yres=16, max_depth=3,
                         'Material "plastic" "texture Kd" "checks"')
     text = text.replace("WorldBegin", "WorldBegin\n" + TEXTURES, 1)
     return text.replace("@DIR@", directory)
+
+
+def write_absorption_curve(path) -> str:
+    """A smooth two-column water absorption curve over 395–715 nm (λ, 1/m
+    scaled to scene units), the stand-in for the fork's data file."""
+    lam = np.linspace(395.0, 715.0, 33)
+    sigma = 0.02 + 0.3 / (1.0 + np.exp(-(lam - 600.0) / 25.0))
+    np.savetxt(path, np.stack([lam, sigma], -1), fmt="%.6f")
+    return str(path)
+
+
+def fog_scene_text(volume_integrator="emission", xres=8, yres=8, spp=1, sampler="lowdiscrepancy",
+                   volume=None, renderer="") -> str:
+    """A camera in a fog box looking at a lit matte quad: a point light,
+    ``directlighting`` depth 1, a homogeneous region that absorbs,
+    scatters (g 0.3) and emits, under ``volume_integrator``; ``volume``
+    replaces the region's line."""
+    volume = volume or ('Volume "homogeneous" "point p0" [-5 -5 -5] "point p1" [5 5 5] '
+                        '"spectrum sigma_a" [395 .2 715 .3] "spectrum sigma_s" [395 .25 715 .1] '
+                        '"spectrum Le" [395 .05 715 .02] "float g" [.3]')
+    return f"""
+LookAt 0 0 -3  0 0 0  0 1 0
+Camera "perspective" "float fov" [40]
+Film "image" "integer xresolution" [{xres}] "integer yresolution" [{yres}]
+Sampler "{sampler}" "integer pixelsamples" [{spp}]
+{renderer}
+SurfaceIntegrator "directlighting" "integer maxdepth" [1]
+VolumeIntegrator "{volume_integrator}"
+WorldBegin
+LightSource "point" "rgb I" [6 6 6] "point from" [0.5 1 -1]
+{volume}
+Material "matte" "spectrum Kd" [395 .8 715 .8]
+Shape "trianglemesh" "point P" [-10 -10 2  10 -10 2  10 10 2  -10 10 2]
+  "integer indices" [0 1 2 2 3 0]
+WorldEnd
+"""
