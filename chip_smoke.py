@@ -153,7 +153,26 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    volume of each kind under both volume integrators, card vs CPU (waves
    and seeds pooled); every view's CPU-against-itself per-bin difference
    with each image sample one ulp over is logged beside it (phase 5 on);
-14. the ``kernels`` JSON line (see PERF.md for the fields), then the result.
+14. accelerators, refined shapes and ``goldens/bunny.pbrt`` —
+   killeroo-simple at 512² with ``Accelerator "kdtree"`` and then
+   ``"grid"``, ``directlighting`` and ``path`` depth 5, 1 spp each, counted
+   and profiled beside phase 7's BVH frames, with build seconds and table
+   sizes; the kd-tree and grid kernels against their plain versions, bit
+   for bit, on 262,144 of the frame's camera and bounce rays and on 1, 7
+   and 4,093 lanes, closest hit against ``intersect_brute``; the motion
+   scene of phase 11 (as written, 64,980-triangle blobs, 256²) under each
+   accelerator: its 1-spp frame, and the motion kernels against their
+   plain versions on 65,536 of its rays; each kernel timed on a
+   32,768-lane permuted set in 5 rounds with its bound; ``Renderer
+   "aggregatetest"`` under the BVH, the kd-tree and the grid (0 rays may
+   disagree); ``goldens/bunny.pbrt`` as written (256², 8 spp; its
+   ``geometry/bunny.pbrt`` a generated 320-face loopsubdiv control mesh,
+   its ``brdfs/mystique.brdf`` phase 9's measured-file stand-in); a 512²
+   ``path`` frame of the refined shapes (a 256 × 256 heightfield floor, a
+   NURBS patch, the loop-subdivided stand-in), timed and counted, not
+   profiled; the tiny scene under each
+   accelerator, the bunny and each refined shape at 16², card vs CPU;
+15. the ``kernels`` JSON line (see PERF.md for the fields), then the result.
 
 The real-size scene is ``goldens/killeroo-simple.pbrt`` (its text is kept
 here) at 512²; each ``Include "geometry/killeroo.pbrt"`` (geometry not in
@@ -1040,6 +1059,459 @@ def media_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
                 bin_tol=REF_BIN_REL_CAMERAS)
     log("media", f"phase 13 took {time.time() - t_phase:.1f} s")
     return kernels
+
+
+# ---------------------------------------------------------------------------
+# phase 14: accelerators, refined shapes and goldens/bunny.pbrt
+# ---------------------------------------------------------------------------
+
+#: per-lane bytes of a kd / grid walk: o, d, inv in, tmin and tmax in, the
+#: hit (t, prim, b1, b2) out; a motion walk also reads the lane's weight
+LANE_BYTES_KD = 36 + 8 + 16
+LANE_BYTES_KD_MOTION = LANE_BYTES_KD + 4
+#: bytes of a distinct table entry a walk reads: a kd node (split, axis,
+#: above child, CSR offset and count), a voxel (CSR offset and count), a
+#: CSR id, a packed triangle (its shutter-end deltas as many again under
+#: motion), a quadric (type, the 12 used floats of w2o, 8 parameters)
+KD_NODE_BYTES, VOXEL_BYTES, CSR_BYTES = 5 * 4, 2 * 4, 4
+TRI_ROW_BYTES, QUAD_ROW_BYTES = 9 * 4, (1 + 12 + 8) * 4
+WORLD_BOX_BYTES = 6 * 4
+#: float operations, counted from csrc/traverse_kd.cu: the world-box clip
+#: (6 subtractions and products, 6 min / max, 4 more), a kd interior node
+#: (the plane's t, 2; 6 comparisons), a voxel step (argmin 2, the step's
+#: compares and add 4, the vid 2 integer ops counted alike), a triangle test
+#: (Möller–Trumbore: 27 products, 20 sums, the reciprocal, 6 comparisons),
+#: the lerp of its 9 floats (9 products, 9 sums), a quadric test (the
+#: object ray 30, the quadratic ~16, two roots' clip tests with their
+#: atan2 (~20 each) and points 6 each, u and v ~28: ~126), a pop (2)
+OPS_KD_LANE, OPS_KD_NODE, OPS_VOXEL_STEP = 16, 8, 8
+OPS_TRI_TEST, OPS_TRI_LERP, OPS_QUAD_TEST, OPS_KD_POP = 54, 18, 126, 2
+#: lanes of the frame's rays the new kernels are held against their plain
+#: versions on, and of the motion scene's (phase 11's, as written)
+ACCEL_LANES, ACCEL_MOTION_LANES = 1 << 18, 1 << 16
+#: calls per timing round: a kd walk takes a fraction of a millisecond; a
+#: grid walk or a motion walk, 30–150 ms, needs no more than one
+TIMING_CALLS = {"kdtree": 50, "grid": 1, "motion": 1}
+#: aggregatetest's rays on killeroo (the brute-force oracle holds an
+#: (R, 2048, 3) block per field: 2**14 rays keep it to 0.4 GB)
+AGGREGATE_RAYS = 1 << 14
+#: the bunny's stand-in control mesh: a blob of 20·4² = 320 faces, Loop
+#: subdivided 3 times as bunny.pbrt's include asks (20,480 faces)
+BUNNY_FREQ, BUNNY_RADIUS = 4, 0.07
+#: the refined-shapes room: a 256 × 256 heightfield floor
+ROOM_HEIGHTFIELD = 256
+REFINED_NURBS = (
+    '"integer nu" [5] "integer uorder" [4] "float uknots" [0 0 0 0 .5 1 1 1 1] '
+    '"integer nv" [4] "integer vorder" [3] "float vknots" [0 0 0 .4 1 1 1] '
+    '"float u0" [.1] "float u1" [.9] "point P" [@P@]')
+
+
+def bunny_control_mesh(radius: float = BUNNY_RADIUS, freq: int = BUNNY_FREQ):
+    """A coarse blob standing on z = 0: (P, idx), the control mesh of the
+    loop-subdivided stand-ins."""
+    return blob_mesh(freq, radius=radius, seed=19)
+
+
+def loopsubdiv_text(P, idx, nlevels: int = 3) -> str:
+    return (f'Shape "loopsubdiv" "integer nlevels" [{nlevels}] "point P" ['
+            + " ".join(f"{v:.6g}" for v in P.ravel()) + ']\n  "integer indices" ['
+            + " ".join(map(str, idx.ravel())) + "]\n")
+
+
+def nurbs_text() -> str:
+    """A cubic 5 × 4 NURBS patch over [0, 1]², bulging up to .3."""
+    xs, ys = np.meshgrid(np.linspace(0, 1, 5), np.linspace(0, 1, 4))
+    z = 0.3 * np.sin(np.pi * xs) * np.sin(np.pi * ys)
+    P = np.stack([xs, ys, z], -1).ravel()
+    return 'Shape "nurbs" ' + REFINED_NURBS.replace("@P@", " ".join(f"{v:.6g}" for v in P))
+
+
+def write_bunny_data(directory: str):
+    """``goldens/bunny.pbrt``'s two files, generated: ``geometry/bunny.pbrt``
+    (the loop-subdivided stand-in, standing on y = 0 about the origin) and
+    ``brdfs/mystique.brdf`` (phase 9's measured-file stand-in)."""
+    P, idx = bunny_control_mesh()
+    P = np.stack([P[:, 0], P[:, 2], -P[:, 1]], -1)  # stand on y = 0 (a rotation)
+    for sub in ("geometry", "brdfs", "materials"):
+        os.makedirs(os.path.join(directory, sub), exist_ok=True)
+    with open(os.path.join(directory, "geometry", "bunny.pbrt"), "w") as f:
+        f.write(loopsubdiv_text(P, idx))
+    write_material_data(os.path.join(directory, "materials"))
+    shutil.copy(os.path.join(directory, "materials", "generated.brdf"),
+                os.path.join(directory, "brdfs", "mystique.brdf"))
+
+
+def bunny_scene(directory: str, res: int | None = None) -> str:
+    """``goldens/bunny.pbrt`` as written, into ``directory`` beside its
+    generated files (at res × res if given); → its path."""
+    with open(os.path.join(HERE, "goldens", "bunny.pbrt")) as f:
+        text = f.read()
+    if res is not None:
+        text = text.replace('"integer xresolution" [256] "integer yresolution" [256]',
+                            f'"integer xresolution" [{res}] "integer yresolution" [{res}]')
+    path = os.path.join(directory, f"bunny{res or ''}.pbrt")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def refined_room_text(res: int = 512, hf: int = ROOM_HEIGHTFIELD,
+                      shapes=("heightfield", "loopsubdiv", "nurbs"), depth: int = 5) -> str:
+    """killeroo-simple's room (``path``) with its floor a hf × hf
+    heightfield, the first blob the loop-subdivided stand-in and the
+    second a NURBS patch standing up (each kept only if named in
+    ``shapes``; the floor is the written quad otherwise)."""
+    text = KILLEROO_SIMPLE.replace(
+        'SurfaceIntegrator "directlighting"',
+        f'SurfaceIntegrator "path" "integer maxdepth" [{depth}]').replace(
+        '"integer xresolution" [512] "integer yresolution" [512]',
+        f'"integer xresolution" [{res}] "integer yresolution" [{res}]')
+    floor = ('Shape "trianglemesh" "point P" [ -1000 -1000 0 1000 -1000 0 1000 1000 0 '
+             '-1000 1000 0 ]\n      "float uv" [ 0 0 5 0 5 5 0 5 ]\n\t"integer indices" [ 0 1 2 2 3 0]')
+    if floor not in text:
+        raise ValueError("killeroo-simple's floor is not as written")
+    if "heightfield" in shapes:
+        yy, xx = np.mgrid[0:hf, 0:hf] / max(hf - 1, 1)
+        z = 0.5 + 0.5 * np.sin(11 * xx) * np.cos(7 * yy)
+        text = text.replace(floor, (
+            "AttributeBegin\n  Translate -1000 -1000 0\n  Scale 2000 2000 12\n"
+            f'  Shape "heightfield" "integer nu" [{hf}] "integer nv" [{hf}] "float Pz" ['
+            + " ".join(f"{v:.4g}" for v in z.ravel()) + "]\nAttributeEnd"))
+    P, idx = bunny_control_mesh(radius=60.0)
+    first = loopsubdiv_text(P, idx) if "loopsubdiv" in shapes else ""
+    second = ("AttributeBegin\n  Translate -60 0 0\n  Rotate 90 1 0 0\n  Scale 140 140 140\n  "
+              + nurbs_text() + "\nAttributeEnd\n") if "nurbs" in shapes else ""
+    head, tail = text.split("@MESH@", 1)
+    return head + first + tail.replace("@MESH@", second, 1)
+
+
+def accel_scene_text(text: str, acc: str) -> str:
+    """A scene's text with ``Accelerator "acc"`` before its WorldBegin."""
+    return text.replace("WorldBegin", f'Accelerator "{acc}"\nWorldBegin', 1)
+
+
+def accelerators_phase(dev, data_dir, drive, profile_frame, card_vs_cpu, bvh):
+    """Phase 14: killeroo-simple under the kd-tree and the grid (their
+    frames beside the BVH's of phase 7, ``bvh``), the two kernel families
+    against their plain versions and timed, aggregatetest under all three
+    accelerators, ``goldens/bunny.pbrt`` as written, the refined-shapes
+    room, and the 16² references. → the kernels line's entries."""
+    import contextlib
+    import io
+
+    import torch
+
+    from pbrt_torch.accel import intersect as isect
+    from pbrt_torch.accel import traverse_kd as tk
+    from pbrt_torch.core import geometry as geom
+    from pbrt_torch.renderers import dispatch
+    from pbrt_torch.renderers.sampler import render
+    from pbrt_torch.scene.api import load_scene_string
+    from pbrt_torch.scene.builder import build
+    from pbrt_torch.scene.paramset import ParamSet
+    from pbrt_torch.utils import timing
+    from pbrt_torch.utils.timing import cuda_ms
+
+    sync = torch.cuda.synchronize
+    t_phase = time.time()
+    bits = lambda k, p: all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                            for a, b in zip(k, p))
+    text, n_mesh = real_scene_text()
+    walks = {"kdtree": (tk.traverse_kd, tk.traverse_kd_plain),
+             "grid": (tk.traverse_grid, tk.traverse_grid_plain)}
+    short = {"kdtree": "kd", "grid": "grid"}
+    entries, frames, built = {}, {}, {}
+
+    # ---- (a) killeroo-simple under each accelerator ------------------------
+    for acc in ("kdtree", "grid"):
+        t0 = time.time()
+        b = build(load_scene_string(accel_scene_text(text, acc)), device=dev)
+        build_s = time.time() - t0
+        g = b.scene.geometry
+        tabs = ([g.kd_split, g.kd_axis, g.kd_above, g.kd_prim_off, g.kd_prim_cnt, g.kd_prim_ids]
+                if acc == "kdtree" else [g.grid_off, g.grid_cnt, g.grid_ids])
+        size = (f"{g.kd_axis.numel()} nodes ({int((g.kd_axis == 3).sum())} leaves), "
+                f"{g.kd_prim_ids.numel()} CSR ids" if acc == "kdtree" else
+                f"{'x'.join(map(str, g.grid_dims))} voxels, {g.grid_ids.numel()} CSR ids")
+        log("scene", f"killeroo-simple under the {acc}: {g.num_triangles} triangles and "
+            f"{g.num_quadrics} sphere in {size}; tables on the device "
+            f"{sum(x.numel() * x.element_size() for x in tabs) / 2**20:.2f} MiB (+ "
+            f"{g.leaf_prims.tri.numel() * 4 / 2**20:.2f} MiB packed triangles); no wide rows "
+            f"{g.wide_rows is None}; built in {build_s:.1f} s (the whole scene, host numpy)")
+        if g.accel_kind != acc or g.wide_rows is not None or g.num_triangles != 4 + 2 * n_mesh:
+            raise SystemExit(f"killeroo-simple did not build under the {acc}")
+        built[acc] = b
+        ic = b.integrator
+        for kind in ("directlighting", "path"):
+            bk = dataclasses.replace(b, integrator=dataclasses.replace(ic, kind=kind))
+            _, sec, lk, _ = drive(f"killeroo-simple, {acc}, {kind}", bk, 1, warm=kind == "path")
+            if not (lk[f"traverse_{short[acc]}_closest"] and lk[f"traverse_{short[acc]}_any"]):
+                raise SystemExit(f"the {acc} frame did not launch its own kernels")
+            prof = profile_frame(f"killeroo-simple, {acc}, {kind}", bk, sec * 1e3)
+            frames[(acc, kind)] = dict(sec=sec, launches=lk, **prof)
+    for kind in ("directlighting", "path"):
+        n_px = 512 * 512
+        parts = []
+        for acc in ("bvh", "kdtree", "grid"):
+            f = bvh[kind] if acc == "bvh" else frames[(acc, kind)]
+            parts.append(f"{acc} {f['sec'] * 1e3:.1f} ms ({n_px / f['sec']:.1f} camera paths/s), "
+                         f"kernel time {f['ms']:.1f} ms, {f['per_chunk']:.1f} launches per chunk")
+        log("accel", f"killeroo-simple 512², {kind} depth 5, per 1-spp frame: " + "; ".join(parts)
+            + " (bvh: phase 7's frames, its 4-spp render per sample)")
+
+    # ---- (b) the kernels against their plain versions, on the frame's rays
+    gen = torch.Generator(device=dev)
+    for acc in ("kdtree", "grid"):
+        b = built[acc]
+        g = b.scene.geometry
+        walk, plain = walks[acc]
+        gen.manual_seed(21)
+        o, d, _, _, si = camera_and_bounce_rays(b, dev, ACCEL_LANES, gen, times=False)
+        R = o.shape[0]
+        inv = isect.make_inv_dir(d).contiguous()
+        tmin = torch.zeros(R, device=dev)
+        tmax = torch.full((R,), float("inf"), device=dev)
+        kc = walk(g, o, d, inv, tmin, tmax, False)
+        pc = plain(g, o, d, inv, tmin, tmax, False)
+        scale = torch.where(torch.rand(R, generator=gen, device=dev) < 0.5, 0.5, 1.5)
+        tmax_a = torch.where(torch.isfinite(pc[0]), pc[0] * scale, 1e30).contiguous()
+        ka = walk(g, o, d, inv, tmin, tmax_a, True)
+        pa = plain(g, o, d, inv, tmin, tmax_a, True)
+        ragged = True
+        for n in (1, 7, 4093):
+            for any_hit, tm in ((False, tmax), (True, tmax_a)):
+                cut = [x[:n].contiguous() for x in (o, d, inv, tmin, tm)]
+                ragged &= bits(walk(g, *cut, any_hit), plain(g, *cut, any_hit))
+        sync()
+        eq = {"closest": bits(kc, pc), "any": bits(ka, pa)}
+        fin, fa = torch.isfinite(pc[0]), pa[1] >= 0
+        errs = {"closest": float((kc[0][fin] - pc[0][fin]).abs().max()) if fin.any() else 0.0,
+                "any": float((ka[0][fa] - pa[0][fa]).abs().max()) if fa.any() else 0.0}
+        # brute force as phase 3 holds the BVH kernel to it, but rtol 1e-5:
+        # its unpacked Möller–Trumbore sums by torch's reductions, and on
+        # bounce rays t = (e2 · q) / det cancels (1.56e-6 seen on the kd-tree)
+        sel = torch.randperm(R, generator=gen, device=dev)[:BRUTE_LANES]
+        hb = isect.intersect_brute(g, geom.Ray.make(o[sel], d[sel]))
+        sync()
+        kv, bv = kc[1][sel] >= 0, hb.prim >= 0
+        v = kv & bv
+        rel = float(((kc[0][sel][v] - hb.t[v]).abs() / hb.t[v].abs()).max()) if v.any() else 0.0
+        prim_eq = float((kc[1][sel] == hb.prim).float().mean())
+        brute_ok = bool(torch.equal(kv, bv)) and rel <= 1e-5 and prim_eq >= 0.999
+        log("kernels", f"{acc} kernels vs plain on {R} rays of killeroo-simple ({R // 2} camera "
+            f"rays, {R - R // 2} bounce rays from {int(si.valid.sum())} first hits): t, prim, "
+            f"b1, b2 equal bit for bit {eq}; on 1, 7 and 4093 lanes {ragged}; closest hits "
+            f"{int((pc[1] >= 0).sum())}, occluded {int(fa.sum())}; closest hit vs "
+            f"intersect_brute on {BRUTE_LANES} lanes: valid equal {bool(torch.equal(kv, bv))}, "
+            f"max rel t diff {rel:.3g}, prim equal on {prim_eq:.6f} of lanes (rtol 1e-5 on t; "
+            f"prims may differ only on exact-t ties)")
+        if not (all(eq.values()) and ragged and brute_ok):
+            raise SystemExit(f"a {acc} kernel disagrees with its plain version or brute force")
+        # timed at the main path's launch width, with the plain version's work
+        sub = torch.randperm(R, generator=gen, device=dev)[:CHUNK]
+        pick = lambda x: x[sub].contiguous()
+        for side, any_hit, tm in (("closest", False, tmax), ("any", True, tmax_a)):
+            key = f"traverse_{short[acc]}_{side}"
+            targs = (g, pick(o), pick(d), pick(inv), pick(tmin), pick(tm), any_hit)
+            stats = {}
+            plain_ms = cuda_ms(lambda: plain(*targs, stats=stats), n=1, warm=0)
+            tq = timing.queued_rounds(lambda: walk(*targs), RNG_ROUNDS, TIMING_CALLS[acc],
+                                      warm=1)
+            nbytes, ops = kd_work(acc, stats, CHUNK, motion=False)
+            b_ms, b_by = timing.bound_ms(nbytes, f32_ops=ops)
+            entries[key] = dict(max_abs_err=errs[side], ms=tq["ms"], plain_ms=plain_ms,
+                                bound_ms=b_ms, bound_by=b_by)
+            summ = step_summary(stats["lane_steps"], tq["ms"])
+            log("timing", f"{key}, permuted set of killeroo-simple, {CHUNK} lanes: median "
+                f"{tq['ms']:.4f} ms over {RNG_ROUNDS} rounds of {TIMING_CALLS[acc]} calls "
+                f"({tq['min']:.4f}–{tq['max']:.4f}; "
+                f"plain {plain_ms:.1f} ms with its counting, host enqueue {tq['host_ms']:.4f} ms); "
+                f"{work_text(acc, stats)}, {nbytes} bytes, {ops} operations; bound {b_ms:.5f} ms "
+                f"({b_by}), kernel / bound {tq['ms'] / b_ms:.1f}x; passes per lane mean "
+                f"{summ['mean']:.2f}, max {summ['max']}")
+        del kc, pc, ka, pa, o, d, inv, si
+        torch.cuda.empty_cache()
+
+    # the motion scene under each accelerator: its frame (the motion
+    # kernels' launches) and its rays
+    for acc in ("kdtree", "grid"):
+        walk, plain = walks[acc]
+        t0 = time.time()
+        b = build(load_scene_string(accel_scene_text(anim_scene_text(), acc)), device=dev)
+        g = b.scene.geometry
+        log("scene", f"anim-killeroos-moving under the {acc}: {g.num_triangles} triangles "
+            f"(moving), " + (f"{g.kd_axis.numel()} nodes, {g.kd_prim_ids.numel()} CSR ids"
+                             if acc == "kdtree" else f"{'x'.join(map(str, g.grid_dims))} "
+                             f"voxels, {g.grid_ids.numel()} CSR ids")
+            + f"; built in {time.time() - t0:.1f} s")
+        if not (g.has_motion and g.accel_kind == acc and g.num_triangles == 4 + 2 * n_mesh):
+            raise SystemExit(f"the motion scene did not build under the {acc}")
+        _, sec, lk, _ = drive(f"anim-killeroos-moving, {acc}", b, 1, warm=False)
+        for side in ("closest", "any"):
+            key = f"traverse_{short[acc]}_{side}_motion"
+            if not lk[key]:
+                raise SystemExit(f"the motion frame did not launch {key}")
+            frames[(acc, "motion", side)] = lk[key]
+        gen.manual_seed(22)
+        o, d, t_ray, _, _ = camera_and_bounce_rays(b, dev, ACCEL_MOTION_LANES, gen, times=True)
+        # permuted: the first CHUNK lanes are the timing set
+        perm = torch.randperm(o.shape[0], generator=gen, device=dev)
+        o, d, t_ray = o[perm].contiguous(), d[perm].contiguous(), t_ray[perm]
+        R = o.shape[0]
+        tw = isect.motion_weight(g, t_ray).contiguous()
+        inv = isect.make_inv_dir(d).contiguous()
+        tmin = torch.zeros(R, device=dev)
+        tmax = torch.full((R,), float("inf"), device=dev)
+        lanes = lambda tm, s: (o[s], d[s], inv[s], tmin[s], tm[s])
+        head, rest = slice(0, CHUNK), slice(CHUNK, None)
+
+        def plain_all(tm, any_hit, stats):
+            """The plain walk on every lane, the timing set's call alone
+            timed and counting its work → (hit, ms)."""
+            out = {}
+            ms = cuda_ms(lambda: out.update(h=plain(g, *lanes(tm, head), any_hit, tw[head],
+                                                    stats=stats)), n=1, warm=0)
+            tail = plain(g, *lanes(tm, rest), any_hit, tw[rest])
+            return [torch.cat(x) for x in zip(out["h"], tail)], ms
+
+        res = {}
+        for side, any_hit in (("closest", False), ("any", True)):
+            stats = {}
+            # any hit below 3/4 of the closest hit's t (the plain closest hit, p)
+            tm = (torch.where(torch.isfinite(p[0]), p[0] * 0.75, 1e30).contiguous()
+                  if any_hit else tmax)
+            p, plain_ms = plain_all(tm, any_hit, stats)
+            k = walk(g, o, d, inv, tmin, tm, any_hit, tw)
+            ok = p[1] >= 0
+            res[side] = (bits(k, p), float((k[0][ok] - p[0][ok]).abs().max()) if ok.any() else 0.0)
+            key = f"traverse_{short[acc]}_{side}_motion"
+            targs = (g, *lanes(tm, head), any_hit, tw[head])
+            tq = timing.queued_rounds(lambda: walk(*targs), RNG_ROUNDS,
+                                      TIMING_CALLS["motion"], warm=0)
+            nbytes, ops = kd_work(acc, stats, CHUNK, motion=True)
+            b_ms, b_by = timing.bound_ms(nbytes, f32_ops=ops)
+            entries[key] = dict(max_abs_err=res[side][1], ms=tq["ms"], plain_ms=plain_ms,
+                                bound_ms=b_ms, bound_by=b_by)
+            log("timing", f"{key}, the motion scene's permuted set, {CHUNK} lanes: median "
+                f"{tq['ms']:.4f} ms over {RNG_ROUNDS} rounds of {TIMING_CALLS['motion']} calls "
+                f"({tq['min']:.4f}–{tq['max']:.4f}; plain {plain_ms:.1f} ms); "
+                f"{work_text(acc, stats)}, {nbytes} bytes; bound {b_ms:.5f} ms ({b_by}), "
+                f"kernel / bound {tq['ms'] / b_ms:.1f}x")
+        sync()
+        log("kernels", f"{acc} motion kernels vs plain on {R} rays of the motion scene (camera "
+            f"rays at their own shutter times and bounce rays): equal bit for bit "
+            f"{ {s: r[0] for s, r in res.items()} }")
+        if not all(r[0] for r in res.values()):
+            raise SystemExit(f"a {acc} motion kernel disagrees with its plain version")
+        del b, g, o, d, p, k
+        torch.cuda.empty_cache()
+
+    # ---- (c) aggregatetest under the BVH, the kd-tree and the grid ---------
+    params = ParamSet()
+    params.add("integer", "niters", [AGGREGATE_RAYS])
+    for acc, b in (("bvh", bvh["built"]), ("kdtree", built["kdtree"]), ("grid", built["grid"])):
+        ba = dataclasses.replace(b, renderer_name="aggregatetest", renderer_params=params)
+        out = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(out):
+            files = dispatch.render_scene(ba)
+        sync()
+        line = out.getvalue().strip()
+        n_bad = int(line.split(":")[1].split()[0])
+        log("aggregate", f'Renderer "aggregatetest" on killeroo-simple under the {acc}, '
+            f"{AGGREGATE_RAYS} rays: {line!r} ({time.time() - t0:.1f} s)")
+        if files or n_bad != 0:
+            raise SystemExit(f"aggregatetest under the {acc}: {n_bad} rays disagree")
+    del built
+    torch.cuda.empty_cache()
+
+    # ---- (d) goldens/bunny.pbrt as written ---------------------------------
+    bunny_dir = os.path.join(data_dir, "bunny")
+    write_bunny_data(bunny_dir)
+    t0 = time.time()
+    bb = load_checked(bunny_scene(bunny_dir), dev, "goldens/bunny.pbrt")
+    g, lt, ic, fc = bb.scene.geometry, bb.scene.lights, bb.integrator, bb.film_config
+    disk_row = lt.area_row0
+    log("scene", f"goldens/bunny.pbrt as written: {g.num_triangles} triangles (the stand-in "
+        f"loop-subdivided from {20 * BUNNY_FREQ ** 2} faces, nlevels 3, and the floor), quadric "
+        f"types {g.quad_type.tolist()}, light types {lt.type.tolist()}, the disk light's shape "
+        f"kind {int(lt.shape_kind[disk_row])} (a sphere of radius "
+        f"{float(g.quad_params[int(lt.quad_idx[disk_row]), 0]):g}, the JAX package's rule), "
+        f"material kinds {bb.scene.materials.kind.tolist()}, {ic.kind} depth {ic.max_depth}, "
+        f"{fc.xres}x{fc.yres}, {bb.pixel_samples} spp; built in {time.time() - t0:.1f} s")
+    if not (g.num_triangles == 2 + 20 * BUNNY_FREQ ** 2 * 64 and g.quad_type.tolist() == [2]
+            and int(lt.shape_kind[disk_row]) == 1 and ic.kind == "directlighting"
+            and (fc.xres, fc.yres, bb.pixel_samples) == (256, 256, 8)):
+        raise SystemExit("goldens/bunny.pbrt did not build as written")
+    _, sec, _, _ = drive("goldens/bunny.pbrt as written", bb, bb.pixel_samples)
+    profile_frame("goldens/bunny.pbrt as written (directlighting)", bb,
+                  sec / bb.pixel_samples * 1e3)
+    del bb
+
+    # ---- (e) the refined-shapes room ---------------------------------------
+    t0 = time.time()
+    br = build(load_scene_string(refined_room_text()), device=dev)
+    g = br.scene.geometry
+    log("scene", f"refined-shapes room: {g.num_triangles} triangles (a "
+        f"{ROOM_HEIGHTFIELD}x{ROOM_HEIGHTFIELD} heightfield floor, "
+        f"{2 * (ROOM_HEIGHTFIELD - 1) ** 2} of them; the stand-in loop-subdivided to "
+        f"{20 * BUNNY_FREQ ** 2 * 64}; a NURBS patch diced to {2 * 29 * 29}), "
+        f"{g.wide_rows.shape[0]} wide rows; built in {time.time() - t0:.1f} s")
+    if g.num_triangles != (4 - 2 + 2 * (ROOM_HEIGHTFIELD - 1) ** 2 + 20 * BUNNY_FREQ ** 2 * 64
+                           + 2 * 29 * 29):
+        raise SystemExit("the refined-shapes room did not build its shapes")
+    # timed and counted, not profiled (phase 14's time budget)
+    drive("refined-shapes room with path", br, 1)
+    del br
+    torch.cuda.empty_cache()
+
+    # ---- (f) 16² references -------------------------------------------------
+    for acc in ("kdtree", "grid"):
+        card_vs_cpu(f"tiny scene, {acc}", accel_scene_text(TINY_SCENE, acc), spp=2,
+                    chunk_pixels=256)
+    card_vs_cpu("goldens/bunny.pbrt", None, spp=2, chunk_pixels=256,
+                scene_path=bunny_scene(bunny_dir, 16))
+    for shape in ("heightfield", "loopsubdiv", "nurbs"):
+        card_vs_cpu(f"refined-shapes room, {shape} only",
+                    refined_room_text(16, 32, (shape,), depth=SCENE_DEPTH), spp=2,
+                    chunk_pixels=256)
+    for (acc, _, side), n in ((k, v) for k, v in frames.items() if len(k) == 3):
+        entries[f"traverse_{short[acc]}_{side}_motion"]["launches"] = n
+    for acc in ("kdtree", "grid"):
+        for side in ("closest", "any"):
+            entries[f"traverse_{short[acc]}_{side}"]["launches"] = sum(
+                frames[(acc, kind)]["launches"][f"traverse_{short[acc]}_{side}"]
+                for kind in ("directlighting", "path"))
+    log("accel", f"phase 14 took {time.time() - t_phase:.1f} s")
+    return entries
+
+
+def kd_work(acc: str, stats: dict, lanes: int, motion: bool):
+    """(bytes, float operations) of a kd / grid walk from its plain
+    version's counts: each lane's rays and hit, the distinct nodes or
+    voxels, CSR ids and primitive rows read; each pass, test and lerp."""
+    tri_row = TRI_ROW_BYTES * (2 if motion else 1)
+    nbytes = (lanes * (LANE_BYTES_KD_MOTION if motion else LANE_BYTES_KD) + WORLD_BOX_BYTES
+              + stats["csr_entries"] * CSR_BYTES + stats["tri_rows"] * tri_row
+              + stats["quad_rows"] * QUAD_ROW_BYTES)
+    ops = (lanes * OPS_KD_LANE + stats["tri_tests"] * (OPS_TRI_TEST + motion * OPS_TRI_LERP)
+           + stats["quad_tests"] * OPS_QUAD_TEST)
+    if acc == "kdtree":
+        nbytes += stats["nodes"] * KD_NODE_BYTES
+        ops += stats["node_steps"] * OPS_KD_NODE + stats["leaf_visits"] * OPS_KD_POP
+    else:
+        nbytes += stats["voxels"] * VOXEL_BYTES
+        ops += stats["steps"] * OPS_VOXEL_STEP
+    return nbytes, ops
+
+
+def work_text(acc: str, stats: dict) -> str:
+    where = (f"{stats['node_steps']} interior steps over {stats['nodes']} distinct nodes, "
+             f"{stats['leaf_visits']} leaf visits" if acc == "kdtree" else
+             f"{stats['steps']} voxel steps over {stats['voxels']} distinct voxels")
+    return (f"{where}, {stats['tri_tests']} triangle and {stats['quad_tests']} quadric tests, "
+            f"{stats['csr_entries']} CSR ids, {stats['tri_rows']} triangle and "
+            f"{stats['quad_rows']} quadric rows")
 
 
 def chunks_of(b) -> int:
@@ -2033,6 +2505,7 @@ def main() -> int:
 
     from pbrt_torch.accel import intersect as isect
     from pbrt_torch.accel import traverse_cuda as tc
+    from pbrt_torch.accel import traverse_kd as tk
     from pbrt_torch.core import geometry as geom
     from pbrt_torch.core import rng
     from pbrt_torch.core import sampling as smp
@@ -2547,8 +3020,10 @@ def main() -> int:
             renderer(b, spp=1, seed=0, chunk_pixels=CHUNK)
             sync()
         tc.reset_launches()
+        tk.reset_launches()
         rng.reset_launches()
-        isect.calls["intersect"] = isect.calls["instances"] = 0
+        for k in isect.calls:
+            isect.calls[k] = 0
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         # the sampler's torch path, counted where every camera column would
         # pass, and threefry in torch ops (the samplers' and the media's)
@@ -2563,7 +3038,7 @@ def main() -> int:
                          "threefry2x32": tf.call_count}
         # an adaptive render's waves (both passes); else one per sample
         n_waves = film.adaptive["waves"] if film.adaptive else spp
-        launches = {**tc.launches, **rng.launches}
+        launches = {**tc.launches, **tk.launches, **rng.launches}
         n_calls = isect.calls["intersect"]
         n_inst_calls = isect.calls["instances"]
         sec = ev[0].elapsed_time(ev[1]) / 1e3
@@ -2582,7 +3057,8 @@ def main() -> int:
         log("render", f"{label}: {ic.kind}, {W}x{H}, {spp} spp{traced}{waves_txt}, {what}, "
             f"{ic.n_bins} bins, chunk {CHUNK}: {sec:.3f} s, "
             f"{W * H * n_waves * bands / sec:.1f} camera paths/s on {name} ({smi})")
-        variants = "".join(f", {k} {launches[k] / spp:.1f}" for k in tc.KERNEL_NAMES
+        variants = "".join(f", {k} {launches[k] / spp:.1f}"
+                           for k in (*tc.KERNEL_NAMES, *tk.KERNEL_NAMES)
                            if k not in ("wide_step", "traverse_closest", "traverse_any")
                            and launches[k])
         log("render", f"{label}: launches {launches}, intersect calls {n_calls} (with "
@@ -2597,10 +3073,12 @@ def main() -> int:
             f"{sampler_calls}")
         keyed = "keyed_ao_uniforms" if ic.kind == "ambientocclusion" else "keyed_uniforms"
         other = "keyed_uniforms" if keyed == "keyed_ao_uniforms" else "keyed_ao_uniforms"
-        if not any(launches[k] for k in tc.KERNEL_NAMES if "closest" in k):
+        if not any(launches[k] for k in (*tc.KERNEL_NAMES, *tk.KERNEL_NAMES) if "closest" in k):
             raise SystemExit(f"{label}: the path did not launch a closest-hit traversal")
         if (sum(launches[k] for k in tc.WORLD_KERNELS) != n_calls
-                or sum(launches[k] for k in tc.INSTANCE_KERNELS) != n_inst_calls):
+                or sum(launches[k] for k in tc.INSTANCE_KERNELS) != n_inst_calls
+                or sum(launches[k] for k in tk.KD_KERNELS) != isect.calls["kdtree"]
+                or sum(launches[k] for k in tk.GRID_KERNELS) != isect.calls["grid"]):
             raise SystemExit(f"{label}: traversal launches do not match intersect calls")
         noisy = len(b.camera.noise_tags) > 0
         media = b.scene.has_volumes and ic.kind not in SURFACE_ONLY
@@ -2646,7 +3124,7 @@ def main() -> int:
         # any-hit side each summed over their static, motion and instance
         # kernels, of which the frame must show one at least
         per = {}
-        for key, kname in tc.KERNEL_NAMES.items():
+        for key, kname in (*tc.KERNEL_NAMES.items(), *tk.KERNEL_NAMES.items()):
             ev = [x for x in kern if kname in x[0]]
             if ev and key != "wide_step":
                 per[key] = (sum(x[1] for x in ev), sum(x[2] for x in ev))
@@ -2684,10 +3162,13 @@ def main() -> int:
     _, sec, launches, _ = drive("killeroo-simple as written", built, spp)
     if launches["traverse_any"] == 0:
         raise SystemExit("directlighting did not launch the any-hit traversal")
-    profile_frame("killeroo-simple as written (directlighting)", built, sec / spp * 1e3)
+    prof = profile_frame("killeroo-simple as written (directlighting)", built, sec / spp * 1e3)
     built_path = dataclasses.replace(built, integrator=dataclasses.replace(ic0, kind="path"))
     _, sec_p, launches_p, _ = drive("killeroo-simple with path", built_path, spp)
-    profile_frame("killeroo-simple with path", built_path, sec_p / spp * 1e3)
+    prof_p = profile_frame("killeroo-simple with path", built_path, sec_p / spp * 1e3)
+    # phase 14 sets its kd-tree and grid frames beside these
+    bvh_frames = {"built": built, "directlighting": dict(sec=sec / spp, **prof),
+                  "path": dict(sec=sec_p / spp, **prof_p)}
     for key in ("traverse_closest", "traverse_any", "keyed_uniforms", "keyed_scrambles"):
         launches[key] += launches_p[key]
 
@@ -2772,7 +3253,16 @@ def main() -> int:
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
-    # ---- 14. kernels line -------------------------------------------------
+    # ---- 14. accelerators, refined shapes, goldens/bunny.pbrt ---------------
+    data_dir = tempfile.mkdtemp(prefix="chip_smoke_accel_")
+    try:
+        accel_entries = accelerators_phase(dev, data_dir, drive, profile_frame, card_vs_cpu,
+                                           bvh_frames)
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+    del bvh_frames
+
+    # ---- 15. kernels line -------------------------------------------------
     src = "pbrt_torch/csrc/traverse.cu"
     rep = "pbrt_tpu/accel/pallas_step.py:36"
     kernels = []
@@ -2798,6 +3288,11 @@ def main() -> int:
         replaces="scripts/pallas_gather_lab.py:78", launches=lab_launches,
         max_abs_err=err_lab, ms=lab["ms"], plain_ms=lab["plain_ms"],
         bound_ms=lab["bound_ms"], bound_by=lab["bound_by"], library_ms=None))
+    for key, entry in accel_entries.items():
+        kernels.append(dict(
+            name=key, route="cuda", source="pbrt_torch/csrc/traverse_kd.cu",
+            replaces=("pbrt_tpu/accel/intersect.py:1149" if "_kd_" in key
+                      else "pbrt_tpu/accel/intersect.py:1249"), library_ms=None, **entry))
     for key, entry in motion_inst.items():
         kernels.append(dict(name=key, route="cuda", source=src, replaces=rep,
                             launches=entry["launches"], max_abs_err=entry["max_abs_err"],
@@ -2827,7 +3322,11 @@ def main() -> int:
         "and [emission]'s those of the fog frame (1 spp each), the "
         "instance kernels' those of the 64 instanced killeroos (1 spp), each "
         "timed on its own scene's permuted set, its plain_ms one call of the "
-        "plain version, which counts the work for the bound as it goes; "
+        "plain version, which counts the work for the bound as it goes; the "
+        "kd-tree's and grid's kernels (XLA while_loops in the JAX package, "
+        "intersect.py:1149 and :1249, no Pallas kernel) their killeroo "
+        "directlighting and path frames' (1 spp each), their motion twins those "
+        "of the motion scene's frame under each (1 spp); "
         "gather_lab's launches are "
         "those of the lab's own path")
     print("step " + json.dumps(step_line), flush=True)

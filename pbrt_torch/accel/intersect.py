@@ -14,7 +14,11 @@ plain version on the CPU), each row lerped by the ray's shutter weight
 the instance phase walks the shared object tables
 (``traverse_cuda.traverse_instances``), seeded with that result, and
 ``Hit.inst`` names the instance of each hit. All six quadric types are
-ported: sphere, cylinder, disk, cone, paraboloid and hyperboloid.
+ported: sphere, cylinder, disk, cone, paraboloid and hyperboloid
+(``prims.quadric_hits``). Under a kd-tree or grid (``accel_kind``) there
+is no wide table and no dense quadric pass: ``traverse_kd`` walks every
+primitive, quadrics in its leaves and voxels, as the JAX package's
+``_traverse_kd_one`` / ``_traverse_grid_one`` do (intersect.py:1368-1393).
 
 Motion blur is the JAX package's: per-triangle shutter-end deltas of
 [v0, e1, e2] (and of the vertex normals) lerped by the ray's time, an
@@ -27,21 +31,22 @@ tables concatenated in ``inst_rows``, one instance-table row per use.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
 import torch
 
-from pbrt_torch.accel import traverse_cuda
+from pbrt_torch.accel import prims, traverse_cuda, traverse_kd
+from pbrt_torch.accel.prims import (CONE, CYLINDER, DISK, HYPERBOLOID,  # noqa: F401
+                                    PARABOLOID, SPHERE)
 from pbrt_torch.core import geometry as geom
 
-# quadric type codes (intersect.py:44)
-SPHERE, CYLINDER, DISK, CONE, PARABOLOID, HYPERBOLOID = range(6)
-
-#: intersect calls that ran the world walk, and those that ran the instance
-#: phase (on a card, the launches of ``traverse_cuda.WORLD_KERNELS`` and of
-#: ``INSTANCE_KERNELS`` add up to these)
-calls = {"intersect": 0, "instances": 0}
+#: intersect calls that ran the world walk, those that ran the instance
+#: phase, and those that walked a kd-tree or a grid (on a card, the
+#: launches of ``traverse_cuda.WORLD_KERNELS``, of ``INSTANCE_KERNELS`` and
+#: of ``traverse_kd.KD_KERNELS`` / ``GRID_KERNELS`` add up to these)
+calls = {"intersect": 0, "instances": 0, "kdtree": 0, "grid": 0}
 
 
 @dataclasses.dataclass
@@ -85,6 +90,22 @@ class SceneGeometry:
     inst_hi: torch.Tensor | None = None  # (I, 3)
     inst_mesh_id: torch.Tensor | None = None  # (I,) i64, one per use
     inst_stack: int = 8  # the BLAS tables' largest stack need
+    # the kd-tree or grid accelerator (Accelerator "kdtree" / "grid";
+    # accel/kdtree.py, accel/grid.py): no wide table then, every triangle
+    # and quadric id in the accelerator's leaves or voxels
+    accel_kind: str = "bvh"  # bvh | kdtree | grid
+    world_lo: torch.Tensor | None = None  # (3,) f32 bound of every primitive
+    world_hi: torch.Tensor | None = None  # (and instance)
+    kd_split: torch.Tensor | None = None  # (N,) f32
+    kd_axis: torch.Tensor | None = None  # (N,) int32, 3 = leaf
+    kd_above: torch.Tensor | None = None  # (N,) int32 (below child = node + 1)
+    kd_prim_off: torch.Tensor | None = None  # (N,) int32 CSR
+    kd_prim_cnt: torch.Tensor | None = None  # (N,) int32
+    kd_prim_ids: torch.Tensor | None = None  # (M,) int32 global prim ids
+    grid_dims: tuple | None = None  # (nx, ny, nz)
+    grid_off: torch.Tensor | None = None  # (V,) int32 CSR
+    grid_cnt: torch.Tensor | None = None  # (V,) int32
+    grid_ids: torch.Tensor | None = None  # (M,) int32 global prim ids
     #: host-side, derived: the quadric type codes present (only those are tested)
     quad_active_types: tuple = dataclasses.field(init=False)
     #: host-side, derived: (t0, span) of motion_weight, float32 values
@@ -96,6 +117,19 @@ class SceneGeometry:
         if self.motion_time is not None:
             t0, t1 = np.asarray(self.motion_time.cpu(), np.float32)
             self.motion_span = (float(t0), float(np.maximum(t1 - t0, np.float32(1e-9))))
+
+    @functools.cached_property
+    def leaf_prims(self) -> traverse_kd.LeafPrims:
+        """The kd-tree's and grid's primitive tables (packed triangles,
+        int32 quadric types)."""
+        return traverse_kd.LeafPrims.of(self)
+
+    @functools.cached_property
+    def grid_cell(self) -> torch.Tensor:
+        """(3,) f32 voxel widths of the grid, max((hi − lo) / dims, 1e-12)
+        (intersect.py:1256-1261)."""
+        dims = torch.tensor(self.grid_dims, dtype=torch.float32, device=self.world_lo.device)
+        return torch.clamp((self.world_hi - self.world_lo) / dims, min=1e-12).contiguous()
 
     @property
     def has_motion(self) -> bool:
@@ -140,108 +174,23 @@ def motion_weight(g: SceneGeometry, time):
     return torch.clamp((time - t0) / span, 0.0, 1.0)
 
 
-def _quadratic(a, b, c):
-    """Stable quadratic (pbrt.h:286-311) → (ok, t0 <= t1)."""
-    disc = b * b - 4.0 * a * c
-    ok = disc >= 0.0
-    root = torch.sqrt(torch.clamp(disc, min=0.0))
-    q = torch.where(b < 0.0, -0.5 * (b - root), -0.5 * (b + root))
-
-    def safe(x, y):
-        return x / torch.where(y.abs() < 1e-20, torch.full_like(y, 1e-20), y)
-
-    t0 = safe(q, a)
-    t1 = safe(c, q)
-    return ok, torch.minimum(t0, t1), torch.maximum(t0, t1)
-
-
-def _roots(a, b, c, o, d, tmin, tmax, valid):
-    """The nearer of the quadratic's two roots that lies in (tmin, tmax)
-    and passes the clip test ``valid(p)`` (pbrt's two-root pattern) →
-    (hit, t) with t = inf on a miss."""
-    ok, t0, t1 = _quadratic(a, b, c)
-    v0 = ok & (t0 > tmin) & (t0 < tmax) & valid(o + t0[..., None] * d)
-    v1 = ok & (t1 > tmin) & (t1 < tmax) & valid(o + t1[..., None] * d)
-    return v0 | v1, torch.where(v0, t0, torch.where(v1, t1, math.inf))
-
-
-def quad_test(g: SceneGeometry, o_w, d_w, tmin, tmax):
+def quad_test(g: SceneGeometry, o_w, d_w, tmin, tmax, fixed_order: bool = False):
     """Every ray against every quadric, in object space (intersect.py:252;
-    reference: src/shapes/{sphere,cylinder,disk,cone,paraboloid,
-    hyperboloid}.cpp). Each type present in the scene is tested on every
-    pair and kept where ``quad_type`` names it. o_w, d_w (R, 3); tmin, tmax
-    (R,). Returns (hit, t, u, v), each (R, Q)."""
+    ``prims.quadric_hits``). The BVH's dense pass moves the rays by two
+    einsums, its fewest launches (on the card a cuBLAS product, whose sum
+    order is its own); ``fixed_order`` moves them by ``prims.object_ray``,
+    the order of the kd-tree and grid walks, for ``intersect_brute``, which
+    those walks are held to bit for bit. o_w, d_w (R, 3); tmin, tmax (R,).
+    Returns (hit, t, u, v), each (R, Q)."""
     w2o = g.quad_w2o  # (Q, 4, 4)
-    m3 = w2o[:, :3, :3]
-    o = torch.einsum("rj,qij->rqi", o_w, m3) + w2o[:, :3, 3]
-    d = torch.einsum("rj,qij->rqi", d_w, m3)
-    prm = g.quad_params
-    radius, zmin, zmax, phimax = prm[:, 0], prm[:, 1], prm[:, 2], prm[:, 3]
-    height, inner_r, ah, ch = prm[:, 4], prm[:, 5], prm[:, 6], prm[:, 7]
-    ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
-    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
-    tmin_, tmax_ = tmin[:, None], tmax[:, None]
-    eps_z = 1e-5
-
-    def phi_ok(p):
-        return geom.phi_of(p[..., 0], p[..., 1]) <= phimax + 1e-6
-
-    def z_in(lo, hi):
-        return lambda p: (p[..., 2] >= lo) & (p[..., 2] <= hi) & phi_ok(p)
-
-    def sphere():
-        a = dx * dx + dy * dy + dz * dz
-        b = 2.0 * (dx * ox + dy * oy + dz * oz)
-        c = ox * ox + oy * oy + oz * oz - radius * radius
-        return _roots(a, b, c, o, d, tmin_, tmax_, z_in(zmin - eps_z, zmax + eps_z))
-
-    def cylinder():
-        a = dx * dx + dy * dy
-        b = 2.0 * (dx * ox + dy * oy)
-        c = ox * ox + oy * oy - radius * radius
-        return _roots(a, b, c, o, d, tmin_, tmax_, z_in(zmin, zmax))
-
-    def disk():
-        t = torch.where(dz.abs() < 1e-9, math.inf, (height - oz) / dz)
-        p = o + t[..., None] * d
-        r2 = p[..., 0] * p[..., 0] + p[..., 1] * p[..., 1]
-        v = ((t > tmin_) & (t < tmax_) & torch.isfinite(t) & (r2 <= radius * radius)
-             & (r2 >= inner_r * inner_r) & phi_ok(p))
-        return v, torch.where(v, t, math.inf)
-
-    def cone():  # apex at z = height, base radius at z = 0
-        k = (radius / height) ** 2
-        a = dx * dx + dy * dy - k * dz * dz
-        b = 2.0 * (dx * ox + dy * oy - k * dz * (oz - height))
-        c = ox * ox + oy * oy - k * (oz - height) * (oz - height)
-        return _roots(a, b, c, o, d, tmin_, tmax_, z_in(0.0, height))
-
-    def paraboloid():  # z = height·(x² + y²)/radius²
-        k = height / (radius * radius)
-        a = k * (dx * dx + dy * dy)
-        b = 2.0 * k * (dx * ox + dy * oy) - dz
-        c = k * (ox * ox + oy * oy) - oz
-        return _roots(a, b, c, o, d, tmin_, tmax_, z_in(zmin, zmax))
-
-    def hyperboloid():  # ah·(x² + y²) − ch·z² = 1
-        a = ah * (dx * dx + dy * dy) - ch * dz * dz
-        b = 2.0 * (ah * (dx * ox + dy * oy) - ch * dz * oz)
-        c = ah * (ox * ox + oy * oy) - ch * oz * oz - 1.0
-        return _roots(a, b, c, o, d, tmin_, tmax_, z_in(zmin, zmax))
-
-    tests = (sphere, cylinder, disk, cone, paraboloid, hyperboloid)
-    hit = t = None
-    for code in g.quad_active_types:
-        h_k, t_k = tests[code]()
-        if hit is None:
-            hit, t = h_k, t_k
-        else:
-            of = g.quad_type == code
-            hit, t = torch.where(of, h_k, hit), torch.where(of, t_k, t)
-    p = o + t[..., None] * d
-    u = geom.phi_of(p[..., 0], p[..., 1]) / torch.clamp(phimax, min=1e-9)
-    v = (p[..., 2] - zmin) / torch.clamp(zmax - zmin, min=1e-9)
-    return hit, t, torch.where(hit, u, 0.0), torch.where(hit, v, 0.0)
+    if fixed_order:
+        o, d = prims.object_ray(w2o[None], o_w[:, None], d_w[:, None])
+    else:
+        m3 = w2o[:, :3, :3]
+        o = torch.einsum("rj,qij->rqi", o_w, m3) + w2o[:, :3, 3]
+        d = torch.einsum("rj,qij->rqi", d_w, m3)
+    return prims.quadric_hits(g.quad_type[None], g.quad_params[None], o, d, tmin[:, None],
+                              tmax[:, None], g.quad_active_types)
 
 
 def quad_best(g: SceneGeometry, o, d, tmin, tmax):
@@ -269,6 +218,15 @@ def intersect(g: SceneGeometry, ray: geom.Ray, any_hit: bool = False) -> Hit:
     R = ray.origin.shape[0]
     dev = ray.origin.device
     tmax = ray.tmax.to(torch.float32)
+    if g.accel_kind != "bvh":
+        # quadrics live in the leaves and voxels (intersect.py:1368-1393):
+        # no dense quadric pass first
+        calls[g.accel_kind] += 1
+        d = ray.direction.contiguous()
+        tw = motion_weight(g, ray.time).contiguous() if g.has_motion else None
+        walk = traverse_kd.traverse_kd if g.accel_kind == "kdtree" else traverse_kd.traverse_grid
+        return Hit(*walk(g, ray.origin.contiguous(), d, make_inv_dir(d).contiguous(),
+                         ray.tmin.contiguous(), tmax.contiguous(), any_hit, tw))
     if g.num_quadrics > 0:
         qt, qp, qb1, qb2 = quad_best(g, ray.origin, ray.direction, ray.tmin,
                                      tmax)
@@ -307,7 +265,8 @@ def intersect_brute(g: SceneGeometry, ray: geom.Ray, chunk: int = 2048) -> Hit:
     renderers/aggregatetest.cpp:53-112; JAX ``intersect_brute``). Triangles
     use the unpacked Möller–Trumbore of ``_tri_test`` (intersect.py:215),
     vectorized over ``chunk`` triangles at a time; the nearest hit wins and
-    the lowest prim id wins a tie, as in the JAX prim-order loop. In a
+    the lowest prim id wins a tie, as in the JAX prim-order loop; quadrics
+    by ``quad_test`` in its fixed order, the kd-tree and grid walks'. In a
     motion scene each ray tests the triangles lerped to its weight, the
     product rounded, then added, as the traversal lerps. Instanced objects
     are not covered: their triangles are in object space."""
@@ -350,7 +309,8 @@ def intersect_brute(g: SceneGeometry, ray: geom.Ray, chunk: int = 2048) -> Hit:
         x1 = torch.where(better, u1.gather(1, jj)[:, 0], x1)
         x2 = torch.where(better, u2.gather(1, jj)[:, 0], x2)
     if g.num_quadrics:
-        hit, t, u, v = quad_test(g, o, d, ray.tmin, ray.tmax.to(torch.float32))
+        hit, t, u, v = quad_test(g, o, d, ray.tmin, ray.tmax.to(torch.float32),
+                                 fixed_order=True)
         T = g.num_triangles
         for q in range(g.num_quadrics):
             h = hit[:, q] & (t[:, q] < tb)

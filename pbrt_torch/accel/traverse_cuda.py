@@ -45,6 +45,8 @@ import math
 
 import torch
 
+from pbrt_torch.accel import prims
+
 #: ``intersect._SORT8`` (Batcher odd-even merge network, 19 exchanges) as
 #: its 6 layers of disjoint pairs, in the serial order; the kernel's
 #: ``kSort8Layers`` (``csrc/traverse.cu``) is the same table
@@ -152,25 +154,12 @@ def _interpret(rt, ox, oy, oz, dx, dy, dz, ix, iy, iz, tmin, t_best,
     _, refs = sort8_layers(torch.where(hit8, enter, inf), rt[48:56].to(torch.int32))
     n_hit = hit8.sum(0, dtype=torch.int32)
 
-    v0x, v0y, v0z = rt[0:8], rt[8:16], rt[16:24]
-    e1x, e1y, e1z = rt[24:32], rt[32:40], rt[40:48]
-    e2x, e2y, e2z = rt[48:56], rt[56:64], rt[64:72]
+    # the leaf's 8 packed triangles, (8, C, 9) of [v0, e1, e2] per slot
+    tri = rt[0:72].reshape(9, 8, -1).permute(1, 2, 0)
     pid = rt[72:80].to(torch.int32)
-    pvx = dy * e2z - dz * e2y
-    pvy = dz * e2x - dx * e2z
-    pvz = dx * e2y - dy * e2x
-    det = e1x * pvx + e1y * pvy + e1z * pvz
-    small = det.abs() < 1e-12
-    inv_det = torch.where(small, 0.0, 1.0 / det)
-    tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
-    b1 = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
-    qvx = tvy * e1z - tvz * e1y
-    qvy = tvz * e1x - tvx * e1z
-    qvz = tvx * e1y - tvy * e1x
-    b2 = (dx * qvx + dy * qvy + dz * qvz) * inv_det
-    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
-    ok8 = (leaf_mask & (pid >= 0) & ~small & (b1 >= 0.0) & (b2 >= 0.0)
-           & (b1 + b2 <= 1.0) & (t > tmin) & (t < t_best))
+    hit, t, b1, b2 = prims.tri_test(tri, torch.stack([ox, oy, oz], -1),
+                                    torch.stack([dx, dy, dz], -1), tmin, t_best)
+    ok8 = leaf_mask & (pid >= 0) & hit
     tsel, jbest = pick_first_min(torch.where(ok8, t, inf))
     jb = jbest[None]
     psel = pid.gather(0, jb)[0]
@@ -239,10 +228,10 @@ def _walk_plain(rows, wide_stack, o, d, inv, tmin, state, idx, root: int,
         descend = is_node & (n_hit > 0)
         pc = torch.where(descend, n_hit - 1, 0).to(torch.int64)
         s0 = sp[idx]
-        for j in range(1, 8):
-            m = j <= pc
-            if bool(m.any()):
-                stack[idx[m], (s0 + pc - j)[m]] = refs[j][m].to(torch.int64)
+        # refs[j] for 1 <= j <= pc goes to slot s0 + pc - j (one scatter)
+        j = torch.arange(1, 8, device=dev)[:, None]
+        m = j <= pc
+        stack[idx.expand(7, -1)[m], (s0 + pc - j)[m]] = refs[1:8].to(torch.int64)[m]
         s1 = s0 + pc
         pop = ~descend
         empty = pop & (s1 == 0)

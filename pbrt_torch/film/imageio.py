@@ -1,12 +1,20 @@
-"""Image I/O: EXR (scanline NONE/ZIP/ZIPS, HALF/FLOAT/UINT), TGA and PFM.
+"""Image I/O: EXR (scanline NONE/ZIP/ZIPS, HALF/FLOAT/UINT), TGA, PFM,
+PNG, BMP and JPEG.
 
 Port of ``pbrt_tpu/film/imageio.py`` (reference: src/core/imageio.{h,cpp},
 ReadImage dispatching on the extension): a minimal OpenEXR 2.0 scanline
 codec in numpy (zlib and the EXR byte predictor / deinterleave), the TGA
 reader with its sRGB decode, and PFM through ``film/film.py``; for output
-also 8-bit PNG and TGA writers. Host-side and numpy only. Reading PNG and
-JPEG, and writing JPEG, need PIL, which the port does not take on: those
-raise a ``ValueError``.
+also 8-bit PNG and TGA writers. Host-side and numpy only, but for JPEG.
+
+PNG (8-bit gray, gray + alpha, RGB, RGBA and palette, 1-, 2- and 4-bit
+gray and palette, zlib and the five row filters, not interlaced) and BMP (24- and 32-bit uncompressed) are
+decoded here; JPEG goes through Pillow, imported where a file is read or
+written, as the JAX package reads all three (imageio.py:241-244, writes
+:257-260): without Pillow it raises ``ImportError``, naming the package.
+Like ``Image.open(path).convert("RGB")`` there, a reader keeps RGB (gray
+repeated, the palette looked up, alpha dropped) and returns
+``(x / 255) ** 2.2``, bit for bit the JAX reader's.
 """
 
 from __future__ import annotations
@@ -264,8 +272,8 @@ def write_png(path: str, img: np.ndarray):
 
 def write_image(path: str, img: np.ndarray):
     """(H, W, 3) linear RGB by extension (imageio.py:249-263): EXR and PFM
-    as floats, PNG and TGA as 8 bits with the 1/2.2 gamma; JPEG needs PIL,
-    which the port does not use."""
+    as floats, PNG, TGA and JPEG (through Pillow) as 8 bits with the 1/2.2
+    gamma."""
     ext = os.path.splitext(path)[1].lower()
     if ext == ".exr":
         return write_exr(path, img)
@@ -277,7 +285,134 @@ def write_image(path: str, img: np.ndarray):
         return write_png(path, img)
     if ext == ".tga":
         return write_tga(path, img)
+    if ext == ".jpg":
+        _pillow().fromarray(to_8bit(img)).save(path)
+        return path
     raise ValueError(f"unsupported image format {ext!r}")
+
+
+_PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+#: channels of each PNG colour type: gray, RGB, palette, gray + alpha, RGBA
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def _unfilter_png(raw: bytes, H: int, stride: int, bpp: int) -> np.ndarray:
+    """Undoes the per-row filters (none, sub, up, average, Paeth) of a PNG
+    image's inflated bytes → (H, stride) uint8."""
+    rows = np.frombuffer(raw, np.uint8)
+    if rows.size != H * (stride + 1):
+        raise ValueError(f"PNG: {rows.size} bytes of image data, expected {H * (stride + 1)}")
+    rows = rows.reshape(H, stride + 1)
+    out = np.zeros((H + 1, stride + bpp), np.int64)  # a zero row above, zero pixel left
+    for y in range(H):
+        kind, line = rows[y, 0], rows[y, 1:].astype(np.int64)
+        up = out[y, bpp:]
+        if kind == 0:
+            cur = line
+        elif kind == 1:  # sub: running sums along each channel
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0).reshape(-1) % 256
+        elif kind == 2:
+            cur = (line + up) % 256
+        elif kind in (3, 4):
+            row = out[y + 1]
+            for x in range(0, stride, bpp):
+                a = row[x:x + bpp]  # the pixel to the left (bytes x - bpp .. x)
+                b = up[x:x + bpp]
+                if kind == 3:
+                    pred = (a + b) // 2
+                else:
+                    c = out[y, x:x + bpp]
+                    p = a + b - c
+                    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+                    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+                row[x + bpp:x + 2 * bpp] = (line[x:x + bpp] + pred) % 256
+            continue
+        else:
+            raise ValueError(f"PNG: unknown row filter {kind}")
+        out[y + 1, bpp:] = cur
+    return out[1:, bpp:].astype(np.uint8)
+
+
+def read_png_rgb8(path: str) -> np.ndarray:
+    """A PNG → (H, W, 3) uint8 RGB, as Pillow's ``convert("RGB")`` gives
+    it."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _PNG_MAGIC:
+        raise ValueError(f"{path}: not a PNG file")
+    i, idat, palette, hdr = 8, [], None, None
+    while i + 8 <= len(data):
+        n, tag = struct.unpack_from(">I4s", data, i)
+        body = data[i + 8:i + 8 + n]
+        i += 12 + n
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if hdr is None:
+        raise ValueError(f"{path}: PNG without IHDR")
+    W, H, depth, ctype, _, _, interlace = hdr
+    low = depth in (1, 2, 4) and ctype in (0, 3)  # packed gray or palette indices
+    if (depth != 8 and not low) or ctype not in _PNG_CHANNELS or interlace != 0:
+        raise ValueError(f"{path}: PNG with bit depth {depth}, colour type {ctype}, "
+                         f"interlace {interlace}: only 8-bit (1-, 2- or 4-bit gray or "
+                         "palette), non-interlaced is read")
+    nch = _PNG_CHANNELS[ctype]
+    stride = (W * nch * depth + 7) // 8
+    raw = _unfilter_png(zlib.decompress(b"".join(idat)), H, stride, max(1, nch * depth // 8))
+    if low:
+        per = 8 // depth
+        shifts = (8 - depth) - depth * np.arange(per, dtype=np.uint8)
+        px = ((raw[..., None] >> shifts) & ((1 << depth) - 1)).reshape(H, -1)[:, :W, None]
+        if ctype == 0:  # gray stretched to 0..255, as Pillow's L;1/L;2/L;4
+            px = px * (255 // ((1 << depth) - 1))
+        px = px.astype(np.uint8)
+    else:
+        px = raw.reshape(H, W, nch)
+    if ctype == 3:
+        if palette is None:
+            raise ValueError(f"{path}: palette PNG without PLTE")
+        full = np.zeros((256, 3), np.uint8)
+        full[:len(palette)] = palette
+        return full[px[..., 0]]
+    if ctype in (0, 4):
+        return np.repeat(px[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(px[..., :3])
+
+
+def read_bmp_rgb8(path: str) -> np.ndarray:
+    """A 24- or 32-bit uncompressed BMP (bottom-up or top-down) → (H, W, 3)
+    uint8 RGB."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:2] != b"BM":
+        raise ValueError(f"{path}: not a BMP file")
+    off = struct.unpack_from("<I", data, 10)[0]
+    W, H, _, bpp, comp = struct.unpack_from("<iiHHI", data, 18)
+    if bpp not in (24, 32) or comp not in (0, 3):
+        raise ValueError(f"{path}: BMP with {bpp} bits per pixel, compression {comp}: "
+                         "only 24- and 32-bit uncompressed is read")
+    nb = bpp // 8
+    stride = (bpp * W + 31) // 32 * 4
+    rows = np.frombuffer(data, np.uint8, count=stride * abs(H), offset=off)
+    px = rows.reshape(abs(H), stride)[:, :W * nb].reshape(abs(H), W, nb)
+    if H > 0:  # bottom-up
+        px = px[::-1]
+    return np.ascontiguousarray(px[..., 2::-1])  # BGR(X) → RGB
+
+
+def _pillow():
+    """Pillow's ``Image``, imported where a JPEG is read or written."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("JPEG images need Pillow (the PIL package), which is not "
+                          "installed") from e
+    return Image
 
 
 def read_image(path: str) -> np.ndarray:
@@ -292,6 +427,12 @@ def read_image(path: str) -> np.ndarray:
 
         return read_pfm(path)
     if ext in (".png", ".jpg", ".jpeg", ".bmp"):
-        raise ValueError(f"{path}: {ext} images need PIL, which the port does not "
-                         "use; convert the map to .exr, .pfm or .tga")
+        if ext == ".png":
+            rgb = read_png_rgb8(path)
+        elif ext == ".bmp":
+            rgb = read_bmp_rgb8(path)
+        else:
+            with _pillow().open(path) as im:
+                rgb = np.asarray(im.convert("RGB"))
+        return (rgb.astype(np.float32) / 255.0) ** 2.2
     raise ValueError(f"unsupported image format {ext!r}")

@@ -50,7 +50,8 @@ Keys (shapes as in the JAX package's tables):
   ``light_env_func`` (H, W), ``light_env_cond_cdf`` (H, W+1),
   ``light_env_cond_int light_env_marg_func`` (H,), ``light_env_marg_cdf``
   (H+1,), ``light_env_marg_int`` (); rows in the JAX package's order:
-  ``LightSource`` rows, then the area lights;
+  ``LightSource`` rows, then the area lights, a quadric's of shape kind
+  ``SHAPE_SPHERE`` whatever its type (the JAX package's fact 2);
 - camera: ``cam_class``, the JAX package's class name
   (``ProjectiveCamera``, ``PinholeCamera``, ``EnvironmentCamera``,
   ``RealisticDiffractionCamera``, ``IdealDiffractionCamera``,
@@ -89,7 +90,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from pbrt_torch.accel.intersect import SPHERE, SceneGeometry
+from pbrt_torch.accel.intersect import SceneGeometry
 from pbrt_torch.cameras import cameras as cam_mod
 from pbrt_torch.cameras.eye import RealisticEyeCamera
 from pbrt_torch.cameras.realistic import IdealDiffractionCamera, RealisticDiffractionCamera
@@ -117,7 +118,11 @@ _GEOMETRY_OPTIONAL = {"wide_rows": np.float32, "tri_motion": np.float32, "tri_n_
                       "inst_rows": np.float32, "inst_o2w": np.float32,
                       "inst_w2o": np.float32, "inst_lo": np.float32,
                       "inst_hi": np.float32, "inst_root": np.int32,
-                      "inst_mesh_id": np.int64}
+                      "inst_mesh_id": np.int64, "world_lo": np.float32,
+                      "world_hi": np.float32, "kd_split": np.float32, "kd_axis": np.int32,
+                      "kd_above": np.int32, "kd_prim_off": np.int32, "kd_prim_cnt": np.int32,
+                      "kd_prim_ids": np.int32, "grid_off": np.int32, "grid_cnt": np.int32,
+                      "grid_ids": np.int32}
 _MATERIAL_F32 = ("kd", "ks", "kr", "kt", "sigma", "exp_u", "exp_v", "eta", "eta_spec",
                  "k_spec", "irreg_points", "irreg_spectra", "merl_rgb", "ss_sigma_a",
                  "ss_sigma_s", "ss_scale", "mix_amt")
@@ -193,12 +198,8 @@ def _lights_from_numpy(arrays, f32, i64) -> lt_mod.LightTable:
     kind = np.asarray(arrays["light_shape_kind"], np.int64)
     qidx = np.asarray(arrays["light_quad_idx"], np.int64)
     area = ltype == lt_mod.AREA
-    sphere = area & (kind == lt_mod.SHAPE_SPHERE)
-    if np.any(area & ~sphere & (kind != lt_mod.SHAPE_MESH)):
+    if np.any(area & (kind != lt_mod.SHAPE_SPHERE) & (kind != lt_mod.SHAPE_MESH)):
         raise NotImplementedError("area lights on other shapes are not ported yet")
-    if np.any(np.asarray(arrays["quad_type"])[qidx[sphere]] != SPHERE):
-        raise NotImplementedError("area lights on non-sphere quadrics (the JAX "
-                                  "package samples them as spheres)")
     # the JAX package's own env CDFs, so sampling compares bit for bit
     env_dist = Distribution2D(**{k: f32(arrays[f"light_env_{k}"]) for k in _ENV_DIST})
     return lt_mod.LightTable(
@@ -248,6 +249,10 @@ def scene_from_numpy(arrays: dict, device):
                 for k, dt in _GEOMETRY_OPTIONAL.items() if arrays.get(k) is not None})
     if arrays.get("inst_stack") is not None:
         geo["inst_stack"] = int(arrays["inst_stack"])
+    if arrays.get("accel_kind", "bvh") != "bvh":
+        geo["accel_kind"] = str(arrays["accel_kind"])
+        if arrays.get("grid_dims") is not None:
+            geo["grid_dims"] = tuple(int(n) for n in np.asarray(arrays["grid_dims"]))
     geometry = SceneGeometry(
         **{"wide_rows": None, **geo},
         quad_reverse=torch.as_tensor(np.array(arrays["quad_reverse"], bool),

@@ -3,8 +3,10 @@
 api.cpp:1333-1420, and each renderer's film WriteImage).
 
 ``sampler`` (the default), ``spectral`` / ``spectralrenderer`` and
-``cameras`` render; ``metropolis``, ``createprobes``, ``surfacepoints``
-and ``aggregatetest`` are not ported yet and raise.
+``cameras`` render; ``aggregatetest`` fires random rays through the
+accelerator and brute force and prints how many disagree (it writes no
+file); ``metropolis``, ``createprobes`` and ``surfacepoints`` are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import os
 from pbrt_torch.film import film as film_mod
 from pbrt_torch.film import imageio
 
-NOT_PORTED = ("metropolis", "createprobes", "surfacepoints", "aggregatetest")
+NOT_PORTED = ("metropolis", "createprobes", "surfacepoints")
 
 
 def render_scene(built, spp=None, seed: int = 0, quick: bool = False,
@@ -27,6 +29,13 @@ def render_scene(built, spp=None, seed: int = 0, quick: bool = False,
     name = built.renderer_name
     if name in NOT_PORTED:
         raise NotImplementedError(f"renderer {name!r} is not ported yet")
+    if name == "aggregatetest":
+        from pbrt_torch.renderers.aggregatetest import run_aggregate_test
+
+        n_bad = run_aggregate_test(
+            built, niters=built.renderer_params.find_one_int("niters", 100000))
+        print(f"[pbrt_torch] aggregatetest: {n_bad} disagreements")
+        return []
     if name == "cameras":
         from pbrt_torch.renderers.cameras_renderer import render_cameras
 

@@ -7,14 +7,17 @@ triangles get the native SAH tree collapsed into 8-wide rows, materials
 and lights become tables, and the camera, film, filter, sampler and
 integrator are configured.
 
-What the slices cover: ``trianglemesh`` and the six quadrics (sphere,
+What the slices cover: ``trianglemesh``, the refined shapes
+(``heightfield``, ``loopsubdiv`` and ``nurbs``, triangulated on the host
+as the JAX package does, builder.py:66-78) and the six quadrics (sphere,
 cylinder, disk, cone, paraboloid, hyperboloid); every material of the JAX
 package, ``mix`` of two named materials included, with Kd, Ks, bump and
 normal maps bound to textures; the texture records visible to every
 material, as one texture table (every kind under the uv, spherical and
 planar mappings); point, spot, distant, infinite (constant or lat-long
-mapped), projection and goniometric lights; diffuse area lights on spheres
-and triangle meshes; every camera (perspective, orthographic, pinhole,
+mapped), projection and goniometric lights; diffuse area lights on every
+shape (a quadric's sampled as a sphere of its radius, as the JAX package
+does, builder.py:1004-1006); every camera (perspective, orthographic, pinhole,
 environment, and the fork's realistic, ideal-diffraction and eye lens
 cameras), static or animated, with the lens metadata of the film header;
 the ``Renderer`` directive, recorded for ``renderers/dispatch.py``;
@@ -24,8 +27,11 @@ for the renderer); the ``path``, ``directlighting``, ``whitted``,
 ``ambientocclusion`` and ``metadata`` integrators; the homogeneous,
 exponential, volumegrid and water volumes as one volume table, under the
 ``emission`` or ``single`` volume integrator (any other name renders as
-``emission``, as in the JAX package, builder.py:732-733); the BVH
-accelerator with SAH splits.
+``emission``, as in the JAX package, builder.py:732-733); the
+accelerators: the BVH with SAH, ``middle`` or ``equal`` splits (one wide
+table over the triangles, quadrics tested densely), and the ``kdtree``
+(``kdtreeaccel``) and ``grid`` built over every primitive's bounds,
+quadrics included, with no wide table (builder.py:520-582).
 
 Motion blur and instancing as the JAX package builds them (builder.py:
 154-518): an animated mesh keeps its start triangles plus their
@@ -34,14 +40,14 @@ shape's), an animated quadric warns and keeps its start transform, and
 the world table is built over the union of both keyframes' bounds. An
 object used by at least two static ``ObjectInstance``s, with no quadric
 and no area light, keeps one object-space copy and its own table (the
-instance table has a row and a fresh mesh id per use); every other use is
-flattened into world shapes. Anything else raises
-``NotImplementedError`` instead of rendering something different: a mix
-whose sub-material is a mix (the JAX package renders the inner mix
-black), area lights on non-sphere quadrics (the JAX package samples such
-a light as a sphere of its radius), cylindrical texture mapping (evaluated
-as planar there) and texture references nested deeper than one level
-(read as 0 there). A light map that fails to load warns and the light is
+instance table has a row and a fresh mesh id per use) under the BVH;
+every other use, and every use under a kd-tree or grid, is flattened into
+world shapes. Anything else raises ``NotImplementedError`` instead of
+rendering something different: a mix whose sub-material is a mix (the
+JAX package renders the inner mix black), cylindrical texture mapping
+(evaluated as planar there), texture references nested deeper than one
+level (read as 0 there), and a shape, accelerator or BVH split the JAX
+package does not know (it warns and skips an unknown shape). A light map that fails to load warns and the light is
 constant, and an image texture that fails to load warns and is black, as
 in the JAX package.
 """
@@ -58,6 +64,8 @@ import torch
 
 from pbrt_torch import resolve_device
 from pbrt_torch.accel import bvh as bvh_mod
+from pbrt_torch.accel.grid import build_grid
+from pbrt_torch.accel.kdtree import build_kdtree
 from pbrt_torch.accel.intersect import (CONE, CYLINDER, DISK, HYPERBOLOID,
                                         PARABOLOID, SPHERE, SceneGeometry)
 from pbrt_torch.accel.wide import LEAF_TRIS, build_wide_bvh
@@ -74,7 +82,9 @@ from pbrt_torch.materials.table import build_material_table
 from pbrt_torch.media.volumes import build_volume_table
 from pbrt_torch.scene.api import SceneDescription
 from pbrt_torch.scene.paramset import ParamSet
-from pbrt_torch.shapes.mesh import make_mesh
+from pbrt_torch.shapes.loopsubdiv import refine_loopsubdiv
+from pbrt_torch.shapes.mesh import make_heightfield, make_mesh
+from pbrt_torch.shapes.nurbs import refine_nurbs
 from pbrt_torch.textures.texture import build_texture_table
 from pbrt_torch.utils import error as err
 
@@ -101,11 +111,19 @@ def _not_ported(what):
     raise NotImplementedError(f"{what} is not ported yet")
 
 
+#: the shapes refined into triangle meshes on the host (builder.py:66-78)
+MESH_SHAPES = {"trianglemesh": make_mesh, "loopsubdiv": refine_loopsubdiv,
+               "heightfield": make_heightfield, "nurbs": refine_nurbs}
+#: the accelerators (builder.py:172): the wide BVH, or a kd-tree or grid
+KD_NAMES = ("kdtree", "kdtreeaccel")
+ACCELERATORS = ("bvh",) + KD_NAMES + ("grid",)
+
+
 def _mesh_triangles(rec, o2w):
-    """A ``trianglemesh`` record at ``o2w`` → (v0, e1, e2, (n0, n1, n2),
-    (uv0, uv1, uv2)) per triangle, in the mesh's float32, with face normals
-    where it has none (builder.py:235-276)."""
-    mesh = make_mesh(rec.params, o2w, rec.reverse_orientation)
+    """A mesh-shaped record (``MESH_SHAPES``) at ``o2w`` → (v0, e1, e2,
+    (n0, n1, n2), (uv0, uv1, uv2)) per triangle, in the mesh's float32,
+    with face normals where it has none (builder.py:235-276)."""
+    mesh = MESH_SHAPES[rec.shape_type](rec.params, o2w, rec.reverse_orientation)
     idx, p = mesh.indices, mesh.positions
     v0 = p[idx[:, 0]]
     e1 = p[idx[:, 1]] - v0
@@ -126,19 +144,20 @@ def _mesh_triangles(rec, o2w):
     return v0, e1, e2, ns, uvs
 
 
-def _expand_instances(desc):
+def _expand_instances(desc, accel_is_bvh: bool = True):
     """Shape records with both keyframe transforms, and the static uses
-    that keep a shared object (builder.py:154-201): an object qualifies
-    when it has ≥ 2 static uses, only meshes, no animated record and no
-    area light; every other use is flattened (instance × object transform
-    at each keyframe). → ([(rec, o2w_start, o2w_end)], [(name, o2w)])."""
+    that keep a shared object (builder.py:154-201): under the BVH an object
+    qualifies when it has ≥ 2 static uses, only meshes, no animated record
+    and no area light; every other use is flattened (instance × object
+    transform at each keyframe). → ([(rec, o2w_start, o2w_end)],
+    [(name, o2w)])."""
     records = [(rec, rec.object_to_world.m[0], rec.object_to_world.m[1])
                for rec in desc.shapes]
     uses = collections.Counter(i.name for i in desc.instances)
 
     def shared(name):
         recs = desc.objects.get(name, [])
-        return bool(recs) and uses[name] >= 2 and all(
+        return bool(recs) and uses[name] >= 2 and accel_is_bvh and all(
             rec.shape_type not in _QUADRIC_TYPES and rec.area_light is None
             and np.allclose(rec.object_to_world.m[0], rec.object_to_world.m[1], atol=1e-12)
             for rec in recs)
@@ -163,7 +182,7 @@ def _instance_tables(desc, tlas_uses, T, mat_id_for, tri):
     for name in dict.fromkeys(n for n, _ in tlas_uses):
         ov0, oe1, oe2 = [], [], []
         for rec in desc.objects[name]:
-            if rec.shape_type != "trianglemesh":
+            if rec.shape_type not in MESH_SHAPES:
                 _not_ported(f"shape {rec.shape_type!r}")
             v0, e1, e2, ns, uvs = _mesh_triangles(rec, rec.object_to_world.m[0])
             cnt = len(v0)
@@ -254,6 +273,25 @@ def _quadric_params(rec) -> np.ndarray:
         prm[3] = phimax
         prm[6], prm[7] = 1.0, 1.0
     return prm
+
+
+def _quadric_bounds(qtype: int, prm: np.ndarray, o2w: np.ndarray):
+    """A quadric's world bounds: its object box by its transform
+    (builder.py:122-143)."""
+    r = float(prm[0])
+    if qtype in (SPHERE, CYLINDER):
+        lo, hi = np.array([-r, -r, prm[1]]), np.array([r, r, prm[2]])
+    elif qtype == DISK:
+        lo, hi = np.array([-r, -r, prm[4] - 1e-4]), np.array([r, r, prm[4] + 1e-4])
+    elif qtype == CONE:
+        lo, hi = np.array([-r, -r, 0.0]), np.array([r, r, prm[4]])
+    elif qtype == PARABOLOID:
+        lo = np.array([-r, -r, min(prm[1], prm[2])])
+        hi = np.array([r, r, max(prm[1], prm[2])])
+    else:
+        m = max(r, abs(prm[1]), abs(prm[2])) * 2.0
+        lo, hi = np.array([-m, -m, prm[1]]), np.array([m, m, prm[2]])
+    return xf.apply_bbox(o2w, lo, hi)
 
 
 def _read_light_map(path: str, what: str):
@@ -474,9 +512,13 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
     cfg = desc.spectral_config
     S = cfg.n_bins
     light_rows = [_light_source_row(rec, cfg) for rec in desc.lights]
-    if desc.accelerator[0] != "bvh" or desc.accelerator[1].find_one_string(
-            "splitmethod", "sah") != "sah":
-        _not_ported("accelerators other than the SAH BVH")
+    accel_name, accel_params = desc.accelerator
+    if accel_name not in ACCELERATORS:
+        _not_ported(f"accelerator {accel_name!r}")
+    accel_is_bvh = accel_name == "bvh"
+    split = accel_params.find_one_string("splitmethod", "sah")
+    if split not in bvh_mod.SPLIT_METHODS:
+        _not_ported(f"BVH split method {split!r}")
 
     mat_records, mat_index = [], {}
 
@@ -486,7 +528,7 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
             mat_records.append(m)
         return mat_index[id(m)]
 
-    shape_records, tlas_uses = _expand_instances(desc)
+    shape_records, tlas_uses = _expand_instances(desc, accel_is_bvh)
     tri = {k: [] for k in ("v0", "e1", "e2", "n0", "n1", "n2", "uv0", "uv1",
                            "uv2", "mat", "al", "mid", "dv", "dn")}
     quads, area_lights = [], []
@@ -498,7 +540,7 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
         al_id = len(area_lights) if rec.area_light is not None else -1
         if rec.area_light is not None and rec.area_light[0] != "area":
             _not_ported(f"area light {rec.area_light[0]!r}")
-        if rec.shape_type == "trianglemesh":
+        if rec.shape_type in MESH_SHAPES:
             v0, e1, e2, (n0, n1, n2), uvs = _mesh_triangles(rec, o2w)
             count = len(v0)
             for k, a in (("v0", v0), ("e1", e1), ("e2", e2), ("n0", n0),
@@ -531,15 +573,14 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
                 err.warning(f"animated quadric {rec.shape_type!r}: motion blur is "
                             "supported for meshes only; using the start transform")
             qtype = _QUADRIC_TYPES[rec.shape_type]
-            if al_id >= 0 and qtype != SPHERE:
-                _not_ported(f"area lights on a {rec.shape_type!r} (the JAX package "
-                            "samples them as spheres)")
             quads.append(dict(
                 type=qtype, o2w=o2w.astype(np.float64), params=_quadric_params(rec),
                 mat=mat_i, al=al_id, mid=rec.primitive_id,
                 reverse=rec.reverse_orientation ^ xf.swaps_handedness(o2w),
             ))
             if al_id >= 0:
+                # every quadric's light is sampled as a sphere of its radius
+                # (builder.py:1004-1006; ROADMAP Queue 3, fact 2)
                 area_lights.append(dict(rec=rec, shape_kind=lt_mod.SHAPE_SPHERE,
                                         quad_idx=len(quads) - 1))
         else:
@@ -557,23 +598,55 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
 
     v0, e1, e2 = cat("v0", (3,)), cat("e1", (3,)), cat("e2", (3,))
     dv = cat("dv", (9,))
+    # every primitive's world bounds (builder.py:500-524): the world
+    # triangles, on the union of the shutter's start and end bounds in a
+    # motion scene, then the quadrics
+    w_v0, w_e1, w_e2 = v0[:T_world], e1[:T_world], e2[:T_world]
+    lo_t = np.minimum(np.minimum(w_v0, w_v0 + w_e1), w_v0 + w_e2)
+    hi_t = np.maximum(np.maximum(w_v0, w_v0 + w_e1), w_v0 + w_e2)
+    if any_motion and T_world:
+        w_dv = dv[:T_world]
+        v0e, e1e, e2e = w_v0 + w_dv[:, 0:3], w_e1 + w_dv[:, 3:6], w_e2 + w_dv[:, 6:9]
+        lo_t = np.minimum(lo_t, np.minimum(np.minimum(v0e, v0e + e1e), v0e + e2e))
+        hi_t = np.maximum(hi_t, np.maximum(np.maximum(v0e, v0e + e1e), v0e + e2e))
+    lo_q, hi_q = np.zeros((Q, 3)), np.zeros((Q, 3))
+    for i, q in enumerate(quads):
+        lo_q[i], hi_q[i] = _quadric_bounds(q["type"], q["params"], q["o2w"])
+    lo, hi = np.concatenate([lo_t, lo_q]), np.concatenate([hi_t, hi_q])
     wide_rows = wide_motion = None
     wide_stack = 8
-    if T_world:
-        # the world table over [0, T_world), on the union of the shutter's
-        # start and end bounds in a motion scene (builder.py:504-518)
-        w_v0, w_e1, w_e2 = v0[:T_world], e1[:T_world], e2[:T_world]
-        lo_t = np.minimum(np.minimum(w_v0, w_v0 + w_e1), w_v0 + w_e2)
-        hi_t = np.maximum(np.maximum(w_v0, w_v0 + w_e1), w_v0 + w_e2)
-        if any_motion:
-            w_dv = dv[:T_world]
-            v0e, e1e, e2e = w_v0 + w_dv[:, 0:3], w_e1 + w_dv[:, 3:6], w_e2 + w_dv[:, 6:9]
-            lo_t = np.minimum(lo_t, np.minimum(np.minimum(v0e, v0e + e1e), v0e + e2e))
-            hi_t = np.maximum(hi_t, np.maximum(np.maximum(v0e, v0e + e1e), v0e + e2e))
-        tree = bvh_mod.build_bvh(lo_t, hi_t, max_prims_in_node=LEAF_TRIS)
+    accel = {}
+    if accel_is_bvh and T_world:
+        # the wide table over the world triangles [0, T_world)
+        tree = bvh_mod.build_bvh(lo_t, hi_t, max_prims_in_node=LEAF_TRIS, method=split)
         wide = build_wide_bvh(tree, w_v0, w_e1, w_e2,
                               tri_motion=w_dv if any_motion else None)
         wide_rows, wide_motion, wide_stack = wide.rows, wide.motion_rows, wide.max_stack
+    elif not accel_is_bvh and len(lo):
+        i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
+        if accel_name in KD_NAMES:
+            kd = build_kdtree(lo, hi,
+                              isect_cost=accel_params.find_one_float("intersectcost", 80.0),
+                              trav_cost=accel_params.find_one_float("traversalcost", 1.0),
+                              empty_bonus=accel_params.find_one_float("emptybonus", 0.5),
+                              max_prims=accel_params.find_one_int("maxprims", 8))
+            accel = dict(accel_kind="kdtree",
+                         kd_split=torch.as_tensor(kd.node_split, device=dev),
+                         kd_axis=i32(kd.node_axis), kd_above=i32(kd.node_above),
+                         kd_prim_off=i32(kd.node_prim_off), kd_prim_cnt=i32(kd.node_prim_cnt),
+                         kd_prim_ids=i32(kd.prim_ids))
+        else:
+            gr = build_grid(lo, hi)
+            accel = dict(accel_kind="grid", grid_dims=tuple(int(n) for n in gr.dims),
+                         grid_off=i32(gr.voxel_off), grid_cnt=i32(gr.voxel_cnt),
+                         grid_ids=i32(gr.prim_ids))
+    # the scene's bound (builder.py:578-582): the kd-tree's and grid's clip
+    # box, and aggregatetest's
+    world_lo = lo.min(axis=0) if len(lo) else np.zeros(3)
+    world_hi = hi.max(axis=0) if len(hi) else np.ones(3)
+    if inst:
+        world_lo = np.minimum(world_lo, inst["inst_lo"].min(axis=0))
+        world_hi = np.maximum(world_hi, inst["inst_hi"].max(axis=0))
 
     t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
     opt = lambda a, dt=torch.float32: None if a is None else t(a, dt)
@@ -604,6 +677,8 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
         wide_motion=opt(wide_motion),
         **{k: v if k == "inst_stack" else torch.as_tensor(v, device=dev)
            for k, v in inst.items()},
+        world_lo=t(world_lo.astype(np.float32)), world_hi=t(world_hi.astype(np.float32)),
+        **accel,
     )
 
     for al in area_lights:

@@ -75,11 +75,12 @@ def queued_ms(fn, n: int = 50, warm: int = 5, tries: int = 3):
                      f"{n} calls, longer than the {spin_ms:.3f} ms spin")
 
 
-def queued_rounds(fn, rounds: int = 5) -> dict:
-    """``rounds`` rounds of ``queued_ms``: the median ms per call (``ms``),
-    the rounds' ``min`` and ``max`` and the median host enqueue time per call
-    (``host_ms``)."""
-    r = [queued_ms(fn) for _ in range(rounds)]
+def queued_rounds(fn, rounds: int = 5, calls: int = 50, warm: int = 5) -> dict:
+    """``rounds`` rounds of ``queued_ms`` over ``calls`` calls each (fewer
+    for a launch of tens of ms), after ``warm`` calls: the median ms per
+    call (``ms``), the rounds' ``min`` and ``max`` and the median host
+    enqueue time per call (``host_ms``)."""
+    r = [queued_ms(fn, n=calls, warm=warm) for _ in range(rounds)]
     ms = [x[0] for x in r]
     return dict(ms=statistics.median(ms), min=min(ms), max=max(ms),
                 host_ms=statistics.median(x[1] for x in r))

@@ -159,8 +159,9 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError):
         tbuild(tload(text), device="cpu")
     # a texture under cylindrical mapping (the JAX package evaluates it as
-    # planar), a mix of mixes (the JAX package renders the inner mix black)
-    # and an area light on a disk (the JAX package samples it as a sphere)
+    # planar), a mix of mixes (the JAX package renders the inner mix black),
+    # a shape the JAX package does not know (it warns and skips it) and an
+    # accelerator it does not know (it builds its BVH)
     textured = ('Texture "checks" "spectrum" "checkerboard" "string mapping" ["cylindrical"]\n'
                 'Material "matte" "texture Kd" "checks"')
     nested = ('MakeNamedMaterial "a" "string type" ["matte"]\n'
@@ -168,9 +169,13 @@ def test_unported_features_raise():
               'MakeNamedMaterial "ab" "string type" ["mix"] "string namedmaterial1" ["a"] '
               '"string namedmaterial2" ["b"]\n'
               'Material "mix" "string namedmaterial1" ["ab"] "string namedmaterial2" ["a"]')
-    disk = 'AreaLightSource "area" "rgb L" [1 1 1]\nShape "disk" "float radius" [.5]'
+    unknown_shape = 'Shape "bilinearpatch" "point P" [0 0 0 1 0 0 0 1 0 1 1 0]'
     for extra in (textured + '\nShape "sphere" "float radius" [.3]',
-                  nested + '\nShape "sphere" "float radius" [.3]', disk):
+                  nested + '\nShape "sphere" "float radius" [.3]', unknown_shape):
         text = tiny_scene_text().replace("WorldBegin", f"WorldBegin\n{extra}", 1)
+        with pytest.raises(NotImplementedError):
+            tbuild(tload(text), device="cpu")
+    for directive in ('Accelerator "qbvh"', 'Accelerator "bvh" "string splitmethod" "hlbvh"'):
+        text = tiny_scene_text().replace("WorldBegin", f"{directive}\nWorldBegin", 1)
         with pytest.raises(NotImplementedError):
             tbuild(tload(text), device="cpu")

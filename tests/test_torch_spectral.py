@@ -168,7 +168,8 @@ def test_write_outputs_headers_and_sidecar_match_jax(tmp_path):
 
 
 def test_write_outputs_other_formats(tmp_path):
-    """.exr writes the preview and the planes, .pfm and .png the preview."""
+    """.exr writes the preview and the planes, .pfm, .png and .jpg (through
+    Pillow) the preview; an extension without a writer raises."""
     tb = tbuild(tload(lens_scene(str(tmp_path), 4, renderer=" ")), device="cpu")
     film = render(tb, spp=1, seed=0)
     out = dispatch.write_outputs(tb, film, str(tmp_path / "a.exr"))
@@ -176,8 +177,10 @@ def test_write_outputs_other_formats(tmp_path):
     assert os.path.basename(dispatch.write_outputs(tb, film, str(tmp_path / "b.pfm"))[0]) == "b.pfm"
     png = dispatch.write_outputs(tb, film, str(tmp_path / "c.png"))[0]
     assert open(png, "rb").read(8) == b"\x89PNG\r\n\x1a\n"
+    jpg = dispatch.write_outputs(tb, film, str(tmp_path / "d.jpg"))[0]
+    assert open(jpg, "rb").read(2) == b"\xff\xd8"
     with pytest.raises(ValueError, match="unsupported image format"):
-        dispatch.write_outputs(tb, film, str(tmp_path / "d.jpg"))
+        dispatch.write_outputs(tb, film, str(tmp_path / "e.gif"))
 
 
 def test_cameras_renderer_suffixes_and_views(tmp_path):
