@@ -172,7 +172,25 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    NURBS patch, the loop-subdivided stand-in), timed and counted, not
    profiled; the tiny scene under each
    accelerator, the bunny and each refined shape at 16², card vs CPU;
-15. the ``kernels`` JSON line (see PERF.md for the fields), then the result.
+15. the preprocess integrators — ``goldens/ss-envmap.pbrt`` as written
+   (128², 64 spp, ``dipolesubsurface``; its ``geometry/room-teapot.pbrt``,
+   ``textures/grace_latlong.exr`` and ``textures/lines.exr`` generated by
+   ``write_ss_envmap_data``: a matte corner and a 32,000-triangle closed
+   teapot-sized blob in the golden's subsurface material, phase 10's
+   sky and stripes), built with its preprocess (4,096 points and their
+   irradiance, threefry's torch ops counted: none), counted as in phase 7
+   and one chunk's wave profiled with the Mo gather's share;
+   killeroo-simple at 256², 1 spp under ``irradiancecache``,
+   ``photonmap`` and ``igi``, each built with its preprocess (photon and
+   VPL counts), counted and one chunk profiled; ``Renderer
+   "surfacepoints"`` on the ss-envmap stand-in (the file's points, their
+   pairwise minimum distance against ``minsampledistance``); the Mo-gather
+   kernel against its plain version on 32,768 of ss-envmap's first hits and
+   the chain kernel on each chain of the slice on 1,048,576 lanes and 1, 7
+   and 4,093, bit for bit, each timed with its bound; each integrator on
+   the tiny scene closed into a room with two subsurface boxes at 16²,
+   card vs CPU;
+16. the ``kernels`` JSON line (see PERF.md for the fields), then the result.
 
 The real-size scene is ``goldens/killeroo-simple.pbrt`` (its text is kept
 here) at 512²; each ``Include "geometry/killeroo.pbrt"`` (geometry not in
@@ -189,6 +207,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import shutil
 import sys
@@ -871,8 +890,6 @@ def media_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
     import torch
 
     from pbrt_torch.core import rng
-    from pbrt_torch.film import film as film_mod
-    from pbrt_torch.renderers import sampler as sampler_mod
     from pbrt_torch.scene.api import load_scene_string
     from pbrt_torch.scene.builder import build
     from pbrt_torch.utils import timing
@@ -885,23 +902,11 @@ def media_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
         raise SystemExit("killeroo-simple's sampler line is not as written")
     curve = write_water_curve(os.path.join(data_dir, "water_abs.txt"))
 
-    def chunk_wave(b):
-        """Chunk 0's wave of sample 0 of ``b``, its keyed arrays drawn
-        first; → a callable."""
-        xs, ys, pix, mask, root, scr = sampler_mod.pixel_chunks(b, 3, CHUNK)
-        ic = b.integrator
-        u = sampler_mod.wave_uniforms(ic, root, pix[0], scr[0], 0, b.sampler_name, 1)
-        media = sampler_mod.media_uniforms(b.scene, ic, root, pix[0], 0)
-        st = film_mod.init_film(b.film_config, dev)
-        return lambda: sampler_mod.render_wave(st, b.scene, b.camera, b.filter_table, xs[0],
-                                               ys[0], ic, b.film_config, u,
-                                               sample_scale=mask[0], media=media)
-
     def frame(label, b):
         """A warmed-up, timed 1-spp frame, then one chunk's wave profiled
         and scaled to the frame → (launches, profile)."""
         film, sec, launches, _ = drive(label, b, 1)
-        prof = profile_frame(f"{label}, chunk 0", b, sec * 1e3, run=chunk_wave(b),
+        prof = profile_frame(f"{label}, chunk 0", b, sec * 1e3, run=chunk_wave(b, dev),
                              scale=chunks_of(b))
         return film, sec, launches, prof
 
@@ -1822,6 +1827,348 @@ def write_texture_data(directory: str, teapot_freq: int = 57, seed: int = 13):
               (0.5 + 0.5 * n).astype(np.float32), half=False)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the preprocess integrators and goldens/ss-envmap.pbrt
+# ---------------------------------------------------------------------------
+
+#: what goldens/ss-envmap.pbrt reads, generated (``write_ss_envmap_data``):
+#: the stand-in teapot's blob frequency (20·f² triangles)
+SS_TEAPOT_FREQ = 40
+#: the room's two walls (a matte corner behind the teapot, open to the sky
+#: and the floor's) in the teapot's object space, before the golden's
+#: Scale 1.25 and Translate 15 0 10
+SS_ROOM = """AttributeBegin
+  Material "matte" "color Kd" [.55 .5 .45]
+  Shape "trianglemesh" "point P" [-8 0 8  8 0 8  8 9 8  -8 9 8  -8 0 -8  -8 9 -8]
+    "integer indices" [0 1 2 0 2 3  0 3 5 0 5 4]
+AttributeEnd
+"""
+#: the three integrators phase 15 puts into killeroo-simple at 256², 1 spp
+KILLEROO_PREPROCESS = ("irradiancecache", "photonmap", "igi")
+#: the 16² references' integrators: on the tiny scene with the
+#: ``SUBSURFACE_BOXES``, closed into the ``SUBSURFACE_ROOM``
+PREPROCESS_REF = {
+    "dipolesubsurface": '"dipolesubsurface" "integer maxdepth" [2]',
+    "photonmap": '"photonmap" "integer maxdepth" [2] "integer indirectphotons" [16384]',
+    "igi": '"igi" "integer maxdepth" [2] "integer nlights" [64]',
+    "irradiancecache": '"irradiancecache" "integer maxdepth" [2]',
+}
+#: a subsurface and a kdsubsurface box
+SUBSURFACE_BOXES = """AttributeBegin
+ Translate -2 -0.2 1
+ Material "subsurface" "color sigma_a" [.05 .05 .05] "color sigma_prime_s" [3 3 3]
+ Shape "trianglemesh" "point P" [-.8 -.8 -.8  .8 -.8 -.8  .8 .8 -.8  -.8 .8 -.8
+   -.8 -.8 .8  .8 -.8 .8  .8 .8 .8  -.8 .8 .8]
+  "integer indices" [0 2 1 0 3 2  4 5 6 4 6 7  0 1 5 0 5 4  2 3 7 2 7 6  1 2 6 1 6 5  0 4 7 0 7 3]
+AttributeEnd
+AttributeBegin
+ Translate 1 -0.5 -1.5
+ Material "kdsubsurface" "color Kd" [.6 .4 .3] "float meanfreepath" [.4]
+ Shape "trianglemesh" "point P" [-.4 -.4 -.4  .4 -.4 -.4  .4 .4 -.4  -.4 .4 -.4
+   -.4 -.4 .4  .4 -.4 .4  .4 .4 .4  -.4 .4 .4]
+  "integer indices" [0 2 1 0 3 2  4 5 6 4 6 7  0 1 5 0 5 4  2 3 7 2 7 6  1 2 6 1 6 5  0 4 7 0 7 3]
+AttributeEnd
+"""
+#: four walls and a ceiling closing the tiny scene's floor into a room (the
+#: camera inside), so that light paths stay in the scene
+SUBSURFACE_ROOM = """AttributeBegin
+ Material "matte" "color Kd" [.5 .45 .4]
+ Shape "trianglemesh" "point P" [-5 -1 -7  5 -1 -7  5 6 -7  -5 6 -7
+   -5 -1 5  5 -1 5  5 6 5  -5 6 5]
+  "integer indices" [0 1 2 0 2 3  4 6 5 4 7 6  0 3 7 0 7 4  1 5 6 1 6 2  3 2 6 3 6 7]
+AttributeEnd
+"""
+#: the Mo gather's float operations per (active lane, point, bin), counted
+#: from dipole.cu: the two depths' d² + z² (2), per side dpos·σtr + 1, z·
+#: that, −σtr·dpos, the product, dpos³ (2), σ′t·dpos³, the max (8), then
+#: α′/4π·(pos − neg), the max, ·E·A and the tile sum (5); 2 sqrtf counted
+#: as 4 each (MUFU.RSQ and its Newton steps), 2 expf as 8 (range reduction,
+#: ex2 and scale), 2 IEEE divides as 8 (MUFU.RCP, Newton, correction)
+OPS_MO_PER_BIN = 2 + 2 * 8 + 5 + 2 * 4 + 2 * 8 + 2 * 8
+#: per (active lane, point): p·q (5), −2·, the two adds and the clamp (4)
+OPS_MO_PER_POINT = 9
+#: the chain kernel's integer work per lane: the (index, sample) key (2
+#: keys); per group its tags' fold-ins (a key and the tag's adds each); per
+#: uniform a hash and the counter's divide and modulo (2)
+OPS_CHAIN_GROUP_TAG = 2 + OPS_HASH + OPS_KEY_SCHEDULE
+
+
+def write_ss_envmap_data(directory: str, teapot_freq: int = SS_TEAPOT_FREQ):
+    """What ``goldens/ss-envmap.pbrt`` reads, generated under ``directory``:
+    ``textures/lines.exr`` and ``textures/grace_latlong.exr`` (phase 10's
+    300×200 stripes and 1024×512 sky) and ``geometry/room-teapot.pbrt``: a
+    matte corner of two walls (``SS_ROOM``) and a closed teapot-sized blob
+    (radius 3 on y = 0, 20·f² triangles), which takes the golden's
+    subsurface material."""
+    write_texture_data(directory, teapot_freq=2)
+    P, idx = blob_mesh(teapot_freq, radius=3.0)
+    P = np.stack([P[:, 0], P[:, 2], -P[:, 1]], -1)  # stand on y = 0 (a rotation)
+    with open(os.path.join(directory, "geometry", "room-teapot.pbrt"), "w") as f:
+        f.write(SS_ROOM + mesh_text(P, idx))
+    return len(idx)
+
+
+def ss_envmap_scene(directory: str, res: int | None = None, spp: int | None = None,
+                    renderer: str = "") -> str:
+    """``goldens/ss-envmap.pbrt`` as written, into ``directory`` beside its
+    generated files (at res², spp samples and with a ``Renderer`` line if
+    given); → its path."""
+    with open(os.path.join(HERE, "goldens", "ss-envmap.pbrt")) as f:
+        text = f.read()
+    if res is not None:
+        text = text.replace('"integer xresolution" [128] "integer yresolution" [128]',
+                            f'"integer xresolution" [{res}] "integer yresolution" [{res}]')
+    if spp is not None:
+        text = text.replace('"integer pixelsamples" [64]', f'"integer pixelsamples" [{spp}]')
+    if renderer:
+        text = text.replace("WorldBegin", renderer + "\nWorldBegin", 1)
+    path = os.path.join(directory, f"ss-envmap{res or ''}{'-sp' if renderer else ''}.pbrt")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def preprocess_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
+    """Phase 15: ``goldens/ss-envmap.pbrt`` as written under
+    dipolesubsurface; killeroo-simple under irradiancecache, photonmap and
+    igi; ``Renderer "surfacepoints"``; the chain and Mo-gather kernels
+    against their plain versions and timed; the 16² references. → the
+    kernels line's entries."""
+    import torch
+
+    from pbrt_torch.accel.intersect import intersect
+    from pbrt_torch.core import rng
+    from pbrt_torch.core.interaction import surface_interaction
+    from pbrt_torch.integrators import dipole, igi as igi_mod, irradiance
+    from pbrt_torch.materials import table as mat_mod
+    from pbrt_torch.renderers import sampler as sampler_mod
+    from pbrt_torch.renderers.dispatch import render_scene
+    from pbrt_torch.renderers.surface_points import read_points_file
+    from pbrt_torch.scene.api import load_scene_string
+    from pbrt_torch.scene.builder import build
+    from pbrt_torch.utils import timing
+    from pbrt_torch.utils.timing import cuda_ms
+
+    sync = torch.cuda.synchronize
+    t_phase = time.time()
+    n_teapot = write_ss_envmap_data(data_dir)
+
+    def built_counted(what, load):
+        """Builds (and preprocesses) with threefry's torch ops counted: the
+        preprocess draws through the chain kernel only. → (built, s)."""
+        t0 = time.time()
+        rng.reset_launches()
+        with mock.patch.object(rng, "threefry2x32", wraps=rng.threefry2x32) as tf:
+            b = load()
+            sync()
+        if tf.call_count:
+            raise SystemExit(f"{what}: the preprocess ran threefry in torch ops on the card")
+        return b, time.time() - t0
+
+    # ---- (a) goldens/ss-envmap.pbrt as written --------------------------
+    ss_path = ss_envmap_scene(data_dir)
+    ss_built, build_s = built_counted("goldens/ss-envmap.pbrt",
+                                      lambda: load_checked(ss_path, dev, "goldens/ss-envmap.pbrt"))
+    sc, fc, ic = ss_built.scene, ss_built.film_config, ss_built.integrator
+    ss = sc.subsurface
+    E_lum = ss.E.mean(-1) if ss is not None else None
+    log("scene", f"goldens/ss-envmap.pbrt as written: {sc.geometry.num_triangles} triangles "
+        f"(the stand-in teapot {n_teapot}, the room's 4, the floor's 2), env map "
+        f"{tuple(sc.lights.env_map.shape)}, {ic.kind} depth {ic.max_depth}, {fc.xres}x{fc.yres}, "
+        f"{ss_built.pixel_samples} spp; {ss.points.shape[0] if ss is not None else 0} surface "
+        f"points, E (mean over bins) min {float(E_lum.min()):.6g} max {float(E_lum.max()):.6g}, "
+        f"{int((E_lum > 0).sum())} lit; built with the preprocess in {build_s:.1f} s (keyed "
+        f"chain launches {rng.launches['keyed_chain_uniforms']})")
+    if not (ic.kind == "dipolesubsurface" and sc.has_subsurface and sc.has_textures
+            and ss.points.shape[0] == dipole.MAX_POINTS and float(E_lum.max()) > 0
+            and (fc.xres, fc.yres, ss_built.pixel_samples) == (128, 128, 64)
+            and rng.launches["keyed_chain_uniforms"] == 1):
+        raise SystemExit("goldens/ss-envmap.pbrt did not build as written with its stand-ins")
+    spp = ss_built.pixel_samples
+    film, sec, lk, _ = drive("goldens/ss-envmap.pbrt as written", ss_built, spp)
+    prof = profile_frame("goldens/ss-envmap.pbrt, chunk 0", ss_built, sec / spp * 1e3,
+                         run=chunk_wave(ss_built, dev), scale=chunks_of(ss_built))
+    mo_launches = lk["mo_gather"]
+    log("render", f"goldens/ss-envmap.pbrt: mo_gather launched {mo_launches} times in the "
+        f"{spp}-spp frame ({mo_launches / spp:.1f} per wave), {prof.get('mo_gather_ms', 0):.3f} "
+        f"ms of the profiled wave's {prof['ms']:.3f} ms kernel time "
+        f"({100 * prof.get('mo_gather_ms', 0) / max(prof['ms'], 1e-9):.1f}%)")
+    if mo_launches == 0:
+        raise SystemExit("goldens/ss-envmap.pbrt: the frame did not launch the Mo gather")
+
+    # ---- (b) killeroo-simple under the other three ----------------------
+    text, _ = real_scene_text(res=256)
+    chain_launches = 0
+    for kind in KILLEROO_PREPROCESS:
+        b, pre_s = built_counted(f"killeroo-simple with {kind}", lambda: build(load_scene_string(
+            text.replace('SurfaceIntegrator "directlighting"', f'SurfaceIntegrator "{kind}"')),
+            device=dev))
+        if b.integrator.kind != kind:
+            raise SystemExit(f"killeroo-simple did not build with {kind}")
+        what = ""
+        if kind == "photonmap":
+            ph = b.scene.photons
+            what = (f"{ph.p.shape[0]} photon slots ({ph.p.shape[0] // 5} paths of depth 5), "
+                    f"{int(ph.valid.sum())} photons, {int(ph.is_caustic.sum())} caustic, radius "
+                    f"{float(ph.radius):.5g}")
+        elif kind == "igi":
+            what = f"{b.scene.vpls.p.shape[0]} VPL slots, {int(b.scene.vpls.valid.sum())} VPLs"
+        log("scene", f"killeroo-simple with {kind}, 256x256: built with its preprocess in "
+            f"{pre_s:.2f} s{', ' + what if what else ''}")
+        film, sec, lk, _ = drive(f"killeroo-simple with {kind}", b, 1, warm=False)
+        profile_frame(f"killeroo-simple with {kind}, chunk 0", b, sec * 1e3,
+                      run=chunk_wave(b, dev),
+                      scale=chunks_of(b))
+        chain_launches += lk["keyed_chain_uniforms"]
+
+    # ---- (c) Renderer "surfacepoints" on the stand-in -------------------
+    t0 = time.time()
+    pts_path = os.path.join(data_dir, "ss.pts")
+    sp_built = load_checked(ss_envmap_scene(data_dir, renderer=(
+        'Renderer "surfacepoints" "float minsampledistance" [.1] '
+        f'"string filename" ["{pts_path}"]')), dev, "ss-envmap with surfacepoints")
+    if render_scene(sp_built) != [pts_path]:
+        raise SystemExit("surfacepoints wrote no points file")
+    pts = torch.as_tensor(read_points_file(pts_path)[0], device=dev)
+    d_min = math.inf
+    for c0 in range(0, pts.shape[0], 4096):
+        d = torch.cdist(pts[c0:c0 + 4096], pts, compute_mode="donot_use_mm_for_euclid_dist")
+        d[torch.arange(d.shape[0], device=dev), torch.arange(c0, c0 + d.shape[0], device=dev)] = 1e9
+        d_min = min(d_min, float(d.min()))
+    sync()
+    # the file's 6 significant digits move a coordinate (< 100) by ≤ 5e-5,
+    # a distance by ≤ √3 · 1e-4
+    log("surfacepoints", f"Renderer \"surfacepoints\" (minsampledistance .1) on the ss-envmap "
+        f"stand-in: {pts.shape[0]} points written to the file in {time.time() - t0:.1f} s, "
+        f"pairwise minimum distance {d_min:.6f} (the file's %g rounding moves it by < 1.8e-4)")
+    if not (pts.shape[0] > 1000 and d_min >= 0.1 - 1.8e-4):
+        raise SystemExit("surfacepoints: too few points, or two closer than minsampledistance")
+
+    # ---- (d) the kernels against their plain versions --------------------
+    # B: 32,768 lanes of ss-envmap's first bounce (camera rays of two samples)
+    xs, ys, pix, mask, root, scr = sampler_mod.pixel_chunks(ss_built, 0, CHUNK)
+    u = torch.cat([sampler_mod.wave_uniforms(ic, root, pix[0], scr[0], s, "lowdiscrepancy", 64)
+                   for s in (0, 1)])
+    px = torch.cat([xs[0], xs[0]]).to(torch.float32) + u[:, 0]
+    py = torch.cat([ys[0], ys[0]]).to(torch.float32) + u[:, 1]
+    rays = ss_built.camera.generate_rays(px, py, u[:, 2], u[:, 3], u[:, 4])
+    g = sc.geometry
+    si = surface_interaction(g, rays, intersect(g, rays))
+    mk = sc.materials.kind[si.material.clamp(min=0)]
+    active = si.valid & ((mk == mat_mod.SUBSURFACE) | (mk == mat_mod.KDSUBSURFACE))
+    R = rays.origin.shape[0]
+    prm = torch.stack([x.expand(R, -1) for x in dipole._lane_params(sc.materials, si.material)])
+    table = dipole._point_table(ss)
+    act8 = active.to(torch.uint8)
+    p_c = si.p.contiguous()
+    k = dipole.mo_gather_kernel(prm, p_c, act8, table)
+    pl = dipole.mo_gather_plain(ss, sc.materials, si.p, si.material, active,
+                                params=tuple(prm), table=table)
+    sync()
+    err_mo = float((k - pl).abs().max())
+    if not torch.equal(k.view(torch.int32), pl.view(torch.int32)):
+        raise SystemExit("mo_gather disagrees with its plain version on ss-envmap's lanes")
+    n_act = int(active.sum())
+    tq = timing.queued_rounds(lambda: dipole.mo_gather_kernel(prm, p_c, act8, table), RNG_ROUNDS,
+                              calls=10, warm=2)
+    plain_ms = cuda_ms(lambda: dipole.mo_gather_plain(ss, sc.materials, si.p, si.material,
+                                                      active, params=tuple(prm), table=table),
+                       n=1, warm=0)
+    Np, S = table[0].shape[0], table[2].shape[1]
+    n_pts = ss.points.shape[0]
+    mo_bound, mo_by = timing.bound_ms(
+        7 * R * S * 4 + R * (12 + 1) + Np * (3 + 1 + S) * 4 + R * S * 4,
+        f32_ops=n_act * n_pts * (OPS_MO_PER_POINT + S * OPS_MO_PER_BIN))
+    log("timing", f"mo_gather on {R} lanes of ss-envmap's first hits ({n_act} on the teapot), "
+        f"{n_pts} points, {S} bins: bit for bit equal to its plain version; median "
+        f"{tq['ms']:.4f} ms over {RNG_ROUNDS} rounds ({tq['min']:.4f}–{tq['max']:.4f}; plain "
+        f"{plain_ms:.1f} ms); bound {mo_bound:.4f} ms ({mo_by}: {n_act} x {n_pts} x ({S} x "
+        f"{OPS_MO_PER_BIN} + {OPS_MO_PER_POINT}) float operations), kernel / bound "
+        f"{tq['ms'] / mo_bound:.2f}x")
+    # A: every chain of the slice, on 1,048,576 lanes and ragged ones
+    depth = 5
+    chains = {
+        "dipole irradiance": dict(chain=[(rng.LIGHT_SAMPLE, 4)], n=3),
+        "light path start": dict(n=5),
+        "light path bounces": dict(chain=[(rng.PHOTON, depth)], n=3),
+        "VPL picks": dict(chain=[(rng.PHOTON, depth), (rng.PHOTON, igi_mod.VPL_SAMPLES)]),
+        "cache directions": dict(chain=[(irradiance.FILL_SALT * 16 + rng.BSDF_SAMPLE, 4)], n=2),
+        "nested blocks": dict(chain=[((irradiance.FILL_SALT + 100) * 16 + rng.CAMERA, 4),
+                                     rng.BATCHED], n=7 * depth, used=7, drawn=8, lead=5),
+    }
+    idx = torch.cat([torch.tensor(PIXELS_WRAP, dtype=torch.int64, device=dev),
+                     torch.arange(N_LANES, dtype=torch.int64, device=dev)])
+    err_chain, n_cases = 0.0, 0
+    for name_, kw in chains.items():
+        for p_, sample in ((idx[:N_LANES], 0), (idx[:N_LANES], 2**31 + 1), (idx[:4093], 3),
+                           (idx[:7], 5), (idx[:1], 1)):
+            a = rng.chain_uniforms(root, p_.contiguous(), sample, **kw)
+            b_ = rng.chain_uniforms_plain(root, p_.contiguous(), sample, **kw)
+            if not torch.equal(a.view(torch.int32), b_.view(torch.int32)):
+                raise SystemExit(f"keyed_chain_uniforms ({name_}) disagrees with its plain "
+                                 f"version on {p_.numel()} lanes, sample {sample}")
+            err_chain = max(err_chain, float((a - b_).abs().max()))
+            n_cases += 1
+    sync()
+    log("rng", f"keyed_chain_uniforms vs plain: {n_cases} cases ({', '.join(chains)}) on "
+        f"{N_LANES} lanes and 1, 7, 4,093 lanes with indices up to 2**32 - 1, samples 0, 3, 5, "
+        f"2**31 + 1: equal bit for bit")
+    pix_c = idx[10:10 + CHUNK].contiguous()
+    kw = chains["nested blocks"]
+    tq_a = timing.queued_rounds(lambda: rng.chain_uniforms(root, pix_c, 1, **kw), RNG_ROUNDS)
+    plain_a = cuda_ms(lambda: rng.chain_uniforms_plain(root, pix_c, 1, **kw), n=5, warm=1)
+    n_u = 4 * 7 * depth
+    width = 5 + n_u
+    a_bound, a_by = timing.bound_ms(
+        CHUNK * (8 + 4 * width), f32_ops=CHUNK * n_u,
+        i32_ops=CHUNK * (OPS_AO_LANE_KEY + 4 * 2 * OPS_CHAIN_GROUP_TAG
+                         + n_u * (OPS_PER_UNIFORM + 2)))
+    log("timing", f"keyed_chain_uniforms (the cache's nested blocks: 4 groups x 35 uniforms, "
+        f"{width} columns) on {CHUNK} lanes: median {tq_a['ms']:.5f} ms over {RNG_ROUNDS} rounds "
+        f"({tq_a['min']:.5f}–{tq_a['max']:.5f}; plain {plain_a:.3f} ms, host enqueue "
+        f"{tq_a['host_ms']:.4f} ms); bound {a_bound:.5f} ms ({a_by}), kernel / bound "
+        f"{tq_a['ms'] / a_bound:.2f}x")
+
+    # ---- (e) 16² references ----------------------------------------------
+    for kind, directive in PREPROCESS_REF.items():
+        t16 = TINY_SCENE.replace('"path" "integer maxdepth" [5]', directive).replace(
+            "WorldEnd", SUBSURFACE_BOXES + SUBSURFACE_ROOM + "WorldEnd")
+        card_vs_cpu(f"tiny room with subsurface boxes, {kind}", t16, spp=1, chunk_pixels=256,
+                    bin_tol=REF_BIN_REL_CAMERAS)
+    log("preprocess", f"phase 15 took {time.time() - t_phase:.1f} s")
+    return [
+        dict(name="mo_gather", route="cuda", source="pbrt_torch/csrc/dipole.cu",
+             replaces="pbrt_tpu/integrators/dipole.py:187", launches=mo_launches,
+             max_abs_err=err_mo, ms=tq["ms"], plain_ms=plain_ms, bound_ms=mo_bound,
+             bound_by=mo_by, library_ms=None),
+        dict(name="keyed_chain_uniforms", route="cuda", source="pbrt_torch/csrc/rng.cu",
+             replaces="pbrt_tpu/integrators/path.py:115", launches=chain_launches,
+             max_abs_err=err_chain, ms=tq_a["ms"], plain_ms=plain_a, bound_ms=a_bound,
+             bound_by=a_by, library_ms=None),
+    ]
+
+
+def chunk_wave(b, dev):
+    """Chunk 0's wave of sample 0 of ``b`` (seed 3), its keyed arrays drawn
+    first (the camera columns of its sampler, a lens camera's noise, the
+    media block, the integrator's draws); → a callable that renders it. A
+    512² frame's profile takes this wave, scaled by the chunks: processing
+    a whole frame's ~140,000 profiler events takes tens of seconds."""
+    from pbrt_torch.film import film as film_mod
+    from pbrt_torch.renderers import sampler as sampler_mod
+
+    xs, ys, pix, mask, root, scr = sampler_mod.pixel_chunks(b, 3, CHUNK)
+    ic = b.integrator
+    u = sampler_mod.wave_uniforms(ic, root, pix[0], scr[0], 0, b.sampler_name, 1)
+    kw = dict(noise=sampler_mod.camera_noise(b.camera, root, pix[0], 0),
+              media=sampler_mod.media_uniforms(b.scene, ic, root, pix[0], 0),
+              draws=sampler_mod.integrator_draws(b.scene, ic, root, pix[0], 0))
+    st = film_mod.init_film(b.film_config, dev)
+    return lambda: sampler_mod.render_wave(st, b.scene, b.camera, b.filter_table, xs[0],
+                                           ys[0], ic, b.film_config, u, sample_scale=mask[0],
+                                           **kw)
+
+
 _T0 = time.time()
 
 
@@ -1983,7 +2330,8 @@ def materials_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
             built.integrator, kind=kind, max_depth=SCENE_DEPTH))
         label = f"materials and environment with {kind}, depth {SCENE_DEPTH}"
         _, sec, _, _ = drive(label, b, 1)
-        profile_frame(label, b, sec * 1e3)
+        profile_frame(f"{label}, chunk 0", b, sec * 1e3, run=chunk_wave(b, dev),
+                      scale=chunks_of(b))
     del built, b
     torch.cuda.empty_cache()
 
@@ -2091,7 +2439,8 @@ def textures_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
         kinds.integrator, max_depth=SCENE_DEPTH))
     label = f"texture-kinds scene with path, depth {SCENE_DEPTH}"
     _, sec_k, _, _ = drive(label, kinds, 1)
-    profile_frame(label, kinds, sec_k * 1e3)
+    profile_frame(f"{label}, chunk 0", kinds, sec_k * 1e3, run=chunk_wave(kinds, dev),
+                  scale=chunks_of(kinds))
     del kinds
     import torch
 
@@ -2388,7 +2737,8 @@ def motion_instancing_phase(dev, drive, profile_frame, card_vs_cpu):
     film_i, sec_i, li, _ = drive("64 instanced killeroos with path", bi, 1)
     if li["traverse_instances_closest"] == 0 or li["traverse_instances_any"] == 0:
         raise SystemExit("the instanced scene did not launch the instance kernels")
-    profile_frame("64 instanced killeroos with path", bi, sec_i * 1e3)
+    profile_frame("64 instanced killeroos with path, chunk 0", bi, sec_i * 1e3,
+                  run=chunk_wave(bi, dev), scale=chunks_of(bi))
 
     gen.manual_seed(12)
     o, d, _, _, si = camera_and_bounce_rays(bi, dev, N_LANES, gen, times=False)
@@ -2511,7 +2861,9 @@ def main() -> int:
     from pbrt_torch.core import sampling as smp
     from pbrt_torch.film import film as film_mod
     from pbrt_torch.integrators.path import PrimarySource, trace_radiance
-    from pbrt_torch.renderers.sampler import SURFACE_ONLY, camera_noise, render, render_wave
+    from pbrt_torch.integrators import dipole
+    from pbrt_torch.renderers.sampler import (SURFACE_ONLY, camera_noise, integrator_draws,
+                                              render, render_wave)
     from pbrt_torch.scene.api import load_scene, load_scene_string
     from pbrt_torch.scene.builder import build
     from pbrt_torch.scripts import gather_lab as gl
@@ -2941,7 +3293,9 @@ def main() -> int:
                             b.film_config, torch.as_tensor(u_, device=b.device),
                             noise=camera_noise(b.camera, rng.root_key(w), pix_w, 0),
                             media=None if m_np is None else torch.as_tensor(m_np,
-                                                                             device=b.device))
+                                                                             device=b.device),
+                            draws=integrator_draws(b.scene, b.integrator, rng.root_key(w),
+                                                   pix_w, 0))
                 films[slot].append(st.pixels.cpu().numpy())
         films = [np.stack(f) for f in films]
         what = f"{label} {fc.xres}x{fc.yres}, {ic.kind}" + (
@@ -3022,6 +3376,7 @@ def main() -> int:
         tc.reset_launches()
         tk.reset_launches()
         rng.reset_launches()
+        dipole.reset_launches()
         for k in isect.calls:
             isect.calls[k] = 0
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -3038,7 +3393,7 @@ def main() -> int:
                          "threefry2x32": tf.call_count}
         # an adaptive render's waves (both passes); else one per sample
         n_waves = film.adaptive["waves"] if film.adaptive else spp
-        launches = {**tc.launches, **tk.launches, **rng.launches}
+        launches = {**tc.launches, **tk.launches, **rng.launches, **dipole.launches}
         n_calls = isect.calls["intersect"]
         n_inst_calls = isect.calls["instances"]
         sec = ev[0].elapsed_time(ev[1]) / 1e3
@@ -3068,7 +3423,9 @@ def main() -> int:
             f"{launches['keyed_uniforms'] / spp:.1f}, keyed AO uniforms "
             f"{launches['keyed_ao_uniforms'] / spp:.1f}, keyed camera normals "
             f"{launches['keyed_camera_normals'] / spp:.1f}, keyed volume uniforms "
-            f"{launches['keyed_volume_uniforms'] / spp:.1f}; film finite {finite}, sum "
+            f"{launches['keyed_volume_uniforms'] / spp:.1f}, keyed chain uniforms "
+            f"{launches['keyed_chain_uniforms'] / spp:.1f}, mo_gather "
+            f"{launches['mo_gather'] / spp:.1f}; film finite {finite}, sum "
             f"{total:.6g}, .dat round trip {dat_ok}; sampler torch ops on the card "
             f"{sampler_calls}")
         keyed = "keyed_ao_uniforms" if ic.kind == "ambientocclusion" else "keyed_uniforms"
@@ -3083,10 +3440,13 @@ def main() -> int:
         noisy = len(b.camera.noise_tags) > 0
         media = b.scene.has_volumes and ic.kind not in SURFACE_ONLY
         per_wave = n_waves * chunks_of(b)
+        # igi's VPL picks and the irradiance cache's two gather passes
+        chains = {"igi": 1, "irradiancecache": 4}.get(ic.kind, 0)
         if (launches["keyed_scrambles"] != 1 or launches[keyed] != per_wave
                 or launches[other] != 0
                 or launches["keyed_camera_normals"] != noisy * per_wave
-                or launches["keyed_volume_uniforms"] != media * per_wave):
+                or launches["keyed_volume_uniforms"] != media * per_wave
+                or launches["keyed_chain_uniforms"] != chains * per_wave):
             raise SystemExit(f"{label}: the keyed kernels did not launch once per render "
                              "and once per wave and chunk")
         if not (finite and total > 0.0 and dat_ok):
@@ -3140,6 +3500,7 @@ def main() -> int:
         n_launch = sum(x[2] for x in kern)
         htod = sum(x[2] for x in kern if x[0].startswith("Memcpy HtoD"))
         part = f" (one wave x {scale})" if scale != 1 else ""
+        mo_ms = sum(x[1] for x in kern if "mo_gather" in x[0])
         log("profile", f"{label}, 1 spp{part}: kernel time {dev_ms:.1f} ms in {n_launch} launches "
             f"({n_launch / nc:.1f} per {CHUNK}-lane chunk, {nc} chunks; of them "
             f"{htod} host-to-device copies, none from the sampler) "
@@ -3149,10 +3510,10 @@ def main() -> int:
             f"{trav['traverse_closest'][0]:.3f} ms in {trav['traverse_closest'][1]} launches, "
             f"any hit {trav['traverse_any'][0]:.3f} ms in {trav['traverse_any'][1]} launches "
             f"({', '.join(f'{k} {v[0]:.3f} ms in {v[1]}' for k, v in per.items())}); "
-            f"keyed-uniform kernels {rng_ms:.3f} ms")
+            f"keyed-uniform kernels {rng_ms:.3f} ms, mo_gather {mo_ms:.3f} ms")
         for k, ms_, cnt in sorted(kern, key=lambda x: -x[1])[:8]:
             log("profile", f"  {ms_:8.2f} ms  {cnt:6d}x  {k[:90]}")
-        return {"ms": dev_ms, "per_chunk": n_launch / nc}
+        return {"ms": dev_ms, "per_chunk": n_launch / nc, "mo_gather_ms": mo_ms}
 
     spp = 4
     ic0 = built.integrator
@@ -3262,7 +3623,14 @@ def main() -> int:
         shutil.rmtree(data_dir, ignore_errors=True)
     del bvh_frames
 
-    # ---- 15. kernels line -------------------------------------------------
+    # ---- 15. the preprocess integrators, goldens/ss-envmap.pbrt ------------
+    data_dir = tempfile.mkdtemp(prefix="chip_smoke_preprocess_")
+    try:
+        preprocess_entries = preprocess_phase(dev, data_dir, drive, profile_frame, card_vs_cpu)
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+    # ---- 16. kernels line -------------------------------------------------
     src = "pbrt_torch/csrc/traverse.cu"
     rep = "pbrt_tpu/accel/pallas_step.py:36"
     kernels = []
@@ -3293,6 +3661,7 @@ def main() -> int:
             name=key, route="cuda", source="pbrt_torch/csrc/traverse_kd.cu",
             replaces=("pbrt_tpu/accel/intersect.py:1149" if "_kd_" in key
                       else "pbrt_tpu/accel/intersect.py:1249"), library_ms=None, **entry))
+    kernels.extend(preprocess_entries)
     for key, entry in motion_inst.items():
         kernels.append(dict(name=key, route="cuda", source=src, replaces=rep,
                             launches=entry["launches"], max_abs_err=entry["max_abs_err"],
@@ -3327,6 +3696,10 @@ def main() -> int:
         "intersect.py:1149 and :1249, no Pallas kernel) their killeroo "
         "directlighting and path frames' (1 spp each), their motion twins those "
         "of the motion scene's frame under each (1 spp); "
+        "mo_gather's (XLA's fori_loop and einsum in the JAX package) those of "
+        "goldens/ss-envmap.pbrt's 64-spp frame, keyed_chain_uniforms' (XLA's "
+        "threefry) those of phase 15's igi and irradiancecache frames (the "
+        "preprocess launches, at build, are logged apart); "
         "gather_lab's launches are "
         "those of the lab's own path")
     print("step " + json.dumps(step_line), flush=True)

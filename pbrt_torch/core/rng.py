@@ -70,7 +70,19 @@ plain versions here when they lie on the CPU; both give the same bits:
   polynomial (``normals_from_bits``). The uniforms' bits are jax's; the
   normals differ from jax's by at most 3 ulps on the CPU, where XLA fuses
   the polynomial's steps into FMAs and has a log1p of its own. The kernel
-  and the plain version agree bit for bit on the card.
+  and the plain version agree bit for bit on the card;
+- ``chain_uniforms`` — the preprocess integrators' draws, (R, lead +
+  G·n): each lane's key ``pixel_sample_key(root, index, sample)`` folded
+  with a chain of tags, each tag ``base + 16·i`` for i < its count (a
+  fixed tag has count 1: the JAX package's ``bounce_key(·, b, purpose)``
+  is tag b·16 + purpose), the G = Π counts keys taken in row-major order
+  (the first tag outermost); then n uniforms per key at counters
+  ``(j // used)·drawn + j mod used`` (``used = drawn = n`` by default:
+  ``uniform_per(key, n)``; 7 of every 8 for a ``BatchedKeySource`` block);
+  ``lead`` zero columns come first. The dipole's irradiance, photon and
+  VPL paths, IGI's VPL picks, the irradiance cache's gather directions
+  and its nested traces' bounce blocks are all such chains
+  (``integrators/{dipole,photonmap,igi,irradiance}.py``).
 
 There is no Pallas original: XLA computes threefry for the JAX package.
 Threefry's 20 rounds in torch ops are about a hundred small launches per
@@ -138,7 +150,9 @@ PER_VOLUME_STEP = 3
 
 #: kernel launches per wrapper (the plain versions count nothing)
 launches = {"keyed_uniforms": 0, "keyed_scrambles": 0, "keyed_ao_uniforms": 0,
-            "keyed_camera_normals": 0, "keyed_volume_uniforms": 0}
+            "keyed_camera_normals": 0, "keyed_volume_uniforms": 0, "keyed_chain_uniforms": 0}
+#: the most tags a chain may have (``csrc/rng.cu`` kMaxChain)
+MAX_CHAIN = 4
 
 
 def reset_launches():
@@ -349,6 +363,41 @@ def camera_normals_plain(root, pixel_index, sample: int, tag0: int, n_tags: int)
     return normals_from_bits(bits(fold_in(keys[:, None, :], tags), 2))
 
 
+def _chain_tags(chain):
+    """A chain's tags as (base, count) pairs; a bare int is (tag, 1)."""
+    tags = tuple((int(t), 1) if isinstance(t, (int, np.integer)) else (int(t[0]), int(t[1]))
+                 for t in chain)
+    if len(tags) > MAX_CHAIN or any(c < 1 for _, c in tags):
+        raise ValueError(f"chain {chain}: at most {MAX_CHAIN} tags, each counted >= 1")
+    return tags
+
+
+def _chain_counters(n: int, used, drawn):
+    used = n if used is None else int(used)
+    drawn = used if drawn is None else int(drawn)
+    if n < 0 or used < 1 or drawn < used:
+        raise ValueError(f"chain draws: n {n}, used {used}, drawn {drawn}")
+    return used, drawn
+
+
+def chain_uniforms_plain(root, index, sample: int, chain=(), n: int = 1, lead: int = 0,
+                         used=None, drawn=None):
+    """(R,) indices → the (R, lead + G·n) chain draws of sample ``sample``
+    (see the module docstring)."""
+    tags = _chain_tags(chain)
+    used, drawn = _chain_counters(n, used, drawn)
+    dev = index.device
+    keys = pixel_sample_key(root.to(dev), index, sample)
+    for base, count in tags:
+        t = base + 16 * torch.arange(count, dtype=torch.int64, device=dev)
+        keys = fold_in(keys.unsqueeze(-2), t)  # (R, ..., count, 2)
+    j = torch.arange(n, dtype=torch.int64, device=dev)
+    u = _to_uniform(_bits_at(keys, j // used * drawn + j % used))
+    R = index.shape[0]
+    return torch.cat([torch.zeros((R, lead), dtype=torch.float32, device=dev),
+                      u.reshape(R, -1)], -1)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -470,4 +519,30 @@ def pixel_scrambles(root, pixel_index):
         k0, k1, pixel_index.data_ptr(), R, out.data_ptr(), stream),
         "keyed_scrambles launch")
     launches["keyed_scrambles"] += 1
+    return out
+
+
+def chain_uniforms(root, index, sample: int, chain=(), n: int = 1, lead: int = 0,
+                   used=None, drawn=None):
+    """The chain draws; see ``chain_uniforms_plain`` for the contract."""
+    if index.device.type == "cpu":
+        return chain_uniforms_plain(root, index, sample, chain, n, lead, used, drawn)
+    if index.device.type != "cuda":
+        raise ValueError(f"chain_uniforms: unsupported device {index.device}")
+    tags = _chain_tags(chain)
+    used, drawn = _chain_counters(n, used, drawn)
+    groups = int(np.prod([c for _, c in tags])) if tags else 1
+    width = lead + groups * n
+    if lead < 0 or any(not 0 <= b + 16 * (c - 1) < 2**32 for b, c in tags):
+        raise ValueError(f"chain_uniforms: lead {lead}, tags {tags} outside uint32")
+    k0, k1, R, lib, stream = _launch_args(root, index, width)
+    out = torch.empty((R, width), dtype=torch.float32, device=index.device)
+    if R == 0 or width == 0:
+        return out
+    pad = tags + ((0, 1),) * (MAX_CHAIN - len(tags))
+    native.check_launch(lib.pbrt_torch_keyed_chain_uniforms(
+        k0, k1, index.data_ptr(), R, int(sample) & _M32, len(tags),
+        *(b & _M32 for b, _ in pad), *(c for _, c in pad), int(n), used, drawn, int(lead),
+        out.data_ptr(), stream), "keyed_chain_uniforms launch")
+    launches["keyed_chain_uniforms"] += 1
     return out

@@ -30,7 +30,20 @@
 //                     0 also the camera segment's, :754-755); under single
 //                     scattering then, per march step k < 32, counters 0-2
 //                     of bounce 0's VOLUME key folded with k·16 + 2
-//                     (pbrt_tpu/media/volumes.py:190-209).
+//                     (pbrt_tpu/media/volumes.py:190-209);
+//   keyed_chain_uniforms — the preprocess integrators' draws, (R, lead +
+//                     G·n): the lane key (index, sample) folded with a
+//                     chain of up to 4 tags, tag i running base_i + 16·k for
+//                     k < count_i (a fixed tag has count 1), the G = Π count_i
+//                     keys in row-major order; n uniforms per key at counters
+//                     (j / used)·drawn + j % used; lead zero columns first.
+//                     The dipole's irradiance samples
+//                     (pbrt_tpu/integrators/dipole.py:128-133), photon and
+//                     VPL paths (photonmap.py:53-57, :96-97; igi.py:45-49,
+//                     :76-77), IGI's VPL picks (path.py:611, igi.py:111-112),
+//                     the irradiance cache's gather directions and the
+//                     BatchedKeySource blocks of its nested traces
+//                     (irradiance.py:69-74, path.py:115-120).
 // The camera columns by sampler code (core/rng.py:camera_columns_plain;
 // the per-launch constants c[] are computed once per wave on the host, by
 // core/rng.py:sampler_constants):
@@ -100,6 +113,12 @@
 //                     hash, each march step a fold-in of bounce 0's VOLUME key
 //                     and 3 hashes; the warp tile and copy-out in passes of
 //                     48 columns.
+//   keyed_chain_uniforms — keyed_volume_uniforms' design: one thread per
+//                     lane, the lane key once (2 hashes) and the chain's
+//                     fixed prefix; a group's key (its varying tags' fold-ins)
+//                     where the pass reaches the group's first column, then
+//                     one hash per uniform; the warp tile and copy-out in
+//                     passes of 48 columns. The chain is per-launch constants.
 //   keyed_camera_normals — keyed_uniforms' design: one thread per lane, the
 //                     lane key once (2 hashes), then per tag its fold-in and
 //                     two hashes and two erf_inv polynomials (a log1pf, a
@@ -136,6 +155,16 @@ constexpr uint32_t kLightSamplePurpose = 2u;  // LIGHT_SAMPLE: step k folds in k
 constexpr int kVolumeSteps = 32;  // march steps per segment (volumes.py TAU_STEPS)
 constexpr int kPerStep = 3;       // uniforms single scattering draws per step
 constexpr int kPassVolumeCols = 48;  // media-block columns per tile pass
+constexpr int kMaxChain = 4;         // tags of a keyed_chain_uniforms chain
+constexpr uint32_t kTagStep = 16u;   // bounce_key: tag = index * 16 + purpose
+
+// a keyed_chain_uniforms launch's chain and draw pattern
+struct Chain {
+  int n_tags;
+  uint32_t base[kMaxChain];
+  int count[kMaxChain];
+  int n, used, drawn, lead;
+};
 
 // the sampler codes (core/rng.py)
 enum : int { kLowDiscrepancy = 0, kHalton = 1, kBestCandidate = 2, kRandom = 3,
@@ -476,6 +505,71 @@ keyed_volume_uniforms_kernel(uint32_t k0, uint32_t k1,
   }
 }
 
+// the key of group g: the lane key folded with each tag of the chain, the
+// varying tags' indices the digits of g (the last tag varies fastest)
+__device__ __forceinline__ void chain_key(uint32_t& a, uint32_t& c, const Chain& ch,
+                                          unsigned g) {
+  unsigned idx[kMaxChain];
+#pragma unroll
+  for (int i = kMaxChain - 1; i >= 0; --i) {
+    if (i < ch.n_tags) {
+      idx[i] = g % static_cast<unsigned>(ch.count[i]);
+      g /= static_cast<unsigned>(ch.count[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kMaxChain; ++i)
+    if (i < ch.n_tags) fold_in(a, c, ch.base[i] + kTagStep * idx[i]);
+}
+
+__global__ void __launch_bounds__(kThreads)
+keyed_chain_uniforms_kernel(uint32_t k0, uint32_t k1,
+                            const long long* __restrict__ index, int R,
+                            uint32_t sample, Chain ch, unsigned width,
+                            float* __restrict__ out) {
+  extern __shared__ float4 tiles[];  // kWarps tiles of kWarp × min(width, 48) floats
+  const unsigned lane = threadIdx.x % kWarp;
+  const unsigned warp = threadIdx.x / kWarp;
+  const unsigned base = (blockIdx.x * kWarps + warp) * kWarp;  // warp's first row
+  if (base >= static_cast<unsigned>(R)) return;  // the whole warp
+  const unsigned rows = min(static_cast<unsigned>(R) - base, static_cast<unsigned>(kWarp));
+  const bool live = lane < rows;
+  float* tile = reinterpret_cast<float*>(tiles)
+                + warp * kWarp * min(width, static_cast<unsigned>(kPassVolumeCols));
+  const unsigned lead = static_cast<unsigned>(ch.lead), n = static_cast<unsigned>(ch.n);
+  const unsigned used = static_cast<unsigned>(ch.used), drawn = static_cast<unsigned>(ch.drawn);
+
+  uint32_t a = k0, c = k1;  // the lane key: (index, sample)
+  if (live) {
+    fold_in(a, c, static_cast<uint32_t>(index[base + lane]));
+    fold_in(a, c, sample);
+  }
+  for (unsigned c0 = 0; c0 < width; c0 += kPassVolumeCols) {
+    const unsigned cols = min(width - c0, static_cast<unsigned>(kPassVolumeCols));
+    float* mine = tile + lane * cols;
+    if (live) {
+      uint32_t ga = 0u, gc = 0u;  // the current group's key
+      for (unsigned q = 0; q < cols; ++q) {
+        const unsigned col = c0 + q;
+        if (col < lead) {
+          mine[q] = 0.0f;
+          continue;
+        }
+        const unsigned g = (col - lead) / n, j = (col - lead) % n;
+        if (j == 0 || q == 0 || col == lead) {
+          ga = a;
+          gc = c;
+          chain_key(ga, gc, ch, g);
+        }
+        mine[q] = uniform_from_bits(bits_at(ga, gc, j / used * drawn + j % used));
+      }
+    }
+    __syncwarp();
+    copy_tile_out(tile, out, base, rows, cols, width, c0, lane);
+    __syncwarp();
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 keyed_scrambles_kernel(uint32_t k0, uint32_t k1,
                        const long long* __restrict__ pixel, int R,
@@ -611,6 +705,27 @@ int pbrt_torch_keyed_volume_uniforms(uint32_t k0, uint32_t k1, const long long* 
     keyed_volume_uniforms_kernel<<<(R - 1) / kThreads + 1, kThreads,
                                    kThreads * min(width, kPassVolumeCols) * sizeof(float),
                                    stream>>>(k0, k1, pixel, R, sample, n_jitter, single, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pbrt_torch_keyed_chain_uniforms(uint32_t k0, uint32_t k1, const long long* index, int R,
+                                    uint32_t sample, int n_tags, uint32_t b0, uint32_t b1,
+                                    uint32_t b2, uint32_t b3, int c0, int c1, int c2, int c3,
+                                    int n, int used, int drawn, int lead, float* out,
+                                    cudaStream_t stream) {
+  if (n_tags < 0 || n_tags > kMaxChain || n < 0 || used < 1 || drawn < used || lead < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Chain ch{n_tags, {b0, b1, b2, b3}, {c0, c1, c2, c3}, n, used, drawn, lead};
+  long long groups = 1;
+  for (int i = 0; i < n_tags; ++i) groups *= ch.count[i];
+  const long long width = lead + groups * n;
+  if (width >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  if (R > 0 && width > 0)
+    keyed_chain_uniforms_kernel<<<(R - 1) / kThreads + 1, kThreads,
+                                  kThreads * min(static_cast<int>(width), kPassVolumeCols)
+                                      * sizeof(float),
+                                  stream>>>(k0, k1, index, R, sample, ch,
+                                            static_cast<unsigned>(width), out);
   return static_cast<int>(cudaGetLastError());
 }
 

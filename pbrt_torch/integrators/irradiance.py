@@ -1,0 +1,190 @@
+"""The irradiance cache as a wavefront (port of ``irradiance_cache_li`` in
+``pbrt_tpu/integrators/irradiance.py:50-165``; reference:
+src/integrators/irradiancecache.{h,cpp}).
+
+``irradiancecache`` is ``directlighting`` plus a cached hemispherical
+gather of indirect irradiance at the camera rays' first diffuse hits, in
+three passes per wave:
+
+1. the cache fill: every ``ic_stride``-th lane gathers E from K cosine-
+   distributed rays, each traced by a nested ``directlighting``
+   ``trace_radiance``, and keeps the reference's (E, wAvg, extent) triple,
+   extent = clamp(min hit / 2, minpixelspacing · ps, maxpixelspacing · ps)
+   with ps the pixel cone's width at the hit (irradiancecache.cpp:245-271);
+2. every lane interpolates over the 8 cache entries around its own along
+   the wave, with the reference's error weights 1 − max(d / extent,
+   √((1 − n·nᵢ) / (1 − cos maxangle))) (IrradProcess, :308-325), accepted
+   where their sum reaches ``minweight``;
+3. the lanes the cache cannot serve gather afresh (masked, on the whole
+   wave), the reference's cache-miss path.
+
+L adds f(wo, normalize(wAvg)) · E at diffuse hits (:285-287).
+
+Randomness: pass 1 and 3's gather k draws its direction from the camera
+key folded with (salt + k)·16 + BSDF_SAMPLE (2 uniforms) and its nested
+trace's bounce block from the camera key folded with (salt + 100 + k)·16 +
+CAMERA, then BatchedKeySource's tag 15 (path.py:115-120), salt 100 and
+300 (irradiance.py:69-74): per pass one ``keyed_chain_uniforms`` launch
+for the K directions and one for the K blocks (``cache_draws``), so the
+2K + 1 nested traces of a wave read the JAX package's bits.
+
+Kept as the JAX package has it: ``nsamples`` is the gather count K
+(default 4, not the reference's 4096) and ``ic_stride`` is 8, not a
+parameter.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from pbrt_torch.accel.intersect import intersect
+from pbrt_torch.bsdf import bxdf
+from pbrt_torch.core import geometry as geom
+from pbrt_torch.core import rng
+from pbrt_torch.core import sampling as smp
+from pbrt_torch.core import spectrum as spec
+from pbrt_torch.core.interaction import offset_ray_origin, surface_interaction
+from pbrt_torch.materials import table as mat_mod
+
+#: cache entries each lane looks at (irradiance.py:118)
+WINDOW = 8
+#: the two gather passes' key salts (irradiance.py:103, :138)
+FILL_SALT, MISS_SALT = 100, 300
+
+
+def cache_stride(cfg, R: int) -> int:
+    return max(1, min(cfg.ic_stride, R))
+
+
+def _pass_draws(root, index, sample: int, cfg, salt: int):
+    """(directions (R, 2K), nested bounce blocks (R, 5 + 7·D·K)) of one
+    gather pass; block k is read through columns 7·D·k … 7·D·k + 5 + 7·D
+    (``nested_view``)."""
+    K = cfg.ao_nsamples
+    dirs = rng.chain_uniforms(root, index, sample, chain=[(salt * 16 + rng.BSDF_SAMPLE, K)], n=2)
+    blocks = rng.chain_uniforms(
+        root, index, sample, chain=[((salt + 100) * 16 + rng.CAMERA, K), rng.BATCHED],
+        n=rng.PER_BOUNCE_USED * cfg.max_depth, used=rng.PER_BOUNCE_USED,
+        drawn=rng.PER_BOUNCE_DRAWN, lead=rng.CAMERA_DIMS)
+    return dirs, blocks
+
+
+def cache_draws(root, pixel_index, sample: int, cfg) -> dict:
+    """A wave's gather draws: the fill pass's on every ``ic_stride``-th
+    lane, the miss pass's on all (see the module docstring)."""
+    stride = cache_stride(cfg, pixel_index.shape[0])
+    return {"fill": _pass_draws(root, pixel_index[::stride].contiguous(), sample, cfg, FILL_SALT),
+            "miss": _pass_draws(root, pixel_index, sample, cfg, MISS_SALT)}
+
+
+def nested_view(blocks, k: int, max_depth: int):
+    """Gather k's primary-sample view of a pass's blocks: its bounce block
+    at columns 5 … 5 + 7·D (the 5 camera columns before it belong to the
+    block before and are never read: a gather ray is not a camera ray)."""
+    w = rng.PER_BOUNCE_USED * max_depth
+    return blocks[:, k * w:k * w + rng.CAMERA_DIMS + w]
+
+
+def _gather_irradiance(scene, p, ng, eps, diffuse, n_gather, frame, rays, K, draws,
+                       direct_cfg):
+    """A cosine-weighted hemisphere gather of K nested ``directlighting``
+    traces from each lane's point → (E (R, S), wAvg (R, 3), min hit (R,))
+    (irradiancecache.cpp:245-271; irradiance.py:50-80)."""
+    from pbrt_torch.integrators.path import trace_radiance
+
+    ss, ts = frame
+    dirs, blocks = draws
+    R = p.shape[0]
+    E = torch.zeros((R, scene.materials.kd.shape[-1]), dtype=torch.float32, device=p.device)
+    w_avg = torch.zeros((R, 3), dtype=torch.float32, device=p.device)
+    min_hit = torch.full((R,), math.inf, dtype=torch.float32, device=p.device)
+    for k in range(K):
+        w_local = smp.cosine_sample_hemisphere(dirs[:, 2 * k], dirs[:, 2 * k + 1])
+        w = bxdf.local_to_world(w_local, ss, ts, n_gather)
+        o = offset_ray_origin(p, ng, w, eps)
+        gather_rays = geom.Ray.make(torch.where(diffuse[:, None], o, rays.origin),
+                                    torch.where(diffuse[:, None], w, rays.direction))
+        Lg, t_hit = trace_radiance(scene, gather_rays, direct_cfg,
+                                   nested_view(blocks, k, direct_cfg.max_depth))
+        E = E + Lg * math.pi / K
+        w_avg = w_avg + w * spec.luminance(Lg)[:, None]
+        min_hit = torch.minimum(min_hit, torch.where(t_hit > 0.0, t_hit, math.inf))
+    return E, w_avg, min_hit
+
+
+def irradiance_cache_li(scene, rays, cfg, uniforms, draws):
+    """directlighting plus the cached indirect gather (IrradianceCacheIntegrator::
+    Li + indirectLo, irradiancecache.cpp:195-330; irradiance.py:83-165) →
+    (L, first hit t). ``draws``: ``cache_draws`` of the wave."""
+    from pbrt_torch.integrators.path import trace_radiance
+
+    if scene.has_volumes:
+        raise NotImplementedError("irradiancecache in a scene with volumes (its nested "
+                                  "gathers' media draws are not ported)")
+    if draws is None:
+        raise ValueError("irradiancecache needs the wave's gather draws (cache_draws)")
+    direct_cfg = dataclasses.replace(cfg, kind="directlighting")
+    L_direct, first_t = trace_radiance(scene, rays, direct_cfg, uniforms)
+    g = scene.geometry
+    hit = intersect(g, rays)
+    si = surface_interaction(g, rays, hit)
+    lm = mat_mod.gather_lane(scene.materials, si.material)
+    diffuse = si.valid & ~mat_mod.has_delta_only(lm)
+    # the hemisphere facing the viewer (irradiancecache.cpp:216)
+    n_gather = geom.face_forward(si.ns, si.wo)
+    ss, ts = bxdf.make_shading_frame(n_gather, si.dpdu)
+    R = rays.origin.shape[0]
+    K = cfg.ao_nsamples
+
+    # ---- pass 1: the cache fill at every stride-th lane ------------------
+    stride = cache_stride(cfg, R)
+    sub = lambda a: a[::stride]
+    E_c, wavg_c, minhit_c = _gather_irradiance(
+        scene, sub(si.p), sub(si.ng), sub(si.ray_epsilon), sub(diffuse), sub(n_gather),
+        (sub(ss), sub(ts)), geom.Ray.make(sub(rays.origin), sub(rays.direction)), K,
+        draws["fill"], direct_cfg)
+    # the pixel spacing at the entry: the ray cone's width there
+    spread = scene.pixel_spread if scene.pixel_spread > 0.0 else 5e-3
+    ps_c = spread * torch.clamp(sub(hit.t), min=1e-6)
+    ext_c = torch.clamp(minhit_c / 2.0, cfg.ic_minspacing * ps_c, cfg.ic_maxspacing * ps_c)
+    valid_c = sub(diffuse)
+
+    # ---- pass 2: error-weighted interpolation over the window -----------
+    cos_max = np.cos(np.deg2rad(max(cfg.ic_maxangle, 1e-3)))
+    p_c, n_c = sub(si.p), sub(n_gather)
+    Rc = p_c.shape[0]
+    j0 = torch.arange(R, device=rays.origin.device) // stride
+    sum_w = torch.zeros(R, dtype=torch.float32, device=rays.origin.device)
+    E_i = torch.zeros((R, E_c.shape[-1]), dtype=torch.float32, device=rays.origin.device)
+    wavg_i = torch.zeros((R, 3), dtype=torch.float32, device=rays.origin.device)
+    for dj in range(-(WINDOW // 2 - 1), WINDOW // 2 + 1):
+        j = torch.clamp(j0 + dj, 0, Rc - 1)
+        perr = geom.length(si.p - p_c[j]) / torch.clamp(ext_c[j], min=1e-12)
+        ndot = torch.sum(n_gather * n_c[j], dim=-1)
+        nerr = torch.sqrt(torch.clamp(1.0 - ndot, min=0.0) / max(1.0 - cos_max, 1e-6))
+        err = torch.maximum(perr, nerr)
+        wt = torch.where((err < 1.0) & valid_c[j], 1.0 - err, 0.0)
+        sum_w = sum_w + wt
+        E_i = E_i + wt[:, None] * E_c[j]
+        wavg_i = wavg_i + wt[:, None] * wavg_c[j]
+    ok = sum_w >= cfg.ic_minweight  # Successful(), irradiancecache.cpp:78
+    E_i = E_i / torch.clamp(sum_w, min=1e-12)[:, None]
+
+    # ---- pass 3: the cache misses gather afresh, masked -----------------
+    miss = diffuse & ~ok
+    E_m, wavg_m, _ = _gather_irradiance(scene, si.p, si.ng, si.ray_epsilon, miss, n_gather,
+                                        (ss, ts), rays, K, draws["miss"], direct_cfg)
+    E = torch.where(ok[:, None], E_i, E_m)
+    w_avg = torch.where(ok[:, None], wavg_i, wavg_m)
+
+    # L_ind = f(wo, normalize(wAvg)) · E (irradiancecache.cpp:285-287)
+    wlen = geom.length(w_avg)
+    wi_w = w_avg / torch.clamp(wlen, min=1e-12)[:, None]
+    f = mat_mod.bsdf_f(lm, bxdf.world_to_local(si.wo, ss, ts, n_gather),
+                       bxdf.world_to_local(wi_w, ss, ts, n_gather))
+    L_ind = torch.where((wlen > 0.0)[:, None], f * E, 0.0)
+    return L_direct + torch.where(diffuse[:, None], L_ind, 0.0), first_t

@@ -67,6 +67,16 @@ hit only (later bounces get none: unfiltered lookups and the bump
 chain's .01 offsets), or from the pixel cone where no differentials are
 given. A scene without textures computes none of it.
 
+The preprocess integrators (``integrators/{dipole,photonmap,igi,
+irradiance}.py``) run on the same loop. ``dipolesubsurface``, ``igi``
+and ``photonmap`` are direct kinds (specular recursion, one gather-only
+BSDF sample); after NEE each adds its term where NEE is active, as
+path.py:596-645 does: the photon density estimate, the VPL sum (its picks
+in the wave's ``draws["vpl"]``, bounce b's 8 at columns 8b …), or at a
+subsurface hit (1/π)·Ft·Fdt·Mo. ``irradiancecache`` is
+``irradiance_cache_li``: a ``directlighting`` trace plus the cached
+gather, whose nested traces read ``draws["fill"]`` and ``draws["miss"]``.
+
 A ray that leaves the scene collects the infinite lights' radiance; a
 mix material's lanes (``materials/table.py:MixLane``) and the measured
 lobes' pools go through NEE and BSDF sampling as any other row's, and
@@ -87,15 +97,18 @@ from pbrt_torch.core import geometry as geom
 from pbrt_torch.core import sampling as smp
 from pbrt_torch.core import spectrum as spec
 from pbrt_torch.core.interaction import offset_ray_origin, surface_interaction
+from pbrt_torch.integrators import dipole, igi, photonmap
 from pbrt_torch.lights import table as lights_mod
 from pbrt_torch.materials import table as mat_mod
 from pbrt_torch.media import volumes as vol_mod
 from pbrt_torch.textures import texture as tex_mod
 
 #: the integrator kinds the port renders
-KINDS = ("path", "directlighting", "whitted", "ambientocclusion", "metadata")
-#: kinds whose BSDF samples continue only along delta lobes
-DIRECT_KINDS = ("directlighting", "whitted")
+KINDS = ("path", "directlighting", "whitted", "ambientocclusion", "metadata",
+         "dipolesubsurface", "igi", "photonmap", "irradiancecache")
+#: kinds whose BSDF samples continue only along delta lobes (path.py:656-657);
+#: all but whitted also shoot their non-delta sample to gather Le
+DIRECT_KINDS = ("directlighting", "whitted", "dipolesubsurface", "igi", "photonmap")
 
 
 @dataclasses.dataclass
@@ -105,8 +118,16 @@ class RenderScene:
     lights: lights_mod.LightTable
     textures: tex_mod.TextureTable | None = None
     volumes: vol_mod.VolumeTable | None = None
+    #: the preprocess products (path.py:51-53): dipole.SubsurfaceData,
+    #: igi.VPLSet, photonmap.PhotonMaps
+    subsurface: object = None
+    vpls: object = None
+    photons: object = None
     has_textures: bool = False
     has_volumes: bool = False
+    has_subsurface: bool = False
+    has_vpls: bool = False
+    has_photons: bool = False
     #: the pixel cone's half-width per unit distance, for texture footprints
     #: without ray differentials (0: no footprint)
     pixel_spread: float = 0.0
@@ -123,6 +144,12 @@ class IntegratorConfig:
     metadata_channel: str = "depth"  # depth | mesh_mask | material_mask
     volume_kind: str = "emission"  # emission | single
     n_bins: int = 32
+    # the irradiance cache's knobs (irradiancecache.cpp:377-383; path.py:78-83)
+    ic_minweight: float = 0.5
+    ic_minspacing: float = 2.5  # in pixel spacings
+    ic_maxspacing: float = 15.0
+    ic_maxangle: float = 10.0  # degrees
+    ic_stride: int = 8  # cache entries: every ic_stride-th lane of a wave
 
 
 class PrimarySource:
@@ -252,15 +279,21 @@ def apply_textures(scene: RenderScene, si, lm):
 
 
 def trace_radiance(scene: RenderScene, rays: geom.Ray, cfg: IntegratorConfig,
-                   uniforms: torch.Tensor, diffs=None, media=None):
+                   uniforms: torch.Tensor, diffs=None, media=None, draws=None):
     """(R,) rays → (L (R, S), first_hit_t (R,)). ``uniforms`` is the kind's
     primary-sample array (see the module docstring); ``diffs``: the camera
     rays' differentials (rx_o, rx_d, ry_o, ry_d), read by textures at the
-    first hit; ``media``: the media block of a scene with volumes."""
+    first hit; ``media``: the media block of a scene with volumes;
+    ``draws``: the wave's draws of ``igi`` and ``irradiancecache``
+    (``renderers/sampler.py:integrator_draws``)."""
     if cfg.kind == "metadata":
         return _metadata_li(scene, rays, cfg)
     if cfg.kind == "ambientocclusion":
         return _ao_li(scene, rays, cfg, uniforms)
+    if cfg.kind == "irradiancecache":
+        from pbrt_torch.integrators.irradiance import irradiance_cache_li
+
+        return irradiance_cache_li(scene, rays, cfg, uniforms, draws)
     if cfg.kind not in KINDS:
         raise NotImplementedError(f"integrator {cfg.kind!r} is not ported yet")
     S = scene.materials.kd.shape[-1]
@@ -272,6 +305,9 @@ def trace_radiance(scene: RenderScene, rays: geom.Ray, cfg: IntegratorConfig,
     source = PrimarySource(uniforms)
     if scene.has_volumes and media is None:
         raise ValueError("a scene with volumes needs its media block")
+    use_vpls = cfg.kind == "igi" and scene.has_vpls
+    if use_vpls and draws is None:
+        raise ValueError("igi needs the wave's VPL picks (draws)")
 
     def accumulate_hit(L, ray, hit, si, throughput, alive, specular_bounce,
                        prev_bsdf_pdf):
@@ -339,6 +375,28 @@ def trace_radiance(scene: RenderScene, rays: geom.Ray, cfg: IntegratorConfig,
             L = L + throughput * _nee_one_light(
                 scene, si, lm, wo_local, frame, source, bounce, nee_active, media)
 
+        # the preprocess integrators' terms (path.py:596-643)
+        if cfg.kind == "photonmap" and scene.has_photons:
+            lpho = photonmap.radiance_estimate(scene.photons, scene, si, lm)
+            L = L + torch.where(nee_active[:, None], throughput * lpho, 0.0)
+        if use_vpls:
+            u_vpl = draws["vpl"][:, igi.VPL_SAMPLES * bounce:igi.VPL_SAMPLES * (bounce + 1)]
+            L = L + throughput * torch.where(
+                nee_active[:, None],
+                igi.vpl_lighting(scene, scene.vpls, si, lm, wo_local, frame, u_vpl), 0.0)
+        if cfg.kind == "dipolesubsurface" and scene.has_subsurface:
+            # (1/π)·Ft·Fdt·Mo (DipoleSubsurfaceIntegrator::Li;
+            # dipolesubsurface.cpp:290, Fdt = 1 − Fdr(η))
+            mi = si.material.clamp(min=0)
+            mk = scene.materials.kind[mi]
+            is_ss = alive & ((mk == mat_mod.SUBSURFACE) | (mk == mat_mod.KDSUBSURFACE))
+            mo = dipole.mo_gather(scene.subsurface, scene.materials, si.p, si.material, is_ss)
+            eta_ss = scene.materials.eta[mi]
+            ft = 1.0 - bxdf.fresnel_dielectric(bxdf.abs_cos_theta(wo_local), 1.0, eta_ss)
+            fdt = 1.0 - dipole.fdr(eta_ss)
+            L = L + torch.where(is_ss[:, None],
+                                throughput * mo * (ft * fdt / math.pi)[:, None], 0.0)
+
         ub = source.get(bounce, PrimarySource.BSDF_SAMPLE, 3)
         wi_local, f, pdf, is_delta = mat_mod.bsdf_sample(
             lm, wo_local, ub[:, 0], ub[:, 1], ub[:, 2],
@@ -349,9 +407,9 @@ def trace_radiance(scene: RenderScene, rays: geom.Ray, cfg: IntegratorConfig,
         ok = alive & (pdf > 0.0) & (f > 0.0).any(-1)
         gather_only = torch.zeros_like(ok)
         if cfg.kind in DIRECT_KINDS:
-            # specular recursion continues; directlighting shoots its
+            # specular recursion continues; all but whitted shoot the
             # non-delta sample once, to gather Le (integrator.cpp:145-180)
-            if cfg.kind == "directlighting":
+            if cfg.kind != "whitted":
                 gather_only = ok & ~is_delta
             ok = ok & is_delta
         step = ok | gather_only

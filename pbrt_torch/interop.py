@@ -49,7 +49,10 @@ Keys (shapes as in the JAX package's tables):
   Hm, Wm, S) and the env map's distribution as the JAX package built it,
   ``light_env_func`` (H, W), ``light_env_cond_cdf`` (H, W+1),
   ``light_env_cond_int light_env_marg_func`` (H,), ``light_env_marg_cdf``
-  (H+1,), ``light_env_marg_int`` (); rows in the JAX package's order:
+  (H+1,), ``light_env_marg_int`` (); optionally the emission side,
+  ``light_world_center`` (3,), ``light_world_radius`` () and the power
+  distribution ``light_power_func`` (L,), ``light_power_cdf`` (L+1,),
+  ``light_power_func_int`` (); rows in the JAX package's order:
   ``LightSource`` rows, then the area lights, a quadric's of shape kind
   ``SHAPE_SPHERE`` whatever its type (the JAX package's fact 2);
 - camera: ``cam_class``, the JAX package's class name
@@ -74,6 +77,14 @@ Keys (shapes as in the JAX package's tables):
   vol_exp_b vol_grid_offset`` (V,), ``vol_grid_n`` (V, 3), ``vol_pool``
   (P,).
 
+- preprocess products, optionally (absent or None where the scene has
+  none), as the JAX package's dataclasses hold them: the dipole's
+  ``ss_points ss_normals`` (N, 3), ``ss_areas`` (N,), ``ss_E`` (N, S),
+  ``ss_material`` (N,); the photon maps' ``ph_p ph_wi`` (N, 3),
+  ``ph_alpha`` (N, S), ``ph_is_caustic ph_valid`` (N,), ``ph_radius`` ();
+  the VPLs' ``vpl_p vpl_n`` (N, 3), ``vpl_contrib`` (N, S), ``vpl_valid``
+  (N,).
+
 ``integrator_from_numpy`` takes the JAX package's ``IntegratorConfig``
 fields the port has, as ``icfg_<field>`` (``icfg_volume_kind`` among
 them), and returns the port's.
@@ -94,11 +105,14 @@ from pbrt_torch.accel.intersect import SceneGeometry
 from pbrt_torch.cameras import cameras as cam_mod
 from pbrt_torch.cameras.eye import RealisticEyeCamera
 from pbrt_torch.cameras.realistic import IdealDiffractionCamera, RealisticDiffractionCamera
-from pbrt_torch.core.sampling import Distribution2D
+from pbrt_torch.core.sampling import Distribution1D, Distribution2D
 from pbrt_torch.core.transform import AnimatedTransform
 from pbrt_torch.core.filters import Filter
 from pbrt_torch.film.film import FilmConfig
+from pbrt_torch.integrators.dipole import SubsurfaceData
+from pbrt_torch.integrators.igi import VPLSet
 from pbrt_torch.integrators.path import IntegratorConfig, RenderScene
+from pbrt_torch.integrators.photonmap import PhotonMaps
 from pbrt_torch.lights import table as lt_mod
 from pbrt_torch.materials.table import MIXMAT, TEXTURE_COLUMNS, MaterialTable
 from pbrt_torch.media.volumes import VolumeTable
@@ -202,8 +216,16 @@ def _lights_from_numpy(arrays, f32, i64) -> lt_mod.LightTable:
         raise NotImplementedError("area lights on other shapes are not ported yet")
     # the JAX package's own env CDFs, so sampling compares bit for bit
     env_dist = Distribution2D(**{k: f32(arrays[f"light_env_{k}"]) for k in _ENV_DIST})
+    emission = {}
+    if arrays.get("light_world_center") is not None:
+        emission = dict(
+            world_center=f32(arrays["light_world_center"]),
+            world_radius=f32(arrays["light_world_radius"]),
+            power_dist=Distribution1D(**{k: f32(arrays[f"light_power_{k}"])
+                                         for k in ("func", "cdf", "func_int")}))
     return lt_mod.LightTable(
         type=i64(ltype), shape_kind=i64(kind), quad_idx=i64(qidx), env_dist=env_dist,
+        **emission,
         **{k: f32(arrays[f"light_{k}"]) for k in _LIGHT_F32},
         **{k: i64(arrays[f"light_{k}"]) for k in _LIGHT_I64},
     )
@@ -227,6 +249,27 @@ def volumes_from_numpy(arrays: dict, device) -> VolumeTable | None:
            for k in _VOLUME_F32},
         **{k: torch.as_tensor(np.array(arrays[f"vol_{k}"], np.int64), device=dev)
            for k in _VOLUME_I64})
+
+
+def preprocess_from_numpy(arrays: dict, device) -> dict:
+    """The ``ss_*``, ``ph_*`` and ``vpl_*`` arrays → the ``RenderScene``
+    fields they fill (``subsurface``, ``photons``, ``vpls`` and their
+    ``has_*`` flags), those given."""
+    dev = torch.device(device)
+    t = lambda k, dt=np.float32: torch.as_tensor(np.array(arrays[k], dt), device=dev)
+    out = {}
+    if arrays.get("ss_points") is not None:
+        out.update(has_subsurface=True, subsurface=SubsurfaceData(
+            points=t("ss_points"), normals=t("ss_normals"), areas=t("ss_areas"), E=t("ss_E"),
+            material=t("ss_material", np.int64)))
+    if arrays.get("ph_p") is not None:
+        out.update(has_photons=True, photons=PhotonMaps(
+            p=t("ph_p"), wi=t("ph_wi"), alpha=t("ph_alpha"), is_caustic=t("ph_is_caustic", bool),
+            valid=t("ph_valid", bool), radius=t("ph_radius")))
+    if arrays.get("vpl_p") is not None:
+        out.update(has_vpls=True, vpls=VPLSet(p=t("vpl_p"), n=t("vpl_n"),
+                                              contrib=t("vpl_contrib"), valid=t("vpl_valid", bool)))
+    return out
 
 
 def integrator_from_numpy(arrays: dict) -> IntegratorConfig:
@@ -294,5 +337,6 @@ def scene_from_numpy(arrays: dict, device):
                         textures=textures, volumes=volumes,
                         has_textures=bool(arrays["has_textures"]),
                         has_volumes=volumes is not None,
-                        pixel_spread=float(arrays["pixel_spread"]))
+                        pixel_spread=float(arrays["pixel_spread"]),
+                        **preprocess_from_numpy(arrays, dev))
     return scene, camera, film

@@ -6,8 +6,12 @@ distant,infinite,projection,goniometric,diffuse}.cpp, with
 Sphere::Sample(p, ...) cone sampling, src/shapes/sphere.cpp:230-270, and
 ShapeSet area sampling, core/light.cpp:36-70): ``sample_li`` (:335),
 ``pdf_li``'s infinite-light half (:590-606), ``le_escaped`` (:616),
-``pdf_li_hit`` (:648) and ``emitted_radiance`` (:637). ``sample_le``
-(:547) waits for photon mapping, IGI and BDPT, its only users.
+``pdf_li_hit`` (:648) and ``emitted_radiance`` (:637), and the
+emission side that starts photon and VPL paths: ``sample_le`` (:547;
+each light's Light::Sample_L(scene, ...) overload) with
+``area_sample_point`` (:510), ``world_center`` / ``world_radius`` (the
+distant and infinite lights' disk) and ``power_dist``, the light-power
+``Distribution1D`` that picks the emitting light (builder.py:1108-1111).
 
 The infinite light is constant or maps a lat-long image (``env_map``, one
 per table: as in the JAX package, only the first mapped light keeps its
@@ -66,6 +70,12 @@ class LightTable:
     lmap: torch.Tensor  # (P, Hm, Wm, S) ((1, 1, 1, S) ones if none)
     proj_screen: torch.Tensor  # (L, 4) x0, x1, y0, y1 of the projection's screen
     proj_invtan: torch.Tensor  # (L,) 1/tan(fov/2)
+    #: the scene's bounding sphere (builder.py:874-875): the distant and
+    #: infinite lights emit from a disk of this radius
+    world_center: torch.Tensor = None  # (3,)
+    world_radius: torch.Tensor = None  # ()
+    #: light selection by power, max(mean(emit), 1e-6) per row
+    power_dist: smp.Distribution1D = None
     # host-side, derived from the rows:
     #: the row of area light 0 (the LightSource rows before it)
     area_row0: int = dataclasses.field(init=False)
@@ -419,3 +429,161 @@ def emitted_radiance(lt: LightTable, light_idx, n_light, wo):
     front = geom.dot(n_light, wo) > 0.0
     row = lt.area_row0 + light_idx.clamp(min=0)
     return torch.where(((light_idx >= 0) & front)[:, None], lt.emit[row], 0.0)
+
+
+# ---------------------------------------------------------------------------
+# emission sampling (lights/table.py:385-555)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class EmissionSample:
+    """What ``sample_le`` returns (Light::Sample_L(scene, ...))."""
+
+    p: torch.Tensor  # (R, 3) ray origin on or at the light
+    d: torch.Tensor  # (R, 3) unit emission direction (light → scene)
+    n: torch.Tensor  # (R, 3) the light's normal at p
+    Le: torch.Tensor  # (R, S) emitted radiance or intensity
+    pdf: torch.Tensor  # (R,) joint (area × direction) pdf
+
+
+def area_sample_point(lt: LightTable, g, li, u1, u2):
+    """A uniform-by-area point on area light ``li``'s shape → (p, n,
+    pdf_area) (ShapeSet::Sample, core/light.cpp:36-70; table.py:510-545):
+    a sphere's whole surface, or an area-CDF triangle pick."""
+
+    def sphere():
+        center, radius = _sphere_of(lt, g, li)
+        sp = smp.uniform_sample_sphere(u1, u2)
+        area = 4.0 * math.pi * radius * radius
+        return center + radius[:, None] * sp, sp, 1.0 / torch.clamp(area, min=1e-12)
+
+    def mesh():
+        ti, u1r = _mesh_triangle(lt, li, u1)
+        b0, b1 = smp.uniform_sample_triangle(u1r, u2)
+        e1, e2 = g.tri_e1[ti], g.tri_e2[ti]
+        p_l = g.tri_v0[ti] + b0[:, None] * e1 + b1[:, None] * e2
+        return (p_l, geom.normalize(geom.cross(e1, e2)),
+                1.0 / torch.clamp(lt.total_area[li], min=1e-12))
+
+    if SHAPE_MESH not in lt.area_shapes:
+        return sphere()
+    if SHAPE_SPHERE not in lt.area_shapes:
+        return mesh()
+    is_sphere = lt.shape_kind[li] == SHAPE_SPHERE
+    return tuple(torch.where(is_sphere[:, None] if a.dim() == 2 else is_sphere, a, b)
+                 for a, b in zip(sphere(), mesh()))
+
+
+def _proj_gonio_scale(lt: LightTable, li, w, is_proj: bool):
+    """The angular factor of emitted direction w (light → scene)
+    (ProjectionLight::Projection, GonioPhotometricLight::Scale;
+    table.py:370-383): w in the light's frame, normalized."""
+    wl = geom.normalize(_rot(lt.w2l[li], w))
+    if is_proj:
+        z = wl[:, 2]
+        invt = lt.proj_invtan[li]
+        zs = torch.where(z.abs() < 1e-9, 1e-9, z)
+        xs = wl[:, 0] / zs * invt
+        ys = wl[:, 1] / zs * invt
+        x0, x1, y0, y1 = lt.proj_screen[li].unbind(-1)
+        inside = (z > 1e-3) & (xs >= x0) & (xs <= x1) & (ys >= y0) & (ys <= y1)
+        u = torch.clamp((xs - x0) / torch.clamp(x1 - x0, min=1e-9), 0.0, 1.0)
+        v = torch.clamp((ys - y0) / torch.clamp(y1 - y0, min=1e-9), 0.0, 1.0)
+        return torch.where(inside, 1.0, 0.0)[:, None] * _lmap_bilinear(lt, lt.lmap_id[li], u, v)
+    theta = torch.acos(torch.clamp(wl[:, 1], -1.0, 1.0))
+    phi = geom.phi_of(wl[:, 0], wl[:, 2])
+    return _lmap_bilinear(lt, lt.lmap_id[li], phi / (2.0 * math.pi), theta / math.pi)
+
+
+def _disk_origin(lt: LightTable, d, u1, u2):
+    """A point on the world-radius disk through the scene's centre, normal
+    to d, moved back by the radius (distant.cpp:63-87)."""
+    v1, v2 = geom.coordinate_system(d)
+    d1, d2 = smp.concentric_sample_disk(u1, u2)
+    wr = lt.world_radius
+    pdisk = lt.world_center + wr * (d1[:, None] * v1 + d2[:, None] * v2)
+    return pdisk - wr * d
+
+
+def _le_infinite(lt: LightTable, li, emit, u1, u2, u3, u4):
+    """(infinite.cpp:220-250): a direction from the map's distribution
+    (propagating inward) or uniform for a constant light, its origin on the
+    world disk; pdf = direction pdf / (π r²)."""
+    mapped = set(lt.infinite_mapped)
+    out = None
+    if True in mapped:
+        (u, v), pdf_uv = lt.env_dist.sample_continuous(u1, u2)
+        theta = v * math.pi
+        phi = u * 2.0 * math.pi
+        st, ct = torch.sin(theta), torch.cos(theta)
+        wi_l = torch.stack([st * torch.cos(phi), st * torch.sin(phi), ct], -1)
+        pdf_dir = pdf_uv / torch.clamp(2.0 * math.pi * math.pi * st, min=1e-9)
+        out = (-_rot(lt.l2w[li], wi_l), _env_texel(lt, u, v) * emit, pdf_dir)
+    if False in mapped:
+        const = (smp.uniform_sample_sphere(u1, u2), emit,
+                 torch.full_like(u1, smp.UNIFORM_SPHERE_PDF))
+        if out is None:
+            out = const
+        else:
+            has_env = lt.env_id[li] >= 0
+            out = tuple(torch.where(has_env[:, None] if a.dim() == 2 else has_env, a, b)
+                        for a, b in zip(out, const))
+    d, Le, pdf_dir = out
+    wr = lt.world_radius
+    return _disk_origin(lt, d, u3, u4), d, d, Le, pdf_dir / (math.pi * wr * wr)
+
+
+def sample_le(lt: LightTable, g, light_idx, u1, u2, u3, u4) -> EmissionSample:
+    """An emitted ray of light ``light_idx`` (R,) from the uniforms u1..u4
+    (R,) (Light::Sample_L(scene, ...); table.py:399-507): point, goniometric
+    and projection lights a uniform sphere of directions (the projection's
+    window zeroes Le outside it), a spot its cone with the falloff, a
+    distant light a disk of the world's radius, an area light a point by
+    area and a uniform direction turned to its normal's side, an infinite
+    light its map's direction (or a uniform one) from the world disk. Each
+    type the table holds is evaluated on every lane and kept where the
+    lane's light has it."""
+    emit = lt.emit[light_idx]
+    sphere_pdf = torch.full_like(u1, smp.UNIFORM_SPHERE_PDF)
+    out = None
+    for code in lt.active_types:
+        if code in (POINT, PROJECTION, GONIO):
+            d = smp.uniform_sample_sphere(u1, u2)
+            Le = emit if code == POINT else (
+                _proj_gonio_scale(lt, light_idx, d, code == PROJECTION) * emit)
+            res = (lt.pos[light_idx], d, d, Le, sphere_pdf)
+        elif code == SPOT:
+            ct = lt.cos_total[light_idx]
+            axis = lt.dirw[light_idx]
+            ax, ay = geom.coordinate_system(axis)
+            dl = smp.uniform_sample_cone(u1, u2, ct)
+            d = (dl[:, 0:1] * ax + dl[:, 1:2] * ay) + dl[:, 2:3] * axis
+            cos_t = geom.dot(d, axis)
+            cf = lt.cos_falloff[light_idx]
+            delta = torch.clamp((cos_t - ct) / torch.clamp(cf - ct, min=1e-9), 0.0, 1.0)
+            falloff = torch.where(cos_t < ct, 0.0,
+                                  torch.where(cos_t > cf, 1.0, delta ** 2 * delta ** 2))
+            res = (lt.pos[light_idx], d, d, emit * falloff[:, None], smp.uniform_cone_pdf(ct))
+        elif code == DISTANT:
+            d = lt.dirw[light_idx]
+            wr = lt.world_radius
+            res = (_disk_origin(lt, d, u1, u2), d, d, emit,
+                   torch.full_like(u1, 1.0) / (math.pi * wr * wr))
+        elif code == AREA:
+            p_l, n_l, pdf_a = area_sample_point(lt, g, light_idx, u1, u2)
+            d = smp.uniform_sample_sphere(u3, u4)
+            d = torch.where((geom.dot(d, n_l) < 0.0)[:, None], -d, d)
+            res = (p_l, d, n_l, emit, pdf_a * (0.5 / math.pi))
+        elif code == INFINITE:
+            res = _le_infinite(lt, light_idx, emit, u1, u2, u3, u4)
+        else:
+            raise ValueError(f"unknown light type {code}")
+        if out is None:
+            out = res
+        else:
+            m = lt.type[light_idx] == code
+            out = tuple(torch.where(m[:, None] if a.dim() == 2 else m, a, b)
+                        for a, b in zip(res, out))
+    p, d, n, Le, pdf = out
+    return EmissionSample(p=p, d=d, n=n, Le=Le, pdf=pdf)

@@ -5,8 +5,9 @@ api.cpp:1333-1420, and each renderer's film WriteImage).
 ``sampler`` (the default), ``spectral`` / ``spectralrenderer`` and
 ``cameras`` render; ``aggregatetest`` fires random rays through the
 accelerator and brute force and prints how many disagree (it writes no
-file); ``metropolis``, ``createprobes`` and ``surfacepoints`` are not
-ported yet and raise.
+file); ``surfacepoints`` writes the dipole integrator's Poisson point set
+(``renderers/surface_points.py``); ``metropolis`` and ``createprobes``
+are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import os
 from pbrt_torch.film import film as film_mod
 from pbrt_torch.film import imageio
 
-NOT_PORTED = ("metropolis", "createprobes", "surfacepoints")
+NOT_PORTED = ("metropolis", "createprobes")
 
 
 def render_scene(built, spp=None, seed: int = 0, quick: bool = False,
@@ -29,6 +30,10 @@ def render_scene(built, spp=None, seed: int = 0, quick: bool = False,
     name = built.renderer_name
     if name in NOT_PORTED:
         raise NotImplementedError(f"renderer {name!r} is not ported yet")
+    if name == "surfacepoints":
+        from pbrt_torch.renderers.surface_points import render_surface_points
+
+        return render_surface_points(built, quick=quick)
     if name == "aggregatetest":
         from pbrt_torch.renderers.aggregatetest import run_aggregate_test
 

@@ -27,7 +27,10 @@ the camera columns from the scrambles, then for ``path``,
 ``directlighting`` and ``whitted`` the bounce block of sample n's key (the
 JAX package's ``BatchedKeySource``), for ``ambientocclusion`` each AO
 sample's two uniforms, for ``metadata`` nothing more; a scene with volumes
-adds the media block (``media_uniforms``, one more launch). So a seed gives the
+adds the media block (``media_uniforms``, one more launch); ``igi`` adds
+its VPL picks and ``irradiancecache`` its gather passes' directions and
+nested bounce blocks (``integrator_draws``: one and four
+``keyed_chain_uniforms`` launches). So a seed gives the
 JAX package's image, on the CPU and on the card, whatever
 ``chunk_pixels`` is. Padded tail lanes repeat the last pixel, and so its
 keys; their weight is 0.
@@ -56,6 +59,7 @@ from pbrt_torch.accel.intersect import intersect
 from pbrt_torch.core import rng
 from pbrt_torch.core import spectrum as spec
 from pbrt_torch.film import film as film_mod
+from pbrt_torch.integrators import igi, irradiance
 from pbrt_torch.integrators.path import trace_radiance
 
 
@@ -85,6 +89,18 @@ def media_uniforms(scene, icfg, root, pixel_index, sample: int):
                                icfg.volume_kind == "single")
 
 
+def integrator_draws(scene, icfg, root, pixel_index, sample: int):
+    """The wave's draws of the preprocess integrators, or None: ``igi``'s
+    VPL picks (``{"vpl": (R, 8·D)}``, one launch on the card) and
+    ``irradiancecache``'s two gather passes (``{"fill": …, "miss": …}``, two
+    launches each)."""
+    if icfg.kind == "igi" and scene.has_vpls:
+        return {"vpl": igi.vpl_picks(root, pixel_index, sample, icfg.max_depth)}
+    if icfg.kind == "irradiancecache":
+        return irradiance.cache_draws(root, pixel_index, sample, icfg)
+    return None
+
+
 def camera_noise(camera, root, pixel_index, sample: int):
     """The camera's keyed normals of one wave, (R, T, 2), or None for a
     camera without noise tags (every camera but the lens cameras with
@@ -110,12 +126,13 @@ def ray_differentials(camera, px, py, rays, scale: float):
 
 def render_wave(film_state, scene, camera, filter_table, pixel_x, pixel_y,
                 icfg, film_cfg, uniforms, sample_scale=None, diff_scale: float = 1.0,
-                noise=None, media=None, stats=None):
+                noise=None, media=None, stats=None, draws=None):
     """One wave for one pixel chunk; ``uniforms`` is the integrator's
     primary-sample array (camera columns first; ``wave_uniforms``);
     ``diff_scale`` scales a textured scene's ray differentials; ``noise``
     is the camera's (``camera_noise``), ``media`` the media block
-    (``media_uniforms``). Updates the film in place and returns it; with
+    (``media_uniforms``), ``draws`` the integrator's
+    (``integrator_draws``). Updates the film in place and returns it; with
     ``stats`` (a list), appends each sample's luminance and the first
     primitive its camera ray hits (adaptive sampling's inputs)."""
     px = pixel_x.to(torch.float32) + uniforms[:, 0]
@@ -124,7 +141,8 @@ def render_wave(film_state, scene, camera, filter_table, pixel_x, pixel_y,
                                 uniforms[:, 4], noise=noise)
     diffs = (ray_differentials(camera, px, py, rays, diff_scale)
              if scene.has_textures and hasattr(camera, "ray_differentials") else None)
-    L, first_t = trace_radiance(scene, rays, icfg, uniforms, diffs=diffs, media=media)
+    L, first_t = trace_radiance(scene, rays, icfg, uniforms, diffs=diffs, media=media,
+                                draws=draws)
     bad = torch.isnan(L) | (L < 0.0) | torch.isinf(L)
     L = torch.where(bad, 0.0, L)
     if stats is not None:
@@ -206,7 +224,8 @@ def _render_adaptive(built, scene, state, chunks, quick: bool):
         render_wave(state, scene, cam, built.filter_table, xs[c], ys[c], icfg, cfg, u,
                     sample_scale=scale, diff_scale=diff_scale,
                     noise=camera_noise(cam, root, pix[c], s),
-                    media=media_uniforms(scene, icfg, root, pix[c], s), stats=stats)
+                    media=media_uniforms(scene, icfg, root, pix[c], s), stats=stats,
+                    draws=integrator_draws(scene, icfg, root, pix[c], s))
 
     for s in range(min_s):
         for c in range(xs.shape[0]):
@@ -260,5 +279,6 @@ def render(built, spp=None, seed: int = 0, chunk_pixels: int | None = None,
             render_wave(state, scene, built.camera, table, xs[c], ys[c],
                         icfg, cfg, u, sample_scale=mask[c], diff_scale=diff_scale,
                         noise=camera_noise(built.camera, root, pix[c], s),
-                        media=media_uniforms(scene, icfg, root, pix[c], s))
+                        media=media_uniforms(scene, icfg, root, pix[c], s),
+                        draws=integrator_draws(scene, icfg, root, pix[c], s))
     return state

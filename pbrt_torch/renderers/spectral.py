@@ -14,7 +14,8 @@ negative values, read at the traced wavelength (``value_at_wavelength``,
 Within a sample, the bands share the primary-sample array (its camera
 columns the scene's sampler's, ``adaptive`` taking lowdiscrepancy's with
 no second pass, as the JAX spectral renderer has none), the media block of
-a scene with volumes and the lens camera's keyed normals, since the JAX
+a scene with volumes, the lens camera's keyed normals and the draws of
+``igi`` and ``irradiancecache``, since the JAX
 package draws them all from the same (pixel, sample) key: they are
 computed once per sample and chunk (``wave_uniforms``, ``media_uniforms``,
 ``camera_noise``) and read by every band. Chunks and
@@ -32,8 +33,8 @@ from pbrt_torch.config import DEFAULT_SPECTRAL, SpectralConfig
 from pbrt_torch.core import spectrum as spec
 from pbrt_torch.film import film as film_mod
 from pbrt_torch.integrators.path import trace_radiance
-from pbrt_torch.renderers.sampler import (camera_noise, media_uniforms, pixel_chunks,
-                                          wave_uniforms)
+from pbrt_torch.renderers.sampler import (camera_noise, integrator_draws, media_uniforms,
+                                          pixel_chunks, wave_uniforms)
 
 
 def band_wavelength(band: int, n_bands: int, config: SpectralConfig) -> float:
@@ -46,7 +47,7 @@ def band_wavelength(band: int, n_bands: int, config: SpectralConfig) -> float:
 
 def spectral_wave(film_state, scene, camera, filter_table, pixel_x, pixel_y, icfg,
                   film_cfg, uniforms, noise, band: int, n_bands: int, config,
-                  sample_scale=None, media=None):
+                  sample_scale=None, media=None, draws=None):
     """One (sample, band) wave of one chunk: trace at the band's centre
     wavelength, write the radiance there into the band's bins (in place)."""
     px = pixel_x.to(torch.float32) + uniforms[:, 0]
@@ -54,7 +55,7 @@ def spectral_wave(film_state, scene, camera, filter_table, pixel_x, pixel_y, icf
     lam = torch.full_like(px, band_wavelength(band, n_bands, config))
     rays = camera.generate_rays(px, py, uniforms[:, 2], uniforms[:, 3], uniforms[:, 4],
                                 wavelength=lam, noise=noise)
-    L, first_t = trace_radiance(scene, rays, icfg, uniforms, media=media)
+    L, first_t = trace_radiance(scene, rays, icfg, uniforms, media=media, draws=draws)
     L = torch.where(torch.isnan(L) | (L < 0.0) | torch.isinf(L), 0.0, L)
     width = config.n_bins // n_bands
     L_band = torch.zeros_like(L)
@@ -94,8 +95,9 @@ def render_spectral(built, spp=None, seed: int = 0, chunk_pixels: int | None = N
             u = wave_uniforms(icfg, root, pix[c], scrambles[c], s, sampler, spp)
             noise = camera_noise(camera, root, pix[c], s)
             media = media_uniforms(built.scene, icfg, root, pix[c], s)
+            draws = integrator_draws(built.scene, icfg, root, pix[c], s)
             for b in bands:
                 spectral_wave(state, built.scene, camera, built.filter_table, xs[c], ys[c],
                               icfg, cfg, u, noise, b, n_bands, config, sample_scale=mask[c],
-                              media=media)
+                              media=media, draws=draws)
     return state

@@ -24,7 +24,10 @@ the ``Renderer`` directive, recorded for ``renderers/dispatch.py``;
 every filter; the ``lowdiscrepancy``, ``halton``, ``bestcandidate``,
 ``random``, ``stratified`` and ``adaptive`` samplers (their parameters kept
 for the renderer); the ``path``, ``directlighting``, ``whitted``,
-``ambientocclusion`` and ``metadata`` integrators; the homogeneous,
+``ambientocclusion``, ``metadata``, ``dipolesubsurface``, ``igi``,
+``photonmap`` (and ``exphotonmap``) and ``irradiancecache`` integrators,
+the preprocess of the first three run at the end of the build
+(``preprocess``); the homogeneous,
 exponential, volumegrid and water volumes as one volume table, under the
 ``emission`` or ``single`` volume integrator (any other name renders as
 ``emission``, as in the JAX package, builder.py:732-733); the
@@ -76,6 +79,7 @@ from pbrt_torch.core import transform as xf
 from pbrt_torch.core.filters import make_filter
 from pbrt_torch.film.film import FilmConfig
 from pbrt_torch.film.imageio import read_image
+from pbrt_torch.integrators import dipole, igi, photonmap
 from pbrt_torch.integrators.path import KINDS, IntegratorConfig, RenderScene
 from pbrt_torch.lights import table as lt_mod
 from pbrt_torch.materials.table import build_material_table
@@ -348,7 +352,9 @@ def _light_source_row(rec, cfg) -> dict:
             env = spec.from_rgb(img, "illuminant", cfg)
             return dict(type=lt_mod.INFINITE, emit=np.ones(cfg.n_bins, np.float32),
                         l2w=l2w, env=env)
-        emit = spec.from_rgb(np.maximum(L_rgb, 0.0).astype(np.float32), "illuminant", cfg)
+        # float32, as the JAX package keeps it: the light's power is its mean
+        emit = np.asarray(spec.from_rgb(np.maximum(L_rgb, 0.0).astype(np.float32), "illuminant",
+                                        cfg), np.float32)
         return dict(type=lt_mod.INFINITE, emit=emit, l2w=l2w)
     if t in ("projection", "goniometric"):
         I = p.find_one_spectrum("I", 1.0, "illuminant") * p.find_one_float("scale", 1.0)
@@ -393,10 +399,12 @@ def _stack_maps(lmaps, S):
     return np.stack(out)
 
 
-def _light_table(rows: list, n_bins: int, dev) -> lt_mod.LightTable:
+def _light_table(rows: list, n_bins: int, dev, world_lo, world_hi) -> lt_mod.LightTable:
     """Light-table rows (``LightSource`` rows first, then area lights) →
     the device table, laid out as the JAX package's ``_build_lights``
-    (builder.py:1014-1113). A scene without lights gets an empty table."""
+    (builder.py:1014-1113), with the scene's bounding sphere and the
+    light-power distribution (builder.py:874-875, :1052). A scene without
+    lights gets an empty table (and a power distribution of one row)."""
     L = len(rows)
     typ = np.zeros(L, np.int64)
     l2w = np.tile(np.eye(4, dtype=np.float32), (L, 1, 1))
@@ -413,8 +421,10 @@ def _light_table(rows: list, n_bins: int, dev) -> lt_mod.LightTable:
     proj_screen = np.tile(np.asarray([-1.0, 1.0, -1.0, 1.0], np.float32), (L, 1))
     proj_invtan = np.ones(L, np.float32)
     cdfs, lmaps, env_map = [], [], None
+    power = np.ones(max(L, 1), np.float32)
     for i, r in enumerate(rows):
         typ[i] = r["type"]
+        power[i] = max(float(np.mean(r["emit"])), 1e-6)
         l2w[i] = r.get("l2w", np.eye(4))
         emit[i] = r["emit"]
         pos[i] = r.get("pos", (0, 0, 0))
@@ -457,7 +467,9 @@ def _light_table(rows: list, n_bins: int, dev) -> lt_mod.LightTable:
         l2w=t(l2w), w2l=t(np.linalg.inv(l2w)), env_id=t(env_id, i64), env_map=t(env_map),
         env_dist=smp.Distribution2D.build(env_lum, dev), lmap_id=t(lmap_id, i64),
         lmap=t(_stack_maps(lmaps, n_bins)), proj_screen=t(proj_screen),
-        proj_invtan=t(proj_invtan),
+        proj_invtan=t(proj_invtan), world_center=t(0.5 * (world_lo + world_hi)),
+        world_radius=t(np.float32(np.linalg.norm(world_hi - world_lo) * 0.5 + 1e-6)),
+        power_dist=smp.Distribution1D.build(power, dev),
     )
 
 
@@ -486,23 +498,60 @@ def _mix_rows(mat_records, mat_id_for, named) -> dict:
     return rows
 
 
+#: the ``SurfaceIntegrator`` names and the kinds they render
+#: (builder.py:716-730): ``exphotonmap`` is ``photonmap``
+INTEGRATOR_NAMES = {**{k: k for k in KINDS}, "exphotonmap": "photonmap"}
+
+
 def _integrator_config(name: str, params, n_bins: int,
                        volume_name: str = "emission") -> IntegratorConfig:
     """The ``SurfaceIntegrator`` as an ``IntegratorConfig`` (builder.py:
-    716-741): ``nsamples`` and ``maxdist`` are ambient occlusion's, the
+    716-750): ``nsamples`` is ambient occlusion's sample count and the
+    irradiance cache's gather count, ``maxdist`` ambient occlusion's, the
     metadata channel is read from ``strategy`` as the JAX package reads it,
-    and any ``VolumeIntegrator`` but ``single`` is ``emission``."""
-    if name not in KINDS:
+    the irradiance cache reads ``minweight``, ``minpixelspacing``,
+    ``maxpixelspacing`` and ``maxangledifference``, and any
+    ``VolumeIntegrator`` but ``single`` is ``emission``."""
+    if name not in INTEGRATOR_NAMES:
         _not_ported(f"surface integrator {name!r}")
     return IntegratorConfig(
-        kind=name, max_depth=params.find_one_int("maxdepth", 5),
+        kind=INTEGRATOR_NAMES[name], max_depth=params.find_one_int("maxdepth", 5),
         strategy=params.find_one_string("strategy", "all"),
         ao_nsamples=params.find_one_int("nsamples", 4),
         ao_maxdist=params.find_one_float("maxdist", 1e30),
         metadata_channel=params.find_one_string("strategy", "depth"),
         volume_kind="single" if volume_name == "single" else "emission",
         n_bins=n_bins,
+        ic_minweight=params.find_one_float("minweight", 0.5),
+        ic_minspacing=params.find_one_float("minpixelspacing", 2.5),
+        ic_maxspacing=params.find_one_float("maxpixelspacing", 15.0),
+        ic_maxangle=params.find_one_float("maxangledifference", 10.0),
     )
+
+
+def preprocess(built: "BuiltScene", params) -> "BuiltScene":
+    """The preprocess of ``igi``, ``photonmap`` and ``dipolesubsurface``
+    on the built scene's device (builder.py:767-827), with the JAX
+    package's parameters: ``nlights`` (paths max(4·nlights, 256)) and
+    ``maxdepth``; ``indirectphotons`` (paths min(max(n / 16, 1024), 8192))
+    and ``maxphotondepth``; the dipole's 4,096 points of seed 0, with no
+    points file (``minsampledistance`` and ``maxerror`` are not read)."""
+    kind = built.integrator.kind
+    scene = built.scene
+    if kind == "igi":
+        vpls = igi.generate_vpls(scene, n_paths=max(params.find_one_int("nlights", 64) * 4, 256),
+                                 max_depth=params.find_one_int("maxdepth", 5))
+        scene = dataclasses.replace(scene, vpls=vpls, has_vpls=True)
+    elif kind == "photonmap":
+        n_ind = params.find_one_int("indirectphotons", 100000)
+        photons = photonmap.shoot_photons(scene, n_paths=min(max(n_ind // 16, 1024), 8192),
+                                          max_depth=params.find_one_int("maxphotondepth", 5))
+        scene = dataclasses.replace(scene, photons=photons, has_photons=True)
+    elif kind == "dipolesubsurface":
+        ss = dipole.prepare_subsurface(built)
+        if ss is not None:
+            scene = dataclasses.replace(scene, subsurface=ss, has_subsurface=True)
+    return dataclasses.replace(built, scene=scene)
 
 
 def build(desc: SceneDescription, device=None) -> BuiltScene:
@@ -686,7 +735,7 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
         light_rows.append(dict(
             al, type=lt_mod.AREA,
             emit=lp.find_one_spectrum("L", 1.0, "illuminant") * lp.find_one_float("scale", 1.0)))
-    lights = _light_table(light_rows, S, dev)
+    lights = _light_table(light_rows, S, dev, world_lo, world_hi)
     mix_rows = _mix_rows(mat_records, mat_id_for, desc.named_materials)
     # every material's texture environment, float records first, a
     # spectrum texture of the same name over it (builder.py:654-659)
@@ -731,7 +780,7 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
 
     sampler_name, sampler_params = desc.sampler
     integrator = _integrator_config(*desc.surface_integrator, S, desc.volume_integrator[0])
-    return BuiltScene(
+    built = BuiltScene(
         scene=scene, camera=camera, film_config=film_cfg,
         filter_table=t(filt.table()), sampler_name=sampler_name,
         pixel_samples=sampler_params.find_one_int("pixelsamples", 4),
@@ -739,3 +788,4 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
         renderer_name=desc.renderer[0], renderer_params=desc.renderer[1],
         sampler_params=sampler_params,
     )
+    return preprocess(built, desc.surface_integrator[1])

@@ -11,7 +11,8 @@ them all at once):
   the JAX package's runtime so the two packages build the same tree;
 - ``libpbrt_torch_<stem>-<hash>.so`` — the CUDA kernels of one of
   ``KERNEL_SOURCES`` (``csrc/traverse.cu``, ``csrc/rng.cu``,
-  ``csrc/traverse_kd.cu``, ``csrc/gather_lab.cu``), compiled by ``nvcc``
+  ``csrc/traverse_kd.cu``, ``csrc/dipole.cu``, ``csrc/gather_lab.cu``),
+  compiled by ``nvcc``
   for ``sm_90a``.
 
 A failed build raises with the compiler's output; nothing falls back.
@@ -68,6 +69,8 @@ KERNEL_ENTRIES = {
         "pbrt_torch_keyed_scrambles": [_u32, _u32, _vp, _ci, _vp, _vp],
         "pbrt_torch_keyed_camera_normals": [_u32, _u32, _vp, _ci, _u32, _u32, _ci, _vp,
                                             _vp],
+        "pbrt_torch_keyed_chain_uniforms": [_u32, _u32, _vp, _ci, _u32, _ci] + [_u32] * 4
+        + [_ci] * 4 + [_ci] * 4 + [_vp, _vp],
     },
     "traverse_kd.cu": {
         **{f"pbrt_torch_traverse_kd_{k}": [_vp] * 10 + [_ci] + [_vp] * 3 + [_ci]
@@ -76,6 +79,9 @@ KERNEL_ENTRIES = {
         **{f"pbrt_torch_traverse_grid_{k}": [_vp] * 6 + [_ci] * 3 + [_vp] * 2 + [_ci]
            + [_vp] * 3 + [_ci] + [_vp] * 10 + [_ci, _vp]
            for k in ("closest", "any", "closest_motion", "any_motion")},
+    },
+    "dipole.cu": {
+        "pbrt_torch_mo_gather": [_vp] * 6 + [_ci] * 3 + [_vp, _vp],
     },
     "gather_lab.cu": {
         "pbrt_torch_gather_lab": [_vp] * 5 + [_ci, _ci, _vp],

@@ -71,3 +71,12 @@ def test_no_jax_import(path):
     bad = [m for m in _imports(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("module", ["integrators/dipole.py", "integrators/photonmap.py",
+                                    "integrators/igi.py", "integrators/irradiance.py",
+                                    "renderers/surface_points.py"])
+def test_preprocess_integrator_modules_covered(module):
+    """The dipole, photon-map, IGI and irradiance-cache integrators and the
+    surface-points renderer are among the files checked above."""
+    assert ROOT / "pbrt_torch" / module in FILES

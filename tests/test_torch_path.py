@@ -126,5 +126,5 @@ def test_port_builder_scene_traces_the_same(setup):
 
 def test_unported_integrator_raises(setup):
     with pytest.raises(NotImplementedError):
-        t_trace(setup["scene"], setup["tr"], IntegratorConfig(kind="igi"),
+        t_trace(setup["scene"], setup["tr"], IntegratorConfig(kind="useprobes"),
                 torch.zeros(N * N, 40))

@@ -364,3 +364,86 @@ def test_primary_array_keeps_its_bounce_block(sampler):
     other = trng.primary_uniforms_plain(root, pix, scr, 5, 3, sampler, 4)
     np.testing.assert_array_equal(other[:, 5:].numpy(), base[:, 5:].numpy())
     assert not torch.equal(other[:, :5], base[:, :5])
+
+
+def _jax_chain(keys, tags):
+    """The JAX package's key chain: ``bounce_key(keys, tag // 16, tag % 16)``
+    per tag, as its integrators fold them."""
+    for tag in tags:
+        keys = jrng.bounce_key(keys, tag // 16, tag % 16)
+    return keys
+
+
+@pytest.mark.parametrize("sample", [0, 5, 2**31 + 1])
+def test_chain_draws_match_jax(sample):
+    """Each chain the preprocess integrators draw, from ``chain_uniforms``
+    (its plain version on CPU tensors) against the JAX package's own
+    derivation from the same keys, bit for bit: the dipole's irradiance
+    (root seed + 31, s·16 + LIGHT_SAMPLE, 3 uniforms; dipole.py:128-133),
+    photon and VPL paths (5 uniforms, then b·16 + PHOTON, 3 each;
+    photonmap.py:53-57, :96-97, igi.py:45-49, :76-77), IGI's picks
+    (b·16 + PHOTON then k·16 + PHOTON, 1 each; path.py:611, igi.py:111-112),
+    the cache's gather directions ((salt + k)·16 + BSDF_SAMPLE, 2) and its
+    nested traces' BatchedKeySource blocks (irradiance.py:74,
+    path.py:115-120)."""
+    idx = PIXELS
+    keys = jrng.pixel_sample_key(jrng.root_key(7), jnp.asarray(idx.astype(np.uint32)),
+                                 jnp.uint32(sample))
+    t = lambda **kw: trng.chain_uniforms(trng.root_key(7), torch.as_tensor(idx), sample,
+                                         **kw).numpy()
+    same = lambda a, b: np.testing.assert_array_equal(np.asarray(a).view(np.int32),
+                                                      np.asarray(b).view(np.int32))
+    same(t(n=5), jrng.uniform_per(keys, 5))
+    for count, purpose, n in ((4, trng.LIGHT_SAMPLE, 3), (5, trng.PHOTON, 3)):
+        ref = np.concatenate([jrng.uniform_per(_jax_chain(keys, [s * 16 + purpose]), n)
+                              for s in range(count)], -1)
+        same(t(chain=[(purpose, count)], n=n), ref)
+    ref = np.concatenate([jrng.uniform_per(jrng.bounce_key(jrng.bounce_key(keys, b, jrng.PHOTON),
+                                                            k, jrng.PHOTON), 1)
+                          for b in range(3) for k in range(8)], -1)
+    same(t(chain=[(trng.PHOTON, 3), (trng.PHOTON, 8)]), ref)
+    for salt in (100, 300):
+        ref = np.concatenate([jrng.uniform_per(jrng.bounce_key(keys, salt + k, jrng.BSDF_SAMPLE),
+                                               2) for k in range(4)], -1)
+        same(t(chain=[(salt * 16 + trng.BSDF_SAMPLE, 4)], n=2), ref)
+        depth = 3
+        blocks = t(chain=[((salt + 100) * 16 + trng.CAMERA, 4), trng.BATCHED],
+                   n=7 * depth, used=7, drawn=8, lead=5)
+        assert blocks.shape == (len(idx), 5 + 4 * 7 * depth) and not blocks[:, :5].any()
+        for k in range(4):
+            src = BatchedKeySource(jrng.bounce_key(keys, salt + 100 + k, jrng.CAMERA), depth)
+            ref = np.asarray(src.u)[..., :7].reshape(len(idx), -1)
+            same(blocks[:, 5 + 7 * depth * k:5 + 7 * depth * (k + 1)], ref)
+
+
+def test_chain_draws_layout_and_checks():
+    """Row-major groups (the first tag outermost), ``lead`` zero columns,
+    the 7-of-8 counters, and the wrapper's refusals; CPU tensors take the
+    plain version and launch nothing."""
+    idx = torch.arange(9, dtype=torch.int64)
+    root = trng.root_key(2)
+    before = dict(trng.launches)
+    full = trng.chain_uniforms(root, idx, 0, chain=[(3, 2), 7, (9, 3)], n=2, lead=1)
+    assert full.shape == (9, 1 + 2 * 3 * 2) and not full[:, 0].any()
+    for a in range(2):
+        for c in range(3):
+            one = trng.chain_uniforms(root, idx, 0, chain=[3 + 16 * a, 7, 9 + 16 * c], n=2)
+            g = 1 + 2 * (3 * a + c)
+            assert torch.equal(full[:, g:g + 2], one)
+    every = trng.chain_uniforms(root, idx, 0, chain=[15], n=16)
+    used = trng.chain_uniforms(root, idx, 0, chain=[15], n=14, used=7, drawn=8)
+    assert torch.equal(used, every.view(9, 2, 8)[:, :, :7].reshape(9, 14))
+    assert trng.launches == before
+    with pytest.raises(ValueError):
+        trng.chain_uniforms(root, idx, 0, chain=[1, 2, 3, 4, 5])
+    with pytest.raises(ValueError):
+        trng.chain_uniforms(root, idx, 0, n=4, used=3, drawn=2)
+
+
+def test_chain_kernel_constants_are_the_plain_versions():
+    """rng.cu's chain kernel takes at most ``MAX_CHAIN`` tags and steps a
+    varying tag by 16 (bounce_key's index · 16 + purpose), read as text."""
+    assert _cu_int("kMaxChain") == trng.MAX_CHAIN == 4
+    assert re.search(r"constexpr uint32_t kTagStep = 16u;", SOURCE.read_text())
+    body = re.search(r"keyed_chain_uniforms_kernel\(.*?\n}\n", SOURCE.read_text(), re.S).group(0)
+    assert "j / used * drawn + j % used" in body and "chain_key(ga, gc, ch, g)" in body

@@ -155,7 +155,7 @@ def test_build_needs_a_device_or_cpu():
 
 def test_unported_features_raise():
     text = tiny_scene_text().replace('SurfaceIntegrator "path"',
-                                     'SurfaceIntegrator "igi"')
+                                     'SurfaceIntegrator "useprobes"')
     with pytest.raises(NotImplementedError):
         tbuild(tload(text), device="cpu")
     # a texture under cylindrical mapping (the JAX package evaluates it as

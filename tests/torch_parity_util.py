@@ -36,7 +36,12 @@ _ENV_DIST = ("func", "cond_cdf", "cond_int", "marg_func", "marg_cdf", "marg_int"
 _VOLUMES = ("kind", "w2v", "lo", "hi", "sigma_a", "sigma_s", "le", "g", "exp_a", "exp_b",
             "updir", "grid_offset", "grid_n", "pool")
 _INTEGRATOR = ("kind", "max_depth", "strategy", "rr_depth", "ao_nsamples", "ao_maxdist",
-               "metadata_channel", "volume_kind", "n_bins")
+               "metadata_channel", "volume_kind", "n_bins", "ic_minweight", "ic_minspacing",
+               "ic_maxspacing", "ic_maxangle", "ic_stride")
+#: the preprocess products' fields, by scene field and array prefix
+_PREPROCESS = {"subsurface": ("ss", ("points", "normals", "areas", "E", "material")),
+               "photons": ("ph", ("p", "wi", "alpha", "is_caustic", "valid", "radius")),
+               "vpls": ("vpl", ("p", "n", "contrib", "valid"))}
 
 
 def tiny_scene_text(xres=16, yres=16, spp=2, max_depth=4) -> str:
@@ -76,6 +81,8 @@ def jax_scene_arrays(built) -> dict:
         **{f"mat_{k}": a(getattr(mt, k)) for k in _MATERIALS},
         **{f"light_{k}": a(getattr(lt, k)) for k in _LIGHTS},
         **{f"light_env_{k}": a(getattr(lt.env_dist, k)) for k in _ENV_DIST},
+        light_world_center=a(lt.world_center), light_world_radius=a(lt.world_radius),
+        **{f"light_power_{k}": a(getattr(lt.power_dist, k)) for k in ("func", "cdf", "func_int")},
         **{f"tex_{k}": a(getattr(built.scene.textures, k)) for k in _TEXTURES},
         has_textures=built.scene.has_textures, pixel_spread=built.scene.pixel_spread,
         film_xres=fc.xres, film_yres=fc.yres, film_n_bins=fc.n_bins,
@@ -83,6 +90,10 @@ def jax_scene_arrays(built) -> dict:
         filter_ywidth=fc.filter.ywidth,
         **{f"icfg_{k}": getattr(built.integrator, k) for k in _INTEGRATOR},
     )
+    for field, (prefix, names) in _PREPROCESS.items():
+        obj = getattr(built.scene, field)
+        if obj is not None:
+            out.update({f"{prefix}_{k}": a(getattr(obj, k)) for k in names})
     vt = built.scene.volumes
     if built.scene.has_volumes:
         out.update({f"vol_{k}": a(getattr(vt, k)) for k in _VOLUMES})
@@ -337,3 +348,81 @@ Shape "trianglemesh" "point P" [-10 -10 2  10 -10 2  10 10 2  -10 10 2]
   "integer indices" [0 1 2 2 3 0]
 WorldEnd
 """
+
+
+def subsurface_scene_text(integrator: str, xres=8, yres=8, spp=1, max_depth=2,
+                          room: bool = False) -> str:
+    """The tiny scene with ``chip_smoke.SUBSURFACE_BOXES`` (and its
+    ``SUBSURFACE_ROOM``) under ``integrator`` (the directive's name and
+    parameters after ``SurfaceIntegrator``)."""
+    from chip_smoke import SUBSURFACE_BOXES, SUBSURFACE_ROOM
+
+    text = tiny_scene_text(xres, yres, spp, max_depth)
+    text = re.sub(r'SurfaceIntegrator "path" "integer maxdepth" \[\d+\]',
+                  f"SurfaceIntegrator {integrator}", text)
+    return text.replace("WorldEnd", SUBSURFACE_BOXES + (SUBSURFACE_ROOM if room else "")
+                        + "WorldEnd")
+
+
+def scan_loop(film_state, scene, camera, filter_table, xs_stack, ys_stack, mask_stack,
+              sample_base, root_key, icfg, sampler_name, spp, film_cfg, n_waves,
+              diff_scale=None):
+    """The JAX sampler's ``_render_scan_jit``: its ``lax.scan`` over (wave,
+    chunk) steps as the loop it runs, each ``render_wave`` run eagerly."""
+    from pbrt_tpu.renderers import sampler as jsampler
+
+    C = xs_stack.shape[0]
+    for step in range(n_waves * C):
+        ci = step % C
+        film_state = jsampler.render_wave(
+            film_state, scene, camera, filter_table, xs_stack[ci], ys_stack[ci],
+            sample_base + step // C, root_key, icfg, sampler_name, spp, film_cfg,
+            sample_scale=mask_stack[ci], sorted_pixels=True, diff_scale=diff_scale)
+    return film_state
+
+
+def jax_integrator_pieces():
+    """A context in which the JAX package's integrators run eagerly with
+    their per-step pieces compiled once each (traversal, surface
+    interaction, lanes' materials and their BSDF, light sampling, the
+    shadow rays, the dipole's, photons' and VPLs' gathers, keys' uniforms)
+    and its sampler's scan as a loop: compiled whole, each integrator takes
+    XLA tens of seconds per scene."""
+    import contextlib
+    from unittest import mock
+
+    import jax
+
+    import pbrt_tpu.integrators.dipole as jdip
+    import pbrt_tpu.integrators.igi as jigi
+    import pbrt_tpu.integrators.irradiance as jirr
+    import pbrt_tpu.integrators.path as jpath
+    import pbrt_tpu.integrators.photonmap as jpm
+    import pbrt_tpu.lights.table as jlt
+    import pbrt_tpu.materials.table as jmt
+    from pbrt_tpu.accel import intersect as jisect
+    from pbrt_tpu.core import interaction as jinter
+    from pbrt_tpu.core import rng as jrng
+    from pbrt_tpu.renderers import sampler as jsampler
+
+    isect = jax.jit(jisect.intersect, static_argnames=("any_hit",))
+    si = jax.jit(jinter.surface_interaction, static_argnames=("spread",))
+    patches = [(m, "intersect", isect) for m in (jpath, jpm, jigi, jirr)]
+    patches += [(m, "surface_interaction", si) for m in (jpath, jpm, jigi, jirr)]
+    patches += [(jmt, k, jax.jit(getattr(jmt, k)))
+                for k in ("gather_lane", "bsdf_sample", "bsdf_f", "bsdf_pdf", "has_delta_only")]
+    patches += [(jlt, k, jax.jit(getattr(jlt, k)))
+                for k in ("sample_li", "sample_le", "emitted_radiance", "pdf_li_hit",
+                          "le_escaped", "pdf_li")]
+    patches += [(jpath, "_shadow_unoccluded", jax.jit(jpath._shadow_unoccluded)),
+                (jdip, "mo_gather", jax.jit(jdip.mo_gather)),
+                (jpm, "radiance_estimate", jax.jit(jpm.radiance_estimate,
+                                                   static_argnames=("caustic_only",))),
+                (jigi, "vpl_lighting", jax.jit(jigi.vpl_lighting,
+                                               static_argnames=("n_vpl_samples", "g_limit"))),
+                (jrng, "uniform_per", jax.jit(jrng.uniform_per, static_argnums=1)),
+                (jsampler, "_render_scan_jit", scan_loop)]
+    stack = contextlib.ExitStack()
+    for mod, name, fn in patches:
+        stack.enter_context(mock.patch.object(mod, name, fn))
+    return stack
