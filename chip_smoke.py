@@ -190,7 +190,22 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    and 4,093, bit for bit, each timed with its bound; each integrator on
    the tiny scene closed into a room with two subsurface boxes at 16²,
    card vs CPU;
-16. the ``kernels`` JSON line (see PERF.md for the fields), then the result.
+16. PRT, probes and the Metropolis renderer — killeroo-simple at its
+   golden's 256² film: the mutation kernel (``mlt_mutate``) against
+   ``mutate_plain`` bit for bit on 16,384 × 60 and ragged shapes, its
+   large-only mode on the bootstrap's 100,000 × 60, timed with its bound;
+   ``Renderer "metropolis"`` with 8 mutations per pixel (16,384 chains × 32
+   iterations), bidirectional and unidirectional under ``path`` depth 5
+   (b, the bootstrap's seconds, mutations/s, acceptance, launches,
+   threefry torch ops on the card: none; one iteration profiled);
+   ``diffuseprt`` and ``glossyprt`` (the 4,096-ray projection's seconds
+   and c_in's first band; a 1-spp frame counted as in phase 7, one chunk
+   profiled); ``Renderer "createprobes"`` at spacing 250 and
+   ``useprobes`` reading its file (likewise); the tiny scene at 16² under
+   the three integrators card vs CPU (its 2 × 2 × 2 probe files, made on
+   each device, compared), ``trace_bidir`` per lane on one shared array
+   and one Metropolis step from one shared state, card vs CPU;
+17. the ``kernels`` JSON line (see PERF.md for the fields), then the result.
 
 The real-size scene is ``goldens/killeroo-simple.pbrt`` (its text is kept
 here) at 512²; each ``Include "geometry/killeroo.pbrt"`` (geometry not in
@@ -2148,6 +2163,325 @@ def preprocess_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
     ]
 
 
+# ---------------------------------------------------------------------------
+# phase 16: PRT, probes and the Metropolis renderer
+# ---------------------------------------------------------------------------
+
+#: the Metropolis renderer on killeroo-simple at its golden's 256² film:
+#: 16,384 chains × 32 iterations (8 mutations per pixel)
+MLT_RENDERER = 'Renderer "metropolis" "integer samplesperpixel" [8]'
+#: the probe grid's spacing in killeroo's 1,400 × 2,000 × 1,140 room
+PROBE_SPACING = 250
+#: the mutation kernel's shapes: bidirectional MLT at depth 5 (16,384 × 60),
+#: the ragged ones, and the bootstrap's large-only block
+MUTATE_SHAPES = ((16384, 60), (1, 60), (7, 1), (4093, 61), (4093, 1), (7, 61))
+BOOTSTRAP_SHAPE = (100000, 60)
+#: per small-step element, float32 operations: the exponent's product, expf
+#: (counted 8), s2 ·, the sign's product and the sum, fmodf (counted 4) and
+#: the wrap's compare and add
+OPS_MUTATE_SMALL_F32 = 1 + 8 + 1 + 2 + 4 + 2
+#: per chain, the large-step compare
+OPS_MUTATE_CHAIN_F32 = 1
+
+
+def _device_threefry_counter(rng_mod):
+    """A stand-in for ``rng.threefry2x32`` that counts its calls on CUDA
+    tensors (the torch-op threefry on the card) and on the host apart; →
+    (function, counts)."""
+    import torch
+
+    counts = {"card": 0, "host": 0}
+    real = rng_mod.threefry2x32
+
+    def counted(k0, k1, x0, x1):
+        on_card = any(torch.is_tensor(v) and v.is_cuda for v in (k0, k1, x0, x1))
+        counts["card" if on_card else "host"] += 1
+        return real(k0, k1, x0, x1)
+
+    return counted, counts
+
+
+def _profile_step(label, step, step_ms):
+    """One MLT iteration under the profiler: kernel time, launches, busy
+    share against its unprofiled ``step_ms`` and the traversal's share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # a first kernel for the tracer to start on: the step's own first
+        # launch (the mutation) was missing from the trace without it
+        torch.ones(1, device="cuda").add_(1)
+        step()
+        torch.cuda.synchronize()
+    kern = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    dev_ms = sum(k[1] for k in kern)
+    n = sum(k[2] for k in kern)
+    trav = sum(k[1] for k in kern if "traverse_" in k[0])
+    mut = sum(k[1] for k in kern if "mlt_mutate" in k[0])
+    log("profile", f"{label}: one iteration, kernel time {dev_ms:.2f} ms in {n} launches (one "
+        f"of them the tracer's first) = "
+        f"{100 * dev_ms / step_ms:.1f}% of the unprofiled {step_ms:.1f} ms (device idle the "
+        f"rest); traversal {trav:.3f} ms ({100 * trav / max(dev_ms, 1e-9):.1f}%), mlt_mutate "
+        f"{mut:.4f} ms")
+    for k, ms_, cnt in sorted(kern, key=lambda x: -x[1])[:6]:
+        log("profile", f"  {ms_:8.2f} ms  {cnt:6d}x  {k[:90]}")
+    return dict(ms=dev_ms, launches=n, traversal_ms=trav)
+
+
+def prt_mlt_phase(dev, data_dir, drive, profile_frame, card_vs_cpu, agree):
+    """Phase 16: killeroo-simple under the Metropolis renderer
+    (bidirectional, and unidirectional with ``path``), under ``diffuseprt``
+    and ``glossyprt``, ``Renderer "createprobes"`` and ``useprobes``
+    reading its file; the mutation kernel against its plain version and
+    timed; the 16² references. → the kernels line's entry."""
+    import torch
+
+    from pbrt_torch.accel import traverse_cuda as tc
+    from pbrt_torch.core import rng
+    from pbrt_torch.integrators import bdpt
+    from pbrt_torch.renderers import metropolis as tm
+    from pbrt_torch.renderers import probes
+    from pbrt_torch.renderers.dispatch import render_scene
+    from pbrt_torch.scene import builder
+    from pbrt_torch.scene.api import load_scene_string
+    from pbrt_torch.scene.builder import build
+    from pbrt_torch.utils import timing
+    from pbrt_torch.utils.timing import cuda_ms
+
+    sync = torch.cuda.synchronize
+    t_phase = time.time()
+    text, _ = real_scene_text(res=256)
+    t0 = time.time()
+    base = build(load_scene_string(text), device=dev)
+    log("scene", f"killeroo-simple at 256x256 built in {time.time() - t0:.1f} s "
+        f"(world bound {base.scene.geometry.world_lo.tolist()} - "
+        f"{base.scene.geometry.world_hi.tolist()})")
+
+    def variant(integrator=None, renderer=None):
+        """The base build with another integrator or renderer, its
+        preprocess run with threefry's torch ops counted: none."""
+        t_ = text
+        if integrator:
+            t_ = t_.replace('SurfaceIntegrator "directlighting"', f"SurfaceIntegrator {integrator}")
+        if renderer:
+            t_ = t_.replace("WorldBegin", renderer + "\nWorldBegin", 1)
+        desc = load_scene_string(t_)
+        b = dataclasses.replace(
+            base, renderer_name=desc.renderer[0], renderer_params=desc.renderer[1],
+            integrator=builder._integrator_config(*desc.surface_integrator,
+                                                  base.film_config.n_bins))
+        t1 = time.time()
+        with mock.patch.object(rng, "threefry2x32", wraps=rng.threefry2x32) as tf:
+            b = builder.preprocess(b, desc.surface_integrator[1])
+            sync()
+        if tf.call_count:
+            raise SystemExit(f"{integrator or renderer}: the preprocess ran threefry in torch "
+                             "ops")
+        return b, time.time() - t1
+
+    # ---- (a) the mutation kernel against its plain version ---------------
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    rng.reset_launches()
+    n_cases, err_mut = 0, 0.0
+    for N, D in MUTATE_SHAPES:
+        u = torch.rand((N, D), generator=gen, device=dev)
+        for it, p_large in ((0, 0.25), (31, 0.25), (7, 1.0), (2**20, 0.0)):
+            keys = rng.mutate_keys(rng.fold_in(rng.root_key(N), 1000 + it))
+            k_ = rng.mutate(u, keys, p_large)
+            p_ = rng.mutate_plain(u, keys, p_large)
+            if not (torch.equal(k_[0].view(torch.int32), p_[0].view(torch.int32))
+                    and torch.equal(k_[1], p_[1])
+                    and torch.equal(k_[2].view(torch.int32), p_[2].view(torch.int32))):
+                raise SystemExit(f"mlt_mutate disagrees with mutate_plain on {N} x {D}, "
+                                 f"p_large {p_large}")
+            err_mut = max(err_mut, float((k_[0] - p_[0]).abs().max()))
+            n_cases += 1
+    kb = rng.fold_in(rng.root_key(0), tm.BOOTSTRAP_TAG)
+    fb = rng.flat_uniforms(kb, *BOOTSTRAP_SHAPE, dev)
+    if not torch.equal(fb.view(torch.int32),
+                       rng.flat_uniforms_plain(kb, *BOOTSTRAP_SHAPE, dev).view(torch.int32)):
+        raise SystemExit("mlt_mutate's large-only mode disagrees with flat_uniforms_plain on "
+                         "the bootstrap's block")
+    sync()
+    log("rng", f"mlt_mutate vs mutate_plain: {n_cases} cases ({MUTATE_SHAPES} chains x "
+        f"dimensions, large-step probabilities .25, 1, 0): u', is_large and the accept "
+        f"uniforms equal bit for bit; its large-only mode on the bootstrap's "
+        f"{BOOTSTRAP_SHAPE[0]} x {BOOTSTRAP_SHAPE[1]}: equal bit for bit")
+    N, D = MUTATE_SHAPES[0]
+    u = torch.rand((N, D), generator=gen, device=dev)
+    keys = rng.mutate_keys(rng.fold_in(rng.root_key(0), 1005))
+    tq = timing.queued_rounds(lambda: rng.mutate(u, keys, 0.25), RNG_ROUNDS)
+    plain_ms = cuda_ms(lambda: rng.mutate_plain(u, keys, 0.25), n=3, warm=1)
+    n_large = int(rng.mutate(u, keys, 0.25)[1].sum())
+    n_small = N - n_large
+    m_bound, m_by = timing.bound_ms(
+        8 * N * D + 5 * N,
+        f32_ops=n_small * D * OPS_MUTATE_SMALL_F32 + N * OPS_MUTATE_CHAIN_F32,
+        i32_ops=(n_large * D + 2 * n_small * D + 2 * N) * OPS_PER_UNIFORM)
+    log("timing", f"mlt_mutate on {N} chains x {D} dimensions ({n_large} large steps): median "
+        f"{tq['ms']:.5f} ms over {RNG_ROUNDS} rounds ({tq['min']:.5f}–{tq['max']:.5f}; plain "
+        f"{plain_ms:.3f} ms, host enqueue {tq['host_ms']:.4f} ms); bound {m_bound:.5f} ms "
+        f"({m_by}: {n_large} x {D} + 2 x {n_small} x {D} + 2 x {N} hashes of "
+        f"{OPS_PER_UNIFORM} integer operations; {8 * N * D + 5 * N} bytes), kernel / bound "
+        f"{tq['ms'] / m_bound:.2f}x")
+
+    # ---- (b) killeroo under the Metropolis renderer ----------------------
+    mlt_launches = 0
+    counted, tf_counts = _device_threefry_counter(rng)
+    for label, integ, renderer in (
+            ("bidirectional", None, MLT_RENDERER),
+            ("unidirectional, path depth 5", '"path" "integer maxdepth" [5]',
+             MLT_RENDERER + ' "bool bidirectional" ["false"]')):
+        b, _ = variant(integ, renderer)
+        tc.reset_launches()
+        rng.reset_launches()
+        stats = {}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with mock.patch.object(rng, "threefry2x32", counted):
+            ev[0].record()
+            film = tm.render_metropolis(b, seed=0, stats=stats)
+            ev[1].record()
+            sync()
+        sec = ev[0].elapsed_time(ev[1]) / 1e3
+        launches = {**tc.launches, **rng.launches}
+        n_mut = 16384 * stats["iterations"]
+        finite = bool(torch.isfinite(film.pixels).all())
+        total = float(film.pixels.double().sum())
+        log("render", f"killeroo-simple, Metropolis {label}, 256x256, {stats['dims']} "
+            f"dimensions, 16384 chains x {stats['iterations']} iterations: {sec:.3f} s "
+            f"(bootstrap {stats['bootstrap_s']:.3f} s, chains {stats['chains_s']:.3f} s), "
+            f"b {stats['b']:.6g}, {n_mut / stats['chains_s']:.1f} mutations/s, acceptance "
+            f"{stats['acceptance']:.4f}, film finite {finite}, sum {total:.6g}; launches "
+            f"{launches}; threefry torch ops on the card {tf_counts['card']} (host key "
+            f"derivations {tf_counts['host']})")
+        if not (finite and total > 0.0):
+            raise SystemExit(f"Metropolis {label}: the film is not finite, or black")
+        if (launches["mlt_mutate"] != stats["iterations"] + 1 or tf_counts["card"]
+                or not launches["traverse_closest"] or not launches["traverse_any"]):
+            raise SystemExit(f"Metropolis {label}: not one mutation launch per iteration and "
+                             "one for the bootstrap, threefry on the card, or no traversal")
+        mlt_launches += launches["mlt_mutate"]
+        st, opts = stats["state"], stats["options"]
+        step = lambda: tm.mlt_step(b, st, stats["iterations"], opts)
+        ev[0].record()
+        step()
+        ev[1].record()
+        sync()
+        _profile_step(f"killeroo-simple, Metropolis {label}", step, ev[0].elapsed_time(ev[1]))
+
+    # ---- (c) killeroo under diffuseprt and glossyprt --------------------
+    for kind in ("diffuseprt", "glossyprt"):
+        b, pre_s = variant(f'"{kind}"')
+        c0 = b.scene.prt.c_in[0]
+        log("scene", f"killeroo-simple with {kind}: lmax {b.scene.prt.lmax}, projection of "
+            f"4096 rays in {pre_s:.2f} s, {b.integrator.prt_nsamples} samples per hit; c_in's "
+            f"first band: mean {float(c0.mean()):.6g}, bins 0/16/31 {float(c0[0]):.6g} "
+            f"{float(c0[16]):.6g} {float(c0[31]):.6g}")
+        if not (b.integrator.prt_nsamples == 64 and float(c0.min()) > 0
+                and bool(torch.isfinite(b.scene.prt.c_in).all())):
+            raise SystemExit(f"killeroo-simple with {kind}: the projection failed")
+        _, sec, _, _ = drive(f"killeroo-simple with {kind}", b, 1, warm=False)
+        profile_frame(f"killeroo-simple with {kind}, chunk 0", b, sec * 1e3,
+                      run=chunk_wave(b, dev), scale=chunks_of(b))
+
+    # ---- (d) createprobes, then useprobes reading its file --------------
+    pfile = os.path.join(data_dir, "killeroo.probes")
+    b, _ = variant(renderer=f'Renderer "createprobes" "float samplespacing" [{PROBE_SPACING}] '
+                            f'"string filename" ["{pfile}"]')
+    t0 = time.time()
+    with mock.patch.object(rng, "threefry2x32", wraps=rng.threefry2x32) as tf:
+        out = render_scene(b)
+        sync()
+    lmax, lo, hi, grid, coeffs = probes.read_probe_file(pfile, 32)
+    log("probes", f"Renderer \"createprobes\" (samplespacing {PROBE_SPACING}) on killeroo: "
+        f"{grid} probes x 256 directions, lmax {lmax}, written in {time.time() - t0:.2f} s "
+        f"to a {os.path.getsize(pfile)}-byte file and read back ({coeffs.shape}, finite "
+        f"{bool(np.isfinite(coeffs).all())}, l=0 mean {float(coeffs[:, 0].mean()):.6g}); "
+        f"threefry torch ops {tf.call_count}")
+    if (out != [pfile] or tf.call_count or not np.isfinite(coeffs).all()
+            or coeffs.shape[0] != int(np.prod(grid)) or not coeffs[:, 0].max() > 0):
+        raise SystemExit("createprobes: no file, threefry in torch ops, or a bad grid")
+    b, _ = variant(f'"useprobes" "string filename" ["{pfile}"]')
+    if b.integrator.kind != "useprobes" or b.scene.probes is None:
+        raise SystemExit("useprobes did not read the probe file")
+    _, sec, _, _ = drive("killeroo-simple with useprobes", b, 1, warm=False)
+    profile_frame("killeroo-simple with useprobes, chunk 0", b, sec * 1e3,
+                  run=chunk_wave(b, dev), scale=chunks_of(b))
+    del b, base
+
+    # ---- (e) 16² references ----------------------------------------------
+    for kind in ("diffuseprt", "glossyprt"):
+        card_vs_cpu(f"tiny scene, {kind}", TINY_SCENE.replace(
+            '"path" "integer maxdepth" [5]', f'"{kind}" "integer nsamples" [16]'),
+            spp=1, chunk_pixels=256, bin_tol=REF_BIN_REL_CAMERAS)
+    files = []
+    for d in (dev, "cpu"):
+        f = os.path.join(data_dir, f"tiny-{torch.device(d).type}.probes")
+        probes.create_probes(build(load_scene_string(TINY_SCENE), device=d), lmax=4,
+                             nprobes=(2, 2, 2), nindir=32, filename=f)
+        files.append((f, probes.read_probe_file(f, 32)))
+    (f_card, a_), (_, b_) = files
+    same = np.isclose(a_[4], b_[4], rtol=REF_RTOL, atol=REF_ATOL).all(-1).mean()
+    frame_eq = (a_[0] == b_[0] and a_[3] == b_[3] and np.array_equal(a_[1], b_[1])
+                and np.array_equal(a_[2], b_[2]))
+    log("reference", f"tiny scene's {a_[3]} probe file, made on the card and on the CPU: "
+        f"(probe, term) rows close (rtol {REF_RTOL:g}) {same:.4f}, lmax, bound and grid "
+        f"equal {frame_eq}")
+    if same < REF_PIXELS or not frame_eq or a_[3] != (2, 2, 2):
+        raise SystemExit("the probe files of the card and the CPU disagree")
+    card_vs_cpu("tiny scene, useprobes (the card's file)", TINY_SCENE.replace(
+        '"path" "integer maxdepth" [5]', f'"useprobes" "string filename" ["{f_card}"]'),
+        spp=1, chunk_pixels=256, bin_tol=REF_BIN_REL_CAMERAS)
+    # trace_bidir per lane, and one MLT step, from one shared state
+    pair = [build(load_scene_string(TINY_SCENE.replace(
+        "WorldBegin", 'Renderer "metropolis" "integer samplesperpixel" [4]\nWorldBegin', 1)),
+        device=d) for d in (dev, "cpu")]
+    D = bdpt.n_dims_bidir(pair[0].integrator.max_depth)
+    u_np = np.random.default_rng(16).random((256, D), dtype=np.float32)
+    per_lane = []
+    for b in pair:
+        u_ = torch.as_tensor(u_np, device=b.device)
+        rays = b.camera.generate_rays(u_[:, 0] * 16, u_[:, 1] * 16, u_[:, 2], u_[:, 3], u_[:, 4])
+        per_lane.append(bdpt.trace_bidir(b.scene, rays, b.integrator, u_)[0].cpu().numpy())
+    agree("tiny scene, trace_bidir per lane on one shared array (lanes as 16x16), card vs CPU",
+          per_lane[0].reshape(1, 16, 16, -1), per_lane[1].reshape(1, 16, 16, -1),
+          REF_BIN_REL_CAMERAS)
+    opts = tm.MLTOptions.of(pair[1])
+    idx = torch.arange(256)
+    L, I, px, py = tm._eval_paths(pair[1], torch.as_tensor(u_np), idx, True, 0)
+    states = [tm.ChainState(*(x.to(b.device) for x in (torch.as_tensor(u_np), L, I, px, py)),
+                            splat=torch.zeros((16, 16, 32), device=b.device),
+                            accepted=torch.zeros((), dtype=torch.int64, device=b.device))
+              for b in pair]
+    keys = rng.mutate_keys(rng.fold_in(rng.root_key(0), tm.ITERATION_TAG + 3))
+    u_new_cpu, _, u_acc = rng.mutate_plain(states[1].u, keys, opts.p_large)
+    u_acc = u_acc.numpy()
+    _, I_new, _, _ = tm._eval_paths(pair[1], u_new_cpu, idx, True, 0)
+    a = torch.clamp(I_new / torch.clamp(I, min=1e-12), 0.0, 1.0).numpy()
+    for b, st in zip(pair, states):
+        tm.mlt_step(b, st, 3, opts)
+    acc = [(st.u.cpu() != torch.as_tensor(u_np)).any(-1).numpy() for st in states]
+    near = np.abs(u_acc - a) < 1e-5
+    log("reference", f"tiny scene, one Metropolis step of 256 chains from one shared state, "
+        f"card vs CPU: accepted {int(acc[0].sum())} / {int(acc[1].sum())}, decisions equal "
+        f"{bool(np.array_equal(acc[0][~near], acc[1][~near]))} on the {int((~near).sum())} "
+        f"lanes with |u_acc - a| >= 1e-5 ({int(near.sum())} near the threshold, logged: "
+        f"{np.nonzero(near)[0].tolist()})")
+    if not np.array_equal(acc[0][~near], acc[1][~near]):
+        raise SystemExit("one Metropolis step: the card and the CPU accept differently")
+    agree("tiny scene, one Metropolis step's splat, card vs CPU",
+          states[0].splat.cpu().numpy()[None], states[1].splat.numpy()[None],
+          REF_BIN_REL_CAMERAS)
+    log("prt_mlt", f"phase 16 took {time.time() - t_phase:.1f} s")
+    return dict(name="mlt_mutate", route="cuda", source="pbrt_torch/csrc/rng.cu",
+                replaces="pbrt_tpu/renderers/metropolis.py:73", launches=mlt_launches,
+                max_abs_err=err_mut, ms=tq["ms"], plain_ms=plain_ms, bound_ms=m_bound,
+                bound_by=m_by, library_ms=None)
+
+
 def chunk_wave(b, dev):
     """Chunk 0's wave of sample 0 of ``b`` (seed 3), its keyed arrays drawn
     first (the camera columns of its sampler, a lens camera's noise, the
@@ -3441,7 +3775,7 @@ def main() -> int:
         media = b.scene.has_volumes and ic.kind not in SURFACE_ONLY
         per_wave = n_waves * chunks_of(b)
         # igi's VPL picks and the irradiance cache's two gather passes
-        chains = {"igi": 1, "irradiancecache": 4}.get(ic.kind, 0)
+        chains = {"igi": 1, "irradiancecache": 4, "diffuseprt": 1, "glossyprt": 1}.get(ic.kind, 0)
         if (launches["keyed_scrambles"] != 1 or launches[keyed] != per_wave
                 or launches[other] != 0
                 or launches["keyed_camera_normals"] != noisy * per_wave
@@ -3630,7 +3964,14 @@ def main() -> int:
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
-    # ---- 16. kernels line -------------------------------------------------
+    # ---- 16. PRT, probes and the Metropolis renderer -----------------------
+    data_dir = tempfile.mkdtemp(prefix="chip_smoke_prt_mlt_")
+    try:
+        mutate_entry = prt_mlt_phase(dev, data_dir, drive, profile_frame, card_vs_cpu, agree)
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+    # ---- 17. kernels line -------------------------------------------------
     src = "pbrt_torch/csrc/traverse.cu"
     rep = "pbrt_tpu/accel/pallas_step.py:36"
     kernels = []
@@ -3662,6 +4003,7 @@ def main() -> int:
             replaces=("pbrt_tpu/accel/intersect.py:1149" if "_kd_" in key
                       else "pbrt_tpu/accel/intersect.py:1249"), library_ms=None, **entry))
     kernels.extend(preprocess_entries)
+    kernels.append(mutate_entry)
     for key, entry in motion_inst.items():
         kernels.append(dict(name=key, route="cuda", source=src, replaces=rep,
                             launches=entry["launches"], max_abs_err=entry["max_abs_err"],
@@ -3699,7 +4041,9 @@ def main() -> int:
         "mo_gather's (XLA's fori_loop and einsum in the JAX package) those of "
         "goldens/ss-envmap.pbrt's 64-spp frame, keyed_chain_uniforms' (XLA's "
         "threefry) those of phase 15's igi and irradiancecache frames (the "
-        "preprocess launches, at build, are logged apart); "
+        "preprocess launches, at build, are logged apart); mlt_mutate's (XLA's "
+        "threefry and the Kelemen step, metropolis.py:73) those of phase 16's "
+        "two Metropolis frames (32 iterations and the bootstrap's block each); "
         "gather_lab's launches are "
         "those of the lab's own path")
     print("step " + json.dumps(step_line), flush=True)

@@ -82,7 +82,16 @@ plain versions here when they lie on the CPU; both give the same bits:
   ``lead`` zero columns come first. The dipole's irradiance, photon and
   VPL paths, IGI's VPL picks, the irradiance cache's gather directions
   and its nested traces' bounce blocks are all such chains
-  (``integrators/{dipole,photonmap,igi,irradiance}.py``).
+  (``integrators/{dipole,photonmap,igi,irradiance}.py``);
+- ``flat_uniforms`` — ``jax.random.uniform(key, (n, d))``: under
+  partitionable threefry the flat ``bits(key, (n·d,))`` mapped to [0, 1)
+  (the Metropolis bootstrap's primary samples, the PRT projection's and
+  the probes' directions);
+- ``mutate`` — the Metropolis renderer's Kelemen mutation of every
+  chain (metropolis.py:73-83) and its accept uniforms (:169), from the
+  five keys of ``mutate_keys``: ``split(key, 4)`` is ``fold_in(key,
+  arange(4))`` and the accept key ``fold_in(key, 99)``, derived on the
+  host per iteration.
 
 There is no Pallas original: XLA computes threefry for the JAX package.
 Threefry's 20 rounds in torch ops are about a hundred small launches per
@@ -150,9 +159,15 @@ PER_VOLUME_STEP = 3
 
 #: kernel launches per wrapper (the plain versions count nothing)
 launches = {"keyed_uniforms": 0, "keyed_scrambles": 0, "keyed_ao_uniforms": 0,
-            "keyed_camera_normals": 0, "keyed_volume_uniforms": 0, "keyed_chain_uniforms": 0}
+            "keyed_camera_normals": 0, "keyed_volume_uniforms": 0, "keyed_chain_uniforms": 0,
+            "mlt_mutate": 0}
 #: the most tags a chain may have (``csrc/rng.cu`` kMaxChain)
 MAX_CHAIN = 4
+#: the Kelemen mutation's step sizes (metropolis.py:73)
+MUTATE_S1 = 1.0 / 1024.0
+MUTATE_S2 = 1.0 / 16.0
+#: the fold-in of the accept uniforms' key (metropolis.py:169)
+ACCEPT_TAG = 99
 
 
 def reset_launches():
@@ -200,6 +215,12 @@ def pixel_sample_key(root: torch.Tensor, pixel_index, sample_index):
     into the root key (pbrt_tpu/core/rng.py:36-47)."""
     pix = _words(pixel_index, root.device)
     return fold_in(fold_in(root, pix), _words(sample_index, root.device))
+
+
+def split(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.split(key, n)``'s key data: ``fold_in(key, i)`` for
+    i < n (partitionable threefry) → (..., n, 2)."""
+    return fold_in(key[..., None, :], torch.arange(n, dtype=torch.int64, device=key.device))
 
 
 def bounce_key(keys: torch.Tensor, bounce, purpose: int) -> torch.Tensor:
@@ -398,6 +419,48 @@ def chain_uniforms_plain(root, index, sample: int, chain=(), n: int = 1, lead: i
                       u.reshape(R, -1)], -1)
 
 
+def flat_uniforms_plain(key, n: int, d: int, device="cpu"):
+    """``jax.random.uniform(key, (n, d))`` for a (2,) key → (n, d) float32
+    on ``device``."""
+    c = torch.arange(n * d, dtype=torch.int64, device=device)
+    return _to_uniform(_bits_at(key.to(device), c)).view(n, d)
+
+
+def neg_log_ratio(s1: float, s2: float) -> float:
+    """The exponent's constant -float32(log(s2 / s1)), as the JAX package's
+    ``-jnp.log(s2 / s1)`` rounds it (-4.158883 at the default sizes)."""
+    return float(-np.log(np.float32(s2 / s1)).astype(np.float32))
+
+
+def mutate_keys(key: torch.Tensor) -> torch.Tensor:
+    """A mutation's five keys from the iteration's key: ``split(key, 4)``
+    (large, eps, sign, is_large), then the accept key ``fold_in(key, 99)``
+    → (5, 2)."""
+    return torch.cat([split(key, 4), fold_in(key, ACCEPT_TAG)[None]])
+
+
+def mutate_plain(u, keys, p_large: float, s1: float = MUTATE_S1, s2: float = MUTATE_S2):
+    """The Kelemen mutation of (N, D) primary samples ``u`` under the five
+    ``mutate_keys`` → (u' (N, D), is_large (N,) bool, accept uniforms (N,)),
+    in the kernel's order: per element (r, d) at counter r·D + d the large
+    step U(k1), eps U(k2) and the sign U(k3) < 0.5; delta = s2·exp(-log(s2
+    / s1)·eps) with log(s2 / s1) rounded to float32 once; u_small = (u +
+    sign·delta) mod 1; per chain r, U(k4) < p_large and the accept U(ka)."""
+    N, D = u.shape
+    dev = u.device
+    keys = keys.to(dev)
+    c = torch.arange(N * D, dtype=torch.int64, device=dev)
+    u_large = _to_uniform(_bits_at(keys[0], c)).view(N, D)
+    eps = _to_uniform(_bits_at(keys[1], c)).view(N, D)
+    sign = torch.where(_to_uniform(_bits_at(keys[2], c)).view(N, D) < 0.5, -1.0, 1.0)
+    delta = s2 * torch.exp(neg_log_ratio(s1, s2) * eps)
+    u_small = torch.remainder(u + sign * delta, 1.0)
+    r = torch.arange(N, dtype=torch.int64, device=dev)
+    is_large = _to_uniform(_bits_at(keys[3], r)) < p_large
+    u_acc = _to_uniform(_bits_at(keys[4], r))
+    return torch.where(is_large[:, None], u_large, u_small), is_large, u_acc
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -546,3 +609,52 @@ def chain_uniforms(root, index, sample: int, chain=(), n: int = 1, lead: int = 0
         out.data_ptr(), stream), "keyed_chain_uniforms launch")
     launches["keyed_chain_uniforms"] += 1
     return out
+
+
+def _mutate_launch(keys, u, N: int, D: int, p_large: float, s1: float, s2: float, device):
+    """Launches ``mlt_mutate`` (``u`` None: its large-only mode) → (u',
+    is_large, u_acc), the last two None in the large-only mode."""
+    if tuple(keys.shape) != (5, 2):
+        raise ValueError(f"mutation keys: shape {tuple(keys.shape)}, expected (5, 2)")
+    if N < 0 or D < 1 or N * D >= 2**31:
+        raise ValueError(f"{N} chains of {D} dimensions: over the kernel's 32-bit counter")
+    words = [int(w) & _M32 for key in keys.cpu().tolist() for w in key]  # a0, c0, a1, …
+    out = torch.empty((N, D), dtype=torch.float32, device=device)
+    large = acc = None
+    if u is not None:
+        native.check_tensor("u", u, torch.float32, (N, D), device)
+        large = torch.empty(N, dtype=torch.bool, device=device)
+        acc = torch.empty(N, dtype=torch.float32, device=device)
+    if N == 0:
+        return out, large, acc
+    lib = native.kernel_lib("rng.cu")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    ptr = lambda x: None if x is None else x.data_ptr()
+    native.check_launch(lib.pbrt_torch_mlt_mutate(
+        *words, ptr(u), N, D, float(p_large), neg_log_ratio(s1, s2), float(s2), out.data_ptr(),
+        ptr(large), ptr(acc), stream), "mlt_mutate launch")
+    launches["mlt_mutate"] += 1
+    return out, large, acc
+
+
+def flat_uniforms(key, n: int, d: int, device="cpu"):
+    """``jax.random.uniform(key, (n, d))`` on ``device``: the mutation
+    kernel's large-only mode on the card, ``flat_uniforms_plain`` on the
+    CPU."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return flat_uniforms_plain(key, n, d, device)
+    if device.type != "cuda":
+        raise ValueError(f"flat_uniforms: unsupported device {device}")
+    keys = torch.cat([key.reshape(1, 2).cpu(), torch.zeros((4, 2), dtype=torch.int64)])
+    return _mutate_launch(keys, None, int(n), int(d), 0.0, MUTATE_S1, MUTATE_S2, device)[0]
+
+
+def mutate(u, keys, p_large: float, s1: float = MUTATE_S1, s2: float = MUTATE_S2):
+    """The mutation; see ``mutate_plain`` for the contract."""
+    if u.device.type == "cpu":
+        return mutate_plain(u, keys, p_large, s1, s2)
+    if u.device.type != "cuda":
+        raise ValueError(f"mutate: unsupported device {u.device}")
+    N, D = u.shape
+    return _mutate_launch(keys, u, N, D, p_large, s1, s2, u.device)

@@ -43,7 +43,21 @@
 //                     :76-77), IGI's VPL picks (path.py:611, igi.py:111-112),
 //                     the irradiance cache's gather directions and the
 //                     BatchedKeySource blocks of its nested traces
-//                     (irradiance.py:69-74, path.py:115-120).
+//                     (irradiance.py:69-74, path.py:115-120);
+//   mlt_mutate      — the Metropolis renderer's mutation of every chain's
+//                     primary-sample vector (pbrt_tpu/renderers/
+//                     metropolis.py:73-83, _mutate): with k1..k4 =
+//                     split(key, 4) = fold_in(key, 0..3) and ka =
+//                     fold_in(key, 99), element (r, d) at counter r·D + d
+//                     takes u_large = U(k1), eps = U(k2), sign = U(k3) <
+//                     0.5 ? -1 : 1, delta = s2·exp(-log(s2/s1)·eps) and
+//                     u_small = (u + sign·delta) mod 1 (jnp.remainder: the
+//                     sign follows the divisor); chain r is large where
+//                     U(k4) at counter r < p_large, and its accept
+//                     uniform is U(ka) at counter r (:169). Its large-only
+//                     mode writes jax.random.uniform(k1, (N, D)) (the
+//                     bootstrap's primary samples, :119-120; the PRT
+//                     projection's and the probes' directions).
 // The camera columns by sampler code (core/rng.py:camera_columns_plain;
 // the per-launch constants c[] are computed once per wave on the host, by
 // core/rng.py:sampler_constants):
@@ -127,6 +141,18 @@
 //                     A lane of the realistic camera's 11-row stack is 35
 //                     hashes and 22 normals, so it is bound by operations
 //                     like its siblings.
+//   mlt_mutate      — one thread per (chain, dim) element in flat order,
+//                     so u is read and u' written by consecutive threads
+//                     (no tile). A block first decides the chains its 256
+//                     elements touch (at most 256 / D + 2): one thread per
+//                     chain hashes U(k4) into shared memory, and where the
+//                     chain's first element lies in the block also writes
+//                     is_large and hashes the accept uniform. Then each
+//                     element hashes only what its chain needs: U(k1) for a
+//                     large chain, U(k2) and U(k3) for a small one (the
+//                     plain version draws all three; the bits are the
+//                     same). expf as torch.exp on the card. 32-bit
+//                     counters; the wrapper checks N·D < 2^31.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -635,6 +661,52 @@ keyed_camera_normals_kernel(uint32_t k0, uint32_t k1,
   }
 }
 
+// the five keys of a mutation: large, eps, sign, is_large, accept
+struct MutateKeys {
+  uint32_t a[5], c[5];
+};
+
+constexpr int kMutateThreads = 256;
+
+__global__ void __launch_bounds__(kMutateThreads)
+mlt_mutate_kernel(MutateKeys ks, const float* __restrict__ u, int N, int D,
+                  float p_large, float neg_log_ratio, float s2,
+                  float* __restrict__ out, unsigned char* __restrict__ is_large,
+                  float* __restrict__ u_acc) {
+  __shared__ unsigned char large[kMutateThreads + 1];
+  const unsigned total = static_cast<unsigned>(N) * static_cast<unsigned>(D);
+  const unsigned e0 = blockIdx.x * kMutateThreads;
+  const unsigned e = e0 + threadIdx.x;
+  if (u == nullptr) {  // large-only: jax.random.uniform(k1, (N, D))
+    if (e < total) out[e] = uniform_from_bits(bits_at(ks.a[0], ks.c[0], e));
+    return;
+  }
+  const unsigned d = static_cast<unsigned>(D);
+  const unsigned r0 = e0 / d;
+  const unsigned r1 = (min(e0 + kMutateThreads, total) - 1) / d;  // last chain touched
+  if (threadIdx.x <= r1 - r0) {
+    const unsigned r = r0 + threadIdx.x;
+    const bool lg = uniform_from_bits(bits_at(ks.a[3], ks.c[3], r)) < p_large;
+    large[threadIdx.x] = lg;
+    if (r * d >= e0) {  // the chain's first element is this block's
+      is_large[r] = lg;
+      u_acc[r] = uniform_from_bits(bits_at(ks.a[4], ks.c[4], r));
+    }
+  }
+  __syncthreads();
+  if (e >= total) return;
+  if (large[e / d - r0]) {
+    out[e] = uniform_from_bits(bits_at(ks.a[0], ks.c[0], e));
+  } else {
+    const float eps = uniform_from_bits(bits_at(ks.a[1], ks.c[1], e));
+    const float sign = uniform_from_bits(bits_at(ks.a[2], ks.c[2], e)) < 0.5f ? -1.0f : 1.0f;
+    const float delta = s2 * expf(neg_log_ratio * eps);
+    float m = fmodf(u[e] + sign * delta, 1.0f);
+    if (m != 0.0f && m < 0.0f) m += 1.0f;
+    out[e] = m;
+  }
+}
+
 // the kernel instance of the sampler code (each its own camera columns, so
 // lowdiscrepancy's instance is the kernel without the other codes)
 template <template <int> class Launch, typename... Args>
@@ -744,6 +816,21 @@ int pbrt_torch_keyed_camera_normals(uint32_t k0, uint32_t k1, const long long* p
     keyed_camera_normals_kernel<<<(R - 1) / kThreads + 1, kThreads,
                                   kThreads * normal_tile_cols(n_tags) * sizeof(float),
                                   stream>>>(k0, k1, pixel, R, sample, tag0, n_tags, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pbrt_torch_mlt_mutate(uint32_t a0, uint32_t c0, uint32_t a1, uint32_t c1, uint32_t a2,
+                          uint32_t c2, uint32_t a3, uint32_t c3, uint32_t a4, uint32_t c4,
+                          const float* u, int N, int D, float p_large, float neg_log_ratio,
+                          float s2, float* out, unsigned char* is_large, float* u_acc,
+                          cudaStream_t stream) {
+  if (N < 0 || D < 1 || static_cast<long long>(N) * D >= (1ll << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const MutateKeys ks{{a0, a1, a2, a3, a4}, {c0, c1, c2, c3, c4}};
+  const int total = N * D;
+  if (total > 0)
+    mlt_mutate_kernel<<<(total - 1) / kMutateThreads + 1, kMutateThreads, 0, stream>>>(
+        ks, u, N, D, p_large, neg_log_ratio, s2, out, is_large, u_acc);
   return static_cast<int>(cudaGetLastError());
 }
 

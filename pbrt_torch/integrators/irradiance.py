@@ -1,6 +1,7 @@
-"""The irradiance cache as a wavefront (port of ``irradiance_cache_li`` in
-``pbrt_tpu/integrators/irradiance.py:50-165``; reference:
-src/integrators/irradiancecache.{h,cpp}).
+"""The irradiance cache as a wavefront, and the probes' integrator (port of
+``irradiance_cache_li`` and ``useprobes_li`` in
+``pbrt_tpu/integrators/irradiance.py:50-224``; reference:
+src/integrators/irradiancecache.{h,cpp}, useprobes.{h,cpp}).
 
 ``irradiancecache`` is ``directlighting`` plus a cached hemispherical
 gather of indirect irradiance at the camera rays' first diffuse hits, in
@@ -31,6 +32,16 @@ for the K directions and one for the K blocks (``cache_draws``), so the
 Kept as the JAX package has it: ``nsamples`` is the gather count K
 (default 4, not the reference's 4096) and ``ic_stride`` is 8, not a
 parameter.
+
+``useprobes`` (``useprobes_li``) is ``directlighting`` plus the
+irradiance of a ``ProbeGrid`` (``renderers/probes.py`` writes and reads
+its file): the first hit's SH coefficients, trilinear over the 8 probes
+around it (``_trilerp_probes``, indices clamped to the grid), dotted with
+the basis at the viewer-facing normal and the clamped cosine's factors
+Â_l (non-zero for l ≤ 2 only), times kd/π at diffuse hits. Kept as the
+JAX package has it: the hit takes no ray spread and no textures
+(irradiance.py:176-178), and reads the lane's kd, which a mix lane has
+not (the JAX package fails there; the port refuses it).
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ from pbrt_torch.accel.intersect import intersect
 from pbrt_torch.bsdf import bxdf
 from pbrt_torch.core import geometry as geom
 from pbrt_torch.core import rng
+from pbrt_torch.core import sh
 from pbrt_torch.core import sampling as smp
 from pbrt_torch.core import spectrum as spec
 from pbrt_torch.core.interaction import offset_ray_origin, surface_interaction
@@ -187,4 +199,65 @@ def irradiance_cache_li(scene, rays, cfg, uniforms, draws):
     f = mat_mod.bsdf_f(lm, bxdf.world_to_local(si.wo, ss, ts, n_gather),
                        bxdf.world_to_local(wi_w, ss, ts, n_gather))
     L_ind = torch.where((wlen > 0.0)[:, None], f * E, 0.0)
+    return L_direct + torch.where(diffuse[:, None], L_ind, 0.0), first_t
+
+
+@dataclasses.dataclass
+class ProbeGrid:
+    """SH radiance probes at the centres of an (nx, ny, nz) grid over the
+    box [lo, hi] (irradiance.py:43-47)."""
+
+    lo: torch.Tensor  # (3,)
+    hi: torch.Tensor  # (3,)
+    coeffs: torch.Tensor  # (nx, ny, nz, terms, S)
+    lmax: int = 4
+
+
+def _trilerp_probes(probes: ProbeGrid, p):
+    """The probes' coefficients at points p (R, 3), trilinear between the
+    8 grid centres around each, indices clamped (irradiance.py:199-224) →
+    (R, terms, S)."""
+    nx, ny, nz = probes.coeffs.shape[:3]
+    ext = torch.clamp(probes.hi - probes.lo, min=1e-9)
+    dims = torch.tensor([nx, ny, nz], dtype=p.dtype, device=p.device)
+    q = (p - probes.lo) / ext * dims - 0.5
+    qi = torch.floor(q).to(torch.int64)
+    d = q - qi
+    acc = 0.0
+    for dx in (0, 1):
+        for dy in (0, 1):
+            for dz in (0, 1):
+                w = ((d[:, 0] if dx else 1 - d[:, 0]) * (d[:, 1] if dy else 1 - d[:, 1])
+                     * (d[:, 2] if dz else 1 - d[:, 2]))
+                c = probes.coeffs[torch.clamp(qi[:, 0] + dx, 0, nx - 1),
+                                  torch.clamp(qi[:, 1] + dy, 0, ny - 1),
+                                  torch.clamp(qi[:, 2] + dz, 0, nz - 1)]
+                acc = acc + w[:, None, None] * c
+    return acc
+
+
+def useprobes_li(scene, rays, cfg, uniforms, media=None):
+    """directlighting plus the probes' irradiance (UseRadianceProbes::Li;
+    irradiance.py:168-196) → (L, first hit t). ``uniforms``: the wave's
+    directlighting primary-sample array; ``media``: its media block."""
+    from pbrt_torch.integrators.path import trace_radiance
+
+    probes = scene.probes
+    if probes is None:
+        raise ValueError("useprobes needs the scene's probe grid")
+    direct_cfg = dataclasses.replace(cfg, kind="directlighting")
+    L_direct, first_t = trace_radiance(scene, rays, direct_cfg, uniforms, media=media)
+    g = scene.geometry
+    si = surface_interaction(g, rays, intersect(g, rays))
+    lm = mat_mod.gather_lane(scene.materials, si.material)
+    if isinstance(lm, mat_mod.MixLane):
+        raise NotImplementedError("useprobes with a mix material (the JAX package reads a "
+                                  "mix lane's kd, which it has not)")
+    diffuse = si.valid & ~mat_mod.has_delta_only(lm)
+    coeffs = _trilerp_probes(probes, si.p)
+    basis = sh.sh_evaluate(geom.face_forward(si.ns, si.wo), probes.lmax)
+    a_hat = torch.as_tensor(sh.cosine_lobe_coeffs(probes.lmax).astype(np.float32),
+                            device=basis.device)
+    E = torch.einsum("rt,rts->rs", basis * a_hat, coeffs)
+    L_ind = lm.kd * bxdf.INV_PI * torch.clamp(E, min=0.0)
     return L_direct + torch.where(diffuse[:, None], L_ind, 0.0), first_t

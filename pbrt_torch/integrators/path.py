@@ -76,6 +76,10 @@ in the wave's ``draws["vpl"]``, bounce b's 8 at columns 8b …), or at a
 subsurface hit (1/π)·Ft·Fdt·Mo. ``irradiancecache`` is
 ``irradiance_cache_li``: a ``directlighting`` trace plus the cached
 gather, whose nested traces read ``draws["fill"]`` and ``draws["miss"]``.
+``useprobes`` is ``useprobes_li``: a ``directlighting`` trace plus the
+probes' irradiance (``integrators/irradiance.py``); ``diffuseprt`` and
+``glossyprt`` are ``integrators/prt.py``'s first-hit estimators, whose
+per-hit directions are the wave's ``draws["prt"]`` (path.py:396-407).
 
 A ray that leaves the scene collects the infinite lights' radiance; a
 mix material's lanes (``materials/table.py:MixLane``) and the measured
@@ -105,7 +109,8 @@ from pbrt_torch.textures import texture as tex_mod
 
 #: the integrator kinds the port renders
 KINDS = ("path", "directlighting", "whitted", "ambientocclusion", "metadata",
-         "dipolesubsurface", "igi", "photonmap", "irradiancecache")
+         "dipolesubsurface", "igi", "photonmap", "irradiancecache", "useprobes",
+         "diffuseprt", "glossyprt")
 #: kinds whose BSDF samples continue only along delta lobes (path.py:656-657);
 #: all but whitted also shoot their non-delta sample to gather Le
 DIRECT_KINDS = ("directlighting", "whitted", "dipolesubsurface", "igi", "photonmap")
@@ -118,11 +123,14 @@ class RenderScene:
     lights: lights_mod.LightTable
     textures: tex_mod.TextureTable | None = None
     volumes: vol_mod.VolumeTable | None = None
-    #: the preprocess products (path.py:51-53): dipole.SubsurfaceData,
-    #: igi.VPLSet, photonmap.PhotonMaps
+    #: the preprocess products (path.py:51-55): dipole.SubsurfaceData,
+    #: igi.VPLSet, photonmap.PhotonMaps, irradiance.ProbeGrid (useprobes'
+    #: input), prt.PRTData (diffuseprt / glossyprt)
     subsurface: object = None
     vpls: object = None
     photons: object = None
+    probes: object = None
+    prt: object = None
     has_textures: bool = False
     has_volumes: bool = False
     has_subsurface: bool = False
@@ -142,8 +150,9 @@ class IntegratorConfig:
     ao_nsamples: int = 4
     ao_maxdist: float = math.inf
     metadata_channel: str = "depth"  # depth | mesh_mask | material_mask
-    volume_kind: str = "emission"  # emission | single
+    volume_kind: str = "emission"  # emission | single | none
     n_bins: int = 32
+    prt_nsamples: int = 32  # diffuseprt / glossyprt samples per hit (path.py:77)
     # the irradiance cache's knobs (irradiancecache.cpp:377-383; path.py:78-83)
     ic_minweight: float = 0.5
     ic_minspacing: float = 2.5  # in pixel spacings
@@ -284,8 +293,9 @@ def trace_radiance(scene: RenderScene, rays: geom.Ray, cfg: IntegratorConfig,
     primary-sample array (see the module docstring); ``diffs``: the camera
     rays' differentials (rx_o, rx_d, ry_o, ry_d), read by textures at the
     first hit; ``media``: the media block of a scene with volumes;
-    ``draws``: the wave's draws of ``igi`` and ``irradiancecache``
-    (``renderers/sampler.py:integrator_draws``)."""
+    ``draws``: the wave's draws of ``igi``, ``irradiancecache``,
+    ``diffuseprt`` and ``glossyprt`` (``renderers/sampler.py:
+    integrator_draws``)."""
     if cfg.kind == "metadata":
         return _metadata_li(scene, rays, cfg)
     if cfg.kind == "ambientocclusion":
@@ -294,6 +304,15 @@ def trace_radiance(scene: RenderScene, rays: geom.Ray, cfg: IntegratorConfig,
         from pbrt_torch.integrators.irradiance import irradiance_cache_li
 
         return irradiance_cache_li(scene, rays, cfg, uniforms, draws)
+    if cfg.kind == "useprobes":
+        from pbrt_torch.integrators.irradiance import useprobes_li
+
+        return useprobes_li(scene, rays, cfg, uniforms, media)
+    if cfg.kind in ("diffuseprt", "glossyprt"):
+        from pbrt_torch.integrators import prt
+
+        li = prt.diffuseprt_li if cfg.kind == "diffuseprt" else prt.glossyprt_li
+        return li(scene, rays, cfg, draws)
     if cfg.kind not in KINDS:
         raise NotImplementedError(f"integrator {cfg.kind!r} is not ported yet")
     S = scene.materials.kd.shape[-1]
@@ -450,8 +469,9 @@ def trace_radiance(scene: RenderScene, rays: geom.Ray, cfg: IntegratorConfig,
         first_hit_t = torch.where(si.valid, hit.t, 0.0)
     L = accumulate_hit(L, ray, hit, si, throughput, alive, specular_bounce,
                        prev_bsdf_pdf)
-    if scene.has_volumes:
-        # the camera segment: T·L + Lv (path.py:748-771)
+    if scene.has_volumes and cfg.volume_kind != "none":
+        # the camera segment: T·L + Lv (path.py:748-771; "none": the PRT
+        # projection's trace, NEE's transmittance only)
         t_end = torch.where(first_hit_t > 0.0, first_hit_t, 1e4)
         d = geom.normalize(rays.direction)
         t0 = torch.zeros_like(t_end)

@@ -83,7 +83,9 @@ Keys (shapes as in the JAX package's tables):
   ``ss_material`` (N,); the photon maps' ``ph_p ph_wi`` (N, 3),
   ``ph_alpha`` (N, S), ``ph_is_caustic ph_valid`` (N,), ``ph_radius`` ();
   the VPLs' ``vpl_p vpl_n`` (N, 3), ``vpl_contrib`` (N, S), ``vpl_valid``
-  (N,).
+  (N,); the PRT projection's ``prt_c_in`` (terms, S) and ``prt_lmax`` ();
+  the probe grid's ``probe_lo probe_hi`` (3,), ``probe_coeffs`` (nx, ny,
+  nz, terms, S) and ``probe_lmax`` ().
 
 ``integrator_from_numpy`` takes the JAX package's ``IntegratorConfig``
 fields the port has, as ``icfg_<field>`` (``icfg_volume_kind`` among
@@ -111,8 +113,10 @@ from pbrt_torch.core.filters import Filter
 from pbrt_torch.film.film import FilmConfig
 from pbrt_torch.integrators.dipole import SubsurfaceData
 from pbrt_torch.integrators.igi import VPLSet
+from pbrt_torch.integrators.irradiance import ProbeGrid
 from pbrt_torch.integrators.path import IntegratorConfig, RenderScene
 from pbrt_torch.integrators.photonmap import PhotonMaps
+from pbrt_torch.integrators.prt import PRTData
 from pbrt_torch.lights import table as lt_mod
 from pbrt_torch.materials.table import MIXMAT, TEXTURE_COLUMNS, MaterialTable
 from pbrt_torch.media.volumes import VolumeTable
@@ -252,9 +256,9 @@ def volumes_from_numpy(arrays: dict, device) -> VolumeTable | None:
 
 
 def preprocess_from_numpy(arrays: dict, device) -> dict:
-    """The ``ss_*``, ``ph_*`` and ``vpl_*`` arrays → the ``RenderScene``
-    fields they fill (``subsurface``, ``photons``, ``vpls`` and their
-    ``has_*`` flags), those given."""
+    """The ``ss_*``, ``ph_*``, ``vpl_*``, ``prt_*`` and ``probe_*`` arrays →
+    the ``RenderScene`` fields they fill (``subsurface``, ``photons``,
+    ``vpls`` and their ``has_*`` flags, ``prt``, ``probes``), those given."""
     dev = torch.device(device)
     t = lambda k, dt=np.float32: torch.as_tensor(np.array(arrays[k], dt), device=dev)
     out = {}
@@ -269,6 +273,11 @@ def preprocess_from_numpy(arrays: dict, device) -> dict:
     if arrays.get("vpl_p") is not None:
         out.update(has_vpls=True, vpls=VPLSet(p=t("vpl_p"), n=t("vpl_n"),
                                               contrib=t("vpl_contrib"), valid=t("vpl_valid", bool)))
+    if arrays.get("prt_c_in") is not None:
+        out["prt"] = PRTData(c_in=t("prt_c_in"), lmax=int(arrays["prt_lmax"]))
+    if arrays.get("probe_coeffs") is not None:
+        out["probes"] = ProbeGrid(lo=t("probe_lo"), hi=t("probe_hi"), coeffs=t("probe_coeffs"),
+                                  lmax=int(arrays["probe_lmax"]))
     return out
 
 

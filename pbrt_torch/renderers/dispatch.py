@@ -3,21 +3,27 @@
 api.cpp:1333-1420, and each renderer's film WriteImage).
 
 ``sampler`` (the default), ``spectral`` / ``spectralrenderer`` and
-``cameras`` render; ``aggregatetest`` fires random rays through the
+``cameras`` render, and so does ``metropolis`` (``renderers/
+metropolis.py``); ``aggregatetest`` fires random rays through the
 accelerator and brute force and prints how many disagree (it writes no
 file); ``surfacepoints`` writes the dipole integrator's Poisson point set
-(``renderers/surface_points.py``); ``metropolis`` and ``createprobes``
-are not ported yet and raise.
+(``renderers/surface_points.py``); ``createprobes`` writes the probe file
+(``renderers/probes.py``) on a grid of ⌈extent / ``samplespacing``⌉
+probes per axis (default spacing 1, as the JAX package's
+dispatch.py:50-58) with ``indirectsamples`` (default 512) clamped to [16,
+256] directions, seed 0, and returns its name.
 """
 
 from __future__ import annotations
 
+import math
 import os
 
 from pbrt_torch.film import film as film_mod
 from pbrt_torch.film import imageio
 
-NOT_PORTED = ("metropolis", "createprobes")
+#: the renderers the port refuses (none left)
+NOT_PORTED = ()
 
 
 def render_scene(built, spp=None, seed: int = 0, quick: bool = False,
@@ -30,6 +36,8 @@ def render_scene(built, spp=None, seed: int = 0, quick: bool = False,
     name = built.renderer_name
     if name in NOT_PORTED:
         raise NotImplementedError(f"renderer {name!r} is not ported yet")
+    if name == "createprobes":
+        return [_create_probes(built)]
     if name == "surfacepoints":
         from pbrt_torch.renderers.surface_points import render_surface_points
 
@@ -53,11 +61,31 @@ def render_scene(built, spp=None, seed: int = 0, quick: bool = False,
         from pbrt_torch.renderers.spectral import render_spectral
 
         state = render_spectral(built, spp=spp, seed=seed, chunk_pixels=chunk_pixels)
+    elif name == "metropolis":
+        from pbrt_torch.renderers.metropolis import render_metropolis
+
+        state = render_metropolis(built, spp=spp, seed=seed, quick=quick)
     else:
         from pbrt_torch.renderers.sampler import render
 
         state = render(built, spp=spp, seed=seed, chunk_pixels=chunk_pixels, quick=quick)
     return write_outputs(built, state, outfile)
+
+
+def _create_probes(built) -> str:
+    """``Renderer "createprobes"`` (dispatch.py:36-63) → the file written."""
+    from pbrt_torch.renderers.probes import create_probes
+
+    p = built.renderer_params
+    spacing = p.find_one_float("samplespacing", 1.0)
+    g = built.scene.geometry
+    ext = (g.world_hi - g.world_lo).tolist()  # float32 extents, as numpy's
+    nprobes = tuple(max(1, math.ceil(e / spacing)) for e in ext)
+    filename = p.find_one_string("filename", "probes.out")
+    create_probes(built, lmax=p.find_one_int("lmax", 4), nprobes=nprobes,
+                  nindir=max(16, min(p.find_one_int("indirectsamples", 512), 256)),
+                  filename=filename)
+    return filename
 
 
 def write_outputs(built, state, outfile: str | None = None, suffix: str = "") -> list:

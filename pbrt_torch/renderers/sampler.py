@@ -28,9 +28,11 @@ the camera columns from the scrambles, then for ``path``,
 JAX package's ``BatchedKeySource``), for ``ambientocclusion`` each AO
 sample's two uniforms, for ``metadata`` nothing more; a scene with volumes
 adds the media block (``media_uniforms``, one more launch); ``igi`` adds
-its VPL picks and ``irradiancecache`` its gather passes' directions and
-nested bounce blocks (``integrator_draws``: one and four
-``keyed_chain_uniforms`` launches). So a seed gives the
+its VPL picks, ``irradiancecache`` its gather passes' directions and
+nested bounce blocks, ``diffuseprt`` and ``glossyprt`` their per-hit
+samples (``integrator_draws``: one, four and one
+``keyed_chain_uniforms`` launches); ``useprobes`` reads directlighting's
+array. So a seed gives the
 JAX package's image, on the CPU and on the card, whatever
 ``chunk_pixels`` is. Padded tail lanes repeat the last pixel, and so its
 keys; their weight is 0.
@@ -59,12 +61,12 @@ from pbrt_torch.accel.intersect import intersect
 from pbrt_torch.core import rng
 from pbrt_torch.core import spectrum as spec
 from pbrt_torch.film import film as film_mod
-from pbrt_torch.integrators import igi, irradiance
+from pbrt_torch.integrators import igi, irradiance, prt
 from pbrt_torch.integrators.path import trace_radiance
 
 
 #: integrator kinds that trace no volume
-SURFACE_ONLY = ("ambientocclusion", "metadata")
+SURFACE_ONLY = ("ambientocclusion", "metadata", "diffuseprt", "glossyprt")
 
 
 def wave_uniforms(icfg, root, pixel_index, scrambles, sample: int,
@@ -79,6 +81,24 @@ def wave_uniforms(icfg, root, pixel_index, scrambles, sample: int,
     return rng.primary_uniforms(root, pixel_index, scrambles, sample, depth, sampler, spp)
 
 
+def key_uniforms(icfg, root, index, sample: int):
+    """The primary-sample array of lanes keyed as the JAX package keys a
+    trace without a camera sample (``KeySource`` / ``BatchedKeySource`` of
+    the keys (root, index, sample)): the 5 camera columns zero, then the
+    bounce block, or ambient occlusion's samples (one chain launch on the
+    card; metadata reads none)."""
+    if icfg.kind == "ambientocclusion":
+        return rng.chain_uniforms(root, index, sample, chain=[(rng.BSDF_SAMPLE,
+                                                               icfg.ao_nsamples)],
+                                  n=2, lead=rng.CAMERA_DIMS)
+    if icfg.kind == "metadata" or icfg.max_depth == 0:
+        return torch.zeros((index.shape[0], rng.CAMERA_DIMS), dtype=torch.float32,
+                           device=index.device)
+    return rng.chain_uniforms(root, index, sample, chain=[rng.BATCHED],
+                              n=rng.PER_BOUNCE_USED * icfg.max_depth, used=rng.PER_BOUNCE_USED,
+                              drawn=rng.PER_BOUNCE_DRAWN, lead=rng.CAMERA_DIMS)
+
+
 def media_uniforms(scene, icfg, root, pixel_index, sample: int):
     """The wave's media block, or None for a scene without volumes or a
     kind that traces none: one ``keyed_volume_uniforms`` launch on the
@@ -91,13 +111,16 @@ def media_uniforms(scene, icfg, root, pixel_index, sample: int):
 
 def integrator_draws(scene, icfg, root, pixel_index, sample: int):
     """The wave's draws of the preprocess integrators, or None: ``igi``'s
-    VPL picks (``{"vpl": (R, 8·D)}``, one launch on the card) and
+    VPL picks (``{"vpl": (R, 8·D)}``, one launch on the card),
     ``irradiancecache``'s two gather passes (``{"fill": …, "miss": …}``, two
-    launches each)."""
+    launches each) and the PRT kinds' per-hit samples (``{"prt": …}``, one
+    launch)."""
     if icfg.kind == "igi" and scene.has_vpls:
         return {"vpl": igi.vpl_picks(root, pixel_index, sample, icfg.max_depth)}
     if icfg.kind == "irradiancecache":
         return irradiance.cache_draws(root, pixel_index, sample, icfg)
+    if icfg.kind in ("diffuseprt", "glossyprt"):
+        return {"prt": prt.prt_draws(root, pixel_index, sample, icfg)}
     return None
 
 

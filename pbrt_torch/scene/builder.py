@@ -25,9 +25,10 @@ every filter; the ``lowdiscrepancy``, ``halton``, ``bestcandidate``,
 ``random``, ``stratified`` and ``adaptive`` samplers (their parameters kept
 for the renderer); the ``path``, ``directlighting``, ``whitted``,
 ``ambientocclusion``, ``metadata``, ``dipolesubsurface``, ``igi``,
-``photonmap`` (and ``exphotonmap``) and ``irradiancecache`` integrators,
-the preprocess of the first three run at the end of the build
-(``preprocess``); the homogeneous,
+``photonmap`` (and ``exphotonmap``), ``irradiancecache``, ``useprobes``,
+``diffuseprt`` and ``glossyprt`` integrators, the preprocess of the
+dipole, igi, photonmap and the PRT kinds (and useprobes' probe file) run
+at the end of the build (``preprocess``); the homogeneous,
 exponential, volumegrid and water volumes as one volume table, under the
 ``emission`` or ``single`` volume integrator (any other name renders as
 ``emission``, as in the JAX package, builder.py:732-733); the
@@ -80,10 +81,13 @@ from pbrt_torch.core.filters import make_filter
 from pbrt_torch.film.film import FilmConfig
 from pbrt_torch.film.imageio import read_image
 from pbrt_torch.integrators import dipole, igi, photonmap
+from pbrt_torch.integrators import prt as prt_mod
+from pbrt_torch.integrators.irradiance import ProbeGrid
 from pbrt_torch.integrators.path import KINDS, IntegratorConfig, RenderScene
 from pbrt_torch.lights import table as lt_mod
 from pbrt_torch.materials.table import build_material_table
 from pbrt_torch.media.volumes import build_volume_table
+from pbrt_torch.renderers.probes import read_probe_file
 from pbrt_torch.scene.api import SceneDescription
 from pbrt_torch.scene.paramset import ParamSet
 from pbrt_torch.shapes.loopsubdiv import refine_loopsubdiv
@@ -503,6 +507,13 @@ def _mix_rows(mat_records, mat_id_for, named) -> dict:
 INTEGRATOR_NAMES = {**{k: k for k in KINDS}, "exphotonmap": "photonmap"}
 
 
+#: the precomputed-transfer kinds, and their cap on samples per hit and on
+#: the projection's rays (builder.py:743-747, :760-764)
+PRT_KINDS = ("diffuseprt", "glossyprt")
+PRT_MAX_PER_HIT = 64
+PRT_MAX_PROJECTION = 4096
+
+
 def _integrator_config(name: str, params, n_bins: int,
                        volume_name: str = "emission") -> IntegratorConfig:
     """The ``SurfaceIntegrator`` as an ``IntegratorConfig`` (builder.py:
@@ -510,10 +521,12 @@ def _integrator_config(name: str, params, n_bins: int,
     irradiance cache's gather count, ``maxdist`` ambient occlusion's, the
     metadata channel is read from ``strategy`` as the JAX package reads it,
     the irradiance cache reads ``minweight``, ``minpixelspacing``,
-    ``maxpixelspacing`` and ``maxangledifference``, and any
-    ``VolumeIntegrator`` but ``single`` is ``emission``."""
+    ``maxpixelspacing`` and ``maxangledifference``, ``diffuseprt`` and
+    ``glossyprt`` take min(``nsamples``, 64) samples per hit (default
+    4,096), and any ``VolumeIntegrator`` but ``single`` is ``emission``."""
     if name not in INTEGRATOR_NAMES:
         _not_ported(f"surface integrator {name!r}")
+    prt_kind = INTEGRATOR_NAMES[name] in PRT_KINDS
     return IntegratorConfig(
         kind=INTEGRATOR_NAMES[name], max_depth=params.find_one_int("maxdepth", 5),
         strategy=params.find_one_string("strategy", "all"),
@@ -522,6 +535,8 @@ def _integrator_config(name: str, params, n_bins: int,
         metadata_channel=params.find_one_string("strategy", "depth"),
         volume_kind="single" if volume_name == "single" else "emission",
         n_bins=n_bins,
+        prt_nsamples=min(params.find_one_int("nsamples", 4096), PRT_MAX_PER_HIT) if prt_kind
+        else 32,
         ic_minweight=params.find_one_float("minweight", 0.5),
         ic_minspacing=params.find_one_float("minpixelspacing", 2.5),
         ic_maxspacing=params.find_one_float("maxpixelspacing", 15.0),
@@ -530,15 +545,35 @@ def _integrator_config(name: str, params, n_bins: int,
 
 
 def preprocess(built: "BuiltScene", params) -> "BuiltScene":
-    """The preprocess of ``igi``, ``photonmap`` and ``dipolesubsurface``
-    on the built scene's device (builder.py:767-827), with the JAX
-    package's parameters: ``nlights`` (paths max(4·nlights, 256)) and
-    ``maxdepth``; ``indirectphotons`` (paths min(max(n / 16, 1024), 8192))
-    and ``maxphotondepth``; the dipole's 4,096 points of seed 0, with no
-    points file (``minsampledistance`` and ``maxerror`` are not read)."""
+    """The preprocess of ``igi``, ``photonmap``, ``dipolesubsurface``,
+    ``diffuseprt`` / ``glossyprt`` and ``useprobes`` on the built scene's
+    device (builder.py:755-827), with the JAX package's parameters:
+    ``nlights`` (paths max(4·nlights, 256)) and ``maxdepth``;
+    ``indirectphotons`` (paths min(max(n / 16, 1024), 8192)) and
+    ``maxphotondepth``; the dipole's 4,096 points of seed 0, with no
+    points file (``minsampledistance`` and ``maxerror`` are not read); the
+    PRT projection's lmax (default 4) and max(min(``nsamples``, 4,096), 16)
+    rays of seed 0; the probe file ``filename`` (without one, useprobes
+    warns and renders as ``irradiancecache``)."""
     kind = built.integrator.kind
     scene = built.scene
-    if kind == "igi":
+    if kind in PRT_KINDS:
+        scene = dataclasses.replace(scene, prt=prt_mod.project_incident_radiance(
+            scene, built.integrator, lmax=params.find_one_int("lmax", 4),
+            nsamples=min(params.find_one_int("nsamples", 4096), PRT_MAX_PROJECTION)))
+    elif kind == "useprobes":
+        path = params.find_one_filename("filename", "")
+        if not path:
+            err.warning("useprobes without a probe file; falling back to irradiancecache "
+                        "behavior")
+            return dataclasses.replace(built, integrator=dataclasses.replace(
+                built.integrator, kind="irradiancecache"))
+        lmax, lo, hi, dims, coeffs = read_probe_file(path, built.film_config.n_bins)
+        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=built.device)
+        scene = dataclasses.replace(scene, probes=ProbeGrid(
+            lo=f32(lo), hi=f32(hi), coeffs=f32(coeffs.reshape(dims + coeffs.shape[1:])),
+            lmax=lmax))
+    elif kind == "igi":
         vpls = igi.generate_vpls(scene, n_paths=max(params.find_one_int("nlights", 64) * 4, 256),
                                  max_depth=params.find_one_int("maxdepth", 5))
         scene = dataclasses.replace(scene, vpls=vpls, has_vpls=True)

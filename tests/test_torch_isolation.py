@@ -80,3 +80,12 @@ def test_preprocess_integrator_modules_covered(module):
     """The dipole, photon-map, IGI and irradiance-cache integrators and the
     surface-points renderer are among the files checked above."""
     assert ROOT / "pbrt_torch" / module in FILES
+
+
+@pytest.mark.parametrize("module", ["core/sh.py", "integrators/prt.py", "integrators/bdpt.py",
+                                    "renderers/probes.py", "renderers/metropolis.py"])
+def test_prt_probe_and_metropolis_modules_covered(module):
+    """Spherical harmonics, the PRT integrators, the bidirectional
+    estimator, the probes and the Metropolis renderer are among the files
+    checked above."""
+    assert ROOT / "pbrt_torch" / module in FILES

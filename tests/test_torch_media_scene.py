@@ -30,7 +30,8 @@ from pbrt_torch.core import spectrum as tspec
 from pbrt_torch.renderers.spectral import band_wavelength, render_spectral, spectral_options
 from pbrt_torch.scene.api import load_scene_string as tload
 from pbrt_torch.scene.builder import build as tbuild
-from torch_parity_util import fog_scene_text, write_absorption_curve
+from test_torch_volumes import jax_pieces_compiled
+from torch_parity_util import fog_scene_text, jax_integrator_pieces, write_absorption_curve
 
 
 def test_single_scattering_render_seed_matches_jax():
@@ -38,7 +39,8 @@ def test_single_scattering_render_seed_matches_jax():
     single scattering: 32 light samples and shadow rays per camera
     segment), both packages."""
     text = fog_scene_text("single")
-    js = j_render(jbuild(jload(text)), spp=1, seed=2, chunk_pixels=40, verbose=False)
+    with jax_integrator_pieces(), jax_pieces_compiled():
+        js = j_render(jbuild(jload(text)), spp=1, seed=2, chunk_pixels=40, verbose=False)
     tb = tbuild(tload(text), device="cpu")
     assert tb.integrator.volume_kind == "single"
     ts = tsampler.render(tb, spp=1, seed=2, chunk_pixels=40)

@@ -47,7 +47,7 @@ from pbrt_torch.renderers.sampler import render
 from pbrt_torch.scene.api import load_scene_string as tload
 from pbrt_torch.scene.builder import build as tbuild
 from test_motion_blur import SCENE as MOTION_BLUR_SCENE
-from torch_parity_util import jax_scene_arrays
+from torch_parity_util import jax_integrator_pieces, jax_scene_arrays
 
 #: tests/test_motion_blur.py's scene (a quad swept 2.4 units along x over
 #: the shutter) with the lowdiscrepancy sampler the port renders
@@ -240,7 +240,8 @@ def test_traversal_hits_match_jax(scenes, name):
     jg, tg = jb.scene.geometry, tb.scene.geometry
     o, d, time = _rays(name, 600, 1)
     jr, tr = _both_rays(o, d, time)
-    hj, ht = jisect.intersect(jg, jr), tisect.intersect(tg, tr)
+    j_intersect = jax.jit(jisect.intersect, static_argnames=("any_hit",))
+    hj, ht = j_intersect(jg, jr), tisect.intersect(tg, tr)
     pj, pt = np.asarray(hj.prim), ht.prim.numpy()
     np.testing.assert_array_equal(pt >= 0, pj >= 0)
     v = pj >= 0
@@ -256,7 +257,7 @@ def test_traversal_hits_match_jax(scenes, name):
     # any-hit: half the segments end before the closest hit
     tmax = np.where(v, np.asarray(hj.t) * np.where(np.arange(600) % 2, 0.5, 1.5), 1e30)
     jr, tr = _both_rays(o, d, time, tmax.astype(np.float32))
-    aj = jisect.intersect(jg, jr, any_hit=True)
+    aj = j_intersect(jg, jr, any_hit=True)
     at = tisect.intersect(tg, tr, any_hit=True)
     np.testing.assert_array_equal(at.prim.numpy() >= 0, np.asarray(aj.prim) >= 0)
 
@@ -353,7 +354,8 @@ def test_render_seed_matches_jax():
     one of the 512 samples, which carries ~0.4% of the frame. The frame
     differs from the shutter-pinned one (the smear happened)."""
     text = blob_text()
-    jf = j_render(jbuild(jload(text)), spp=2, seed=0, chunk_pixels=128, verbose=False)
+    with jax_integrator_pieces():
+        jf = j_render(jbuild(jload(text)), spp=2, seed=0, chunk_pixels=128, verbose=False)
     tf = render(tbuild(tload(text), device="cpu"), spp=2, seed=0, chunk_pixels=128)
     pj, pt = np.asarray(jf.pixels), tf.pixels.numpy()
     assert np.isfinite(pt).all() and pt.sum() > 0

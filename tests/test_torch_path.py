@@ -125,6 +125,8 @@ def test_port_builder_scene_traces_the_same(setup):
 
 
 def test_unported_integrator_raises(setup):
+    """Every kind of the JAX package is ported; a kind the port does not
+    know raises."""
     with pytest.raises(NotImplementedError):
-        t_trace(setup["scene"], setup["tr"], IntegratorConfig(kind="useprobes"),
+        t_trace(setup["scene"], setup["tr"], IntegratorConfig(kind="bidirectional"),
                 torch.zeros(N * N, 40))

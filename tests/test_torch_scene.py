@@ -154,8 +154,9 @@ def test_build_needs_a_device_or_cpu():
 
 
 def test_unported_features_raise():
+    # a surface integrator the JAX package does not know (it renders path)
     text = tiny_scene_text().replace('SurfaceIntegrator "path"',
-                                     'SurfaceIntegrator "useprobes"')
+                                     'SurfaceIntegrator "bidirectional"')
     with pytest.raises(NotImplementedError):
         tbuild(tload(text), device="cpu")
     # a texture under cylindrical mapping (the JAX package evaluates it as

@@ -234,6 +234,7 @@ def test_jax_exr_outfile_drops_the_camera_suffix(tmp_path):
 
 
 def test_renderers_not_ported_raise(tmp_path):
+    assert dispatch.NOT_PORTED == ()  # every renderer of the JAX package is ported
     for name in dispatch.NOT_PORTED:
         tb = tbuild(tload(lens_scene(str(tmp_path), renderer=f'Renderer "{name}"')),
                     device="cpu")

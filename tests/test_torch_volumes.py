@@ -49,7 +49,8 @@ from pbrt_torch.media import volumes as tvol
 from pbrt_torch.renderers.sampler import render
 from pbrt_torch.scene.api import load_scene_string as tload
 from pbrt_torch.scene.builder import build as tbuild
-from torch_parity_util import fog_scene_text, jax_scene_arrays, write_absorption_curve
+from torch_parity_util import (fog_scene_text, jax_integrator_pieces, jax_scene_arrays,
+                               write_absorption_curve)
 
 N_RAYS = 1024
 KINDS = ("homogeneous", "exponential", "volumegrid", "water")
@@ -336,7 +337,8 @@ def test_fog_render_seed_matches_jax():
     emission), both packages: the camera segment's T·L + Lv and NEE's
     shadow transmittance."""
     text = fog_scene_text("emission")
-    js = j_render(jbuild(jload(text)), spp=1, seed=5, chunk_pixels=40, verbose=False)
+    with jax_integrator_pieces(), jax_pieces_compiled():
+        js = j_render(jbuild(jload(text)), spp=1, seed=5, chunk_pixels=40, verbose=False)
     tb = tbuild(tload(text), device="cpu")
     assert tb.integrator.volume_kind == "emission" and tb.scene.has_volumes
     ts = render(tb, spp=1, seed=5, chunk_pixels=40)

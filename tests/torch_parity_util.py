@@ -9,6 +9,15 @@ from __future__ import annotations
 import re
 
 import numpy as np
+import torch
+
+# The tier runs these tests in several pytest-xdist workers on one
+# machine, and every worker imports this module while it collects. With
+# torch's default of one intra-op thread per core in every worker, the
+# threads oversubscribe the cores and each parallel op waits for threads
+# that are not running: beside five busy workers, one Metropolis test took
+# 68 s with the default and 2.2 s with one thread. One thread per worker.
+torch.set_num_threads(1)
 
 _GEOMETRY = ("tri_v0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
              "tri_uv0", "tri_uv1", "tri_uv2", "tri_material",
@@ -37,11 +46,13 @@ _VOLUMES = ("kind", "w2v", "lo", "hi", "sigma_a", "sigma_s", "le", "g", "exp_a",
             "updir", "grid_offset", "grid_n", "pool")
 _INTEGRATOR = ("kind", "max_depth", "strategy", "rr_depth", "ao_nsamples", "ao_maxdist",
                "metadata_channel", "volume_kind", "n_bins", "ic_minweight", "ic_minspacing",
-               "ic_maxspacing", "ic_maxangle", "ic_stride")
+               "ic_maxspacing", "ic_maxangle", "ic_stride", "prt_nsamples")
 #: the preprocess products' fields, by scene field and array prefix
 _PREPROCESS = {"subsurface": ("ss", ("points", "normals", "areas", "E", "material")),
                "photons": ("ph", ("p", "wi", "alpha", "is_caustic", "valid", "radius")),
-               "vpls": ("vpl", ("p", "n", "contrib", "valid"))}
+               "vpls": ("vpl", ("p", "n", "contrib", "valid")),
+               "prt": ("prt", ("c_in", "lmax")),
+               "probes": ("probe", ("lo", "hi", "coeffs", "lmax"))}
 
 
 def tiny_scene_text(xres=16, yres=16, spp=2, max_depth=4) -> str:
@@ -425,4 +436,96 @@ def jax_integrator_pieces():
     stack = contextlib.ExitStack()
     for mod, name, fn in patches:
         stack.enter_context(mock.patch.object(mod, name, fn))
+    return stack
+
+
+#: a matte floor under a constant sky and a small sphere light, a dark
+#: blocker above it, a plastic and a mirror sphere (``prt_scene_text``)
+PRT_SCENE = """
+LookAt 0 3 -6  0 0 0  0 1 0
+Camera "perspective" "float fov" [40]
+Film "image" "integer xresolution" [{xres}] "integer yresolution" [{yres}]
+Sampler "lowdiscrepancy" "integer pixelsamples" [{spp}]
+SurfaceIntegrator {integrator}
+{renderer}
+WorldBegin
+LightSource "infinite" "rgb L" [.6 .7 .8]
+{lights}
+AttributeBegin
+  Translate 1.5 3 -1
+  AreaLightSource "area" "rgb L" [8 8 8]
+  Material "matte" "color Kd" [0 0 0]
+  Shape "sphere" "float radius" [.4]
+AttributeEnd
+{floor}
+Shape "trianglemesh" "point P" [-4 0 -4  4 0 -4  4 0 4  -4 0 4]
+  "integer indices" [0 1 2 2 3 0]
+AttributeBegin
+  Material "matte" "color Kd" [.1 .1 .1]
+  Translate 0 .8 0
+  Shape "trianglemesh" "point P" [-1 0 -1  1 0 -1  1 0 1  -1 0 1]
+    "integer indices" [0 1 2 2 3 0]
+AttributeEnd
+AttributeBegin
+  Material "plastic" "color Kd" [.4 .2 .2] "color Ks" [.4 .4 .4] "float roughness" [.1]
+  Translate -1.6 .5 .5
+  Shape "sphere" "float radius" [.5]
+AttributeEnd
+AttributeBegin
+  Material "mirror" "color Kr" [.8 .8 .8]
+  Translate 1.4 .45 1
+  Shape "sphere" "float radius" [.45]
+AttributeEnd
+WorldEnd
+"""
+#: the floor's material: plain, a mix of two mattes, a textured matte, or a
+#: matte of the default kd
+PRT_FLOORS = {
+    "matte": 'Material "matte" "color Kd" [.6 .6 .6]',
+    "mix": ('MakeNamedMaterial "bright" "string type" ["matte"] "color Kd" [.6 .6 .6]\n'
+            'MakeNamedMaterial "dim" "string type" ["matte"] "color Kd" [.2 .3 .1]\n'
+            'Material "mix" "string namedmaterial1" ["bright"] '
+            '"string namedmaterial2" ["dim"] "color amount" [.5 .5 .5]'),
+    "textured": ('Texture "checks" "spectrum" "checkerboard" "float uscale" [4] '
+                 '"float vscale" [4] "color tex1" [.9 .9 .9] "color tex2" [.1 .1 .1]\n'
+                 'Material "matte" "texture Kd" "checks"'),
+    "default": 'Material "matte"',
+}
+
+
+def prt_scene_text(integrator: str, xres=8, yres=8, spp=1, floor="matte", lights="",
+                   renderer="") -> str:
+    """``PRT_SCENE`` under ``integrator`` (the directive's name and
+    parameters), its floor one of ``PRT_FLOORS``, ``lights`` more light
+    lines, ``renderer`` a ``Renderer`` line."""
+    return PRT_SCENE.format(xres=xres, yres=yres, spp=spp, integrator=integrator,
+                            renderer=renderer, lights=lights, floor=PRT_FLOORS[floor])
+
+
+def jax_area_rows_like_port():
+    """A context in which the JAX package reads a hit area light's emission
+    and MIS pdf from row ``area_row0 + area_light`` of its light table, as
+    the port does (it reads row ``area_light``, whose rows start with the
+    ``LightSource`` lights: test_torch_lights.py shows it), so scenes with
+    both kinds compare; the lookups it wraps are the ones in place when it
+    is entered. Nothing in the JAX package changes."""
+    import contextlib
+    from unittest import mock
+
+    import jax.numpy as jnp
+
+    import pbrt_tpu.lights.table as jlt
+
+    emit, pdf = jlt.emitted_radiance, jlt.pdf_li_hit
+
+    def shift(lt, idx):
+        types = np.asarray(lt.type)
+        row0 = int(np.argmax(types == jlt.AREA)) if (types == jlt.AREA).any() else len(types)
+        return jnp.where(idx >= 0, idx + row0, idx)
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(
+        jlt, "emitted_radiance", lambda lt, idx, *a: emit(lt, shift(lt, idx), *a)))
+    stack.enter_context(mock.patch.object(
+        jlt, "pdf_li_hit", lambda lt, g, idx, *a: pdf(lt, g, shift(lt, idx), *a)))
     return stack
