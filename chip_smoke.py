@@ -51,8 +51,9 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    (CUDA events), with the kernels' launch counters set to 0 just before
    and read just after, and the sampler's torch path (``camera_uniforms``,
    ``_bits_to_unit``) counted, which must not run on the card; the film is
-   checked and a ``.dat`` written and read back; one more 1-spp frame
-   under the profiler splits the device time by kernel, the traversal's
+   checked and a ``.dat`` written and read back; one chunk's wave of one
+   more 1-spp frame under the profiler, scaled to the frame's 8 chunks,
+   splits the device time by kernel, the traversal's
    into closest hit and any hit, with launches per chunk and host-to-device
    copies. Then the same for the ``path`` integrator at depth 5 (the
    earlier slices' main path);
@@ -106,12 +107,14 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    8×8 grid (each turned and scaled) in the killeroo-simple scene at 512²,
    ``path`` depth 5, 1 spp, counted and profiled, with the geometry's
    device bytes against 64 flattened copies (computed); the motion kernels
-   against their plain versions on 1,048,576 of the motion scene's rays
-   (camera rays at their own shutter times, bounce rays from their first
-   hits), on 1, 7 and 4,093 lanes, and closest hit against
+   on 1,048,576 of the motion scene's rays (camera rays at their own
+   shutter times, bounce rays from their first hits), against their plain
+   versions on the 32,768-lane permuted set of them that times them with
+   its bound (a plain walk lasts as long as its longest ray, whatever the
+   lanes), on 1, 7 and 4,093 lanes, and closest hit against
    ``intersect_brute`` on the lerped triangles; the instance kernels on
-   1,048,576 rays of the instanced scene (the instance included); each
-   timed on a 32,768-lane permuted set with its bound; the 16² motion scene
+   1,048,576 rays of the instanced scene, likewise (the instance
+   included); the 16² motion scene
    and an 8-use instanced scene card vs CPU (8 waves and 8 seeds pooled),
    the 8-use scene against its flattened copy; then the static kernels
    re-timed on phase 3's sets;
@@ -141,7 +144,8 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    1-spp frame each after a warm-up, counted as in phase 7 (the threefry
    torch ops among them), one chunk's wave profiled and scaled to the
    frame; ``adaptive`` at 2 and 8 samples under ``contrast`` and
-   ``shapeid``, with the pixels supersampled, the waves and camera paths/s;
+   ``shapeid`` (no warm-up render), with the pixels supersampled, the
+   waves and camera paths/s;
    (b) in a water box around the whole scene (``WATER_VOLUME``: σa from a
    generated absorption curve, σs, g 0.6; the transmittance from the camera
    to the killeroos checked in [0.2, 0.6]) under ``single`` scattering, and
@@ -156,7 +160,8 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
 14. accelerators, refined shapes and ``goldens/bunny.pbrt`` —
    killeroo-simple at 512² with ``Accelerator "kdtree"`` and then
    ``"grid"``, ``directlighting`` and ``path`` depth 5, 1 spp each, counted
-   and profiled beside phase 7's BVH frames, with build seconds and table
+   and profiled (one chunk's wave scaled to the frame) beside phase 7's
+   BVH frames, with build seconds and table
    sizes; the kd-tree and grid kernels against their plain versions, bit
    for bit, on 262,144 of the frame's camera and bounce rays and on 1, 7
    and 4,093 lanes, closest hit against ``intersect_brute``; the motion
@@ -205,7 +210,24 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    the three integrators card vs CPU (its 2 × 2 × 2 probe files, made on
    each device, compared), ``trace_bidir`` per lane on one shared array
    and one Metropolis step from one shared state, card vs CPU;
-17. the ``kernels`` JSON line (see PERF.md for the fields), then the result.
+17. differentiable rendering, resume, the sharded renderer, tools —
+   killeroo-simple at 512² under ``path`` depth 5: the forward pass
+   (``radiance_loss``) timed, then ``value_and_grads`` (kd, emit) and
+   ``grad_wrt_materials`` in 32,768-lane chunks, two passes each (seconds
+   per pass, gradient against forward paths/s, launches per chunk of each
+   pass, pass 2's peak memory per chunk, threefry torch ops on the card:
+   none); every gradient finite, the killeroo row's kd and the light's
+   emit non-zero; central differences (float64 sums, eps 1e-3, rtol 5e-2)
+   on kd bins 0, 15, 31 at depth 4 and emit bin 16 at depth 5, kd bin 15
+   at depth 5 logged; chunk 0's gradients through the kernels against the
+   plain walks (rtol 1e-5), and one chunk of pass 2 profiled; the tiny
+   scene's gradients at 16², card vs CPU; ``grad_wrt_textures`` on
+   ``goldens/metal.pbrt`` (phase 10's files); killeroo at 128², 4 spp,
+   resumed from a 2-wave checkpoint, bit for bit against the uninterrupted
+   render; ``render_sharded`` at 256² in an ``nccl`` group of one against
+   ``render``; ``exrdiff`` and ``datdiff`` on the phase's outputs, exit
+   codes checked;
+18. the ``kernels`` JSON line (see PERF.md for the fields), then the result.
 
 The real-size scene is ``goldens/killeroo-simple.pbrt`` (its text is kept
 here) at 512²; each ``Include "geometry/killeroo.pbrt"`` (geometry not in
@@ -225,6 +247,7 @@ import json
 import math
 import os
 import shutil
+import socket
 import sys
 import tempfile
 import time
@@ -937,7 +960,10 @@ def media_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
     for method in ("contrast", "shapeid"):
         b = build(load_scene_string(text.replace(KILLEROO_SAMPLER,
                                                  ADAPTIVE_SAMPLER.format(method))), device=dev)
-        film, sec, lk, _ = drive(f"killeroo-simple with the adaptive sampler ({method})", b, 1)
+        # no warm-up render: it is a whole two-pass render (8 waves), and the
+        # samplers' frames above warmed the path
+        film, sec, lk, _ = drive(f"killeroo-simple with the adaptive sampler ({method})", b, 1,
+                                 warm=False)
         a = film.adaptive
         log("render", f"adaptive ({method}, minsamples 2, maxsamples 8): {a['need']} of "
             f"{a['pixels']} pixels supersampled ({100 * a['need'] / a['pixels']:.2f}%), "
@@ -1267,7 +1293,8 @@ def accelerators_phase(dev, data_dir, drive, profile_frame, card_vs_cpu, bvh):
             _, sec, lk, _ = drive(f"killeroo-simple, {acc}, {kind}", bk, 1, warm=kind == "path")
             if not (lk[f"traverse_{short[acc]}_closest"] and lk[f"traverse_{short[acc]}_any"]):
                 raise SystemExit(f"the {acc} frame did not launch its own kernels")
-            prof = profile_frame(f"killeroo-simple, {acc}, {kind}", bk, sec * 1e3)
+            prof = profile_frame(f"killeroo-simple, {acc}, {kind}", bk, sec * 1e3,
+                                 run=chunk_wave(bk, dev), scale=chunks_of(bk))
             frames[(acc, kind)] = dict(sec=sec, launches=lk, **prof)
     for kind in ("directlighting", "path"):
         n_px = 512 * 512
@@ -2201,9 +2228,10 @@ def _device_threefry_counter(rng_mod):
     return counted, counts
 
 
-def _profile_step(label, step, step_ms):
-    """One MLT iteration under the profiler: kernel time, launches, busy
-    share against its unprofiled ``step_ms`` and the traversal's share."""
+def _profile_step(label, step, step_ms, what="one iteration"):
+    """One MLT iteration (or ``what`` else ``step`` runs) under the
+    profiler: kernel time, launches, busy share against its unprofiled
+    ``step_ms`` and the traversal's share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2220,7 +2248,7 @@ def _profile_step(label, step, step_ms):
     n = sum(k[2] for k in kern)
     trav = sum(k[1] for k in kern if "traverse_" in k[0])
     mut = sum(k[1] for k in kern if "mlt_mutate" in k[0])
-    log("profile", f"{label}: one iteration, kernel time {dev_ms:.2f} ms in {n} launches (one "
+    log("profile", f"{label}: {what}, kernel time {dev_ms:.2f} ms in {n} launches (one "
         f"of them the tracer's first) = "
         f"{100 * dev_ms / step_ms:.1f}% of the unprofiled {step_ms:.1f} ms (device idle the "
         f"rest); traversal {trav:.3f} ms ({100 * trav / max(dev_ms, 1e-9):.1f}%), mlt_mutate "
@@ -2480,6 +2508,333 @@ def prt_mlt_phase(dev, data_dir, drive, profile_frame, card_vs_cpu, agree):
                 replaces="pbrt_tpu/renderers/metropolis.py:73", launches=mlt_launches,
                 max_abs_err=err_mut, ms=tq["ms"], plain_ms=plain_ms, bound_ms=m_bound,
                 bound_by=m_by, library_ms=None)
+
+
+# ---------------------------------------------------------------------------
+# phase 17: differentiable rendering, resume, the sharded renderer, tools
+# ---------------------------------------------------------------------------
+
+#: central differences (the JAX test's rule): kd bins at depth 4, where
+#: Russian roulette (bounce > 3) does not act, the emit bin at depth 5
+FD_KD_BINS = (0, 15, 31)
+FD_EMIT_BIN = 16
+FD_EPS = 1e-3
+FD_RTOL = 5e-2
+#: the tiny scene's gradients, card against CPU: the largest difference
+#: within this share of the CPU's largest gradient, per leaf (the 16²
+#: references' per-bin rule, REF_BIN_REL_CAMERAS, carried to the sums a
+#: gradient is: a lane the two libm's send apart moves both alike)
+GRAD_REF_REL = 5e-3
+#: kernels against plain walks on one chunk of the gradient path
+GRAD_PLAIN_RTOL = 1e-5
+
+
+def frame_inputs(b):
+    """Wave 0 (seed 0) of ``b``'s film in ``CHUNK``-lane chunks: the camera
+    rays and the primary-sample array, one ``keyed_uniforms`` launch per
+    chunk."""
+    import torch
+
+    from pbrt_torch.renderers import sampler as sm
+
+    xs, ys, pix, mask, root, scr = sm.pixel_chunks(b, 0, CHUNK)
+    if not bool(mask.all()):
+        raise ValueError("the gradient path takes a film of whole chunks")
+    ic = b.integrator
+    u = torch.cat([sm.wave_uniforms(ic, root, pix[c], scr[c], 0, b.sampler_name, 1)
+                   for c in range(xs.shape[0])])
+    rays = b.camera.generate_rays(xs.reshape(-1).float() + u[:, 0],
+                                  ys.reshape(-1).float() + u[:, 1], u[:, 2], u[:, 3], u[:, 4])
+    return rays, u
+
+
+def grad_phase(dev, data_dir, name, smi):
+    """Phase 17: the gradient path (``integrators/grad.py``) on
+    killeroo-simple at 512², ``path`` depth 5, and ``goldens/metal.pbrt``'s
+    texture table; central differences; kernels against plain walks on one
+    chunk; the tiny scene's gradients card vs CPU; a resumed render; the
+    sharded renderer in an ``nccl`` group of one; ``exrdiff`` and
+    ``datdiff`` on its outputs. → the gradient runs' launches per kernel."""
+    import torch
+    import torch.distributed as dist
+
+    from pbrt_torch.accel import traverse_cuda as tc
+    from pbrt_torch.core import rng
+    from pbrt_torch.film import film as film_mod
+    from pbrt_torch.film.imageio import write_exr
+    from pbrt_torch.integrators import grad as tgrad
+    from pbrt_torch.integrators import path as tpath
+    from pbrt_torch.parallel import shard
+    from pbrt_torch.renderers.sampler import render
+    from pbrt_torch.scene.api import load_scene_string
+    from pbrt_torch.scene.builder import build
+    from pbrt_torch import tools
+
+    sync = torch.cuda.synchronize
+    t_phase = time.time()
+    on_card = f"on {name} ({smi})"
+    text, _ = real_scene_text()
+    t0 = time.time()
+    b0 = build(load_scene_string(text), device=dev)
+    b = dataclasses.replace(b0, integrator=dataclasses.replace(b0.integrator, kind="path",
+                                                               max_depth=5))
+    del b0
+    g, ic = b.scene.geometry, b.integrator
+    R = b.film_config.xres * b.film_config.yres
+    S = b.film_config.n_bins
+    log("grad", f"killeroo-simple at 512x512, path depth 5: built in {time.time() - t0:.1f} s; "
+        f"{R} camera paths in {R // CHUNK} chunks of {CHUNK}; leaves kd "
+        f"{tuple(b.scene.materials.kd.shape)}, emit {tuple(b.scene.lights.emit.shape)}")
+    watched = ("traverse_closest", "traverse_any", "keyed_uniforms", "keyed_scrambles")
+
+    def counts():
+        return {k: {**tc.launches, **rng.launches}[k] for k in watched}
+
+    def run_grads(label, bb, fn):
+        """``fn(scene, rays, uniforms, cfg, chunk=CHUNK)`` with its inputs
+        drawn first, counted (launches per pass, threefry torch ops on the
+        card), timed per pass with the peak memory of each pass-2 chunk."""
+        st = {"pass2": None, "snap": None, "base": 0, "peaks": []}
+        real = tgrad.trace_radiance
+
+        def traced(*a, **k):
+            if torch.is_grad_enabled():
+                sync()
+                if st["pass2"] is None:
+                    st["pass2"], st["snap"] = time.time(), counts()
+                    st["base"] = torch.cuda.memory_allocated()
+                else:
+                    st["peaks"].append(torch.cuda.max_memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
+            return real(*a, **k)
+
+        tc.reset_launches()
+        rng.reset_launches()
+        counted, tf = _device_threefry_counter(rng)
+        sync()
+        t_start = time.time()
+        with mock.patch.object(tgrad, "trace_radiance", traced), \
+                mock.patch.object(rng, "threefry2x32", counted):
+            rays, u = frame_inputs(bb)
+            out = fn(bb.scene, rays, u, bb.integrator, chunk=CHUNK)
+            sync()
+        t_end = time.time()
+        st["peaks"].append(torch.cuda.max_memory_allocated())
+        end = counts()
+        n = rays.origin.shape[0]
+        nc = n // CHUNK
+        p1 = {k: st["snap"][k] / nc for k in watched}
+        p2 = {k: (end[k] - st["snap"][k]) / nc for k in watched}
+        sec1, sec2 = st["pass2"] - t_start, t_end - st["pass2"]
+        log("grad", f"{label}: {t_end - t_start:.3f} s (inputs and pass 1 {sec1:.3f} s, pass 2 "
+            f"{sec2:.3f} s), {n / (t_end - t_start):.1f} gradient paths/s {on_card}; launches "
+            f"per chunk, pass 1 (with the inputs) {p1}, pass 2 {p2}; pass 2's peak memory per "
+            f"chunk {[round(x / 2**30, 3) for x in st['peaks']]} GiB over "
+            f"{st['base'] / 2**30:.3f} GiB held before it; threefry torch ops {tf}")
+        if tf["card"]:
+            raise SystemExit(f"{label}: threefry ran in torch ops on the card")
+        if end["traverse_closest"] == 0 or end["keyed_uniforms"] != nc:
+            raise SystemExit(f"{label}: the gradient path did not launch the traversal and "
+                             "keyed kernels")
+        return out, rays, u, dict(sec=t_end - t_start, end=end)
+
+    # ---- the forward pass alone, then the gradients ------------------------
+    rays, u = frame_inputs(b)
+    sync()
+    t0 = time.time()
+    fwd_loss = float(tgrad.radiance_loss(b.scene, rays, u, ic, chunk=CHUNK))
+    sync()
+    fwd_sec = time.time() - t0
+    log("grad", f"forward (radiance_loss, no graph): {fwd_sec:.3f} s, {R / fwd_sec:.1f} camera "
+        f"paths/s {on_card}; loss {fwd_loss:.9g}")
+    (loss, gv), rays, u, vg = run_grads("value_and_grads (kd, emit)", b, tgrad.value_and_grads)
+    gm, _, _, gmat = run_grads("grad_wrt_materials (kd, ks, kr, kt)", b,
+                               tgrad.grad_wrt_materials)
+    launched = dict(vg["end"])
+    for k in watched:
+        launched[k] += gmat["end"][k]
+    log("grad", f"gradient paths/s against forward paths/s: {R / vg['sec']:.1f} / "
+        f"{R / fwd_sec:.1f} ({fwd_sec / vg['sec']:.3f}x); loss {float(loss):.9g} (forward "
+        f"{fwd_loss:.9g}, equal {float(loss) == fwd_loss})")
+    row = int(g.tri_material[4])  # the first blob's material (4 wall triangles first)
+    finite = all(bool(torch.isfinite(x).all()) for x in (*gv.values(), *gm.values()))
+    log("grad", f"finite {finite}; |d loss/d kd| of the killeroo row {row} max "
+        f"{float(gv['kd'][row].abs().max()):.6g}, of every row "
+        f"{[round(float(x), 9) for x in gv['kd'].abs().amax(1)]}; |d loss/d emit| max "
+        f"{float(gv['emit'].abs().max()):.6g}; ks, kr, kt max "
+        f"{[round(float(gm[k].abs().max()), 9) for k in ('ks', 'kr', 'kt')]}")
+    if not (finite and float(gv["kd"][row].abs().max()) > 0
+            and float(gv["emit"][0].abs().max()) > 0 and float(loss) == fwd_loss):
+        raise SystemExit("the gradients are not finite, vanish, or the loss differs from the "
+                         "forward pass")
+
+    # ---- central differences ----------------------------------------------
+    def loss64(scene, cfg):
+        tot = torch.zeros((), dtype=torch.float64, device=dev)
+        with torch.no_grad():
+            for a in range(0, R, CHUNK):
+                L = tpath.trace_radiance(scene, tgrad._ray_rows(rays, a, a + CHUNK), cfg,
+                                         u[a:a + CHUNK])[0]
+                tot += L.double().sum()
+        return float(tot) / (R * S)
+
+    def central(name_, x0, r_, b_, cfg):
+        xp, xm = x0.clone(), x0.clone()
+        xp[r_, b_] += FD_EPS
+        xm[r_, b_] -= FD_EPS
+        # the step the float32 parameters took (emit ~2,000: eps is ~8 ulps)
+        step = float(xp[r_, b_]) - float(xm[r_, b_])
+        return (loss64(tgrad._with_params(b.scene, {name_: xp}), cfg)
+                - loss64(tgrad._with_params(b.scene, {name_: xm}), cfg)) / step
+
+    t0 = time.time()
+    ic4 = dataclasses.replace(ic, max_depth=4)
+    _, g4 = tgrad.value_and_grads(b.scene, rays, u, ic4, chunk=CHUNK)
+    fd_ok = True
+    for name_, grads, r_, bins, cfg, checked in (
+            ("kd", g4["kd"], row, FD_KD_BINS, ic4, True),
+            ("emit", gv["emit"], 0, (FD_EMIT_BIN,), ic, True),
+            ("kd", gv["kd"], row, (15,), ic, False)):
+        x0 = b.scene.materials.kd if name_ == "kd" else b.scene.lights.emit
+        for b_ in bins:
+            fd = central(name_, x0, r_, b_, cfg)
+            an = float(grads[r_, b_])
+            ok = fd != 0.0 and abs(an - fd) <= FD_RTOL * abs(fd) + 1e-7
+            fd_ok &= ok or not checked
+            log("grad", f"central difference, {name_}[{r_}, {b_}] at depth {cfg.max_depth}: "
+                f"gradient {an:.6g}, difference {fd:.6g}, rel {abs(an - fd) / max(abs(fd), 1e-30):.4g}"
+                + (f" (rtol {FD_RTOL:g}: {ok})" if checked else
+                   " (logged: roulette's survival moves with kd, the detached gradient does not)"))
+    log("grad", f"central differences took {time.time() - t0:.1f} s")
+    if not fd_ok:
+        raise SystemExit("a gradient disagrees with its central difference")
+
+    # ---- one chunk: kernels against plain walks; profiled -------------------
+    one = (tgrad._ray_rows(rays, 0, CHUNK), u[:CHUNK])
+    _, gk = tgrad.value_and_grads(b.scene, *one, ic)
+    before = dict(tc.launches)
+    plain = lambda *a, fmad=False, **kw: tc.traverse_plain(*a, **kw)
+    with mock.patch.object(tc, "traverse", plain):
+        _, gp = tgrad.value_and_grads(b.scene, *one, ic)
+    sync()
+    rel = {k: float((gk[k] - gp[k]).abs().max() / gp[k].abs().max().clamp(min=1e-30))
+           for k in gk}
+    log("grad", f"chunk 0 ({CHUNK} lanes), kernels vs plain walks on the card: max abs diff "
+        f"over max |g| {rel} (rtol {GRAD_PLAIN_RTOL:g}); kernel launches during the plain run "
+        f"{sum(tc.launches[k] - before[k] for k in before)}")
+    if any(v > GRAD_PLAIN_RTOL for v in rel.values()) or tc.launches != before:
+        raise SystemExit("the gradients through the kernels differ from the plain walks'")
+    dL = torch.full((CHUNK, S), 1.0 / (R * S), device=dev)
+
+    def chunk_pass2():
+        leaves = [b.scene.materials.kd.detach().requires_grad_(),
+                  b.scene.lights.emit.detach().requires_grad_()]
+        sc = tgrad._with_params(b.scene, {"kd": leaves[0], "emit": leaves[1]})
+        L = tpath.trace_radiance(sc, one[0], ic, one[1])[0]
+        torch.autograd.grad(L, leaves, grad_outputs=dL)
+
+    chunk_pass2()
+    sync()
+    t0 = time.time()
+    chunk_pass2()
+    sync()
+    _profile_step("killeroo-simple, the gradient path", chunk_pass2, (time.time() - t0) * 1e3,
+                  what="one chunk of pass 2 (forward with its graph, backward)")
+    del gk, gp, g4, gm, rays, u
+
+    # ---- the tiny scene, card against CPU --------------------------------------
+    got = []
+    for device in (dev, "cpu"):
+        bt = build(load_scene_string(TINY_SCENE), device=device)
+        rt, ut = frame_inputs(bt)
+        lt_, gt_ = tgrad.value_and_grads(bt.scene, rt, ut, bt.integrator, chunk=100)
+        got.append((float(lt_), {k: v.cpu() for k, v in gt_.items()}))
+    (lc, gc), (lp, gpc) = got
+    ref = {k: float((gc[k] - gpc[k]).abs().max() / gpc[k].abs().max()) for k in gc}
+    log("grad", f"tiny scene 16x16, path depth 5, chunks of 100: loss card {lc:.9g} CPU "
+        f"{lp:.9g}; max |card - CPU| over the CPU's max |g| {ref} (rule {GRAD_REF_REL:g}: "
+        "the 16² references' per-bin rule for the radiance, carried to its sums)")
+    if any(v > GRAD_REF_REL for v in ref.values()) or abs(lc - lp) > GRAD_REF_REL * lp:
+        raise SystemExit("the tiny scene's gradients on the card differ from the CPU's")
+
+    # ---- goldens/metal.pbrt's texture table ---------------------------------
+    write_texture_data(data_dir)
+    metal_path = os.path.join(data_dir, "metal.pbrt")
+    shutil.copy(os.path.join(HERE, "goldens", "metal.pbrt"), metal_path)
+    bm = load_checked(metal_path, dev, "goldens/metal.pbrt")
+    gtex, _, _, _ = run_grads("metal.pbrt 256x256, grad_wrt_textures (pool_rgb, c1)", bm,
+                              tgrad.grad_wrt_textures)
+    tex_fin = all(bool(torch.isfinite(x).all()) for x in gtex.values())
+    log("grad", f"metal.pbrt: finite {tex_fin}; pool_rgb {tuple(gtex['pool_rgb'].shape)}, "
+        f"{int((gtex['pool_rgb'] != 0).any(1).sum())} texels with a gradient, max "
+        f"{float(gtex['pool_rgb'].abs().max()):.6g}; c1 max {float(gtex['c1'].abs().max()):.6g}")
+    if not (tex_fin and float(gtex["pool_rgb"].abs().max()) > 0):
+        raise SystemExit("metal.pbrt's texture gradients are not finite or vanish")
+    del bm, gtex
+
+    # ---- resume ---------------------------------------------------------------
+    br = build(load_scene_string(real_scene_text(res=128)[0]), device=dev)
+    paths = {k: os.path.join(data_dir, f"{k}.npz") for k in ("full", "resumed")}
+    t0 = time.time()
+    full = render(br, spp=4, checkpoint_path=paths["full"], checkpoint_every=2)
+    sync()
+    t1 = time.time()
+    render(br, spp=2, checkpoint_path=paths["resumed"], checkpoint_every=2)
+    sync()
+    t2 = time.time()
+    resumed = render(br, spp=4, checkpoint_path=paths["resumed"], checkpoint_every=2)
+    sync()
+    t3 = time.time()
+    no_ck = render(br, spp=4)
+    same = all(torch.equal(getattr(full, k), getattr(resumed, k)) for k in shard.FILM_FIELDS)
+    gap = float((resumed.pixels - no_ck.pixels).abs().max())
+    log("resume", f"killeroo 128x128, directlighting, 4 spp, checkpoint every 2: uninterrupted "
+        f"{t1 - t0:.3f} s, 2 waves into the checkpoint {t2 - t1:.3f} s, resumed to 4 "
+        f"{t3 - t2:.3f} s {on_card}; resumed equal bit for bit {same}; against no checkpoint "
+        f"max abs diff {gap:.3g} (atol 1e-6)")
+    if not (same and gap <= 1e-6 and float(full.pixels.sum()) > 0):
+        raise SystemExit("the resumed render differs from the uninterrupted one")
+
+    # ---- the sharded renderer in an nccl group of one -------------------------
+    bs = build(load_scene_string(real_scene_text(res=256)[0]), device=dev)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    rank, world = shard.init_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        backend = dist.get_backend()
+        sync()
+        t0 = time.time()
+        fs = shard.render_sharded(bs, spp=1)
+        sync()
+        t1 = time.time()
+    finally:
+        dist.destroy_process_group()
+    fr = render(bs, spp=1)
+    sync()
+    t2 = time.time()
+    w_eq = bool(torch.equal(fs.weight, fr.weight))
+    px_rel = float(((fs.pixels - fr.pixels).abs() / fr.pixels.abs().clamp(min=1e-30)).max())
+    log("shard", f"killeroo 256x256, 1 spp: render_sharded in a {backend} group of {world} "
+        f"(rank {rank}) {t1 - t0:.3f} s, render {t2 - t1:.3f} s {on_card}; weights equal "
+        f"{w_eq}, pixels max rel diff {px_rel:.3g} (rtol 1e-6: the merge's film + (out - film))")
+    if not (w_eq and px_rel <= 1e-6 and backend == "nccl" and world == 1):
+        raise SystemExit("the sharded render differs from render's")
+
+    # ---- tools on the phase's outputs ------------------------------------------
+    files = {}
+    for k, f_ in (("full", full), ("resumed", resumed), ("one_spp", render(br, spp=1))):
+        files[k] = write_exr(os.path.join(data_dir, f"{k}.exr"), film_mod.to_rgb_image(f_))
+    for k, f_ in (("sharded", fs), ("render", fr)):
+        files[k] = film_mod.write_dat(f_, bs.film_config, os.path.join(data_dir, f"{k}.dat"))
+    rcs = {"exrdiff resumed full": tools.main(["exrdiff", files["resumed"], files["full"]]),
+           "exrdiff resumed 1-spp": tools.main(["exrdiff", files["resumed"], files["one_spp"]]),
+           "datdiff sharded render": tools.main(["datdiff", files["sharded"], files["render"]])}
+    log("tools", f"exit codes {rcs} (expected 0, 1, 0)")
+    if list(rcs.values()) != [0, 1, 0]:
+        raise SystemExit("a tool's exit code is not the expected one")
+    log("grad", f"phase 17 took {time.time() - t_phase:.1f} s")
+    return launched
 
 
 def chunk_wave(b, dev):
@@ -2968,6 +3323,10 @@ def motion_instancing_phase(dev, drive, profile_frame, card_vs_cpu):
     del fp
 
     # ---- (c) the motion kernels on 1,048,576 of its rays ----------------
+    # The kernels walk all of them; the plain walks run on the timed set
+    # (32,768 of them) only: a plain walk loops until its longest ray ends
+    # (4,717 steps here), so on all the rays it took as long again (52–71
+    # s) for the same check
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
     o, d, t_ray, _, si = camera_and_bounce_rays(built, dev, N_LANES, gen, times=True)
@@ -2981,17 +3340,10 @@ def motion_instancing_phase(dev, drive, profile_frame, card_vs_cpu):
     rows, mrows, ws = g.wide_rows, g.wide_motion, g.wide_stack
     mo = dict(motion_rows=mrows, tw=tw)
     kc = tc.traverse(rows, ws, o, d, inv, tmin, tmax, *q, any_hit=False, **mo)
-    pc = tc.traverse_plain(rows, ws, o, d, inv, tmin, tmax, *q, any_hit=False, **mo)
     scale = torch.where(torch.rand(R, generator=gen, device=dev) < 0.5, 0.5, 1.5)
-    tmax_a = torch.where(torch.isfinite(pc[0]), pc[0] * scale, 1e30).contiguous()
+    tmax_a = torch.where(torch.isfinite(kc[0]), kc[0] * scale, 1e30).contiguous()
     qa = [x.contiguous() for x in isect.quad_best(g, o, d, tmin, tmax_a)]
     ka = tc.traverse(rows, ws, o, d, inv, tmin, tmax_a, *qa, any_hit=True, **mo)
-    pa = tc.traverse_plain(rows, ws, o, d, inv, tmin, tmax_a, *qa, any_hit=True, **mo)
-    sync()
-    eq = {"closest": bits(kc, pc), "any": bits(ka, pa)}
-    fin, fa = torch.isfinite(pc[0]), pa[1] >= 0
-    errs = {"traverse_closest_motion": float((kc[0][fin] - pc[0][fin]).abs().max()),
-            "traverse_any_motion": float((ka[0][fa] - pa[0][fa]).abs().max()) if fa.any() else 0.0}
     ragged = True
     for n in (1, 7, 4093):
         cut = lambda xs: [x[:n].contiguous() for x in xs]
@@ -3006,27 +3358,24 @@ def motion_instancing_phase(dev, drive, profile_frame, card_vs_cpu):
     kv, bv = kc[1][sel] >= 0, hb.prim >= 0
     v = kv & bv
     brute_rel = float(((kc[0][sel][v] - hb.t[v]).abs() / hb.t[v].abs()).max()) if v.any() else 0.0
-    log("kernels", f"motion kernels vs plain on {R} rays of anim-killeroos-moving ({R // 2} "
-        f"camera rays at their own shutter times, {R - R // 2} bounce rays from {n_hits} first "
-        f"hits): equal bit for bit {eq}; on 1, 7 and 4093 lanes {ragged}; closest hits "
-        f"{int((pc[1] >= 0).sum())}, occluded {int(fa.sum())}; closest hit vs intersect_brute "
-        f"on the lerped triangles, {BRUTE_LANES} lanes: valid equal {bool(torch.equal(kv, bv))}, "
-        f"max rel t diff {brute_rel:.3g}, prim equal on "
-        f"{float((kc[1][sel] == hb.prim).float().mean()):.6f}")
-    if not (all(eq.values()) and ragged and torch.equal(kv, bv) and brute_rel <= 1e-6):
-        raise SystemExit("a motion kernel disagrees with its plain version or intersect_brute")
     sub = torch.randperm(R, generator=gen, device=dev)[:CHUNK]
     pick = lambda x: x[sub].contiguous()
     so, sd, sinv, stmin = pick(o), pick(d), pick(inv), pick(tmin)
-    for key, any_hit, tm, seeds in (("traverse_closest_motion", False, tmax, q),
-                                    ("traverse_any_motion", True, tmax_a, qa)):
+    eq, errs = {}, {}
+    for key, any_hit, tm, seeds, kern in (("traverse_closest_motion", False, tmax, q, kc),
+                                          ("traverse_any_motion", True, tmax_a, qa, ka)):
         targs = (rows, ws, so, sd, sinv, stmin, pick(tm), *[pick(x) for x in seeds])
         mt = dict(motion_rows=mrows, tw=pick(tw))
         # one plain call, timed, counts the work for the bound as it goes
         # (the walk of the longest ray sets its time: tens of seconds here)
-        stats = {}
-        plain_ms = cuda_ms(lambda: tc.traverse_plain(*targs, any_hit, stats=stats, **mt),
-                           n=1, warm=0)
+        # and is the reference the kernels' lanes of the set are held to
+        stats, plain = {}, []
+        plain_ms = cuda_ms(lambda: plain.append(tc.traverse_plain(*targs, any_hit, stats=stats,
+                                                                  **mt)), n=1, warm=0)
+        ks, ps = [pick(x) for x in kern], plain[0]
+        eq[key] = bits(ks, ps) and bits(tc.traverse(*targs, any_hit=any_hit, **mt), ps)
+        hit = torch.isfinite(ps[0]) if not any_hit else ps[1] >= 0
+        errs[key] = float((ks[0][hit] - ps[0][hit]).abs().max()) if hit.any() else 0.0
         ms, host_ms = queued_ms(lambda: tc.traverse(*targs, any_hit=any_hit, **mt))
         static_ms, _ = queued_ms(lambda: tc.traverse(*targs, any_hit=any_hit))
         nbytes = (CHUNK * LANE_BYTES_MOTION
@@ -3046,7 +3395,17 @@ def motion_instancing_phase(dev, drive, profile_frame, card_vs_cpu):
             f"leaf distinct rows with their deltas, {nbytes} bytes; bound {b_ms:.5f} ms "
             f"({b_by}), kernel / bound {ms / b_ms:.1f}x; steps per lane mean "
             f"{summ['mean']:.3f}, max {summ['max']}")
-    del built, kc, pc, ka, pa, q, qa, o, d, inv, tmin, tmax, tmax_a, tw, film
+    fa = ka[1] >= 0
+    log("kernels", f"motion kernels on {R} rays of anim-killeroos-moving ({R // 2} camera rays "
+        f"at their own shutter times, {R - R // 2} bounce rays from {n_hits} first hits), vs "
+        f"plain on the {CHUNK}-lane timed set of them: equal bit for bit {eq}; on 1, 7 and 4093 "
+        f"lanes {ragged}; closest hits {int((kc[1] >= 0).sum())}, occluded {int(fa.sum())}; "
+        f"closest hit vs intersect_brute on the lerped triangles, {BRUTE_LANES} lanes: valid "
+        f"equal {bool(torch.equal(kv, bv))}, max rel t diff {brute_rel:.3g}, prim equal on "
+        f"{float((kc[1][sel] == hb.prim).float().mean()):.6f}")
+    if not (all(eq.values()) and ragged and torch.equal(kv, bv) and brute_rel <= 1e-6):
+        raise SystemExit("a motion kernel disagrees with its plain version or intersect_brute")
+    del built, kc, ka, q, qa, o, d, inv, tmin, tmax, tmax_a, tw, film
     torch.cuda.empty_cache()
 
     # ---- (b) 64 instanced killeroos --------------------------------------
@@ -3086,19 +3445,11 @@ def motion_instancing_phase(dev, drive, profile_frame, card_vs_cpu):
     world = tc.traverse(g.wide_rows, g.wide_stack, o, d, inv, tmin, tmax, *q, any_hit=False)
     itab = (g.inst_rows, g.inst_stack, g.inst_w2o, g.inst_lo, g.inst_hi, g.inst_root)
     ki = tc.traverse_instances(*itab, o, d, inv, tmin, tmax, *world, any_hit=False)
-    pi = tc.traverse_instances_plain(*itab, o, d, inv, tmin, tmax, *world, False)
     scale = torch.where(torch.rand(R, generator=gen, device=dev) < 0.5, 0.5, 1.5)
-    tmax_a = torch.where(torch.isfinite(pi[0]), pi[0] * scale, 1e30).contiguous()
+    tmax_a = torch.where(torch.isfinite(ki[0]), ki[0] * scale, 1e30).contiguous()
     qa = [x.contiguous() for x in isect.quad_best(g, o, d, tmin, tmax_a)]
     world_a = tc.traverse(g.wide_rows, g.wide_stack, o, d, inv, tmin, tmax_a, *qa, any_hit=True)
     kia = tc.traverse_instances(*itab, o, d, inv, tmin, tmax_a, *world_a, any_hit=True)
-    pia = tc.traverse_instances_plain(*itab, o, d, inv, tmin, tmax_a, *world_a, True)
-    sync()
-    eq = {"closest": bits(ki, pi), "any": bits(kia, pia)}
-    fin, fa = torch.isfinite(pi[0]), pia[1] >= 0
-    errs = {"traverse_instances_closest": float((ki[0][fin] - pi[0][fin]).abs().max()),
-            "traverse_instances_any": (float((kia[0][fa] - pia[0][fa]).abs().max())
-                                       if fa.any() else 0.0)}
     ragged = True
     for n in (1, 7, 4093):
         cut = lambda xs: [x[:n].contiguous() for x in xs]
@@ -3107,23 +3458,22 @@ def motion_instancing_phase(dev, drive, profile_frame, card_vs_cpu):
             ragged &= bits(tc.traverse_instances(*itab, *a, any_hit=any_hit),
                            tc.traverse_instances_plain(*itab, *a, any_hit))
     sync()
-    n_inst = int((pi[4] >= 0).sum())
-    log("kernels", f"instance kernels vs plain on {R} rays of the instanced scene ({R // 2} "
-        f"camera rays, {R - R // 2} bounce rays from {n_hits} first hits), seeded with the "
-        f"world walk: t, prim, b1, b2 and inst equal bit for bit {eq}; on 1, 7 and 4093 lanes "
-        f"{ragged}; closest hits {int((pi[1] >= 0).sum())}, {n_inst} of them instanced, on "
-        f"{len(set(pi[4].tolist())) - 1} distinct uses; occluded {int(fa.sum())}")
-    if not (all(eq.values()) and ragged and n_inst > 0):
-        raise SystemExit("an instance kernel disagrees with its plain version")
+    # the plain phase on the timed set only, as the motion walks above
     sub = torch.randperm(R, generator=gen, device=dev)[:CHUNK]
     pick = lambda x: x[sub].contiguous()
-    for key, any_hit, tm, seeds in (("traverse_instances_closest", False, tmax, world),
-                                    ("traverse_instances_any", True, tmax_a, world_a)):
+    eq, errs = {}, {}
+    for key, any_hit, tm, seeds, kern in (("traverse_instances_closest", False, tmax, world, ki),
+                                          ("traverse_instances_any", True, tmax_a, world_a, kia)):
         targs = (*itab, pick(o), pick(d), pick(inv), pick(tmin), pick(tm),
                  *[pick(x) for x in seeds])
-        stats = {}
-        plain_ms = cuda_ms(lambda: tc.traverse_instances_plain(*targs, any_hit, stats=stats),
+        stats, plain = {}, []
+        plain_ms = cuda_ms(lambda: plain.append(tc.traverse_instances_plain(*targs, any_hit,
+                                                                            stats=stats)),
                            n=1, warm=0)
+        ks, ps = [pick(x) for x in kern], plain[0]
+        eq[key] = bits(ks, ps) and bits(tc.traverse_instances(*targs, any_hit=any_hit), ps)
+        hit = torch.isfinite(ps[0]) if not any_hit else ps[1] >= 0
+        errs[key] = float((ks[0][hit] - ps[0][hit]).abs().max()) if hit.any() else 0.0
         ms, host_ms = queued_ms(lambda: tc.traverse_instances(*targs, any_hit=any_hit))
         nbytes = (CHUNK * LANE_BYTES_INSTANCES + g.num_instances * INSTANCE_ROW_BYTES
                   + stats.get("node_rows", 0) * NODE_ROW_BYTES
@@ -3142,7 +3492,18 @@ def motion_instancing_phase(dev, drive, profile_frame, card_vs_cpu):
             f"{stats.get('node_rows', 0)} node + {stats.get('leaf_rows', 0)} leaf distinct "
             f"rows, {nbytes} bytes, {ops} operations; bound {b_ms:.5f} ms ({b_by}), "
             f"kernel / bound {ms / b_ms:.1f}x")
-    del bi, gi, g, world, world_a, ki, pi, kia, pia, o, d, inv, film_i
+    n_inst = int((ki[4] >= 0).sum())
+    n_inst_set = int((pick(ki[4]) >= 0).sum())
+    fa = kia[1] >= 0
+    log("kernels", f"instance kernels on {R} rays of the instanced scene ({R // 2} camera rays, "
+        f"{R - R // 2} bounce rays from {n_hits} first hits), seeded with the world walk, vs "
+        f"plain on the {CHUNK}-lane timed set of them ({n_inst_set} instanced hits): t, prim, "
+        f"b1, b2 and inst equal bit for bit {eq}; on 1, 7 and 4093 lanes {ragged}; closest hits "
+        f"{int((ki[1] >= 0).sum())}, {n_inst} of them instanced, on "
+        f"{len(set(ki[4].tolist())) - 1} distinct uses; occluded {int(fa.sum())}")
+    if not (all(eq.values()) and ragged and n_inst_set > 0):
+        raise SystemExit("an instance kernel disagrees with its plain version")
+    del bi, gi, g, world, world_a, ki, kia, o, d, inv, film_i
     torch.cuda.empty_cache()
 
     # ---- (d) 16² references ----------------------------------------------
@@ -3857,10 +4218,14 @@ def main() -> int:
     _, sec, launches, _ = drive("killeroo-simple as written", built, spp)
     if launches["traverse_any"] == 0:
         raise SystemExit("directlighting did not launch the any-hit traversal")
-    prof = profile_frame("killeroo-simple as written (directlighting)", built, sec / spp * 1e3)
+    # one chunk's wave scaled to the frame, as phases 9–17 profile (a whole
+    # frame's ~50,000 events took the profiler 10–20 s to process)
+    prof = profile_frame("killeroo-simple as written (directlighting)", built, sec / spp * 1e3,
+                         run=chunk_wave(built, dev), scale=chunks_of(built))
     built_path = dataclasses.replace(built, integrator=dataclasses.replace(ic0, kind="path"))
     _, sec_p, launches_p, _ = drive("killeroo-simple with path", built_path, spp)
-    prof_p = profile_frame("killeroo-simple with path", built_path, sec_p / spp * 1e3)
+    prof_p = profile_frame("killeroo-simple with path", built_path, sec_p / spp * 1e3,
+                           run=chunk_wave(built_path, dev), scale=chunks_of(built_path))
     # phase 14 sets its kd-tree and grid frames beside these
     bvh_frames = {"built": built, "directlighting": dict(sec=sec / spp, **prof),
                   "path": dict(sec=sec_p / spp, **prof_p)}
@@ -3971,7 +4336,16 @@ def main() -> int:
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
-    # ---- 17. kernels line -------------------------------------------------
+    # ---- 17. differentiable rendering, resume, sharded, tools -------------
+    data_dir = tempfile.mkdtemp(prefix="chip_smoke_grad_")
+    try:
+        grad_launches = grad_phase(dev, data_dir, name, smi)
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+    for key in ("traverse_closest", "traverse_any", "keyed_uniforms", "keyed_scrambles"):
+        launches[key] += grad_launches[key]
+
+    # ---- 18. kernels line -------------------------------------------------
     src = "pbrt_torch/csrc/traverse.cu"
     rep = "pbrt_tpu/accel/pallas_step.py:36"
     kernels = []
@@ -4022,7 +4396,9 @@ def main() -> int:
         "the main path (its device function is), so it stands on its own line; "
         "keyed_* replace XLA's threefry at the file:line given, not a Pallas "
         "kernel; the traversal's and keyed_uniforms' launches are those of the "
-        "directlighting and path renders (4 spp each), keyed_ao_uniforms' those "
+        "directlighting and path renders (4 spp each) and of phase 17's gradient "
+        "path (value_and_grads and grad_wrt_materials on the 512² path frame, "
+        "two passes each), keyed_ao_uniforms' those "
         "of the ambient-occlusion render (1 spp); the motion kernels' launches are "
         "those of goldens/anim-killeroos-moving.pbrt as written (8 spp), "
         "keyed_camera_normals' those of the D-Gauss spectral frame and the "

@@ -197,8 +197,7 @@ def quad_best(g: SceneGeometry, o, d, tmin, tmax):
     """Dense closest hit over all quadrics (intersect.py:568): (t, prim, b1,
     b2) with prim a global id or -1, t = tmax on a miss."""
     hit, t, u, v = quad_test(g, o, d, tmin, tmax)
-    inf = torch.tensor(math.inf, dtype=t.dtype, device=t.device)
-    t = torch.where(hit, t, inf)
+    t = torch.where(hit, t, math.inf)
     best = t.argmin(1, keepdim=True)
     has = hit.gather(1, best)[:, 0]
     T = g.num_triangles
@@ -214,7 +213,12 @@ def intersect(g: SceneGeometry, ray: geom.Ray, any_hit: bool = False) -> Hit:
     """Batched closest-hit (or any-hit) intersection (scene.h:42-53),
     dispatched as ``_intersect_impl`` (intersect.py:1345-1367): the
     quadrics, the world walk (lerped by ``motion_weight`` in a motion
-    scene), then the instance phase."""
+    scene), then the instance phase. The ray is detached from autograd
+    first, as ``_intersect_impl`` stops its gradient (intersect.py:1346):
+    visibility is discontinuous and the walks have no backward, so no
+    ``Hit`` field carries a gradient on any route."""
+    ray = geom.Ray(ray.origin.detach(), ray.direction.detach(), ray.tmin.detach(),
+                   ray.tmax.detach(), ray.time.detach())
     R = ray.origin.shape[0]
     dev = ray.origin.device
     tmax = ray.tmax.to(torch.float32)

@@ -294,8 +294,7 @@ def instance_rays(w2o, o, d):
 
 def inv_dir(d):
     """1/d with near-zero components mapped to ±1e20 (intersect.py:395)."""
-    big = torch.tensor(1e20, dtype=d.dtype, device=d.device)
-    return torch.where(d.abs() < 1e-20, big * torch.sign(d + 1e-30), 1.0 / d)
+    return torch.where(d.abs() < 1e-20, torch.sign(d + 1e-30) * 1e20, 1.0 / d)
 
 
 def instance_prune(lo, hi, o, inv, tmin, t_best):
@@ -356,6 +355,15 @@ def traverse_instances_plain(rows, stack, w2o, lo, hi, root, o, d, inv, tmin,
 # ---------------------------------------------------------------------------
 
 
+def refuse_grad(kernel: str, *tensors):
+    """Raises ``ValueError`` naming ``kernel`` if a tensor requires grad:
+    the walks have no backward, so their inputs come detached
+    (``intersect.intersect``), on the card and on the CPU alike."""
+    if any(torch.is_tensor(x) and x.requires_grad for x in tensors):
+        raise ValueError(f"{kernel}: an input requires grad; the traversal has no backward "
+                         "(detach the ray first, as intersect() does)")
+
+
 def step(row, o, d, inv, tmin, t_best, is_node, act):
     """One interpret step for R lanes; see ``step_plain`` for the contract."""
     if row.device.type == "cpu":
@@ -395,6 +403,7 @@ def traverse(rows, wide_stack, o, d, inv, tmin, tmax, t0, p0, b10, b20,
     b20) seed the result (the quadric hit) and bound the search. With
     ``motion_rows`` and ``tw`` it launches the motion kernel.
     ``fmad=True`` launches the FMA-contracted build (measurement only)."""
+    refuse_grad("traverse", rows, o, d, inv, tmin, tmax, t0, p0, b10, b20, motion_rows, tw)
     if o.device.type == "cpu":
         return traverse_plain(rows, wide_stack, o, d, inv, tmin, tmax, t0,
                               p0, b10, b20, any_hit, motion_rows=motion_rows, tw=tw)
@@ -432,6 +441,8 @@ def traverse_instances(rows, stack, w2o, lo, hi, root, o, d, inv, tmin, tmax,
     """The instance phase over the shared BLAS table ``rows`` (see
     ``traverse_instances_plain``): one launch for all instances.
     w2o (I, 4, 4), lo / hi (I, 3) f32, root (I,) int32."""
+    refuse_grad("traverse_instances", rows, w2o, lo, hi, o, d, inv, tmin, tmax, t0, p0, b10,
+                b20)
     if o.device.type == "cpu":
         return traverse_instances_plain(rows, stack, w2o, lo, hi, root, o, d, inv,
                                         tmin, tmax, t0, p0, b10, b20, any_hit)

@@ -50,6 +50,7 @@ import math
 import torch
 
 from pbrt_torch.accel import prims
+from pbrt_torch.accel.traverse_cuda import refuse_grad
 
 #: the todo stack's depth (intersect.py:36); a kd-tree's depth is capped at
 #: 8 + 1.3·log2(P) (< 40 for 2**24 prims), so a push never finds it full.
@@ -435,6 +436,7 @@ def _launch(kind, g, head, o, d, inv, tmin, tmax, any_hit, tw):
 def traverse_kd(g, o, d, inv, tmin, tmax, any_hit: bool, tw=None):
     """Closest-hit (or any-hit) walk of ``g``'s kd-tree; with ``tw`` (R,)
     the motion kernel, every triangle lerped by the lane's weight."""
+    refuse_grad("traverse_kd", o, d, inv, tmin, tmax, tw)
     if o.device.type == "cpu":
         return traverse_kd_plain(g, o, d, inv, tmin, tmax, any_hit, tw)
     if o.device.type != "cuda":
@@ -459,6 +461,7 @@ def traverse_kd(g, o, d, inv, tmin, tmax, any_hit: bool, tw=None):
 def traverse_grid(g, o, d, inv, tmin, tmax, any_hit: bool, tw=None):
     """Closest-hit (or any-hit) 3D-DDA of ``g``'s grid; with ``tw`` (R,)
     the motion kernel."""
+    refuse_grad("traverse_grid", o, d, inv, tmin, tmax, tw)
     if o.device.type == "cpu":
         return traverse_grid_plain(g, o, d, inv, tmin, tmax, any_hit, tw)
     if o.device.type != "cuda":

@@ -5,8 +5,13 @@ reference: src/main/pbrt.cpp:36-48).
 Flags as the JAX package's: ``--outfile``, ``--quick`` (1 spp),
 ``--quiet``, ``--verbose``, ``--spp``, ``--seed``. ``--cpu`` runs the
 plain PyTorch path on the CPU; without it the render needs a card and
-fails when there is none. ``--distributed`` and ``--ndevices`` above 1
-raise until the sharded renderer (``parallel/shard.py``) is ported.
+fails when there is none. ``--distributed [COORDINATOR]`` with
+``--num-processes`` and ``--process-id`` joins a ``torch.distributed``
+process group (``parallel/shard.py:init_distributed``: ``nccl`` on the
+card, ``gloo`` with ``--cpu``) and, as the JAX CLI does, then renders the
+whole image in every process: the scene's renderer never shards, and
+``--ndevices`` is parsed and never read (pbrt_tpu/cli.py:26-27, :42-49).
+``parallel/shard.py:render_sharded`` is the sharded renderer.
 """
 
 from __future__ import annotations
@@ -27,15 +32,17 @@ def main(argv=None) -> int:
     ap.add_argument("--spp", type=int, default=None, help="override pixelsamples")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ndevices", type=int, default=None,
-                    help="devices to shard the render over (only 1 is ported)")
+                    help="parsed and never read, as in the JAX CLI")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU through the kernels' plain versions")
     ap.add_argument("--distributed", nargs="?", const="", default=None,
-                    metavar="COORDINATOR", help="multi-host rendering (not ported)")
+                    metavar="COORDINATOR",
+                    help="join a torch.distributed process group; optional coordinator "
+                    "host:port (else torch's env:// variables); with --num-processes and "
+                    "--process-id")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
     args = ap.parse_args(argv)
-    if args.distributed is not None or (args.ndevices or 1) > 1:
-        raise NotImplementedError(
-            "--distributed and --ndevices > 1 need parallel/shard.py, which is not ported yet")
 
     from pbrt_torch import resolve_device
     from pbrt_torch.renderers.dispatch import render_scene
@@ -44,7 +51,15 @@ def main(argv=None) -> int:
     from pbrt_torch.utils import error as err
 
     err.set_options(quiet=args.quiet, verbose=args.verbose)
-    device = resolve_device("cpu" if args.cpu else None)
+    on = "cpu" if args.cpu else None
+    if args.distributed is not None:
+        from pbrt_torch.parallel.shard import init_distributed
+
+        rank, world = init_distributed(args.distributed or None, args.num_processes,
+                                       args.process_id, on)
+        if not args.quiet:
+            print(f"[pbrt_torch] distributed: process {rank}/{world}")
+    device = resolve_device(on)  # after init_distributed, which picks the rank's card
     t0 = time.time()
     built = build(load_scene(args.scene), device=device)
     if not args.quiet:
@@ -60,6 +75,10 @@ def main(argv=None) -> int:
         print(f"[pbrt_torch] rendered in {time.time() - t1:.2f}s")
         for path in outputs:
             print(f"[pbrt_torch] wrote {path}")
+    if args.distributed is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
 
 

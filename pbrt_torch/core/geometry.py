@@ -33,8 +33,28 @@ def length_sq(v):
     return (v * v).sum(-1)
 
 
+class _Sqrt0(torch.autograd.Function):
+    """``torch.sqrt`` whose gradient at 0 is 0: autograd's is inf there, and
+    a lane that a ``where`` or a clamp masks out then sends 0 · inf = NaN
+    back (a zero footprint axis, a zero cross product)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.sqrt(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return torch.where(y > 0.0, g * 0.5 / y, 0.0)
+
+
 def length(v):
-    return torch.sqrt(length_sq(v))
+    """|v| over the last axis; where it is 0 its gradient is 0, not NaN
+    (the forward is ``torch.sqrt``'s, bit for bit)."""
+    sq = length_sq(v)
+    return _Sqrt0.apply(sq) if sq.requires_grad else torch.sqrt(sq)
 
 
 def normalize(v, eps: float = 1e-20):

@@ -254,7 +254,11 @@ def write_tga(path: str, img: np.ndarray):
 
 def write_png(path: str, img: np.ndarray):
     """(H, W, 3) linear → 8-bit RGB PNG (zlib, no filter)."""
-    u8 = to_8bit(img)
+    return write_png_u8(path, to_8bit(img))
+
+
+def write_png_u8(path: str, u8: np.ndarray):
+    """(H, W, 3) uint8 → RGB PNG (zlib, no filter)."""
     H, W, _ = u8.shape
 
     def chunk(tag: bytes, data: bytes) -> bytes:

@@ -111,6 +111,10 @@ from pbrt_torch.textures import texture as tex_mod
 KINDS = ("path", "directlighting", "whitted", "ambientocclusion", "metadata",
          "dipolesubsurface", "igi", "photonmap", "irradiancecache", "useprobes",
          "diffuseprt", "glossyprt")
+#: Russian roulette's cap and floor of the continuation probability
+#: (path.py:679, :685): CPU scalars, which a CUDA op reads without a copy
+_RR_CAP = torch.tensor(0.5)
+_RR_FLOOR = torch.tensor(1e-6)
 #: kinds whose BSDF samples continue only along delta lobes (path.py:656-657);
 #: all but whitted also shoot their non-delta sample to gather Le
 DIRECT_KINDS = ("directlighting", "whitted", "dipolesubsurface", "igi", "photonmap")
@@ -441,14 +445,15 @@ def trace_radiance(scene: RenderScene, rays: geom.Ray, cfg: IntegratorConfig,
         specular_bounce = is_delta & ok
         prev_bsdf_pdf = pdf
 
-        # Russian roulette (path.cpp:95-100), a boolean gate
+        # Russian roulette (path.cpp:95-100), a boolean gate; minimum and
+        # maximum as jnp's, which split the gradient at a tie (clamp passes it)
         if cfg.kind == "path" and bounce > cfg.rr_depth:
-            cont_p = torch.clamp(spec.luminance(throughput), max=0.5)
+            cont_p = torch.minimum(spec.luminance(throughput), _RR_CAP)
             u_rr = source.get(bounce, PrimarySource.ROULETTE, 1)[:, 0]
             survive = u_rr < cont_p
             throughput = torch.where(
                 (alive & survive)[:, None],
-                throughput / torch.clamp(cont_p, min=1e-6)[:, None],
+                throughput / torch.maximum(cont_p, _RR_FLOOR)[:, None],
                 throughput,
             )
             alive = alive & survive

@@ -274,13 +274,23 @@ def _render_adaptive(built, scene, state, chunks, quick: bool):
 
 
 def render(built, spp=None, seed: int = 0, chunk_pixels: int | None = None,
-           diff_spp: int | None = None, quick: bool = False):
+           diff_spp: int | None = None, quick: bool = False,
+           checkpoint_path: str | None = None, checkpoint_every: int = 8):
     """All sample waves × pixel chunks → the film. Runs on the device the
     built scene lives on. ``diff_spp`` (default: ``spp``) sets the texture
     footprint's scale, 1/√diff_spp of a pixel, so a test can give a
     golden's filter width at fewer samples (sampler.py:256-285);
     ``quick`` renders 1 spp (adaptive: 1 and 1). An adaptive render's film
-    carries ``adaptive``: the pixels supersampled, the pixels, the waves."""
+    carries ``adaptive``: the pixels supersampled, the pixels, the waves.
+
+    ``checkpoint_path`` (sampler.py:250-358): the render resumes from the
+    film and wave saved there under the same seed (``film/checkpoint.py``),
+    renders its waves in groups of ``checkpoint_every`` and saves after a
+    group that ends on a multiple of it, and at the end. The keys are the
+    (pixel, sample)'s, so a resumed render equals an uninterrupted one. An
+    adaptive render without a checkpoint to resume takes its two passes and
+    saves none; resumed, it continues as a plain sampler, as the JAX
+    package's does."""
     cfg = built.film_config
     icfg = built.integrator
     spp = 1 if quick else spp if spp is not None else built.pixel_samples
@@ -292,16 +302,30 @@ def render(built, spp=None, seed: int = 0, chunk_pixels: int | None = None,
                                     / float(np.sqrt(dspp)))
     chunks = pixel_chunks(built, seed, chunk_pixels)
     xs, ys, pix, mask, root, scrambles = chunks
-    state = film_mod.init_film(cfg, built.device)
-    if built.sampler_name == "adaptive":
-        return _render_adaptive(built, scene, state, chunks, quick)
+    state, start = None, 0
+    if checkpoint_path:
+        from pbrt_torch.film.checkpoint import load_checkpoint, save_checkpoint
+
+        ck = load_checkpoint(checkpoint_path, built.device)
+        if ck is not None and ck[2] == seed:
+            state, start, _ = ck
+    if state is None:
+        state = film_mod.init_film(cfg, built.device)
+        if built.sampler_name == "adaptive":
+            return _render_adaptive(built, scene, state, chunks, quick)
     table = built.filter_table
-    for s in range(spp):
-        for c in range(xs.shape[0]):
-            u = wave_uniforms(icfg, root, pix[c], scrambles[c], s, built.sampler_name, spp)
-            render_wave(state, scene, built.camera, table, xs[c], ys[c],
-                        icfg, cfg, u, sample_scale=mask[c], diff_scale=diff_scale,
-                        noise=camera_noise(built.camera, root, pix[c], s),
-                        media=media_uniforms(scene, icfg, root, pix[c], s),
-                        draws=integrator_draws(scene, icfg, root, pix[c], s))
+    group = checkpoint_every if checkpoint_path else max(1, spp)
+    s = start
+    while s < spp:
+        for w in range(s, min(s + group, spp)):
+            for c in range(xs.shape[0]):
+                u = wave_uniforms(icfg, root, pix[c], scrambles[c], w, built.sampler_name, spp)
+                render_wave(state, scene, built.camera, table, xs[c], ys[c],
+                            icfg, cfg, u, sample_scale=mask[c], diff_scale=diff_scale,
+                            noise=camera_noise(built.camera, root, pix[c], w),
+                            media=media_uniforms(scene, icfg, root, pix[c], w),
+                            draws=integrator_draws(scene, icfg, root, pix[c], w))
+        s = min(s + group, spp)
+        if checkpoint_path and (s % checkpoint_every == 0 or s == spp):
+            save_checkpoint(checkpoint_path, state, s, seed)
     return state

@@ -38,6 +38,7 @@ import zlib
 import numpy as np
 import torch
 
+from pbrt_torch.core import geometry as geom
 from pbrt_torch.core import spectrum as spec
 from pbrt_torch.film.imageio import read_image
 
@@ -290,7 +291,7 @@ def _image_lookup(tt, tid, u, v, uv_sigma=None, uv_major=None):
     if uv_major is None:
         width = torch.clamp(uv_sigma, min=1e-8)
         return _trilinear(tt, tid, u, v, torch.clamp(torch.log2(width * res), min=0.0))
-    major_len = torch.clamp(torch.sqrt((uv_major * uv_major).sum(-1)), min=1e-12)
+    major_len = torch.clamp(geom.length(uv_major), min=1e-12)
     minor_len = torch.clamp(uv_sigma, min=1e-12)
     minor_len = torch.maximum(minor_len, major_len / MAX_ANISOTROPY)
     ecc = torch.clamp(major_len / minor_len, min=1.0)

@@ -89,3 +89,22 @@ def test_prt_probe_and_metropolis_modules_covered(module):
     estimator, the probes and the Metropolis renderer are among the files
     checked above."""
     assert ROOT / "pbrt_torch" / module in FILES
+
+
+@pytest.mark.parametrize("module", ["integrators/grad.py", "film/checkpoint.py", "tools.py",
+                                    "utils/stats.py", "parallel/shard.py",
+                                    "parallel/__init__.py"])
+def test_gradient_checkpoint_tool_and_shard_modules_covered(module):
+    """The gradient API, checkpoints, the offline tools, the statistics
+    and the sharded renderer are among the files checked above."""
+    assert ROOT / "pbrt_torch" / module in FILES
+
+
+def test_tools_import_pillow_only_where_they_write_it():
+    """``tools.py`` imports Pillow nowhere itself (its TIFF output goes
+    through ``imageio._pillow``), and torch only inside ``bsdftest``."""
+    text = (ROOT / "pbrt_torch" / "tools.py").read_text()
+    assert "PIL" not in {m.split(".")[0] for m in _imports(ROOT / "pbrt_torch" / "tools.py")}
+    tree = ast.parse(text)
+    top = {a.name for n in tree.body if isinstance(n, ast.Import) for a in n.names}
+    assert "torch" not in top and "_pillow()" in text

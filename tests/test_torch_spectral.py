@@ -280,12 +280,18 @@ def test_cli_renders_on_the_cpu(tmp_path, capsys):
                                   .numpy())
 
 
-def test_cli_refuses_what_is_not_ported(tmp_path):
+def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """Every flag is ported since the sharded renderer was: ``--distributed``
+    without a coordinator reads torch's ``env://`` variables and fails
+    without them, ``--ndevices`` is parsed and never read (as the JAX CLI
+    does); without a card the default device raises."""
     scene = tmp_path / "scene.pbrt"
     scene.write_text(lens_scene(str(tmp_path)))
-    for flags in (["--distributed"], ["--ndevices", "2"]):
-        with pytest.raises(NotImplementedError, match="parallel/shard.py"):
-            cli.main([str(scene), "--cpu", *flags])
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="RANK"):
+        cli.main([str(scene), "--cpu", "--distributed"])
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            cli.main([str(scene), "--quiet"])
+        for flags in ([], ["--ndevices", "2"]):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                cli.main([str(scene), "--quiet", *flags])
