@@ -124,10 +124,10 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    US patent 2,673,491 at 50 mm and a generated 4-surface schematic eye):
    (a) ``realisticDiffraction`` with diffraction and chromatic aberration
    under ``Renderer "spectral"`` with 32 bands (``singleDirection``),
-   ``directlighting`` depth 5 as written, 1 spp, counted as in phase 7
+   ``directlighting`` depth 5 as written, at 256², 1 spp, counted as in phase 7
    (camera paths: pixels × bands), one chunk's band-0 wave profiled and
    scaled to the frame; the closest-hit and any-hit kernels against their
-   plain versions on the frame's 262,144 lens rays of band 0, dead lanes
+   plain versions on the frame's 65,536 lens rays of band 0, dead lanes
    (direction 0) included, and the dead lanes' radiance (must be 0); the
    keyed-normals kernel against its plain version on 1,048,576 lanes at 3
    samples and on 1, 7 and 4,093 lanes, bit for bit, and timed in 5
@@ -144,8 +144,8 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    1-spp frame each after a warm-up, counted as in phase 7 (the threefry
    torch ops among them), one chunk's wave profiled and scaled to the
    frame; ``adaptive`` at 2 and 8 samples under ``contrast`` and
-   ``shapeid`` (no warm-up render), with the pixels supersampled, the
-   waves and camera paths/s;
+   ``shapeid`` at 256² (no warm-up render), with the pixels supersampled,
+   the waves and camera paths/s;
    (b) in a water box around the whole scene (``WATER_VOLUME``: σa from a
    generated absorption curve, σs, g 0.6; the transmittance from the camera
    to the killeroos checked in [0.2, 0.6]) under ``single`` scattering, and
@@ -199,7 +199,7 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    golden's 256² film: the mutation kernel (``mlt_mutate``) against
    ``mutate_plain`` bit for bit on 16,384 × 60 and ragged shapes, its
    large-only mode on the bootstrap's 100,000 × 60, timed with its bound;
-   ``Renderer "metropolis"`` with 8 mutations per pixel (16,384 chains × 32
+   ``Renderer "metropolis"`` with 2 mutations per pixel (16,384 chains × 8
    iterations), bidirectional and unidirectional under ``path`` depth 5
    (b, the bootstrap's seconds, mutations/s, acceptance, launches,
    threefry torch ops on the card: none; one iteration profiled);
@@ -227,7 +227,21 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    render; ``render_sharded`` at 256² in an ``nccl`` group of one against
    ``render``; ``exrdiff`` and ``datdiff`` on the phase's outputs, exit
    codes checked;
-18. the ``kernels`` JSON line (see PERF.md for the fields), then the result.
+18. volumes under the remaining kinds — killeroo-simple in phase 13's fog
+   (emission) at 256² under ``irradiancecache`` (1 spp, counted as in
+   phase 7, one chunk profiled: the nested traces' media draws), under the
+   Metropolis renderer (2 mutations per pixel, 16,384 chains × 8
+   iterations, a 32,768-vector bootstrap) bidirectional, unidirectional
+   under ``path`` depth 5 and under ``ambientocclusion`` (mutations/s,
+   launches per evaluation, the chains' media and AO draws once per
+   evaluation, threefry torch ops on the card: none); ``value_and_grads``
+   (kd, emit) at 512² under ``path`` depth 5 in 32,768-lane chunks with the
+   media block (gradient paths/s, launches per chunk, the loss equal to the
+   forward's), at depth 4 with a central difference on kd bin 15, and at
+   256² under ``igi``; the tiny scene in a fog at 16², card vs CPU: the
+   cache under emission and single scattering, the three Metropolis
+   evaluations per lane, the ``path`` and ``igi`` gradients;
+19. the ``kernels`` JSON line (see PERF.md for the fields), then the result.
 
 The real-size scene is ``goldens/killeroo-simple.pbrt`` (its text is kept
 here) at 512²; each ``Include "geometry/killeroo.pbrt"`` (geometry not in
@@ -595,6 +609,9 @@ OPS_NORMALS_LANE_KEY = 2 * (OPS_HASH + OPS_KEY_SCHEDULE)
 OPS_PER_NORMAL_TAG = 1 + OPS_HASH + OPS_KEY_SCHEDULE + 2 * OPS_PER_UNIFORM
 #: the realistic camera's tags (D-Gauss: 11 rows) the kernel is timed at
 NORMAL_TAGS = 11
+#: the D-Gauss spectral frame's film (512² through PR 15: 32 band-waves per
+#: chunk, ~31–53 s a frame; cut to keep the script inside its limit)
+SPECTRAL_RES = 256
 
 
 def lens_phase(dev, drive, profile_frame, card_vs_cpu, data_dir):
@@ -652,7 +669,8 @@ def lens_phase(dev, drive, profile_frame, card_vs_cpu, data_dir):
     # ---- (a) the D-Gauss lens, diffraction and chromatic aberration, 32 bands
     t0 = time.time()
     spectral = 'Renderer "spectral" "integer nWaveBands" [32]'
-    built = build(load_scene_string(lens_scene_text(text, "realisticDiffraction", data_dir,
+    built = build(load_scene_string(lens_scene_text(real_scene_text(res=SPECTRAL_RES)[0],
+                                                    "realisticDiffraction", data_dir,
                                                     spectral)), device=dev)
     cam, ic, fc = built.camera, built.integrator, built.film_config
     n_bands, method, _ = spectral_options(built)
@@ -665,7 +683,8 @@ def lens_phase(dev, drive, profile_frame, card_vs_cpu, data_dir):
         f"{alive_share(built):.4f}; built in {time.time() - t0:.1f} s")
     if not (built.renderer_name == "spectral" and n_bands == 32 and method == "singleDirection"
             and (ic.kind, ic.max_depth) == ("directlighting", 5) and (fc.xres, fc.yres) ==
-            (512, 512) and len(cam.noise_tags) == NORMAL_TAGS and fc.focal_length == 50.0):
+            (SPECTRAL_RES, SPECTRAL_RES) and len(cam.noise_tags) == NORMAL_TAGS
+            and fc.focal_length == 50.0):
         raise SystemExit("the D-Gauss spectral scene did not build as written")
     film, sec, launches, _ = drive("killeroo-simple through the D-Gauss lens (spectral, 32 "
                                    "bands)", built, 1, warm=False, renderer=render_spectral,
@@ -822,6 +841,9 @@ def lens_phase(dev, drive, profile_frame, card_vs_cpu, data_dir):
 #: lowdiscrepancy one, and adaptive's at 2 and 8 samples
 PHASE13_SAMPLERS = ("halton", "bestcandidate", "stratified", "random")
 KILLEROO_SAMPLER = 'Sampler "lowdiscrepancy" "integer pixelsamples" [8]'
+#: the adaptive frames' film (512² through PR 15; each is a whole 8-wave
+#: render, cut to keep the script inside its limit)
+ADAPTIVE_RES = 256
 ADAPTIVE_SAMPLER = ('Sampler "adaptive" "integer minsamples" [2] "integer maxsamples" [8] '
                     '"string method" ["{}"]')
 #: the file:line of each sampler's branch in the JAX package's
@@ -958,8 +980,8 @@ def media_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
         _, _, lk, _ = frame(f"killeroo-simple with the {sampler} sampler", b)
         sampler_launches[sampler] = lk["keyed_uniforms"]
     for method in ("contrast", "shapeid"):
-        b = build(load_scene_string(text.replace(KILLEROO_SAMPLER,
-                                                 ADAPTIVE_SAMPLER.format(method))), device=dev)
+        b = build(load_scene_string(real_scene_text(res=ADAPTIVE_RES)[0].replace(
+            KILLEROO_SAMPLER, ADAPTIVE_SAMPLER.format(method))), device=dev)
         # no warm-up render: it is a whole two-pass render (8 waves), and the
         # samplers' frames above warmed the path
         film, sec, lk, _ = drive(f"killeroo-simple with the adaptive sampler ({method})", b, 1,
@@ -2195,8 +2217,9 @@ def preprocess_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
 # ---------------------------------------------------------------------------
 
 #: the Metropolis renderer on killeroo-simple at its golden's 256² film:
-#: 16,384 chains × 32 iterations (8 mutations per pixel)
-MLT_RENDERER = 'Renderer "metropolis" "integer samplesperpixel" [8]'
+#: 16,384 chains × 8 iterations (2 mutations per pixel; 32 iterations
+#: through PR 15, cut to keep the script inside its limit)
+MLT_RENDERER = 'Renderer "metropolis" "integer samplesperpixel" [2]'
 #: the probe grid's spacing in killeroo's 1,400 × 2,000 × 1,140 room
 PROBE_SPACING = 250
 #: the mutation kernel's shapes: bidirectional MLT at depth 5 (16,384 × 60),
@@ -2835,6 +2858,284 @@ def grad_phase(dev, data_dir, name, smi):
         raise SystemExit("a tool's exit code is not the expected one")
     log("grad", f"phase 17 took {time.time() - t_phase:.1f} s")
     return launched
+
+
+# ---------------------------------------------------------------------------
+# phase 18: volumes under the cache, MLT and the gradients; AO under MLT
+# ---------------------------------------------------------------------------
+
+#: phase 18's frames: killeroo-simple in phase 13's fog (emission) at 256²
+#: (the cache, MLT, igi's gradient) and at 512² (the path gradient)
+FOG_RES, FOG_GRAD_RES = 256, 512
+#: its Metropolis renderer: 2 mutations per pixel (16,384 chains × 8
+#: iterations at 256²) from a bootstrap of 32,768 vectors (one chunk)
+FOG_MLT = ('Renderer "metropolis" "integer samplesperpixel" [2] '
+           '"integer bootstrapsamples" [32768]')
+#: its central difference: kd bin 15 of the killeroo row at depth 4 (no
+#: roulette), the rule of phase 17
+FOG_FD_BIN = 15
+#: the kernels whose launches the phase adds to the kernels line
+FOG_COUNTED = ("traverse_closest", "traverse_any", "keyed_uniforms", "keyed_scrambles",
+               "keyed_volume_uniforms", "keyed_chain_uniforms", "mlt_mutate")
+
+
+def fog_tiny_text(directive: str, integrator: str = "emission", renderer: str = "") -> str:
+    """The tiny scene under ``directive`` (and ``renderer``) in the 16²
+    references' homogeneous fog under the volume ``integrator``."""
+    text = TINY_SCENE.replace('"path" "integer maxdepth" [5]', directive)
+    if renderer:
+        text = text.replace("WorldBegin", renderer + "\nWorldBegin", 1)
+    return media_scene_text(text, REF_VOLUMES["homogeneous"], integrator)
+
+
+def fog_phase(dev, drive, profile_frame, card_vs_cpu, agree, name, smi):
+    """Phase 18: killeroo-simple in a fog under the irradiance cache, the
+    Metropolis renderer (bidirectional, unidirectional under ``path`` and
+    under ``ambientocclusion``) and the gradients (``path`` at 512² with a
+    central difference, ``igi``); the tiny scene's fog references, card
+    against CPU, under each. → the phase's launches per counted kernel."""
+    import torch
+
+    from pbrt_torch.accel import traverse_cuda as tc
+    from pbrt_torch.core import rng
+    from pbrt_torch.integrators import bdpt
+    from pbrt_torch.integrators import grad as tgrad
+    from pbrt_torch.renderers import metropolis as tm
+    from pbrt_torch.renderers import sampler as sm
+    from pbrt_torch.scene import builder
+    from pbrt_torch.scene.api import load_scene_string
+    from pbrt_torch.scene.builder import build
+
+    sync = torch.cuda.synchronize
+    t_phase = time.time()
+    on_card = f"on {name} ({smi})"
+    total = dict.fromkeys(FOG_COUNTED, 0)
+
+    def counted():
+        return {k: {**tc.launches, **rng.launches}[k] for k in FOG_COUNTED}
+
+    def reset():
+        tc.reset_launches()
+        rng.reset_launches()
+
+    def add(launches):
+        for k in FOG_COUNTED:
+            total[k] += launches[k]
+
+    fog_text = media_scene_text(real_scene_text(res=FOG_RES)[0], FOG_VOLUME, "emission")
+    t0 = time.time()
+    base = build(load_scene_string(fog_text), device=dev)
+    if not base.scene.has_volumes:
+        raise SystemExit("the fog scene has no volume")
+    log("fog", f"killeroo-simple at {FOG_RES}x{FOG_RES} in the fog built in "
+        f"{time.time() - t0:.1f} s")
+
+    def variant(integrator=None, renderer=None, text=fog_text, b0=None):
+        """``b0`` (the base build) with another integrator or renderer, its
+        preprocess run with threefry's torch ops counted: none."""
+        t_ = text
+        if integrator:
+            t_ = t_.replace('SurfaceIntegrator "directlighting"', f"SurfaceIntegrator {integrator}")
+        if renderer:
+            t_ = t_.replace("WorldBegin", renderer + "\nWorldBegin", 1)
+        desc = load_scene_string(t_)
+        b_ = dataclasses.replace(
+            b0 or base, renderer_name=desc.renderer[0], renderer_params=desc.renderer[1],
+            integrator=builder._integrator_config(*desc.surface_integrator,
+                                                  base.film_config.n_bins,
+                                                  desc.volume_integrator[0]))
+        with mock.patch.object(rng, "threefry2x32", wraps=rng.threefry2x32) as tf:
+            b_ = builder.preprocess(b_, desc.surface_integrator[1])
+            sync()
+        if tf.call_count:
+            raise SystemExit(f"{integrator or renderer}: the preprocess ran threefry in torch "
+                             "ops")
+        return b_
+
+    # ---- (a) the irradiance cache in the fog -------------------------------
+    b = variant('"irradiancecache" "integer maxdepth" [5]')
+    film, sec, lk, _ = drive("killeroo-simple in fog, irradiancecache", b, 1, warm=False)
+    add(lk)
+    log("fog", f"irradiancecache in the fog: keyed_chain_uniforms {lk['keyed_chain_uniforms']} "
+        f"({lk['keyed_chain_uniforms'] // chunks_of(b)} per chunk: both passes' directions, "
+        f"nested blocks and nested jitters), keyed_volume_uniforms "
+        f"{lk['keyed_volume_uniforms']} (the top trace's)")
+    profile_frame("killeroo-simple in fog, irradiancecache, chunk 0", b, sec * 1e3,
+                  run=chunk_wave(b, dev), scale=chunks_of(b))
+
+    # ---- (b) the Metropolis renderer in the fog, and AO under MLT -----------
+    threefry, tf_counts = _device_threefry_counter(rng)
+    for label, integ, renderer in (
+            ("bidirectional", None, FOG_MLT),
+            ("unidirectional, path depth 5", '"path" "integer maxdepth" [5]',
+             FOG_MLT + ' "bool bidirectional" ["false"]'),
+            ("unidirectional, ambientocclusion", '"ambientocclusion" "integer nsamples" [4]',
+             FOG_MLT + ' "bool bidirectional" ["false"]')):
+        b = variant(integ, renderer)
+        reset()
+        stats = {}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with mock.patch.object(rng, "threefry2x32", threefry):
+            ev[0].record()
+            film = tm.render_metropolis(b, seed=0, stats=stats)
+            ev[1].record()
+            sync()
+        sec = ev[0].elapsed_time(ev[1]) / 1e3
+        lk = counted()
+        add(lk)
+        n_evals = 1 + 1 + stats["iterations"]  # bootstrap chunk, the chains' start, steps
+        n_mut = tm.N_CHAINS * stats["iterations"]
+        finite = bool(torch.isfinite(film.pixels).all())
+        s_ = float(film.pixels.double().sum())
+        log("render", f"killeroo-simple in fog, Metropolis {label}, {FOG_RES}x{FOG_RES}, "
+            f"{stats['dims']} dimensions, {tm.N_CHAINS} chains x {stats['iterations']} "
+            f"iterations: {sec:.3f} s (bootstrap {stats['bootstrap_s']:.3f} s, chains "
+            f"{stats['chains_s']:.3f} s), {n_mut / stats['chains_s']:.1f} mutations/s "
+            f"{on_card}, b {stats['b']:.6g}, acceptance {stats['acceptance']:.4f}; launches "
+            f"{lk} ({n_evals} path evaluations: per evaluation closest "
+            f"{lk['traverse_closest'] / n_evals:.1f}, any {lk['traverse_any'] / n_evals:.1f}); "
+            f"threefry torch ops on the card {tf_counts['card']}; film finite {finite}, "
+            f"sum {s_:.6g}")
+        ao = b.integrator.kind == "ambientocclusion"
+        want_media = 0 if ao else n_evals  # the chains' media block per evaluation
+        want_chain = n_evals if ao else 0  # AO's directions from the chains' keys
+        if not (finite and s_ > 0.0) or tf_counts["card"]:
+            raise SystemExit(f"fog, Metropolis {label}: the film is not finite or black, or "
+                             "threefry ran in torch ops on the card")
+        if (lk["mlt_mutate"] != stats["iterations"] + 1 or not lk["traverse_closest"]
+                or lk["keyed_volume_uniforms"] != want_media
+                or lk["keyed_chain_uniforms"] != want_chain):
+            raise SystemExit(f"fog, Metropolis {label}: not one mutation per iteration, no "
+                             "traversal, or the keyed draws not once per evaluation")
+
+    # ---- (c) the gradients in the fog ---------------------------------------
+    def fog_inputs(bb):
+        """Wave 0 (seed 0) of ``bb``: rays, the primary-sample array (one
+        keyed_uniforms launch per chunk), the media block and the
+        integrator's draws (one launch each for the frame)."""
+        xs, ys, pix, mask, root, scr = sm.pixel_chunks(bb, 0, CHUNK)
+        rays, u = frame_inputs(bb)
+        flat = pix.reshape(-1).contiguous()
+        return rays, u, dict(media=sm.media_uniforms(bb.scene, bb.integrator, root, flat, 0),
+                             draws=sm.integrator_draws(bb.scene, bb.integrator, root, flat, 0))
+
+    def grads(label, bb, ic=None):
+        """``value_and_grads`` (kd, emit) of wave 0 in ``CHUNK``-lane chunks,
+        its inputs drawn first, timed and counted."""
+        ic = ic or bb.integrator
+        reset()
+        with mock.patch.object(rng, "threefry2x32", threefry):
+            sync()
+            t0 = time.time()
+            rays, u, kw = fog_inputs(bb)
+            loss, g = tgrad.value_and_grads(bb.scene, rays, u, ic, chunk=CHUNK, **kw)
+            sync()
+            sec = time.time() - t0
+        lk = counted()
+        add(lk)
+        R = rays.origin.shape[0]
+        nc = R // CHUNK
+        finite = all(bool(torch.isfinite(x).all()) for x in g.values())
+        log("grad", f"{label}: {sec:.3f} s, {R / sec:.1f} gradient paths/s {on_card}; "
+            f"launches per chunk (both passes, the inputs' with them) "
+            f"{ {k: round(v / nc, 2) for k, v in lk.items()} }; threefry torch ops on the "
+            f"card {tf_counts['card']}; loss {float(loss):.9g}; finite {finite}, |d/d kd| "
+            f"max {float(g['kd'].abs().max()):.6g}, |d/d emit| max "
+            f"{float(g['emit'].abs().max()):.6g}")
+        if (tf_counts["card"] or not finite or not float(g["kd"].abs().max()) > 0
+                or not float(g["emit"].abs().max()) > 0 or not lk["traverse_closest"]
+                or lk["keyed_volume_uniforms"] != 1):
+            raise SystemExit(f"{label}: threefry on the card, gradients not finite or "
+                             "vanishing, or no traversal / media launch")
+        return loss, g, rays, u, kw
+
+    big = media_scene_text(real_scene_text(res=FOG_GRAD_RES)[0], FOG_VOLUME, "emission")
+    bg = variant('"path" "integer maxdepth" [5]', text=big,
+                 b0=build(load_scene_string(big), device=dev))
+    ic = bg.integrator
+    loss, gv, rays, u, kw = grads(f"killeroo-simple in fog {FOG_GRAD_RES}x{FOG_GRAD_RES}, "
+                                  "path depth 5, value_and_grads (kd, emit)", bg)
+    sync()
+    t0 = time.time()
+    fwd = float(tgrad.radiance_loss(bg.scene, rays, u, ic, chunk=CHUNK, **kw))
+    sync()
+    R = rays.origin.shape[0]
+    log("grad", f"forward (radiance_loss) in the fog: {time.time() - t0:.3f} s, "
+        f"{R / (time.time() - t0):.1f} camera paths/s; loss {fwd:.9g}, equal to the "
+        f"gradient's {fwd == float(loss)}")
+    if fwd != float(loss):
+        raise SystemExit("the fog's gradient loss differs from its forward pass")
+    row = int(bg.scene.geometry.tri_material[4])
+    ic4 = dataclasses.replace(ic, max_depth=4)
+    _, g4, _, _, _ = grads("the same at depth 4", bg, ic4)
+    kd = bg.scene.materials.kd
+
+    def loss64(x):
+        scene = tgrad._with_params(bg.scene, {"kd": x})
+        tot = torch.zeros((), dtype=torch.float64, device=dev)
+        with torch.no_grad():
+            for a in range(0, R, CHUNK):
+                tot += tgrad._traced(scene, rays, u, ic4, kw["media"], None, a,
+                                     a + CHUNK).double().sum()
+        return float(tot) / (R * kd.shape[1])
+
+    xp, xm = kd.clone(), kd.clone()
+    xp[row, FOG_FD_BIN] += FD_EPS
+    xm[row, FOG_FD_BIN] -= FD_EPS
+    fd = (loss64(xp) - loss64(xm)) / (float(xp[row, FOG_FD_BIN]) - float(xm[row, FOG_FD_BIN]))
+    an = float(g4["kd"][row, FOG_FD_BIN])
+    ok = fd != 0.0 and abs(an - fd) <= FD_RTOL * abs(fd) + 1e-7
+    log("grad", f"central difference in the fog, kd[{row}, {FOG_FD_BIN}] at depth 4: gradient "
+        f"{an:.6g}, difference {fd:.6g}, rel {abs(an - fd) / max(abs(fd), 1e-30):.4g} "
+        f"(rtol {FD_RTOL:g}: {ok})")
+    if not ok:
+        raise SystemExit("the fog's gradient disagrees with its central difference")
+    del bg, gv, g4, rays, u, kw
+    bi = variant('"igi" "integer maxdepth" [5]')
+    _, gi, _, _, kwi = grads(f"killeroo-simple in fog {FOG_RES}x{FOG_RES}, igi depth 5, "
+                             "value_and_grads (kd, emit)", bi)
+    if kwi["draws"] is None or total["keyed_chain_uniforms"] == 0:
+        raise SystemExit("igi's gradient drew no VPL picks")
+    del bi, gi, base
+
+    # ---- (d) 16² references: the tiny scene in the fog, card vs CPU --------
+    for integrator in ("emission", "single"):
+        card_vs_cpu(f"tiny scene in fog ({integrator})", fog_tiny_text(
+            '"irradiancecache" "integer maxdepth" [2]', integrator), spp=1, chunk_pixels=256,
+            bin_tol=REF_BIN_REL_CAMERAS)
+    for label, directive, bidir in (
+            ("bidirectional", '"path" "integer maxdepth" [5]', True),
+            ("unidirectional path", '"path" "integer maxdepth" [5]', False),
+            ("unidirectional ambientocclusion", '"ambientocclusion" "integer nsamples" [4]',
+             False)):
+        pair = [build(load_scene_string(fog_tiny_text(directive, "single", 'Renderer '
+                                                      '"metropolis"')), device=d)
+                for d in (dev, "cpu")]
+        D = tm.n_dims(pair[1], bidir)
+        u_np = np.random.default_rng(18).random((256, D), dtype=np.float32)
+        per_lane = [tm._eval_paths(b_, torch.as_tensor(u_np, device=b_.device),
+                                   torch.arange(256, device=b_.device), bidir, 0)[0]
+                    .cpu().numpy().reshape(1, 16, 16, -1) for b_ in pair]
+        agree(f"tiny scene in fog (single), Metropolis {label}: the path evaluation of 256 "
+              "chains on one shared array (lanes as 16x16), card vs CPU", *per_lane,
+              REF_BIN_REL_CAMERAS)
+    got = []
+    for directive in ('"path" "integer maxdepth" [5]', '"igi" "integer maxdepth" [3]'):
+        for d in (dev, "cpu"):
+            bt = build(load_scene_string(fog_tiny_text(directive, "single")), device=d)
+            rt, ut, kt = fog_inputs(bt)
+            lt_, gt_ = tgrad.value_and_grads(bt.scene, rt, ut, bt.integrator, chunk=128, **kt)
+            got.append((float(lt_), {k: v.cpu() for k, v in gt_.items()}))
+        (lc, gc), (lp, gp) = got[-2:]
+        ref = {k: float((gc[k] - gp[k]).abs().max() / gp[k].abs().max()) for k in gc}
+        log("grad", f"tiny scene in fog (single) 16x16, {directive}, chunks of 128: loss card "
+            f"{lc:.9g} CPU {lp:.9g}; max |card - CPU| over the CPU's max |g| {ref} (rule "
+            f"{GRAD_REF_REL:g})")
+        if any(v > GRAD_REF_REL for v in ref.values()) or abs(lc - lp) > GRAD_REF_REL * lp:
+            raise SystemExit(f"the fog's gradients on the card differ from the CPU's "
+                             f"({directive})")
+    log("fog", f"phase 18 took {time.time() - t_phase:.1f} s; its launches {total}")
+    return total
 
 
 def chunk_wave(b, dev):
@@ -4135,8 +4436,12 @@ def main() -> int:
         noisy = len(b.camera.noise_tags) > 0
         media = b.scene.has_volumes and ic.kind not in SURFACE_ONLY
         per_wave = n_waves * chunks_of(b)
-        # igi's VPL picks and the irradiance cache's two gather passes
+        # igi's VPL picks and the irradiance cache's two gather passes (in a
+        # scene with volumes, each pass's nested jitters, and under single
+        # scattering their march steps)
         chains = {"igi": 1, "irradiancecache": 4, "diffuseprt": 1, "glossyprt": 1}.get(ic.kind, 0)
+        if ic.kind == "irradiancecache" and b.scene.has_volumes:
+            chains += 2 * (1 + (ic.volume_kind == "single"))
         if (launches["keyed_scrambles"] != 1 or launches[keyed] != per_wave
                 or launches[other] != 0
                 or launches["keyed_camera_normals"] != noisy * per_wave
@@ -4345,7 +4650,18 @@ def main() -> int:
     for key in ("traverse_closest", "traverse_any", "keyed_uniforms", "keyed_scrambles"):
         launches[key] += grad_launches[key]
 
-    # ---- 18. kernels line -------------------------------------------------
+    # ---- 18. volumes under the cache, MLT and the gradients ---------------
+    fog_launches = fog_phase(dev, drive, profile_frame, card_vs_cpu, agree, name, smi)
+    for key in ("traverse_closest", "traverse_any", "keyed_uniforms", "keyed_scrambles"):
+        launches[key] += fog_launches[key]
+    # the fog is emission's: its media launches go to that row
+    rows = {"keyed_volume_uniforms[emission]": "keyed_volume_uniforms",
+            "keyed_chain_uniforms": "keyed_chain_uniforms", "mlt_mutate": "mlt_mutate"}
+    for entry in (*media_entries, *preprocess_entries, mutate_entry):
+        if entry["name"] in rows:
+            entry["launches"] += fog_launches[rows[entry["name"]]]
+
+    # ---- 19. kernels line -------------------------------------------------
     src = "pbrt_torch/csrc/traverse.cu"
     rep = "pbrt_tpu/accel/pallas_step.py:36"
     kernels = []
@@ -4396,9 +4712,10 @@ def main() -> int:
         "the main path (its device function is), so it stands on its own line; "
         "keyed_* replace XLA's threefry at the file:line given, not a Pallas "
         "kernel; the traversal's and keyed_uniforms' launches are those of the "
-        "directlighting and path renders (4 spp each) and of phase 17's gradient "
+        "directlighting and path renders (4 spp each), of phase 17's gradient "
         "path (value_and_grads and grad_wrt_materials on the 512² path frame, "
-        "two passes each), keyed_ao_uniforms' those "
+        "two passes each) and of phase 18's fog runs (its irradiancecache frame, "
+        "three Metropolis frames and three value_and_grads), keyed_ao_uniforms' those "
         "of the ambient-occlusion render (1 spp); the motion kernels' launches are "
         "those of goldens/anim-killeroos-moving.pbrt as written (8 spp), "
         "keyed_camera_normals' those of the D-Gauss spectral frame and the "
@@ -4406,7 +4723,8 @@ def main() -> int:
         "function), keyed_uniforms[sampler]'s those of phase 13's frame with "
         "that sampler (1 spp; adaptive's, not listed, its two 8-wave frames), "
         "keyed_volume_uniforms' those of the water frame (single scattering) "
-        "and [emission]'s those of the fog frame (1 spp each), the "
+        "and [emission]'s those of the fog frame (1 spp each) and of phase 18's "
+        "fog runs, the "
         "instance kernels' those of the 64 instanced killeroos (1 spp), each "
         "timed on its own scene's permuted set, its plain_ms one call of the "
         "plain version, which counts the work for the bound as it goes; the "
@@ -4416,10 +4734,12 @@ def main() -> int:
         "of the motion scene's frame under each (1 spp); "
         "mo_gather's (XLA's fori_loop and einsum in the JAX package) those of "
         "goldens/ss-envmap.pbrt's 64-spp frame, keyed_chain_uniforms' (XLA's "
-        "threefry) those of phase 15's igi and irradiancecache frames (the "
-        "preprocess launches, at build, are logged apart); mlt_mutate's (XLA's "
-        "threefry and the Kelemen step, metropolis.py:73) those of phase 16's "
-        "two Metropolis frames (32 iterations and the bootstrap's block each); "
+        "threefry) those of phase 15's igi and irradiancecache frames and of "
+        "phase 18's (the fog's cache frame, AO's Metropolis directions, igi's "
+        "gradient; the preprocess launches, at build, are logged apart); "
+        "mlt_mutate's (XLA's threefry and the Kelemen step, metropolis.py:73) "
+        "those of phase 16's two Metropolis frames and phase 18's three (8 "
+        "iterations and the bootstrap's block each); "
         "gather_lab's launches are "
         "those of the lab's own path")
     print("step " + json.dumps(step_line), flush=True)

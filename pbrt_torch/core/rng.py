@@ -287,10 +287,9 @@ def sampler_constants(sampler: str, sample: int, spp: int):
     ``sample`` under ``sampler`` (sampler.py:49-83): halton's radical
     inverses of n; bestcandidate's row min(n, T − 1) of the spp-point table;
     stratified's cell (n mod g, ⌊n / g⌋ mod g) and 1 / g, g = ⌊√spp⌋; zeros
-    otherwise. Raises on a sampler the port does not take."""
-    if sampler not in SAMPLER_CODES:
-        raise NotImplementedError(f"sampler {sampler!r} is not ported yet")
-    code, n = SAMPLER_CODES[sampler], int(sample) & _M32
+    otherwise. A sampler name the JAX package does not know samples as
+    ``random`` (sampler.py:84-87)."""
+    code, n = SAMPLER_CODES.get(sampler, RANDOM), int(sample) & _M32
     c = np.zeros(5, np.float32)
     if code == HALTON:
         c[:] = [smp.radical_inverse(n, b) for b in smp.HALTON_BASES]

@@ -24,9 +24,15 @@ vector is given is not reached by any renderer and is not ported.
 
 Kept as the JAX package has it: the BSDF samples and connection BSDFs
 take no geometric-normal test; a dead lane's later vertices are invalid.
-Not ported: volumes (the JAX package's NEE there reads keys the
-Metropolis renderer does not carry); the port raises. Dead lanes, and
-connections that cannot contribute, trace no ray (tmax 0).
+Dead lanes, and connections that cannot contribute, trace no ray (tmax 0).
+
+In a scene with volumes only the NEE at camera vertex i is attenuated,
+its shadow segment's transmittance jittered by ``media[:, i]`` (the
+chain's key folded with i·16 + VOLUME, bdpt.py:206-209 into path.py:
+224-231). The light-vertex connections take a bare any-hit test with no
+transmittance, and no camera segment is integrated, though the JAX
+docstring (bdpt.py:21) says connection rays are attenuated (ROADMAP fact
+52, copied).
 """
 
 from __future__ import annotations
@@ -123,12 +129,13 @@ def _gen_subpath(scene, ray, n_verts: int, bsdf_uniforms):
     return verts, (esc_alpha, esc_dir, esc_prev_spec)
 
 
-def trace_bidir(scene, rays, cfg, uniforms):
+def trace_bidir(scene, rays, cfg, uniforms, media=None):
     """Lbidir over the wavefront (bdpt.py:137-248) → (L (R, S), first hit
-    t (R,)); ``uniforms`` (R, ``n_dims_bidir(cfg.max_depth)``)."""
-    if scene.has_volumes:
-        raise NotImplementedError("the bidirectional estimator in a scene with volumes "
-                                  "(its NEE's media draws are not ported)")
+    t (R,)); ``uniforms`` (R, ``n_dims_bidir(cfg.max_depth)``); ``media``:
+    the media block of a scene with volumes, ``media[:, i]`` the
+    transmittance jitter of camera vertex i's NEE."""
+    if scene.has_volumes and media is None:
+        raise ValueError("a scene with volumes needs its media block")
     g, lt = scene.geometry, scene.lights
     R = rays.origin.shape[0]
     D = cfg.max_depth
@@ -172,11 +179,13 @@ def trace_bidir(scene, rays, cfg, uniforms):
 
     for i, vc in enumerate(cam):
         si_c, active = vc["si"], vc["valid"]
-        # emitted light where the bounce before was specular (:412-414)
-        le = lights_mod.emitted_radiance(lt, si_c.area_light, si_c.ng, si_c.wo)
-        L = L + torch.where((active & vc["prev_spec"])[:, None], vc["alpha"] * le, 0.0)
+        # emitted light where the bounce before was specular (:412-414); a
+        # scene without area lights has no emission row to read
+        if lights_mod.AREA in lt.active_types:
+            le = lights_mod.emitted_radiance(lt, si_c.area_light, si_c.ng, si_c.wo)
+            L = L + torch.where((active & vc["prev_spec"])[:, None], vc["alpha"] * le, 0.0)
         nee = _nee_one_light(scene, si_c, vc["lm"], vc["wo_local"], vc["frame"], source, i,
-                             active & ~vc["specular"])
+                             active & ~vc["specular"], media)
         denom = torch.clamp(i + 1 - n_spec[i + 1], min=1).to(torch.float32)
         L = L + vc["alpha"] * nee / denom[:, None]
         # connections to the light vertices (:437-459)

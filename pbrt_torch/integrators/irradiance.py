@@ -27,7 +27,12 @@ trace's bounce block from the camera key folded with (salt + 100 + k)·16 +
 CAMERA, then BatchedKeySource's tag 15 (path.py:115-120), salt 100 and
 300 (irradiance.py:69-74): per pass one ``keyed_chain_uniforms`` launch
 for the K directions and one for the K blocks (``cache_draws``), so the
-2K + 1 nested traces of a wave read the JAX package's bits.
+2K + 1 nested traces of a wave read the JAX package's bits. In a scene
+with volumes the top-level trace takes the wave's media block and each
+nested trace one of its own from the same gather key (irradiance.py:75-76
+into path.py:224-231 and volumes.py:190-209): its NEE jitters, folded
+with b·16 + VOLUME for b < max(D, 1), one more launch per pass, and under
+``single`` its 32 march steps' 3 uniforms, one more (``nested_media``).
 
 Kept as the JAX package has it: ``nsamples`` is the gather count K
 (default 4, not the reference's 4096) and ``ic_stride`` is 8, not a
@@ -72,25 +77,60 @@ def cache_stride(cfg, R: int) -> int:
     return max(1, min(cfg.ic_stride, R))
 
 
-def _pass_draws(root, index, sample: int, cfg, salt: int):
-    """(directions (R, 2K), nested bounce blocks (R, 5 + 7·D·K)) of one
-    gather pass; block k is read through columns 7·D·k … 7·D·k + 5 + 7·D
-    (``nested_view``)."""
+def _pass_draws(root, index, sample: int, cfg, salt: int, volumes: bool = False):
+    """(directions (R, 2K), nested bounce blocks (R, 5 + 7·D·K), nested
+    media or None) of one gather pass; block k is read through columns
+    7·D·k … 7·D·k + 5 + 7·D (``nested_view``). In a scene with volumes the
+    media are (jitters (R, J·K), march steps (R, 96·K) under ``single``
+    else None), J = max(D, 1): gather k's jitter for bounce b is the
+    uniform of its key ``bounce_key(keys, salt + 100 + k, CAMERA)`` folded
+    with b·16 + VOLUME, its steps those of its bounce-0 VOLUME key folded
+    with s·16 + LIGHT_SAMPLE (path.py:224-231, volumes.py:190-209), as
+    ``media_uniforms`` draws a wave's (``nested_media``)."""
     K = cfg.ao_nsamples
     dirs = rng.chain_uniforms(root, index, sample, chain=[(salt * 16 + rng.BSDF_SAMPLE, K)], n=2)
+    gather = ((salt + 100) * 16 + rng.CAMERA, K)
     blocks = rng.chain_uniforms(
-        root, index, sample, chain=[((salt + 100) * 16 + rng.CAMERA, K), rng.BATCHED],
+        root, index, sample, chain=[gather, rng.BATCHED],
         n=rng.PER_BOUNCE_USED * cfg.max_depth, used=rng.PER_BOUNCE_USED,
         drawn=rng.PER_BOUNCE_DRAWN, lead=rng.CAMERA_DIMS)
-    return dirs, blocks
+    media = None
+    if volumes:
+        jitters = rng.chain_uniforms(root, index, sample,
+                                     chain=[gather, (rng.VOLUME, max(cfg.max_depth, 1))])
+        steps = (rng.chain_uniforms(root, index, sample,
+                                    chain=[gather, rng.VOLUME, (rng.LIGHT_SAMPLE,
+                                                                rng.VOLUME_STEPS)],
+                                    n=rng.PER_VOLUME_STEP)
+                 if cfg.volume_kind == "single" else None)
+        media = (jitters, steps)
+    return dirs, blocks, media
 
 
-def cache_draws(root, pixel_index, sample: int, cfg) -> dict:
+def cache_draws(root, pixel_index, sample: int, cfg, volumes: bool = False) -> dict:
     """A wave's gather draws: the fill pass's on every ``ic_stride``-th
-    lane, the miss pass's on all (see the module docstring)."""
+    lane, the miss pass's on all (see the module docstring); with
+    ``volumes``, their nested traces' media too."""
     stride = cache_stride(cfg, pixel_index.shape[0])
-    return {"fill": _pass_draws(root, pixel_index[::stride].contiguous(), sample, cfg, FILL_SALT),
-            "miss": _pass_draws(root, pixel_index, sample, cfg, MISS_SALT)}
+    return {"fill": _pass_draws(root, pixel_index[::stride].contiguous(), sample, cfg,
+                                FILL_SALT, volumes),
+            "miss": _pass_draws(root, pixel_index, sample, cfg, MISS_SALT, volumes)}
+
+
+def draw_rows(draws: dict, cfg, R: int, a: int, b: int) -> dict:
+    """The draws of lanes [a, b) of an R-lane wave, for a trace of those
+    lanes alone: the miss pass's rows a … b, the fill pass's rows of the
+    wave's fill lanes in [a, b). Those are the chunk's own fill lanes when
+    a is a multiple of the wave's stride and the chunk holds at least
+    ``ic_stride`` lanes or ends the wave; anything else raises."""
+    s = cache_stride(cfg, R)
+    if a % s or (b - a < s and b != R):
+        raise ValueError(f"irradiancecache: lanes [{a}, {b}) of {R} do not start on the "
+                         f"cache stride {s} or end short of it")
+    rows = lambda x, lo, hi: None if x is None else x[lo:hi]
+    take = lambda d, lo, hi: (rows(d[0], lo, hi), rows(d[1], lo, hi),
+                              None if d[2] is None else tuple(rows(m, lo, hi) for m in d[2]))
+    return {"fill": take(draws["fill"], a // s, -(-b // s)), "miss": take(draws["miss"], a, b)}
 
 
 def nested_view(blocks, k: int, max_depth: int):
@@ -101,6 +141,20 @@ def nested_view(blocks, k: int, max_depth: int):
     return blocks[:, k * w:k * w + rng.CAMERA_DIMS + w]
 
 
+def nested_media(media, k: int, max_depth: int):
+    """Gather k's media block (``renderers/sampler.py:media_uniforms``'
+    layout: J jitters, then 96 step uniforms under ``single``), or None."""
+    if media is None:
+        return None
+    jitters, steps = media
+    J = max(max_depth, 1)
+    block = jitters[:, k * J:(k + 1) * J]
+    if steps is None:
+        return block
+    w = rng.VOLUME_STEPS * rng.PER_VOLUME_STEP
+    return torch.cat([block, steps[:, k * w:(k + 1) * w]], -1)
+
+
 def _gather_irradiance(scene, p, ng, eps, diffuse, n_gather, frame, rays, K, draws,
                        direct_cfg):
     """A cosine-weighted hemisphere gather of K nested ``directlighting``
@@ -109,7 +163,7 @@ def _gather_irradiance(scene, p, ng, eps, diffuse, n_gather, frame, rays, K, dra
     from pbrt_torch.integrators.path import trace_radiance
 
     ss, ts = frame
-    dirs, blocks = draws
+    dirs, blocks, media = draws
     R = p.shape[0]
     E = torch.zeros((R, scene.materials.kd.shape[-1]), dtype=torch.float32, device=p.device)
     w_avg = torch.zeros((R, 3), dtype=torch.float32, device=p.device)
@@ -121,26 +175,28 @@ def _gather_irradiance(scene, p, ng, eps, diffuse, n_gather, frame, rays, K, dra
         gather_rays = geom.Ray.make(torch.where(diffuse[:, None], o, rays.origin),
                                     torch.where(diffuse[:, None], w, rays.direction))
         Lg, t_hit = trace_radiance(scene, gather_rays, direct_cfg,
-                                   nested_view(blocks, k, direct_cfg.max_depth))
+                                   nested_view(blocks, k, direct_cfg.max_depth),
+                                   media=nested_media(media, k, direct_cfg.max_depth))
         E = E + Lg * math.pi / K
         w_avg = w_avg + w * spec.luminance(Lg)[:, None]
         min_hit = torch.minimum(min_hit, torch.where(t_hit > 0.0, t_hit, math.inf))
     return E, w_avg, min_hit
 
 
-def irradiance_cache_li(scene, rays, cfg, uniforms, draws):
+def irradiance_cache_li(scene, rays, cfg, uniforms, draws, media=None):
     """directlighting plus the cached indirect gather (IrradianceCacheIntegrator::
     Li + indirectLo, irradiancecache.cpp:195-330; irradiance.py:83-165) →
-    (L, first hit t). ``draws``: ``cache_draws`` of the wave."""
+    (L, first hit t). ``draws``: ``cache_draws`` of the wave; ``media``: its
+    media block in a scene with volumes (the top-level trace's)."""
     from pbrt_torch.integrators.path import trace_radiance
 
-    if scene.has_volumes:
-        raise NotImplementedError("irradiancecache in a scene with volumes (its nested "
-                                  "gathers' media draws are not ported)")
     if draws is None:
         raise ValueError("irradiancecache needs the wave's gather draws (cache_draws)")
+    if scene.has_volumes and draws["miss"][2] is None:
+        raise ValueError("irradiancecache in a scene with volumes needs its gathers' media "
+                         "(cache_draws(volumes=True))")
     direct_cfg = dataclasses.replace(cfg, kind="directlighting")
-    L_direct, first_t = trace_radiance(scene, rays, direct_cfg, uniforms)
+    L_direct, first_t = trace_radiance(scene, rays, direct_cfg, uniforms, media=media)
     g = scene.geometry
     hit = intersect(g, rays)
     si = surface_interaction(g, rays, hit)

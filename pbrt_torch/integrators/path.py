@@ -33,8 +33,10 @@ array, both packages trace the same paths (tests/test_torch_path.py,
 test_torch_integrators.py).
 
 Kept as the JAX package has it (the port is held to it): NEE samples one
-light whatever ``strategy`` says, and ``whitted`` weights its light
-samples by the MIS power heuristic without the BSDF half.
+light whatever ``strategy`` says, ``whitted`` weights its light samples by
+the MIS power heuristic without the BSDF half, and a kind that is not in
+``KINDS`` runs the bounce loop with no kind's extras: ``path`` without
+Russian roulette (path.py:677).
 
 Written differently from the reference on purpose:
 - the RR gate is a real boolean (path.py:682 applies ``~`` to a Python
@@ -307,7 +309,7 @@ def trace_radiance(scene: RenderScene, rays: geom.Ray, cfg: IntegratorConfig,
     if cfg.kind == "irradiancecache":
         from pbrt_torch.integrators.irradiance import irradiance_cache_li
 
-        return irradiance_cache_li(scene, rays, cfg, uniforms, draws)
+        return irradiance_cache_li(scene, rays, cfg, uniforms, draws, media)
     if cfg.kind == "useprobes":
         from pbrt_torch.integrators.irradiance import useprobes_li
 
@@ -317,8 +319,6 @@ def trace_radiance(scene: RenderScene, rays: geom.Ray, cfg: IntegratorConfig,
 
         li = prt.diffuseprt_li if cfg.kind == "diffuseprt" else prt.glossyprt_li
         return li(scene, rays, cfg, draws)
-    if cfg.kind not in KINDS:
-        raise NotImplementedError(f"integrator {cfg.kind!r} is not ported yet")
     S = scene.materials.kd.shape[-1]
     R = rays.origin.shape[0]
     dev = rays.origin.device

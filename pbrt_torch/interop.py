@@ -214,10 +214,9 @@ def key_from_numpy(data, device="cpu") -> torch.Tensor:
 def _lights_from_numpy(arrays, f32, i64) -> lt_mod.LightTable:
     ltype = np.asarray(arrays["light_type"], np.int64)
     kind = np.asarray(arrays["light_shape_kind"], np.int64)
+    # an area row's shape_kind is 1 (a quadric, sampled as a sphere) or 2
+    # (a triangle range): the JAX builder emits no other (builder.py:1004-1008)
     qidx = np.asarray(arrays["light_quad_idx"], np.int64)
-    area = ltype == lt_mod.AREA
-    if np.any(area & (kind != lt_mod.SHAPE_SPHERE) & (kind != lt_mod.SHAPE_MESH)):
-        raise NotImplementedError("area lights on other shapes are not ported yet")
     # the JAX package's own env CDFs, so sampling compares bit for bit
     env_dist = Distribution2D(**{k: f32(arrays[f"light_env_{k}"]) for k in _ENV_DIST})
     emission = {}

@@ -118,7 +118,7 @@ class MaterialTable:
     irreg_points: torch.Tensor  # (P, 3) .brdf samples' lookup points (row 0 a pad)
     irreg_spectra: torch.Tensor  # (P, S)
     merl_rgb: torch.Tensor  # (Q, 3) MERL tables (row 0 a pad)
-    ss_sigma_a: torch.Tensor  # (M, S) subsurface σa (the dipole is not ported)
+    ss_sigma_a: torch.Tensor  # (M, S) subsurface σa (integrators/dipole.py reads it)
     ss_sigma_s: torch.Tensor  # (M, S) reduced σs
     ss_scale: torch.Tensor  # (M,)
     mix_m1: torch.Tensor  # (M,) i64 row of namedmaterial1 (the row itself if not a mix)
@@ -620,8 +620,8 @@ def build_material_table(records, config, device, mix_rows=None,
             lobes += [L_LAMBERT, L_WARD]
         elif mt in ("subsurface", "kdsubsurface"):
             # the rows of materials/subsurface.cpp and kdsubsurface.cpp: the
-            # medium's σ's (for the dipole integrator, not ported) and the
-            # specular reflection lobe
+            # medium's σ's (for the dipole integrator, integrators/dipole.py)
+            # and the specular reflection lobe
             kind[i] = SUBSURFACE if mt == "subsurface" else KDSUBSURFACE
             eta[i] = p.find_one_float("index", 1.3)
             ss_scale[i] = p.find_one_float("scale", 1.0)

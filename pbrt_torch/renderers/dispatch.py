@@ -11,7 +11,8 @@ file); ``surfacepoints`` writes the dipole integrator's Poisson point set
 (``renderers/probes.py``) on a grid of ⌈extent / ``samplespacing``⌉
 probes per axis (default spacing 1, as the JAX package's
 dispatch.py:50-58) with ``indirectsamples`` (default 512) clamped to [16,
-256] directions, seed 0, and returns its name.
+256] directions, seed 0, and returns its name. Any other name renders as
+``sampler``, as the JAX package's does (dispatch.py:76-79).
 """
 
 from __future__ import annotations
@@ -22,10 +23,6 @@ import os
 from pbrt_torch.film import film as film_mod
 from pbrt_torch.film import imageio
 
-#: the renderers the port refuses (none left)
-NOT_PORTED = ()
-
-
 def render_scene(built, spp=None, seed: int = 0, quick: bool = False,
                  outfile: str | None = None, chunk_pixels: int | None = None) -> list:
     """Runs the scene's renderer and writes its outputs → their paths.
@@ -34,8 +31,6 @@ def render_scene(built, spp=None, seed: int = 0, quick: bool = False,
     if quick:
         spp = 1
     name = built.renderer_name
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"renderer {name!r} is not ported yet")
     if name == "createprobes":
         return [_create_probes(built)]
     if name == "surfacepoints":

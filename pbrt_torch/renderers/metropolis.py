@@ -30,9 +30,19 @@ Kept as the JAX package has it: ``samplesperpixel`` (default 100; / 16
 under ``quick``) sets the mutations per pixel and ``spp`` is ignored;
 ``dodirectseparately`` is never read; the splat is nearest-pixel with no
 filter. The splat's additions (``index_add_``) come in no fixed order on
-the card. Not ported: volumes, and ambient occlusion or metadata under
-the unidirectional estimator (their keyed draws are not the chains'); the
-port raises.
+the card.
+
+Keyed draws come from each chain's fixed key ``pixel_sample_key(root_key(
+seed + 7), chain, 0)`` (metropolis.py:112-114), not from the mutated
+vector: the media block (``media_uniforms``: NEE's transmittance jitter,
+the camera segment's, single scattering's steps), so a chain keeps one
+jitter for all its iterations (ROADMAP fact 51); the integrator's draws
+(``integrator_draws``); and, under the unidirectional estimator, every
+column past the camera's of the kinds the JAX package dispatches before
+it reads a primary sample (``KEYED_KINDS``: ambient occlusion's
+directions, the cache's and the probes' directlighting traces, which
+``key_uniforms`` draws as ``BatchedKeySource`` does). Metadata reads the
+camera columns only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -48,7 +58,8 @@ from pbrt_torch.core import spectrum as spec
 from pbrt_torch.film import film as film_mod
 from pbrt_torch.integrators.bdpt import n_dims_bidir, trace_bidir
 from pbrt_torch.integrators.path import PrimarySource, trace_radiance
-from pbrt_torch.renderers.sampler import camera_noise, integrator_draws
+from pbrt_torch.renderers.sampler import (camera_noise, integrator_draws, key_uniforms,
+                                          media_uniforms)
 
 #: the JAX package's chain count (metropolis.py:87)
 N_CHAINS = 16384
@@ -59,6 +70,11 @@ MAX_BOOTSTRAP = 1 << 17
 #: the chains' key seed offset (metropolis.py:110), the bootstrap's fold-in
 #: (:118) and the iterations' (:164)
 CHAIN_SEED, BOOTSTRAP_TAG, ITERATION_TAG = 7, 1, 1000
+#: the kinds that the JAX ``trace_radiance`` dispatches before it reads a
+#: primary sample (path.py:388-407) and whose port reads the array's bounce
+#: or AO columns: under unidirectional MLT those columns come from the
+#: chains' keys (metadata and the PRT kinds read none)
+KEYED_KINDS = ("ambientocclusion", "irradiancecache", "useprobes")
 
 
 @dataclasses.dataclass
@@ -106,17 +122,24 @@ def n_dims(built, bidirectional: bool) -> int:
 
 def _eval_paths(built, u, index, bidirectional: bool, seed: int):
     """Traces the vectors u (N, D), lane k keyed by chain ``index[k]`` →
-    (L (N, S), I (N,), px, py) (metropolis.py:52-70)."""
+    (L (N, S), I (N,), px, py) (metropolis.py:52-70). The media block and
+    the integrator's draws come from the chains' keys (the module
+    docstring)."""
     cfg, icfg, scene = built.film_config, built.integrator, built.scene
     root = rng.root_key(seed + CHAIN_SEED)
     px = u[:, 0] * cfg.xres
     py = u[:, 1] * cfg.yres
     rays = built.camera.generate_rays(px, py, u[:, 2], u[:, 3], u[:, 4],
                                       noise=camera_noise(built.camera, root, index, 0))
+    media = media_uniforms(scene, icfg, root, index, 0)
     if bidirectional:
-        L, _ = trace_bidir(scene, rays, icfg, u)
+        L, _ = trace_bidir(scene, rays, icfg, u, media=media)
     else:
-        L, _ = trace_radiance(scene, rays, icfg, u,
+        if icfg.kind in KEYED_KINDS:
+            keyed = key_uniforms(icfg, root, index, 0)
+            u = torch.cat([u[:, :PrimarySource.CAMERA_DIMS],
+                           keyed[:, PrimarySource.CAMERA_DIMS:]], -1)
+        L, _ = trace_radiance(scene, rays, icfg, u, media=media,
                               draws=integrator_draws(scene, icfg, root, index, 0))
     L = torch.where(torch.isnan(L) | torch.isinf(L) | (L < 0.0), 0.0, L)
     return L, spec.luminance(L), px, py
@@ -196,12 +219,7 @@ def render_metropolis(built, spp=None, seed: int = 0, quick: bool = False,
     (a dict) receives b, the bootstrap's and the chains' seconds, the
     iterations, the acceptance rate, the dimensions, the options and the
     chains' last state."""
-    icfg = built.integrator
-    if built.scene.has_volumes:
-        raise NotImplementedError("the metropolis renderer in a scene with volumes")
     opts = MLTOptions.of(built, quick)
-    if not opts.bidirectional and icfg.kind in ("ambientocclusion", "metadata"):
-        raise NotImplementedError(f"the metropolis renderer with {icfg.kind}")
     cfg = built.film_config
     n_pixels = cfg.xres * cfg.yres
     n_iters = max(1, n_pixels * opts.mutations_per_pixel // n_chains)

@@ -29,10 +29,10 @@ JAX package's ``BatchedKeySource``), for ``ambientocclusion`` each AO
 sample's two uniforms, for ``metadata`` nothing more; a scene with volumes
 adds the media block (``media_uniforms``, one more launch); ``igi`` adds
 its VPL picks, ``irradiancecache`` its gather passes' directions and
-nested bounce blocks, ``diffuseprt`` and ``glossyprt`` their per-hit
-samples (``integrator_draws``: one, four and one
-``keyed_chain_uniforms`` launches); ``useprobes`` reads directlighting's
-array. So a seed gives the
+nested bounce blocks (with volumes, their media), ``diffuseprt`` and
+``glossyprt`` their per-hit samples (``integrator_draws``: one, four (six
+or eight) and one ``keyed_chain_uniforms`` launches); ``useprobes`` reads
+directlighting's array. So a seed gives the
 JAX package's image, on the CPU and on the card, whatever
 ``chunk_pixels`` is. Padded tail lanes repeat the last pixel, and so its
 keys; their weight is 0.
@@ -113,12 +113,13 @@ def integrator_draws(scene, icfg, root, pixel_index, sample: int):
     """The wave's draws of the preprocess integrators, or None: ``igi``'s
     VPL picks (``{"vpl": (R, 8·D)}``, one launch on the card),
     ``irradiancecache``'s two gather passes (``{"fill": …, "miss": …}``, two
-    launches each) and the PRT kinds' per-hit samples (``{"prt": …}``, one
-    launch)."""
+    launches each; in a scene with volumes one more for the nested traces'
+    jitters, and one for their march steps under single scattering) and
+    the PRT kinds' per-hit samples (``{"prt": …}``, one launch)."""
     if icfg.kind == "igi" and scene.has_vpls:
         return {"vpl": igi.vpl_picks(root, pixel_index, sample, icfg.max_depth)}
     if icfg.kind == "irradiancecache":
-        return irradiance.cache_draws(root, pixel_index, sample, icfg)
+        return irradiance.cache_draws(root, pixel_index, sample, icfg, scene.has_volumes)
     if icfg.kind in ("diffuseprt", "glossyprt"):
         return {"prt": prt.prt_draws(root, pixel_index, sample, icfg)}
     return None

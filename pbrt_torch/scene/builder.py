@@ -46,12 +46,18 @@ object used by at least two static ``ObjectInstance``s, with no quadric
 and no area light, keeps one object-space copy and its own table (the
 instance table has a row and a fresh mesh id per use) under the BVH;
 every other use, and every use under a kd-tree or grid, is flattened into
-world shapes. Anything else raises ``NotImplementedError`` instead of
-rendering something different: a mix whose sub-material is a mix (the
-JAX package renders the inner mix black), cylindrical texture mapping
-(evaluated as planar there), texture references nested deeper than one
-level (read as 0 there), and a shape, accelerator or BVH split the JAX
-package does not know (it warns and skips an unknown shape). A light map that fails to load warns and the light is
+world shapes. Names the JAX package does not know fall back as there
+(ROADMAP fact 53): an accelerator to the BVH and a split method to SAH,
+a surface integrator to ``path``, without a word; a shape (an instanced
+object's without a word) and a ``LightSource`` are skipped with the JAX
+package's warning; an area light is one whatever its name. An unknown
+shape takes no area-light id, where the JAX package gives it one and
+builds no row for it (fact 54, repaired). Four cases raise
+``NotImplementedError`` instead of rendering something different: a mix
+whose sub-material is a mix (the JAX package renders the inner mix
+black), cylindrical texture mapping (evaluated as planar there), texture
+references nested deeper than one level (read as 0 there), and photonmap
+or useprobes on a mix lane. A light map that fails to load warns and the light is
 constant, and an image texture that fails to load warns and is black, as
 in the JAX package.
 """
@@ -113,10 +119,6 @@ class BuiltScene:
     renderer_params: ParamSet | None = None
     #: the ``Sampler`` directive's parameters (adaptive's counts and method)
     sampler_params: ParamSet = dataclasses.field(default_factory=ParamSet)
-
-
-def _not_ported(what):
-    raise NotImplementedError(f"{what} is not ported yet")
 
 
 #: the shapes refined into triangle meshes on the host (builder.py:66-78)
@@ -191,7 +193,7 @@ def _instance_tables(desc, tlas_uses, T, mat_id_for, tri):
         ov0, oe1, oe2 = [], [], []
         for rec in desc.objects[name]:
             if rec.shape_type not in MESH_SHAPES:
-                _not_ported(f"shape {rec.shape_type!r}")
+                continue  # skipped without a word, as builder.py:391-393 skips it
             v0, e1, e2, ns, uvs = _mesh_triangles(rec, rec.object_to_world.m[0])
             cnt = len(v0)
             for k, a in (("v0", v0), ("e1", e1), ("e2", e2), ("n0", ns[0]), ("n1", ns[1]),
@@ -376,7 +378,8 @@ def _light_source_row(rec, cfg) -> dict:
                   else (-1.0, 1.0, -1.0 / aspect, 1.0 / aspect))
         return dict(row, type=lt_mod.PROJECTION, proj_screen=screen,
                     proj_invtan=1.0 / np.tan(0.5 * np.deg2rad(fov)))
-    _not_ported(f"light {t!r}")
+    err.warning(f"light {t!r} not supported yet; skipped")
+    return None
 
 
 def _stack_maps(lmaps, S):
@@ -494,8 +497,9 @@ def _mix_rows(mat_records, mat_id_for, named) -> dict:
                 err.warning(f"mix material: named material {nm!r} not found")
                 pair.append(i)
             elif sub.mat_type == "mix":
-                _not_ported(f"a mix of mixes ({nm!r} in {m.name!r}; the JAX package "
-                            "renders the inner mix black)")
+                raise NotImplementedError(f"a mix of mixes ({nm!r} in {m.name!r}) is not "
+                                          "ported (the JAX package renders the inner mix "
+                                          "black)")
             else:
                 pair.append(mat_id_for(sub))
         rows[i] = tuple(pair)
@@ -524,11 +528,10 @@ def _integrator_config(name: str, params, n_bins: int,
     ``maxpixelspacing`` and ``maxangledifference``, ``diffuseprt`` and
     ``glossyprt`` take min(``nsamples``, 64) samples per hit (default
     4,096), and any ``VolumeIntegrator`` but ``single`` is ``emission``."""
-    if name not in INTEGRATOR_NAMES:
-        _not_ported(f"surface integrator {name!r}")
-    prt_kind = INTEGRATOR_NAMES[name] in PRT_KINDS
+    kind = INTEGRATOR_NAMES.get(name, "path")  # any other name renders path (:717-731)
+    prt_kind = kind in PRT_KINDS
     return IntegratorConfig(
-        kind=INTEGRATOR_NAMES[name], max_depth=params.find_one_int("maxdepth", 5),
+        kind=kind, max_depth=params.find_one_int("maxdepth", 5),
         strategy=params.find_one_string("strategy", "all"),
         ao_nsamples=params.find_one_int("nsamples", 4),
         ao_maxdist=params.find_one_float("maxdist", 1e30),
@@ -595,14 +598,13 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
     dev = resolve_device(device)
     cfg = desc.spectral_config
     S = cfg.n_bins
-    light_rows = [_light_source_row(rec, cfg) for rec in desc.lights]
     accel_name, accel_params = desc.accelerator
     if accel_name not in ACCELERATORS:
-        _not_ported(f"accelerator {accel_name!r}")
+        accel_name = "bvh"  # pbrt's MakeScene falls back to its BVH (builder.py:525-545)
     accel_is_bvh = accel_name == "bvh"
     split = accel_params.find_one_string("splitmethod", "sah")
     if split not in bvh_mod.SPLIT_METHODS:
-        _not_ported(f"BVH split method {split!r}")
+        split = "sah"  # builder.py:527-529
 
     mat_records, mat_index = [], {}
 
@@ -621,9 +623,10 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
     for rec, o2w, o2w_end in shape_records:
         animated = not np.allclose(o2w, o2w_end, atol=1e-12)
         mat_i = mat_id_for(rec.material)
-        al_id = len(area_lights) if rec.area_light is not None else -1
-        if rec.area_light is not None and rec.area_light[0] != "area":
-            _not_ported(f"area light {rec.area_light[0]!r}")
+        known = rec.shape_type in MESH_SHAPES or rec.shape_type in _QUADRIC_TYPES
+        # the area light's name is never read (builder.py:233-234); an
+        # unknown shape takes no area-light id (ROADMAP fact 54)
+        al_id = len(area_lights) if rec.area_light is not None and known else -1
         if rec.shape_type in MESH_SHAPES:
             v0, e1, e2, (n0, n1, n2), uvs = _mesh_triangles(rec, o2w)
             count = len(v0)
@@ -668,7 +671,7 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
                 area_lights.append(dict(rec=rec, shape_kind=lt_mod.SHAPE_SPHERE,
                                         quad_idx=len(quads) - 1))
         else:
-            _not_ported(f"shape {rec.shape_type!r}")
+            err.warning(f"shape {rec.shape_type!r} not supported yet; skipped")
 
     T_world, Q = n_tris, len(quads)
     inst = {}
@@ -765,6 +768,9 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
         **accel,
     )
 
+    # the LightSource rows after the shapes, as the JAX package warns
+    light_rows = [row for row in (_light_source_row(rec, cfg) for rec in desc.lights)
+                  if row is not None]
     for al in area_lights:
         lp = al["rec"].area_light[1]
         light_rows.append(dict(

@@ -271,11 +271,18 @@ def test_scene_build_equals_jax(acc, params):
     assert ids.max() >= tg.num_triangles  # quadrics live in the leaves
 
 
-def test_unknown_accelerator_and_split_refused():
+def test_unknown_accelerator_and_split_fall_back_to_the_sah_bvh():
+    """An accelerator or a BVH split method the JAX package does not know
+    builds its SAH BVH there (builder.py:525-545) and in the port: the
+    wide rows of the default build, bit for bit, in both."""
+    plain = tbuild(tload(tiny_scene_text(4, 4)), device="cpu").scene.geometry
     for line in ('Accelerator "qbvh"', 'Accelerator "bvh" "string splitmethod" "hlbvh"'):
         text = tiny_scene_text(4, 4).replace("WorldBegin", line + "\nWorldBegin", 1)
-        with pytest.raises(NotImplementedError):
-            tbuild(tload(text), device="cpu")
+        g = tbuild(tload(text), device="cpu").scene.geometry
+        assert g.accel_kind == "bvh"
+        np.testing.assert_array_equal(g.wide_rows.numpy(), plain.wide_rows.numpy())
+        np.testing.assert_array_equal(g.wide_rows.numpy(),
+                                      np.asarray(jbuild(jload(text)).scene.geometry.wide_rows))
 
 
 def test_instances_flatten_under_kdtree_and_grid():

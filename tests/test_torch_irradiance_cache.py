@@ -7,10 +7,15 @@ the tiny scene closed into a room with two subsurface boxes
 The three passes are compared one by one from the same keys: the cache
 fill at every 8th lane (E, wAvg, the nearest hit), then the whole
 integrator (the window's interpolation and the masked miss gather), then
-``render(seed)``. The JAX side runs eagerly with its per-step pieces
-compiled once each (``torch_parity_util.jax_integrator_pieces``); the
-port's side takes the JAX package's arrays, its draws from
-``cache_draws`` (the same threefry chains).
+``render(seed)``. Then the same in a fog
+(``torch_parity_util.fog_scene_text`` at 16×16, depth 2) under the
+emission and the single-scattering volume integrators: the nested traces'
+media blocks bit for bit against ``jax.random``, the radiance per lane
+and ``render(seed)``. The JAX side runs eagerly with its per-step pieces
+compiled once each (``torch_parity_util.jax_integrator_pieces``, and the
+volumes' ``test_torch_volumes.jax_pieces_compiled``); the port's side
+takes the JAX package's arrays, its draws from ``cache_draws`` (the same
+threefry chains).
 
 Tolerances: E, wAvg and the radiance rtol 1e-4, atol 1e-6 on ≥ 99% of
 lanes (each gather is K nested directlighting traces: a shadow ray that
@@ -50,7 +55,9 @@ from pbrt_torch.materials import table as tmt
 from pbrt_torch.renderers.sampler import render
 from pbrt_torch.scene.api import load_scene_string as tload
 from pbrt_torch.scene.builder import build as tbuild
-from torch_parity_util import jax_integrator_pieces, jax_scene_arrays, subsurface_scene_text
+from test_torch_volumes import jax_pieces_compiled
+from torch_parity_util import (fog_scene_text, jax_integrator_pieces, jax_scene_arrays,
+                               subsurface_scene_text)
 
 N = 16
 CACHE = '"irradiancecache" "integer maxdepth" [2]'
@@ -194,3 +201,120 @@ def test_fact_nsamples_is_the_gather_count_and_stride_is_fixed(setup):
         draws = tirr.cache_draws(rng.root_key(0), torch.arange(N * N), 0, tb.integrator)
         assert draws["fill"][0].shape == (N * N // 8, 2 * K)
         assert draws["miss"][1].shape == (N * N, 5 + 7 * 2 * K)
+
+
+# ---------------------------------------------------------------------------
+# the cache in a fog: the nested traces' media blocks
+# ---------------------------------------------------------------------------
+
+FOG_CACHE = '"irradiancecache" "integer maxdepth" [2]'
+
+
+def fog_cache_text(volume_integrator):
+    """``torch_parity_util.fog_scene_text`` at 16×16 under the cache."""
+    return fog_scene_text(volume_integrator, N, N).replace(
+        '"directlighting" "integer maxdepth" [1]', FOG_CACHE)
+
+
+@pytest.mark.parametrize("sample", [0, 2**31 + 1])
+def test_fog_nested_media_match_jax_keys(sample):
+    """Each gather k of both passes: its media block (``nested_media``)
+    bit for bit against the JAX package's draws from its gather keys
+    ``bounce_key(keys, salt + 100 + k, CAMERA)``: bounce b's jitter
+    ``uniform_per(bounce_key(gkeys, b, VOLUME), 1)`` (path.py:224-231)
+    and march step s's ``uniform_per(bounce_key(bounce_key(gkeys, 0,
+    VOLUME), s, LIGHT_SAMPLE), 3)`` (volumes.py:190-209); the fill pass on
+    every 8th lane. On CPU tensors the wrapper is the plain version."""
+    pix = np.concatenate([np.arange(61, dtype=np.int64), [2**31, 2**32 - 1, 7]])
+    keys = jrng.pixel_sample_key(jrng.root_key(5), jnp.asarray(pix.astype(np.uint32)),
+                                 jnp.uint32(sample))
+    cfg = tpath.IntegratorConfig(kind="irradiancecache", max_depth=2, volume_kind="single")
+    before = dict(rng.launches)
+    draws = tirr.cache_draws(rng.root_key(5), torch.as_tensor(pix), sample, cfg, volumes=True)
+    assert rng.launches == before
+    for name, salt, rows in (("fill", tirr.FILL_SALT, slice(None, None, 8)),
+                             ("miss", tirr.MISS_SALT, slice(None))):
+        media = draws[name][2]
+        assert media[0].shape == (len(pix[rows]), 2 * 4) and media[1].shape[1] == 96 * 4
+        for k in range(4):
+            gk = jrng.bounce_key(keys[rows], salt + 100 + k, jrng.CAMERA)
+            k_v = jrng.bounce_key(gk, 0, jrng.VOLUME)
+            ref = [np.asarray(jrng.uniform_per(jrng.bounce_key(gk, b, jrng.VOLUME), 1))
+                   for b in range(2)]
+            ref += [np.asarray(jrng.uniform_per(jrng.bounce_key(k_v, s, jrng.LIGHT_SAMPLE), 3))
+                    for s in range(32)]
+            out = tirr.nested_media(media, k, 2).numpy()
+            np.testing.assert_array_equal(out.view(np.int32),
+                                          np.concatenate(ref, -1).view(np.int32))
+    emission = tirr.cache_draws(rng.root_key(5), torch.as_tensor(pix), sample,
+                                dataclasses.replace(cfg, volume_kind="emission"), volumes=True)
+    assert emission["miss"][2][1] is None
+    np.testing.assert_array_equal(tirr.nested_media(emission["miss"][2], 3, 2).numpy(),
+                                  tirr.nested_media(draws["miss"][2], 3, 2).numpy()[:, :2])
+    assert tirr.cache_draws(rng.root_key(5), torch.as_tensor(pix), sample, cfg)["fill"][2] is None
+
+
+@pytest.fixture(scope="module", params=["emission", "single"])
+def fog(request):
+    """The fog under the cache, both packages: the JAX side's radiance and
+    its ``render(seed)`` with its pieces and the volumes' compiled once
+    each (``test_torch_volumes.jax_pieces_compiled``); the port's scene from
+    the JAX package's arrays."""
+    text = fog_cache_text(request.param)
+    with jax_integrator_pieces(), jax_pieces_compiled():
+        jb = jbuild(jload(text))
+        arrays = jax_scene_arrays(jb)
+        u = np.random.default_rng(9).random((N * N, 5), dtype=np.float32)
+        ys, xs = np.divmod(np.arange(N * N), N)
+        jr = jb.camera.generate_rays(jnp.asarray((xs + u[:, 0]).astype(np.float32)),
+                                     jnp.asarray((ys + u[:, 1]).astype(np.float32)),
+                                     *(jnp.asarray(u[:, k]) for k in (2, 3, 4)))
+        pix = np.arange(N * N, dtype=np.int64)
+        keys = jrng.pixel_sample_key(jrng.root_key(4), jnp.asarray(pix.astype(np.uint32)),
+                                     jnp.uint32(SAMPLE))
+        Lj, tj = jirr.irradiance_cache_li(jb.scene, jr, keys, jb.integrator)
+        js = j_render(jb, spp=1, seed=3, verbose=False)
+    scene, _, _ = scene_from_numpy(arrays, "cpu")
+    yield dict(text=text, kind=request.param, scene=scene, icfg=integrator_from_numpy(arrays),
+               jr=jr, pix=pix, Lj=np.asarray(Lj), tj=np.asarray(tj),
+               jpixels=np.asarray(js.pixels))
+
+
+def test_fog_irradiance_cache_li_matches_jax(fog):
+    """All three passes in the fog (emission and single scattering): the top
+    trace with the wave's media block, each nested trace with its own; the
+    radiance of every lane, rtol 1e-4, atol 1e-6 on ≥ 99% of lanes, and the
+    first-hit t rtol 1e-5."""
+    s = fog
+    icfg = s["icfg"]
+    assert icfg.kind == "irradiancecache" and icfg.volume_kind == s["kind"]
+    root, pix = rng.root_key(4), torch.as_tensor(s["pix"])
+    u = rng.primary_uniforms_plain(root, pix, torch.zeros((N * N, 6), dtype=torch.int64),
+                                   SAMPLE, icfg.max_depth)
+    media = rng.volume_uniforms_plain(root, pix, SAMPLE, icfg.max_depth, s["kind"] == "single")
+    draws = tirr.cache_draws(root, pix, SAMPLE, icfg, volumes=True)
+    rays = geom.Ray.make(*(torch.as_tensor(np.array(a)) for a in (s["jr"].origin,
+                                                                   s["jr"].direction)))
+    L, t = tpath.trace_radiance(s["scene"], rays, icfg, u, media=media, draws=draws)
+    L = L.numpy()
+    assert np.isfinite(L).all() and L.sum() > 0
+    assert np.isclose(L, s["Lj"], **TOL).all(-1).mean() >= 0.99
+    np.testing.assert_allclose(t.numpy(), s["tj"], rtol=1e-5)
+    # the volumes act: the same lanes without the nested media differ
+    with pytest.raises(ValueError, match="media"):
+        tpath.trace_radiance(s["scene"], rays, icfg, u, draws=draws)
+    with pytest.raises(ValueError, match="volumes=True"):
+        tpath.trace_radiance(s["scene"], rays, icfg, u, media=media,
+                             draws=tirr.cache_draws(root, pix, SAMPLE, icfg))
+
+
+def test_fog_render_seed_matches_jax(fog):
+    """``render`` of the 16×16 fog under the cache (depth 2, 1 spp, seed
+    3), the port from its own build: pixels rtol 1e-4, atol 1e-6 on ≥ 99%,
+    per-bin sums rtol 1e-4."""
+    tb = tbuild(tload(fog["text"]), device="cpu")
+    ts = render(tb, spp=1, seed=3)
+    pj, pt = fog["jpixels"], ts.pixels.numpy()
+    assert pt.shape == (N, N, 32) and np.isfinite(pt).all() and pt.sum() > 0
+    assert np.isclose(pt, pj, **TOL).all(-1).mean() >= 0.99
+    np.testing.assert_allclose(pt.sum((0, 1)), pj.sum((0, 1)), rtol=1e-4)

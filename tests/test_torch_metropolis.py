@@ -58,6 +58,8 @@ from pbrt_torch.renderers import metropolis as tm
 from pbrt_torch.renderers.sampler import render
 from pbrt_torch.scene.api import load_scene_string as tload
 from pbrt_torch.scene.builder import build as tbuild
+from pbrt_tpu.integrators.path import PrimarySource as JPS
+from test_torch_volumes import jax_pieces_compiled
 from torch_parity_util import jax_area_rows_like_port, jax_integrator_pieces, jax_scene_arrays
 
 N = 8
@@ -350,3 +352,217 @@ def test_metropolis_image_matches_path_tracing(bidir):
     img = (pt.pixels / torch.clamp(pt.weight[..., None], min=1e-9)).numpy().mean(-1)
     assert 0.85 < mlt.mean() / img.mean() < 1.15
     assert np.corrcoef(mlt.ravel(), img.ravel())[0, 1] > 0.85
+
+
+# ---------------------------------------------------------------------------
+# volumes, and ambient occlusion and metadata under the unidirectional
+# estimator
+# ---------------------------------------------------------------------------
+
+#: a fog box around the scene's camera and objects
+FOG_BOX = ('Volume "homogeneous" "point p0" [-6 -6 -8] "point p1" [6 6 6] '
+           '"spectrum sigma_a" [395 .05 715 .08] "spectrum sigma_s" [395 .1 715 .05] '
+           '"spectrum Le" [395 .02 715 .01] "float g" [.3]')
+#: an absorbing box of the same extent (no scattering, no emission)
+ABSORBER = ('Volume "homogeneous" "point p0" [-6 -6 -8] "point p1" [6 6 6] '
+            '"spectrum sigma_a" [395 2 715 2] "spectrum sigma_s" [395 0 715 0]')
+
+
+def fog_text(box=FOG_BOX, volume="single"):
+    return scene_text().replace("WorldBegin", f'VolumeIntegrator "{volume}"\nWorldBegin\n{box}', 1)
+
+
+def _zero_nee(scene, si, *a, **k):
+    """A stand-in for the estimators' NEE, in either package: no light."""
+    zeros = jnp.zeros if isinstance(si.p, jnp.ndarray) else torch.zeros
+    return zeros((si.p.shape[0], scene.materials.kd.shape[-1]))
+
+
+@pytest.fixture(scope="module")
+def fog(setup):
+    """The scene in a fog under single scattering, both packages, the JAX
+    side's pieces (``setup``'s bindings, still in place) and the volumes'
+    compiled once each: ``trace_bidir`` and
+    ``_eval_paths`` (bidirectional; unidirectional under ``path``,
+    ``ambientocclusion`` and ``metadata``) of one shared primary-sample
+    array keyed by 64 chains, and one step from the state it gives; then the
+    connection fact's four estimates (an absorbing box or none, NEE kept
+    or zeroed)."""
+    out = {}
+    with jax_pieces_compiled():
+        jb = jbuild(jload(fog_text()))
+        arrays = jax_scene_arrays(jb)
+        scene, camera, film = scene_from_numpy(arrays, "cpu")
+        R = 64
+        u = np.random.default_rng(12).random((R, bdpt.n_dims_bidir(DEPTH)), dtype=np.float32)
+        keys = jrng.pixel_sample_key(jrng.root_key(7), jnp.arange(R), jnp.zeros(R, jnp.int32))
+        ju = jnp.asarray(u)
+        jr = jb.camera.generate_rays(*(jnp.asarray(x) for x in (u[:, 0] * N, u[:, 1] * N,
+                                                               u[:, 2], u[:, 3], u[:, 4])))
+        out["bidir"] = [np.asarray(a) for a in jbdpt.trace_bidir(jb.scene, jr, keys,
+                                                                 jb.integrator, uniforms=ju)]
+        L, I, px, py = jm._eval_paths(jb, ju, keys, True)
+        out["eval"] = (L, I, px, py)
+        out["step"] = _jax_step(jb, ju, L, I, px, py, 5, 0.25, R)
+        up = ju[:, :JPS.n_dims(DEPTH)]
+        for kind in ("path", "ambientocclusion", "metadata"):
+            jbk = dataclasses.replace(jb, integrator=dataclasses.replace(jb.integrator,
+                                                                         kind=kind))
+            out[kind] = np.asarray(jm._eval_paths(jbk, up, keys, False)[0])
+        u_fact = _connecting_lanes(R)
+        jr_fact = jb.camera.generate_rays(*(jnp.asarray(x) for x in (
+            u_fact[:, 0] * N, u_fact[:, 1] * N, u_fact[:, 2], u_fact[:, 3], u_fact[:, 4])))
+        fact = {}
+        for box in ("absorber", "clear"):
+            jbb = jbuild(jload(fog_text(ABSORBER if box == "absorber" else "")))
+            for nee in ("nee", "no_nee"):
+                with (mock.patch.object(jbdpt, "_nee_one_light", _zero_nee) if nee == "no_nee"
+                      else mock.patch.object(jbdpt, "_nee_one_light", jbdpt._nee_one_light)):
+                    fact[box, nee] = np.asarray(jbdpt.trace_bidir(
+                        jbb.scene, jr_fact, keys, jbb.integrator,
+                        uniforms=jnp.asarray(u_fact))[0])
+        out["fact"] = fact
+    yield dict(out, jb=jb, scene=scene, camera=camera, film=film, u=u, R=R, jr=jr,
+               u_fact=u_fact, jr_fact=jr_fact, icfg=integrator_from_numpy(arrays),
+               text=fog_text())
+
+
+def _connecting_lanes(R):
+    """R primary-sample vectors, first those of 4,096 drawn whose
+    estimate without NEE is not black in the port (a connection, or
+    emission after a specular bounce, reached a light): in this open scene
+    one vector in ~230 connects."""
+    cand = np.random.default_rng(13).random((4096, bdpt.n_dims_bidir(DEPTH)), dtype=np.float32)
+    tb = tbuild(tload(fog_text("")), device="cpu")
+    u = torch.as_tensor(cand)
+    rays = tb.camera.generate_rays(u[:, 0] * N, u[:, 1] * N, u[:, 2], u[:, 3], u[:, 4])
+    with mock.patch.object(bdpt, "_nee_one_light", _zero_nee):
+        hot = (bdpt.trace_bidir(tb.scene, rays, tb.integrator, u)[0].sum(-1) > 0).numpy()
+    order = np.concatenate([np.nonzero(hot)[0], np.nonzero(~hot)[0]])
+    return cand[order[:R]]
+
+
+def _fog_built(s, kind=None):
+    tb = tbuild(tload(s["text"]), device="cpu")
+    icfg = s["icfg"] if kind is None else dataclasses.replace(s["icfg"], kind=kind)
+    return dataclasses.replace(tb, scene=s["scene"], camera=s["camera"], integrator=icfg)
+
+
+def _rays(jr):
+    return geom.Ray.make(*(torch.as_tensor(np.array(a)) for a in (jr.origin, jr.direction)))
+
+
+def test_fog_trace_bidir_matches_jax(fog):
+    """``trace_bidir`` per lane in the fog: the NEE at camera vertex i
+    attenuated with the jitter ``media[:, i]`` of the chain's key; rtol
+    1e-4, atol 1e-6 on ≥ 98% of the 64 lanes, per-bin sums rtol 1e-4."""
+    s = fog
+    media = rng.volume_uniforms_plain(rng.root_key(7), torch.arange(s["R"]), 0, DEPTH, True)
+    L, t = bdpt.trace_bidir(s["scene"], _rays(s["jr"]), s["icfg"], torch.as_tensor(s["u"]),
+                            media=media)
+    Lj, tj = s["bidir"]
+    L = L.numpy()
+    assert np.isfinite(L).all() and (L.sum(-1) > 0).mean() > 0.2
+    assert np.isclose(L, Lj, **TOL).all(-1).mean() >= 0.98
+    np.testing.assert_allclose(L.sum(0), Lj.sum(0), rtol=1e-4)
+    np.testing.assert_allclose(t.numpy(), tj, rtol=1e-5)
+    with pytest.raises(ValueError, match="media block"):
+        bdpt.trace_bidir(s["scene"], _rays(s["jr"]), s["icfg"], torch.as_tensor(s["u"]))
+
+
+@pytest.mark.parametrize("kind", ["bidirectional", "path", "ambientocclusion", "metadata"])
+def test_fog_eval_paths_matches_jax(fog, kind):
+    """``_eval_paths`` per lane in the fog, its draws from the chains' keys:
+    bidirectional; unidirectional under ``path`` (NEE and the camera
+    segment's single scattering keyed by the chain), ``ambientocclusion``
+    (its directions from the chain's key, the camera columns from u) and
+    ``metadata`` (the camera columns only). rtol 1e-4, atol 1e-6 on ≥ 95%
+    of lanes (the bidirectional estimator's two bounces past fused
+    products), every lane of AO and metadata equal within that rule."""
+    s = fog
+    R = s["R"]
+    bidir = kind == "bidirectional"
+    built = _fog_built(s, None if bidir else kind)
+    u = torch.as_tensor(s["u"] if bidir else s["u"][:, :PrimarySource.n_dims(DEPTH)])
+    L = tm._eval_paths(built, u, torch.arange(R), bidir, 0)[0].numpy()
+    ref = np.asarray(s["eval"][0]) if bidir else s[kind]
+    assert np.isfinite(L).all() and L.sum() > 0
+    share = np.isclose(L, ref, **TOL).all(-1).mean()
+    assert share >= (0.95 if kind in ("bidirectional", "path") else 1.0), share
+    if kind == "ambientocclusion":
+        assert 0 < (L[:, 0] < 1).sum() < R and set(np.unique(L * 4)) <= set(range(5))
+
+
+def test_fog_mlt_step_matches_jax(fog):
+    """One bidirectional step of 64 chains in the fog from one shared state
+    (the JAX package's evaluation): the accept decisions equal but where
+    |u_acc − a| < 1e-5, the splat rtol 1e-4, atol 1e-6 on ≥ 99% of pixels."""
+    s = fog
+    R = s["R"]
+    L, I, px, py = s["eval"]
+    ju, ja, jacc, jsplat, _ = s["step"]
+    st = tm.ChainState(*(torch.as_tensor(np.array(a)) for a in (s["u"], L, I, px, py)),
+                       splat=torch.zeros((N, N, 32)), accepted=torch.zeros((), dtype=torch.int64))
+    u0 = st.u.clone()
+    tm.mlt_step(_fog_built(s), st, 5, tm.MLTOptions(p_large=0.25), seed=0)
+    accepted = (st.u.numpy() != u0.numpy()).any(-1)
+    near = np.abs(jacc - ja) < 1e-5
+    np.testing.assert_array_equal(accepted[~near], (jacc < ja)[~near])
+    assert 0 < accepted.sum() < R
+    pt = st.splat.numpy()
+    assert np.isfinite(pt).all() and pt.sum() > 0
+    assert np.isclose(pt, jsplat, **TOL).all(-1).mean() >= 0.99
+
+
+def test_fact_mlt_media_jitter_is_the_chains(fog):
+    """Fact: the media block comes from each chain's fixed key, not from the
+    mutated vector, so a chain keeps one jitter over its iterations: two
+    different vectors of one chain draw the same block, and the JAX
+    package's NEE jitter is that chain key's (metropolis.py:112-114)."""
+    s = fog
+    seen = []
+    real = tm.media_uniforms
+
+    def spy(*a):
+        seen.append(real(*a))
+        return seen[-1]
+
+    built = _fog_built(s)
+    idx = torch.tensor([3, 3, 9])
+    u = torch.as_tensor(np.random.default_rng(1).random((3, s["u"].shape[1]), dtype=np.float32))
+    with mock.patch.object(tm, "media_uniforms", spy):
+        tm._eval_paths(built, u, idx, True, 0)
+    m = seen[0].numpy()
+    np.testing.assert_array_equal(m[0], m[1])
+    assert not np.array_equal(m[0], m[2])
+    keys = jrng.pixel_sample_key(jrng.root_key(7), jnp.asarray([3]), jnp.zeros(1, jnp.int32))
+    np.testing.assert_array_equal(
+        m[0, 1], np.asarray(jrng.uniform_per(jrng.bounce_key(keys, 1, jrng.VOLUME), 1))[0, 0])
+
+
+def test_fact_bidir_connections_take_no_transmittance(fog):
+    """Fact (copied): the bidirectional estimator attenuates only its NEE.
+    With NEE zeroed in both packages, an absorbing box around the whole
+    scene (σa 2 on every camera vertex's and light vertex's segment)
+    changes no term: the connections, emission and escapes are bit for bit
+    those without it; with NEE kept it darkens the image. Lanes: 64
+    vectors led by those that connect (``_connecting_lanes``). The port
+    within rtol 1e-4, atol 1e-6 of the JAX package on ≥ 98% of lanes."""
+    s = fog
+    media = rng.volume_uniforms_plain(rng.root_key(7), torch.arange(s["R"]), 0, DEPTH, True)
+    out = {}
+    for box in ("absorber", "clear"):
+        tb = tbuild(tload(fog_text(ABSORBER if box == "absorber" else "")), device="cpu")
+        assert tb.scene.has_volumes == (box == "absorber")
+        for nee in ("nee", "no_nee"):
+            with (mock.patch.object(bdpt, "_nee_one_light", _zero_nee) if nee == "no_nee"
+                  else mock.patch.object(bdpt, "_nee_one_light", bdpt._nee_one_light)):
+                out[box, nee] = bdpt.trace_bidir(tb.scene, _rays(s["jr_fact"]), tb.integrator,
+                                                 torch.as_tensor(s["u_fact"]),
+                                                 media=media)[0].numpy()
+    for k, v in out.items():
+        assert np.isclose(v, s["fact"][k], **TOL).all(-1).mean() >= 0.98, k
+    for f in (out, s["fact"]):
+        np.testing.assert_array_equal(f["absorber", "no_nee"], f["clear", "no_nee"])
+        assert f["absorber", "no_nee"].sum() > 0
+        assert f["absorber", "nee"].sum() < 0.9 * f["clear", "nee"].sum()

@@ -124,9 +124,19 @@ def test_port_builder_scene_traces_the_same(setup):
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-7)
 
 
-def test_unported_integrator_raises(setup):
-    """Every kind of the JAX package is ported; a kind the port does not
-    know raises."""
-    with pytest.raises(NotImplementedError):
-        t_trace(setup["scene"], setup["tr"], IntegratorConfig(kind="bidirectional"),
-                torch.zeros(N * N, 40))
+def test_unknown_integrator_traces_as_jax_does(setup):
+    """A kind neither package knows: the JAX ``trace_radiance`` runs its
+    bounce loop with no kind's extras, ``path`` without roulette
+    (path.py:677); the port's the same, per lane against the JAX package's
+    (the rule above at depth 5), and bit for bit its own ``path`` with
+    roulette off."""
+    s = setup
+    u = s["u"][:, : JPS.n_dims(5)]
+    jcfg = s["jb"].integrator.__class__(kind="bidirectional", max_depth=5, n_bins=32)
+    Lj, _ = j_trace(s["jb"].scene, s["jr"], None, jcfg, uniforms=jnp.asarray(u))
+    tu = torch.as_tensor(u)
+    Lt, _ = t_trace(s["scene"], s["tr"], IntegratorConfig(kind="bidirectional", max_depth=5), tu)
+    assert np.isfinite(Lt.numpy()).all() and Lt.sum() > 0
+    assert np.isclose(Lt.numpy(), np.asarray(Lj), rtol=1e-4, atol=1e-6).all(-1).mean() >= 0.99
+    no_rr, _ = t_trace(s["scene"], s["tr"], IntegratorConfig(max_depth=5, rr_depth=5), tu)
+    assert torch.equal(Lt, no_rr)

@@ -96,7 +96,8 @@ def test_camera_columns_match_jax(sampler, spp):
 def test_sampler_constants():
     """The host's per-wave constants: halton's radical inverses of n
     within 1 ulp of the JAX package's (sampling.py:308-324, jitted), the
-    bestcandidate row clamped at T − 1, stratified's floor grid."""
+    bestcandidate row clamped at T − 1, stratified's floor grid, an unknown
+    name random's."""
     ri = jax.jit(jsmp.radical_inverse, static_argnums=1)
     for n in (0, 1, 2, 3, 7, 12345, 2**31 + 1, 2**32 - 1):
         code, c = trng.sampler_constants("halton", n, 1)
@@ -110,8 +111,9 @@ def test_sampler_constants():
     assert trng.sampler_constants("stratified", 7, 9)[1] == (1.0, 2.0, third, 0.0, 0.0)
     assert trng.sampler_constants("stratified", 7, 8)[1][2] == 0.5  # ⌊√8⌋, not ⌈√8⌉
     assert trng.sampler_constants("adaptive", 3, 8)[0] == trng.LOWDISCREPANCY
-    with pytest.raises(NotImplementedError):
-        trng.sampler_constants("sobol", 0, 1)
+    # a name the JAX package does not know samples as random (sampler.py:84-87)
+    assert trng.sampler_constants("sobol", 5, 4) == trng.sampler_constants("random", 5, 4)
+    assert trng.sampler_constants("sobol", 0, 1)[0] == trng.RANDOM
 
 
 def test_scramble_word_identities():

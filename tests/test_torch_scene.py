@@ -154,15 +154,10 @@ def test_build_needs_a_device_or_cpu():
 
 
 def test_unported_features_raise():
-    # a surface integrator the JAX package does not know (it renders path)
-    text = tiny_scene_text().replace('SurfaceIntegrator "path"',
-                                     'SurfaceIntegrator "bidirectional"')
-    with pytest.raises(NotImplementedError):
-        tbuild(tload(text), device="cpu")
+    """The decided refusals raise; names the JAX package does not know fall
+    back as there (tests/test_torch_fallbacks.py holds each against it)."""
     # a texture under cylindrical mapping (the JAX package evaluates it as
-    # planar), a mix of mixes (the JAX package renders the inner mix black),
-    # a shape the JAX package does not know (it warns and skips it) and an
-    # accelerator it does not know (it builds its BVH)
+    # planar) and a mix of mixes (the JAX package renders the inner mix black)
     textured = ('Texture "checks" "spectrum" "checkerboard" "string mapping" ["cylindrical"]\n'
                 'Material "matte" "texture Kd" "checks"')
     nested = ('MakeNamedMaterial "a" "string type" ["matte"]\n'
@@ -170,13 +165,23 @@ def test_unported_features_raise():
               'MakeNamedMaterial "ab" "string type" ["mix"] "string namedmaterial1" ["a"] '
               '"string namedmaterial2" ["b"]\n'
               'Material "mix" "string namedmaterial1" ["ab"] "string namedmaterial2" ["a"]')
+    for extra in (textured, nested):
+        text = tiny_scene_text().replace("WorldBegin",
+                                         f'WorldBegin\n{extra}\nShape "sphere" "float radius" [.3]',
+                                         1)
+        with pytest.raises(NotImplementedError):
+            tbuild(tload(text), device="cpu")
+    plain = tbuild(tload(tiny_scene_text()), device="cpu")
+    # a surface integrator the JAX package does not know renders path
+    text = tiny_scene_text().replace('SurfaceIntegrator "path"',
+                                     'SurfaceIntegrator "bidirectional"')
+    assert tbuild(tload(text), device="cpu").integrator == plain.integrator
+    # a shape it does not know is skipped with its warning, and an
+    # accelerator or split it does not know builds the SAH BVH
     unknown_shape = 'Shape "bilinearpatch" "point P" [0 0 0 1 0 0 0 1 0 1 1 0]'
-    for extra in (textured + '\nShape "sphere" "float radius" [.3]',
-                  nested + '\nShape "sphere" "float radius" [.3]', unknown_shape):
-        text = tiny_scene_text().replace("WorldBegin", f"WorldBegin\n{extra}", 1)
-        with pytest.raises(NotImplementedError):
-            tbuild(tload(text), device="cpu")
-    for directive in ('Accelerator "qbvh"', 'Accelerator "bvh" "string splitmethod" "hlbvh"'):
-        text = tiny_scene_text().replace("WorldBegin", f"{directive}\nWorldBegin", 1)
-        with pytest.raises(NotImplementedError):
-            tbuild(tload(text), device="cpu")
+    for head, body in (("", unknown_shape), ('Accelerator "qbvh"', ""),
+                       ('Accelerator "bvh" "string splitmethod" "hlbvh"', "")):
+        text = tiny_scene_text().replace("WorldBegin", f"{head}\nWorldBegin\n{body}", 1)
+        g = tbuild(tload(text), device="cpu").scene.geometry
+        assert g.accel_kind == "bvh" and g.num_quadrics == plain.scene.geometry.num_quadrics
+        np.testing.assert_array_equal(g.wide_rows.numpy(), plain.scene.geometry.wide_rows.numpy())

@@ -233,13 +233,18 @@ def test_jax_exr_outfile_drops_the_camera_suffix(tmp_path):
     assert [os.path.basename(p) for p in tout] == ["t_cam1.exr", "t_cam1.dat"]
 
 
-def test_renderers_not_ported_raise(tmp_path):
-    assert dispatch.NOT_PORTED == ()  # every renderer of the JAX package is ported
-    for name in dispatch.NOT_PORTED:
-        tb = tbuild(tload(lens_scene(str(tmp_path), renderer=f'Renderer "{name}"')),
-                    device="cpu")
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            dispatch.render_scene(tb, spp=1)
+def test_unknown_renderer_renders_as_the_sampler(tmp_path):
+    """Every renderer of the JAX package is ported, and a name it does not
+    know renders as ``sampler`` there (dispatch.py:76-79) and in the port:
+    the same ``.dat``, byte for byte."""
+    files = []
+    for name in ("bogus", "sampler"):
+        tb = tbuild(tload(lens_scene(str(tmp_path), camera='Camera "perspective"',
+                                     renderer=f'Renderer "{name}"')), device="cpu")
+        assert tb.renderer_name == name
+        out = dispatch.render_scene(tb, spp=1, outfile=str(tmp_path / f"{name}.dat"))
+        files.append(open(out[0], "rb").read())
+    assert files[0] == files[1] and len(files[0]) > 100
 
 
 def test_interop_carries_cameras_and_renderer(tmp_path):
