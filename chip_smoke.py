@@ -1157,9 +1157,9 @@ OPS_TRI_TEST, OPS_TRI_LERP, OPS_QUAD_TEST, OPS_KD_POP = 54, 18, 126, 2
 #: lanes of the frame's rays the new kernels are held against their plain
 #: versions on, and of the motion scene's (phase 11's, as written)
 ACCEL_LANES, ACCEL_MOTION_LANES = 1 << 18, 1 << 16
-#: calls per timing round: a kd walk takes a fraction of a millisecond; a
-#: grid walk or a motion walk, 30–150 ms, needs no more than one
-TIMING_CALLS = {"kdtree": 50, "grid": 1, "motion": 1}
+#: calls per timing round: a static kd walk takes ~0.1 ms, a grid walk ~1
+#: ms, a motion walk 2.5–6 ms (32 lanes per ray on an H100)
+TIMING_CALLS = {"kdtree": 50, "grid": 20, "motion": 5}
 #: aggregatetest's rays on killeroo (the brute-force oracle holds an
 #: (R, 2048, 3) block per field: 2**14 rays keep it to 0.4 GB)
 AGGREGATE_RAYS = 1 << 14
@@ -1172,6 +1172,138 @@ REFINED_NURBS = (
     '"integer nu" [5] "integer uorder" [4] "float uknots" [0 0 0 0 .5 1 1 1 1] '
     '"integer nv" [4] "integer vorder" [3] "float vknots" [0 0 0 .4 1 1 1] '
     '"float u0" [.1] "float u1" [.9] "point P" [@P@]')
+
+
+#: the tie-and-dense scene (``tie_scene_text``): its copies of one triangle,
+#: its cluster, its far soup (which gives the kd-tree interior nodes and
+#: brings the prims to 1,200, so the grid is 32³ voxels of width 1/2 over
+#: its 16³ world box) and the kd-tree's leaf size that keeps the copies,
+#: the cluster and the sphere in one leaf
+TIE_COPIES, TIE_CLUSTER, TIE_SOUP, TIE_MAXPRIMS = 70, 100, 1027, 256
+#: the plane of the copies, the cluster's planes a few ulps about it, the
+#: sphere (centre, radius) below the plane beside the copies, all in the
+#: grid's voxel [0, 1/2]² × [4, 4.5]
+TIE_Z, TIE_SPHERE = 4.25, ((0.3125, 0.3125, 4.125), 0.03125)
+
+
+def _exact(v) -> str:
+    """A float32 written so the scene parser reads it back bit for bit."""
+    return repr(float(np.float32(v)))
+
+
+def tie_scene_text(acc: str, motion: bool = False) -> str:
+    """The tie-and-dense scene under ``acc``: prims 0..69 are exact copies
+    of one triangle (equal t, b1 and b2: three chunks of 32 lanes, nine of
+    8); prims 70..169 a cluster of small triangles in planes z = TIE_Z + m
+    ulps, m in -3..3 (t a few ulps apart, and tied within a plane); then a
+    sphere in the same kd leaf and grid voxel; a soup far off and two
+    corner triangles that fix the world box at [-8, 8]³. Every coordinate is
+    dyadic and every edge axis-aligned, so a hit's t (= the plane's z minus
+    the origin's) is exact in any order of operations, FMA or not. With
+    ``motion`` the copies and the cluster move by 1/32 along z over the
+    shutter (the soup and the sphere stand still)."""
+    ulp = float(np.spacing(np.float32(TIE_Z)))
+    rng = np.random.default_rng(17)
+    tri = lambda v0, a, b: [v0, (v0[0] + a, v0[1], v0[2]), (v0[0], v0[1] + b, v0[2])]
+    moving = [tri((0.0, 0.0, TIE_Z), 0.4375, 0.4375)] * TIE_COPIES
+    for j in range(TIE_CLUSTER):
+        x0 = 0.0625 + (j % 10) * 2.0 ** -7
+        y0 = 0.0625 + (j // 10) * 2.0 ** -7
+        moving.append(tri((x0, y0, TIE_Z + ((j * 37) % 7 - 3) * ulp), 0.0625, 0.0625))
+    soup = [tri((-8.0, -8.0, -8.0), 0.5, 0.5), tri((7.5, 7.5, 8.0), 0.5, 0.5)]
+    for _ in range(TIE_SOUP):
+        v0 = rng.integers(-112, -48, 3) / 16.0
+        v0[1:] += rng.integers(0, 112, 2) / 16.0
+        ts = [tuple(v0), tuple(v0 + rng.integers(-8, 9, 3) / 16.0),
+              tuple(v0 + rng.integers(-8, 9, 3) / 16.0)]
+        soup.append(ts)
+
+    def mesh(tris):
+        P = " ".join(_exact(c) for t in tris for v in t for c in v)
+        return (f'Shape "trianglemesh" "point P" [{P}] "integer indices" ['
+                + " ".join(map(str, range(3 * len(tris)))) + "]\n")
+
+    (cx, cy, cz), r = TIE_SPHERE
+    head = ("AttributeBegin\n  ActiveTransform EndTime\n  Translate 0 0 0.03125\n"
+            "  ActiveTransform All\n" if motion else "AttributeBegin\n")
+    return f"""
+LookAt 0 0 -2  0 0 4  0 1 0
+Camera "perspective" "float fov" [45]
+Film "image" "integer xresolution" [16] "integer yresolution" [16]
+Accelerator "{acc}" {'"integer maxprims" [%d]' % TIE_MAXPRIMS if acc == "kdtree" else ""}
+WorldBegin
+{head}{mesh(moving)}AttributeEnd
+AttributeBegin
+  Translate {cx} {cy} {cz}
+  Shape "sphere" "float radius" [{r}]
+AttributeEnd
+{mesh(soup)}WorldEnd
+"""
+
+
+def tie_rays(n: int, seed: int = 0):
+    """(o, d, time) float32 numpy rays over the tie scene's copies,
+    cluster and sphere: half along ±z from below and above, the rest
+    tilted by powers of two (their products with a dyadic coordinate are
+    exact) and kept off the sphere (whose quadratic they would round); the
+    origins on odd multiples of 2^-10, off every edge and split plane;
+    ray times on a 1/16 grid."""
+    rng = np.random.default_rng(seed)
+    o = np.zeros((n, 3))
+    d = np.zeros((n, 3))
+    down = rng.uniform(size=n) < 0.5
+    o[:, 2] = np.where(down, 7.5, 0.5)
+    d[:, 2] = np.where(down, -1.0, 1.0)
+    tilt = rng.uniform(size=n) < 0.5
+    k = rng.integers(0, np.where(tilt, 96, 160)[:, None], (n, 2))  # tilted: x, y < 0.25
+    o[:, :2] = 0.03125 + (2 * k + 1) * 2.0 ** -10
+    sgn = rng.choice([-1.0, 1.0], (n, 2))
+    d[:, :2] = np.where(tilt[:, None], sgn * 2.0 ** -rng.integers(7, 11, (n, 2)), 0.0)
+    time_ = rng.integers(0, 17, n) / 16.0
+    return o.astype(np.float32), d.astype(np.float32), time_.astype(np.float32)
+
+
+def tie_kernels_equal_plain(dev, acc: str, n: int = 4096, seed: int = 2) -> dict:
+    """The tie-and-dense scene (with motion) under ``acc`` on ``dev``, its
+    walk's four kernels held to their plain versions on ``n`` of
+    ``tie_rays``: the static ones on the start rows, the motion ones
+    lerped; any hit on segments that end 2^-20 past the closest hit (the
+    ties kept) or 1 past it. → {kernel key: t, prim, b1, b2 equal bit for
+    bit}, and under "hits" the closest hits on the copies (all on copy 0
+    where equal), the cluster and the sphere."""
+    import torch
+
+    from pbrt_torch.accel import intersect as isect
+    from pbrt_torch.accel import traverse_kd as tk
+    from pbrt_torch.scene.api import load_scene_string
+    from pbrt_torch.scene.builder import build
+
+    g = build(load_scene_string(tie_scene_text(acc, motion=True)), device=dev).scene.geometry
+    o, d, tm = (torch.as_tensor(x, device=dev) for x in tie_rays(n, seed))
+    inv = isect.make_inv_dir(d).contiguous()
+    tmin = torch.zeros(n, device=dev)
+    tmax = torch.full((n,), float("inf"), device=dev)
+    tw = isect.motion_weight(g, tm).contiguous()
+    walk, plain = ((tk.traverse_kd, tk.traverse_kd_plain) if acc == "kdtree"
+                   else (tk.traverse_grid, tk.traverse_grid_plain))
+    short = "kd" if acc == "kdtree" else "grid"
+    out = {}
+    for w, m in ((None, ""), (tw, "_motion")):
+        pc = plain(g, o, d, inv, tmin, tmax, False, w)
+        past = torch.where(torch.arange(n, device=dev) % 2 == 0, 2.0 ** -20, 1.0)
+        tmax_a = torch.where(torch.isfinite(pc[0]), pc[0] + past, 1e30).contiguous()
+        for side, any_hit, tmx in (("closest", False, tmax), ("any", True, tmax_a)):
+            k = walk(g, o, d, inv, tmin, tmx, any_hit, w)
+            p = pc if side == "closest" else plain(g, o, d, inv, tmin, tmx, any_hit, w)
+            out[f"traverse_{short}_{side}{m}"] = all(
+                torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(k, p))
+        prim = pc[1]
+        out.setdefault("hits", {})["motion" if m else "static"] = dict(
+            copies=int(((prim >= 0) & (prim < TIE_COPIES)).sum()),
+            copy0=int((prim == 0).sum()),
+            cluster=int(((prim >= TIE_COPIES) & (prim < TIE_COPIES + TIE_CLUSTER)).sum()),
+            sphere=int((prim == g.num_triangles).sum()))
+    return out
 
 
 def bunny_control_mesh(radius: float = BUNNY_RADIUS, freq: int = BUNNY_FREQ):
@@ -1258,6 +1390,49 @@ def accel_scene_text(text: str, acc: str) -> str:
     return text.replace("WorldBegin", f'Accelerator "{acc}"\nWorldBegin', 1)
 
 
+def kd_ray_sets(b, dev, motion: bool) -> dict:
+    """Phase 14's rays of a built scene under the kd-tree or the grid, as
+    its checks and timings and ``scripts/kd_grid_lab.py`` take them:
+    killeroo-simple's ``ACCEL_LANES`` camera and bounce rays (seed 21), or,
+    with ``motion``, the motion scene's ``ACCEL_MOTION_LANES`` at their own
+    shutter times, permuted (seed 22). → dict of o, d, inv, tmin, tmax, tw
+    (None when static), scale (``any_tmax``'s cut of the closest hit), brute
+    (the brute-force lanes, static only), timing (the timing set's lanes:
+    ``CHUNK`` drawn at random, or the first ``CHUNK`` under motion) and si
+    (the camera rays' interactions)."""
+    import torch
+
+    from pbrt_torch.accel import intersect as isect
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22 if motion else 21)
+    o, d, t_ray, _, si = camera_and_bounce_rays(
+        b, dev, ACCEL_MOTION_LANES if motion else ACCEL_LANES, gen, times=motion)
+    R = o.shape[0]
+    tw = brute = None
+    if motion:
+        perm = torch.randperm(R, generator=gen, device=dev)
+        o, d, t_ray = o[perm].contiguous(), d[perm].contiguous(), t_ray[perm]
+        tw = isect.motion_weight(b.scene.geometry, t_ray).contiguous()
+        scale, timing = 0.75, slice(0, CHUNK)  # any hit below 3/4 of the closest hit
+    else:
+        # any hit on segments cut at half or 1.5 times the closest hit
+        scale = torch.where(torch.rand(R, generator=gen, device=dev) < 0.5, 0.5, 1.5)
+        brute = torch.randperm(R, generator=gen, device=dev)[:BRUTE_LANES]
+        timing = torch.randperm(R, generator=gen, device=dev)[:CHUNK]
+    return dict(o=o, d=d, inv=isect.make_inv_dir(d).contiguous(),
+                tmin=torch.zeros(R, device=dev), tmax=torch.full((R,), float("inf"), device=dev),
+                tw=tw, scale=scale, brute=brute, timing=timing, si=si)
+
+
+def any_tmax(closest_t, scale):
+    """The any-hit segments' ends: the closest hit's t times ``scale``,
+    1e30 where the ray missed."""
+    import torch
+
+    return torch.where(torch.isfinite(closest_t), closest_t * scale, 1e30).contiguous()
+
+
 def accelerators_phase(dev, data_dir, drive, profile_frame, card_vs_cpu, bvh):
     """Phase 14: killeroo-simple under the kd-tree and the grid (their
     frames beside the BVH's of phase 7, ``bvh``), the two kernel families
@@ -1277,13 +1452,31 @@ def accelerators_phase(dev, data_dir, drive, profile_frame, card_vs_cpu, bvh):
     from pbrt_torch.scene.api import load_scene_string
     from pbrt_torch.scene.builder import build
     from pbrt_torch.scene.paramset import ParamSet
-    from pbrt_torch.utils import timing
+    from pbrt_torch.utils import native, timing
     from pbrt_torch.utils.timing import cuda_ms
 
     sync = torch.cuda.synchronize
     t_phase = time.time()
     bits = lambda k, p: all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                             for a, b in zip(k, p))
+    # the kernels as built, and the other width's build timed beside them
+    kd_lib = native.kernel_lib("traverse_kd.cu")
+    other_lib = native.kernel_lib("traverse_kd.cu", defines=tk.VARIANTS["other_width"])
+
+    def design(key, targs, calls, ref):
+        """The kernel's G, registers and blocks per SM, and the other width's
+        build on the same inputs: held to the plain walk's ``ref`` bit for
+        bit, then timed → text."""
+        info, oinfo = tk.kernel_info(kd_lib, key), tk.kernel_info(other_lib, key)
+        other = lambda: tk.launch_with(other_lib, *targs)
+        if not bits(other(), ref):
+            raise SystemExit(f"{key} at G = {oinfo['width']} disagrees with its plain version")
+        tq = timing.queued_rounds(other, RNG_ROUNDS, calls, warm=1)
+        return (f"G {info['width']}, {info['registers']} registers, {info['local_bytes']} local "
+                f"bytes, {info['shared_bytes']} shared bytes, {info['blocks_per_sm']} blocks of "
+                f"{info['threads']} per SM; at G {oinfo['width']} (equal to plain bit for bit, "
+                f"{oinfo['registers']} registers, {oinfo['blocks_per_sm']} blocks per SM) "
+                f"{tq['ms']:.4f} ms (median of {RNG_ROUNDS} rounds)")
     text, n_mesh = real_scene_text()
     walks = {"kdtree": (tk.traverse_kd, tk.traverse_kd_plain),
              "grid": (tk.traverse_grid, tk.traverse_grid_plain)}
@@ -1329,21 +1522,16 @@ def accelerators_phase(dev, data_dir, drive, profile_frame, card_vs_cpu, bvh):
             + " (bvh: phase 7's frames, its 4-spp render per sample)")
 
     # ---- (b) the kernels against their plain versions, on the frame's rays
-    gen = torch.Generator(device=dev)
     for acc in ("kdtree", "grid"):
         b = built[acc]
         g = b.scene.geometry
         walk, plain = walks[acc]
-        gen.manual_seed(21)
-        o, d, _, _, si = camera_and_bounce_rays(b, dev, ACCEL_LANES, gen, times=False)
+        rs = kd_ray_sets(b, dev, motion=False)
+        o, d, inv, tmin, tmax, si = (rs[k] for k in ("o", "d", "inv", "tmin", "tmax", "si"))
         R = o.shape[0]
-        inv = isect.make_inv_dir(d).contiguous()
-        tmin = torch.zeros(R, device=dev)
-        tmax = torch.full((R,), float("inf"), device=dev)
         kc = walk(g, o, d, inv, tmin, tmax, False)
         pc = plain(g, o, d, inv, tmin, tmax, False)
-        scale = torch.where(torch.rand(R, generator=gen, device=dev) < 0.5, 0.5, 1.5)
-        tmax_a = torch.where(torch.isfinite(pc[0]), pc[0] * scale, 1e30).contiguous()
+        tmax_a = any_tmax(pc[0], rs["scale"])
         ka = walk(g, o, d, inv, tmin, tmax_a, True)
         pa = plain(g, o, d, inv, tmin, tmax_a, True)
         ragged = True
@@ -1359,7 +1547,7 @@ def accelerators_phase(dev, data_dir, drive, profile_frame, card_vs_cpu, bvh):
         # brute force as phase 3 holds the BVH kernel to it, but rtol 1e-5:
         # its unpacked Möller–Trumbore sums by torch's reductions, and on
         # bounce rays t = (e2 · q) / det cancels (1.56e-6 seen on the kd-tree)
-        sel = torch.randperm(R, generator=gen, device=dev)[:BRUTE_LANES]
+        sel = rs["brute"]
         hb = isect.intersect_brute(g, geom.Ray.make(o[sel], d[sel]))
         sync()
         kv, bv = kc[1][sel] >= 0, hb.prim >= 0
@@ -1376,8 +1564,17 @@ def accelerators_phase(dev, data_dir, drive, profile_frame, card_vs_cpu, bvh):
             f"prims may differ only on exact-t ties)")
         if not (all(eq.values()) and ragged and brute_ok):
             raise SystemExit(f"a {acc} kernel disagrees with its plain version or brute force")
+        t0 = time.time()
+        tie = tie_kernels_equal_plain(dev, acc)
+        tie_hits = tie.pop("hits")
+        log("kernels", f"{acc} kernels vs plain on the tie-and-dense scene (4096 rays; "
+            f"{TIE_COPIES} copies of one triangle, a cluster of {TIE_CLUSTER} in planes a few "
+            f"ulps apart and a sphere in one leaf or voxel): t, prim, b1, b2 equal bit for bit "
+            f"{tie}; closest hits {tie_hits} ({time.time() - t0:.1f} s)")
+        if not (all(tie.values()) and all(h["copies"] == h["copy0"] for h in tie_hits.values())):
+            raise SystemExit(f"a {acc} kernel disagrees with its plain version on the tie scene")
         # timed at the main path's launch width, with the plain version's work
-        sub = torch.randperm(R, generator=gen, device=dev)[:CHUNK]
+        sub = rs["timing"]
         pick = lambda x: x[sub].contiguous()
         for side, any_hit, tm in (("closest", False, tmax), ("any", True, tmax_a)):
             key = f"traverse_{short[acc]}_{side}"
@@ -1391,14 +1588,16 @@ def accelerators_phase(dev, data_dir, drive, profile_frame, card_vs_cpu, bvh):
             entries[key] = dict(max_abs_err=errs[side], ms=tq["ms"], plain_ms=plain_ms,
                                 bound_ms=b_ms, bound_by=b_by)
             summ = step_summary(stats["lane_steps"], tq["ms"])
+            what = design(key, targs, TIMING_CALLS[acc],
+                          [x[sub] for x in (pc if side == "closest" else pa)])
             log("timing", f"{key}, permuted set of killeroo-simple, {CHUNK} lanes: median "
                 f"{tq['ms']:.4f} ms over {RNG_ROUNDS} rounds of {TIMING_CALLS[acc]} calls "
                 f"({tq['min']:.4f}–{tq['max']:.4f}; "
                 f"plain {plain_ms:.1f} ms with its counting, host enqueue {tq['host_ms']:.4f} ms); "
                 f"{work_text(acc, stats)}, {nbytes} bytes, {ops} operations; bound {b_ms:.5f} ms "
                 f"({b_by}), kernel / bound {tq['ms'] / b_ms:.1f}x; passes per lane mean "
-                f"{summ['mean']:.2f}, max {summ['max']}")
-        del kc, pc, ka, pa, o, d, inv, si
+                f"{summ['mean']:.2f}, max {summ['max']}; {what}")
+        del kc, pc, ka, pa, o, d, inv, si, rs
         torch.cuda.empty_cache()
 
     # the motion scene under each accelerator: its frame (the motion
@@ -1421,18 +1620,12 @@ def accelerators_phase(dev, data_dir, drive, profile_frame, card_vs_cpu, bvh):
             if not lk[key]:
                 raise SystemExit(f"the motion frame did not launch {key}")
             frames[(acc, "motion", side)] = lk[key]
-        gen.manual_seed(22)
-        o, d, t_ray, _, _ = camera_and_bounce_rays(b, dev, ACCEL_MOTION_LANES, gen, times=True)
-        # permuted: the first CHUNK lanes are the timing set
-        perm = torch.randperm(o.shape[0], generator=gen, device=dev)
-        o, d, t_ray = o[perm].contiguous(), d[perm].contiguous(), t_ray[perm]
+        rs = kd_ray_sets(b, dev, motion=True)
+        o, d, inv, tmin, tmax, tw = (rs[k] for k in ("o", "d", "inv", "tmin", "tmax", "tw"))
         R = o.shape[0]
-        tw = isect.motion_weight(g, t_ray).contiguous()
-        inv = isect.make_inv_dir(d).contiguous()
-        tmin = torch.zeros(R, device=dev)
-        tmax = torch.full((R,), float("inf"), device=dev)
         lanes = lambda tm, s: (o[s], d[s], inv[s], tmin[s], tm[s])
-        head, rest = slice(0, CHUNK), slice(CHUNK, None)
+        # the first CHUNK lanes are the timing set
+        head, rest = rs["timing"], slice(CHUNK, None)
 
         def plain_all(tm, any_hit, stats):
             """The plain walk on every lane, the timing set's call alone
@@ -1446,9 +1639,8 @@ def accelerators_phase(dev, data_dir, drive, profile_frame, card_vs_cpu, bvh):
         res = {}
         for side, any_hit in (("closest", False), ("any", True)):
             stats = {}
-            # any hit below 3/4 of the closest hit's t (the plain closest hit, p)
-            tm = (torch.where(torch.isfinite(p[0]), p[0] * 0.75, 1e30).contiguous()
-                  if any_hit else tmax)
+            # any hit below a cut of the plain closest hit's t (p)
+            tm = any_tmax(p[0], rs["scale"]) if any_hit else tmax
             p, plain_ms = plain_all(tm, any_hit, stats)
             k = walk(g, o, d, inv, tmin, tm, any_hit, tw)
             ok = p[1] >= 0
@@ -1461,18 +1653,21 @@ def accelerators_phase(dev, data_dir, drive, profile_frame, card_vs_cpu, bvh):
             b_ms, b_by = timing.bound_ms(nbytes, f32_ops=ops)
             entries[key] = dict(max_abs_err=res[side][1], ms=tq["ms"], plain_ms=plain_ms,
                                 bound_ms=b_ms, bound_by=b_by)
+            what = design(key, targs, TIMING_CALLS["motion"], [x[head] for x in p])
+            summ = step_summary(stats["lane_steps"], tq["ms"])
             log("timing", f"{key}, the motion scene's permuted set, {CHUNK} lanes: median "
                 f"{tq['ms']:.4f} ms over {RNG_ROUNDS} rounds of {TIMING_CALLS['motion']} calls "
                 f"({tq['min']:.4f}–{tq['max']:.4f}; plain {plain_ms:.1f} ms); "
                 f"{work_text(acc, stats)}, {nbytes} bytes; bound {b_ms:.5f} ms ({b_by}), "
-                f"kernel / bound {tq['ms'] / b_ms:.1f}x")
+                f"kernel / bound {tq['ms'] / b_ms:.1f}x; passes per lane mean "
+                f"{summ['mean']:.2f}, max {summ['max']}; {what}")
         sync()
         log("kernels", f"{acc} motion kernels vs plain on {R} rays of the motion scene (camera "
             f"rays at their own shutter times and bounce rays): equal bit for bit "
             f"{ {s: r[0] for s, r in res.items()} }")
         if not all(r[0] for r in res.values()):
             raise SystemExit(f"a {acc} motion kernel disagrees with its plain version")
-        del b, g, o, d, p, k
+        del b, g, o, d, p, k, rs
         torch.cuda.empty_cache()
 
     # ---- (c) aggregatetest under the BVH, the kd-tree and the grid ---------
@@ -3877,10 +4072,13 @@ def main() -> int:
 
     # ---- 2. build ---------------------------------------------------------
     # every library at once, one compiler process each (the FMA-contracted
-    # traversal build is only for the -fmad=false cost measurement below)
+    # traversal build is only for the -fmad=false cost measurement below,
+    # traverse_kd.cu's variants for phase 14's)
     t0 = time.time()
     builds = [(native.kernel_lib, s, False) for s in native.KERNEL_SOURCES]
     builds.append((native.kernel_lib, "traverse.cu", True))
+    # traverse_kd.cu's other-width build, timed beside its kernels in phase 14
+    builds += [(native.kernel_lib, "traverse_kd.cu", False, m) for m in tk.VARIANTS.values()]
     with ThreadPoolExecutor(len(builds) + 1) as ex:
         futs = [ex.submit(fn, *a) for fn, *a in builds]
         futs.append(ex.submit(native.bvh_lib))

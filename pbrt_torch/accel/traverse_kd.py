@@ -6,7 +6,10 @@ They replace the JAX package's ``_traverse_kd_one`` and
 ``:1249-1313``), XLA ``while_loop``s vmapped over rays, with the leaf loop
 ``_leaf_chunk_loop`` (``:1122-1146``) and ``_make_test_prim`` (``:437``).
 No Pallas kernel stands there. The CUDA source is
-``pbrt_torch/csrc/traverse_kd.cu``: one thread per ray walks to the end.
+``pbrt_torch/csrc/traverse_kd.cu``: a group of G = 32 lanes (a warp) per
+ray steps the walk together and tests each leaf's or voxel's prims in
+chunks of G, the chunk's first nearest hit found by a (t, position)
+reduction.
 
 - kd-tree (reference: KdTreeAccel::Intersect, kdtreeaccel.cpp:374-462):
   the ray is clipped to the world box, then a (node, t0, t1) todo stack of
@@ -37,9 +40,16 @@ back. The plain versions (``traverse_kd_plain``, ``traverse_grid_plain``)
 step every live lane once per loop pass, as the JAX ``while_loop`` does,
 and test a leaf's prims all at once against the best hit at the leaf's
 entry, keeping the first of the nearest: the same result as testing them
-in order against the running best, which the kernels do. Every float
-operation is the kernel's, in its order and without FMA, so on the card
-the two agree bit for bit.
+in order against the running best, or a chunk at a time against the best
+at the chunk's start, as the kernels do. Every float operation is the
+kernel's, in its order and without FMA, so on the card the two agree bit
+for bit.
+
+For measurement only (``chip_smoke.py`` phase 14, ``scripts/
+kd_grid_lab.py``), ``launch_with`` launches a given build of the kernels
+(``VARIANTS``: every kernel at the other width; or an earlier tree's)
+without counting, and ``kernel_info`` reports a kernel's G, registers
+and blocks per SM.
 """
 
 from __future__ import annotations
@@ -407,14 +417,43 @@ def _check_rays(native, lp, R, dev, o, d, inv, tmin, tmax, tw):
         native.check_tensor("tri_motion", lp.tri_motion, f32, (lp.T, 9), dev)
 
 
-def _launch(kind, g, head, o, d, inv, tmin, tmax, any_hit, tw):
+def _kd_head(native, g, dev):
+    N = g.kd_axis.shape[0]
+    for nm, x, dt in (("kd_split", g.kd_split, torch.float32), ("kd_axis", g.kd_axis, torch.int32),
+                      ("kd_above", g.kd_above, torch.int32),
+                      ("kd_prim_off", g.kd_prim_off, torch.int32),
+                      ("kd_prim_cnt", g.kd_prim_cnt, torch.int32)):
+        native.check_tensor(nm, x, dt, (N,), dev)
+    native.check_tensor("kd_prim_ids", g.kd_prim_ids, torch.int32, (g.kd_prim_ids.shape[0],), dev)
+    for nm, x in (("world_lo", g.world_lo), ("world_hi", g.world_hi)):
+        native.check_tensor(nm, x, torch.float32, (3,), dev)
+    return [x.data_ptr() for x in (g.kd_split, g.kd_axis, g.kd_above, g.kd_prim_off,
+                                   g.kd_prim_cnt, g.kd_prim_ids, g.world_lo, g.world_hi)]
+
+
+def _grid_head(native, g, dev):
+    nx, ny, nz = g.grid_dims
+    V = nx * ny * nz
+    for nm, x in (("grid_off", g.grid_off), ("grid_cnt", g.grid_cnt)):
+        native.check_tensor(nm, x, torch.int32, (V,), dev)
+    native.check_tensor("grid_ids", g.grid_ids, torch.int32, (g.grid_ids.shape[0],), dev)
+    for nm, x in (("world_lo", g.world_lo), ("world_hi", g.world_hi), ("grid_cell", g.grid_cell)):
+        native.check_tensor(nm, x, torch.float32, (3,), dev)
+    return [*(x.data_ptr() for x in (g.grid_off, g.grid_cnt, g.grid_ids, g.world_lo,
+                                      g.world_hi, g.grid_cell)),
+            nx, ny, nz]
+
+
+def _launch(lib, kind, g, o, d, inv, tmin, tmax, any_hit, tw):
+    """Launches ``kind``'s ("kd" or "grid") walk from ``lib`` → (its
+    ``KERNEL_NAMES`` key, (t, prim, b1, b2))."""
     from pbrt_torch.utils import native
 
     lp = g.leaf_prims
     R = o.shape[0]
     dev = o.device
+    head = (_kd_head if kind == "kd" else _grid_head)(native, g, dev)
     _check_rays(native, lp, R, dev, o, d, inv, tmin, tmax, tw)
-    lib = native.kernel_lib("traverse_kd.cu")
     f32 = torch.float32
     t = torch.empty(R, dtype=f32, device=dev)
     prim = torch.empty(R, dtype=torch.int32, device=dev)
@@ -429,54 +468,70 @@ def _launch(kind, g, head, o, d, inv, tmin, tmax, any_hit, tw):
             *(x.data_ptr() for x in (o, d, inv, tmin, tmax)), ptr(tw),
             *(x.data_ptr() for x in (t, prim, b1, b2)), R, stream)
     native.check_launch(getattr(lib, "pbrt_torch_" + key)(*args), f"{key} launch")
+    return key, (t, prim, b1, b2)
+
+
+def _dispatch(kind, g, o, d, inv, tmin, tmax, any_hit, tw):
+    name = f"traverse_{kind}"
+    refuse_grad(name, o, d, inv, tmin, tmax, tw)
+    if o.device.type == "cpu":
+        plain = traverse_kd_plain if kind == "kd" else traverse_grid_plain
+        return plain(g, o, d, inv, tmin, tmax, any_hit, tw)
+    if o.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {o.device}")
+    from pbrt_torch.utils import native
+
+    key, hit = _launch(native.kernel_lib("traverse_kd.cu"), kind, g, o, d, inv, tmin, tmax,
+                       any_hit, tw)
     launches[key] += 1
-    return t, prim, b1, b2
+    return hit
 
 
 def traverse_kd(g, o, d, inv, tmin, tmax, any_hit: bool, tw=None):
     """Closest-hit (or any-hit) walk of ``g``'s kd-tree; with ``tw`` (R,)
     the motion kernel, every triangle lerped by the lane's weight."""
-    refuse_grad("traverse_kd", o, d, inv, tmin, tmax, tw)
-    if o.device.type == "cpu":
-        return traverse_kd_plain(g, o, d, inv, tmin, tmax, any_hit, tw)
-    if o.device.type != "cuda":
-        raise ValueError(f"traverse_kd: unsupported device {o.device}")
-    from pbrt_torch.utils import native
-
-    dev = o.device
-    N = g.kd_axis.shape[0]
-    for nm, x, dt in (("kd_split", g.kd_split, torch.float32), ("kd_axis", g.kd_axis, torch.int32),
-                      ("kd_above", g.kd_above, torch.int32),
-                      ("kd_prim_off", g.kd_prim_off, torch.int32),
-                      ("kd_prim_cnt", g.kd_prim_cnt, torch.int32)):
-        native.check_tensor(nm, x, dt, (N,), dev)
-    native.check_tensor("kd_prim_ids", g.kd_prim_ids, torch.int32, (g.kd_prim_ids.shape[0],), dev)
-    for nm, x in (("world_lo", g.world_lo), ("world_hi", g.world_hi)):
-        native.check_tensor(nm, x, torch.float32, (3,), dev)
-    head = [x.data_ptr() for x in (g.kd_split, g.kd_axis, g.kd_above, g.kd_prim_off,
-                                   g.kd_prim_cnt, g.kd_prim_ids, g.world_lo, g.world_hi)]
-    return _launch("kd", g, head, o, d, inv, tmin, tmax, any_hit, tw)
+    return _dispatch("kd", g, o, d, inv, tmin, tmax, any_hit, tw)
 
 
 def traverse_grid(g, o, d, inv, tmin, tmax, any_hit: bool, tw=None):
     """Closest-hit (or any-hit) 3D-DDA of ``g``'s grid; with ``tw`` (R,)
     the motion kernel."""
-    refuse_grad("traverse_grid", o, d, inv, tmin, tmax, tw)
-    if o.device.type == "cpu":
-        return traverse_grid_plain(g, o, d, inv, tmin, tmax, any_hit, tw)
+    return _dispatch("grid", g, o, d, inv, tmin, tmax, any_hit, tw)
+
+
+# ---------------------------------------------------------------------------
+# measurement (chip_smoke.py, scripts/kd_grid_lab.py): other builds of the
+# kernels, launched on the same inputs; nothing here is on the render path
+# ---------------------------------------------------------------------------
+
+#: the build variants ``csrc/traverse_kd.cu`` offers, by the macros that
+#: select them: every kernel at the other width (G = 8 instead of 32)
+VARIANTS = {"other_width": ("PBRT_KD_OTHER_WIDTH",)}
+#: the fields of ``kernel_info``, in ``pbrt_torch_traverse_kd_info``'s order
+INFO_FIELDS = ("width", "registers", "local_bytes", "shared_bytes", "blocks_per_sm", "threads")
+
+
+def launch_with(lib, g, o, d, inv, tmin, tmax, any_hit: bool, tw=None):
+    """``g``'s walk (kd-tree or grid, by ``g.accel_kind``) launched from
+    ``lib``, a build of ``traverse_kd.cu`` (``native.kernel_lib(
+    "traverse_kd.cu", defines=VARIANTS[...])``, or an earlier tree's with
+    the same entry points) → (t, prim, b1, b2). It counts no launch."""
+    refuse_grad("launch_with", o, d, inv, tmin, tmax, tw)
     if o.device.type != "cuda":
-        raise ValueError(f"traverse_grid: unsupported device {o.device}")
+        raise ValueError(f"launch_with: unsupported device {o.device}")
+    kind = "kd" if g.accel_kind == "kdtree" else "grid"
+    return _launch(lib, kind, g, o, d, inv, tmin, tmax, any_hit, tw)[1]
+
+
+def kernel_info(lib, key: str) -> dict:
+    """The kernel ``key`` (of ``KERNEL_NAMES``) as ``lib`` built it: its
+    lanes per ray, registers per thread, local and
+    static shared bytes, blocks per SM (the CUDA occupancy calculator) and
+    threads per block."""
+    import ctypes
+
     from pbrt_torch.utils import native
 
-    dev = o.device
-    nx, ny, nz = g.grid_dims
-    V = nx * ny * nz
-    for nm, x in (("grid_off", g.grid_off), ("grid_cnt", g.grid_cnt)):
-        native.check_tensor(nm, x, torch.int32, (V,), dev)
-    native.check_tensor("grid_ids", g.grid_ids, torch.int32, (g.grid_ids.shape[0],), dev)
-    for nm, x in (("world_lo", g.world_lo), ("world_hi", g.world_hi)):
-        native.check_tensor(nm, x, torch.float32, (3,), dev)
-    head = [*(x.data_ptr() for x in (g.grid_off, g.grid_cnt, g.grid_ids, g.world_lo,
-                                      g.world_hi, g.grid_cell)),
-            nx, ny, nz]
-    return _launch("grid", g, head, o, d, inv, tmin, tmax, any_hit, tw)
+    out = (ctypes.c_int * len(INFO_FIELDS))()
+    native.check_launch(lib.pbrt_torch_traverse_kd_info(key.encode(), out), f"{key} info")
+    return dict(zip(INFO_FIELDS, out))

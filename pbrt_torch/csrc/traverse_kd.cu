@@ -1,4 +1,4 @@
-// kd-tree and uniform-grid traversal on Hopper, one thread per ray:
+// kd-tree and uniform-grid traversal on Hopper, a group of G lanes per ray:
 // traverse_kd_{closest,any}[_motion]_kernel and
 // traverse_grid_{closest,any}[_motion]_kernel.
 //
@@ -6,8 +6,8 @@
 // _traverse_grid_one, XLA while_loops vmapped over rays (no Pallas kernel
 // stands there), with their leaf loop _leaf_chunk_loop (:1122) and
 // _make_test_prim (:437). On the TPU every lane of a batch runs every
-// while_loop pass until the last ray ends, masked; here each thread walks
-// its own ray to its end.
+// while_loop pass until the last ray ends, masked; here each group of G
+// threads walks its own ray to its end.
 //
 // What each computes, as accel/traverse_kd.py's plain versions do:
 //   kd:   clip the ray to the world box; a (node, t0, t1) todo stack of
@@ -15,9 +15,9 @@
 //         child (below_first, with the o == split && d <= 0 tie) and pushes
 //         the far one when the plane splits the segment (the reference's
 //         ordered only-first / only-second tests, kdtreeaccel.cpp:419-424);
-//         a leaf tests its CSR prims in order against the running best;
-//         after a leaf the walk pops, and pops again while the best hit
-//         precedes the popped segment's t0.
+//         a leaf tests its CSR prims against the running best, keeping the
+//         first of the nearest; after a leaf the walk pops, and pops again
+//         while the best hit precedes the popped segment's t0.
 //   grid: a 3D-DDA from the entry voxel (clipped to dims - 1), next_t and
 //         delta_t with 1e30 on axes the ray does not move along, each
 //         voxel's CSR prims tested (a prim spanning voxels in each), a step
@@ -36,24 +36,79 @@
 // version's order, so the results equal the plain PyTorch versions bit for
 // bit. min / max that meet a NaN return it (torch.minimum / maximum do).
 //
-// What bounds it on this card: not bytes and not operations but each ray's
-// dependent chain: a node's row index comes out of the previous node's
-// plane test, a leaf's prims are tested one after another, and a warp
-// lasts as long as its longest ray (the DDA of a grazing ray crosses up to
-// 3 x 64 voxels, testing a spanning prim again in each). This first kernel
-// is the simple one the port needs to be right: the stack is per thread in
-// local memory (64 x 12 bytes, L1-resident), the tables are read through
-// the read-only path. Making it fast (rays grouped per warp, a mailbox,
-// shared-memory stacks) is later work.
+// Why groups: with one thread per ray, a leaf's or voxel's prims were
+// tested one after another, each test 9 scalar loads of a 36-byte row
+// while the warp's other lanes read other rows; the grid gives a ray
+// ~3,000 triangle tests, the motion kd-tree ~6,000, and a warp lasted as
+// long as its longest ray.
+//
+// This design: a group of G consecutive lanes owns one ray, G a template
+// parameter of the walks, kWidth = 32 for every kernel (one ray a warp).
+// - The walk is uniform across the group. Every lane holds the ray and
+//   computes the same kd interior steps or 3D-DDA steps from the same
+//   loads (one broadcast load for the group), so no branch of the walk
+//   diverges inside a group.
+// - A leaf's or voxel's cnt prims are tested in chunks of G: lane k tests
+//   entry c0 + k (coalesced id loads, its own row's 9 floats) against the
+//   best hit as it stood at the chunk's start. A ballot finds the lanes
+//   that hit; where more than one did, a butterfly of __shfl_xor_sync finds
+//   the lexicographic minimum of (t, position); the winner replaces the
+//   best where its t is strictly smaller, and its prim, b1 and b2 are
+//   broadcast from its lane. That is the plain _leaf_tests rule, the first
+//   of the nearest, and it equals the sequential order: tested against a
+//   smaller running tmax, a prim either hits at the same t or misses (a
+//   triangle's t does not depend on tmax; a quadric whose nearer root
+//   fails the smaller tmax has its farther root beyond it too), and it
+//   misses exactly where that t lies at or beyond the running best, which
+//   an earlier prim of the chunk set. Such a prim loses the reduction to
+//   that earlier one, on the t or, at equal t, on the position, as the
+//   strict '<' of the sequential loop keeps the earlier.
+// - The kd stack lives in shared memory, one kMaxStack-entry (node, t0,
+//   t1) stack per group (768 bytes a ray), written by lane 0 between two
+//   __syncwarps and read by the whole group (a broadcast).
+// - Each lane reads its own prim's row. Staging a chunk's G rows through
+//   shared memory (the group loading contiguous floats) was measured and
+//   dropped: slower on every set timed (an H100, PERF.md section 6), as a
+//   chunk's rows come from L2 either way while staging adds 9 shuffles, 9
+//   shared stores and loads and two __syncwarps to each chunk.
+// One build exists only to be timed beside these kernels (chip_smoke.py,
+// scripts/kd_grid_lab.py): -DPBRT_KD_OTHER_WIDTH, every kernel at G = 8
+// (4 rays a warp), slower on every set timed, as a warp of 4 rays waits
+// for the longest. pbrt_torch_traverse_kd_info reports each kernel's G,
+// registers and blocks per SM.
+//
+// What bounds it on this card: on the grid and under motion, the
+// instruction stream (11-16x the operation bound on an H100): each lane
+// of a chunk runs a whole Moller-Trumbore with its IEEE reciprocal, then
+// the ballot and, where several lanes hit, the butterfly, and a voxel's
+// last chunk leaves lanes idle. The static kd walk (~75x its byte bound)
+// has ~10 tests a ray: its time is the longest ray's chain of dependent
+// node loads (159 passes against a mean of 16.8 on killeroo's bounce
+// rays).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <cstring>
+
 namespace {
 
+// 4 rays a block; at 48-63 registers a thread (ptxas) 8-10 blocks, 1,024-
+// 1,280 threads, fit an SM (pbrt_torch_traverse_kd_info)
 constexpr int kThreads = 128;
 constexpr int kMaxStack = 64;  // traverse_kd.MAX_STACK
 constexpr int kLeaf = 3;       // kdtree.KD_LEAF
+constexpr int kRowFloats = 9;  // a packed triangle [v0, e1, e2]
+
+#ifdef PBRT_KD_OTHER_WIDTH
+constexpr bool kOtherWidth = true;
+#else
+constexpr bool kOtherWidth = false;
+#endif
+// lanes per ray, one warp: measured faster than 8 for every kernel, the
+// static kd walk too (~10 triangle tests a ray), where a warp of 4 rays
+// waits for the longest of them
+constexpr int kWidth = kOtherWidth ? 8 : 32;
 
 __device__ __forceinline__ float vmin(float a, float b) {
   float r;
@@ -258,35 +313,81 @@ __device__ bool quad_test(const Prims& P, int q, const Ray& r, float tmax,
   return hit;
 }
 
-// A leaf's (or voxel's) cnt prims from ids[off] on, in order, each against
-// the running best (_leaf_chunk_loop).
-template <bool kMotion>
+// This thread's place in its group of G: lane k, the group's slot in the
+// block, and the group's lanes in the warp (the mask of its shuffles).
+template <int G>
+struct Lane {
+  int k, slot;
+  unsigned base, mask;
+  __device__ __forceinline__ Lane()
+      : k(threadIdx.x & (G - 1)),
+        slot(threadIdx.x / G),
+        base(threadIdx.x & 31 & ~(G - 1)) {
+    if constexpr (G == 32) {
+      mask = 0xffffffffu;
+    } else {
+      mask = ((1u << G) - 1u) << base;
+    }
+  }
+  // the group's bits of a warp-wide ballot, lane k's at bit k
+  __device__ __forceinline__ unsigned bits(unsigned ballot) const {
+    return (ballot & mask) >> base;
+  }
+};
+
+// A leaf's (or voxel's) cnt prims from ids[off] on, in chunks of G: lane k
+// tests entry c0 + k against the best as it stood at the chunk's start, and
+// the chunk's first nearest hit replaces the best where it is strictly
+// nearer (the header's argument: the same hit as testing the prims in
+// order). Every lane of the group returns the same best.
+template <int G, bool kMotion>
 __device__ __forceinline__ void test_leaf(const Prims& P, const int* ids,
                                           int off, int cnt, const Ray& r,
-                                          Best& best) {
-  for (int c = 0; c < cnt; ++c) {
-    const int p = __ldg(ids + off + c);
+                                          Best& best, const Lane<G>& L) {
+  for (int c0 = 0; c0 < cnt; c0 += G) {
+    const int c = c0 + L.k;
+    const int p = c < cnt ? __ldg(ids + off + c) : -1;
+    const bool tri = p >= 0 && p < P.T;
     float t = 0.0f, u = 0.0f, v = 0.0f;
-    bool hit;
-    if (p < P.T) {
-      float row[9];
-      const float* src = P.tri + 9 * p;
+    bool hit = false;
+    if (tri) {
+      // this lane's own row (and its shutter-end delta under motion)
+      float row[kRowFloats];
+      const float* src = P.tri + kRowFloats * p;
 #pragma unroll
-      for (int k = 0; k < 9; ++k) row[k] = __ldg(src + k);
+      for (int e = 0; e < kRowFloats; ++e) row[e] = __ldg(src + e);
       if (kMotion) {
-        const float* dm = P.tri_motion + 9 * p;
+        const float* dm = P.tri_motion + kRowFloats * p;
 #pragma unroll
-        for (int k = 0; k < 9; ++k) row[k] = row[k] + r.tw * __ldg(dm + k);
+        for (int e = 0; e < kRowFloats; ++e) row[e] = row[e] + r.tw * __ldg(dm + e);
       }
       hit = tri_test(row, r, best.t, t, u, v);
-    } else {
+    } else if (p >= 0) {
       hit = quad_test(P, p - P.T, r, best.t, t, u, v);
     }
-    if (hit && t < best.t) {
-      best.t = t;
-      best.prim = p;
-      best.b1 = u;
-      best.b2 = v;
+    const unsigned hits = L.bits(__ballot_sync(L.mask, hit));
+    if (hits == 0u) continue;
+    // the winner: the one lane that hit, or the (t, position) minimum
+    int w = __ffs(static_cast<int>(hits)) - 1;
+    float tw = __shfl_sync(L.mask, t, w, G);
+    if (hits & (hits - 1u)) {
+      tw = hit ? t : CUDART_INF_F;
+      w = hit ? L.k : G;
+#pragma unroll
+      for (int m = G / 2; m > 0; m >>= 1) {
+        const float to = __shfl_xor_sync(L.mask, tw, m, G);
+        const int wo = __shfl_xor_sync(L.mask, w, m, G);
+        if (to < tw || (to == tw && wo < w)) {
+          tw = to;
+          w = wo;
+        }
+      }
+    }
+    if (tw < best.t) {
+      best.t = tw;
+      best.prim = __shfl_sync(L.mask, p, w, G);
+      best.b1 = __shfl_sync(L.mask, u, w, G);
+      best.b2 = __shfl_sync(L.mask, v, w, G);
     }
   }
 }
@@ -308,11 +409,19 @@ struct Kd {
   const float *lo, *hi;
 };
 
-template <bool kAny, bool kMotion>
+template <int G, bool kAny, bool kMotion>
 __device__ __forceinline__ void kd_walk(const Kd& K, const Prims& P,
                                         const Rays& Y, const Hits& H, int R) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= R) return;
+  constexpr int kRays = kThreads / G;
+  __shared__ int st_n[kRays][kMaxStack + 1];
+  __shared__ float st_t0[kRays][kMaxStack + 1];
+  __shared__ float st_t1[kRays][kMaxStack + 1];
+  const Lane<G> L;
+  const int i = blockIdx.x * kRays + L.slot;
+  if (i >= R) return;  // the whole group
+  int* const sn = st_n[L.slot];
+  float* const s0 = st_t0[L.slot];
+  float* const s1 = st_t1[L.slot];
   const Ray r = load_ray(Y, i, kMotion);
   Best best{r.tmax, 0.0f, 0.0f, -1};
   float enter, exit_;
@@ -320,15 +429,14 @@ __device__ __forceinline__ void kd_walk(const Kd& K, const Prims& P,
   bool alive = vmax(enter, r.tmin) <= vmin(exit_, r.tmax);
   float t0n = vmax(r.tmin, enter), t1n = vmin(r.tmax, exit_);
   int node = 0, sp = 0;
-  int st_n[kMaxStack];
-  float st_t0[kMaxStack], st_t1[kMaxStack];
   while (alive && (!kAny || best.prim < 0)) {
     const bool pop_mode = node < 0;
     const int nc = pop_mode ? 0 : node;
     const int axis = __ldg(K.axis + nc);
     const bool is_leaf = !pop_mode && axis == kLeaf;
     if (is_leaf)
-      test_leaf<kMotion>(P, K.ids, __ldg(K.off + nc), __ldg(K.cnt + nc), r, best);
+      test_leaf<G, kMotion>(P, K.ids, __ldg(K.off + nc), __ldg(K.cnt + nc), r,
+                            best, L);
     if (!pop_mode && !is_leaf) {
       // interior: the near child next, the far one pushed
       const float oa = axis == 0 ? r.ox : (axis == 1 ? r.oy : r.oz);
@@ -344,9 +452,13 @@ __device__ __forceinline__ void kd_walk(const Kd& K, const Prims& P,
       const bool only_second = tplane < t0n && !only_first;
       if (!only_first && !only_second) {
         if (sp < kMaxStack) {
-          st_n[sp] = second;
-          st_t0[sp] = tplane;
-          st_t1[sp] = t1n;
+          __syncwarp(L.mask);  // every lane has popped the entry it replaces
+          if (L.k == 0) {
+            sn[sp] = second;
+            s0[sp] = tplane;
+            s1[sp] = t1n;
+          }
+          __syncwarp(L.mask);  // the entry is seen by the group's pops
         }
         ++sp;
         t1n = tplane;
@@ -357,17 +469,19 @@ __device__ __forceinline__ void kd_walk(const Kd& K, const Prims& P,
       // segment (a pop that reads past the stack reads its last entry)
       --sp;
       const int rd = sp < kMaxStack ? sp : kMaxStack - 1;
-      t0n = st_t0[rd];
-      t1n = st_t1[rd];
-      node = best.t < t0n ? -1 : st_n[rd];
+      t0n = s0[rd];
+      t1n = s1[rd];
+      node = best.t < t0n ? -1 : sn[rd];
     } else {
       alive = false;
     }
   }
-  H.t[i] = best.t;
-  H.prim[i] = best.prim;
-  H.b1[i] = best.b1;
-  H.b2[i] = best.b2;
+  if (L.k == 0) {
+    H.t[i] = best.t;
+    H.prim[i] = best.prim;
+    H.b1[i] = best.b1;
+    H.b2[i] = best.b2;
+  }
 }
 
 struct Grid {
@@ -376,20 +490,22 @@ struct Grid {
   int nx, ny, nz;
 };
 
-template <bool kAny, bool kMotion>
-__device__ __forceinline__ void grid_walk(const Grid& G, const Prims& P,
+template <int G, bool kAny, bool kMotion>
+__device__ __forceinline__ void grid_walk(const Grid& Gr, const Prims& P,
                                           const Rays& Y, const Hits& H, int R) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= R) return;
+  constexpr int kRays = kThreads / G;
+  const Lane<G> L;
+  const int i = blockIdx.x * kRays + L.slot;
+  if (i >= R) return;  // the whole group
   const Ray r = load_ray(Y, i, kMotion);
   Best best{r.tmax, 0.0f, 0.0f, -1};
   float enter, exit_;
-  const float lo[3] = {__ldg(G.lo + 0), __ldg(G.lo + 1), __ldg(G.lo + 2)};
-  const float w[3] = {__ldg(G.width + 0), __ldg(G.width + 1), __ldg(G.width + 2)};
-  world_box(G.lo, G.hi, r, enter, exit_);
+  const float lo[3] = {__ldg(Gr.lo + 0), __ldg(Gr.lo + 1), __ldg(Gr.lo + 2)};
+  const float w[3] = {__ldg(Gr.width + 0), __ldg(Gr.width + 1), __ldg(Gr.width + 2)};
+  world_box(Gr.lo, Gr.hi, r, enter, exit_);
   const float t_enter = vmax(enter, r.tmin);
   bool alive = enter <= exit_ && exit_ >= r.tmin && t_enter <= r.tmax;
-  const int dims[3] = {G.nx, G.ny, G.nz};
+  const int dims[3] = {Gr.nx, Gr.ny, Gr.nz};
   const float o[3] = {r.ox, r.oy, r.oz}, d[3] = {r.dx, r.dy, r.dz};
   const float inv[3] = {r.ix, r.iy, r.iz};
   int vox[3], step[3];
@@ -406,10 +522,11 @@ __device__ __forceinline__ void grid_walk(const Grid& G, const Prims& P,
     next_t[a] = d[a] != 0.0f ? (next_edge - o[a]) * inv[a] : 1e30f;
     delta_t[a] = d[a] != 0.0f ? w[a] * fabsf(inv[a]) : 1e30f;
   }
-  const int V = G.nx * G.ny * G.nz;
+  const int V = Gr.nx * Gr.ny * Gr.nz;
   while (alive && (!kAny || best.prim < 0)) {
-    const int vid = min(max(vox[2] + G.nz * (vox[1] + G.ny * vox[0]), 0), V - 1);
-    test_leaf<kMotion>(P, G.ids, __ldg(G.off + vid), __ldg(G.cnt + vid), r, best);
+    const int vid = min(max(vox[2] + Gr.nz * (vox[1] + Gr.ny * vox[0]), 0), V - 1);
+    test_leaf<G, kMotion>(P, Gr.ids, __ldg(Gr.off + vid), __ldg(Gr.cnt + vid), r,
+                          best, L);
     int ax = 0;
     if (next_t[1] < next_t[ax]) ax = 1;
     if (next_t[2] < next_t[ax]) ax = 2;
@@ -420,22 +537,24 @@ __device__ __forceinline__ void grid_walk(const Grid& G, const Prims& P,
     next_t[ax] = t_exit + delta_t[ax];
     alive = !done_hit && !out && t_exit <= best.t;
   }
-  H.t[i] = best.t;
-  H.prim[i] = best.prim;
-  H.b1[i] = best.b1;
-  H.b2[i] = best.b2;
+  if (L.k == 0) {
+    H.t[i] = best.t;
+    H.prim[i] = best.prim;
+    H.b1[i] = best.b1;
+    H.b2[i] = best.b2;
+  }
 }
 
 // Named kernels (not one template) so a profile tells them apart.
 #define PBRT_KD_KERNEL(NAME, ANY, MOTION)                                    \
   __global__ void __launch_bounds__(kThreads)                               \
       NAME(Kd K, Prims P, Rays Y, Hits H, int R) {                          \
-    kd_walk<ANY, MOTION>(K, P, Y, H, R);                                    \
+    kd_walk<kWidth, ANY, MOTION>(K, P, Y, H, R);                            \
   }
 #define PBRT_GRID_KERNEL(NAME, ANY, MOTION)                                  \
   __global__ void __launch_bounds__(kThreads)                               \
-      NAME(Grid G, Prims P, Rays Y, Hits H, int R) {                        \
-    grid_walk<ANY, MOTION>(G, P, Y, H, R);                                  \
+      NAME(Grid Gr, Prims P, Rays Y, Hits H, int R) {                       \
+    grid_walk<kWidth, ANY, MOTION>(Gr, P, Y, H, R);                         \
   }
 
 PBRT_KD_KERNEL(traverse_kd_closest_kernel, false, false)
@@ -450,7 +569,25 @@ PBRT_GRID_KERNEL(traverse_grid_any_motion_kernel, true, true)
 #undef PBRT_KD_KERNEL
 #undef PBRT_GRID_KERNEL
 
-inline int blocks_for(int R) { return (R + kThreads - 1) / kThreads; }
+// blocks for R rays at kWidth lanes each
+inline int blocks_for(int R) {
+  constexpr int rays = kThreads / kWidth;
+  return (R + rays - 1) / rays;
+}
+
+struct KernelInfo {
+  const char* name;
+  const void* fn;
+};
+
+const KernelInfo kKernels[] = {
+#define PBRT_INFO(KEY) {#KEY, reinterpret_cast<const void*>(KEY##_kernel)}
+    PBRT_INFO(traverse_kd_closest),   PBRT_INFO(traverse_kd_any),
+    PBRT_INFO(traverse_kd_closest_motion), PBRT_INFO(traverse_kd_any_motion),
+    PBRT_INFO(traverse_grid_closest), PBRT_INFO(traverse_grid_any),
+    PBRT_INFO(traverse_grid_closest_motion), PBRT_INFO(traverse_grid_any_motion),
+#undef PBRT_INFO
+};
 
 }  // namespace
 
@@ -476,16 +613,16 @@ extern "C" {
            const float* hi, PBRT_PRIMS_RAYS_PARAMS) {                         \
     const Kd K{split, axis, above, off, cnt, ids, lo, hi};                    \
     PBRT_PACK                                                                 \
-    if (R > 0) KERNEL<<<blocks_for(R), kThreads, 0, stream>>>(K, P, Y, H, R); \
+    if (R > 0) KERNEL<<<blocks_for(R), kThreads, 0, stream>>>(K, P, Y, H, R);   \
     return static_cast<int>(cudaGetLastError());                              \
   }
 #define PBRT_GRID_ENTRY(NAME, KERNEL)                                          \
   int NAME(const int* off, const int* cnt, const int* ids, const float* lo,   \
            const float* hi, const float* width, int nx, int ny, int nz,       \
            PBRT_PRIMS_RAYS_PARAMS) {                                          \
-    const Grid G{off, cnt, ids, lo, hi, width, nx, ny, nz};                   \
+    const Grid Gr{off, cnt, ids, lo, hi, width, nx, ny, nz};                  \
     PBRT_PACK                                                                 \
-    if (R > 0) KERNEL<<<blocks_for(R), kThreads, 0, stream>>>(G, P, Y, H, R); \
+    if (R > 0) KERNEL<<<blocks_for(R), kThreads, 0, stream>>>(Gr, P, Y, H, R);  \
     return static_cast<int>(cudaGetLastError());                              \
   }
 
@@ -505,5 +642,30 @@ PBRT_GRID_ENTRY(pbrt_torch_traverse_grid_any_motion,
 #undef PBRT_GRID_ENTRY
 #undef PBRT_PACK
 #undef PBRT_PRIMS_RAYS_PARAMS
+
+// The kernel `name` (a key of traverse_kd.KERNEL_NAMES) as built: out[0] G,
+// out[1] registers per thread, out[2] local bytes per thread, out[3]
+// static shared bytes per block, out[4] blocks per SM at kThreads
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[5] kThreads. Returns a CUDA error code (cudaErrorInvalidValue for an
+// unknown name).
+int pbrt_torch_traverse_kd_info(const char* name, int* out) {
+  for (const KernelInfo& e : kKernels) {
+    if (std::strcmp(e.name, name) != 0) continue;
+    cudaFuncAttributes a;
+    cudaError_t rc = cudaFuncGetAttributes(&a, e.fn);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    int blocks = 0;
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, e.fn, kThreads, 0);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    out[0] = kWidth;
+    out[1] = a.numRegs;
+    out[2] = static_cast<int>(a.localSizeBytes);
+    out[3] = static_cast<int>(a.sharedSizeBytes);
+    out[4] = blocks;
+    out[5] = kThreads;
+    return 0;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 }  // extern "C"

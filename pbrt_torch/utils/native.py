@@ -81,6 +81,7 @@ KERNEL_ENTRIES = {
         **{f"pbrt_torch_traverse_grid_{k}": [_vp] * 6 + [_ci] * 3 + [_vp] * 2 + [_ci]
            + [_vp] * 3 + [_ci] + [_vp] * 10 + [_ci, _vp]
            for k in ("closest", "any", "closest_motion", "any_motion")},
+        "pbrt_torch_traverse_kd_info": [ctypes.c_char_p, _vp],
     },
     "dipole.cu": {
         "pbrt_torch_mo_gather": [_vp] * 6 + [_ci] * 3 + [_vp, _vp],
@@ -171,18 +172,21 @@ def nvcc_path() -> str:
     return cand
 
 
-def kernel_lib(source: str, fmad: bool = False):
+def kernel_lib(source: str, fmad: bool = False, defines: tuple = ()):
     """The library of the CUDA kernels in ``csrc/<source>`` (nvcc, sm_90a),
     built on first call, with its entry points bound.
 
     ``fmad=True`` builds a second copy with FMA contraction allowed, only to
     measure what ``-fmad=false`` costs; its floats differ from the plain
-    versions by rounding."""
-    name = "pbrt_torch_" + source.removesuffix(".cu") + ("_fmad" if fmad else "")
+    versions by rounding. ``defines`` (macro names) build another copy
+    with ``-D`` each, only to measure a variant the source offers (e.g.
+    ``traverse_kd.cu``'s ``PBRT_KD_OTHER_WIDTH``)."""
+    name = ("pbrt_torch_" + source.removesuffix(".cu") + ("_fmad" if fmad else "")
+            + "".join("_" + d.lower() for d in defines))
     with _locks[name]:
         if name not in _libs:
             flags = [f.replace("-fmad=false", "-fmad=true") if fmad else f
-                     for f in NVCC_FLAGS]
+                     for f in NVCC_FLAGS] + [f"-D{d}" for d in defines]
             lib = ctypes.CDLL(_compile(name, source, [nvcc_path()], flags))
             for entry, argtypes in KERNEL_ENTRIES[source].items():
                 fn = getattr(lib, entry)

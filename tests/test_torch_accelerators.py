@@ -4,8 +4,9 @@ grid builds (``pbrt_torch/accel/kdtree.py``, ``grid.py``) and the BVH's
 (``accel/traverse_kd.py``) against the JAX package's ``_traverse_kd_one``
 / ``_traverse_grid_one`` (through its ``intersect``) on fuzzed rays over
 triangles and all six quadrics, static and in motion, closest and any
-hit, ``aggregatetest``'s count in both packages, and one ``render(seed)``
-per accelerator.
+hit, and on ``chip_smoke.tie_scene_text``'s ties (every lane, bit for
+bit), ``aggregatetest``'s count in both packages, and one
+``render(seed)`` per accelerator.
 
 Tolerances: the builds are host numpy in both packages, so their arrays
 are equal bit for bit. The walks agree on hit or miss and on the prim
@@ -17,8 +18,10 @@ with zmin = zmax, so it is rounding noise over 1e-9 in both packages and
 is not compared.
 """
 
+import pathlib
 from unittest import mock
 
+import chip_smoke
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -394,6 +397,81 @@ def test_motion_walk_matches_jax(motion_builds, acc, any_hit):
         assert torch.equal(th.prim, hb.prim) and torch.equal(th.t, hb.t)
 
 
+TIE_RAYS = 3000
+
+
+def _opt(x, conv):
+    return None if x is None else conv(x)
+
+
+@pytest.fixture(scope="module")
+def tie_builds():
+    """{(accelerator, motion): (JAX build, port build, the rays' times or
+    None, the port's closest hits)} on ``chip_smoke.tie_rays``: the closest
+    hits are walked once, for the closest-hit case and the any-hit case's
+    segments alike."""
+    o, d, tm = chip_smoke.tie_rays(TIE_RAYS, seed=0)
+    out = {}
+    for acc in ("kdtree", "grid"):
+        for motion in (False, True):
+            jb, tb = _builds(chip_smoke.tie_scene_text(acc, motion))
+            time_ = tm if motion else None
+            closest = tisect.intersect(tb.scene.geometry, TRay.make(
+                torch.as_tensor(o), torch.as_tensor(d), time=_opt(time_, torch.as_tensor)))
+            out[(acc, motion)] = (jb, tb, time_, closest)
+    return out
+
+
+@pytest.mark.parametrize("acc", ["kdtree", "grid"])
+@pytest.mark.parametrize("motion", [False, True])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_tie_scene_walk_matches_jax(tie_builds, acc, motion, any_hit):
+    """The tie-and-dense scene (``chip_smoke.tie_scene_text``): 70 exact
+    copies of one triangle, a cluster of 100 small triangles in planes a
+    few ulps apart and a sphere, all in one kd leaf and one grid voxel,
+    where a chunked walk that kept the later of equal t or the wrong lane
+    would differ. Every coordinate and ray is dyadic, so both packages
+    compute each t exactly: the JAX walk and the port's plain walk agree
+    on every lane, prim ids equal and t, b1 and b2 bit for bit (b1 / b2 of
+    the sphere, atan2 in two libraries, within 1e-6); every hit on the
+    copies is on copy 0. Any hit on segments that end 2^-20 past the
+    closest hit or 1 past it."""
+    jb, tb, time_, closest = tie_builds[(acc, motion)]
+    tg = tb.scene.geometry
+    T = tg.num_triangles
+    group = set(range(chip_smoke.TIE_COPIES + chip_smoke.TIE_CLUSTER)) | {T}
+    if acc == "kdtree":
+        off, cnt, ids = (x.numpy() for x in (tg.kd_prim_off, tg.kd_prim_cnt, tg.kd_prim_ids))
+        cells = [ids[a:a + c] for a, c, ax in zip(off, cnt, tg.kd_axis.numpy()) if ax == 3]
+    else:
+        off, cnt, ids = (x.numpy() for x in (tg.grid_off, tg.grid_cnt, tg.grid_ids))
+        cells = [ids[a:a + c] for a, c in zip(off, cnt)]
+    assert any(group <= set(c.tolist()) for c in cells)
+    o, d, _ = chip_smoke.tie_rays(TIE_RAYS, seed=0)
+    tmax, th = None, closest
+    if any_hit:
+        past = np.where(np.arange(len(o)) % 2 == 0, 2.0 ** -20, 1.0)
+        tc = closest.t.numpy()
+        tmax = np.where(np.isfinite(tc), tc + past, 1e30).astype(np.float32)
+        th = tisect.intersect(tg, TRay.make(torch.as_tensor(o), torch.as_tensor(d),
+                                            tmax=torch.as_tensor(tmax),
+                                            time=_opt(time_, torch.as_tensor)), any_hit=True)
+    jh = jisect.intersect(jb.scene.geometry, JRay.make(
+        jnp.asarray(o), jnp.asarray(d), tmax=_opt(tmax, jnp.asarray),
+        time=_opt(time_, jnp.asarray)), any_hit=any_hit)
+    tp, jp = th.prim.numpy(), np.asarray(jh.prim)
+    np.testing.assert_array_equal(tp, jp)
+    np.testing.assert_array_equal(th.t.numpy().view(np.int32), np.asarray(jh.t).view(np.int32))
+    tri = (tp >= 0) & (tp < T)
+    for port, jax_ in ((th.b1, jh.b1), (th.b2, jh.b2)):
+        np.testing.assert_array_equal(port.numpy()[tri].view(np.int32),
+                                      np.asarray(jax_)[tri].view(np.int32))
+        np.testing.assert_allclose(port.numpy()[~tri], np.asarray(jax_)[~tri], atol=1e-6)
+    copies = (tp >= 0) & (tp < chip_smoke.TIE_COPIES)
+    assert copies.sum() > 100 and (tp[copies] == 0).all()
+    assert ((tp >= chip_smoke.TIE_COPIES) & (tp < T)).sum() > 100 and (tp == T).sum() > 10
+
+
 def test_grid_ray_starting_inside():
     """tests/test_accelerators.py's ray that starts inside the grid: a
     triangle soup and rays from inside it, both packages and brute force."""
@@ -437,6 +515,22 @@ def test_plain_walks_count_their_work(quadric_builds):
         before = dict(tisect.calls)
         tisect.intersect(tg, TRay.make(o, d))
         assert tisect.calls[acc] == before[acc] + 1
+
+
+def test_variant_builds_and_launch_with(quadric_builds):
+    """The measurement builds of ``csrc/traverse_kd.cu``: each macro of
+    ``traverse_kd.VARIANTS`` is one the source reads, and ``launch_with``
+    (a given build, no launch counted) takes only CUDA tensors: on the CPU
+    it raises instead of walking."""
+    src = (pathlib.Path(tk.__file__).resolve().parent.parent / "csrc"
+           / "traverse_kd.cu").read_text()
+    for macros in tk.VARIANTS.values():
+        assert all(f"#ifdef {m}\n" in src for m in macros)
+    tg = quadric_builds["kdtree"][1].scene.geometry
+    d = torch.tensor([[0.0, 0.0, 1.0]] * 2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tk.launch_with(None, tg, torch.zeros(2, 3), d, tisect.make_inv_dir(d), torch.zeros(2),
+                       torch.full((2,), float("inf")), False)
 
 
 def test_cpu_walks_never_count_launches(quadric_builds):
