@@ -190,9 +190,15 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    VPL counts), counted and one chunk profiled; ``Renderer
    "surfacepoints"`` on the ss-envmap stand-in (the file's points, their
    pairwise minimum distance against ``minsampledistance``); the Mo-gather
-   kernel against its plain version on 32,768 of ss-envmap's first hits and
-   the chain kernel on each chain of the slice on 1,048,576 lanes and 1, 7
-   and 4,093, bit for bit, each timed with its bound; each integrator on
+   kernels (the lane list and the gather) against their plain version on
+   32,768 of ss-envmap's first hits (``mo_lane_sets``: the subsurface hits
+   active, and a sparse set of 5% of the lanes active, standing for the
+   later bounces) and the chain kernel on each chain of the slice on
+   1,048,576 lanes and 1, 7 and 4,093, bit for bit, each timed with its
+   bound, the gather also with its issue-slot bound (its SASS per (lane,
+   point) by ``sass_loop_stats``, nvidia-smi's SM clock read while it is
+   timed), registers, blocks per SM, lanes a warp and the share of tiles
+   on the checked terms; each integrator on
    the tiny scene closed into a room with two subsurface boxes at 16²,
    card vs CPU;
 16. PRT, probes and the Metropolis renderer — killeroo-simple at its
@@ -2187,6 +2193,50 @@ def ss_envmap_scene(directory: str, res: int | None = None, spp: int | None = No
     return path
 
 
+#: the sparse Mo-gather set's active share, standing for the later bounces
+MO_SPARSE_SHARE = 0.05
+
+
+def mo_lane_sets(built, dev, seed: int = 23) -> dict:
+    """Phase 15's Mo-gather lanes of ``goldens/ss-envmap.pbrt`` as its
+    checks and timings and ``scripts/mo_lab.py`` take them: ``CHUNK`` first
+    hits of the camera rays of samples 0 and 1 of chunk 0. → dict of si
+    (their interactions), p (R, 3), prm (7, R, S) (``_lane_params``
+    stacked), table (``_point_table``), active (the subsurface hits),
+    sparse (``MO_SPARSE_SHARE`` of the R lanes, drawn from the active ones
+    with ``seed``) and root (the render's root key)."""
+    import torch
+
+    from pbrt_torch.accel.intersect import intersect
+    from pbrt_torch.core.interaction import surface_interaction
+    from pbrt_torch.integrators import dipole
+    from pbrt_torch.materials import table as mat_mod
+    from pbrt_torch.renderers import sampler as sampler_mod
+
+    sc = built.scene
+    xs, ys, pix, mask, root, scr = sampler_mod.pixel_chunks(built, 0, CHUNK)
+    u = torch.cat([sampler_mod.wave_uniforms(built.integrator, root, pix[0], scr[0], s,
+                                             "lowdiscrepancy", 64) for s in (0, 1)])
+    px = torch.cat([xs[0], xs[0]]).to(torch.float32) + u[:, 0]
+    py = torch.cat([ys[0], ys[0]]).to(torch.float32) + u[:, 1]
+    rays = built.camera.generate_rays(px, py, u[:, 2], u[:, 3], u[:, 4])
+    g = sc.geometry
+    si = surface_interaction(g, rays, intersect(g, rays))
+    mk = sc.materials.kind[si.material.clamp(min=0)]
+    active = si.valid & ((mk == mat_mod.SUBSURFACE) | (mk == mat_mod.KDSUBSURFACE))
+    R = rays.origin.shape[0]
+    prm = torch.stack([x.expand(R, -1) for x in dipole._lane_params(sc.materials, si.material)])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    on = torch.nonzero(active).flatten()
+    keep = on[torch.randperm(on.numel(), generator=gen, device=dev)[:round(MO_SPARSE_SHARE * R)]]
+    sparse = torch.zeros_like(active)
+    sparse[keep] = True
+    return dict(si=si, p=si.p.contiguous(), prm=prm.contiguous(),
+                table=dipole._point_table(sc.subsurface), active=active, sparse=sparse,
+                root=root)
+
+
 def preprocess_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
     """Phase 15: ``goldens/ss-envmap.pbrt`` as written under
     dipolesubsurface; killeroo-simple under irradiancecache, photonmap and
@@ -2195,17 +2245,13 @@ def preprocess_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
     kernels line's entries."""
     import torch
 
-    from pbrt_torch.accel.intersect import intersect
     from pbrt_torch.core import rng
-    from pbrt_torch.core.interaction import surface_interaction
     from pbrt_torch.integrators import dipole, igi as igi_mod, irradiance
-    from pbrt_torch.materials import table as mat_mod
-    from pbrt_torch.renderers import sampler as sampler_mod
     from pbrt_torch.renderers.dispatch import render_scene
     from pbrt_torch.renderers.surface_points import read_points_file
     from pbrt_torch.scene.api import load_scene_string
     from pbrt_torch.scene.builder import build
-    from pbrt_torch.utils import timing
+    from pbrt_torch.utils import native, timing
     from pbrt_torch.utils.timing import cuda_ms
 
     sync = torch.cuda.synchronize
@@ -2248,8 +2294,9 @@ def preprocess_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
     prof = profile_frame("goldens/ss-envmap.pbrt, chunk 0", ss_built, sec / spp * 1e3,
                          run=chunk_wave(ss_built, dev), scale=chunks_of(ss_built))
     mo_launches = lk["mo_gather"]
-    log("render", f"goldens/ss-envmap.pbrt: mo_gather launched {mo_launches} times in the "
-        f"{spp}-spp frame ({mo_launches / spp:.1f} per wave), {prof.get('mo_gather_ms', 0):.3f} "
+    log("render", f"goldens/ss-envmap.pbrt: mo_gather's kernels launched {mo_launches} times "
+        f"(two a call: the lane list and the gather) in the {spp}-spp frame "
+        f"({mo_launches / spp:.1f} per wave), {prof.get('mo_gather_ms', 0):.3f} "
         f"ms of the profiled wave's {prof['ms']:.3f} ms kernel time "
         f"({100 * prof.get('mo_gather_ms', 0) / max(prof['ms'], 1e-9):.1f}%)")
     if mo_launches == 0:
@@ -2305,45 +2352,66 @@ def preprocess_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
 
     # ---- (d) the kernels against their plain versions --------------------
     # B: 32,768 lanes of ss-envmap's first bounce (camera rays of two samples)
-    xs, ys, pix, mask, root, scr = sampler_mod.pixel_chunks(ss_built, 0, CHUNK)
-    u = torch.cat([sampler_mod.wave_uniforms(ic, root, pix[0], scr[0], s, "lowdiscrepancy", 64)
-                   for s in (0, 1)])
-    px = torch.cat([xs[0], xs[0]]).to(torch.float32) + u[:, 0]
-    py = torch.cat([ys[0], ys[0]]).to(torch.float32) + u[:, 1]
-    rays = ss_built.camera.generate_rays(px, py, u[:, 2], u[:, 3], u[:, 4])
-    g = sc.geometry
-    si = surface_interaction(g, rays, intersect(g, rays))
-    mk = sc.materials.kind[si.material.clamp(min=0)]
-    active = si.valid & ((mk == mat_mod.SUBSURFACE) | (mk == mat_mod.KDSUBSURFACE))
-    R = rays.origin.shape[0]
-    prm = torch.stack([x.expand(R, -1) for x in dipole._lane_params(sc.materials, si.material)])
-    table = dipole._point_table(ss)
-    act8 = active.to(torch.uint8)
-    p_c = si.p.contiguous()
-    k = dipole.mo_gather_kernel(prm, p_c, act8, table)
-    pl = dipole.mo_gather_plain(ss, sc.materials, si.p, si.material, active,
-                                params=tuple(prm), table=table)
-    sync()
-    err_mo = float((k - pl).abs().max())
-    if not torch.equal(k.view(torch.int32), pl.view(torch.int32)):
-        raise SystemExit("mo_gather disagrees with its plain version on ss-envmap's lanes")
-    n_act = int(active.sum())
-    tq = timing.queued_rounds(lambda: dipole.mo_gather_kernel(prm, p_c, act8, table), RNG_ROUNDS,
-                              calls=10, warm=2)
-    plain_ms = cuda_ms(lambda: dipole.mo_gather_plain(ss, sc.materials, si.p, si.material,
-                                                      active, params=tuple(prm), table=table),
-                       n=1, warm=0)
+    mo_sets = mo_lane_sets(ss_built, dev)
+    si, prm, table, p_c = mo_sets["si"], mo_sets["prm"], mo_sets["table"], mo_sets["p"]
+    root = mo_sets["root"]
+    R = p_c.shape[0]
     Np, S = table[0].shape[0], table[2].shape[1]
     n_pts = ss.points.shape[0]
-    mo_bound, mo_by = timing.bound_ms(
-        7 * R * S * 4 + R * (12 + 1) + Np * (3 + 1 + S) * 4 + R * S * 4,
-        f32_ops=n_act * n_pts * (OPS_MO_PER_POINT + S * OPS_MO_PER_BIN))
-    log("timing", f"mo_gather on {R} lanes of ss-envmap's first hits ({n_act} on the teapot), "
-        f"{n_pts} points, {S} bins: bit for bit equal to its plain version; median "
-        f"{tq['ms']:.4f} ms over {RNG_ROUNDS} rounds ({tq['min']:.4f}–{tq['max']:.4f}; plain "
-        f"{plain_ms:.1f} ms); bound {mo_bound:.4f} ms ({mo_by}: {n_act} x {n_pts} x ({S} x "
-        f"{OPS_MO_PER_BIN} + {OPS_MO_PER_POINT}) float operations), kernel / bound "
-        f"{tq['ms'] / mo_bound:.2f}x")
+    lib = native.kernel_lib("dipole.cu")
+    info = dipole.kernel_info(lib)
+    # the main path's instance (the template's other one counts checked tiles)
+    sass = sass_loop_stats(lib._name, "mo_gather_kernelILb0E", info["tile"] // info["group"])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    log("build", f"dipole.cu mo_gather_kernel: one lane a warp (k = 1), "
+        f"{info['threads']} threads a block, {info['registers']} registers, "
+        f"{info['local_bytes']} local bytes, {info['blocks_per_sm']} blocks per SM; SASS per "
+        f"(lane, point) issued {sass['issued']['instructions']:.2f} (MUFU "
+        f"{sass['issued']['MUFU']:.2f}, LDS {sass['issued']['LDS']:.3f}, BRA "
+        f"{sass['issued']['BRA']:.3f}), written {sass['static']['instructions']:.2f}")
+    # each set bit for bit against the plain version, then timed beside its
+    # operation bound and its issue-slot bound at the SM clock read meanwhile
+    mo_rows = {}
+    for set_name in ("active", "sparse"):
+        act = mo_sets[set_name]
+        a8 = act.to(torch.uint8)
+        k = dipole.mo_gather_kernel(prm, p_c, a8, table)
+        pl = dipole.mo_gather_plain(ss, sc.materials, si.p, si.material, act,
+                                    params=tuple(prm), table=table)
+        sync()
+        if not torch.equal(k.view(torch.int32), pl.view(torch.int32)):
+            raise SystemExit(f"mo_gather disagrees with its plain version on ss-envmap's "
+                             f"{set_name} lanes")
+        n_act = int(act.sum())
+        tiles = torch.zeros(1, dtype=torch.int64, device=dev)
+        dipole.launch_with(lib, prm, p_c, a8, table, checked=tiles)
+        checked = int(tiles) / max(n_act * (Np // dipole.TILE), 1)
+        with SmClock() as clk:
+            tq = timing.queued_rounds(lambda: dipole.mo_gather_kernel(prm, p_c, a8, table),
+                                      RNG_ROUNDS, calls=10, warm=2)
+        plain_ms = cuda_ms(lambda: dipole.mo_gather_plain(ss, sc.materials, si.p, si.material,
+                                                          act, params=tuple(prm), table=table),
+                           n=1, warm=0)
+        mo_bound, mo_by = timing.bound_ms(
+            7 * R * S * 4 + R * (12 + 1) + Np * (3 + 1 + S) * 4 + R * S * 4,
+            f32_ops=n_act * n_pts * (OPS_MO_PER_POINT + S * OPS_MO_PER_BIN))
+        issue = (issue_bound_ms(n_act, Np, sass["issued"]["instructions"], clk.mhz, sms)
+                 if clk.mhz else None)
+        mo_rows[set_name] = dict(err=float((k - pl).abs().max()), tq=tq, plain_ms=plain_ms,
+                                 bound=mo_bound, by=mo_by)
+        log("timing", f"mo_gather on {R} lanes of ss-envmap's first hits, {n_act} active "
+            f"({set_name} set), {n_pts} points, {S} bins: bit for bit equal to its plain "
+            f"version; median {tq['ms']:.4f} ms over {RNG_ROUNDS} rounds ({tq['min']:.4f}–"
+            f"{tq['max']:.4f}; plain {plain_ms:.1f} ms); bound {mo_bound:.4f} ms ({mo_by}: "
+            f"{n_act} x {n_pts} x ({S} x {OPS_MO_PER_BIN} + {OPS_MO_PER_POINT}) float "
+            f"operations), kernel / bound {tq['ms'] / mo_bound:.2f}x; issue-slot bound "
+            + (f"{issue:.4f} ms ({n_act} x {Np} x {sass['issued']['instructions']:.2f} warp "
+               f"instructions over {sms} x 4 schedulers at {clk.mhz:g} MHz), kernel / issue "
+               f"bound {tq['ms'] / issue:.2f}x" if issue else "not measured (no SM clock read)")
+            + f"; one lane a warp, {info['registers']} registers, "
+            f"{info['blocks_per_sm']} blocks per SM; (active lane, tile) pairs on the checked "
+            f"terms {100 * checked:.3f}%")
+    mo_main = mo_rows["active"]
     # A: every chain of the slice, on 1,048,576 lanes and ragged ones
     depth = 5
     chains = {
@@ -2398,8 +2466,9 @@ def preprocess_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
     return [
         dict(name="mo_gather", route="cuda", source="pbrt_torch/csrc/dipole.cu",
              replaces="pbrt_tpu/integrators/dipole.py:187", launches=mo_launches,
-             max_abs_err=err_mo, ms=tq["ms"], plain_ms=plain_ms, bound_ms=mo_bound,
-             bound_by=mo_by, library_ms=None),
+             max_abs_err=max(r["err"] for r in mo_rows.values()), ms=mo_main["tq"]["ms"],
+             plain_ms=mo_main["plain_ms"], bound_ms=mo_main["bound"], bound_by=mo_main["by"],
+             library_ms=None),
         dict(name="keyed_chain_uniforms", route="cuda", source="pbrt_torch/csrc/rng.cu",
              replaces="pbrt_tpu/integrators/path.py:115", launches=chain_launches,
              max_abs_err=err_chain, ms=tq_a["ms"], plain_ms=plain_a, bound_ms=a_bound,
@@ -3382,13 +3451,9 @@ def step_summary(steps, ms=None):
     return out
 
 
-def sass_per_hash(lib_path: str):
-    """{kernel: (instructions, hashes, {opcode: count per hash})} of the
-    keyed kernels in a library's SASS (cuobjdump, beside nvcc). Each
-    inlined threefry hash has exactly 20 funnel-shift rotations, so the
-    SHF.L.W count / 20 is the number of hashes; the per-hash counts are the
-    kernel's divided by it (the rest of the kernel included, a few per
-    cent)."""
+def _sass_functions(lib_path: str) -> dict:
+    """{function name: [(address, predicate, opcode, operands)]} of a
+    library's SASS (cuobjdump, beside nvcc)."""
     import re
     import subprocess
 
@@ -3399,10 +3464,32 @@ def sass_per_hash(lib_path: str):
                           check=True).stdout
     out = {}
     for part in re.split(r"\n\s+Function : ", text)[1:]:
+        head, body = part.split("\n", 1)
+        # a branch target printed as a label: its address instead
+        labels = {m.group(1): m.group(2) for m in re.finditer(
+            r"(\.L_x_\d+):\s*\n\s*/\*([0-9a-f]+)\*/", body)}
+        body = re.sub(r"`\((\.L_x_\d+)\)", lambda m: "0x" + labels.get(m.group(1), "0"), body)
+        out[head.strip()] = [
+            (int(a, 16), pred, op, rest) for a, pred, op, rest in re.findall(
+                r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", body)]
+    return out
+
+
+def sass_per_hash(lib_path: str):
+    """{kernel: (instructions, hashes, {opcode: count per hash})} of the
+    keyed kernels in a library's SASS (cuobjdump, beside nvcc). Each
+    inlined threefry hash has exactly 20 funnel-shift rotations, so the
+    SHF.L.W count / 20 is the number of hashes; the per-hash counts are the
+    kernel's divided by it (the rest of the kernel included, a few per
+    cent)."""
+    import re
+
+    out = {}
+    for head, ins in _sass_functions(lib_path).items():
         # a templated kernel's instance: its sampler code, from the mangled
         # name's template argument (ILi<code>E)
-        name = re.search(r"keyed_\w+?_kernel(?:ILi\d+E)?", part.split("\n", 1)[0])
-        ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", part)
+        name = re.search(r"keyed_\w+?_kernel(?:ILi\d+E)?", head)
+        ops = [x[2] for x in ins]
         hashes = sum(o.startswith("SHF.L.W") for o in ops) / 20
         if name and hashes:
             per = {k: sum(o.split(".")[0] == k for o in ops) / hashes
@@ -3410,6 +3497,94 @@ def sass_per_hash(lib_path: str):
             per["IMAD.IADD"] = sum(o == "IMAD.IADD" for o in ops) / hashes
             out[re.sub(r"ILi(\d+)E", r"<\1>", name.group(0))] = (len(ops), hashes, per)
     return out
+
+
+#: the SASS opcode classes ``sass_loop_stats`` counts
+SASS_KINDS = {"instructions": lambda op: True, "MUFU": lambda op: op.startswith("MUFU"),
+              "LDS": lambda op: op.startswith("LDS"),
+              "LDL+STL": lambda op: op.startswith(("LDL", "STL")),
+              "BRA": lambda op: op.startswith("BRA"), "BAR": lambda op: op.startswith("BAR")}
+
+
+def sass_loop_stats(lib_path: str, kernel: str, inner_trips: int = 1) -> dict:
+    """SASS counts of ``kernel`` (a substring of its name) in a library,
+    per (lane, point) of the Mo gather: the innermost loop that holds
+    expf's MUFU.EX2 (two per (lane, point) it computes), plus, when
+    ``inner_trips`` > 1, the part of its enclosing loop outside the loops
+    it holds (run once per ``inner_trips`` inner iterations; a second
+    inner loop, run only in a slow case, is left out). A loop is a backward branch
+    (``BRA`` to a lower address) and the code between its target and it.
+    Two counts of each opcode class (``SASS_KINDS``): every instruction of
+    the loop (``static``), and those a lane issues when no sqrtf or divide
+    takes its slow path (``issued``: less the few instructions a predicated
+    forward branch skips that ``CALL`` the slow path). → dict of
+    static and issued {class: per (lane, point)}, the loop's and the outer
+    part's sizes and the kernel's instructions."""
+    import re
+
+    fns = [v for k, v in _sass_functions(lib_path).items() if kernel in k]
+    if len(fns) != 1:
+        raise SystemExit(f"sass_loop_stats: {len(fns)} functions named like {kernel}")
+    ins = fns[0]
+    target = lambda rest: int(re.search(r"0x([0-9a-f]+)", rest).group(1), 16)
+    branches = [(a, pred, target(rest)) for a, pred, op, rest in ins
+                if op.startswith("BRA") and re.search(r"0x[0-9a-f]+", rest)]
+    slow = set()
+    for a, pred, t in branches:
+        skipped = [x for x in ins if a < x[0] < t]
+        if pred and t > a and len(skipped) <= 8 and any(x[2].startswith("CALL")
+                                                        for x in skipped):
+            slow.update(x[0] for x in skipped)
+    loops = {(t, a) for a, _, t in branches if t < a}
+    loops = sorted(([x for x in ins if t <= x[0] <= a] for t, a in loops), key=len)
+    loops = [lp for lp in loops if any(x[2].startswith("MUFU.EX2") for x in lp)]
+    if not loops:
+        raise SystemExit(f"sass_loop_stats: no loop of {kernel} holds MUFU.EX2")
+    inner = loops[0]
+    per = sum(x[2].startswith("MUFU.EX2") for x in inner) / 2
+    around = [lp for lp in loops if len(lp) > len(inner) and lp[0][0] <= inner[0][0]
+              and lp[-1][0] >= inner[-1][0]]
+    # the enclosing loop less every loop inside it (the inner one, and
+    # another that only a slow case runs)
+    nested = [lp for lp in loops if around and lp is not around[0]
+              and around[0][0][0] <= lp[0][0] and lp[-1][0] <= around[0][-1][0]]
+    outer = ([x for x in around[0] if not any(lp[0][0] <= x[0] <= lp[-1][0] for lp in nested)]
+             if inner_trips > 1 and around else [])
+    out = dict(loop=len(inner), outer=len(outer), total=len(ins))
+    for name, keep in (("static", lambda x: True), ("issued", lambda x: x[0] not in slow)):
+        out[name] = {k: sum(f(x[2]) for x in inner if keep(x)) / per
+                     + sum(f(x[2]) for x in outer if keep(x)) / (per * inner_trips)
+                     for k, f in SASS_KINDS.items()}
+    return out
+
+
+class SmClock:
+    """``nvidia-smi``'s ``clocks.sm`` of card 0 sampled every 50 ms while
+    the block runs (``mhz``: the samples' median, None where none came)."""
+
+    def __enter__(self):
+        import subprocess
+
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+             "-lms", "50"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        import statistics
+
+        self.proc.terminate()
+        out = self.proc.communicate(timeout=30)[0]
+        vals = [float(x) for x in out.split() if x.replace(".", "", 1).isdigit()]
+        self.mhz = statistics.median(vals) if vals else None
+        return False
+
+
+def issue_bound_ms(n_active: int, n_points: int, per_lane_point: float, mhz: float,
+                   sms: int = 132) -> float:
+    """The least time the SMs' 4 schedulers each could issue ``per_lane_point``
+    warp instructions for every (active lane, point), at ``mhz``."""
+    return n_active * n_points * per_lane_point / (sms * 4 * mhz * 1e6) * 1e3
 
 
 def reflected_and_transmitted(built, dev, n_cam: int, gen):
@@ -4931,7 +5106,8 @@ def main() -> int:
         "directlighting and path frames' (1 spp each), their motion twins those "
         "of the motion scene's frame under each (1 spp); "
         "mo_gather's (XLA's fori_loop and einsum in the JAX package) those of "
-        "goldens/ss-envmap.pbrt's 64-spp frame, keyed_chain_uniforms' (XLA's "
+        "goldens/ss-envmap.pbrt's 64-spp frame, two a call (the lane list and the "
+        "gather; its ms is the call's, both kernels), keyed_chain_uniforms' (XLA's "
         "threefry) those of phase 15's igi and irradiancecache frames and of "
         "phase 18's (the fog's cache frame, AO's Metropolis directions, igi's "
         "gradient; the preprocess launches, at build, are logged apart); "

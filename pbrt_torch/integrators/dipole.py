@@ -12,17 +12,22 @@ Rd(d²) times the point's irradiance and area (``mo_gather``; the
 reference's octree, dipolesubsurface.cpp:41-131, without its ``maxerror``
 cut).
 
-``mo_gather`` launches ``csrc/dipole.cu``'s kernel for lanes on the card
-and runs its plain version, ``mo_gather_plain``, for lanes on the CPU.
-Both take the points in tiles of ``TILE`` (the JAX package's ``CHUNK``),
-sum a tile's 64 terms by a fixed halving tree (term i + term i + 32, then
-i + 16, …) and add the tile's sum to the lane's running total, each
-squared distance expanded as |p|² − 2 p·q + |q|², clamped at 0, with
-every 3-term sum in the order (x + y) + z: the kernel's float operations
-are the plain version's, so on the card the two agree bit for bit. The
-per-lane parameters of Rd (σ′t, σtr, the two dipole depths and α′/4π)
-are computed once per call, as torch ops, and given to both. Lanes that
-are not ``active`` (the integrator's subsurface hits) get 0.
+``mo_gather`` launches ``csrc/dipole.cu``'s kernels for lanes on the card
+(the active lanes' list, then the gather over them) and runs their plain
+version, ``mo_gather_plain``, for lanes on the CPU. Both take a lane's
+terms in groups of ``GROUP`` points, sum a group by the pairwise tree
+((t0 + t1) + (t2 + t3)) + ((t4 + t5) + (t6 + t7)) and add the group's sum
+to the lane's running total in point order, each squared distance
+expanded as |p|² − 2 p·q + |q|², clamped at 0, with every 3-term sum in
+the order (x + y) + z: the kernel's float operations are the plain
+version's, so on the card the two agree bit for bit, and a lane's value
+depends on nothing but its own inputs (not on the other lanes, nor on
+which are active). The per-lane parameters of Rd (σ′t, σtr, the two
+dipole depths and α′/4π) are computed once per call, as torch ops, and
+given to both. The points are padded to whole tiles of ``TILE`` (the JAX
+package's ``CHUNK``; the kernel stages a tile at a time) with zero
+weight. Lanes that are not ``active`` (the integrator's subsurface hits)
+get 0.
 
 Kept as the JAX package has it: the integrator never reads a points file
 (``prepare_subsurface`` is called without one, pbrt_tpu/scene/builder.py:
@@ -47,15 +52,22 @@ from pbrt_torch.materials.table import KDSUBSURFACE, SUBSURFACE
 from pbrt_torch.utils import native
 
 MAX_POINTS = 4096
-#: points per tile of the Mo sum (the JAX package's CHUNK)
+#: points per tile of the point table (the JAX package's CHUNK)
 TILE = 64
-#: the most bins the kernel takes (one thread per lane and bin, a warp a lane)
+#: points per pairwise tree of the Mo sum
+GROUP = 8
+#: the most bins the kernel takes (one thread per bin, a warp a lane's bins)
 MAX_BINS = 32
 #: irradiance samples per point (dipole.py:116)
 IRRADIANCE_SAMPLES = 4
 
-#: kernel launches per wrapper (the plain version counts nothing)
+#: kernel launches per wrapper (the plain version counts nothing): each
+#: ``mo_gather_kernel`` call launches two, the lane list and the gather
 launches = {"mo_gather": 0}
+#: the fields of ``kernel_info``, in ``pbrt_torch_mo_gather_info``'s order
+#: (a warp a lane, so ``warps`` is also the lanes a block)
+INFO_FIELDS = ("warps", "threads", "tile", "group", "registers", "local_bytes",
+               "shared_bytes", "blocks_per_sm")
 
 
 def reset_launches():
@@ -230,11 +242,11 @@ def mo_gather_plain(ss: SubsurfaceData, mt, p, mat_idx, active=None, params=None
         qt = q[t0:t0 + TILE]
         pq = p[:, 0:1] * qt[:, 0] + p[:, 1:2] * qt[:, 1] + p[:, 2:3] * qt[:, 2]
         d2 = torch.clamp(p2[:, None] - 2.0 * pq + q2[t0:t0 + TILE], min=0.0)
-        x = _rd(d2[:, :, None], prm3) * ea[t0:t0 + TILE]
-        while x.shape[1] > 1:
-            h = x.shape[1] // 2
-            x = x[:, :h] + x[:, h:]
-        acc = acc + x[:, 0]
+        x = (_rd(d2[:, :, None], prm3) * ea[t0:t0 + TILE]).view(R, -1, GROUP, S)
+        while x.shape[2] > 1:
+            x = x[:, :, 0::2] + x[:, :, 1::2]
+        for g in range(x.shape[1]):
+            acc = acc + x[:, g, 0]
     if active is not None:
         acc = torch.where(active[:, None], acc, 0.0)
     return acc
@@ -254,13 +266,19 @@ def mo_gather(ss: SubsurfaceData, mt, p, mat_idx, active=None):
     return mo_gather_kernel(prm, p.contiguous(), active.to(torch.uint8), _point_table(ss))
 
 
-def mo_gather_kernel(prm, p, active, table):
-    """One launch of ``csrc/dipole.cu``'s ``mo_gather_kernel``: ``prm``
-    (7, R, S) the stacked ``_lane_params``, p (R, 3), ``active`` (R,) uint8
-    and ``table`` (``_point_table``) → (R, S)."""
+def launch_with(lib, prm, p, active, table, checked=None):
+    """``csrc/dipole.cu``'s two kernels launched from ``lib`` (a build of
+    it: ``native.kernel_lib("dipole.cu", ...)``; None: the main one) on
+    ``mo_gather_kernel``'s inputs → (R, S). Given ``checked``, a (1,) int64
+    tensor on the card, the gather's counting instance adds to it the
+    (active lane, 64-point tile) pairs whose terms took the checked sqrtf
+    and divide (the rest took their unchecked fast paths); the main path
+    runs the other. It counts no launch."""
     q, q2, ea = table
     R, S = p.shape[0], ea.shape[1]
     dev = p.device
+    if dev.type != "cuda":
+        raise ValueError(f"mo_gather: unsupported device {dev}")
     if S > MAX_BINS:
         raise ValueError(f"mo_gather: {S} bins, the kernel takes at most {MAX_BINS}")
     if 7 * R * S >= 2**31 or q.shape[0] * S >= 2**31:
@@ -275,10 +293,36 @@ def mo_gather_kernel(prm, p, active, table):
     out = torch.empty((R, S), dtype=torch.float32, device=dev)
     if R == 0:
         return out
-    lib = native.kernel_lib("dipole.cu")
+    if checked is not None:
+        native.check_tensor("checked", checked, torch.int64, (1,), dev)
+    lanes = torch.empty(R + 1, dtype=torch.int32, device=dev)
+    lib = lib or native.kernel_lib("dipole.cu")
     native.check_launch(lib.pbrt_torch_mo_gather(
         prm.data_ptr(), p.data_ptr(), active.data_ptr(), q.data_ptr(), q2.data_ptr(),
-        ea.data_ptr(), q.shape[0], R, S, out.data_ptr(),
+        ea.data_ptr(), q.shape[0], R, S, lanes.data_ptr(), out.data_ptr(),
+        None if checked is None else checked.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream), "mo_gather launch")
-    launches["mo_gather"] += 1
     return out
+
+
+def mo_gather_kernel(prm, p, active, table):
+    """``csrc/dipole.cu``'s kernels: ``prm`` (7, R, S) the stacked
+    ``_lane_params``, p (R, 3), ``active`` (R,) uint8 and ``table``
+    (``_point_table``) → (R, S). Two launches, counted: ``mo_gather_lanes_kernel``
+    lists the active lanes on the card, ``mo_gather_kernel`` sums over them."""
+    out = launch_with(None, prm, p, active, table)
+    if p.shape[0]:
+        launches["mo_gather"] += 2
+    return out
+
+
+def kernel_info(lib) -> dict:
+    """The gather as ``lib`` built it (``INFO_FIELDS``): warps (one lane
+    each) and threads a block, points a tile and a group, registers per thread,
+    local and static shared bytes, resident blocks per SM (the CUDA
+    occupancy calculator)."""
+    import ctypes
+
+    out = (ctypes.c_int * len(INFO_FIELDS))()
+    native.check_launch(lib.pbrt_torch_mo_gather_info(out), "mo_gather info")
+    return dict(zip(INFO_FIELDS, out))

@@ -84,7 +84,9 @@ KERNEL_ENTRIES = {
         "pbrt_torch_traverse_kd_info": [ctypes.c_char_p, _vp],
     },
     "dipole.cu": {
-        "pbrt_torch_mo_gather": [_vp] * 6 + [_ci] * 3 + [_vp, _vp],
+        "pbrt_torch_mo_gather": [_vp] * 6 + [_ci] * 3 + [_vp] * 4,
+        "pbrt_torch_mo_gather_info": [_vp],
+        "pbrt_torch_mo_fast_path_check": [_u32, _u32] + [_ci] * 5 + [_vp, _vp],
     },
     "gather_lab.cu": {
         "pbrt_torch_gather_lab": [_vp] * 5 + [_ci, _ci, _vp],

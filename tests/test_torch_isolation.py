@@ -100,6 +100,14 @@ def test_gradient_checkpoint_tool_and_shard_modules_covered(module):
     assert ROOT / "pbrt_torch" / module in FILES
 
 
+@pytest.mark.parametrize("module", ["scripts/gather_lab.py", "scripts/kd_grid_lab.py",
+                                    "scripts/mo_lab.py"])
+def test_lab_modules_covered(module):
+    """The kernel labs (the gather lab, the kd / grid lab and the Mo
+    gather's) are among the files checked above."""
+    assert ROOT / "pbrt_torch" / module in FILES
+
+
 def test_tools_import_pillow_only_where_they_write_it():
     """``tools.py`` imports Pillow nowhere itself (its TIFF output goes
     through ``imageio._pillow``), and torch only inside ``bsdftest``."""

@@ -127,6 +127,75 @@ def test_mo_gather_matches_jax(pair):
     np.testing.assert_allclose(out.numpy()[active.numpy()], dense[active.numpy()], rtol=1e-3)
 
 
+def test_mo_gather_plain_lanes_stand_alone(pair):
+    """What the kernel's lane list relies on: ``mo_gather_plain`` on
+    permuted lanes returns the permuted result bit for bit, and a lane's
+    value does not depend on which other lanes are active (nor on how many
+    lanes the call has); the grouped order against a float64 dense sum at
+    ``test_mo_gather_matches_jax``'s tolerance."""
+    _, _, tb = pair
+    ss, mt = tb.scene.subsurface, tb.scene.materials
+    rs = np.random.default_rng(3)
+    n = 48
+    pick = rs.integers(0, ss.points.shape[0], n)
+    p = torch.as_tensor((ss.points.numpy()[pick] + rs.normal(0, 0.05, (n, 3))).astype(np.float32))
+    mat = ss.material[pick]
+    active = torch.as_tensor(rs.random(n) < 0.6)
+    bits = lambda x: x.view(torch.int32)
+    out = tdip.mo_gather_plain(ss, mt, p, mat, active)
+    assert out[active].min() > 0 and not out[~active].any()
+    perm = torch.as_tensor(rs.permutation(n))
+    moved = tdip.mo_gather_plain(ss, mt, p[perm], mat[perm], active[perm])
+    assert torch.equal(bits(moved), bits(out[perm]))
+    other = torch.as_tensor(rs.random(n) < 0.3)
+    both = active & other
+    assert both.any()
+    assert torch.equal(bits(tdip.mo_gather_plain(ss, mt, p, mat, other)[both]), bits(out[both]))
+    r = int(torch.nonzero(active)[0])
+    alone = tdip.mo_gather_plain(ss, mt, p[r:r + 1], mat[r:r + 1])
+    assert torch.equal(bits(alone[0]), bits(out[r]))
+    d2 = ((p.double()[:, None, :] - ss.points.double()[None]) ** 2).sum(-1)
+    prm = [x.double()[:, None] for x in tdip._lane_params(mt, mat)]
+    dense = (tdip._rd(d2[:, :, None], prm) * (ss.E * ss.areas[:, None]).double()).sum(1)
+    np.testing.assert_allclose(out[active].numpy(), dense[active].numpy(), rtol=1e-3, atol=1e-7)
+
+
+def test_mo_gather_kernel_constants_match_plain_order():
+    """``csrc/dipole.cu``'s tile and pairwise group are the plain version's
+    ``TILE`` and ``GROUP`` (read from the source's text)."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(tdip.__file__).parent.parent / "csrc" / "dipole.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (kTile|kGroup) = (\d+);", src))
+    assert consts == {"kTile": str(tdip.TILE), "kGroup": str(tdip.GROUP)}
+    assert tdip.TILE % tdip.GROUP == 0 and tdip.GROUP == 8
+
+
+def test_mo_gather_one_build_and_cpu_path(pair):
+    """``csrc/dipole.cu`` has one build: it reads no macro, so the only
+    other build of it (``scripts/mo_lab.py``'s) is the FMA-contracted one,
+    a flag of ``native.kernel_lib``; ``launch_with`` (a given build, no
+    launch counted) takes only CUDA tensors, and ``mo_gather`` on CPU
+    tensors runs the plain version and counts no launch."""
+    import inspect
+    import pathlib
+
+    from pbrt_torch.utils import native
+
+    src = (pathlib.Path(tdip.__file__).parent.parent / "csrc" / "dipole.cu").read_text()
+    assert "#if" not in src and "fmad" in inspect.signature(native.kernel_lib).parameters
+    _, _, tb = pair
+    ss, mt = tb.scene.subsurface, tb.scene.materials
+    p, mat = ss.points[:3], ss.material[:3]
+    prm = torch.stack(tdip._lane_params(mt, mat))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tdip.launch_with(None, prm, p, torch.ones(3, dtype=torch.uint8), tdip._point_table(ss))
+    tdip.reset_launches()
+    out = tdip.mo_gather(ss, mt, p, mat, torch.tensor([True, False, True]))
+    assert not any(tdip.launches.values()) and out[1].eq(0).all() and out[0].gt(0).all()
+
+
 def test_render_seed_matches_jax(pair):
     """``render`` of the 8×8 scene under dipolesubsurface (depth 2, 1 spp,
     seed 3), each package from its own build."""
