@@ -107,12 +107,15 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    8×8 grid (each turned and scaled) in the killeroo-simple scene at 512²,
    ``path`` depth 5, 1 spp, counted and profiled, with the geometry's
    device bytes against 64 flattened copies (computed); the motion kernels
-   on 1,048,576 of the motion scene's rays (camera rays at their own
-   shutter times, bounce rays from their first hits), against their plain
-   versions on the 32,768-lane permuted set of them that times them with
-   its bound (a plain walk lasts as long as its longest ray, whatever the
-   lanes), on 1, 7 and 4,093 lanes, and closest hit against
-   ``intersect_brute`` on the lerped triangles; the instance kernels on
+   (each child culled by its box at the ray's time) on 1,048,576 of the
+   motion scene's rays (camera rays at their own shutter times, bounce
+   rays from their first hits), against the union plain walk (the JAX
+   package's) and the culled one (their own, whose work gives the bound)
+   on the 32,768-lane permuted set of them that times them, both walks'
+   steps per lane logged (a plain walk lasts as long as its longest ray,
+   whatever the lanes), against the union walk on 1, 7 and 4,093 lanes and
+   on the tie-and-dense scene with motion under the BVH, and closest hit
+   against ``intersect_brute`` on the lerped triangles; the instance kernels on
    1,048,576 rays of the instanced scene, likewise (the instance
    included); the 16² motion scene
    and an 8-use instanced scene card vs CPU (8 waves and 8 seeds pooled),
@@ -303,6 +306,14 @@ NODE_DELTA_BYTES = 6 * 8 * 4
 LEAF_DELTA_BYTES = 9 * 8 * 4
 OPS_NODE_LERP = 8 * 6 * 2
 OPS_LEAF_LERP = 8 * 9 * 2
+#: a motion node step also reads its row's time boxes (wide.time_boxes):
+#: 6 box fields and their 6 deltas of 8 floats; per slot it lerps the 6
+#: (a multiply and an add each) and slab-tests the box against [tmin,
+#: inf): 6 sub + 6 mul, 10 min / max, the tmin max and 1 compare
+TBOX_BYTES = 6 * 8 * 4
+TBOX_DELTA_BYTES = 6 * 8 * 4
+OPS_TBOX_LERP = 8 * 6 * 2
+OPS_TBOX_TEST = 8 * 24
 #: per lane, besides the traversal's: the shutter weight in (motion), the
 #: instance out (instance phase)
 LANE_BYTES_MOTION = LANE_BYTES_TRAVERSE + 4
@@ -1309,6 +1320,47 @@ def tie_kernels_equal_plain(dev, acc: str, n: int = 4096, seed: int = 2) -> dict
             copy0=int((prim == 0).sum()),
             cluster=int(((prim >= TIE_COPIES) & (prim < TIE_COPIES + TIE_CLUSTER)).sum()),
             sphere=int((prim == g.num_triangles).sum()))
+    return out
+
+
+def tie_bvh_motion_equal_plain(dev, n: int = 4096, seed: int = 2) -> dict:
+    """The tie-and-dense scene with motion under the BVH on ``dev``: the
+    two motion kernels (culling by the time boxes) held to the union plain
+    walk on ``n`` of ``tie_rays``, closest hit and any hit on segments that
+    end 2^-20 past the closest hit or 1 past it, each seeded with the
+    quadric pass as ``intersect`` seeds them. → {kernel key: t, prim, b1,
+    b2 equal bit for bit}, and under "hits" the closest hits on the
+    copies, the cluster and the sphere."""
+    import torch
+
+    from pbrt_torch.accel import intersect as isect
+    from pbrt_torch.accel import traverse_cuda as tc
+    from pbrt_torch.scene.api import load_scene_string
+    from pbrt_torch.scene.builder import build
+
+    g = build(load_scene_string(tie_scene_text("bvh", motion=True)), device=dev).scene.geometry
+    o, d, tm = (torch.as_tensor(x, device=dev) for x in tie_rays(n, seed))
+    inv = isect.make_inv_dir(d).contiguous()
+    tmin = torch.zeros(n, device=dev)
+    tmax = torch.full((n,), float("inf"), device=dev)
+    mt = dict(motion_rows=g.wide_motion, tw=isect.motion_weight(g, tm).contiguous())
+    tab = (g.wide_rows, g.wide_stack, o, d, inv, tmin)
+    seeds = lambda tmx: [x.contiguous() for x in isect.quad_best(g, o, d, tmin, tmx)]
+    pc = tc.traverse_plain(*tab, tmax, *seeds(tmax), False, **mt)
+    past = torch.where(torch.arange(n, device=dev) % 2 == 0, 2.0 ** -20, 1.0)
+    tmax_a = torch.where(torch.isfinite(pc[0]), pc[0] + past, 1e30).contiguous()
+    out = {}
+    for side, any_hit, tmx in (("closest", False, tmax), ("any", True, tmax_a)):
+        s_ = seeds(tmx)
+        k = tc.traverse(*tab, tmx, *s_, any_hit, time_boxes=g.wide_tbox, **mt)
+        p = pc if not any_hit else tc.traverse_plain(*tab, tmx, *s_, any_hit, **mt)
+        out[f"traverse_{side}_motion"] = all(
+            torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(k, p))
+    prim = pc[1]
+    out["hits"] = dict(
+        copies=int(((prim >= 0) & (prim < TIE_COPIES)).sum()),
+        cluster=int(((prim >= TIE_COPIES) & (prim < TIE_COPIES + TIE_CLUSTER)).sum()),
+        sphere=int((prim == g.num_triangles).sum()))
     return out
 
 
@@ -3927,6 +3979,41 @@ def camera_and_bounce_rays(built, dev, n_lanes: int, gen, times: bool):
             torch.cat([cam.time, cam.time[src]]).contiguous(), cam, si)
 
 
+def motion_lane_sets(built, dev) -> dict:
+    """Phase 11(c)'s rays of the motion scene (seed 11): ``N_LANES`` camera
+    and bounce rays at their own shutter times (o, d, t_ray and the camera
+    rays' interactions si), then, drawn in this order, each lane's any-hit
+    scale (0.5 or 1.5 times its closest hit), the ``BRUTE_LANES`` lanes
+    held to ``intersect_brute`` and the permuted ``CHUNK``-lane timing set
+    (sel, sub); gen, the generator after them."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    o, d, t_ray, _, si = camera_and_bounce_rays(built, dev, N_LANES, gen, times=True)
+    R = o.shape[0]
+    scale = torch.where(torch.rand(R, generator=gen, device=dev) < 0.5, 0.5, 1.5)
+    sel = torch.randperm(R, generator=gen, device=dev)[:BRUTE_LANES]
+    sub = torch.randperm(R, generator=gen, device=dev)[:CHUNK]
+    return dict(o=o, d=d, t_ray=t_ray, si=si, scale=scale, sel=sel, sub=sub, gen=gen)
+
+
+def motion_work(stats: dict, lanes: int):
+    """(bytes, float operations) a motion walk must move and do, from the
+    culled plain walk's ``stats`` on ``lanes`` lanes: each lane's ray,
+    shutter weight and result once; each distinct node row's fields with
+    their deltas and time boxes, each leaf row's with their deltas; per
+    node step the slab tests, sort, lerps and time-box tests, per leaf step
+    the lerped Möller–Trumbore tests."""
+    nbytes = (lanes * LANE_BYTES_MOTION
+              + stats["node_rows"] * (NODE_ROW_BYTES + NODE_DELTA_BYTES + TBOX_BYTES
+                                      + TBOX_DELTA_BYTES)
+              + stats["leaf_rows"] * (LEAF_ROW_BYTES + LEAF_DELTA_BYTES))
+    ops = (stats["node_steps"] * (OPS_NODE_STEP + OPS_NODE_LERP + OPS_TBOX_LERP + OPS_TBOX_TEST)
+           + stats["leaf_steps"] * (OPS_LEAF_STEP + OPS_LEAF_LERP))
+    return nbytes, ops
+
+
 def geometry_bytes(g) -> int:
     """Device bytes of a SceneGeometry's tensors."""
     import torch
@@ -3998,9 +4085,8 @@ def motion_instancing_phase(dev, drive, profile_frame, card_vs_cpu):
     # (32,768 of them) only: a plain walk loops until its longest ray ends
     # (4,717 steps here), so on all the rays it took as long again (52–71
     # s) for the same check
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(11)
-    o, d, t_ray, _, si = camera_and_bounce_rays(built, dev, N_LANES, gen, times=True)
+    sets = motion_lane_sets(built, dev)
+    o, d, t_ray, si, gen = (sets[k] for k in ("o", "d", "t_ray", "si", "gen"))
     n_hits = int(si.valid.sum())
     R = o.shape[0]
     tw = isect.motion_weight(g, t_ray).contiguous()
@@ -4008,28 +4094,29 @@ def motion_instancing_phase(dev, drive, profile_frame, card_vs_cpu):
     tmin = torch.zeros(R, device=dev)
     tmax = torch.full((R,), float("inf"), device=dev)
     q = [x.contiguous() for x in isect.quad_best(g, o, d, tmin, tmax)]
-    rows, mrows, ws = g.wide_rows, g.wide_motion, g.wide_stack
-    mo = dict(motion_rows=mrows, tw=tw)
+    rows, mrows, ws, tbox = g.wide_rows, g.wide_motion, g.wide_stack, g.wide_tbox
+    mo = dict(motion_rows=mrows, tw=tw, time_boxes=tbox)
     kc = tc.traverse(rows, ws, o, d, inv, tmin, tmax, *q, any_hit=False, **mo)
-    scale = torch.where(torch.rand(R, generator=gen, device=dev) < 0.5, 0.5, 1.5)
-    tmax_a = torch.where(torch.isfinite(kc[0]), kc[0] * scale, 1e30).contiguous()
+    tmax_a = torch.where(torch.isfinite(kc[0]), kc[0] * sets["scale"], 1e30).contiguous()
     qa = [x.contiguous() for x in isect.quad_best(g, o, d, tmin, tmax_a)]
     ka = tc.traverse(rows, ws, o, d, inv, tmin, tmax_a, *qa, any_hit=True, **mo)
+    # the ragged counts held to the union walk (the kernels cull by the
+    # time boxes, the union walk is the JAX package's)
     ragged = True
     for n in (1, 7, 4093):
         cut = lambda xs: [x[:n].contiguous() for x in xs]
         for any_hit, tm, seeds in ((False, tmax, q), (True, tmax_a, qa)):
             a = cut((o, d, inv, tmin, tm, *seeds))
             mt = dict(motion_rows=mrows, tw=tw[:n].contiguous())
-            ragged &= bits(tc.traverse(rows, ws, *a, any_hit=any_hit, **mt),
+            ragged &= bits(tc.traverse(rows, ws, *a, any_hit=any_hit, time_boxes=tbox, **mt),
                            tc.traverse_plain(rows, ws, *a, any_hit, **mt))
-    sel = torch.randperm(R, generator=gen, device=dev)[:BRUTE_LANES]
+    sel = sets["sel"]
     hb = isect.intersect_brute(g, geom.Ray.make(o[sel], d[sel], time=t_ray[sel]))
     sync()
     kv, bv = kc[1][sel] >= 0, hb.prim >= 0
     v = kv & bv
     brute_rel = float(((kc[0][sel][v] - hb.t[v]).abs() / hb.t[v].abs()).max()) if v.any() else 0.0
-    sub = torch.randperm(R, generator=gen, device=dev)[:CHUNK]
+    sub = sets["sub"]
     pick = lambda x: x[sub].contiguous()
     so, sd, sinv, stmin = pick(o), pick(d), pick(inv), pick(tmin)
     eq, errs = {}, {}
@@ -4037,46 +4124,58 @@ def motion_instancing_phase(dev, drive, profile_frame, card_vs_cpu):
                                           ("traverse_any_motion", True, tmax_a, qa, ka)):
         targs = (rows, ws, so, sd, sinv, stmin, pick(tm), *[pick(x) for x in seeds])
         mt = dict(motion_rows=mrows, tw=pick(tw))
-        # one plain call, timed, counts the work for the bound as it goes
-        # (the walk of the longest ray sets its time: tens of seconds here)
-        # and is the reference the kernels' lanes of the set are held to
+        mc = dict(mt, time_boxes=tbox)
+        # the union walk (the JAX package's), counting its steps: the
+        # reference the kernels' lanes of the set are held to (the walk of
+        # its longest ray sets its time: tens of seconds here); then the
+        # culled walk, the kernel's own plain version, timed, whose work
+        # gives the bound
+        stats_u, union = {}, []
+        union_ms = cuda_ms(lambda: union.append(tc.traverse_plain(*targs, any_hit, stats=stats_u,
+                                                                  **mt)), n=1, warm=0)
         stats, plain = {}, []
         plain_ms = cuda_ms(lambda: plain.append(tc.traverse_plain(*targs, any_hit, stats=stats,
-                                                                  **mt)), n=1, warm=0)
-        ks, ps = [pick(x) for x in kern], plain[0]
-        eq[key] = bits(ks, ps) and bits(tc.traverse(*targs, any_hit=any_hit, **mt), ps)
-        hit = torch.isfinite(ps[0]) if not any_hit else ps[1] >= 0
-        errs[key] = float((ks[0][hit] - ps[0][hit]).abs().max()) if hit.any() else 0.0
-        ms, host_ms = queued_ms(lambda: tc.traverse(*targs, any_hit=any_hit, **mt))
+                                                                  **mc)), n=1, warm=0)
+        ks, ps, pu = [pick(x) for x in kern], plain[0], union[0]
+        eq[key] = (bits(ks, pu) and bits(ps, pu)
+                   and bits(tc.traverse(*targs, any_hit=any_hit, **mc), pu))
+        hit = torch.isfinite(pu[0]) if not any_hit else pu[1] >= 0
+        errs[key] = float((ks[0][hit] - pu[0][hit]).abs().max()) if hit.any() else 0.0
+        ms, host_ms = queued_ms(lambda: tc.traverse(*targs, any_hit=any_hit, **mc))
         static_ms, _ = queued_ms(lambda: tc.traverse(*targs, any_hit=any_hit))
-        nbytes = (CHUNK * LANE_BYTES_MOTION
-                  + stats["node_rows"] * (NODE_ROW_BYTES + NODE_DELTA_BYTES)
-                  + stats["leaf_rows"] * (LEAF_ROW_BYTES + LEAF_DELTA_BYTES))
-        ops = (stats["node_steps"] * (OPS_NODE_STEP + OPS_NODE_LERP)
-               + stats["leaf_steps"] * (OPS_LEAF_STEP + OPS_LEAF_LERP))
+        nbytes, ops = motion_work(stats, CHUNK)
         b_ms, b_by = timing.bound_ms(nbytes, ops)
         entries[key] = dict(launches=motion_launches[key], max_abs_err=errs[key], ms=ms,
                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
         summ = step_summary(stats["lane_steps"], ms)
+        summ_u = step_summary(stats_u["lane_steps"])
         log("timing", f"{key}, permuted set of anim-killeroos-moving, {CHUNK} lanes: {ms:.4f} ms "
             f"(plain {plain_ms:.2f} ms with its step counting, host enqueue {host_ms:.4f} ms); "
             f"the static kernel on "
-            f"the same lanes (shutter-start rows) {static_ms:.4f} ms; {stats['node_steps']} node + "
-            f"{stats['leaf_steps']} leaf steps, {stats['node_rows']} node + {stats['leaf_rows']} "
-            f"leaf distinct rows with their deltas, {nbytes} bytes; bound {b_ms:.5f} ms "
-            f"({b_by}), kernel / bound {ms / b_ms:.1f}x; steps per lane mean "
-            f"{summ['mean']:.3f}, max {summ['max']}")
+            f"the same lanes (shutter-start rows) {static_ms:.4f} ms; culled walk "
+            f"{stats['node_steps']} node + {stats['leaf_steps']} leaf steps, "
+            f"{stats['node_rows']} node rows with their deltas and time boxes + "
+            f"{stats['leaf_rows']} leaf rows with their deltas, {nbytes} bytes; bound "
+            f"{b_ms:.5f} ms ({b_by}), kernel / bound {ms / b_ms:.1f}x; steps per lane mean "
+            f"{summ['mean']:.3f}, max {summ['max']} (union walk {summ_u['mean']:.3f}, max "
+            f"{summ_u['max']}: {stats_u['node_steps']} node + {stats_u['leaf_steps']} leaf "
+            f"steps; plain {union_ms:.2f} ms)")
     fa = ka[1] >= 0
+    tie = tie_bvh_motion_equal_plain(dev)
+    tie_hits = tie.pop("hits")
     log("kernels", f"motion kernels on {R} rays of anim-killeroos-moving ({R // 2} camera rays "
         f"at their own shutter times, {R - R // 2} bounce rays from {n_hits} first hits), vs "
-        f"plain on the {CHUNK}-lane timed set of them: equal bit for bit {eq}; on 1, 7 and 4093 "
+        f"the union and culled plain walks on the {CHUNK}-lane timed set of them: equal bit for "
+        f"bit {eq}; vs the union walk on 1, 7 and 4093 "
         f"lanes {ragged}; closest hits {int((kc[1] >= 0).sum())}, occluded {int(fa.sum())}; "
         f"closest hit vs intersect_brute on the lerped triangles, {BRUTE_LANES} lanes: valid "
         f"equal {bool(torch.equal(kv, bv))}, max rel t diff {brute_rel:.3g}, prim equal on "
-        f"{float((kc[1][sel] == hb.prim).float().mean()):.6f}")
-    if not (all(eq.values()) and ragged and torch.equal(kv, bv) and brute_rel <= 1e-6):
+        f"{float((kc[1][sel] == hb.prim).float().mean()):.6f}; the tie-and-dense scene with "
+        f"motion under the BVH, 4,096 lanes, vs the union walk: {tie} (closest hits {tie_hits})")
+    if not (all(eq.values()) and ragged and torch.equal(kv, bv) and brute_rel <= 1e-6
+            and all(tie.values()) and tie_hits["copies"] > 0 and tie_hits["cluster"] > 0):
         raise SystemExit("a motion kernel disagrees with its plain version or intersect_brute")
-    del built, kc, ka, q, qa, o, d, inv, tmin, tmax, tmax_a, tw, film
+    del built, sets, si, kc, ka, q, qa, o, d, inv, tmin, tmax, tmax_a, tw, film
     torch.cuda.empty_cache()
 
     # ---- (b) 64 instanced killeroos --------------------------------------

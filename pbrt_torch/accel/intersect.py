@@ -81,6 +81,9 @@ class SceneGeometry:
     tri_n_motion: torch.Tensor | None = None  # (T, 9) of [n0, n1, n2]
     motion_time: torch.Tensor | None = None  # (2,) the interval's times
     wide_motion: torch.Tensor | None = None  # (M, 80) of each wide row
+    #: (M, 96) each node row's child boxes at shutter start and their
+    #: deltas (``wide.time_boxes``): the motion kernels cull by them
+    wide_tbox: torch.Tensor | None = None
     # instancing: object tables and one row per static use
     inst_rows: torch.Tensor | None = None  # (Mi, 80) the BLAS tables
     inst_o2w: torch.Tensor | None = None  # (I, 4, 4)
@@ -252,7 +255,7 @@ def intersect(g: SceneGeometry, ray: geom.Ray, any_hit: bool = False) -> Hit:
         calls["intersect"] += 1
         motion = {}
         if g.has_motion:
-            motion = dict(motion_rows=g.wide_motion,
+            motion = dict(motion_rows=g.wide_motion, time_boxes=g.wide_tbox,
                           tw=motion_weight(g, ray.time).contiguous())
         hit = traverse_cuda.traverse(g.wide_rows, g.wide_stack, o, d, inv, tmin, tmax,
                                      *hit, any_hit, **motion)

@@ -18,9 +18,13 @@ Wrappers, each kernel with a launch counter (``launches``):
 - ``step`` — one interpret step with ``step_interpret``'s contract, any R;
 - ``traverse(..., any_hit=False)`` — closest hit, one 8-lane group per ray;
 - ``traverse(..., any_hit=True)`` — any hit;
-- ``traverse(..., motion_rows=, tw=)`` — the same walks on a motion scene,
-  each row lerped by the ray's shutter weight before the step
-  (``intersect.py:873-874``): ``traverse_{closest,any}_motion``;
+- ``traverse(..., motion_rows=, tw=, time_boxes=)`` — the same walks on a
+  motion scene, each row lerped by the ray's shutter weight before the
+  step (``intersect.py:873-874``): ``traverse_{closest,any}_motion``. Each
+  node step also tests every child's box at the ray's shutter weight
+  (``wide.time_boxes``, the port's own table) and drops the children it
+  misses from the sorted order: the union walk's result, bit for bit, at a
+  fraction of its steps;
 - ``traverse_instances`` — the instance phase (``intersect.py:1060-1108``),
   one launch for all instances, seeded with the world walk's result:
   ``traverse_instances_{closest,any}``, which also give each lane's
@@ -32,7 +36,10 @@ The plain versions (``step_plain``, ``traverse_plain``,
 ``traverse_instances_plain``) repeat the kernels' arithmetic in the same
 operation order, the sort by the same layers and
 the leaf pick by the same butterfly, so on the card the two agree bit for
-bit; the CPU tests and ``chip_smoke.py`` hold the kernels to them.
+bit; the CPU tests and ``chip_smoke.py`` hold the kernels to them. The
+motion kernels' plain version is ``traverse_plain`` with ``time_boxes``
+(the culled walk, step for step); without them it is the union walk, the
+JAX package's, which both are held to.
 
 Child order follows ``intersect._SORT8`` (the JAX package's default XLA
 step), not the Pallas kernel's list, which orders equal entry keys
@@ -130,11 +137,15 @@ def pick_first_min(tc):
 
 
 def _interpret(rt, ox, oy, oz, dx, dy, dz, ix, iy, iz, tmin, t_best,
-               node_mask, leaf_mask):
+               node_mask, leaf_mask, tbt=None):
     """Both interpretations of slot-major rows ``rt`` (80, C) for C lanes.
 
     Returns (refs (8, C) int32 in sorted order, n_hit (C,) int32, tsel,
-    psel int32, b1, b2) — the JAX step's values on every lane."""
+    psel int32, b1, b2) — the JAX step's values on every lane. With ``tbt``
+    (48, C), the lanes' lerped time boxes of the node row's children, also
+    (8, C) bool in sorted order: the child is culled (a valid slot whose
+    time box the ray misses on [tmin, inf)), the bit carried through the
+    sort beside its ref as the kernel carries it; else None."""
     inf = torch.tensor(math.inf, dtype=rt.dtype, device=rt.device)
     lox, hix = rt[0:8], rt[8:16]
     loy, hiy = rt[16:24], rt[24:32]
@@ -151,7 +162,22 @@ def _interpret(rt, ox, oy, oz, dx, dy, dz, ix, iy, iz, tmin, t_best,
     enter = mx(tn, tmin)
     exit_ = mn(tf, t_best)
     hit8 = (enter <= exit_) & (lox <= hix) & node_mask
-    _, refs = sort8_layers(torch.where(hit8, enter, inf), rt[48:56].to(torch.int32))
+    refs = rt[48:56].to(torch.int32)
+    cull = None
+    if tbt is not None:
+        # the time box's slab test against [tmin, inf), then the cull bit
+        # rides the sort in the ref's low bit (ref * 2 + bit, ref < 2^24)
+        u0x, u1x = (tbt[0:8] - ox) * ix, (tbt[8:16] - ox) * ix
+        u0y, u1y = (tbt[16:24] - oy) * iy, (tbt[24:32] - oy) * iy
+        u0z, u1z = (tbt[32:40] - oz) * iz, (tbt[40:48] - oz) * iz
+        un = mx(mx(mn(u0x, u1x), mn(u0y, u1y)), mn(u0z, u1z))
+        uf = mn(mn(mx(u0x, u1x), mx(u0y, u1y)), mx(u0z, u1z))
+        culled = (lox <= hix) & ~(mx(un, tmin) <= uf)
+        refs = refs * 2 + culled.to(torch.int32)
+    _, refs = sort8_layers(torch.where(hit8, enter, inf), refs)
+    if tbt is not None:
+        cull = (refs & 1).bool()
+        refs = refs >> 1
     n_hit = hit8.sum(0, dtype=torch.int32)
 
     # the leaf's 8 packed triangles, (8, C, 9) of [v0, e1, e2] per slot
@@ -165,7 +191,7 @@ def _interpret(rt, ox, oy, oz, dx, dy, dz, ix, iy, iz, tmin, t_best,
     psel = pid.gather(0, jb)[0]
     b1s = b1.gather(0, jb)[0]
     b2s = b2.gather(0, jb)[0]
-    return refs, n_hit, tsel, psel, b1s, b2s
+    return refs, n_hit, tsel, psel, b1s, b2s, cull
 
 
 def step_plain(row, o, d, inv, tmin, t_best, is_node, act):
@@ -176,16 +202,20 @@ def step_plain(row, o, d, inv, tmin, t_best, is_node, act):
         rt, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
         inv[:, 0], inv[:, 1], inv[:, 2], tmin, t_best,
         is_node & act, ~is_node & act,
-    )
+    )[:6]
 
 
 def _walk_plain(rows, wide_stack, o, d, inv, tmin, state, idx, root: int,
-                any_hit: bool, motion_rows=None, tw=None, stats=None):
+                any_hit: bool, motion_rows=None, tw=None, stats=None, time_boxes=None):
     """Walks lanes ``idx`` from row ``root`` to completion, a Python loop
     over steps with the active lanes compacted each step, updating
     ``state`` = [t, prim, b1, b2] in place. With ``motion_rows``, each
     gathered row is lerped by the lane's ``tw`` first (the product rounded,
-    then added). → (node_steps, leaf_steps, touched, lane_steps)."""
+    then added). With ``time_boxes`` too, the culled walk: a node step
+    drops the children whose lerped time box the ray misses from the
+    sorted order (``_interpret``), the rest keep it; it descends to the
+    first survivor and pushes the others, nearest on top, or pops.
+    → (node_steps, leaf_steps, touched, lane_steps)."""
     t, prim, b1, b2 = state
     R = o.shape[0]
     dev = o.device
@@ -212,12 +242,22 @@ def _walk_plain(rows, wide_stack, o, d, inv, tmin, state, idx, root: int,
         if motion_rows is not None:
             row = row + tw[idx][:, None] * motion_rows[ridx]
         rt = row.T
+        tbt = None
+        if time_boxes is not None:
+            tbox = time_boxes[ridx]
+            tbt = (tbox[:, :48] + tw[idx][:, None] * tbox[:, 48:]).T
         oi, di, ii = o[idx], d[idx], inv[idx]
         tb = t[idx]
-        refs, n_hit, tsel, psel, b1s, b2s = _interpret(
+        refs, n_hit, tsel, psel, b1s, b2s, cull = _interpret(
             rt, oi[:, 0], oi[:, 1], oi[:, 2], di[:, 0], di[:, 1], di[:, 2],
-            ii[:, 0], ii[:, 1], ii[:, 2], tmin[idx], tb, is_node, ~is_node,
+            ii[:, 0], ii[:, 1], ii[:, 2], tmin[idx], tb, is_node, ~is_node, tbt,
         )
+        if cull is not None:
+            # the survivors (sorted positions < n_hit, not culled) first, in
+            # their sorted order; they stand for refs[:n_hit] from here on
+            surv = (torch.arange(8, device=dev)[:, None] < n_hit) & ~cull
+            refs = refs.gather(0, torch.argsort((~surv).to(torch.int8), dim=0, stable=True))
+            n_hit = surv.sum(0, dtype=torch.int32)
         # leaf result
         better = tsel < tb
         t[idx] = torch.where(better, tsel, tb)
@@ -255,11 +295,15 @@ def _add_stats(stats, n_node, n_leaf, touched, lane_steps):
 
 def traverse_plain(rows, wide_stack, o, d, inv, tmin, tmax, t0, p0, b10,
                    b20, any_hit: bool, stats: dict | None = None,
-                   motion_rows=None, tw=None):
+                   motion_rows=None, tw=None, time_boxes=None):
     """Batched walk of every lane to completion. Same result contract as
     the kernels: (t, prim, b1, b2), seeded with (t0, p0, b10, b20). With
     ``motion_rows`` (M, 80) and ``tw`` (R,), every row is lerped by the
-    lane's weight before its step, node rows included.
+    lane's weight before its step, node rows included: the union walk, the
+    JAX package's, which the motion kernels are held to. With
+    ``time_boxes`` (M, 96, ``wide.time_boxes``) as well, the culled walk:
+    the motion kernels' own plain version, step for step, equal to the
+    union walk in (t, prim, b1, b2) bit for bit.
 
     ``stats`` (optional dict) receives the work this batch needed:
     ``node_steps``, ``leaf_steps``, ``node_rows`` (distinct rows read only
@@ -271,9 +315,11 @@ def traverse_plain(rows, wide_stack, o, d, inv, tmin, tmax, t0, p0, b10,
     run = tmax != 0.0
     if any_hit:
         run = run & (state[1] < 0)
+    if time_boxes is not None and motion_rows is None:
+        raise ValueError("traverse_plain: time_boxes go with motion_rows and tw")
     work = _walk_plain(rows, wide_stack, o, d, inv, tmin, state,
                        torch.nonzero(run).squeeze(1), 0, any_hit, motion_rows, tw,
-                       stats)
+                       stats, time_boxes)
     if stats is not None:
         _add_stats(stats, *work)
     return tuple(state)
@@ -398,15 +444,25 @@ def step(row, o, d, inv, tmin, t_best, is_node, act):
 
 
 def traverse(rows, wide_stack, o, d, inv, tmin, tmax, t0, p0, b10, b20,
-             any_hit: bool, fmad: bool = False, motion_rows=None, tw=None):
+             any_hit: bool, fmad: bool = False, motion_rows=None, tw=None,
+             time_boxes=None):
     """Closest-hit (or any-hit) walk over the wide table; (t0, p0, b10,
     b20) seed the result (the quadric hit) and bound the search. With
-    ``motion_rows`` and ``tw`` it launches the motion kernel.
+    ``motion_rows``, ``tw`` and the table's ``time_boxes`` it launches the
+    motion kernel, which culls by the time boxes (on the CPU: the culled
+    plain walk); a motion walk without ``time_boxes`` raises.
     ``fmad=True`` launches the FMA-contracted build (measurement only)."""
-    refuse_grad("traverse", rows, o, d, inv, tmin, tmax, t0, p0, b10, b20, motion_rows, tw)
+    refuse_grad("traverse", rows, o, d, inv, tmin, tmax, t0, p0, b10, b20, motion_rows, tw,
+                time_boxes)
+    if (motion_rows is None) != (tw is None):
+        raise ValueError("traverse: motion_rows and tw go together")
+    if (motion_rows is None) != (time_boxes is None):
+        raise ValueError("traverse: a motion walk needs the table's time_boxes "
+                         "(wide.time_boxes), and only a motion walk takes them")
     if o.device.type == "cpu":
         return traverse_plain(rows, wide_stack, o, d, inv, tmin, tmax, t0,
-                              p0, b10, b20, any_hit, motion_rows=motion_rows, tw=tw)
+                              p0, b10, b20, any_hit, motion_rows=motion_rows, tw=tw,
+                              time_boxes=time_boxes)
     if o.device.type != "cuda":
         raise ValueError(f"traverse: unsupported device {o.device}")
     from pbrt_torch.utils import native
@@ -415,18 +471,17 @@ def traverse(rows, wide_stack, o, d, inv, tmin, tmax, t0, p0, b10, b20,
     dev = o.device
     f32 = torch.float32
     native.check_tensor("rows", rows, f32, (rows.shape[0], 80), dev)
-    if (motion_rows is None) != (tw is None):
-        raise ValueError("traverse: motion_rows and tw go together")
     motion = motion_rows is not None
     if motion:
         native.check_tensor("motion_rows", motion_rows, f32, tuple(rows.shape), dev)
+        native.check_tensor("time_boxes", time_boxes, f32, (rows.shape[0], 96), dev)
         native.check_tensor("tw", tw, f32, (R,), dev)
     _check_rays(native, R, dev, o, d, inv, tmin, tmax, t0, p0, b10, b20)
     lib = native.kernel_lib("traverse.cu", fmad)
     _check_stack(lib, wide_stack)
     t, prim, b1, b2 = _hit_outputs(R, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ins = (rows, *((motion_rows, tw) if motion else ()), o, d, inv, tmin, tmax,
+    ins = (rows, *((motion_rows, time_boxes, tw) if motion else ()), o, d, inv, tmin, tmax,
            t0, p0, b10, b20)
     ptrs = [x.data_ptr() for x in (*ins, t, prim, b1, b2)]
     key = ("traverse_any" if any_hit else "traverse_closest") + ("_motion" if motion else "")

@@ -63,8 +63,26 @@
 //   without an argument about which signed zero reaches a key. The child
 //   refs and triangle ids are not lerped: their deltas are zero, tw lies in
 //   [0, 1] (motion_weight clamps it), so ref + tw * 0 == ref, and they are
-//   integers, never -0. Bound: twice the row bytes of a static walk, each
-//   step reads its row's deltas beside it.
+//   integers, never -0.
+//   Those union boxes cover each child's whole shutter sweep, so on a scene
+//   whose geometry moves farther than its size a ray walks every subtree
+//   its sweep crosses (anim-killeroos: 149.8 steps a lane, its longest ray
+//   4,717, and a launch lasts as long as that chain). So each lane also
+//   tests its child's box at the ray's own weight (the port's time-box
+//   table, wide.time_boxes: each node row's child boxes at shutter start and
+//   their deltas, slot-major as the rows, lerped as the rows are) against
+//   [tmin, inf), and a valid child that test misses is culled: its bit
+//   rides the sort in the ref's low bit, and after the sort the survivors
+//   (sorted positions < n_hit, not culled) are found by a ballot and a
+//   prefix popcount; the walk descends to the first and pushes the rest,
+//   nearest on top, in their sorted order, or pops. The union test still
+//   gives the keys and the order, so the serial order stands; a culled
+//   subtree holds no triangle the walk would accept (the time box holds
+//   every lerped triangle, wide.time_boxes), so dropping it changes neither
+//   (t, prim, b1, b2) nor the stack the walk returns to: the union walk's
+//   result bit for bit. Bound: a step's row and deltas as before, plus, on
+//   a node step, the time box and its delta (12 fields of 8 floats) and
+//   its lerp and slab test.
 // - Memory-shared instancing (traverse_instances_{closest,any}_kernel):
 //   the JAX package's third phase (intersect.py:1060-1108), one launch for
 //   every instance, seeded with the world walk's (t, prim, b1, b2). In
@@ -84,6 +102,7 @@
 namespace {
 
 constexpr int kRow = 80;                         // floats per wide row
+constexpr int kTboxRow = 96;  // floats per time-box row (wide.W_TBOX)
 constexpr int kGroup = 8;                        // lanes per ray (one per slot)
 constexpr int kThreads = 128;
 constexpr int kRaysPerBlock = kThreads / kGroup; // 16
@@ -175,15 +194,18 @@ __device__ __forceinline__ void sort_layer(int k, float& key, int& ref) {
 }
 
 // Node interpretation by lane k of a group, rk pointing at slot k of the
-// row (field f at rk[8f]; mk at its deltas when kMotion): the slab test of
-// child slot k, then the group's sort. Returns n_hit; ref is the k-th child
-// ref in sorted order. All 32 lanes of the warp call it together.
+// row (field f at rk[8f]; mk at its deltas and tk at its time box when
+// kMotion): the slab test of child slot k, then the group's sort. Returns
+// n_hit; ref is the k-th child ref in sorted order, and with kMotion cull
+// says whether that child's time box was missed.
+// All 32 lanes of the warp call it together.
 template <bool kMotion>
 __device__ __forceinline__ int group_node(const float* __restrict__ rk,
                                           const float* __restrict__ mk,
+                                          const float* __restrict__ tk,
                                           float tw, const Ray& ray,
                                           float t_best, bool act, int k,
-                                          int& ref) {
+                                          int& ref, bool& cull) {
   const float lox = field<kMotion>(rk, mk, tw, 0);
   const float hix = field<kMotion>(rk, mk, tw, 8);
   const float loy = field<kMotion>(rk, mk, tw, 16);
@@ -204,12 +226,33 @@ __device__ __forceinline__ int group_node(const float* __restrict__ rk,
   const bool hit = (enter <= exit_) && (lox <= hix) && act;
   float key = hit ? enter : CUDART_INF_F;
   const int n_hit = __popc(__ballot_sync(kWarp, hit) & group_bits());
+  if constexpr (kMotion) {
+    // the child's time box at tw against [tmin, inf) (t_best left out: the
+    // cull rests on containment alone); a valid slot that misses is culled,
+    // the bit carried in the ref's low bit (ref * 2 + bit, |ref| < 2^24).
+    // Its 12 loads are issued with the row's, independent of the union
+    // test: loading only where that test hit cost 3.5-4.6% (PERF.md §6)
+    const float u0x = (field<true>(tk, tk + 48, tw, 0) - ray.ox) * ray.ix;
+    const float u1x = (field<true>(tk, tk + 48, tw, 8) - ray.ox) * ray.ix;
+    const float u0y = (field<true>(tk, tk + 48, tw, 16) - ray.oy) * ray.iy;
+    const float u1y = (field<true>(tk, tk + 48, tw, 24) - ray.oy) * ray.iy;
+    const float u0z = (field<true>(tk, tk + 48, tw, 32) - ray.oz) * ray.iz;
+    const float u1z = (field<true>(tk, tk + 48, tw, 40) - ray.oz) * ray.iz;
+    const float un = vmax(vmax(vmin(u0x, u1x), vmin(u0y, u1y)), vmin(u0z, u1z));
+    const float uf = vmin(vmin(vmax(u0x, u1x), vmax(u0y, u1y)), vmax(u0z, u1z));
+    const bool thit = vmax(un, ray.tmin) <= uf;
+    ref = ref * 2 + ((lox <= hix) && !thit ? 1 : 0);
+  }
   sort_layer<partner_word(0)>(k, key, ref);
   sort_layer<partner_word(1)>(k, key, ref);
   sort_layer<partner_word(2)>(k, key, ref);
   sort_layer<partner_word(3)>(k, key, ref);
   sort_layer<partner_word(4)>(k, key, ref);
   sort_layer<partner_word(5)>(k, key, ref);
+  if constexpr (kMotion) {
+    cull = (ref & 1) != 0;
+    ref >>= 1;  // arithmetic: a leaf's negative ref comes back whole
+  }
   return n_hit;
 }
 
@@ -331,7 +374,9 @@ __global__ void __launch_bounds__(kThreads) wide_step_kernel(
   const bool node = is_node[i];
   const bool a = act[i];
   int ref;
-  const int nh = group_node<false>(rk, nullptr, 0.f, ray, tb, node && a, gi.k, ref);
+  bool cull;
+  const int nh = group_node<false>(rk, nullptr, nullptr, 0.f, ray, tb, node && a, gi.k, ref,
+                                   cull);
   const LeafHit h = group_leaf<false>(rk, nullptr, 0.f, ray, tb, !node && a, gi.k);
   if (!gi.live) return;
   refs[static_cast<size_t>(gi.k) * R + i] = ref;
@@ -350,11 +395,14 @@ __global__ void __launch_bounds__(kThreads) wide_step_kernel(
 // stack. (t_best, prim, bb1, bb2) hold the best hit so far; any-hit leaves
 // at the first prim >= 0. cur, sp, t_best, prim and run are the same on all
 // 8 lanes of a group; the loop runs while any group of the warp runs (a
-// group that is done, or past R, steps masked). rows_k and motion_k point
-// at slot k of row 0 of the table and of its deltas.
+// group that is done, or past R, steps masked). rows_k, motion_k and tbox_k
+// point at slot k of row 0 of the table, of its deltas and of its time
+// boxes. kMotion: the refs of sorted positions < n_hit that were not culled
+// (the survivors) stand for refs[0..n_hit-1].
 template <bool kAnyHit, bool kMotion>
 __device__ __forceinline__ void walk(const float* __restrict__ rows_k,
                                      const float* __restrict__ motion_k,
+                                     const float* __restrict__ tbox_k,
                                      float tw, const Ray& ray, int* stack,
                                      int k, bool run, int cur, float& t_best,
                                      int& prim, float& bb1, float& bb2) {
@@ -362,22 +410,45 @@ __device__ __forceinline__ void walk(const float* __restrict__ rows_k,
   while (__any_sync(kWarp, run)) {
     const bool node = run && cur >= 0;
     if (__any_sync(kWarp, node)) {
-      const size_t off = static_cast<size_t>(node ? cur : 0) * kRow;
+      const size_t row = static_cast<size_t>(node ? cur : 0);
+      const size_t off = row * kRow;
       int ref;
+      bool cull;
       const int n_hit = group_node<kMotion>(
-          rows_k + off, kMotion ? motion_k + off : nullptr, tw, ray, t_best,
-          node, k, ref);
-      const int nearest = __shfl_sync(kWarp, ref, 0, kGroup);
-      const bool descend = node && n_hit > 0;
-      // the serial push order: ref_j at sp + n_hit - 1 - j, nearest on top
-      if (descend && k >= 1 && k < n_hit) stack[sp + n_hit - 1 - k] = ref;
-      __syncwarp();  // the pushes are visible to the pops below
-      if (descend) {
-        sp += n_hit - 1;
-        cur = nearest;
-      } else if (node) {
-        if (sp == 0) run = false;
-        else cur = stack[--sp];  // one address for the group: a broadcast
+          rows_k + off, kMotion ? motion_k + off : nullptr,
+          kMotion ? tbox_k + row * kTboxRow : nullptr, tw, ray, t_best, node,
+          k, ref, cull);
+      if constexpr (kMotion) {
+        // the survivors by ballot, each lane's rank among them by a prefix
+        // popcount; pushed in the serial order, nearest on top
+        const bool surv = node && k < n_hit && !cull;
+        const unsigned sb =
+            (__ballot_sync(kWarp, surv) >> (threadIdx.x & 24)) & 0xFFu;
+        const int n_surv = __popc(sb);
+        const int nearest = __shfl_sync(kWarp, ref, sb ? __ffs(sb) - 1 : 0, kGroup);
+        const int rank = __popc(sb & ((1u << k) - 1u));
+        if (surv && rank >= 1) stack[sp + n_surv - 1 - rank] = ref;
+        __syncwarp();  // the pushes are visible to the pops below
+        if (node && n_surv > 0) {
+          sp += n_surv - 1;
+          cur = nearest;
+        } else if (node) {
+          if (sp == 0) run = false;
+          else cur = stack[--sp];
+        }
+      } else {
+        const int nearest = __shfl_sync(kWarp, ref, 0, kGroup);
+        const bool descend = node && n_hit > 0;
+        // the serial push order: ref_j at sp + n_hit - 1 - j, nearest on top
+        if (descend && k >= 1 && k < n_hit) stack[sp + n_hit - 1 - k] = ref;
+        __syncwarp();  // the pushes are visible to the pops below
+        if (descend) {
+          sp += n_hit - 1;
+          cur = nearest;
+        } else if (node) {
+          if (sp == 0) run = false;
+          else cur = stack[--sp];  // one address for the group: a broadcast
+        }
       }
     }
     const bool leaf = run && cur < 0;
@@ -403,10 +474,12 @@ __device__ __forceinline__ void walk(const float* __restrict__ rows_k,
 // The world walk: one group per ray from row 0 (always a node row). The
 // quadric result seeds (t, prim, b1, b2); any-hit lanes that already have a
 // hit and lanes with tmax == 0 leave at once. kMotion: each row lerped by
-// the ray's tw (motion_weight) with its deltas.
+// the ray's tw (motion_weight) with its deltas, the children culled by
+// their time boxes (tbox).
 template <bool kAnyHit, bool kMotion>
 __device__ __forceinline__ void traverse_group(
     const float* __restrict__ rows, const float* __restrict__ motion,
+    const float* __restrict__ tbox,
     const float* __restrict__ tw_in, const float* __restrict__ o,
     const float* __restrict__ d, const float* __restrict__ inv,
     const float* __restrict__ tmin, const float* __restrict__ tmax,
@@ -426,7 +499,8 @@ __device__ __forceinline__ void traverse_group(
   float bb1 = b1_in[i], bb2 = b2_in[i];
   const bool run = gi.live && tmax[i] != 0.f && !(kAnyHit && prim >= 0);
   const float tw = kMotion ? tw_in[i] : 0.f;
-  walk<kAnyHit, kMotion>(rows + k, kMotion ? motion + k : nullptr, tw, ray,
+  walk<kAnyHit, kMotion>(rows + k, kMotion ? motion + k : nullptr,
+                         kMotion ? tbox + k : nullptr, tw, ray,
                          smem + gi.g * wide_stack, k, run, 0, t_best, prim,
                          bb1, bb2);
   if (gi.live && k == 0) {
@@ -504,7 +578,7 @@ __device__ __forceinline__ void instances_group(
     r2.tmin = ray.tmin;
     const float t_was = t_best;
     const int p_was = prim;
-    walk<kAnyHit, false>(rows + k, nullptr, 0.f, r2, stack, k, run,
+    walk<kAnyHit, false>(rows + k, nullptr, nullptr, 0.f, r2, stack, k, run,
                          __ldg(root + n), t_best, prim, bb1, bb2);
     if (t_best != t_was || prim != p_was) inst = n;
   }
@@ -517,11 +591,20 @@ __device__ __forceinline__ void instances_group(
   }
 }
 
-// Named kernels (not one template) so a profile tells them apart.
+// Named kernels (not one template) so a profile tells them apart. The
+// static kernels keep their parameter list (motion and tw come as null);
+// the motion kernels take the time boxes after the deltas.
+#define PBRT_TRAVERSE_PARAMS_false                                             \
+  const float *__restrict__ rows, const float *__restrict__ motion,           \
+      const float *__restrict__ tw
+#define PBRT_TRAVERSE_PARAMS_true                                              \
+  const float *__restrict__ rows, const float *__restrict__ motion,           \
+      const float *__restrict__ tbox, const float *__restrict__ tw
+#define PBRT_TRAVERSE_TABLES_false rows, motion, nullptr, tw
+#define PBRT_TRAVERSE_TABLES_true rows, motion, tbox, tw
 #define PBRT_TRAVERSE_KERNEL(NAME, ANY, MOTION)                                \
   __global__ void __launch_bounds__(kThreads) NAME(                           \
-      const float* __restrict__ rows, const float* __restrict__ motion,       \
-      const float* __restrict__ tw, const float* __restrict__ o,              \
+      PBRT_TRAVERSE_PARAMS_##MOTION, const float* __restrict__ o,             \
       const float* __restrict__ d, const float* __restrict__ inv,             \
       const float* __restrict__ tmin, const float* __restrict__ tmax,         \
       const float* __restrict__ t_in, const int* __restrict__ p_in,           \
@@ -529,9 +612,9 @@ __device__ __forceinline__ void instances_group(
       float* __restrict__ t_out, int* __restrict__ p_out,                     \
       float* __restrict__ b1_out, float* __restrict__ b2_out, int R,          \
       int wide_stack) {                                                       \
-    traverse_group<ANY, MOTION>(rows, motion, tw, o, d, inv, tmin, tmax,      \
-                                t_in, p_in, b1_in, b2_in, t_out, p_out,       \
-                                b1_out, b2_out, R, wide_stack);               \
+    traverse_group<ANY, MOTION>(PBRT_TRAVERSE_TABLES_##MOTION, o, d, inv,     \
+                                tmin, tmax, t_in, p_in, b1_in, b2_in, t_out,  \
+                                p_out, b1_out, b2_out, R, wide_stack);        \
   }
 
 PBRT_TRAVERSE_KERNEL(traverse_closest_kernel, false, false)
@@ -540,6 +623,10 @@ PBRT_TRAVERSE_KERNEL(traverse_closest_motion_kernel, false, true)
 PBRT_TRAVERSE_KERNEL(traverse_any_motion_kernel, true, true)
 
 #undef PBRT_TRAVERSE_KERNEL
+#undef PBRT_TRAVERSE_PARAMS_false
+#undef PBRT_TRAVERSE_PARAMS_true
+#undef PBRT_TRAVERSE_TABLES_false
+#undef PBRT_TRAVERSE_TABLES_true
 
 // The instance phase's two kernels, written out (a profile tells them
 // apart by name).
@@ -641,8 +728,8 @@ int pbrt_torch_wide_step(const float* row, const float* o, const float* d,
 
 #define PBRT_NO_MOTION_ARGS
 #define PBRT_NO_MOTION_PTRS nullptr, nullptr
-#define PBRT_MOTION_ARGS const float *motion, const float *tw,
-#define PBRT_MOTION_PTRS motion, tw
+#define PBRT_MOTION_ARGS const float *motion, const float *tbox, const float *tw,
+#define PBRT_MOTION_PTRS motion, tbox, tw
 
 PBRT_TRAVERSE_ENTRY(pbrt_torch_traverse_closest, traverse_closest_kernel,
                     PBRT_NO_MOTION_ARGS, PBRT_NO_MOTION_PTRS)

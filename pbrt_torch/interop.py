@@ -20,7 +20,8 @@ Keys (shapes as in the JAX package's tables):
   ``quad_params`` (Q, 8), ``wide_rows`` (M, 80, None where every
   triangle is instanced), ``wide_stack`` ();
   optionally, for motion blur, ``tri_motion tri_n_motion`` (T, 9),
-  ``motion_time`` (2,), ``wide_motion`` (M, 80), and for instancing
+  ``motion_time`` (2,), ``wide_motion`` (M, 80) (the port's time boxes,
+  ``wide.time_boxes``, are built from the rows), and for instancing
   ``inst_rows`` (Mi, 80), ``inst_o2w inst_w2o`` (I, 4, 4), ``inst_root
   inst_mesh_id`` (I,), ``inst_lo inst_hi`` (I, 3), ``inst_stack`` ()
   (absent or None where the scene has none);
@@ -103,6 +104,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from pbrt_torch.accel import wide
 from pbrt_torch.accel.intersect import SceneGeometry
 from pbrt_torch.cameras import cameras as cam_mod
 from pbrt_torch.cameras.eye import RealisticEyeCamera
@@ -298,6 +300,10 @@ def scene_from_numpy(arrays: dict, device):
     geo.update({k: i64(arrays[k]) for k in _GEOMETRY_I64})
     geo.update({k: torch.as_tensor(np.array(arrays[k], dt), device=dev)
                 for k, dt in _GEOMETRY_OPTIONAL.items() if arrays.get(k) is not None})
+    if arrays.get("wide_motion") is not None and arrays.get("wide_rows") is not None:
+        # the motion kernels' time boxes, the port's own table, from the rows
+        geo["wide_tbox"] = f32(wide.time_boxes(np.asarray(arrays["wide_rows"], np.float32),
+                                               np.asarray(arrays["wide_motion"], np.float32)))
     if arrays.get("inst_stack") is not None:
         geo["inst_stack"] = int(arrays["inst_stack"])
     if arrays.get("accel_kind", "bvh") != "bvh":

@@ -700,7 +700,7 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
     for i, q in enumerate(quads):
         lo_q[i], hi_q[i] = _quadric_bounds(q["type"], q["params"], q["o2w"])
     lo, hi = np.concatenate([lo_t, lo_q]), np.concatenate([hi_t, hi_q])
-    wide_rows = wide_motion = None
+    wide_rows = wide_motion = wide_tbox = None
     wide_stack = 8
     accel = {}
     if accel_is_bvh and T_world:
@@ -709,6 +709,7 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
         wide = build_wide_bvh(tree, w_v0, w_e1, w_e2,
                               tri_motion=w_dv if any_motion else None)
         wide_rows, wide_motion, wide_stack = wide.rows, wide.motion_rows, wide.max_stack
+        wide_tbox = wide.time_boxes
     elif not accel_is_bvh and len(lo):
         i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
         if accel_name in KD_NAMES:
@@ -761,7 +762,7 @@ def build(desc: SceneDescription, device=None) -> BuiltScene:
         tri_motion=t(dv) if any_motion else None,
         tri_n_motion=t(cat("dn", (9,))) if any_motion else None,
         motion_time=t(np.asarray(motion_times, np.float32)) if any_motion else None,
-        wide_motion=opt(wide_motion),
+        wide_motion=opt(wide_motion), wide_tbox=opt(wide_tbox),
         **{k: v if k == "inst_stack" else torch.as_tensor(v, device=dev)
            for k, v in inst.items()},
         world_lo=t(world_lo.astype(np.float32)), world_hi=t(world_hi.astype(np.float32)),

@@ -52,8 +52,8 @@ KERNEL_ENTRIES = {
         "pbrt_torch_wide_step": [_vp] * 14 + [_ci, _vp],
         "pbrt_torch_traverse_closest": [_vp] * 14 + [_ci, _ci, _vp],
         "pbrt_torch_traverse_any": [_vp] * 14 + [_ci, _ci, _vp],
-        "pbrt_torch_traverse_closest_motion": [_vp] * 16 + [_ci, _ci, _vp],
-        "pbrt_torch_traverse_any_motion": [_vp] * 16 + [_ci, _ci, _vp],
+        "pbrt_torch_traverse_closest_motion": [_vp] * 17 + [_ci, _ci, _vp],
+        "pbrt_torch_traverse_any_motion": [_vp] * 17 + [_ci, _ci, _vp],
         "pbrt_torch_traverse_instances_closest": [_vp] * 5 + [_ci] + [_vp] * 14
         + [_ci, _ci, _vp],
         "pbrt_torch_traverse_instances_any": [_vp] * 5 + [_ci] + [_vp] * 14
