@@ -115,9 +115,15 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    steps per lane logged (a plain walk lasts as long as its longest ray,
    whatever the lanes), against the union walk on 1, 7 and 4,093 lanes and
    on the tie-and-dense scene with motion under the BVH, and closest hit
-   against ``intersect_brute`` on the lerped triangles; the instance kernels on
-   1,048,576 rays of the instanced scene, likewise (the instance
-   included); the 16² motion scene
+   against ``intersect_brute`` on the lerped triangles; the instance kernels
+   (each group of 8 lanes box-testing 8 instances at once and stepping
+   through its own candidates in the serial order) on 1,048,576 rays of the
+   instanced scene, likewise (the instance included), their registers and
+   blocks per SM, and the plain phase's counts on the timed set (walks,
+   BLAS steps and box tests per lane; per warp of 4 rays, the steps of one
+   instance at a time for the warp against each ray's own), and on the
+   instanced tie scene (``instance_tie_scene_text``: every use's walk ties);
+   the 16² motion scene
    and an 8-use instanced scene card vs CPU (8 waves and 8 seeds pooled),
    the 8-use scene against its flattened copy; then the static kernels
    re-timed on phase 3's sets;
@@ -1278,6 +1284,110 @@ def tie_rays(n: int, seed: int = 0):
     d[:, :2] = np.where(tilt[:, None], sgn * 2.0 ** -rng.integers(7, 11, (n, 2)), 0.0)
     time_ = rng.integers(0, 17, n) / 16.0
     return o.astype(np.float32), d.astype(np.float32), time_.astype(np.float32)
+
+
+#: the instanced tie scene's object: the box [0, 1]² × [0, 1/2], 12
+#: triangles, every edge axis-aligned
+INSTANCE_TIE_BOX = ("0 0 0  1 0 0  1 1 0  0 1 0  0 0 0.5  1 0 0.5  1 1 0.5  0 1 0.5",
+                    "0 2 1  0 3 2  4 5 6  4 6 7  0 1 5  0 5 4  1 2 6  1 6 5  2 3 7  2 7 6  "
+                    "3 0 4  3 4 7")
+
+
+def instance_tie_scene_text() -> str:
+    """The instanced tie scene: one box (``INSTANCE_TIE_BOX``) used three
+    times, uses 0 and 1 at the same transform (z + 2) and use 2 turned a
+    quarter about z about the footprint's centre (an exact matrix), so all
+    three fill [0, 1]² × [2, 2.5]; and a world triangle coincident with half
+    of their bottom face (z = 2). Every coordinate and matrix entry is
+    dyadic and every edge axis-aligned, so a hit's t is exact in any order
+    of operations, FMA or not: rays along z reach the same t in every use
+    (and in the world triangle from below), each use's walk ties the last,
+    and the serial order and the strict t < t_best decide (t, prim, b1, b2)
+    and inst."""
+    P, idx = INSTANCE_TIE_BOX
+    same = "AttributeBegin\n  Translate 0 0 2\n  ObjectInstance \"box\"\nAttributeEnd\n"
+    return f"""
+LookAt 0.5 0.5 -4  0.5 0.5 2  0 1 0
+Camera "perspective" "float fov" [30]
+Film "image" "integer xresolution" [16] "integer yresolution" [16]
+WorldBegin
+LightSource "distant" "rgb L" [3 3 3] "point from" [1 2 -4] "point to" [0.5 0.5 2]
+Material "matte" "rgb Kd" [.5 .5 .5]
+ObjectBegin "box"
+Shape "trianglemesh" "point P" [{P}] "integer indices" [{idx}]
+ObjectEnd
+{same}{same}AttributeBegin
+  Translate 0.5 0.5 2
+  ConcatTransform [0 1 0 0  -1 0 0 0  0 0 1 0  0 0 0 1]
+  Translate -0.5 -0.5 0
+  ObjectInstance "box"
+AttributeEnd
+Shape "trianglemesh" "point P" [0 0 2  1 0 2  0 1 2] "integer indices" [0 1 2]
+Shape "trianglemesh" "point P" [-4 -4 -4  -3.5 -4 -4  -4 -3.5 -4] "integer indices" [0 1 2]
+WorldEnd
+"""
+
+
+def instance_tie_rays(n: int, seed: int = 0):
+    """(o, d) float32 numpy rays over the instanced tie scene's footprint:
+    half along +z from z = 1/2 (they reach the bottom face, z = 2, at t =
+    3/2), half along -z from z = 15/2 (the top face at t = 5); half of each
+    tilted in x and y by powers of two (exact products); the origins on odd
+    multiples of 2^-10 in [1/32, 31/32]², off the footprint's sides (one on
+    a face's diagonal meets both its triangles at the same t: one more
+    tie)."""
+    rng = np.random.default_rng(seed)
+    o = np.zeros((n, 3))
+    d = np.zeros((n, 3))
+    up = rng.uniform(size=n) < 0.5
+    o[:, 2] = np.where(up, 0.5, 7.5)
+    d[:, 2] = np.where(up, 1.0, -1.0)
+    o[:, :2] = 0.03125 + (2 * rng.integers(0, 480, (n, 2)) + 1) * 2.0 ** -10
+    tilt = rng.uniform(size=n) < 0.5
+    sgn = rng.choice([-1.0, 1.0], (n, 2))
+    d[:, :2] = np.where(tilt[:, None], sgn * 2.0 ** -rng.integers(5, 11, (n, 2)), 0.0)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+def instance_tie_kernels_equal_plain(dev, n: int = 4096, seed: int = 3) -> dict:
+    """The instanced tie scene on ``dev``: the world walk, then both
+    instance kernels held to the plain phase on ``n`` of
+    ``instance_tie_rays``, closest hit and any hit on segments cut 2^-20
+    past the closest hit (even lanes) or at half of it (odd lanes). →
+    equal (per kernel key, t, prim, b1, b2, inst bit for bit), the closest
+    hits, how many use 0 and the world triangle hold, and the occluded."""
+    import torch
+
+    from pbrt_torch.accel import intersect as isect
+    from pbrt_torch.accel import traverse_cuda as tc
+    from pbrt_torch.scene.api import load_scene_string
+    from pbrt_torch.scene.builder import build
+
+    g = build(load_scene_string(instance_tie_scene_text()), device=dev).scene.geometry
+    o, d = (torch.as_tensor(x, device=dev) for x in instance_tie_rays(n, seed))
+    inv = isect.make_inv_dir(d).contiguous()
+    tmin = torch.zeros(n, device=dev)
+    tmax = torch.full((n,), float("inf"), device=dev)
+    itab = (g.inst_rows, g.inst_stack, g.inst_w2o, g.inst_lo, g.inst_hi, g.inst_root)
+    bits = lambda k, p: all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                            for a, b in zip(k, p))
+    equal, res = {}, {}
+    for key, any_hit in (("traverse_instances_closest", False), ("traverse_instances_any", True)):
+        if any_hit:
+            t_c = res["traverse_instances_closest"][0]
+            lane = torch.arange(n, device=dev)
+            tmax = torch.where(torch.isfinite(t_c), torch.where(lane % 2 == 0, t_c + 2.0 ** -20,
+                                                                t_c * 0.5), 1e30).contiguous()
+        world = tc.traverse(g.wide_rows, g.wide_stack, o, d, inv, tmin, tmax,
+                            *walk_seeds(g, o, d, tmin, tmax), any_hit=any_hit)
+        args = (*itab, o, d, inv, tmin, tmax, *world)
+        res[key] = tc.traverse_instances(*args, any_hit=any_hit)
+        equal[key] = bits(res[key], tc.traverse_instances_plain(*args, any_hit))
+    c = res["traverse_instances_closest"]
+    hit = c[1] >= 0
+    return dict(equal=equal, hits=int(hit.sum()), use0=int((c[4] == 0).sum()),
+                world=int((hit & (c[4] == -1)).sum()),
+                occluded=int((res["traverse_instances_any"][1] >= 0).sum()))
 
 
 def tie_kernels_equal_plain(dev, acc: str, n: int = 4096, seed: int = 2) -> dict:
@@ -3998,6 +4108,116 @@ def motion_lane_sets(built, dev) -> dict:
     return dict(o=o, d=d, t_ray=t_ray, si=si, scale=scale, sel=sel, sub=sub, gen=gen)
 
 
+def walk_seeds(g, o, d, tmin, tmax):
+    """The quadric pass that seeds a walk, as ``intersect`` seeds it: (t,
+    prim, b1, b2), each contiguous, or no hit (tmax, -1, 0, 0) in a scene
+    without quadrics."""
+    import torch
+
+    from pbrt_torch.accel import intersect as isect
+
+    if g.num_quadrics:
+        return [x.contiguous() for x in isect.quad_best(g, o, d, tmin, tmax)]
+    R, dev = o.shape[0], o.device
+    return [tmax.clone(), torch.full((R,), -1, dtype=torch.int32, device=dev),
+            torch.zeros(R, device=dev), torch.zeros(R, device=dev)]
+
+
+def instance_lane_sets(built, dev) -> dict:
+    """Phase 11(b)'s rays of the instanced scene (seed 12): ``N_LANES``
+    camera and bounce rays (o, d and the camera rays' interactions si),
+    then, drawn in this order, each lane's any-hit scale (0.5 or 1.5 times
+    its closest hit) and the permuted ``CHUNK``-lane timing set (sub)."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    o, d, _, _, si = camera_and_bounce_rays(built, dev, N_LANES, gen, times=False)
+    R = o.shape[0]
+    scale = torch.where(torch.rand(R, generator=gen, device=dev) < 0.5, 0.5, 1.5)
+    sub = torch.randperm(R, generator=gen, device=dev)[:CHUNK]
+    return dict(o=o, d=d, si=si, scale=scale, sub=sub)
+
+
+def instance_timed_args(g, sets) -> dict:
+    """The instance kernels' timed inputs on phase 11(b)'s permuted set
+    (``instance_lane_sets``): {kernel key: (o, d, inv, tmin, tmax, t, prim,
+    b1, b2)}, each contiguous. Closest hit on unbounded rays seeded with
+    the world walk; any hit on segments cut at the lane's scale times its
+    closest hit (1e30 without one; the closest hit from
+    ``traverse_instances``, as phase 11(b) cuts them), seeded with the
+    world any-hit walk."""
+    import torch
+
+    from pbrt_torch.accel import intersect as isect
+    from pbrt_torch.accel import traverse_cuda as tc
+
+    pick = lambda x: x[sets["sub"]].contiguous()
+    o, d = pick(sets["o"]), pick(sets["d"])
+    R, dev = o.shape[0], o.device
+    inv = isect.make_inv_dir(d).contiguous()
+    tmin = torch.zeros(R, device=dev)
+    itab = (g.inst_rows, g.inst_stack, g.inst_w2o, g.inst_lo, g.inst_hi, g.inst_root)
+    out = {}
+    tmax = torch.full((R,), float("inf"), device=dev)
+    for key, any_hit in (("traverse_instances_closest", False), ("traverse_instances_any", True)):
+        if any_hit:
+            t_c = tc.traverse_instances(*itab, *out["traverse_instances_closest"],
+                                        any_hit=False)[0]
+            tmax = torch.where(torch.isfinite(t_c), t_c * pick(sets["scale"]), 1e30).contiguous()
+        world = tc.traverse(g.wide_rows, g.wide_stack, o, d, inv, tmin, tmax,
+                            *walk_seeds(g, o, d, tmin, tmax), any_hit=any_hit)
+        out[key] = (o, d, inv, tmin, tmax, *world)
+    return out
+
+
+def instance_schedule_summary(stats: dict) -> str:
+    """The instance phase's per-lane and per-warp counts
+    (``traverse_instances_plain``'s stats) as a log fragment."""
+    f = lambda x: f"{float(x.double().mean()):.3f} (max {int(x.max())})"
+    return (f"per lane: walks {f(stats['walks_lane'])}, BLAS steps {f(stats['lane_steps'])}, "
+            f"box tests {float(stats['box_tests_lane'].double().mean()):.2f}; per warp of 4 "
+            f"lanes, steps walking one instance at a time for the warp "
+            f"{f(stats['warp_serial_steps'])} against each lane through its own candidates "
+            f"{f(stats['warp_own_steps'])}")
+
+
+def kernel_registers(lib_path: str, log: str | None = None) -> dict:
+    """{kernel function (mangled): registers} of a kernel library: from
+    ptxas' verbose report (``-Xptxas -v``) of its build where given, else
+    from ``cuobjdump -res-usage`` of the library (the same count)."""
+    import re
+    import subprocess
+
+    from pbrt_torch.utils import native
+
+    if log is None:
+        tool = os.path.join(os.path.dirname(native.nvcc_path()), "cuobjdump")
+        log = subprocess.run([tool, "-res-usage", lib_path], capture_output=True, text=True,
+                             check=True).stdout
+    regs, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for |Function )"
+                      r"([A-Za-z_][\w.$]*)", ln)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(?:Used (\d+) registers|REG:(\d+))", ln)
+        if m and fn:
+            regs[fn] = int(m.group(1) or m.group(2))
+    return regs
+
+
+def blocks_per_sm(registers: int, smem_bytes: int, threads: int = 128) -> int:
+    """Resident blocks per SM on an H100 by CUDA's occupancy rules: 65,536
+    registers an SM in units of 256 a warp, 228 KiB of shared memory with 1
+    KiB reserved a block, 64 warps and 32 blocks."""
+    warps = -(-threads // 32)
+    per_warp = -(-registers * 32 // 256) * 256
+    by_regs = (65536 // per_warp) // warps
+    by_smem = 228 * 1024 // (smem_bytes + 1024)
+    return min(by_regs, by_smem, 64 // warps, 32)
+
+
 def motion_work(stats: dict, lanes: int):
     """(bytes, float operations) a motion walk must move and do, from the
     culled plain walk's ``stats`` on ``lanes`` lanes: each lane's ray,
@@ -4034,7 +4254,7 @@ def motion_instancing_phase(dev, drive, profile_frame, card_vs_cpu):
     from pbrt_torch.renderers.sampler import render
     from pbrt_torch.scene.api import load_scene_string
     from pbrt_torch.scene.builder import build
-    from pbrt_torch.utils import timing
+    from pbrt_torch.utils import native, timing
     from pbrt_torch.utils.timing import cuda_ms, queued_ms
 
     sync = torch.cuda.synchronize
@@ -4203,22 +4423,21 @@ def motion_instancing_phase(dev, drive, profile_frame, card_vs_cpu):
     profile_frame("64 instanced killeroos with path, chunk 0", bi, sec_i * 1e3,
                   run=chunk_wave(bi, dev), scale=chunks_of(bi))
 
-    gen.manual_seed(12)
-    o, d, _, _, si = camera_and_bounce_rays(bi, dev, N_LANES, gen, times=False)
+    sets = instance_lane_sets(bi, dev)
+    o, d, si, scale = sets["o"], sets["d"], sets["si"], sets["scale"]
     n_hits = int(si.valid.sum())
     R = o.shape[0]
     inv = isect.make_inv_dir(d).contiguous()
     tmin = torch.zeros(R, device=dev)
     tmax = torch.full((R,), float("inf"), device=dev)
     g = gi
-    q = [x.contiguous() for x in isect.quad_best(g, o, d, tmin, tmax)]
-    world = tc.traverse(g.wide_rows, g.wide_stack, o, d, inv, tmin, tmax, *q, any_hit=False)
+    world = tc.traverse(g.wide_rows, g.wide_stack, o, d, inv, tmin, tmax,
+                        *walk_seeds(g, o, d, tmin, tmax), any_hit=False)
     itab = (g.inst_rows, g.inst_stack, g.inst_w2o, g.inst_lo, g.inst_hi, g.inst_root)
     ki = tc.traverse_instances(*itab, o, d, inv, tmin, tmax, *world, any_hit=False)
-    scale = torch.where(torch.rand(R, generator=gen, device=dev) < 0.5, 0.5, 1.5)
     tmax_a = torch.where(torch.isfinite(ki[0]), ki[0] * scale, 1e30).contiguous()
-    qa = [x.contiguous() for x in isect.quad_best(g, o, d, tmin, tmax_a)]
-    world_a = tc.traverse(g.wide_rows, g.wide_stack, o, d, inv, tmin, tmax_a, *qa, any_hit=True)
+    world_a = tc.traverse(g.wide_rows, g.wide_stack, o, d, inv, tmin, tmax_a,
+                          *walk_seeds(g, o, d, tmin, tmax_a), any_hit=True)
     kia = tc.traverse_instances(*itab, o, d, inv, tmin, tmax_a, *world_a, any_hit=True)
     ragged = True
     for n in (1, 7, 4093):
@@ -4229,9 +4448,13 @@ def motion_instancing_phase(dev, drive, profile_frame, card_vs_cpu):
                            tc.traverse_instances_plain(*itab, *a, any_hit))
     sync()
     # the plain phase on the timed set only, as the motion walks above
-    sub = torch.randperm(R, generator=gen, device=dev)[:CHUNK]
+    sub = sets["sub"]
     pick = lambda x: x[sub].contiguous()
     eq, errs = {}, {}
+    lib = native.kernel_lib("traverse.cu")
+    regs = kernel_registers(lib._name, native.build_log.get("pbrt_torch_traverse"))
+    threads = tc.INSTANCE_BLOCK_THREADS
+    smem = threads // 8 * max(g.inst_stack, 1) * 4
     for key, any_hit, tm, seeds, kern in (("traverse_instances_closest", False, tmax, world, ki),
                                           ("traverse_instances_any", True, tmax_a, world_a, kia)):
         targs = (*itab, pick(o), pick(d), pick(inv), pick(tmin), pick(tm),
@@ -4254,6 +4477,10 @@ def motion_instancing_phase(dev, drive, profile_frame, card_vs_cpu):
         b_ms, b_by = timing.bound_ms(nbytes, ops)
         entries[key] = dict(launches=li[key], max_abs_err=errs[key], ms=ms, plain_ms=plain_ms,
                             bound_ms=b_ms, bound_by=b_by)
+        r = [v for name, v in regs.items() if tc.KERNEL_NAMES[key] in name]
+        occ = (f"{r[0]} registers, {blocks_per_sm(r[0], smem, threads)} blocks of {threads} "
+               f"threads per SM (occupancy rules, {smem} B of stacks)" if r
+               else "registers not reported")
         log("timing", f"{key}, permuted set of the instanced scene, {CHUNK} lanes, "
             f"{g.num_instances} instances: {ms:.4f} ms (plain {plain_ms:.2f} ms with its step "
             f"counting, host enqueue "
@@ -4261,7 +4488,7 @@ def motion_instancing_phase(dev, drive, profile_frame, card_vs_cpu):
             f"{stats.get('node_steps', 0)} node + {stats.get('leaf_steps', 0)} leaf steps, "
             f"{stats.get('node_rows', 0)} node + {stats.get('leaf_rows', 0)} leaf distinct "
             f"rows, {nbytes} bytes, {ops} operations; bound {b_ms:.5f} ms ({b_by}), "
-            f"kernel / bound {ms / b_ms:.1f}x")
+            f"kernel / bound {ms / b_ms:.1f}x; {occ}; {instance_schedule_summary(stats)}")
     n_inst = int((ki[4] >= 0).sum())
     n_inst_set = int((pick(ki[4]) >= 0).sum())
     fa = kia[1] >= 0
@@ -4271,7 +4498,14 @@ def motion_instancing_phase(dev, drive, profile_frame, card_vs_cpu):
         f"b1, b2 and inst equal bit for bit {eq}; on 1, 7 and 4093 lanes {ragged}; closest hits "
         f"{int((ki[1] >= 0).sum())}, {n_inst} of them instanced, on "
         f"{len(set(ki[4].tolist())) - 1} distinct uses; occluded {int(fa.sum())}")
-    if not (all(eq.values()) and ragged and n_inst_set > 0):
+    tie = instance_tie_kernels_equal_plain(dev)
+    log("kernels", f"instance kernels on the instanced tie scene (3 uses of one box filling one "
+        f"footprint, a world triangle on their bottom face; 4096 rays along z): t, prim, b1, "
+        f"b2 and inst equal bit for bit to the plain phase {tie['equal']}; closest hits "
+        f"{tie['hits']}, held by use 0 {tie['use0']}, by the world triangle {tie['world']}; "
+        f"any hit {tie['occluded']} of them occluded")
+    if not (all(eq.values()) and ragged and n_inst_set > 0 and all(tie["equal"].values())
+            and tie["use0"] > 0 and tie["world"] > 0):
         raise SystemExit("an instance kernel disagrees with its plain version")
     del bi, gi, g, world, world_a, ki, kia, o, d, inv, film_i
     torch.cuda.empty_cache()

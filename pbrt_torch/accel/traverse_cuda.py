@@ -25,10 +25,13 @@ Wrappers, each kernel with a launch counter (``launches``):
   (``wide.time_boxes``, the port's own table) and drops the children it
   misses from the sorted order: the union walk's result, bit for bit, at a
   fraction of its steps;
-- ``traverse_instances`` — the instance phase (``intersect.py:1060-1108``),
+- ``traverse_instances`` — the instance phase (``intersect.py:1060-1111``),
   one launch for all instances, seeded with the world walk's result:
   ``traverse_instances_{closest,any}``, which also give each lane's
-  instance (−1 where no instance changed the hit).
+  instance (−1 where no instance changed the hit). Each group's 8 lanes
+  box-test 8 instances at once (``INSTANCE_ROUND``) and the group steps
+  through its own ray's candidates in the serial order, re-testing each at
+  its t of the moment, so each ray's walks are the serial phase's.
 
 Each takes its plain version when the tensors lie on the CPU and launches
 its kernel when they lie on a CUDA device; a CUDA tensor never falls back.
@@ -67,6 +70,12 @@ SORT8_LAYERS = (
 )
 #: the same network flattened: ``intersect._SORT8``
 SORT8 = tuple(pair for layer in SORT8_LAYERS for pair in layer)
+#: instances a group of the instance kernels box-tests at once, one a lane
+#: (``kInstanceRound`` in ``csrc/traverse.cu``)
+INSTANCE_ROUND = 8
+#: threads a block of the instance kernels (``kInstThreads``: one warp, 4
+#: rays); the other traversal kernels' blocks are 128 threads, 16 rays
+INSTANCE_BLOCK_THREADS = 32
 
 #: a substring of each kernel's name, as a profiler reports it
 KERNEL_NAMES = {"wide_step": "wide_step_kernel",
@@ -357,43 +366,90 @@ def instance_prune(lo, hi, o, inv, tmin, t_best):
 def traverse_instances_plain(rows, stack, w2o, lo, hi, root, o, d, inv, tmin,
                              tmax, t0, p0, b10, b20, any_hit: bool,
                              stats: dict | None = None):
-    """The instance phase: for instances i = 0 .. I−1 in order, the lanes
-    that the world box of i does not prune walk the shared table ``rows``
-    from ``root[i]`` with their ray in the instance's space. Seeded with
-    the world walk's (t0, p0, b10, b20); → (t, prim, b1, b2, inst), inst
-    (R,) int32 the last instance that changed a lane's t or prim, else −1.
+    """The instance phase in the kernels' schedule: each lane box-tests
+    ``INSTANCE_ROUND`` instances at a time against its current t, then, in
+    instance order, re-tests each candidate of the round at its t of that
+    moment (the serial phase's exact prune, intersect.py:1078-1082; any hit
+    also once it has a hit) and walks the shared table ``rows`` from its
+    root with the ray in the instance's space. t only falls, so a round's
+    candidates hold every instance the serial loop walks and the re-test
+    keeps exactly those: each lane's walks are the serial phase's. Seeded
+    with the world walk's (t0, p0, b10, b20); → (t, prim, b1, b2, inst),
+    inst (R,) int32 the last instance that changed a lane's t or prim, else
+    −1.
+
     ``stats`` as ``traverse_plain``'s over all the walks (a row read by
-    several counted once), with ``prunes`` (lane-instance box tests) and
-    ``walks`` (lane-instance walks)."""
+    several counted once), with ``prunes`` (one box test per lane that
+    takes part and instance: the bound's count) and ``walks``
+    (lane-instance walks); per lane ``walks_lane``, ``lane_steps`` (BLAS
+    steps) and ``box_tests_lane`` (the box tests the kernel issues: a
+    lane's rounds until it has no candidate left, each of up to 8
+    instances); per warp of 4 consecutive lanes (the kernel's 4 groups)
+    ``warp_serial_steps``, the schedule of one instance at a time for the
+    whole warp (the sum over instances of the longest of its 4 walks), and
+    ``warp_own_steps``, each group through its own candidates (the longest
+    of the 4 lanes' totals)."""
     state = [t0.clone(), p0.clone(), b10.clone(), b20.clone()]
     t, prim = state[0], state[1]
+    R = t.shape[0]
+    dev = t.device
     inst = torch.full_like(p0, -1)
     go = tmax != 0.0
     roots = root.tolist()
+    I = len(roots)
     total = [0, 0, None, None]  # the walks' work, rows counted once
-    for i in range(len(roots)):
-        run = go & instance_prune(lo[i], hi[i], o, inv, tmin, t)
-        if any_hit:
-            run = run & (prim < 0)
-        idx = torch.nonzero(run).squeeze(1)
+    W = (R + 3) // 4
+    if stats is not None:
+        walks_lane = torch.zeros(R, dtype=torch.int64, device=dev)
+        box_lane = torch.zeros(R, dtype=torch.int64, device=dev)
+        warp_serial = torch.zeros(W, dtype=torch.int64, device=dev)
+        stats["prunes"] = stats.get("prunes", 0) + int(go.sum()) * I
+    for base in range(0, I, INSTANCE_ROUND):
+        ns = range(base, min(I, base + INSTANCE_ROUND))
+        # the round: lanes with candidates left test its instances at their t
+        live = go & (prim < 0) if any_hit else go
+        cand = [live & instance_prune(lo[n], hi[n], o, inv, tmin, t) for n in ns]
         if stats is not None:
-            stats["prunes"] = stats.get("prunes", 0) + int(go.sum())
-            stats["walks"] = stats.get("walks", 0) + idx.numel()
-        if not idx.numel():
-            continue
-        o2, d2 = instance_rays(w2o[i], o, d)
-        t_was, p_was = t.clone(), prim.clone()
-        work = _walk_plain(rows, stack, o2, d2, inv_dir(d2), tmin, state, idx, roots[i],
-                           any_hit, stats=stats)
-        if stats is not None:
-            total[0] += work[0]
-            total[1] += work[1]
-            total[2] = work[2] if total[2] is None else total[2] | work[2]
-            total[3] = work[3] if total[3] is None else total[3] + work[3]
-        inst = torch.where((t != t_was) | (prim != p_was), i, inst)
-    if stats is not None and total[2] is not None:
+            box_lane += live * len(ns)
+        for n, c in zip(ns, cand):
+            # the exact prune, at t of this moment, before the walk
+            run = c & instance_prune(lo[n], hi[n], o, inv, tmin, t)
+            if any_hit:
+                run = run & (prim < 0)
+            idx = torch.nonzero(run).squeeze(1)
+            if not idx.numel():
+                continue
+            o2, d2 = instance_rays(w2o[n], o, d)
+            t_was, p_was = t.clone(), prim.clone()
+            work = _walk_plain(rows, stack, o2, d2, inv_dir(d2), tmin, state, idx, roots[n],
+                               any_hit, stats=stats)
+            if stats is not None:
+                walks_lane += run
+                total[0] += work[0]
+                total[1] += work[1]
+                total[2] = work[2] if total[2] is None else total[2] | work[2]
+                total[3] = work[3] if total[3] is None else total[3] + work[3]
+                warp_serial += _per_warp_max(work[3], W)
+            inst = torch.where((t != t_was) | (prim != p_was), n, inst)
+    if stats is not None:
+        if total[2] is None:  # no walk
+            total[2:] = (torch.zeros((2, rows.shape[0]), dtype=torch.bool, device=dev),
+                         torch.zeros(R, dtype=torch.int64, device=dev))
+        stats["walks"] = stats.get("walks", 0) + int(walks_lane.sum())
+        for key, v in (("walks_lane", walks_lane), ("box_tests_lane", box_lane),
+                       ("warp_serial_steps", warp_serial),
+                       ("warp_own_steps", _per_warp_max(total[3], W))):
+            stats[key] = stats[key] + v if key in stats else v
         _add_stats(stats, *total)
     return (*state, inst)
+
+
+def _per_warp_max(lane_values, W: int):
+    """(R,) per-lane values → (W,) the largest of each 4 consecutive lanes
+    (a warp's 4 groups), the last warp padded with zeros."""
+    v = torch.zeros(4 * W, dtype=lane_values.dtype, device=lane_values.device)
+    v[:lane_values.shape[0]] = lane_values
+    return v.view(W, 4).max(1).values
 
 
 # ---------------------------------------------------------------------------

@@ -84,17 +84,28 @@
 //   a node step, the time box and its delta (12 fields of 8 floats) and
 //   its lerp and slab test.
 // - Memory-shared instancing (traverse_instances_{closest,any}_kernel):
-//   the JAX package's third phase (intersect.py:1060-1108), one launch for
-//   every instance, seeded with the world walk's (t, prim, b1, b2). In
-//   instance order a group moves its ray into the instance's space
-//   (o M^T + t and d M^T by inst_w2o, the direction unnormalized so t is
-//   unchanged), prunes the instance by its world box against the world
-//   ray and the current t_best (any-hit also once it has a hit), walks the
-//   object's table from its root row, and records the instance wherever t
-//   or prim changed. The instance table (w2o, box, root) stays in global
-//   memory behind __ldg: every group of a warp reads the same instance at
-//   the same time, so each field is one broadcast load, and the table
-//   needs no shared memory beside the stacks.
+//   the JAX package's third phase (intersect.py:1060-1111), one launch for
+//   every instance, seeded with the world walk's (t, prim, b1, b2). The
+//   serial phase visits instances 0 .. I-1 in order: it prunes instance n by
+//   its world box against the world ray and the current t_best (any-hit
+//   also once it has a hit), moves the ray into the instance's space (o M^T
+//   + t and d M^T by inst_w2o, the direction unnormalized so t is
+//   unchanged), walks the object's table from its root row, and records
+//   the instance wherever t or prim changed. Here each group takes that
+//   sequence on its own (InstancePhase): its 8 lanes box-test 8 instances
+//   at once against its current t_best (a ballot gives the round's
+//   candidates), and before each walk it re-tests the candidates left at
+//   the t_best of that moment, so it walks exactly the serial loop's
+//   instances in the serial order, whatever the other groups do. The walk
+//   loop takes a third pass for it (walk's kInst, compiled only into these
+//   kernels): a group whose walk is over moves to its next candidate while
+//   the others step, and a warp leaves when none of its groups walks or has
+//   a candidate left. Bound: as the serial phase's, one box test per lane
+//   and instance; what costs is a launch's longest warp, the longest chain
+//   of steps of one of its rays over all that ray's walks, so the blocks
+//   are one warp each (kInstThreads): the next warp starts as soon as any
+//   one ends. The instance table (w2o, box, root; a few KiB) is read behind
+//   __ldg, L1 hits after a warp's first round.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -346,12 +357,13 @@ struct GroupIndex {
   bool live;
 };
 
+template <int kRays = kRaysPerBlock>
 __device__ __forceinline__ bool group_index(int R, GroupIndex& gi) {
   gi.k = threadIdx.x & (kGroup - 1);
   gi.g = threadIdx.x / kGroup;
-  gi.i = blockIdx.x * kRaysPerBlock + gi.g;
+  gi.i = blockIdx.x * kRays + gi.g;
   gi.live = gi.i < R;
-  return blockIdx.x * kRaysPerBlock + (threadIdx.x & ~31) / kGroup < R;
+  return blockIdx.x * kRays + (threadIdx.x & ~31) / kGroup < R;
 }
 
 // step_interpret's contract: one gathered row per lane i, both
@@ -389,6 +401,160 @@ __global__ void __launch_bounds__(kThreads) wide_step_kernel(
   }
 }
 
+// make_inv_dir's rule (intersect.py:395): 1/d, or +-1e20 by the sign of
+// d + 1e-30 where |d| < 1e-20 (0 where that sum is 0).
+__device__ __forceinline__ float inv_dir(float v) {
+  const float s = v + 1e-30f;
+  const float sg = s > 0.f ? 1.f : (s < 0.f ? -1.f : 0.f);
+  return fabsf(v) < 1e-20f ? 1e20f * sg : 1.0f / v;
+}
+
+// The instance table: inst_w2o (I, 4, 4) row-major (rows 0-2 used), the
+// world boxes lo / hi (I, 3) and each instance's root row, read behind
+// __ldg (a few KiB: after a warp's first round they are L1 hits).
+struct InstanceTable {
+  const float* __restrict__ w2o;
+  const float* __restrict__ lo;
+  const float* __restrict__ hi;
+  const int* __restrict__ root;
+  int I;
+};
+
+// Instance n's world box against the world ray, as the serial phase's
+// prune computes it (intersect.py:1078-1082): enter = max(tn, tmin) and the
+// box's exit tf; the prune at t_best is enter <= min(tf, t_best).
+__device__ __forceinline__ void instance_box(const InstanceTable& tab, int n,
+                                             const Ray& ray, float& enter,
+                                             float& tf) {
+  const float* bl = tab.lo + 3 * n;
+  const float* bh = tab.hi + 3 * n;
+  const float t0x = (__ldg(bl) - ray.ox) * ray.ix;
+  const float t1x = (__ldg(bh) - ray.ox) * ray.ix;
+  const float t0y = (__ldg(bl + 1) - ray.oy) * ray.iy;
+  const float t1y = (__ldg(bh + 1) - ray.oy) * ray.iy;
+  const float t0z = (__ldg(bl + 2) - ray.oz) * ray.iz;
+  const float t1z = (__ldg(bh + 2) - ray.oz) * ray.iz;
+  const float tn = vmax(vmax(vmin(t0x, t1x), vmin(t0y, t1y)), vmin(t0z, t1z));
+  tf = vmin(vmin(vmax(t0x, t1x), vmax(t0y, t1y)), vmax(t0z, t1z));
+  enter = vmax(tn, ray.tmin);
+}
+
+// The world ray in instance n's space: o M^T + t and d M^T, in the plain
+// version's order ((x m0 + y m1) + z m2) + m3, and 1/d by make_inv_dir.
+__device__ __forceinline__ Ray instance_ray(const InstanceTable& tab, int n,
+                                            const Ray& ray) {
+  const float* m = tab.w2o + 16 * n;
+  Ray r2;
+  r2.ox = ray.ox * __ldg(m) + ray.oy * __ldg(m + 1) + ray.oz * __ldg(m + 2) + __ldg(m + 3);
+  r2.oy = ray.ox * __ldg(m + 4) + ray.oy * __ldg(m + 5) + ray.oz * __ldg(m + 6) + __ldg(m + 7);
+  r2.oz = ray.ox * __ldg(m + 8) + ray.oy * __ldg(m + 9) + ray.oz * __ldg(m + 10) + __ldg(m + 11);
+  r2.dx = ray.dx * __ldg(m) + ray.dy * __ldg(m + 1) + ray.dz * __ldg(m + 2);
+  r2.dy = ray.dx * __ldg(m + 4) + ray.dy * __ldg(m + 5) + ray.dz * __ldg(m + 6);
+  r2.dz = ray.dx * __ldg(m + 8) + ray.dy * __ldg(m + 9) + ray.dz * __ldg(m + 10);
+  r2.ix = inv_dir(r2.dx);
+  r2.iy = inv_dir(r2.dy);
+  r2.iz = inv_dir(r2.dz);
+  r2.tmin = ray.tmin;
+  return r2;
+}
+
+// The instance kernels' blocks: one warp, 4 rays. A block's resources
+// are freed when its last warp ends, and a launch lasts as long as its
+// longest warp's chain of steps (a ray over all its walks, tens of steps
+// against a mean of a few): one-warp blocks let the next warp start as soon
+// as any one ends, at the occupancy of 8 blocks of 128 threads (32 warps
+// an SM at 64 registers). 128- and 64-thread blocks and a floor of 10
+// blocks of 128 (48 registers) were slower (PERF.md §6).
+constexpr int kInstThreads = 32;
+constexpr int kInstRays = kInstThreads / kGroup;
+
+// A group's place in the serial order of instances. The group box-tests
+// kInstanceRound instances at once, lane k instance base + k, against its
+// current t_best; mask holds the round's candidates not yet walked (bit b:
+// instance base + b). Before each walk the group re-tests the candidates
+// left at the t_best of that moment (each lane its own stored enter and
+// exit), so the lowest bit left is the instance the serial loop walks next:
+// t_best only falls, so a round's mask holds every instance the serial loop
+// walks and the re-test drops exactly those it prunes. mask, base, n, more,
+// inst, t_was and p_was are the same on the group's 8 lanes; enter and tf
+// lane k's, of instance base + k.
+constexpr int kInstanceRound = 8;  // instances a round (one a lane);
+                                   // traverse_cuda.INSTANCE_ROUND
+static_assert(kInstanceRound == kGroup, "a round is one box test a lane");
+
+struct InstancePhase {
+  InstanceTable tab;
+  Ray world;   // the world ray
+  Ray r2;      // the ray in the space of the instance being walked
+  unsigned mask;
+  int base;    // the round's first instance; -kInstanceRound before the first
+  int n;       // the instance walked last, -1 before the first walk
+  int inst;    // the last instance whose walk changed t or prim, else -1
+  bool more;   // candidates left: bits in mask, or rounds not tested
+  float t_was;
+  int p_was;
+  float enter, tf;  // lane k's box test of instance base + k
+
+  __device__ __forceinline__ void start(bool go) {
+    enter = tf = 0.f;
+    mask = 0u;
+    base = -kInstanceRound;
+    n = -1;
+    inst = -1;
+    more = go && tab.I > 0;
+  }
+
+  // The walk of instance n is over: record it where it changed t or prim
+  // (a walk only lowers t, and changes prim only with t).
+  __device__ __forceinline__ void close(float t_best, int prim) {
+    if (n >= 0 && (t_best != t_was || prim != p_was)) inst = n;
+  }
+
+  // The third pass of the walk: each group that wants (its walk is over and
+  // it has candidates left) records the walk, finds its next candidate, the
+  // lowest one left that the re-test keeps, testing rounds until one has
+  // one, and moves r2 into that instance's space. All 32 lanes call it
+  // together; returns true on the lanes of a group that starts a walk
+  // (from row root[n]).
+  template <bool kAnyHit>
+  __device__ __forceinline__ bool next(int k, bool want, float t_best,
+                                       int prim, int& cur) {
+    if (want) {
+      close(t_best, prim);
+      if (kAnyHit && prim >= 0) more = false;  // no instance can change it
+    }
+    const bool need = want && more;
+    const bool keep = need && ((mask >> k) & 1u) && enter <= vmin(tf, t_best);
+    const unsigned kept = (__ballot_sync(kWarp, keep) >> (threadIdx.x & 24)) & 0xFFu;
+    if (need) mask = kept;
+    bool test = need && mask == 0u && base + kInstanceRound < tab.I;
+    while (__any_sync(kWarp, test)) {
+      bool hit = false;
+      if (test) {
+        base += kInstanceRound;
+        if (base + k < tab.I) {
+          instance_box(tab, base + k, world, enter, tf);
+          hit = enter <= vmin(tf, t_best);
+        }
+      }
+      const unsigned got = (__ballot_sync(kWarp, hit) >> (threadIdx.x & 24)) & 0xFFu;
+      if (test) mask = got;
+      test = test && mask == 0u && base + kInstanceRound < tab.I;
+    }
+    if (!need) return false;
+    more = false;
+    if (mask == 0u) return false;
+    n = base + __ffs(mask) - 1;
+    mask &= mask - 1u;
+    more = mask != 0u || base + kInstanceRound < tab.I;
+    r2 = instance_ray(tab, n, world);
+    cur = __ldg(tab.root + n);
+    t_was = t_best;
+    p_was = prim;
+    return true;
+  }
+};
+
 // One group walks one ray from row cur to completion (_step_control
 // semantics): descend to refs[0] when n_hit > 0 and push refs[1..n_hit-1]
 // with the nearest on top; pop otherwise; finish on a pop from an empty
@@ -399,15 +565,29 @@ __global__ void __launch_bounds__(kThreads) wide_step_kernel(
 // point at slot k of row 0 of the table, of its deltas and of its time
 // boxes. kMotion: the refs of sorted positions < n_hit that were not culled
 // (the survivors) stand for refs[0..n_hit-1].
-template <bool kAnyHit, bool kMotion>
+// kInst (the instance kernels only): a group walks one instance after
+// another, ph choosing each (InstancePhase::next, a third pass run when a
+// group's walk is over and it has candidates left); ray is ph->r2, which
+// that pass moves into each instance's space; the loop runs while any
+// group of the warp walks or has candidates left.
+template <bool kAnyHit, bool kMotion, bool kInst = false>
 __device__ __forceinline__ void walk(const float* __restrict__ rows_k,
                                      const float* __restrict__ motion_k,
                                      const float* __restrict__ tbox_k,
                                      float tw, const Ray& ray, int* stack,
                                      int k, bool run, int cur, float& t_best,
-                                     int& prim, float& bb1, float& bb2) {
+                                     int& prim, float& bb1, float& bb2,
+                                     InstancePhase* ph = nullptr) {
   int sp = 0;
-  while (__any_sync(kWarp, run)) {
+  while (__any_sync(kWarp, run || (kInst && ph->more))) {
+    if constexpr (kInst) {
+      const bool want = !run && ph->more;
+      if (__any_sync(kWarp, want) &&
+          ph->template next<kAnyHit>(k, want, t_best, prim, cur)) {
+        run = true;
+        sp = 0;
+      }
+    }
     const bool node = run && cur >= 0;
     if (__any_sync(kWarp, node)) {
       const size_t row = static_cast<size_t>(node ? cur : 0);
@@ -511,18 +691,14 @@ __device__ __forceinline__ void traverse_group(
   }
 }
 
-// make_inv_dir's rule (intersect.py:395): 1/d, or +-1e20 by the sign of
-// d + 1e-30 where |d| < 1e-20 (0 where that sum is 0).
-__device__ __forceinline__ float inv_dir(float v) {
-  const float s = v + 1e-30f;
-  const float sg = s > 0.f ? 1.f : (s < 0.f ? -1.f : 0.f);
-  return fabsf(v) < 1e-20f ? 1e20f * sg : 1.0f / v;
-}
-
 // The instance phase: after the world walk, seeded with its result, each
-// group visits instances 0 .. I-1 in order (the loop is uniform across the
-// warp). w2o is (I, 4, 4) row-major, lo / hi (I, 3), root (I,). inst_out
-// gets the last instance whose walk changed t or prim, else -1.
+// group walks the instances its ray reaches in the serial order, choosing
+// each by InstancePhase (a round of 8 box tests at once, the exact prune
+// before each walk), inside one walk loop: a group starts its next
+// instance as soon as its last walk is over, and a warp leaves when none
+// of its groups walks or has candidates left. w2o is (I, 4, 4) row-major,
+// lo / hi (I, 3), root (I,). inst_out gets the last instance whose walk
+// changed t or prim, else -1.
 template <bool kAnyHit>
 __device__ __forceinline__ void instances_group(
     const float* __restrict__ rows, const float* __restrict__ w2o,
@@ -537,57 +713,28 @@ __device__ __forceinline__ void instances_group(
     int* __restrict__ inst_out, int R, int stack_size) {
   extern __shared__ int smem[];
   GroupIndex gi;
-  if (!group_index(R, gi)) return;
+  if (!group_index<kInstRays>(R, gi)) return;
   const int k = gi.k;
   const int i = gi.live ? gi.i : R - 1;
-  const Ray ray = load_ray(o, d, inv, tmin, i);
+  InstancePhase ph;
+  ph.tab = InstanceTable{w2o, lo, hi, root, I};
+  ph.world = load_ray(o, d, inv, tmin, i);
+  ph.r2 = ph.world;
   float t_best = t_in[i];
   int prim = p_in[i];
   float bb1 = b1_in[i], bb2 = b2_in[i];
-  int inst = -1;
-  const bool go = gi.live && tmax[i] != 0.f;
-  int* stack = smem + gi.g * stack_size;
-  for (int n = 0; n < I; ++n) {
-    // the world box against the world ray, pruned by the current best hit
-    const float* bl = lo + 3 * n;
-    const float* bh = hi + 3 * n;
-    const float t0x = (__ldg(bl) - ray.ox) * ray.ix;
-    const float t1x = (__ldg(bh) - ray.ox) * ray.ix;
-    const float t0y = (__ldg(bl + 1) - ray.oy) * ray.iy;
-    const float t1y = (__ldg(bh + 1) - ray.oy) * ray.iy;
-    const float t0z = (__ldg(bl + 2) - ray.oz) * ray.iz;
-    const float t1z = (__ldg(bh + 2) - ray.oz) * ray.iz;
-    const float tn = vmax(vmax(vmin(t0x, t1x), vmin(t0y, t1y)), vmin(t0z, t1z));
-    const float tf = vmin(vmin(vmax(t0x, t1x), vmax(t0y, t1y)), vmax(t0z, t1z));
-    const bool run = go && vmax(tn, ray.tmin) <= vmin(tf, t_best) &&
-                     !(kAnyHit && prim >= 0);
-    if (!__any_sync(kWarp, run)) continue;
-    // the ray in instance space: o M^T + t and d M^T, in the plain
-    // version's order ((x m0 + y m1) + z m2) + m3
-    const float* m = w2o + 16 * n;
-    Ray r2;
-    r2.ox = ray.ox * __ldg(m) + ray.oy * __ldg(m + 1) + ray.oz * __ldg(m + 2) + __ldg(m + 3);
-    r2.oy = ray.ox * __ldg(m + 4) + ray.oy * __ldg(m + 5) + ray.oz * __ldg(m + 6) + __ldg(m + 7);
-    r2.oz = ray.ox * __ldg(m + 8) + ray.oy * __ldg(m + 9) + ray.oz * __ldg(m + 10) + __ldg(m + 11);
-    r2.dx = ray.dx * __ldg(m) + ray.dy * __ldg(m + 1) + ray.dz * __ldg(m + 2);
-    r2.dy = ray.dx * __ldg(m + 4) + ray.dy * __ldg(m + 5) + ray.dz * __ldg(m + 6);
-    r2.dz = ray.dx * __ldg(m + 8) + ray.dy * __ldg(m + 9) + ray.dz * __ldg(m + 10);
-    r2.ix = inv_dir(r2.dx);
-    r2.iy = inv_dir(r2.dy);
-    r2.iz = inv_dir(r2.dz);
-    r2.tmin = ray.tmin;
-    const float t_was = t_best;
-    const int p_was = prim;
-    walk<kAnyHit, false>(rows + k, nullptr, nullptr, 0.f, r2, stack, k, run,
-                         __ldg(root + n), t_best, prim, bb1, bb2);
-    if (t_best != t_was || prim != p_was) inst = n;
-  }
+  ph.start(gi.live && tmax[i] != 0.f && !(kAnyHit && prim >= 0));
+  // ray is ph.r2, which the walk's third pass moves from instance to instance
+  walk<kAnyHit, false, true>(rows + k, nullptr, nullptr, 0.f, ph.r2,
+                             smem + gi.g * stack_size, k, false, 0, t_best,
+                             prim, bb1, bb2, &ph);
+  ph.close(t_best, prim);
   if (gi.live && k == 0) {
     t_out[i] = t_best;
     p_out[i] = prim;
     b1_out[i] = bb1;
     b2_out[i] = bb2;
-    inst_out[i] = inst;
+    inst_out[i] = ph.inst;
   }
 }
 
@@ -645,12 +792,12 @@ PBRT_TRAVERSE_KERNEL(traverse_any_motion_kernel, true, true)
   rows, w2o, lo, hi, root, I, o, d, inv, tmin, tmax, t_in, p_in, b1_in, b2_in, \
       t_out, p_out, b1_out, b2_out, inst_out, R, stack_size
 
-__global__ void __launch_bounds__(kThreads) traverse_instances_closest_kernel(
+__global__ void __launch_bounds__(kInstThreads) traverse_instances_closest_kernel(
     PBRT_INSTANCES_PARAMS) {
   instances_group<false>(PBRT_INSTANCES_ARGS);
 }
 
-__global__ void __launch_bounds__(kThreads) traverse_instances_any_kernel(
+__global__ void __launch_bounds__(kInstThreads) traverse_instances_any_kernel(
     PBRT_INSTANCES_PARAMS) {
   instances_group<true>(PBRT_INSTANCES_ARGS);
 }
@@ -663,13 +810,13 @@ __global__ void __launch_bounds__(kThreads) traverse_instances_any_kernel(
 // limit only past the 48 KiB every kernel may use. -> bytes, or -1 with
 // the error in *err.
 template <typename Kernel>
-int stack_smem(Kernel kernel, int stack, cudaError_t* err) {
+int stack_smem(Kernel kernel, int stack, cudaError_t* err, int rays = kRaysPerBlock) {
   *err = cudaSuccess;
   if (stack > kMaxStack) {
     *err = cudaErrorInvalidValue;
     return -1;
   }
-  const int smem = kRaysPerBlock * (stack < 1 ? 1 : stack) * 4;
+  const int smem = rays * (stack < 1 ? 1 : stack) * 4;
   if (smem > kDefaultSmem) {
     int dev = 0, optin = 0;
     *err = cudaGetDevice(&dev);
@@ -685,7 +832,7 @@ int stack_smem(Kernel kernel, int stack, cudaError_t* err) {
   return smem;
 }
 
-inline int blocks_for(int R) { return (R + kRaysPerBlock - 1) / kRaysPerBlock; }
+inline int blocks_for(int R, int rays = kRaysPerBlock) { return (R + rays - 1) / rays; }
 
 }  // namespace
 
@@ -752,11 +899,11 @@ PBRT_TRAVERSE_ENTRY(pbrt_torch_traverse_any_motion, traverse_any_motion_kernel,
            float* b1_out, float* b2_out, int* inst_out, int R, int stack,     \
            cudaStream_t stream) {                                             \
     cudaError_t e;                                                            \
-    const int smem = stack_smem(KERNEL, stack, &e);                           \
+    const int smem = stack_smem(KERNEL, stack, &e, kInstRays);                \
     if (smem < 0) return static_cast<int>(e);                                 \
     if (stack < 1) stack = 1;                                                 \
     if (R > 0)                                                                \
-      KERNEL<<<blocks_for(R), kThreads, smem, stream>>>(                      \
+      KERNEL<<<blocks_for(R, kInstRays), kInstThreads, smem, stream>>>(       \
           rows, w2o, lo, hi, root, I, o, d, inv, tmin, tmax, t_in, p_in,      \
           b1_in, b2_in, t_out, p_out, b1_out, b2_out, inst_out, R, stack);    \
     return static_cast<int>(cudaGetLastError());                              \
