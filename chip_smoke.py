@@ -161,8 +161,10 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    (c) the same box as a homogeneous fog with Le under ``emission``, 1 spp
    each, counted and profiled; the sampler codes and the media block
    against their plain versions, bit for bit, on 1,048,576 lanes and on
-   1, 7 and 4,093, at samples 0, 3 and 2**31 + 1, and timed in 5 rounds
-   with their bounds; the tiny scene at 16² under each sampler and in a
+   1, 7 and 4,093 (the media block also on 32,768 and on rows wider than a
+   tile), at samples 0, 3 and 2**31 + 1, and timed in 5 rounds with their
+   bounds (the media block with its issue-slot bound, registers and blocks
+   per SM, ``keyed_tile_timed``); the tiny scene at 16² under each sampler and in a
    volume of each kind under both volume integrators, card vs CPU (waves
    and seeds pooled); every view's CPU-against-itself per-bin difference
    with each image sample one ulp over is logged beside it (phase 5 on);
@@ -203,11 +205,15 @@ nothing of JAX or of the JAX package. Phases, each on its own line:
    32,768 of ss-envmap's first hits (``mo_lane_sets``: the subsurface hits
    active, and a sparse set of 5% of the lanes active, standing for the
    later bounces) and the chain kernel on each chain of the slice on
-   1,048,576 lanes and 1, 7 and 4,093, bit for bit, each timed with its
-   bound, the gather also with its issue-slot bound (its SASS per (lane,
-   point) by ``sass_loop_stats``, nvidia-smi's SM clock read while it is
-   timed), registers, blocks per SM, lanes a warp and the share of tiles
-   on the checked terms; each integrator on
+   1,048,576 lanes and every shape the integrators call (and rows wider
+   than a tile, rows a thread takes alone, ragged chains) on 32,768, 4,093,
+   7 and 1, bit for bit, each timed with its bound, the gather with its
+   issue-slot bound (its SASS per (lane, point) by ``sass_loop_stats``,
+   nvidia-smi's SM clock read while it is timed), registers, blocks per
+   SM, lanes a warp and the share of tiles on the checked terms, the chain
+   (its nested blocks, IGI's picks, and ``key_uniforms``' AO directions and
+   bounce block) with its issue-slot bound
+   (``keyed_tile_timed``), registers and blocks per SM; each integrator on
    the tiny scene closed into a room with two subsurface boxes at 16²,
    card vs CPU;
 16. PRT, probes and the Metropolis renderer — killeroo-simple at its
@@ -975,7 +981,7 @@ def media_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
     from pbrt_torch.core import rng
     from pbrt_torch.scene.api import load_scene_string
     from pbrt_torch.scene.builder import build
-    from pbrt_torch.utils import timing
+    from pbrt_torch.utils import native, timing
     from pbrt_torch.utils.timing import cuda_ms
 
     sync = torch.cuda.synchronize
@@ -1049,9 +1055,9 @@ def media_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
     scr_wrap = rng.pixel_scrambles(root, pix_wrap)
     err, n_cases = {}, 0
     for p_, s_ in [(pix_all, scr_all)] + [(pix_wrap[:n].contiguous(), scr_wrap[:n].contiguous())
-                                          for n in (1, 7, 4093)]:
+                                          for n in (1, 7, 4093, CHUNK)]:
         for sample in (0, 3, 2**31 + 1):
-            for sampler in PHASE13_SAMPLERS:
+            for sampler in PHASE13_SAMPLERS * (p_.numel() != CHUNK):
                 for spp in (1, 4) if p_.numel() == N_LANES else (1, 4, 9):
                     cases = ((rng.primary_uniforms, rng.primary_uniforms_plain, RNG_DEPTH),
                              (rng.ao_uniforms, rng.ao_uniforms_plain, AO_TIMED))
@@ -1064,7 +1070,10 @@ def media_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
                                              f"sample {sample}")
                         err[sampler] = max(err.get(sampler, 0.0), float((k - pl).abs().max()))
                         n_cases += 1
-            for n_j, single in ((RNG_DEPTH, True), (RNG_DEPTH, False), (1, True), (17, True)):
+            shapes = ((RNG_DEPTH, True), (RNG_DEPTH, False), (1, True), (17, True))
+            if p_.numel() < N_LANES:  # wider than one tile (1,500 and 1,100 columns)
+                shapes += ((0, True), (1500, False), (1004, True))
+            for n_j, single in shapes:
                 k = rng.volume_uniforms(root, p_, sample, n_j, single)
                 pl = rng.volume_uniforms_plain(root, p_, sample, n_j, single)
                 if not torch.equal(k.view(torch.int32), pl.view(torch.int32)):
@@ -1078,9 +1087,10 @@ def media_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
     log("rng", f"sampler codes (keyed_uniforms at depth {RNG_DEPTH}, keyed_ao_uniforms at "
         f"{AO_TIMED} AO samples; halton, bestcandidate, stratified, random at spp 1, 4 (and 9 "
         f"on the ragged sets)) and keyed_volume_uniforms (5 jitters with and without single "
-        f"scattering's 96 columns, 1 and 17 with them) vs plain: {n_cases} cases on "
-        f"{N_LANES} lanes and 1, 7, 4,093 lanes with pixel indices up to 2**32 - 1, samples 0, "
-        f"3, 2**31 + 1: equal bit for bit")
+        f"scattering's 96 columns, 1 and 17 with them; on the smaller sets also 0 with them, "
+        f"1,500 without and 1,004 with, rows of several tiles) vs plain: {n_cases} cases on "
+        f"{N_LANES} lanes and 1, 7, 4,093 lanes with pixel indices up to 2**32 - 1 (the "
+        f"volume block also on {CHUNK}), samples 0, 3, 2**31 + 1: equal bit for bit")
 
     # ---- timed at the main path's width -------------------------------------
     pix_c, scr_c = pix_all[:CHUNK].contiguous(), scr_all[:CHUNK].contiguous()
@@ -1109,28 +1119,30 @@ def media_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
             replaces=SAMPLER_REPLACES[sampler], launches=sampler_launches[sampler],
             max_abs_err=err[sampler], ms=tq["ms"], plain_ms=plain, bound_ms=bound, bound_by=by,
             library_ms=None))
+    lib = native.kernel_lib("rng.cu")
     for key, single, launches, rep in (
             ("keyed_volume_uniforms", True, lk_w["keyed_volume_uniforms"],
              "pbrt_tpu/media/volumes.py:190"),
             ("keyed_volume_uniforms[emission]", False, lk_f["keyed_volume_uniforms"],
              "pbrt_tpu/integrators/path.py:228")):
-        tq = timing.queued_rounds(
-            lambda: rng.volume_uniforms(root, pix_c, 1, RNG_DEPTH, single), RNG_ROUNDS)
         plain = cuda_ms(lambda: rng.volume_uniforms_plain(root, pix_c, 1, RNG_DEPTH, single),
                         n=5, warm=1)
         width = RNG_DEPTH + 96 * single
-        bound, by = timing.bound_ms(
+        bound = timing.bound_ms(
             CHUNK * (8 + 4 * width), f32_ops=CHUNK * width,
             i32_ops=CHUNK * (OPS_AO_LANE_KEY + RNG_DEPTH * OPS_PER_JITTER
                              + single * (OPS_VOLUME_KEY + 32 * OPS_PER_STEP)))
-        log("timing", f"{key} on {CHUNK} lanes, {width} columns: median {tq['ms']:.5f} ms over "
-            f"{RNG_ROUNDS} rounds ({spread(tq)}; plain {plain:.3f} ms, host enqueue "
-            f"{tq['host_ms']:.4f} ms); bound {bound:.5f} ms ({by}), kernel / bound "
-            f"{tq['ms'] / bound:.2f}x")
+        tq = keyed_tile_timed(
+            f"{key} on {CHUNK} lanes, {width} columns (plain {plain:.3f} ms)",
+            lambda: rng.volume_uniforms(root, pix_c, 1, RNG_DEPTH, single), lib,
+            "keyed_volume_uniforms_kernel",
+            rng.volume_tiling(CHUNK, RNG_DEPTH, single, rng.sm_count(dev)),
+            CHUNK * width, keyed_key_hashes(CHUNK, "volume", n_jitter=RNG_DEPTH, single=single),
+            bound, RNG_ROUNDS, fused=True)
         kernels.append(dict(
             name=key, route="cuda", source="pbrt_torch/csrc/rng.cu", replaces=rep,
             launches=launches, max_abs_err=err["volume" if single else "volume_emission"],
-            ms=tq["ms"], plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None))
+            ms=tq["ms"], plain_ms=plain, bound_ms=bound[0], bound_by=bound[1], library_ms=None))
 
     # ---- 16² references -----------------------------------------------------
     tiny = TINY_SCENE.replace('"path" "integer maxdepth" [5]',
@@ -2574,23 +2586,41 @@ def preprocess_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
             f"{info['blocks_per_sm']} blocks per SM; (active lane, tile) pairs on the checked "
             f"terms {100 * checked:.3f}%")
     mo_main = mo_rows["active"]
-    # A: every chain of the slice, on 1,048,576 lanes and ragged ones
+    # A: every chain of the slice, on 1,048,576 lanes and ragged ones; every
+    # shape the integrators call on 32,768, 4,093, 7 and 1 lanes
     depth = 5
+    gather = ((irradiance.FILL_SALT + 100) * 16 + rng.CAMERA, 4)
     chains = {
         "dipole irradiance": dict(chain=[(rng.LIGHT_SAMPLE, 4)], n=3),
         "light path start": dict(n=5),
         "light path bounces": dict(chain=[(rng.PHOTON, depth)], n=3),
         "VPL picks": dict(chain=[(rng.PHOTON, depth), (rng.PHOTON, igi_mod.VPL_SAMPLES)]),
         "cache directions": dict(chain=[(irradiance.FILL_SALT * 16 + rng.BSDF_SAMPLE, 4)], n=2),
-        "nested blocks": dict(chain=[((irradiance.FILL_SALT + 100) * 16 + rng.CAMERA, 4),
-                                     rng.BATCHED], n=7 * depth, used=7, drawn=8, lead=5),
+        "nested blocks": dict(chain=[gather, rng.BATCHED], n=7 * depth, used=7, drawn=8, lead=5),
     }
+    shapes = dict(chains, **{
+        "AO directions": dict(chain=[(rng.BSDF_SAMPLE, 4)], n=2, lead=rng.CAMERA_DIMS),
+        "bounce block": dict(chain=[rng.BATCHED], n=rng.PER_BOUNCE_USED * depth,
+                             used=rng.PER_BOUNCE_USED, drawn=rng.PER_BOUNCE_DRAWN,
+                             lead=rng.CAMERA_DIMS),
+        "PRT's bounce block": dict(chain=[rng.BATCHED], n=rng.PER_BOUNCE_USED,
+                                   used=rng.PER_BOUNCE_USED, drawn=rng.PER_BOUNCE_DRAWN,
+                                   lead=rng.CAMERA_DIMS),
+        "cache jitters": dict(chain=[gather, (rng.VOLUME, depth)]),
+        "glossyprt": dict(chain=[(rng.BSDF_SAMPLE, 64)], n=3),
+        "cache steps": dict(chain=[gather, rng.VOLUME, (rng.LIGHT_SAMPLE, rng.VOLUME_STEPS)],
+                            n=rng.PER_VOLUME_STEP),
+        "2,100 columns, three tiles": dict(chain=[(rng.PHOTON, 700)], n=3),
+        "ragged": dict(chain=[3, (7, 3), 11, (2**32 - 33, 3)], n=9, used=4, drawn=6, lead=2),
+        "a row a thread": dict(chain=[(rng.PHOTON, 6)], lead=2)})
     idx = torch.cat([torch.tensor(PIXELS_WRAP, dtype=torch.int64, device=dev),
                      torch.arange(N_LANES, dtype=torch.int64, device=dev)])
     err_chain, n_cases = 0.0, 0
-    for name_, kw in chains.items():
-        for p_, sample in ((idx[:N_LANES], 0), (idx[:N_LANES], 2**31 + 1), (idx[:4093], 3),
-                           (idx[:7], 5), (idx[:1], 1)):
+    small = [(idx[:n], sample) for n in (CHUNK, 4093, 7, 1) for sample in (0, 3, 2**31 + 1)]
+    for name_, kw in shapes.items():
+        sets = small + ([(idx[:N_LANES], 0), (idx[:N_LANES], 2**31 + 1), (idx[:4093], 3),
+                         (idx[:7], 5), (idx[:1], 1)] if name_ in chains else [])
+        for p_, sample in sets:
             a = rng.chain_uniforms(root, p_.contiguous(), sample, **kw)
             b_ = rng.chain_uniforms_plain(root, p_.contiguous(), sample, **kw)
             if not torch.equal(a.view(torch.int32), b_.view(torch.int32)):
@@ -2599,24 +2629,32 @@ def preprocess_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
             err_chain = max(err_chain, float((a - b_).abs().max()))
             n_cases += 1
     sync()
-    log("rng", f"keyed_chain_uniforms vs plain: {n_cases} cases ({', '.join(chains)}) on "
-        f"{N_LANES} lanes and 1, 7, 4,093 lanes with indices up to 2**32 - 1, samples 0, 3, 5, "
-        f"2**31 + 1: equal bit for bit")
+    log("rng", f"keyed_chain_uniforms vs plain: {n_cases} cases ({', '.join(shapes)}) on "
+        f"{CHUNK}, 4,093, 7 and 1 lanes with indices up to 2**32 - 1, samples 0, 3, 2**31 + 1 "
+        f"(and the first six on {N_LANES} lanes, samples 0 and 2**31 + 1): equal bit for bit")
     pix_c = idx[10:10 + CHUNK].contiguous()
-    kw = chains["nested blocks"]
-    tq_a = timing.queued_rounds(lambda: rng.chain_uniforms(root, pix_c, 1, **kw), RNG_ROUNDS)
-    plain_a = cuda_ms(lambda: rng.chain_uniforms_plain(root, pix_c, 1, **kw), n=5, warm=1)
-    n_u = 4 * 7 * depth
-    width = 5 + n_u
-    a_bound, a_by = timing.bound_ms(
-        CHUNK * (8 + 4 * width), f32_ops=CHUNK * n_u,
-        i32_ops=CHUNK * (OPS_AO_LANE_KEY + 4 * 2 * OPS_CHAIN_GROUP_TAG
-                         + n_u * (OPS_PER_UNIFORM + 2)))
-    log("timing", f"keyed_chain_uniforms (the cache's nested blocks: 4 groups x 35 uniforms, "
-        f"{width} columns) on {CHUNK} lanes: median {tq_a['ms']:.5f} ms over {RNG_ROUNDS} rounds "
-        f"({tq_a['min']:.5f}–{tq_a['max']:.5f}; plain {plain_a:.3f} ms, host enqueue "
-        f"{tq_a['host_ms']:.4f} ms); bound {a_bound:.5f} ms ({a_by}), kernel / bound "
-        f"{tq_a['ms'] / a_bound:.2f}x")
+    lib = native.kernel_lib("rng.cu")
+    timed = {}
+    for name_ in ("nested blocks", "VPL picks", "AO directions", "bounce block"):
+        kw = shapes[name_]
+        tags = rng._chain_tags(kw.get("chain", ()))
+        n = kw.get("n", 1)
+        groups = math.prod(c for _, c in tags)
+        width, n_u = kw.get("lead", 0) + groups * n, groups * n
+        folds = keyed_key_hashes(CHUNK, "chain", **kw)[0] // CHUNK - 2
+        plain = cuda_ms(lambda: rng.chain_uniforms_plain(root, pix_c, 1, **kw), n=5, warm=1)
+        bound = timing.bound_ms(
+            CHUNK * (8 + 4 * width), f32_ops=CHUNK * n_u,
+            i32_ops=CHUNK * (OPS_AO_LANE_KEY + folds * OPS_CHAIN_GROUP_TAG
+                             + n_u * (OPS_PER_UNIFORM + 2)))
+        timed[name_] = dict(plain=plain, bound=bound, **keyed_tile_timed(
+            f"keyed_chain_uniforms ({name_}: {groups} groups x {n} uniforms, {width} columns, "
+            f"{folds} fold-ins a lane) on {CHUNK} lanes (plain {plain:.3f} ms)",
+            lambda: rng.chain_uniforms(root, pix_c, 1, **kw), lib, "keyed_chain_uniforms_kernel",
+            rng.chain_tiling(CHUNK, tags, n, kw.get("lead", 0), rng.sm_count(dev)), CHUNK * n_u,
+            keyed_key_hashes(CHUNK, "chain", **kw), bound, RNG_ROUNDS,
+            fused=n == 1 or not rng.chain_tiling(CHUNK, tags, n, kw.get("lead", 0))[4]))
+    tq_a = timed["nested blocks"]
 
     # ---- (e) 16² references ----------------------------------------------
     for kind, directive in PREPROCESS_REF.items():
@@ -2633,8 +2671,8 @@ def preprocess_phase(dev, data_dir, drive, profile_frame, card_vs_cpu):
              library_ms=None),
         dict(name="keyed_chain_uniforms", route="cuda", source="pbrt_torch/csrc/rng.cu",
              replaces="pbrt_tpu/integrators/path.py:115", launches=chain_launches,
-             max_abs_err=err_chain, ms=tq_a["ms"], plain_ms=plain_a, bound_ms=a_bound,
-             bound_by=a_by, library_ms=None),
+             max_abs_err=err_chain, ms=tq_a["ms"], plain_ms=tq_a["plain"],
+             bound_ms=tq_a["bound"][0], bound_by=tq_a["bound"][1], library_ms=None),
     ]
 
 
@@ -3718,6 +3756,151 @@ def sass_loop_stats(lib_path: str, kernel: str, inner_trips: int = 1) -> dict:
                      + sum(f(x[2]) for x in outer if keep(x)) / (per * inner_trips)
                      for k, f in SASS_KINDS.items()}
     return out
+
+
+#: SASS opcode classes by the pipe they issue to (the integer ALU: shifts,
+#: logic, 3-input adds, compares, selects; the FMA pipe: integer multiply-adds
+#: and float arithmetic; shared and global memory)
+_ALU_OPS = ("SHF", "LOP3", "IADD3", "ISETP", "SEL", "LEA", "PRMT", "IABS", "VIADD", "IMNMX",
+            "FSEL")
+_FMA_OPS = ("IMAD", "FADD", "FMUL", "FFMA")
+SASS_PIPES = {
+    "ALU": lambda op: op.split(".")[0] in _ALU_OPS,
+    "FMA": lambda op: op.split(".")[0] in _FMA_OPS,
+    "LDS": lambda op: op.startswith("LDS"), "STG": lambda op: op.startswith("STG"),
+    "other": lambda op: op.split(".")[0] not in _ALU_OPS + _FMA_OPS + ("LDS", "STG"),
+}
+
+
+def keyed_tile_sass(lib_path: str, kernel: str) -> dict:
+    """SASS counts of a tiled keyed kernel (``kernel`` a substring of its
+    name: ``keyed_volume_uniforms_kernel``, ``keyed_chain_uniforms_kernel``),
+    from its innermost loops (a backward ``BRA`` and the code between its
+    target and it), a hash counted by its 20 rotations (SHF.L.W; a
+    narrow group's uniforms share one key schedule): ``elem``, per element
+    of the element loop
+    (of the loops that store to global memory, STG, one hash a store, the
+    one with the most stores: its instructions over its stores), with its
+    instructions by pipe (``elem_pipes``, ``SASS_PIPES``), or None where
+    the kernel has none; ``fused``, per hash of the loop that derives a
+    narrow group's key and hashes its uniforms (one hash more than its
+    stores: its instructions over its hashes); ``key``, per hash of the key
+    loops (the loops that hash and store to shared memory, STS, not to
+    global memory: their instructions over their hashes)."""
+    import re
+
+    fns = [v for k, v in _sass_functions(lib_path).items() if kernel in k]
+    if len(fns) != 1:
+        raise SystemExit(f"keyed_tile_sass: {len(fns)} functions named like {kernel}")
+    ins = fns[0]
+    loops = [(int(re.search(r"0x([0-9a-f]+)", rest).group(1), 16), a) for a, _, op, rest in ins
+             if op.startswith("BRA") and re.search(r"0x[0-9a-f]+", rest)]
+    loops = [(t, a) for t, a in loops if t < a]
+    inner = [(t, a) for t, a in loops
+             if not any((t2, a2) != (t, a) and t <= t2 and a2 <= a for t2, a2 in loops)]
+    count = lambda body, f: sum(f(x[2]) for x in body)
+    elem = fused = None
+    key = [0, 0]
+    for t, a in inner:
+        body = [x for x in ins if t <= x[0] <= a]
+        stg = count(body, lambda op: op.startswith("STG"))
+        sts = count(body, lambda op: op.startswith("STS"))
+        hashes = count(body, lambda op: op.startswith("SHF.L.W")) // 20
+        if stg and hashes == stg and (elem is None or stg > elem[1]):
+            elem = (len(body), stg, {k: count(body, f) for k, f in SASS_PIPES.items()})
+        elif stg and hashes == stg + 1:
+            fused = len(body) / hashes
+        elif sts and hashes and not stg:
+            key[0] += len(body)
+            key[1] += hashes
+    if fused is None or not key[1]:
+        raise SystemExit(f"keyed_tile_sass: no fused loop or key loop in {kernel}: innermost "
+                         f"loops (instructions, STG, STS, hashes) " + str([
+                             (len(b), count(b, lambda op: op.startswith("STG")),
+                              count(b, lambda op: op.startswith("STS")),
+                              count(b, lambda op: op.startswith("SHF.L.W")) // 20)
+                             for b in ([x for x in ins if t <= x[0] <= a] for t, a in inner)]))
+    return dict(elem=elem[0] / elem[1] if elem else None, fused=fused,
+                elem_pipes={k: v / elem[1] for k, v in elem[2].items()} if elem else None,
+                key=key[0] / key[1], total=len(ins))
+
+
+def keyed_issue_ms(sass: dict, uniforms: int, key_hashes: tuple, fused: bool, mhz: float,
+                   sms: int) -> float:
+    """A tiled keyed launch's issue-slot bound: its loops' SASS (``keyed_tile_sass``)
+    for its uniforms and key hashes ((all, of them the group keys'),
+    ``keyed_key_hashes``), a warp instruction per 32 threads, over ``sms``
+    × 4 schedulers at ``mhz``: where its groups are narrow (``fused``) the
+    uniforms and group keys at the fused loop's per hash, else the uniforms
+    at the element loop's and the group keys at the key loops'."""
+    every, group = key_hashes
+    if fused:
+        return (issue_bound_ms(uniforms + group, 1, sass["fused"] / 32, mhz, sms)
+                + issue_bound_ms(every - group, 1, sass["key"] / 32, mhz, sms))
+    return (issue_bound_ms(uniforms, 1, sass["elem"] / 32, mhz, sms)
+            + issue_bound_ms(every, 1, sass["key"] / 32, mhz, sms))
+
+
+def keyed_tile_timed(label: str, fn, lib, kernel: str, tiling, elements: int, key_hashes: tuple,
+                     bound, rounds: int = 5, fused: bool = False) -> dict:
+    """``fn`` (a launch of a tiled keyed kernel) timed by ``timing.queued_rounds``
+    with ``nvidia-smi``'s SM clock sampled meanwhile, beside its bound
+    ``bound`` ((ms, by)) and its issue-slot bound: the element loop's SASS
+    per element × ``elements`` plus the key loops' SASS per hash ×
+    ``key_hashes``, a warp instruction per 32 threads, over 132 × 4
+    schedulers at the clock read (``keyed_tile_sass``); with the kernel's
+    registers (ptxas) and blocks per SM at the launch's staged keys. Logs a
+    line; → dict of it all."""
+    import torch
+
+    from pbrt_torch.core import rng
+    from pbrt_torch.utils import native, timing
+
+    sass = keyed_tile_sass(lib._name, kernel)
+    t = [int(w) for w in tiling]
+    ran = kernel if t[4] else kernel.replace("_uniforms_kernel", "_rows_kernel")  # keyed_rows
+    regs = next((v for f, v in kernel_registers(lib._name, native.build_log.get("pbrt_torch_rng"))
+                 .items() if ran in f), None)
+    smem = 8 * t[1] * (1 + t[8] + t[11]) if t[4] else 0  # keyed_rows stages no key
+    blocks = blocks_per_sm(regs, smem, t[3]) if regs else None
+    with SmClock() as clk:
+        tq = timing.queued_rounds(fn, rounds)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    issue = keyed_issue_ms(sass, elements, key_hashes, fused, clk.mhz, sms) if clk.mhz else None
+    out = dict(label=label, ms=tq["ms"], min=tq["min"], max=tq["max"], host_ms=tq["host_ms"],
+               bound_ms=bound[0], bound_by=bound[1], issue_bound_ms=issue, sm_mhz=clk.mhz,
+               sass=sass, registers=regs, smem_bytes=smem, blocks_per_sm=blocks,
+               tile_rows=t[1], tile_cols=t[5], threads=t[3], pass_rows=t[4])
+    log("timing", f"{label}: median {tq['ms']:.5f} ms over {rounds} rounds ({tq['min']:.5f}–"
+        f"{tq['max']:.5f}; host enqueue {tq['host_ms']:.4f} ms); bound {bound[0]:.5f} ms "
+        f"({bound[1]}), kernel / bound {tq['ms'] / bound[0]:.2f}x; issue-slot bound "
+        + (f"{issue:.5f} ms ({elements} uniforms, {key_hashes[0]} key hashes, "
+           f"{key_hashes[1]} of them group keys; SASS a hash: "
+           + (f"{sass['fused']:.1f} with a narrow group's key" if fused else
+              f"{sass['elem']:.1f} a uniform, {sass['key']:.1f} a group key")
+           + f", {sass['key']:.1f} a lane or outer key; at {clk.mhz:g} MHz), kernel / issue "
+           f"bound {tq['ms'] / issue:.2f}x" if issue else "not measured (no SM clock read)")
+        + f"; {regs} registers, tiles of {t[1]} rows x {t[5]} columns, {t[4]} rows a pass, "
+        f"{smem} B of keys, {blocks} blocks of {t[3]} threads per SM")
+    return out
+
+
+def keyed_key_hashes(R: int, kind: str, **kw) -> tuple:
+    """The hashes a tiled keyed launch spends on keys, (all, the group
+    keys'): per row the lane key (2), its outer keys' fold-ins (volume:
+    bounce 0's VOLUME key where ``single``; chain: the outer tags once per
+    outer key) and its group keys' (volume: one per jitter and step; chain:
+    the last tag once per group)."""
+    from pbrt_torch.core import rng
+
+    if kind == "volume":
+        group = kw["n_jitter"] + rng.VOLUME_STEPS * kw["single"]
+        return R * (2 + kw["single"] + group), R * group
+    tags = rng._chain_tags(kw.get("chain", ()))
+    G = math.prod(c for _, c in tags)
+    outers = G // tags[-1][1] if tags else 1
+    group = G if tags else 0
+    return R * (2 + outers * max(len(tags) - 1, 0) + group), R * group
 
 
 class SmClock:

@@ -100,6 +100,8 @@ call, and the camera columns about 430 more; each kernel is one.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -163,6 +165,26 @@ launches = {"keyed_uniforms": 0, "keyed_scrambles": 0, "keyed_ao_uniforms": 0,
             "mlt_mutate": 0}
 #: the most tags a chain may have (``csrc/rng.cu`` kMaxChain)
 MAX_CHAIN = 4
+#: the tiled keyed kernels (``keyed_volume_uniforms``, ``keyed_chain_uniforms``):
+#: the most threads a block (``csrc/rng.cu`` kMaxTileThreads) and the fewest
+#: a pass of whole tile rows should keep busy, the threads an SM holds, the
+#: most elements and rows a tile takes, the widest row one tile takes
+#: (kMaxTileCols) and the most bytes of a tile's staged keys (kMaxTileBytes)
+TILE_MAX_THREADS = 512
+TILE_MIN_PASS = 256
+SM_THREADS = 2048
+TILE_MAX_ELEMS = 16384
+TILE_MAX_ROWS = 512
+TILE_MAX_COLS = 1024
+TILE_MAX_BYTES = 48 * 1024
+#: a row of at most ``ROW_UNIFORMS`` uniforms in groups of at most
+#: ``ROW_COLS`` whose outer key is the lane key goes to ``keyed_rows``
+#: (``csrc/rng.cu`` kRowUniforms, kRowCols; kernels of its own): one
+#: thread a row, or one a group, in blocks of at most ``ROW_MAX_THREADS``
+#: (kRowMaxThreads), a launch at least 4 blocks an SM
+ROW_UNIFORMS = 8
+ROW_COLS = 2
+ROW_MAX_THREADS = 256
 #: the Kelemen mutation's step sizes (metropolis.py:73)
 MUTATE_S1 = 1.0 / 1024.0
 MUTATE_S2 = 1.0 / 16.0
@@ -461,6 +483,167 @@ def mutate_plain(u, keys, p_large: float, s1: float = MUTATE_S1, s2: float = MUT
 
 
 # ---------------------------------------------------------------------------
+# the tiled kernels' per-launch constants, and their arithmetic in numpy
+# ---------------------------------------------------------------------------
+
+
+def divisor(d: int) -> tuple:
+    """``csrc/rng.cu``'s ``Div`` of ``d``: (d, m, s) with x // d == (x·m) >>
+    s for every 0 <= x < 2**31 (Granlund and Montgomery's round-up method:
+    s = 31 + ceil(log2 d), m = ceil(2**s / d) < 2**32); (0, 0, 0) for d = 0."""
+    d = int(d)
+    if d == 0:
+        return (0, 0, 0)
+    if not 0 < d < 2**31:
+        raise ValueError(f"divisor {d}: outside [1, 2**31)")
+    s = 31 + (d - 1).bit_length()
+    return (d, -(-(1 << s) // d), s)
+
+
+def tile_block(cols: int) -> tuple:
+    """(threads, pass rows) of a tile of ``cols`` columns: a tile wider
+    than ``TILE_MAX_THREADS`` takes ceil(cols / passes) columns a pass,
+    rounded up to a warp, one row; a narrower one k whole rows a pass, the
+    fewest k whose k·cols threads keep ≥ 95% of their warps' lanes busy and
+    are at least ``TILE_MIN_PASS``, else the k that keeps the most busy."""
+    if cols > TILE_MAX_THREADS:
+        per_pass = -(-cols // -(-cols // TILE_MAX_THREADS))
+        return -(-per_pass // 32) * 32, 1
+    best = None
+    for k in range(1, TILE_MAX_THREADS // cols + 1):
+        threads = -(-k * cols // 32) * 32
+        if threads > TILE_MAX_THREADS:
+            break
+        busy = k * cols / threads
+        if k * cols >= TILE_MIN_PASS and busy >= 0.95:
+            return threads, k
+        if best is None or busy > best[0] + 1e-12:
+            best = (busy, threads, k)
+    return best[1], best[2]
+
+
+def keyed_tiling(R: int, width: int, slots, sms: int = 132, row_slots: int = 0) -> np.ndarray:
+    """The ``Tiling`` words (``csrc/rng.cu``) of a launch of R rows ×
+    ``width`` columns on a card of ``sms`` SMs: a tile is the whole row
+    (``TILE_MAX_COLS`` columns of it where wider) × a band of rows, its
+    block ``tile_block``'s; as many bands as the card holds blocks at once
+    (``SM_THREADS`` an SM), or a whole multiple of that where a tile would
+    pass ``TILE_MAX_ELEMS`` elements, so that the last wave of blocks is a
+    full one; the band a whole number of passes, at most ``TILE_MAX_ROWS``
+    rows, and fewer where a tile's staged keys (8 bytes each: a lane key,
+    then the (outer, group) key slots that ``slots(cols)`` gives a tile row
+    of ``cols`` columns) would keep the SM from holding its blocks, or pass
+    ``TILE_MAX_BYTES``. Under ``row_slots`` (a row of a few uniforms in
+    narrow groups, the caller's call) the row's groups are dealt to
+    ``row_slots`` threads (1, or one a group; the ``groups`` word): pass
+    rows 0, a block at most ``ROW_MAX_THREADS`` threads, a warp's multiple,
+    fewer so that a launch is at least 4 blocks an SM, and the rows they
+    take."""
+    cols = min(width, TILE_MAX_COLS)
+    col_tiles = -(-width // cols)
+    outer, groups = (max(int(v), 1) for v in slots(cols))
+    if row_slots:
+        threads = min(ROW_MAX_THREADS, max(32, -(-(R * row_slots) // (4 * sms * 32)) * 32))
+        rows = threads // row_slots
+        return np.array([width, rows, 1, threads, 0, *divisor(cols), *divisor(outer),
+                         *divisor(row_slots)], np.uint32)
+    threads, k = tile_block(cols)
+    per_sm = min(32, SM_THREADS // threads)
+    capacity = sms * per_sm
+    waves = max(1, -(-(R * width) // (capacity * TILE_MAX_ELEMS)))
+    rows = -(-(R * col_tiles) // (waves * capacity))
+    rows = -(-rows // k) * k
+    smem = min(TILE_MAX_BYTES, 228 * 1024 // per_sm - 1024)
+    cap = min(TILE_MAX_ROWS, max(TILE_MAX_ELEMS // cols, k), smem // (8 * (1 + outer + groups)))
+    if rows > cap:
+        rows = max(cap // k * k, min(cap, k))
+    rows = max(1, rows)
+    return np.array([width, rows, col_tiles, threads, k, *divisor(cols), *divisor(outer),
+                     *divisor(groups)], np.uint32)
+
+
+def volume_tiling(R: int, n_jitter: int, single: bool, sms: int = 132) -> np.ndarray:
+    """``keyed_volume_uniforms``' tiling: J jitter groups of 1 column, then
+    (under ``single``) 32 step groups of 3; a tile narrower than the row
+    meets at most its columns + 1 groups, and the lane key and bounce 0's
+    VOLUME key are its outer keys. At most ``ROW_UNIFORMS`` jitters alone
+    (the block under emission) go a thread a row."""
+    steps = VOLUME_STEPS if single else 0
+    width, G = n_jitter + PER_VOLUME_STEP * steps, n_jitter + steps
+    return keyed_tiling(R, width, lambda c: ((n_jitter > 0) + (steps > 0),
+                                            G if c >= width else min(G, c + 1)), sms,
+                        row_slots=int(not steps and 0 < n_jitter <= ROW_UNIFORMS))
+
+
+def chain_map(tags, n: int, used: int, drawn: int, lead: int) -> np.ndarray:
+    """The ``ChainMap`` words (``csrc/rng.cu``) of a chain (``_chain_tags``):
+    the outer tags (all but the last) with their counts' divisors, the last
+    tag and its count's, n's and used's, lead and drawn. A chain of no tag
+    has one group, its key the lane key."""
+    outer, (last_base, last) = tags[:-1], (tags[-1] if tags else (0, 1))
+    words = [len(outer), int(bool(tags)), lead, drawn]
+    words += [b & _M32 for b, _ in outer] + [0] * (MAX_CHAIN - 1 - len(outer))
+    for i in range(MAX_CHAIN - 1):
+        words += divisor(outer[i][1]) if i < len(outer) else (0, 0, 0)
+    words += [last_base & _M32, *divisor(last), *divisor(n), *divisor(used)]
+    return np.array(words, np.uint32)
+
+
+def chain_tiling(R: int, tags, n: int, lead: int, sms: int = 132) -> np.ndarray:
+    """``keyed_chain_uniforms``' tiling: G groups of n columns after lead;
+    a tile narrower than the row meets at most (cols − 1) // n + 2 groups,
+    and those at most (met − 1) // count_last + 2 outer keys. A chain of at
+    most one tag and ``ROW_UNIFORMS`` uniforms in groups of at most
+    ``ROW_COLS`` goes to ``keyed_rows``: a thread a row where a group is one
+    uniform, else a thread a group (ambient occlusion's keyed directions,
+    the cache's gather directions)."""
+    G = int(np.prod([c for _, c in tags])) if tags else 1
+    last = tags[-1][1] if tags else 1
+    width = lead + G * n
+
+    def slots(cols):
+        if n == 0:
+            return 0, 0
+        met = G if cols >= width else min(G, (cols - 1) // n + 2)
+        return min(G // last, (met - 1) // last + 2), met
+    rows = (1 <= n <= ROW_COLS and len(tags) <= 1 and G * n <= ROW_UNIFORMS
+            and width <= TILE_MAX_COLS)
+    return keyed_tiling(R, width, slots, sms, row_slots=rows * (1 if n == 1 else G))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The card's SMs (the tiled kernels' tiling spreads a launch over them)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _frozen_words(*arrays) -> tuple:
+    """(the arrays' (address, size) pairs flattened, the arrays made
+    read-only): a launch's words as the C entry takes them, computed once
+    and kept alive by the memo that holds them."""
+    for a in arrays:
+        a.setflags(write=False)
+    return tuple(v for a in arrays for v in (a.ctypes.data, a.size)), arrays
+
+
+@functools.lru_cache(maxsize=512)
+def volume_words(R: int, n_jitter: int, single: bool, sms: int) -> tuple:
+    """``volume_uniforms``' per-launch words (``volume_tiling``), memoised
+    per launch shape and SM count: the wrapper's enqueue pays a lookup, not
+    the tiling's arithmetic and numpy's pointer."""
+    return _frozen_words(volume_tiling(R, n_jitter, single, sms))
+
+
+@functools.lru_cache(maxsize=512)
+def chain_words(R: int, tags: tuple, n: int, used: int, drawn: int, lead: int,
+                sms: int) -> tuple:
+    """``chain_uniforms``' per-launch words (``chain_map``, then
+    ``chain_tiling``), memoised as ``volume_words``."""
+    return _frozen_words(chain_map(tags, n, used, drawn, lead),
+                         chain_tiling(R, tags, n, lead, sms))
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -540,9 +723,10 @@ def volume_uniforms(root, pixel_index, sample: int, n_jitter: int, single: bool)
     out = torch.empty((R, width), dtype=torch.float32, device=pixel_index.device)
     if R == 0 or width == 0:
         return out
+    words, _ = volume_words(R, int(n_jitter), bool(single), sm_count(pixel_index.device))
     native.check_launch(lib.pbrt_torch_keyed_volume_uniforms(
         k0, k1, pixel_index.data_ptr(), R, int(sample) & _M32, int(n_jitter), int(bool(single)),
-        out.data_ptr(), stream), "keyed_volume_uniforms launch")
+        *words, out.data_ptr(), stream), "keyed_volume_uniforms launch")
     launches["keyed_volume_uniforms"] += 1
     return out
 
@@ -601,11 +785,10 @@ def chain_uniforms(root, index, sample: int, chain=(), n: int = 1, lead: int = 0
     out = torch.empty((R, width), dtype=torch.float32, device=index.device)
     if R == 0 or width == 0:
         return out
-    pad = tags + ((0, 1),) * (MAX_CHAIN - len(tags))
+    words, _ = chain_words(R, tags, int(n), used, drawn, int(lead), sm_count(index.device))
     native.check_launch(lib.pbrt_torch_keyed_chain_uniforms(
-        k0, k1, index.data_ptr(), R, int(sample) & _M32, len(tags),
-        *(b & _M32 for b, _ in pad), *(c for _, c in pad), int(n), used, drawn, int(lead),
-        out.data_ptr(), stream), "keyed_chain_uniforms launch")
+        k0, k1, index.data_ptr(), R, int(sample) & _M32, *words, out.data_ptr(), stream),
+        "keyed_chain_uniforms launch")
     launches["keyed_chain_uniforms"] += 1
     return out
 

@@ -122,17 +122,37 @@
 //                     random and stratified derive the lane's camera key (1
 //                     more hash) and hash 5 counters, the others read the
 //                     scramble words as before. Same tile and copy-out.
-//   keyed_volume_uniforms — keyed_uniforms' design: one thread per lane, the
-//                     lane key once (2 hashes), each jitter a fold-in and one
-//                     hash, each march step a fold-in of bounce 0's VOLUME key
-//                     and 3 hashes; the warp tile and copy-out in passes of
-//                     48 columns.
-//   keyed_chain_uniforms — keyed_volume_uniforms' design: one thread per
-//                     lane, the lane key once (2 hashes) and the chain's
-//                     fixed prefix; a group's key (its varying tags' fold-ins)
-//                     where the pass reaches the group's first column, then
-//                     one hash per uniform; the warp tile and copy-out in
-//                     passes of 48 columns. The chain is per-launch constants.
+//   keyed_volume_uniforms, keyed_chain_uniforms — tiles of rows: a block
+//                     (its threads sized by the host so that a pass covers
+//                     whole rows, at most 512) takes a band of rows (as
+//                     many bands as the card holds blocks at once, so the
+//                     last wave is a full one) and, tile by tile (the whole
+//                     row, or 1,024 columns of a wider one), derives each
+//                     row's lane key once (2 hashes) and each outer key
+//                     once (the chain's tags but the last, shared by
+//                     count_last consecutive groups; the volume block's
+//                     bounce-0 VOLUME key), a thread a (row, key), staged
+//                     in shared memory. Then each group key once: where
+//                     the groups are narrow (the volume block's jitters
+//                     and 3-column steps; a chain of one uniform a group,
+//                     IGI's picks and the cache's jitters) a thread a
+//                     (row, group) hashes the group's uniforms beside it;
+//                     else the group keys are staged too and a thread
+//                     keeps one column, stepping through the rows (one
+//                     uniform an iteration, 81 SASS instructions), each
+//                     pass one contiguous run of out. A row of at most 8
+//                     uniforms in groups of at most 2 under its lane key
+//                     (the volume block under emission) is one thread's,
+//                     the groups unrolled; where its groups are of 2
+//                     (ambient occlusion's keyed directions, the cache's
+//                     gather directions) a thread takes a group and derives
+//                     the lane key itself (4× the warps); in kernels of
+//                     their own (keyed_*_rows_kernel), no barrier. Each key of the chain's prefix
+//                     tree once (the VPL picks' 5 + 40 fold-ins, not 2 a
+//                     column). Column → (group, counter) and every index
+//                     split are multiply-shift divisions by per-launch
+//                     constants (Div: the wrapper's core/rng.py:divisor,
+//                     checked by the entry), no divide at run time.
 //   keyed_camera_normals — keyed_uniforms' design: one thread per lane, the
 //                     lane key once (2 hashes), then per tag its fold-in and
 //                     two hashes and two erf_inv polynomials (a log1pf, a
@@ -157,6 +177,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <cstring>
+
 namespace {
 
 constexpr int kWarp = 32;
@@ -180,17 +203,15 @@ constexpr uint32_t kVolumePurpose = 8u;  // VOLUME: bounce b folds in b * 16 + 8
 constexpr uint32_t kLightSamplePurpose = 2u;  // LIGHT_SAMPLE: step k folds in k * 16 + 2
 constexpr int kVolumeSteps = 32;  // march steps per segment (volumes.py TAU_STEPS)
 constexpr int kPerStep = 3;       // uniforms single scattering draws per step
-constexpr int kPassVolumeCols = 48;  // media-block columns per tile pass
 constexpr int kMaxChain = 4;         // tags of a keyed_chain_uniforms chain
 constexpr uint32_t kTagStep = 16u;   // bounce_key: tag = index * 16 + purpose
 
-// a keyed_chain_uniforms launch's chain and draw pattern
-struct Chain {
-  int n_tags;
-  uint32_t base[kMaxChain];
-  int count[kMaxChain];
-  int n, used, drawn, lead;
-};
+constexpr int kMaxTileThreads = 512;  // threads of a keyed_volume / keyed_chain block, at most
+constexpr int kMaxTileCols = 1024;   // a wider row is cut into column tiles
+constexpr int kRowUniforms = 8;      // the most uniforms of a row keyed_rows takes,
+constexpr int kRowCols = 2;          // in groups of at most this many
+constexpr int kRowMaxThreads = 256;  // threads of a row kernel's block, at most
+constexpr unsigned kMaxTileBytes = 48u * 1024u;  // a tile's staged keys
 
 // the sampler codes (core/rng.py)
 enum : int { kLowDiscrepancy = 0, kHalton = 1, kBestCandidate = 2, kRandom = 3,
@@ -478,122 +499,317 @@ keyed_ao_uniforms_kernel(uint32_t k0, uint32_t k1,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-keyed_volume_uniforms_kernel(uint32_t k0, uint32_t k1,
-                             const long long* __restrict__ pixel, int R,
-                             uint32_t sample, int J, int single,
-                             float* __restrict__ out) {
-  extern __shared__ float4 tiles[];  // kWarps tiles of kWarp × min(width, 48) floats
-  const unsigned lane = threadIdx.x % kWarp;
-  const unsigned warp = threadIdx.x / kWarp;
-  const unsigned base = (blockIdx.x * kWarps + warp) * kWarp;  // warp's first row
-  if (base >= static_cast<unsigned>(R)) return;  // the whole warp
-  const unsigned rows = min(static_cast<unsigned>(R) - base, static_cast<unsigned>(kWarp));
-  const bool live = lane < rows;
-  const unsigned jitters = static_cast<unsigned>(J);
-  const unsigned width = jitters + (single ? kVolumeSteps * kPerStep : 0);
-  float* tile = reinterpret_cast<float*>(tiles)
-                + warp * kWarp * min(width, static_cast<unsigned>(kPassVolumeCols));
+// x / d as a multiply and a shift, exact for every x < 2^31: m = ceil(2^s / d),
+// s = 31 + ceil(log2 d) (Granlund and Montgomery's round-up method, m <
+// 2^32), computed by the wrapper (core/rng.py:divisor) and checked by the
+// entry (divisor_ok). d = 0 (no group) carries m = s = 0 and is never divided by.
+struct Div {
+  uint32_t d, m, s;
+};
 
-  uint32_t a = k0, c = k1, va = 0u, vc = 0u;  // the lane key; bounce 0's VOLUME key
-  if (live) {
-    fold_in(a, c, static_cast<uint32_t>(pixel[base + lane]));
-    fold_in(a, c, sample);
-    va = a;
-    vc = c;
-    fold_in(va, vc, kVolumePurpose);
+__device__ __forceinline__ unsigned div_by(unsigned x, const Div& v) {
+  return static_cast<unsigned>((static_cast<unsigned long long>(x) * v.m) >> v.s);
+}
+
+// A keyed block's tiles: `rows` rows × cols.d columns of the (R, width)
+// block (cols.d = width unless the row is wider than kMaxTileCols), its
+// threads (a multiple of 32) and the tile rows a pass of them covers (at
+// most threads / cols.d, or 1 in a tile wider than the block), and the outer
+// and group key slots a tile row holds in shared memory (enough for the
+// groups any tile's columns meet). In a launch of keyed_rows (pass_rows 0)
+// `groups` is instead the threads a row's groups are dealt to: 1 (a thread
+// takes them all) or one a group. Computed per launch by the wrapper
+// (core/rng.py:keyed_tiling).
+struct Tiling {
+  uint32_t width, rows, col_tiles, threads, pass_rows;
+  Div cols, outer, groups;
+};
+
+// keyed_chain_uniforms' columns and keys: lead zero columns, then group g's
+// n uniforms at counters (i / used)·drawn + i mod used. Group g's key is the
+// lane key folded with the chain's tags; the outer key (all tags but the
+// last) is shared by count_last consecutive groups, g / count_last being
+// its index and the tags' digits those of the mixed-radix index (the last
+// tag varying fastest), each tag base + kTagStep·digit.
+struct ChainMap {
+  uint32_t n_outer, has_last, lead, drawn;
+  uint32_t base[kMaxChain - 1];  // the outer tags
+  Div count[kMaxChain - 1];
+  uint32_t last_base;
+  Div last, n, used;
+
+  // [g0, g1): the groups whose columns meet [c0, c1)
+  __device__ __forceinline__ void groups(unsigned c0, unsigned c1, unsigned& g0,
+                                         unsigned& g1) const {
+    if (n.d == 0 || c1 <= lead) {
+      g0 = g1 = 0;
+      return;
+    }
+    g0 = div_by(max(c0, lead) - lead, n);
+    g1 = div_by(c1 - 1 - lead, n) + 1;
   }
-  for (unsigned c0 = 0; c0 < width; c0 += kPassVolumeCols) {
-    const unsigned cols = min(width - c0, static_cast<unsigned>(kPassVolumeCols));
-    float* mine = tile + lane * cols;
-    if (live) {
-      uint32_t sa = 0u, sc = 0u;  // the current march step's key
-      for (unsigned q = 0; q < cols; ++q) {
-        const unsigned j = c0 + q;
-        if (j < jitters) {
-          uint32_t ja = a, jc = c;
-          fold_in(ja, jc, j * 16u + kVolumePurpose);
-          mine[q] = uniform_from_bits(bits_at(ja, jc, 0u));
-        } else {
-          const unsigned step = (j - jitters) / kPerStep, ctr = (j - jitters) % kPerStep;
-          if (ctr == 0 || q == 0) {
-            sa = va;
-            sc = vc;
-            fold_in(sa, sc, step * 16u + kLightSamplePurpose);
+  __device__ __forceinline__ unsigned outer_of(unsigned g) const { return div_by(g, last); }
+  // whether the outer keys are the lane key, and every group one column
+  // (its key and uniform one thread's); group g's first column and its
+  // columns; the counter of a group's column i: (i / used)·drawn + i mod used
+  static constexpr unsigned kFuseCols = 1;
+  static constexpr bool kColumnPass = true;
+  __device__ __forceinline__ bool outer_is_lane(unsigned, unsigned) const { return !n_outer; }
+  __device__ __forceinline__ bool small_groups(unsigned, unsigned) const { return n.d == 1; }
+  __device__ __forceinline__ unsigned group_columns(unsigned g, unsigned& col) const {
+    col = lead + g * n.d;
+    return n.d;
+  }
+  __device__ __forceinline__ unsigned counter(unsigned, unsigned i) const {
+    const unsigned b = div_by(i, used);
+    return b * drawn + (i - b * used.d);
+  }
+  __device__ __forceinline__ unsigned zero_columns(unsigned c0, unsigned cols) const {
+    return c0 < lead ? min(lead - c0, cols) : 0u;
+  }
+  __device__ __forceinline__ void outer_key(unsigned o, uint32_t& a, uint32_t& c) const {
+    unsigned idx[kMaxChain - 1];
+#pragma unroll
+    for (int i = kMaxChain - 2; i >= 0; --i) {
+      if (i < static_cast<int>(n_outer)) {
+        const unsigned q = div_by(o, count[i]);
+        idx[i] = o - q * count[i].d;
+        o = q;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kMaxChain - 1; ++i)
+      if (i < static_cast<int>(n_outer)) fold_in(a, c, base[i] + kTagStep * idx[i]);
+  }
+  __device__ __forceinline__ void group_key(unsigned g, uint32_t& a, uint32_t& c) const {
+    if (has_last) fold_in(a, c, last_base + kTagStep * (g - outer_of(g) * last.d));
+  }
+  // false for a lead column (zero)
+  __device__ __forceinline__ bool column(unsigned col, unsigned& g, unsigned& ctr) const {
+    if (col < lead) return false;
+    const unsigned j = col - lead;
+    g = div_by(j, n);
+    ctr = counter(g, j - g * n.d);
+    return true;
+  }
+};
+
+// keyed_volume_uniforms' columns and keys: group g < J is jitter g (its key
+// the lane key folded with g·16 + VOLUME, counter 0), group J + k march step
+// k (bounce 0's VOLUME key folded with k·16 + LIGHT_SAMPLE, counters 0-2).
+// Outer key 0 is the lane key, outer key 1 bounce 0's VOLUME key.
+struct VolumeMap {
+  uint32_t jitters;
+
+  __device__ __forceinline__ unsigned group_of(unsigned col) const {
+    return col < jitters ? col : jitters + (col - jitters) / kPerStep;
+  }
+  __device__ __forceinline__ void groups(unsigned c0, unsigned c1, unsigned& g0,
+                                         unsigned& g1) const {
+    g0 = group_of(c0);
+    g1 = group_of(c1 - 1) + 1;
+  }
+  __device__ __forceinline__ unsigned outer_of(unsigned g) const { return g < jitters ? 0u : 1u; }
+  // a jitter is one column, a step three: a group's key and uniforms are
+  // always one thread's (no column pass)
+  static constexpr unsigned kFuseCols = kPerStep;
+  static constexpr bool kColumnPass = false;
+  __device__ __forceinline__ bool outer_is_lane(unsigned, unsigned o1) const { return o1 <= 1; }
+  __device__ __forceinline__ bool small_groups(unsigned, unsigned) const { return true; }
+  __device__ __forceinline__ unsigned group_columns(unsigned g, unsigned& col) const {
+    col = g < jitters ? g : jitters + (g - jitters) * kPerStep;
+    return g < jitters ? 1u : static_cast<unsigned>(kPerStep);
+  }
+  __device__ __forceinline__ unsigned counter(unsigned, unsigned i) const { return i; }
+  __device__ __forceinline__ unsigned zero_columns(unsigned, unsigned) const { return 0u; }
+  __device__ __forceinline__ void outer_key(unsigned o, uint32_t& a, uint32_t& c) const {
+    if (o) fold_in(a, c, kVolumePurpose);
+  }
+  __device__ __forceinline__ void group_key(unsigned g, uint32_t& a, uint32_t& c) const {
+    fold_in(a, c, g < jitters ? g * kTagStep + kVolumePurpose
+                              : (g - jitters) * kTagStep + kLightSamplePurpose);
+  }
+};
+
+// group g's key (from the lane key a, c) and its uniforms, into the row at dst
+template <class Map>
+__device__ __forceinline__ void row_group(const Map& mp, unsigned g, uint32_t a, uint32_t c,
+                                          float* __restrict__ dst) {
+  unsigned col;
+  mp.group_key(g, a, c);
+  const unsigned n_cols = mp.group_columns(g, col);
+#pragma unroll
+  for (unsigned j = 0; j < kRowCols; ++j)
+    if (j < n_cols) dst[col + j] = uniform_from_bits(bits_at(a, c, mp.counter(g, j)));
+}
+
+// A row of at most kRowUniforms uniforms in groups of at most kRowCols
+// whose outer key is the lane key, dealt to tl.groups.d threads (tl.pass_rows
+// 0, a block tl.rows rows): one thread takes every group of the row where
+// the groups are one uniform (the volume block under emission), the groups
+// unrolled so that their hashes are in flight together; else a thread a
+// group (ambient occlusion's keyed directions, the cache's gather
+// directions: 2 uniforms a group), each deriving the lane key itself, so
+// that the short launch has 4-8 times the warps. Each thread: the lane key,
+// then its groups' keys and uniforms; no shared memory, no barrier. Its own
+// kernels (keyed_*_rows_kernel), so that its registers are not the tiles'.
+template <class Map>
+__device__ __forceinline__ void keyed_rows(const Map& mp, const Tiling& tl, uint32_t k0,
+                                           uint32_t k1, const long long* __restrict__ index,
+                                           unsigned R, uint32_t sample,
+                                           float* __restrict__ out) {
+  // this thread's row of the block and its group s, or every group of the
+  // row (tl.groups.d 1)
+  const unsigned rr = div_by(threadIdx.x, tl.groups), s = threadIdx.x - rr * tl.groups.d;
+  const unsigned r = blockIdx.x * tl.rows + rr;
+  if (rr >= tl.rows || r >= R) return;
+  uint32_t a = k0, c = k1;
+  fold_in(a, c, static_cast<uint32_t>(index[r]));
+  fold_in(a, c, sample);
+  float* dst = out + r * tl.width;
+  unsigned g0, g1;
+  mp.groups(0, tl.width, g0, g1);
+  if (s == 0)
+    for (unsigned q = 0; q < mp.zero_columns(0, tl.width); ++q) dst[q] = 0.0f;
+  if (tl.groups.d > 1) {  // tl.groups.d = g1 - g0 (the entry's check)
+    row_group(mp, g0 + s, a, c, dst);
+    return;
+  }
+#pragma unroll
+  for (unsigned i = 0; i < kRowUniforms; ++i)
+    if (g0 + i < g1) row_group(mp, g0 + i, a, c, dst);
+}
+
+// One block's band of `tl.rows` rows, tile by tile: the lane keys (one
+// thread a row), then each tile's outer keys (none where they are the lane
+// keys), staged in shared memory; then, where every group is narrow (the
+// volume block's jitters and steps, Map::kFuseCols = 3; a chain of one
+// uniform a group: IGI's picks, the cache's jitters), a thread a (row,
+// group) derives the group's key and hashes its uniforms together; else the
+// group keys are staged too (a thread a (row, group)) and a thread keeps
+// one column and steps through the rows, pass_rows at a time (a pass is
+// pass_rows whole tile rows over the block's threads, so each pass stores
+// one contiguous run of out), or, in a tile wider than the block, keeps
+// every blockDim-th column through all rows.
+template <class Map>
+__device__ __forceinline__ void keyed_tiles(const Map& mp, const Tiling& tl, uint32_t k0,
+                                            uint32_t k1, const long long* __restrict__ index,
+                                            unsigned R, uint32_t sample,
+                                            float* __restrict__ out) {
+  extern __shared__ uint2 keys[];  // lane keys, outer keys, group keys
+  const unsigned nt = blockDim.x, t = threadIdx.x;
+  const unsigned r0 = blockIdx.x * tl.rows;
+  const unsigned rows = min(R - r0, tl.rows);
+  uint2* lane = keys;
+  uint2* outer = lane + tl.rows;
+  uint2* group = outer + tl.rows * tl.outer.d;
+  for (unsigned r = t; r < rows; r += nt) {
+    uint32_t a = k0, c = k1;
+    fold_in(a, c, static_cast<uint32_t>(index[r0 + r]));
+    fold_in(a, c, sample);
+    lane[r] = make_uint2(a, c);
+  }
+  for (unsigned tile = blockIdx.y; tile < tl.col_tiles; tile += gridDim.y) {
+    const unsigned c0 = tile * tl.cols.d, cols = min(tl.cols.d, tl.width - c0);
+    unsigned g0, g1;
+    mp.groups(c0, c0 + cols, g0, g1);
+    const unsigned o0 = g1 > g0 ? mp.outer_of(g0) : 0u;
+    const unsigned o1 = g1 > g0 ? mp.outer_of(g1 - 1) + 1 : 0u;
+    __syncthreads();  // the lane keys written; the last tile's keys read
+    // the outer keys: the lane keys themselves where no outer tag is folded
+    const bool lane_outer = mp.outer_is_lane(o0, o1);
+    const uint2* okeys = lane_outer ? lane : outer;
+    const unsigned ostride = lane_outer ? 1u : tl.outer.d;
+    if (!lane_outer) {
+      for (unsigned p = t; p < rows * tl.outer.d; p += nt) {
+        const unsigned r = div_by(p, tl.outer), o = o0 + (p - r * tl.outer.d);
+        if (o < o1) {
+          uint2 k = lane[r];
+          mp.outer_key(o, k.x, k.y);
+          outer[p] = k;
+        }
+      }
+      __syncthreads();
+    }
+    if (mp.small_groups(g0, g1)) {  // a group's key and its few uniforms together
+      const unsigned zc = mp.zero_columns(c0, cols);
+      for (unsigned p = t; p < rows * zc; p += nt)
+        out[(r0 + p / zc) * tl.width + c0 + p % zc] = 0.0f;
+      for (unsigned p = t; p < rows * tl.groups.d; p += nt) {
+        const unsigned r = div_by(p, tl.groups), g = g0 + (p - r * tl.groups.d);
+        if (g < g1) {
+          uint2 k = okeys[r * ostride + mp.outer_of(g) - o0];
+          mp.group_key(g, k.x, k.y);
+          unsigned col;
+          const unsigned n_cols = mp.group_columns(g, col);
+          float* dst = out + (r0 + r) * tl.width;
+#pragma unroll
+          for (unsigned i = 0; i < Map::kFuseCols; ++i) {
+            if (i < n_cols && col + i >= c0 && col + i < c0 + cols)
+              dst[col + i] = uniform_from_bits(bits_at(k.x, k.y, mp.counter(g, i)));
           }
-          mine[q] = uniform_from_bits(bits_at(sa, sc, ctr));
+        }
+      }
+      continue;
+    }
+    if constexpr (Map::kColumnPass) {  // the group keys staged, then a thread a column
+      for (unsigned p = t; p < rows * tl.groups.d; p += nt) {
+        const unsigned r = div_by(p, tl.groups), g = g0 + (p - r * tl.groups.d);
+        if (g < g1) {
+          uint2 k = okeys[r * ostride + mp.outer_of(g) - o0];
+          mp.group_key(g, k.x, k.y);
+          group[p] = k;
+        }
+      }
+      __syncthreads();
+      // this thread's first row and column, and the rows a pass steps
+      const bool full = cols == tl.cols.d;
+      const unsigned step = cols > nt ? 1u : full ? tl.pass_rows : nt / cols;
+      const unsigned r_first = cols > nt ? 0u : full ? div_by(t, tl.cols) : t / cols;
+      if (r_first >= step) continue;  // past the last whole tile row of a pass
+      for (unsigned q = t - r_first * cols; q < cols; q += nt) {
+        unsigned g, ctr;
+        float* dst = out + (r0 + r_first) * tl.width + c0 + q;
+        const size_t dst_step = static_cast<size_t>(step) * tl.width;
+        if (mp.column(c0 + q, g, ctr)) {
+          const uint2* key = group + r_first * tl.groups.d + (g - g0);
+          const unsigned key_step = step * tl.groups.d;
+          for (unsigned r = r_first; r < rows; r += step, key += key_step, dst += dst_step) {
+            const uint2 k = *key;
+            *dst = uniform_from_bits(bits_at(k.x, k.y, ctr));
+          }
+        } else {
+          for (unsigned r = r_first; r < rows; r += step, dst += dst_step) *dst = 0.0f;
         }
       }
     }
-    __syncwarp();
-    copy_tile_out(tile, out, base, rows, cols, width, c0, lane);
-    __syncwarp();
   }
 }
 
-// the key of group g: the lane key folded with each tag of the chain, the
-// varying tags' indices the digits of g (the last tag varies fastest)
-__device__ __forceinline__ void chain_key(uint32_t& a, uint32_t& c, const Chain& ch,
-                                          unsigned g) {
-  unsigned idx[kMaxChain];
-#pragma unroll
-  for (int i = kMaxChain - 1; i >= 0; --i) {
-    if (i < ch.n_tags) {
-      idx[i] = g % static_cast<unsigned>(ch.count[i]);
-      g /= static_cast<unsigned>(ch.count[i]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kMaxChain; ++i)
-    if (i < ch.n_tags) fold_in(a, c, ch.base[i] + kTagStep * idx[i]);
+__global__ void __launch_bounds__(kMaxTileThreads)
+keyed_volume_uniforms_kernel(uint32_t k0, uint32_t k1, const long long* __restrict__ pixel,
+                             int R, uint32_t sample, VolumeMap mp, Tiling tl,
+                             float* __restrict__ out) {
+  keyed_tiles(mp, tl, k0, k1, pixel, static_cast<unsigned>(R), sample, out);
 }
 
-__global__ void __launch_bounds__(kThreads)
-keyed_chain_uniforms_kernel(uint32_t k0, uint32_t k1,
-                            const long long* __restrict__ index, int R,
-                            uint32_t sample, Chain ch, unsigned width,
+__global__ void __launch_bounds__(kRowMaxThreads)
+keyed_volume_rows_kernel(uint32_t k0, uint32_t k1, const long long* __restrict__ pixel, int R,
+                         uint32_t sample, VolumeMap mp, Tiling tl, float* __restrict__ out) {
+  keyed_rows(mp, tl, k0, k1, pixel, static_cast<unsigned>(R), sample, out);
+}
+
+__global__ void __launch_bounds__(kMaxTileThreads)
+keyed_chain_uniforms_kernel(uint32_t k0, uint32_t k1, const long long* __restrict__ index,
+                            int R, uint32_t sample, ChainMap mp, Tiling tl,
                             float* __restrict__ out) {
-  extern __shared__ float4 tiles[];  // kWarps tiles of kWarp × min(width, 48) floats
-  const unsigned lane = threadIdx.x % kWarp;
-  const unsigned warp = threadIdx.x / kWarp;
-  const unsigned base = (blockIdx.x * kWarps + warp) * kWarp;  // warp's first row
-  if (base >= static_cast<unsigned>(R)) return;  // the whole warp
-  const unsigned rows = min(static_cast<unsigned>(R) - base, static_cast<unsigned>(kWarp));
-  const bool live = lane < rows;
-  float* tile = reinterpret_cast<float*>(tiles)
-                + warp * kWarp * min(width, static_cast<unsigned>(kPassVolumeCols));
-  const unsigned lead = static_cast<unsigned>(ch.lead), n = static_cast<unsigned>(ch.n);
-  const unsigned used = static_cast<unsigned>(ch.used), drawn = static_cast<unsigned>(ch.drawn);
+  keyed_tiles(mp, tl, k0, k1, index, static_cast<unsigned>(R), sample, out);
+}
 
-  uint32_t a = k0, c = k1;  // the lane key: (index, sample)
-  if (live) {
-    fold_in(a, c, static_cast<uint32_t>(index[base + lane]));
-    fold_in(a, c, sample);
-  }
-  for (unsigned c0 = 0; c0 < width; c0 += kPassVolumeCols) {
-    const unsigned cols = min(width - c0, static_cast<unsigned>(kPassVolumeCols));
-    float* mine = tile + lane * cols;
-    if (live) {
-      uint32_t ga = 0u, gc = 0u;  // the current group's key
-      for (unsigned q = 0; q < cols; ++q) {
-        const unsigned col = c0 + q;
-        if (col < lead) {
-          mine[q] = 0.0f;
-          continue;
-        }
-        const unsigned g = (col - lead) / n, j = (col - lead) % n;
-        if (j == 0 || q == 0 || col == lead) {
-          ga = a;
-          gc = c;
-          chain_key(ga, gc, ch, g);
-        }
-        mine[q] = uniform_from_bits(bits_at(ga, gc, j / used * drawn + j % used));
-      }
-    }
-    __syncwarp();
-    copy_tile_out(tile, out, base, rows, cols, width, c0, lane);
-    __syncwarp();
-  }
+__global__ void __launch_bounds__(kRowMaxThreads)
+keyed_chain_rows_kernel(uint32_t k0, uint32_t k1, const long long* __restrict__ index, int R,
+                        uint32_t sample, ChainMap mp, Tiling tl, float* __restrict__ out) {
+  keyed_rows(mp, tl, k0, k1, index, static_cast<unsigned>(R), sample, out);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -747,6 +963,48 @@ struct LaunchAoUniforms {
   }
 };
 
+// the entry's checks of a wrapper's divisor: d = 0 with m = s = 0, or
+// d < 2^31 with Granlund and Montgomery's m and s
+bool divisor_ok(const Div& v) {
+  if (v.d == 0) return v.m == 0 && v.s == 0;
+  if (v.d >= (1u << 31)) return false;
+  uint32_t l = 0;
+  while ((1ull << l) < v.d) ++l;
+  return v.s == 31 + l && v.m == ((1ull << v.s) + v.d - 1) / v.d;
+}
+
+// a launch's grid (a block a band of rows; column tiles along y) and its
+// staged keys' bytes
+dim3 tile_grid(int R, const Tiling& tl) {
+  return dim3((R - 1) / tl.rows + 1, std::min(tl.col_tiles, 65535u));
+}
+
+size_t tile_bytes(const Tiling& tl) {
+  return tl.pass_rows ? 8ull * tl.rows * (1ull + tl.outer.d + tl.groups.d) : 0;
+}
+
+// the checks of a launch's tiling: its divisors, tiles that cover the row,
+// key slots for the most groups (and outer keys) any tile's columns meet,
+// staged keys within kMaxTileBytes and 32-bit indices
+bool tiling_ok(const Tiling& tl, long long width, long long groups, long long outers) {
+  if (!divisor_ok(tl.cols) || !divisor_ok(tl.outer) || !divisor_ok(tl.groups)) return false;
+  const long long cols = tl.cols.d, rows = tl.rows;
+  if (tl.width != width || cols < 1 || cols > width || (cols < width && cols > kMaxTileCols)
+      || tl.col_tiles != (width + cols - 1) / cols || rows < 1 || tl.outer.d < 1
+      || tl.groups.d < 1)
+    return false;
+  if ((tl.pass_rows && tl.groups.d < groups) || tl.outer.d < outers) return false;
+  if (tl.threads < 32 || tl.threads > kMaxTileThreads || tl.threads % 32
+      || (cols > tl.threads ? tl.pass_rows != 1 : tl.pass_rows * cols > tl.threads))
+    return false;
+  // keyed_rows (pass_rows 0): the whole row, its groups dealt to one thread
+  // or to one thread each, the block's rows times those within its threads
+  if (!tl.pass_rows && (tl.col_tiles != 1 || (tl.groups.d != 1 && tl.groups.d != groups)
+                        || rows * tl.groups.d > tl.threads || tl.threads > kRowMaxThreads))
+    return false;
+  return tile_bytes(tl) <= kMaxTileBytes && rows * cols < (1ll << 31);
+}
+
 }  // namespace
 
 extern "C" {
@@ -771,33 +1029,68 @@ int pbrt_torch_keyed_ao_uniforms(uint32_t k0, uint32_t k1, const long long* pixe
 
 int pbrt_torch_keyed_volume_uniforms(uint32_t k0, uint32_t k1, const long long* pixel,
                                      int R, uint32_t sample, int n_jitter, int single,
-                                     float* out, cudaStream_t stream) {
-  const int width = n_jitter + (single ? kVolumeSteps * kPerStep : 0);
-  if (R > 0 && width > 0)
-    keyed_volume_uniforms_kernel<<<(R - 1) / kThreads + 1, kThreads,
-                                   kThreads * min(width, kPassVolumeCols) * sizeof(float),
-                                   stream>>>(k0, k1, pixel, R, sample, n_jitter, single, out);
+                                     const uint32_t* tiling, int tiling_words, float* out,
+                                     cudaStream_t stream) {
+  Tiling tl;
+  if (n_jitter < 0 || tiling_words * 4 != static_cast<int>(sizeof(Tiling)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  std::memcpy(&tl, tiling, sizeof(Tiling));
+  const long long steps = single ? kVolumeSteps : 0;
+  const long long width = n_jitter + steps * kPerStep, groups = n_jitter + steps;
+  // a tile of c < width columns meets at most c + 1 groups (jitters, then steps of 3)
+  const long long met = tl.cols.d < width ? std::min(groups, tl.cols.d + 1ll) : groups;
+  if (static_cast<long long>(R) * width >= (1ll << 31)
+      || !tiling_ok(tl, width, met, (n_jitter > 0) + (steps > 0))
+      || (!tl.pass_rows && (steps || n_jitter > kRowUniforms)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const VolumeMap mp{static_cast<uint32_t>(n_jitter)};
+  if (R > 0 && tl.pass_rows)
+    keyed_volume_uniforms_kernel<<<tile_grid(R, tl), tl.threads, tile_bytes(tl), stream>>>(
+        k0, k1, pixel, R, sample, mp, tl, out);
+  else if (R > 0)
+    keyed_volume_rows_kernel<<<tile_grid(R, tl), tl.threads, 0, stream>>>(k0, k1, pixel, R,
+                                                                          sample, mp, tl, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 int pbrt_torch_keyed_chain_uniforms(uint32_t k0, uint32_t k1, const long long* index, int R,
-                                    uint32_t sample, int n_tags, uint32_t b0, uint32_t b1,
-                                    uint32_t b2, uint32_t b3, int c0, int c1, int c2, int c3,
-                                    int n, int used, int drawn, int lead, float* out,
+                                    uint32_t sample, const uint32_t* map, int map_words,
+                                    const uint32_t* tiling, int tiling_words, float* out,
                                     cudaStream_t stream) {
-  if (n_tags < 0 || n_tags > kMaxChain || n < 0 || used < 1 || drawn < used || lead < 0)
+  ChainMap mp;
+  Tiling tl;
+  if (map_words * 4 != static_cast<int>(sizeof(ChainMap))
+      || tiling_words * 4 != static_cast<int>(sizeof(Tiling)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Chain ch{n_tags, {b0, b1, b2, b3}, {c0, c1, c2, c3}, n, used, drawn, lead};
-  long long groups = 1;
-  for (int i = 0; i < n_tags; ++i) groups *= ch.count[i];
-  const long long width = lead + groups * n;
-  if (width >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  if (R > 0 && width > 0)
-    keyed_chain_uniforms_kernel<<<(R - 1) / kThreads + 1, kThreads,
-                                  kThreads * min(static_cast<int>(width), kPassVolumeCols)
-                                      * sizeof(float),
-                                  stream>>>(k0, k1, index, R, sample, ch,
-                                            static_cast<unsigned>(width), out);
+  std::memcpy(&mp, map, sizeof(ChainMap));
+  std::memcpy(&tl, tiling, sizeof(Tiling));
+  if (mp.n_outer > kMaxChain - 1 || mp.has_last > 1 || (mp.n_outer && !mp.has_last)
+      || !divisor_ok(mp.last) || mp.last.d < 1 || !divisor_ok(mp.n) || !divisor_ok(mp.used)
+      || mp.used.d < 1 || mp.drawn < mp.used.d)
+    return static_cast<int>(cudaErrorInvalidValue);
+  long long groups = mp.last.d;
+  for (uint32_t i = 0; i < mp.n_outer; ++i) {
+    if (!divisor_ok(mp.count[i]) || mp.count[i].d < 1) return static_cast<int>(cudaErrorInvalidValue);
+    groups *= mp.count[i].d;
+    if (groups >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long width = mp.lead + groups * mp.n.d;
+  // a tile of c < width columns meets at most (c - 1) / n + 2 groups
+  const long long met = mp.n.d == 0 ? 0
+                        : tl.cols.d < width ? std::min(groups, (tl.cols.d - 1ll) / mp.n.d + 2)
+                                            : groups;
+  const long long outers = met ? std::min(groups / mp.last.d, (met - 1) / mp.last.d + 2) : 0;
+  if (width >= (1ll << 31) || static_cast<long long>(R) * width >= (1ll << 31)
+      || !tiling_ok(tl, width, met, outers)
+      || (!tl.pass_rows && (mp.n_outer || mp.n.d < 1 || mp.n.d > kRowCols
+                            || groups * mp.n.d > kRowUniforms)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (R > 0 && tl.pass_rows)
+    keyed_chain_uniforms_kernel<<<tile_grid(R, tl), tl.threads, tile_bytes(tl), stream>>>(
+        k0, k1, index, R, sample, mp, tl, out);
+  else if (R > 0)
+    keyed_chain_rows_kernel<<<tile_grid(R, tl), tl.threads, 0, stream>>>(k0, k1, index, R,
+                                                                         sample, mp, tl, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -65,12 +65,13 @@ KERNEL_ENTRIES = {
                                       _vp, _vp],
         "pbrt_torch_keyed_ao_uniforms": [_u32, _u32, _vp, _vp, _ci, _u32, _ci, _ci, *_f5,
                                          _vp, _vp],
-        "pbrt_torch_keyed_volume_uniforms": [_u32, _u32, _vp, _ci, _u32, _ci, _ci, _vp, _vp],
+        "pbrt_torch_keyed_volume_uniforms": [_u32, _u32, _vp, _ci, _u32, _ci, _ci, _vp, _ci,
+                                             _vp, _vp],
         "pbrt_torch_keyed_scrambles": [_u32, _u32, _vp, _ci, _vp, _vp],
         "pbrt_torch_keyed_camera_normals": [_u32, _u32, _vp, _ci, _u32, _u32, _ci, _vp,
                                             _vp],
-        "pbrt_torch_keyed_chain_uniforms": [_u32, _u32, _vp, _ci, _u32, _ci] + [_u32] * 4
-        + [_ci] * 4 + [_ci] * 4 + [_vp, _vp],
+        "pbrt_torch_keyed_chain_uniforms": [_u32, _u32, _vp, _ci, _u32, _vp, _ci, _vp, _ci,
+                                            _vp, _vp],
         "pbrt_torch_mlt_mutate": [_u32] * 10 + [_vp, _ci, _ci, ctypes.c_float, ctypes.c_float,
                                   ctypes.c_float, _vp, _vp, _vp, _vp],
     },
@@ -98,6 +99,9 @@ KERNEL_SOURCES = tuple(KERNEL_ENTRIES)
 #: one lock per library, so different libraries build concurrently
 _locks = collections.defaultdict(threading.Lock)
 _libs: dict = {}
+#: (source, fmad, defines) → its loaded library: every wrapper asks for its
+#: library on every launch, so a hit is one dict lookup, no name, no lock
+_loaded: dict = {}
 #: compiler output of each library built in this process, by library name
 #: (for the kernels, ptxas' register / spill report)
 build_log: dict = {}
@@ -183,6 +187,10 @@ def kernel_lib(source: str, fmad: bool = False, defines: tuple = ()):
     versions by rounding. ``defines`` (macro names) build another copy
     with ``-D`` each, only to measure a variant the source offers (e.g.
     ``traverse_kd.cu``'s ``PBRT_KD_OTHER_WIDTH``)."""
+    key = (source, fmad, tuple(defines))
+    lib = _loaded.get(key)
+    if lib is not None:
+        return lib
     name = ("pbrt_torch_" + source.removesuffix(".cu") + ("_fmad" if fmad else "")
             + "".join("_" + d.lower() for d in defines))
     with _locks[name]:
@@ -195,4 +203,5 @@ def kernel_lib(source: str, fmad: bool = False, defines: tuple = ()):
                 fn.restype = ctypes.c_int
                 fn.argtypes = argtypes
             _libs[name] = lib
+        _loaded[key] = _libs[name]
         return _libs[name]

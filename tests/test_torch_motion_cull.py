@@ -17,6 +17,10 @@ package.
   Möller–Trumbore into FMAs, so the JAX side is held as
   ``test_torch_motion.py`` holds it (hit or miss equal, prims equal on ≥
   99% of hits, t rtol 1e-5).
+- Rays outside the easy part of the proof's cover: almost in the plane of
+  a moving triangle at the ray's weight (0°–0.1°) and from 10–1,000 C_T
+  away, aimed at its corners, edges and inside, closest and any hit: the
+  culled walk equals the union walk bit for bit.
 - Work: on a scene whose sweep exceeds its triangles' size the culled walk
   takes strictly fewer node and leaf steps.
 """
@@ -246,6 +250,112 @@ def test_tie_scene_bvh_motion_bit_equal_to_jax(scenes, any_hit):
     copies = (tp >= 0) & (tp < chip_smoke.TIE_COPIES)
     assert copies.sum() > 100 and len(set(tp[copies].tolist())) < chip_smoke.TIE_COPIES
     assert ((tp >= chip_smoke.TIE_COPIES) & (tp < T)).sum() > 100
+
+
+#: the angles between a grazing ray and the plane of the triangle it is
+#: aimed at, in degrees (0: in the plane, up to its float32 rounding)
+GRAZING_DEG = (0.0, 0.01, 0.03, 0.1)
+#: how far a far ray starts from its target, in multiples of the table's
+#: largest triangle coordinate C_T
+FAR_FACTORS = (10.0, 100.0, 1000.0)
+
+
+def _moving_tables(scenes, name):
+    """(rows, stack, motion rows, time boxes) as tensors and the moving
+    triangles' (v0, e1, e2, deltas) as float32 numpy, with C_T."""
+    if name == "soup":
+        w = soup_table()
+        tab = (torch.as_tensor(w.rows), w.max_stack, torch.as_tensor(w.motion_rows),
+               torch.as_tensor(w.time_boxes))
+        v0, e1, e2, dm = soup()
+    else:
+        g = scenes[name][1]
+        tab = (g.wide_rows, g.wide_stack, g.wide_motion, g.wide_tbox)
+        v0, e1, e2, dm = (x.numpy() for x in (g.tri_v0, g.tri_e1, g.tri_e2, g.tri_motion))
+    corners = np.concatenate([v0, v0 + e1, v0 + e2, v0 + dm[:, 0:3],
+                              v0 + dm[:, 0:3] + e1 + dm[:, 3:6], v0 + dm[:, 0:3] + e2 + dm[:, 6:9]])
+    moving = np.nonzero(np.abs(dm).max(1) > 0)[0]
+    return tab, (v0[moving], e1[moving], e2[moving], dm[moving]), float(np.abs(corners).max())
+
+
+def _aimed(tris, n, seed):
+    """n rays' targets: a random triangle of ``tris`` lerped in float32 at a
+    random weight (0 and 1 on the first lanes) as the leaf step lerps it,
+    and a point of it: by turns a corner (where the time boxes' faces lie,
+    so only their pad keeps a hit inside), a point on an edge and one
+    inside → (target (n, 3) f64, unit normal, a unit in-plane direction,
+    tw (n,) f32)."""
+    v0, e1, e2, dm = tris
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, v0.shape[0], n)
+    tw = rng.random(n, np.float32)
+    tw[:2] = (0.0, 1.0)
+    lerp = lambda a, da: (a[k] + tw[:, None] * da[k]).astype(np.float64)
+    lv0, le1, le2 = lerp(v0, dm[:, 0:3]), lerp(e1, dm[:, 3:6]), lerp(e2, dm[:, 6:9])
+    b = rng.dirichlet([2.0, 2.0, 2.0], n)
+    corner, edge = np.arange(n) % 3 == 0, np.arange(n) % 3 == 1
+    b[corner] = np.eye(3)[rng.integers(0, 3, int(corner.sum()))]
+    b[edge, rng.integers(0, 3, int(edge.sum()))] = 0.0
+    b /= b.sum(1, keepdims=True)
+    target = lv0 + b[:, 1:2] * le1 + b[:, 2:3] * le2
+    nrm = np.cross(le1, le2)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    u = rng.normal(size=(n, 3))
+    u -= (u * nrm).sum(1, keepdims=True) * nrm
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    return target, nrm, u, tw
+
+
+def _cut_both_ways(tab, o, d, tw):
+    """Closest hit, then any hit on segments cut at half or 1.5 times the
+    closest hit: the culled walk equals the union walk bit for bit on both.
+    → the closest hits' prims."""
+    u, c, _, _ = _walk_both(*tab, o, d, tw, False)
+    assert _bits(u, c)
+    R = o.shape[0]
+    tmax = torch.where(torch.isfinite(c[0]),
+                       c[0] * torch.where(torch.arange(R) % 2 == 1, 0.5, 1.5), 1e30).contiguous()
+    ua, ca, _, _ = _walk_both(*tab, o, d, tw, True, tmax)
+    assert _bits(ua, ca)
+    return c[1]
+
+
+@pytest.mark.parametrize("name", ["quad", "blob", "soup"])
+def test_culled_walk_equals_union_walk_grazing(scenes, name):
+    """Rays almost in the plane of a moving triangle at the ray's shutter
+    weight, 0°, 0.01°, 0.03° and 0.1° off it on either side, from 0.2 to 2
+    units before a corner, an edge point or an inner point of it (where
+    Möller–Trumbore accepts, if at all, only through its rounding): the
+    culled walk equals the union walk bit for bit, closest and any hit.
+    (With the pad set to 0 the quad's corner rays differ.)"""
+    tab, tris, _ = _moving_tables(scenes, name)
+    n = 1500
+    target, nrm, u, tw = _aimed(tris, n, 51)
+    rng = np.random.default_rng(52)
+    theta = np.radians(np.resize(GRAZING_DEG, n)) * rng.choice([-1.0, 1.0], n)
+    d = np.cos(theta)[:, None] * u + np.sin(theta)[:, None] * nrm
+    o = target - rng.uniform(0.2, 2.0, (n, 1)) * d
+    prim = _cut_both_ways(tab, torch.as_tensor(o.astype(np.float32)),
+                          torch.as_tensor(d.astype(np.float32)), torch.as_tensor(tw))
+    assert int((prim >= 0).sum()) > n // 10
+
+
+@pytest.mark.parametrize("name", ["quad", "blob", "soup"])
+def test_culled_walk_equals_union_walk_far_origins(scenes, name):
+    """Rays from 10, 100 and 1,000 times the table's largest coordinate C_T
+    away, aimed at a corner, an edge point or an inner point of a moving
+    triangle at the ray's shutter weight: the culled walk equals the union walk bit for bit, closest and
+    any hit."""
+    tab, tris, c_t = _moving_tables(scenes, name)
+    n = 1200
+    target, _, _, tw = _aimed(tris, n, 53)
+    rng = np.random.default_rng(54)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = target - (np.resize(FAR_FACTORS, n) * c_t)[:, None] * d
+    prim = _cut_both_ways(tab, torch.as_tensor(o.astype(np.float32)),
+                          torch.as_tensor(d.astype(np.float32)), torch.as_tensor(tw))
+    assert int((prim >= 0).sum()) > n // 10
 
 
 @pytest.mark.parametrize("name", ["blob", "soup"])

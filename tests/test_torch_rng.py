@@ -332,8 +332,10 @@ def test_camera_normals_kernel_constants_are_the_plain_versions():
 def test_sampler_and_volume_kernel_constants_are_the_plain_versions():
     """rng.cu's sampler codes, the media block's purpose tags, its march
     steps and uniforms per step, read as text, are ``core/rng.py``'s; the
-    volume kernel folds b·16 + VOLUME into the lane key for jitter b and
-    k·16 + LIGHT_SAMPLE into bounce 0's VOLUME key for step k."""
+    volume kernel's map folds g·16 + VOLUME into the lane key for jitter g
+    (one column, counter 0) and k·16 + LIGHT_SAMPLE into bounce 0's VOLUME
+    key (the lane key folded with VOLUME) for step k (3 columns, counters
+    0-2), and its entry sizes the block J + 32·3."""
     text = SOURCE.read_text()
     enum = re.search(r"enum : int \{(.*?)\};", text, re.S).group(1)
     codes = dict((k, int(v)) for k, v in re.findall(r"k(\w+) = (\d+)", enum))
@@ -344,11 +346,22 @@ def test_sampler_and_volume_kernel_constants_are_the_plain_versions():
     assert _cu_int("kLightSamplePurpose") == trng.LIGHT_SAMPLE == 2
     assert _cu_int("kVolumeSteps") == trng.VOLUME_STEPS == 32
     assert _cu_int("kPerStep") == trng.PER_VOLUME_STEP == 3
-    body = re.search(r"keyed_volume_uniforms_kernel\(.*?\n}\n", text, re.S).group(0)
-    assert "j * 16u + kVolumePurpose" in body and "fold_in(va, vc, kVolumePurpose)" in body
-    assert "step * 16u + kLightSamplePurpose" in body and "kBatchedTag" not in body
-    assert re.search(r"__global__ void __launch_bounds__\(kThreads\)\s+"
+    assert _cu_int("kTagStep") == 16
+    body = re.search(r"struct VolumeMap \{.*?\n\};\n", text, re.S).group(0)
+    assert "g * kTagStep + kVolumePurpose" in body and "if (o) fold_in(a, c, kVolumePurpose)" in body
+    assert "(g - jitters) * kTagStep + kLightSamplePurpose" in body
+    assert "jitters + (col - jitters) / kPerStep" in body and "kBatchedTag" not in body
+    assert "col = g < jitters ? g : jitters + (g - jitters) * kPerStep;" in body
+    assert "return g < jitters ? 1u : static_cast<unsigned>(kPerStep);" in body
+    assert "unsigned counter(unsigned, unsigned i) const { return i; }" in body
+    entry = re.search(r"int pbrt_torch_keyed_volume_uniforms\(.*?\n}\n", text, re.S).group(0)
+    assert "steps = single ? kVolumeSteps : 0" in entry
+    assert "width = n_jitter + steps * kPerStep" in entry
+    assert re.search(r"__global__ void __launch_bounds__\(kMaxTileThreads\)\s+"
                      r"keyed_volume_uniforms_kernel\(", text)
+    assert re.search(r"keyed_volume_uniforms_kernel\(.*?\{\s+keyed_tiles\(mp, tl,", text, re.S)
+    assert re.search(r"__global__ void __launch_bounds__\(kRowMaxThreads\)\s+"
+                     r"keyed_volume_rows_kernel\(.*?\{\s+keyed_rows\(mp, tl,", text, re.S)
 
 
 @pytest.mark.parametrize("sampler", ["halton", "bestcandidate", "random", "stratified"])
@@ -441,9 +454,296 @@ def test_chain_draws_layout_and_checks():
 
 
 def test_chain_kernel_constants_are_the_plain_versions():
-    """rng.cu's chain kernel takes at most ``MAX_CHAIN`` tags and steps a
-    varying tag by 16 (bounce_key's index · 16 + purpose), read as text."""
+    """rng.cu's chain kernel takes at most ``MAX_CHAIN`` tags (the outer
+    ones and the last) and steps a varying tag by 16 (bounce_key's index ·
+    16 + purpose), draws counter (i / used)·drawn + i mod used of a group's
+    column i, and the wrapper's map and tiling are the words its structs
+    hold, read as text."""
+    text = SOURCE.read_text()
     assert _cu_int("kMaxChain") == trng.MAX_CHAIN == 4
-    assert re.search(r"constexpr uint32_t kTagStep = 16u;", SOURCE.read_text())
-    body = re.search(r"keyed_chain_uniforms_kernel\(.*?\n}\n", SOURCE.read_text(), re.S).group(0)
-    assert "j / used * drawn + j % used" in body and "chain_key(ga, gc, ch, g)" in body
+    assert re.search(r"constexpr uint32_t kTagStep = 16u;", text)
+    assert _cu_int("kMaxTileThreads") == trng.TILE_MAX_THREADS
+    assert _cu_int("kMaxTileCols") == trng.TILE_MAX_COLS
+    assert re.search(r"constexpr unsigned kMaxTileBytes = 48u \* 1024u;", text)
+    assert trng.TILE_MAX_BYTES == 48 * 1024
+    body = re.search(r"struct ChainMap \{.*?\n\};\n", text, re.S).group(0)
+    assert "uint32_t base[kMaxChain - 1];" in body and "Div count[kMaxChain - 1];" in body
+    assert "fold_in(a, c, base[i] + kTagStep * idx[i])" in body
+    assert "fold_in(a, c, last_base + kTagStep * (g - outer_of(g) * last.d))" in body
+    assert "ctr = counter(g, j - g * n.d);" in body
+    assert "const unsigned b = div_by(i, used);" in body
+    assert "return b * drawn + (i - b * used.d);" in body
+    # the structs' words, in the order the wrapper packs them
+    def words(name):
+        body = re.search(rf"struct {name} \{{(.*?)\n}};", text, re.S).group(1)
+        decls = re.findall(r"^\s*(uint32_t|Div) ([^;(]+);", body.split("__device__")[0], re.M)
+        return sum((3 if kind == "Div" else 1) * (MAX_CHAIN_OUTER if "[kMaxChain - 1]" in v
+                                                  else 1)
+                   for kind, names in decls for v in names.split(","))
+    assert words("Tiling") == 14 == trng.volume_tiling(7, 5, True).size
+    assert words("ChainMap") == 26 == trng.chain_map(((3, 2),), 1, 1, 1, 0).size
+    assert re.search(r"__global__ void __launch_bounds__\(kMaxTileThreads\)\s+"
+                     r"keyed_chain_uniforms_kernel\(", text)
+    assert re.search(r"__global__ void __launch_bounds__\(kRowMaxThreads\)\s+"
+                     r"keyed_chain_rows_kernel\(.*?\{\s+keyed_rows\(mp, tl,", text, re.S)
+
+
+MAX_CHAIN_OUTER = trng.MAX_CHAIN - 1
+
+
+def div_by(x, div):
+    """x // d by the kernel's multiply and shift, x a uint64 numpy array
+    (or int) below 2**31."""
+    _, m, s = div
+    return (np.asarray(x, np.uint64) * np.uint64(m)) >> np.uint64(s)
+
+
+def tile_plan(tiling, kind: str, mp):
+    """``csrc/rng.cu``'s tiled kernels' arithmetic on a launch's constants,
+    in numpy: ``kind`` "chain" (``mp`` the ``chain_map`` words) or "volume"
+    (``mp`` (J, single)). Per column of the row (the same for every band
+    of rows): ``zero`` (a lead column), ``ctr`` (the uniform's counter),
+    ``tags`` ((width, k) int64: the tags its key folds into the lane key,
+    in order; −1 pads a chain's shorter ones); ``slots_ok``: every tile's
+    group and outer keys inside the tile row's slots; ``covers_once``: the
+    block's threads, stepping as the kernel steps them, store each element
+    of the first tile once; ``tiling``, the words as ints."""
+    t = [int(w) for w in tiling]
+    width, rows, col_tiles, threads, pass_rows = t[0:5]
+    cols, outer_div, groups_div = tuple(t[5:8]), tuple(t[8:11]), tuple(t[11:14])
+    col = np.arange(width, dtype=np.uint64)
+    if kind == "volume":
+        J, single = int(mp[0]), bool(mp[1])
+        step = (col.astype(np.int64) - J) // trng.PER_VOLUME_STEP
+        g = np.where(col < J, col.astype(np.int64), J + step)
+        zero = np.zeros(width, bool)
+        ctr = np.where(col < J, 0, col.astype(np.int64) - J - step * trng.PER_VOLUME_STEP)
+        outer_of = lambda gg: (np.asarray(gg) >= J).astype(np.int64)
+        tags = np.stack([np.where(col < J, col.astype(np.int64) * 16 + trng.VOLUME, trng.VOLUME),
+                         np.where(col < J, -1, step * 16 + trng.LIGHT_SAMPLE)], -1)
+    else:
+        w = [int(x) for x in mp]
+        n_outer, has_last, lead, drawn = w[0:4]
+        base = w[4:4 + trng.MAX_CHAIN - 1]
+        counts = [tuple(w[7 + 3 * i:10 + 3 * i]) for i in range(trng.MAX_CHAIN - 1)]
+        last_base, last, n, used = w[16], tuple(w[17:20]), tuple(w[20:23]), tuple(w[23:26])
+        zero = col < lead
+        j = np.where(zero, 0, col - np.uint64(lead)).astype(np.uint64)
+        g = div_by(j, n) if n[0] else np.zeros(width, np.uint64)
+        i = j - g * np.uint64(n[0])
+        b = div_by(i, used)
+        ctr = (b * np.uint64(drawn) + (i - b * np.uint64(used[0]))).astype(np.int64)
+        outer_of = lambda gg: div_by(gg, last).astype(np.int64)
+        o = div_by(g, last)
+        digits = []
+        for k in range(n_outer - 1, -1, -1):
+            q = div_by(o, counts[k])
+            digits.insert(0, o - q * np.uint64(counts[k][0]))
+            o = q
+        cols_tags = [np.int64(base[k]) + 16 * digits[k].astype(np.int64) for k in range(n_outer)]
+        if has_last:
+            cols_tags.append(last_base + 16 * (g - div_by(g, last) * np.uint64(last[0]))
+                             .astype(np.int64))
+        tags = (np.stack(cols_tags, -1) if cols_tags else np.zeros((width, 0), np.int64))
+        tags = np.where(zero[:, None], -1, tags)
+        g = g.astype(np.int64)
+    ok = True
+    for tile in range(col_tiles):
+        c0, c1 = tile * cols[0], min((tile + 1) * cols[0], width)
+        live = ~zero[c0:c1]
+        if live.any():
+            gg = g[c0:c1][live]
+            g0, g1 = int(gg.min()), int(gg.max()) + 1
+            o0 = int(outer_of(g0))
+            ok &= not pass_rows or g1 - g0 <= groups_div[0]  # keyed_rows stages no key
+            ok &= int(outer_of(g1 - 1)) + 1 - o0 <= outer_div[0]
+    # each thread's (row, column) elements of a full tile, as the kernel
+    # steps them: every element of the tile once
+    hits = np.zeros((rows, cols[0]), np.int64)
+    small = kind == "volume" or n[0] == 1  # a group's key and its uniforms one thread's
+    if pass_rows and small:  # a thread a (row, group): the group's columns in the tile
+        live = ~zero[:cols[0]]
+        hits[:, ~live] += 1  # the lead's zeros, a thread a (row, column)
+        for gg in np.unique(g[:cols[0]][live]):
+            hits[:, (g[:cols[0]] == gg) & live] += 1
+    for th in range(threads * (not (pass_rows and small))):
+        if not pass_rows:  # keyed_rows: its row's groups s, s + slots, …; s 0 the zeros
+            rr, s_ = divmod(th, groups_div[0])
+            if rr < rows:
+                hits[rr, np.where(zero, s_ == 0, g % groups_div[0] == s_)] += 1
+            continue
+        if cols[0] > threads:
+            r_first, step, qs = 0, 1, range(th, cols[0], threads)
+        else:
+            r_first, step = int(div_by(th, cols)), pass_rows
+            qs = [th - r_first * cols[0]] if r_first < step else []
+        for q in qs:
+            hits[r_first::step, q] += 1
+    return dict(tiling=t, zero=zero, ctr=ctr, tags=tags, slots_ok=bool(ok),
+                covers_once=bool((hits == 1).all()))
+
+
+#: every shape the integrators call (name → chain_uniforms keywords, or the
+#: volume block's (J, single)), shortest to widest, and ragged ones
+TILE_SHAPES = {
+    "volume emission": (5, False),
+    "cache directions": dict(chain=[(100 * 16 + trng.BSDF_SAMPLE, 4)], n=2),
+    "AO directions": dict(chain=[(trng.BSDF_SAMPLE, 4)], n=2, lead=trng.CAMERA_DIMS),
+    "cache jitters": dict(chain=[(416 * 16 + trng.CAMERA, 4), (trng.VOLUME, 5)]),
+    "VPL picks": dict(chain=[(trng.PHOTON, 5), (trng.PHOTON, 8)]),
+    "bounce block": dict(chain=[trng.BATCHED], n=35, used=7, drawn=8, lead=trng.CAMERA_DIMS),
+    "volume single": (5, True),
+    "nested blocks": dict(chain=[(416 * 16 + trng.CAMERA, 4), trng.BATCHED], n=35, used=7,
+                          drawn=8, lead=5),
+    "glossyprt": dict(chain=[(trng.BSDF_SAMPLE, 64)], n=3),
+    "cache steps": dict(chain=[(416 * 16 + trng.CAMERA, 4), trng.VOLUME,
+                               (trng.LIGHT_SAMPLE, 32)], n=3),
+    "volume jitters only, wide": (1500, False),
+    "volume single, 1 jitter": (1, True),
+    "volume steps only": (0, True),
+    "no tag": dict(n=5),
+    "ragged": dict(chain=[3, (7, 3), 11, (2**32 - 33, 3)], n=9, used=4, drawn=6, lead=2),
+    "lead only": dict(chain=[(5, 2)], n=0, used=1, lead=3),
+    "one column a group, wide": dict(chain=[(trng.PHOTON, 1300)]),
+    "two varying, 7 of 8": dict(chain=[(9, 5), (12, 6)], n=23, used=7, drawn=8, lead=1),
+    "a row a thread": dict(chain=[(9, 6)], lead=2),
+    "a row a thread, 2 a group, 1 of 5": dict(chain=[(9, 3)], n=2, used=1, drawn=5, lead=1),
+}
+
+
+def _plan(name, R, max_cols=None, monkeypatch=None):
+    """(tile_plan of the shape's launch on R rows, the plain layout: per
+    column the tags its key folds and its counter, −1 padding)."""
+    if max_cols is not None:
+        monkeypatch.setattr(trng, "TILE_MAX_COLS", max_cols)
+    spec = TILE_SHAPES[name]
+    if isinstance(spec, tuple):
+        J, single = spec
+        plan = tile_plan(trng.volume_tiling(R, J, single), "volume", spec)
+        tags = [[16 * b + trng.VOLUME, -1] for b in range(J)]
+        tags += [[trng.VOLUME, 16 * k + trng.LIGHT_SAMPLE] for k in range(32 * single)
+                 for _ in range(3)]
+        ctr = [0] * J + [c for _ in range(32 * single) for c in range(3)]
+        return plan, np.array(tags, np.int64).reshape(-1, 2), np.array(ctr)
+    kw = dict(spec)
+    tags = trng._chain_tags(kw.pop("chain", ()))
+    n, lead = kw.get("n", 1), kw.get("lead", 0)
+    used, drawn = trng._chain_counters(n, kw.get("used"), kw.get("drawn"))
+    plan = tile_plan(trng.chain_tiling(R, tags, n, lead), "chain",
+                          trng.chain_map(tags, n, used, drawn, lead))
+    counts = [c for _, c in tags]
+    G = int(np.prod(counts)) if tags else 1
+    ref_tags = np.full((lead + G * n, len(tags)), -1, np.int64)
+    ref_ctr = np.zeros(lead + G * n, np.int64)
+    for col in range(lead, lead + G * n):
+        g, j = divmod(col - lead, n)
+        digits = np.unravel_index(g, counts) if tags else ()
+        ref_tags[col] = [b + 16 * int(i) for (b, _), i in zip(tags, digits)]
+        ref_ctr[col] = j // used * drawn + j % used
+    return plan, ref_tags, ref_ctr
+
+
+@pytest.mark.parametrize("max_cols", [None, 7, 64])
+@pytest.mark.parametrize("name", list(TILE_SHAPES))
+def test_tile_map_is_the_plain_layout(name, max_cols, monkeypatch):
+    """The host's constants (``volume_tiling``, ``chain_map``,
+    ``chain_tiling``) under the kernels' multiply-shift arithmetic
+    (``tile_plan``) give every column the plain version's key (its tags,
+    the groups in row-major order) and counter ((j // used)·drawn + j mod
+    used), lead columns zero, on every shape the integrators call and
+    ragged ones, a row in one tile and cut into tiles of 7 and 64 columns;
+    every tile's groups and outer keys fit its slots, and the block's
+    threads store each element of a tile once."""
+    for R in (32768, 4093, 7, 1):
+        plan, tags, ctr = _plan(name, R, max_cols, monkeypatch)
+        live = ~plan["zero"]
+        assert plan["tags"].shape == tags.shape
+        np.testing.assert_array_equal(plan["tags"][live], tags[live])
+        np.testing.assert_array_equal(plan["ctr"][live], ctr[live])
+        assert not plan["zero"][TILE_SHAPES[name].get("lead", 0):].any() \
+            if isinstance(TILE_SHAPES[name], dict) else not plan["zero"].any()
+        assert plan["slots_ok"] and plan["covers_once"]
+        # the entry's checks of the tiling (csrc/rng.cu tiling_ok)
+        tl = plan["tiling"]
+        width, rows, col_tiles, threads, k, cols = tl[:6]
+        assert 32 <= threads <= trng.TILE_MAX_THREADS and threads % 32 == 0
+        if k == 0:  # keyed_rows: a few uniforms in narrow groups, outer key the lane key
+            assert col_tiles == 1 and (plan["tags"] >= 0).sum(1).max() <= 1
+            assert threads <= trng.ROW_MAX_THREADS == _cu_int("kRowMaxThreads")
+            assert live.sum() <= trng.ROW_UNIFORMS == _cu_int("kRowUniforms")
+            _, per_group = np.unique(plan["tags"][live], axis=0, return_counts=True)
+            assert per_group.max() <= trng.ROW_COLS == _cu_int("kRowCols")
+            # a thread a row where a group is one uniform, else a thread a group
+            slots = tl[11]
+            assert slots == (1 if per_group.max() == 1 else per_group.size)
+            assert rows * slots <= threads < rows * slots + 32
+        else:
+            assert (k == 1) if cols > threads else k * cols <= threads
+        assert col_tiles == -(-width // cols) and 1 <= cols <= width
+        assert cols == width or cols <= trng.TILE_MAX_COLS
+        assert rows >= 1 and 8 * rows * (1 + tl[8] + tl[11]) * (k > 0) <= trng.TILE_MAX_BYTES
+
+
+@pytest.mark.parametrize("name", ["AO directions", "a row a thread, 2 a group, 1 of 5",
+                                  "cache jitters", "VPL picks",
+                                  "bounce block", "nested blocks", "ragged", "volume single",
+                                  "volume steps only"])
+def test_tile_map_draws_the_plain_bits(name):
+    """The uniforms the kernels' map draws (each column's tags folded into
+    the (index, sample) lane key in order, then its counter) equal the
+    plain version's bit for bit, indices at and above 2**31 included."""
+    root, idx = trng.root_key(7), torch.as_tensor(PIXELS)
+    plan, _, _ = _plan(name, len(PIXELS))
+    keys = trng.pixel_sample_key(root, idx, 2**31 + 1)[:, None, :].expand(-1, plan["ctr"].size,
+                                                                          -1)
+    for k in range(plan["tags"].shape[1]):
+        tag = torch.as_tensor(plan["tags"][:, k])
+        keys = torch.where((tag >= 0)[None, :, None], trng.fold_in(keys, tag.clamp(min=0)), keys)
+    k0, k1 = keys[..., 0], keys[..., 1]
+    c = torch.as_tensor(plan["ctr"]).expand_as(k0)
+    y0, y1 = trng.threefry2x32(k0, k1, torch.zeros_like(c), c)
+    out = torch.where(torch.as_tensor(plan["zero"])[None], 0.0, trng._to_uniform(y0 ^ y1))
+    spec = TILE_SHAPES[name]
+    ref = (trng.volume_uniforms_plain(root, idx, 2**31 + 1, *spec) if isinstance(spec, tuple)
+           else trng.chain_uniforms_plain(root, idx, 2**31 + 1, **spec))
+    _same_floats(out.numpy(), ref.numpy())
+
+
+def test_launch_words_are_memoised():
+    """The wrappers' per-launch words (``volume_words``, ``chain_words``)
+    are computed once per launch shape: a second call returns the same
+    tuple, whose (address, size) pairs are those of read-only arrays equal
+    to ``volume_tiling``'s, ``chain_map``'s and ``chain_tiling``'s words
+    computed afresh."""
+    tags = trng._chain_tags([(trng.BSDF_SAMPLE, 4)])
+    for memo, args, fresh in (
+            (trng.volume_words, (32768, 5, False, 132), [trng.volume_tiling(32768, 5, False, 132)]),
+            (trng.chain_words, (32768, tags, 2, 2, 2, 5, 132),
+             [trng.chain_map(tags, 2, 2, 2, 5), trng.chain_tiling(32768, tags, 2, 5, 132)])):
+        words, arrays = memo(*args)
+        assert memo(*args) is memo(*args)
+        assert words == tuple(v for a in arrays for v in (a.ctypes.data, a.size))
+        for a, b in zip(arrays, fresh, strict=True):
+            np.testing.assert_array_equal(a, b)
+            with pytest.raises(ValueError):
+                a[0] = 1
+
+
+def test_divisor_is_exact():
+    """``divisor``'s multiply and shift is x // d for every x < 2**31: d
+    from 1 to 1,100, near powers of two up to 2**31 − 1, against x at 0,
+    d·k ± 1 and 2**31 − 1 and 20,000 random x; it refuses d ≥ 2**31."""
+    rng_ = np.random.default_rng(5)
+    ds = list(range(1, 1101)) + [2**k + e for k in range(11, 31) for e in (-1, 0, 1)]
+    ds += [2**31 - 1] + rng_.integers(1, 2**31, 200).tolist()
+    xs = np.concatenate([rng_.integers(0, 2**31, 20000), [0, 1, 2**31 - 1, 2**30]])
+    for d in ds:
+        dv = trng.divisor(d)
+        assert dv[1] < 2**32 and 31 <= dv[2] <= 62
+        near = np.clip(np.array([d - 1, d, d + 1, 3 * d - 1, 3 * d, 2**31 - 1 - d]), 0,
+                       2**31 - 1)
+        x = np.concatenate([xs, near]).astype(np.uint64)
+        np.testing.assert_array_equal(div_by(x, dv), x // np.uint64(d))
+    assert trng.divisor(0) == (0, 0, 0)
+    with pytest.raises(ValueError):
+        trng.divisor(2**31)
