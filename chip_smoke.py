@@ -663,7 +663,7 @@ def lens_phase(dev, drive, profile_frame, card_vs_cpu, data_dir):
     from pbrt_torch.renderers.spectral import render_spectral, spectral_options, spectral_wave
     from pbrt_torch.scene.api import load_scene_string
     from pbrt_torch.scene.builder import build
-    from pbrt_torch.utils import timing
+    from pbrt_torch.utils import native
     from pbrt_torch.utils.timing import cuda_ms
 
     sync = torch.cuda.synchronize
@@ -777,7 +777,8 @@ def lens_phase(dev, drive, profile_frame, card_vs_cpu, data_dir):
                                      + [(pix_all, 0, rng.IDEAL_NOISE_TAG, 1)]
                                      + [(pix_wrap[:n].contiguous(), 3, tag0_, t_)
                                         for n in (1, 7, 4093)
-                                        for tag0_, t_ in ((1000, 11), (2000, 1), (1000, 17))]):
+                                        for tag0_, t_ in ((1000, 11), (2000, 1), (1000, 17),
+                                                          (2**32 - 33, 33))]):
         kn = rng.camera_normals(root, p_, sample, tag0, n_tags)
         pn = rng.camera_normals_plain(root, p_, sample, tag0, n_tags)
         if not torch.equal(kn.view(torch.int32), pn.view(torch.int32)):
@@ -789,23 +790,18 @@ def lens_phase(dev, drive, profile_frame, card_vs_cpu, data_dir):
     sync()
     log("rng", f"keyed_camera_normals vs plain: {n_cases} cases ({N_LANES} lanes x 11 tags at "
         f"samples 0, 3, 2**31 + 1, and the ideal camera's tag; 1, 7 and 4,093 lanes with pixel "
-        f"indices up to 2**32 - 1 at 1, 11 and 17 tags): equal bit for bit; on {N_LANES} "
+        f"indices up to 2**32 - 1 at 1, 11, 17 and 33 tags): equal bit for bit; on {N_LANES} "
         f"lanes mean {float(big.double().mean()):.5f}, std {float(big.double().std()):.5f}, "
         f"range [{float(big.min()):.3f}, {float(big.max()):.3f}]")
     del big
-    pix_c = pix_all[:CHUNK].contiguous()
-    nt = timing.queued_rounds(
-        lambda: rng.camera_normals(root, pix_c, 1, rng.REALISTIC_NOISE_TAG, NORMAL_TAGS),
-        RNG_ROUNDS)
-    n_plain = cuda_ms(lambda: rng.camera_normals_plain(root, pix_c, 1, rng.REALISTIC_NOISE_TAG,
-                                                       NORMAL_TAGS), n=5, warm=1)
-    n_bound, n_by = timing.bound_ms(
-        CHUNK * (8 + 4 * 2 * NORMAL_TAGS), f32_ops=CHUNK * NORMAL_TAGS * 2 * OPS_NORMAL_F32,
-        i32_ops=CHUNK * (OPS_NORMALS_LANE_KEY + NORMAL_TAGS * OPS_PER_NORMAL_TAG))
-    log("timing", f"keyed_camera_normals on {CHUNK} lanes x {NORMAL_TAGS} tags: median "
-        f"{nt['ms']:.5f} ms over {RNG_ROUNDS} rounds ({nt['min']:.5f}–{nt['max']:.5f}; plain "
-        f"{n_plain:.3f} ms, host enqueue {nt['host_ms']:.4f} ms); bound {n_bound:.5f} ms "
-        f"({n_by}), kernel / bound {nt['ms'] / n_bound:.2f}x")
+    lib = native.kernel_lib("rng.cu")
+    timed_n = {}
+    for label in NORMALS_TIMED:
+        case = rng_timed_case(label, dev)
+        timed_n[label] = dict(case=case, **rng_case_timed(case, lib))
+    main_n = timed_n["32,768 x 11"]
+    n_plain = cuda_ms(main_n["case"]["plain"], n=5, warm=1)
+    nt, n_bound, n_by = main_n, main_n["bound_ms"], main_n["bound_by"]
 
     # ---- (b) the schematic eye, the sampler renderer ----------------------
     t0 = time.time()
@@ -2688,8 +2684,15 @@ MLT_RENDERER = 'Renderer "metropolis" "integer samplesperpixel" [2]'
 PROBE_SPACING = 250
 #: the mutation kernel's shapes: bidirectional MLT at depth 5 (16,384 × 60),
 #: the ragged ones, and the bootstrap's large-only block
-MUTATE_SHAPES = ((16384, 60), (1, 60), (7, 1), (4093, 61), (4093, 1), (7, 61))
+MUTATE_SHAPES = ((16384, 60), (1, 60), (7, 1), (4093, 61), (4093, 1), (7, 61), (16384, 40),
+                 (4093, 65), (4093, 40))
 BOOTSTRAP_SHAPE = (100000, 60)
+#: the large-only mode's other shapes: the PRT projection's and the probes'
+#: directions, and ragged totals at 1 and 4 counters a thread
+FLAT_SHAPES = ((4096, 2), (100001, 7), (100003, 11), (1, 3))
+#: u values at the mutation wrap's edges and outside [0, 1) (fmodf's range)
+MUTATE_WRAP_EDGES = (0.0, 1.0 - 2**-24, 2**-24, 1 / 16, 1 - 1 / 16, 1 / 1024, 0.5, -0.5, 1.5,
+                     2.0, -1.0, 3.25, -3.25, -0.0, 1.0, 0.0625 + 2**-24, 0.9375 - 2**-24)
 #: per small-step element, float32 operations: the exponent's product, expf
 #: (counted 8), s2 ·, the sign's product and the sum, fmodf (counted 4) and
 #: the wrap's compare and add
@@ -2762,7 +2765,7 @@ def prt_mlt_phase(dev, data_dir, drive, profile_frame, card_vs_cpu, agree):
     from pbrt_torch.scene import builder
     from pbrt_torch.scene.api import load_scene_string
     from pbrt_torch.scene.builder import build
-    from pbrt_torch.utils import timing
+    from pbrt_torch.utils import native
     from pbrt_torch.utils.timing import cuda_ms
 
     sync = torch.cuda.synchronize
@@ -2801,8 +2804,11 @@ def prt_mlt_phase(dev, data_dir, drive, profile_frame, card_vs_cpu, agree):
     gen.manual_seed(16)
     rng.reset_launches()
     n_cases, err_mut = 0, 0.0
+    edges = torch.tensor(MUTATE_WRAP_EDGES, dtype=torch.float32, device=dev)
     for N, D in MUTATE_SHAPES:
         u = torch.rand((N, D), generator=gen, device=dev)
+        n_e = min(N * D, edges.numel())
+        u.view(-1)[:n_e] = edges[:n_e]
         for it, p_large in ((0, 0.25), (31, 0.25), (7, 1.0), (2**20, 0.0)):
             keys = rng.mutate_keys(rng.fold_in(rng.root_key(N), 1000 + it))
             k_ = rng.mutate(u, keys, p_large)
@@ -2815,33 +2821,26 @@ def prt_mlt_phase(dev, data_dir, drive, profile_frame, card_vs_cpu, agree):
             err_mut = max(err_mut, float((k_[0] - p_[0]).abs().max()))
             n_cases += 1
     kb = rng.fold_in(rng.root_key(0), tm.BOOTSTRAP_TAG)
-    fb = rng.flat_uniforms(kb, *BOOTSTRAP_SHAPE, dev)
-    if not torch.equal(fb.view(torch.int32),
-                       rng.flat_uniforms_plain(kb, *BOOTSTRAP_SHAPE, dev).view(torch.int32)):
-        raise SystemExit("mlt_mutate's large-only mode disagrees with flat_uniforms_plain on "
-                         "the bootstrap's block")
+    for n, d in (BOOTSTRAP_SHAPE,) + FLAT_SHAPES:
+        fb = rng.flat_uniforms(kb, n, d, dev)
+        if not torch.equal(fb.view(torch.int32),
+                           rng.flat_uniforms_plain(kb, n, d, dev).view(torch.int32)):
+            raise SystemExit(f"mlt_mutate's large-only mode disagrees with flat_uniforms_plain "
+                             f"on {n} x {d}")
     sync()
     log("rng", f"mlt_mutate vs mutate_plain: {n_cases} cases ({MUTATE_SHAPES} chains x "
-        f"dimensions, large-step probabilities .25, 1, 0): u', is_large and the accept "
-        f"uniforms equal bit for bit; its large-only mode on the bootstrap's "
-        f"{BOOTSTRAP_SHAPE[0]} x {BOOTSTRAP_SHAPE[1]}: equal bit for bit")
-    N, D = MUTATE_SHAPES[0]
-    u = torch.rand((N, D), generator=gen, device=dev)
-    keys = rng.mutate_keys(rng.fold_in(rng.root_key(0), 1005))
-    tq = timing.queued_rounds(lambda: rng.mutate(u, keys, 0.25), RNG_ROUNDS)
-    plain_ms = cuda_ms(lambda: rng.mutate_plain(u, keys, 0.25), n=3, warm=1)
-    n_large = int(rng.mutate(u, keys, 0.25)[1].sum())
-    n_small = N - n_large
-    m_bound, m_by = timing.bound_ms(
-        8 * N * D + 5 * N,
-        f32_ops=n_small * D * OPS_MUTATE_SMALL_F32 + N * OPS_MUTATE_CHAIN_F32,
-        i32_ops=(n_large * D + 2 * n_small * D + 2 * N) * OPS_PER_UNIFORM)
-    log("timing", f"mlt_mutate on {N} chains x {D} dimensions ({n_large} large steps): median "
-        f"{tq['ms']:.5f} ms over {RNG_ROUNDS} rounds ({tq['min']:.5f}–{tq['max']:.5f}; plain "
-        f"{plain_ms:.3f} ms, host enqueue {tq['host_ms']:.4f} ms); bound {m_bound:.5f} ms "
-        f"({m_by}: {n_large} x {D} + 2 x {n_small} x {D} + 2 x {N} hashes of "
-        f"{OPS_PER_UNIFORM} integer operations; {8 * N * D + 5 * N} bytes), kernel / bound "
-        f"{tq['ms'] / m_bound:.2f}x")
+        f"dimensions, u at the wrap's edges and outside [0, 1), large-step probabilities .25, "
+        f"1, 0): u', is_large and the accept uniforms equal bit for bit; its large-only mode on "
+        f"the bootstrap's {BOOTSTRAP_SHAPE[0]} x {BOOTSTRAP_SHAPE[1]} and on {FLAT_SHAPES} (1 "
+        f"and 4 counters a thread): equal bit for bit")
+    lib = native.kernel_lib("rng.cu")
+    timed_m = {}
+    for label in MUTATE_TIMED:
+        case = rng_timed_case(label, dev)
+        timed_m[label] = dict(case=case, **rng_case_timed(case, lib))
+    tq = timed_m["16,384 x 60, p_large .25"]
+    plain_ms = cuda_ms(tq["case"]["plain"], n=3, warm=1)
+    m_bound, m_by = tq["bound_ms"], tq["bound_by"]
 
     # ---- (b) killeroo under the Metropolis renderer ----------------------
     mlt_launches = 0
@@ -3901,6 +3900,186 @@ def keyed_key_hashes(R: int, kind: str, **kw) -> tuple:
     outers = G // tags[-1][1] if tags else 1
     group = G if tags else 0
     return R * (2 + outers * max(len(tags) - 1, 0) + group), R * group
+
+
+#: the mutation kernel's timed shapes: label → (chains, dimensions,
+#: p_large), or ("flat", n, d) for its large-only mode (the bootstrap's
+#: block; the PRT projection's and the probes' directions)
+MUTATE_TIMED = {
+    "16,384 x 60, p_large .25": (16384, 60, 0.25),
+    "16,384 x 60, p_large 1": (16384, 60, 1.0),
+    "16,384 x 60, p_large 0": (16384, 60, 0.0),
+    "16,384 x 40, p_large .25": (16384, 40, 0.25),
+    "large-only 100,000 x 60": ("flat", 100000, 60),
+    "large-only 4,096 x 2": ("flat", 4096, 2),
+}
+#: the normals' timed shapes: label → (lanes, tags)
+NORMALS_TIMED = {
+    "32,768 x 11": (32768, 11),
+    "32,768 x 1": (32768, 1),
+    "4,096 x 11": (4096, 11),
+}
+
+
+def sass_hash_loops(lib_path: str, kernel: str) -> dict:
+    """SASS of one kernel function (``kernel`` a substring of its name):
+    each loop (a backward ``BRA`` and the code between its target and it)
+    less the loops inside it, and the code outside every loop (``rest``)
+    and the whole function (``total``), each as instructions (``n``),
+    hashes (``hashes``: its SHF.L.W rotations / 20), ``STG``, ``STS`` and
+    ``EX2`` (MUFU.EX2, expf's) counts."""
+    import re
+
+    fns = [v for k, v in _sass_functions(lib_path).items() if kernel in k]
+    if len(fns) != 1:
+        raise SystemExit(f"sass_hash_loops: {len(fns)} functions named like {kernel}")
+    ins = fns[0]
+    spans = sorted({(int(re.search(r"0x([0-9a-f]+)", rest).group(1), 16), a)
+                    for a, _, op, rest in ins
+                    if op.startswith("BRA") and re.search(r"0x[0-9a-f]+", rest)})
+    spans = [(t, a) for t, a in spans if t < a]
+
+    def stats(body):
+        has = lambda pre: sum(x[2].startswith(pre) for x in body)
+        return dict(n=len(body), hashes=has("SHF.L.W") / 20, STG=has("STG"), STS=has("STS"),
+                    EX2=has("MUFU.EX2"))
+
+    loops = []
+    for t, a in spans:
+        inner = [(t2, a2) for t2, a2 in spans if (t2, a2) != (t, a) and t <= t2 and a2 <= a]
+        loops.append(stats([x for x in ins if t <= x[0] <= a
+                            and not any(t2 <= x[0] <= a2 for t2, a2 in inner)]))
+    return dict(loops=loops, total=stats(ins),
+                rest=stats([x for x in ins if not any(t <= x[0] <= a for t, a in spans)]))
+
+
+def rng_timed_case(label: str, dev) -> dict:
+    """A timed shape of ``mlt_mutate`` or ``keyed_camera_normals``
+    (``MUTATE_TIMED``, ``NORMALS_TIMED``) on ``dev``, its inputs from a
+    seed: ``run(mod)`` launches it through a module's wrappers (this tree's
+    ``rng``, or an earlier tree's), ``equal(out)`` holds a launch's outputs
+    to the plain version's bit for bit, ``plain()`` runs the plain version;
+    its bound (ms, by), the kernel function and block it runs (``kernel``,
+    ``threads``, ``smem``) and ``issue(lib_path, mhz, sms)``, its issue-slot
+    bound: the thread-hashes it needs at the new build's SASS a hash (from
+    ``sass_hash_loops``), a warp instruction per 32 threads, over ``sms`` × 4
+    schedulers at ``mhz``."""
+    import torch
+
+    from pbrt_torch.core import rng
+    from pbrt_torch.utils import timing
+
+    bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x
+    same = lambda a, b: all(torch.equal(bits(x), bits(y)) for x, y in zip(a, b, strict=True))
+    per_hash = lambda loop: loop["n"] / loop["hashes"]
+    warp_ms = lambda warp_ins, mhz, sms: warp_ins / 32 / (sms * 4 * mhz * 1e6) * 1e3
+    sms = rng.sm_count(dev)
+    if label in NORMALS_TIMED:
+        R, T = NORMALS_TIMED[label]
+        root, pix = rng.root_key(0), torch.arange(R, dtype=torch.int64, device=dev)
+        tag0 = rng.IDEAL_NOISE_TAG if T == 1 else rng.REALISTIC_NOISE_TAG
+        ref = rng.camera_normals_plain(root, pix, 1, tag0, T)
+        hashes = R * (2 + 3 * T)
+        if T == 1:  # the row kernel: a thread a row
+            threads, smem, kernel = rng.NORMAL_ROW_THREADS, 0, "keyed_camera_normals_rows_kernel"
+        else:  # a band's lane keys staged, then a thread `items` (row, tag) items
+            band, threads, items = (int(w) for w in rng.normals_launch(R, T, sms)[:3])
+            smem, kernel = 8 * band, f"keyed_camera_normals_kernelILi{items}E"
+
+        def issue(lib_path, mhz, sms_):
+            sass = sass_hash_loops(lib_path, kernel)
+            if T == 1:  # straight-line code: every thread runs it once
+                return warp_ms(R * sass["total"]["n"], mhz, sms_)
+            item = next(lp for lp in sass["loops"] if lp["STG"])  # an iteration: `items` items
+            key = next(lp for lp in sass["loops"] if lp["STS"])  # an iteration: two rows
+            return warp_ms(-(-R * T // items) * item["n"] + -(-R // 2) * key["n"], mhz, sms_)
+
+        return dict(label=label, kind="normals", lanes=R,
+                    run=lambda mod: (mod.camera_normals(root, pix, 1, tag0, T),),
+                    equal=lambda o: same(o, (ref,)),
+                    plain=lambda: rng.camera_normals_plain(root, pix, 1, tag0, T),
+                    bound=timing.bound_ms(
+                        R * (8 + 4 * 2 * T), f32_ops=R * T * 2 * OPS_NORMAL_F32,
+                        i32_ops=R * (OPS_NORMALS_LANE_KEY + T * OPS_PER_NORMAL_TAG)),
+                    kernel=kernel, threads=threads, smem=smem, issue=issue,
+                    work=f"{R} lanes x {T} tags, {hashes} hashes")
+    spec = MUTATE_TIMED[label]
+    if spec[0] == "flat":
+        _, n, d = spec
+        key = rng.fold_in(rng.root_key(0), 1)
+        ref = rng.flat_uniforms_plain(key, n, d, dev)
+        per = rng.flat_per_thread(n * d, sms)
+        kernel = f"mlt_flat_uniforms_kernelILi{per}E"
+        return dict(label=label, kind="flat", lanes=n, run=lambda mod: (mod.flat_uniforms(
+                        key, n, d, dev),), equal=lambda o: same(o, (ref,)),
+                    plain=lambda: rng.flat_uniforms_plain(key, n, d, dev),
+                    bound=timing.bound_ms(4 * n * d, f32_ops=n * d,
+                                          i32_ops=n * d * OPS_PER_UNIFORM),
+                    kernel=kernel, threads=rng.MUTATE_THREADS, smem=0,
+                    issue=lambda lib_path, mhz, sms_: warp_ms(
+                        n * d * per_hash(sass_hash_loops(lib_path, kernel)["total"]), mhz, sms_),
+                    work=f"{n * d} hashes, {per} a thread")
+    N, D, p_large = spec
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    u = torch.rand((N, D), generator=gen, device=dev)
+    keys = rng.mutate_keys(rng.fold_in(rng.root_key(0), 1005))
+    ref = rng.mutate_plain(u, keys, p_large)
+    n_large = int(ref[1].sum())
+    n_small = N - n_large
+    hashes = n_large * D + 2 * n_small * D + 2 * N
+
+    def issue(lib_path, mhz, sms_):
+        sass = sass_hash_loops(lib_path, "mlt_mutate_kernel")
+        loop = next(lp for lp in sass["loops"] if lp["EX2"])  # the element loop
+        return warp_ms((hashes - 2 * N) * per_hash(loop) + 2 * N * per_hash(sass["rest"]),
+                       mhz, sms_)
+
+    return dict(label=label, kind="mutate", lanes=N, run=lambda mod: mod.mutate(u, keys, p_large),
+                equal=lambda o: same(o, ref), plain=lambda: rng.mutate_plain(u, keys, p_large),
+                bound=timing.bound_ms(
+                    8 * N * D + 5 * N,
+                    f32_ops=n_small * D * OPS_MUTATE_SMALL_F32 + N * OPS_MUTATE_CHAIN_F32,
+                    i32_ops=hashes * OPS_PER_UNIFORM),
+                kernel="mlt_mutate_kernel", threads=rng.MUTATE_THREADS, smem=rng.MUTATE_MAX_BAND,
+                issue=issue, work=f"{n_large} large chains, {hashes} hashes")
+
+
+def rng_case_timed(case: dict, lib, rounds: int = RNG_ROUNDS) -> dict:
+    """A ``rng_timed_case`` held to its plain version, then timed through
+    this tree's wrappers (``timing.queued_rounds``, ``nvidia-smi``'s SM
+    clock sampled meanwhile) beside its bound, issue-slot bound, the
+    kernel's registers (ptxas) and blocks per SM; logs a line. → dict."""
+    import torch
+
+    from pbrt_torch.core import rng
+    from pbrt_torch.utils import native, timing
+
+    if not case["equal"](case["run"](rng)):
+        raise SystemExit(f"{case['kind']} ({case['label']}) disagrees with its plain version")
+    regs = next((v for f, v in kernel_registers(lib._name, native.build_log.get("pbrt_torch_rng"))
+                 .items() if case["kernel"] in f), None)
+    blocks = blocks_per_sm(regs, case["smem"], case["threads"]) if regs else None
+    with SmClock() as clk:
+        tq = timing.queued_rounds(lambda: case["run"](rng), rounds)
+        t_end = time.time() + 0.5  # a short case: launches go on until the clock is read
+        while time.time() < t_end:
+            case["run"](rng)
+        torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    issue = case["issue"](lib._name, clk.mhz, sms) if clk.mhz else None
+    b_ms, b_by = case["bound"]
+    name = "keyed_camera_normals" if case["kind"] == "normals" else "mlt_mutate"
+    log("timing", f"{name} ({case['label']}; {case['work']}): bit-equal to the plain version; "
+        f"median {tq['ms']:.5f} ms over {rounds} rounds ({tq['min']:.5f}–{tq['max']:.5f}; host "
+        f"enqueue {tq['host_ms']:.4f} ms); bound {b_ms:.5f} ms ({b_by}), kernel / bound "
+        f"{tq['ms'] / b_ms:.2f}x; issue-slot bound "
+        + (f"{issue:.5f} ms (at {clk.mhz:g} MHz), kernel / issue bound {tq['ms'] / issue:.2f}x"
+           if issue else "not measured (no SM clock read)")
+        + f"; {case['kernel']}: {regs} registers, {blocks} blocks of {case['threads']} threads "
+        f"per SM")
+    return dict(tq, bound_ms=b_ms, bound_by=b_by, issue_bound_ms=issue, sm_mhz=clk.mhz,
+                registers=regs, blocks_per_sm=blocks)
 
 
 class SmClock:

@@ -190,6 +190,22 @@ MUTATE_S1 = 1.0 / 1024.0
 MUTATE_S2 = 1.0 / 16.0
 #: the fold-in of the accept uniforms' key (metropolis.py:169)
 ACCEPT_TAG = 99
+#: ``mlt_mutate``'s blocks (``csrc/rng.cu`` kMutateThreads), the blocks an SM
+#: holds (kMutateBlocks), the most chains a block's band takes (kMaxBand)
+#: and the columns a warp takes of one chain; the large-only mode's
+#: counters a thread (4 where that leaves a full wave of threads, else 1)
+MUTATE_THREADS = 256
+MUTATE_BLOCKS_PER_SM = 8
+MUTATE_MAX_BAND = 128
+MUTATE_TILE = 32
+FLAT_PER_THREAD = (4, 1)
+#: the most threads of a normals block (``csrc/rng.cu`` kNormalThreads), and
+#: the (row, tag) items an SM's share of a launch must reach for two a thread
+NORMAL_THREADS = 256
+NORMAL_PAIR_MIN_ITEMS = SM_THREADS
+#: the threads of a block of the ideal camera's one tag, a row a thread
+#: (``keyed_camera_normals_rows_kernel``)
+NORMAL_ROW_THREADS = 256
 
 
 def reset_launches():
@@ -611,6 +627,46 @@ def chain_tiling(R: int, tags, n: int, lead: int, sms: int = 132) -> np.ndarray:
     return keyed_tiling(R, width, slots, sms, row_slots=rows * (1 if n == 1 else G))
 
 
+def normals_launch(R: int, n_tags: int, sms: int = 132) -> np.ndarray:
+    """``keyed_camera_normals``' launch words: its band of rows (even: the
+    block's first element 16-byte aligned), threads, the (row, tag) items a
+    thread takes and T's divisor. Two items a thread where the launch's
+    items would fill every SM with threads at one each
+    (``NORMAL_PAIR_MIN_ITEMS`` an SM), else one; a block about an item
+    (or pair) a thread; its threads halve from ``NORMAL_THREADS`` (to 32)
+    until the launch has two blocks an SM."""
+    items = 2 if R * n_tags >= NORMAL_PAIR_MIN_ITEMS * sms else 1
+    units = -(-R * n_tags // items)
+    threads = NORMAL_THREADS
+    while threads > 32 and -(-units // threads) < 2 * sms:
+        threads //= 2
+    band = max(2, items * threads // n_tags // 2 * 2)
+    return np.array([band, threads, items, *divisor(n_tags)], np.uint32)
+
+
+def mutate_plan(N: int, D: int, sms: int = 132) -> np.ndarray:
+    """``mlt_mutate``'s ``MutatePlan`` words (``csrc/rng.cu``): a block's band
+    of chains (as many bands as the card holds blocks at once, so the last
+    wave is a full one, at most ``MUTATE_MAX_BAND``, a whole number of
+    packs), the whole 32-column tiles of a chain, its tail D mod 32, the
+    chains whose tails share a warp (32 // tail) and the divisors of the
+    whole tiles and of the tail."""
+    full, tail = divmod(int(D), MUTATE_TILE)
+    pack = MUTATE_TILE // tail if tail else 0
+    band = max(1, -(-int(N) // (sms * MUTATE_BLOCKS_PER_SM)))
+    if pack:
+        band = -(-band // pack) * pack
+    band = min(band, MUTATE_MAX_BAND // max(pack, 1) * max(pack, 1))
+    return np.array([band, full, tail, pack, *divisor(full), *divisor(tail)], np.uint32)
+
+
+def flat_per_thread(total: int, sms: int = 132) -> int:
+    """The large-only mode's counters a thread: the most of
+    ``FLAT_PER_THREAD`` that still give every SM a full complement of
+    threads (``SM_THREADS``), else 1."""
+    return next((k for k in FLAT_PER_THREAD if total >= k * sms * SM_THREADS), 1)
+
+
 @functools.lru_cache(maxsize=None)
 def sm_count(device) -> int:
     """The card's SMs (the tiled kernels' tiling spreads a launch over them)."""
@@ -632,6 +688,19 @@ def volume_words(R: int, n_jitter: int, single: bool, sms: int) -> tuple:
     per launch shape and SM count: the wrapper's enqueue pays a lookup, not
     the tiling's arithmetic and numpy's pointer."""
     return _frozen_words(volume_tiling(R, n_jitter, single, sms))
+
+
+@functools.lru_cache(maxsize=512)
+def normals_words(R: int, n_tags: int, sms: int) -> tuple:
+    """``normals_launch``'s words as ints, memoised per launch shape."""
+    return tuple(int(w) for w in normals_launch(R, n_tags, sms))
+
+
+@functools.lru_cache(maxsize=512)
+def mutate_words(N: int, D: int, sms: int) -> tuple:
+    """``mutate``'s per-launch words (``mutate_plan``), memoised as
+    ``volume_words``."""
+    return _frozen_words(mutate_plan(N, D, sms))
 
 
 @functools.lru_cache(maxsize=512)
@@ -740,13 +809,20 @@ def camera_normals(root, pixel_index, sample: int, tag0: int, n_tags: int):
         raise ValueError(f"camera_normals: unsupported device {pixel_index.device}")
     if n_tags < 0 or not 0 <= tag0 <= tag0 + n_tags <= 2**32:
         raise ValueError(f"camera_normals: tags {tag0} + [0, {n_tags}) outside uint32")
+    tag0, n_tags = int(tag0), int(n_tags)
     k0, k1, R, lib, stream = _launch_args(root, pixel_index, 2 * n_tags)
     out = torch.empty((R, n_tags, 2), dtype=torch.float32, device=pixel_index.device)
     if R == 0 or n_tags == 0:
         return out
-    native.check_launch(lib.pbrt_torch_keyed_camera_normals(
-        k0, k1, pixel_index.data_ptr(), R, int(sample) & _M32, int(tag0), int(n_tags),
-        out.data_ptr(), stream), "keyed_camera_normals launch")
+    if n_tags == 1:
+        native.check_launch(lib.pbrt_torch_keyed_camera_normals_rows(
+            k0, k1, pixel_index.data_ptr(), R, int(sample) & _M32, tag0, NORMAL_ROW_THREADS,
+            out.data_ptr(), stream), "keyed_camera_normals launch")
+    else:
+        words = normals_words(R, n_tags, sm_count(pixel_index.device))
+        native.check_launch(lib.pbrt_torch_keyed_camera_normals(
+            k0, k1, pixel_index.data_ptr(), R, int(sample) & _M32, tag0, n_tags, *words,
+            out.data_ptr(), stream), "keyed_camera_normals launch")
     launches["keyed_camera_normals"] += 1
     return out
 
@@ -793,30 +869,9 @@ def chain_uniforms(root, index, sample: int, chain=(), n: int = 1, lead: int = 0
     return out
 
 
-def _mutate_launch(keys, u, N: int, D: int, p_large: float, s1: float, s2: float, device):
-    """Launches ``mlt_mutate`` (``u`` None: its large-only mode) → (u',
-    is_large, u_acc), the last two None in the large-only mode."""
-    if tuple(keys.shape) != (5, 2):
-        raise ValueError(f"mutation keys: shape {tuple(keys.shape)}, expected (5, 2)")
+def _check_size(N: int, D: int):
     if N < 0 or D < 1 or N * D >= 2**31:
         raise ValueError(f"{N} chains of {D} dimensions: over the kernel's 32-bit counter")
-    words = [int(w) & _M32 for key in keys.cpu().tolist() for w in key]  # a0, c0, a1, …
-    out = torch.empty((N, D), dtype=torch.float32, device=device)
-    large = acc = None
-    if u is not None:
-        native.check_tensor("u", u, torch.float32, (N, D), device)
-        large = torch.empty(N, dtype=torch.bool, device=device)
-        acc = torch.empty(N, dtype=torch.float32, device=device)
-    if N == 0:
-        return out, large, acc
-    lib = native.kernel_lib("rng.cu")
-    stream = torch.cuda.current_stream(device).cuda_stream
-    ptr = lambda x: None if x is None else x.data_ptr()
-    native.check_launch(lib.pbrt_torch_mlt_mutate(
-        *words, ptr(u), N, D, float(p_large), neg_log_ratio(s1, s2), float(s2), out.data_ptr(),
-        ptr(large), ptr(acc), stream), "mlt_mutate launch")
-    launches["mlt_mutate"] += 1
-    return out, large, acc
 
 
 def flat_uniforms(key, n: int, d: int, device="cpu"):
@@ -828,8 +883,20 @@ def flat_uniforms(key, n: int, d: int, device="cpu"):
         return flat_uniforms_plain(key, n, d, device)
     if device.type != "cuda":
         raise ValueError(f"flat_uniforms: unsupported device {device}")
-    keys = torch.cat([key.reshape(1, 2).cpu(), torch.zeros((4, 2), dtype=torch.int64)])
-    return _mutate_launch(keys, None, int(n), int(d), 0.0, MUTATE_S1, MUTATE_S2, device)[0]
+    if key.numel() != 2:
+        raise ValueError(f"flat_uniforms: key shape {tuple(key.shape)}, expected 2 words")
+    n, d = int(n), int(d)
+    _check_size(n, d)
+    out = torch.empty((n, d), dtype=torch.float32, device=device)
+    if n == 0:
+        return out
+    k0, k1 = (int(v) & _M32 for v in key.reshape(2).tolist())
+    total = n * d
+    native.check_launch(native.kernel_lib("rng.cu").pbrt_torch_flat_uniforms(
+        k0, k1, total, flat_per_thread(total, sm_count(device)), out.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream), "mlt_mutate launch")
+    launches["mlt_mutate"] += 1
+    return out
 
 
 def mutate(u, keys, p_large: float, s1: float = MUTATE_S1, s2: float = MUTATE_S2):
@@ -839,4 +906,21 @@ def mutate(u, keys, p_large: float, s1: float = MUTATE_S1, s2: float = MUTATE_S2
     if u.device.type != "cuda":
         raise ValueError(f"mutate: unsupported device {u.device}")
     N, D = u.shape
-    return _mutate_launch(keys, u, N, D, p_large, s1, s2, u.device)
+    if tuple(keys.shape) != (5, 2):
+        raise ValueError(f"mutation keys: shape {tuple(keys.shape)}, expected (5, 2)")
+    words = [int(w) & _M32 for key in keys.cpu().tolist() for w in key]  # a0, c0, a1, …
+    _check_size(N, D)
+    device = u.device
+    native.check_tensor("u", u, torch.float32, (N, D), device)
+    out = torch.empty((N, D), dtype=torch.float32, device=device)
+    large = torch.empty(N, dtype=torch.bool, device=device)
+    acc = torch.empty(N, dtype=torch.float32, device=device)
+    if N == 0:
+        return out, large, acc
+    plan, _ = mutate_words(N, D, sm_count(device))
+    native.check_launch(native.kernel_lib("rng.cu").pbrt_torch_mlt_mutate(
+        *words, u.data_ptr(), N, D, float(p_large), neg_log_ratio(s1, s2), float(s2), *plan,
+        out.data_ptr(), large.data_ptr(), acc.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream), "mlt_mutate launch")
+    launches["mlt_mutate"] += 1
+    return out, large, acc

@@ -153,26 +153,41 @@
 //                     split are multiply-shift divisions by per-launch
 //                     constants (Div: the wrapper's core/rng.py:divisor,
 //                     checked by the entry), no divide at run time.
-//   keyed_camera_normals — keyed_uniforms' design: one thread per lane, the
-//                     lane key once (2 hashes), then per tag its fold-in and
-//                     two hashes and two erf_inv polynomials (a log1pf, a
-//                     sqrtf on the far branch, 9 Horner steps); the same
-//                     warp tile and 16-byte copy-out, in passes of 16 tags.
-//                     A lane of the realistic camera's 11-row stack is 35
-//                     hashes and 22 normals, so it is bound by operations
-//                     like its siblings.
-//   mlt_mutate      — one thread per (chain, dim) element in flat order,
-//                     so u is read and u' written by consecutive threads
-//                     (no tile). A block first decides the chains its 256
-//                     elements touch (at most 256 / D + 2): one thread per
-//                     chain hashes U(k4) into shared memory, and where the
-//                     chain's first element lies in the block also writes
-//                     is_large and hashes the accept uniform. Then each
-//                     element hashes only what its chain needs: U(k1) for a
-//                     large chain, U(k2) and U(k3) for a small one (the
-//                     plain version draws all three; the bits are the
-//                     same). expf as torch.exp on the card. 32-bit
-//                     counters; the wrapper checks N·D < 2^31.
+//   keyed_camera_normals — a block takes a band of rows (about an item a
+//                     thread), each row's lane key once (a thread two
+//                     rows, 2 hashes each, in flight together) in shared
+//                     memory, one barrier; then a thread takes one or two
+//                     consecutive (row, tag) items (two where the launch
+//                     fills every SM at one): their fold-ins, words 0 and 1
+//                     and normals together, stored as one 8- or 16-byte
+//                     piece at row·T + t, so consecutive threads store
+//                     consecutive pieces (no tile). A lane of the realistic
+//                     camera's 11-row stack is 35 hashes and 22 normals (a
+//                     log1pf, a sqrtf on the far branch, 9 Horner steps
+//                     each), bound by operations. The ideal camera's one
+//                     tag goes a row a thread (keyed_camera_normals_rows_
+//                     kernel: the lane key, the tag, both words, one
+//                     8-byte store, no barrier).
+//   mlt_mutate      — a block takes a band of chains (as many bands as the
+//                     card holds blocks, so the last wave is a full one):
+//                     a thread a chain hashes its flag U(k4) into shared
+//                     memory and writes is_large, another its accept
+//                     uniform U(ka), one barrier. Then a warp takes a
+//                     32-column tile of one chain (no divide: column =
+//                     tile·32 + lane), so large or small is the warp's,
+//                     and hashes only what the chain needs: U(k1), or U(k2)
+//                     and U(k3) together (the plain version draws all
+//                     three; the bits are the same); the tails of 32 / (D
+//                     mod 32) chains share a warp (D = 40: four 8-column
+//                     tails). The wrap is a select where fmodf is exact
+//                     (wrap_remainder); expf as torch.exp on the card;
+//                     stores coalesced per tile. The large-only mode
+//                     (mlt_flat_uniforms_kernel) is a thread 1 or 4
+//                     consecutive counters, their hashes in flight
+//                     together, one 4- or 16-byte store. Multiply-shift
+//                     index splits (MutatePlan: the wrapper's
+//                     core/rng.py:mutate_plan, checked by the entry);
+//                     32-bit counters, the wrapper checks N·D < 2^31.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -193,7 +208,6 @@ constexpr int kPassBounces = 8;            // bounces per tile pass
 constexpr int kAoPerSample = 2;  // uniforms per AO sample
 constexpr int kPassSamples = 16;           // AO samples per tile pass
 constexpr int kNormalsPerTag = 2;          // jax.random.normal(key, (2,))
-constexpr int kPassTags = 16;              // camera-noise tags per tile pass
 
 constexpr uint32_t kBatchedTag = 15u;  // bounce 0 * 16 + reserved purpose 15
 constexpr uint32_t kCameraTag = 0u;    // bounce 0 * 16 + CAMERA
@@ -293,10 +307,6 @@ __host__ __device__ constexpr unsigned tile_cols(int D) {
 
 __host__ __device__ constexpr unsigned ao_tile_cols(int n) {
   return kCameraCols + kAoPerSample * (n < kPassSamples ? n : kPassSamples);
-}
-
-__host__ __device__ constexpr unsigned normal_tile_cols(int T) {
-  return kNormalsPerTag * (T < kPassTags ? T : kPassTags);
 }
 
 // Giles' erf_inv coefficients as XLA writes them (w < 5, then w >= 5),
@@ -839,42 +849,75 @@ keyed_scrambles_kernel(uint32_t k0, uint32_t k1,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-keyed_camera_normals_kernel(uint32_t k0, uint32_t k1,
-                            const long long* __restrict__ pixel, int R,
-                            uint32_t sample, uint32_t tag0, int T,
-                            float* __restrict__ out) {
-  extern __shared__ float4 tiles[];  // kWarps tiles of kWarp × normal_tile_cols(T) floats
-  const unsigned lane = threadIdx.x % kWarp;
-  const unsigned warp = threadIdx.x / kWarp;
-  const unsigned base = (blockIdx.x * kWarps + warp) * kWarp;  // warp's first row
-  if (base >= static_cast<unsigned>(R)) return;  // the whole warp
-  const unsigned rows = min(static_cast<unsigned>(R) - base, static_cast<unsigned>(kWarp));
-  const bool live = lane < rows;
-  const unsigned width = kNormalsPerTag * T;
-  float* tile = reinterpret_cast<float*>(tiles) + warp * kWarp * normal_tile_cols(T);
+constexpr int kNormalThreads = 256;  // threads of a normals block, at most
 
-  uint32_t a = k0, c = k1;  // the lane key: (pixel, sample), as the sampler's keys
-  if (live) {
-    fold_in(a, c, static_cast<uint32_t>(pixel[base + lane]));
+// The lens cameras' normals, (R, T, 2): a block takes a band of `band` rows
+// (even, so that its first element is 16-byte aligned), derives each row's
+// lane key once (a thread two rows, their hashes in flight together) into
+// shared memory; then a thread takes kItems consecutive (row, tag) items of
+// the band in flat order, the second perhaps the next row's tag 0: their
+// fold-ins, words and normals together, one 8- or 16-byte store (8 for a
+// band's odd last item). `tags` divides an item index by T.
+template <int kItems>
+__global__ void __launch_bounds__(kNormalThreads)
+keyed_camera_normals_kernel(uint32_t k0, uint32_t k1, const long long* __restrict__ pixel, int R,
+                            uint32_t sample, uint32_t tag0, int T, Div tags, unsigned band,
+                            float* __restrict__ out) {
+  extern __shared__ uint2 lane_keys[];
+  const unsigned t = threadIdx.x, nt = blockDim.x;
+  const unsigned r0 = blockIdx.x * band, rows = min(band, static_cast<unsigned>(R) - r0);
+  for (unsigned r = 2 * t; r < rows; r += 2 * nt) {
+    const unsigned r1 = min(r + 1, rows - 1);
+    uint32_t a = k0, c = k1, a1 = k0, c1 = k1;
+    fold_in(a, c, static_cast<uint32_t>(pixel[r0 + r]));
+    fold_in(a1, c1, static_cast<uint32_t>(pixel[r0 + r1]));
     fold_in(a, c, sample);
+    fold_in(a1, c1, sample);
+    lane_keys[r] = make_uint2(a, c);
+    lane_keys[r1] = make_uint2(a1, c1);
   }
-  for (int t0 = 0; t0 < T; t0 += kPassTags) {
-    const int nt = min(T - t0, kPassTags);
-    const unsigned cols = kNormalsPerTag * nt;  // this pass's columns
-    float* mine = tile + lane * cols;
-    if (live) {
-      for (int t = 0; t < nt; ++t) {
-        uint32_t ta = a, tc = c;
-        fold_in(ta, tc, tag0 + static_cast<uint32_t>(t0 + t));
-        mine[kNormalsPerTag * t] = normal_from_bits(bits_at(ta, tc, 0u));
-        mine[kNormalsPerTag * t + 1] = normal_from_bits(bits_at(ta, tc, 1u));
-      }
+  __syncthreads();
+  const unsigned n = static_cast<unsigned>(T), items = rows * n;
+  float* base = out + 2 * r0 * n;
+  for (unsigned p = kItems * t; p < items; p += kItems * nt) {
+    const unsigned r = div_by(p, tags), ta = p - r * n;
+    uint2 k[kItems];
+    uint32_t w[kItems][kNormalsPerTag];
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {  // past the row's end: the next row's tag 0
+      const bool next = ta + i >= n;
+      k[i] = lane_keys[min(next ? r + 1 : r, rows - 1)];
+      fold_in(k[i].x, k[i].y, tag0 + (next ? ta + i - n : ta + i));
     }
-    __syncwarp();
-    copy_tile_out(tile, out, base, rows, cols, width, kNormalsPerTag * t0, lane);
-    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      w[i][0] = bits_at(k[i].x, k[i].y, 0u);
+      w[i][1] = bits_at(k[i].x, k[i].y, 1u);
+    }
+    if (kItems == 2 && p + 1 < items)
+      reinterpret_cast<float4*>(base)[p / 2] =
+          make_float4(normal_from_bits(w[0][0]), normal_from_bits(w[0][1]),
+                      normal_from_bits(w[kItems - 1][0]), normal_from_bits(w[kItems - 1][1]));
+    else
+      reinterpret_cast<float2*>(base)[p] =
+          make_float2(normal_from_bits(w[0][0]), normal_from_bits(w[0][1]));
   }
+}
+
+// The ideal camera's one tag: a thread a row, the lane key, the tag's key,
+// both words in flight together and one 8-byte store; no shared memory, no
+// barrier.
+__global__ void __launch_bounds__(kNormalThreads)
+keyed_camera_normals_rows_kernel(uint32_t k0, uint32_t k1, const long long* __restrict__ pixel,
+                                 int R, uint32_t sample, uint32_t tag0, float* __restrict__ out) {
+  const unsigned r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= static_cast<unsigned>(R)) return;
+  uint32_t a = k0, c = k1;
+  fold_in(a, c, static_cast<uint32_t>(pixel[r]));
+  fold_in(a, c, sample);
+  fold_in(a, c, tag0);
+  const uint32_t b0 = bits_at(a, c, 0u), b1 = bits_at(a, c, 1u);
+  reinterpret_cast<float2*>(out)[r] = make_float2(normal_from_bits(b0), normal_from_bits(b1));
 }
 
 // the five keys of a mutation: large, eps, sign, is_large, accept
@@ -883,43 +926,119 @@ struct MutateKeys {
 };
 
 constexpr int kMutateThreads = 256;
+constexpr int kMutateWarps = kMutateThreads / kWarp;
+constexpr int kMutateBlocks = 8;  // blocks an SM: at most 32 registers a thread
+constexpr unsigned kMaxBand = kMutateThreads / 2;  // a thread a chain's flag, one its accept
 
-__global__ void __launch_bounds__(kMutateThreads)
-mlt_mutate_kernel(MutateKeys ks, const float* __restrict__ u, int N, int D,
-                  float p_large, float neg_log_ratio, float s2,
-                  float* __restrict__ out, unsigned char* __restrict__ is_large,
-                  float* __restrict__ u_acc) {
-  __shared__ unsigned char large[kMutateThreads + 1];
-  const unsigned total = static_cast<unsigned>(N) * static_cast<unsigned>(D);
-  const unsigned e0 = blockIdx.x * kMutateThreads;
-  const unsigned e = e0 + threadIdx.x;
-  if (u == nullptr) {  // large-only: jax.random.uniform(k1, (N, D))
-    if (e < total) out[e] = uniform_from_bits(bits_at(ks.a[0], ks.c[0], e));
-    return;
+// mlt_mutate's launch plan, computed by the wrapper (core/rng.py:mutate_plan)
+// and checked by the entry: a block takes a band of `band` chains; a chain's
+// D columns are `full` whole 32-column tiles, a warp each, then a tail of
+// `tail` = D mod 32 columns, the tails of `pack` = 32 / tail consecutive
+// chains sharing one warp (lane → (chain of the pack, column): `tails`).
+// `tiles` splits a whole-tile task into (chain, tile).
+struct MutatePlan {
+  uint32_t band, full, tail, pack;
+  Div tiles, tails;  // d = full, d = tail
+};
+
+// x mod 1 with the divisor's sign, as torch.remainder: fmodf(x, 1), plus 1
+// where that is below 0. For x in (-1, 2) (every u in [0, 1) moved by at
+// most s2 = 1/16) fmodf(x, 1) is x - 1 for x >= 1 (exact: Sterbenz) and x
+// else, so a select gives the same bits, -0.0 kept; other x take fmodf.
+__device__ __forceinline__ float wrap_remainder(float x) {
+  if (x > -1.0f && x < 2.0f) return x >= 1.0f ? x - 1.0f : x < 0.0f ? x + 1.0f : x;
+  const float m = fmodf(x, 1.0f);
+  return m < 0.0f ? m + 1.0f : m;
+}
+
+// task j of a band's warps for this lane: 2 with its element's chain r (of
+// the band) and column, 1 where the warp has the task but this lane none,
+// 0 past the band's last task. Whole tiles first (a tile of one chain, so
+// large or small is the warp's), then the tails of `pack` chains a warp
+// (this lane: column tc of the pack's chain `sub`).
+__device__ __forceinline__ int mutate_task(const MutatePlan& mp, unsigned j, unsigned rows,
+                                           unsigned lane, unsigned sub, unsigned tc,
+                                           unsigned& r, unsigned& col) {
+  const unsigned full_tasks = rows * mp.full;
+  if (j < full_tasks) {
+    r = div_by(j, mp.tiles);
+    col = (j - r * mp.full) * kWarp + lane;
+    return 2;
   }
-  const unsigned d = static_cast<unsigned>(D);
-  const unsigned r0 = e0 / d;
-  const unsigned r1 = (min(e0 + kMutateThreads, total) - 1) / d;  // last chain touched
-  if (threadIdx.x <= r1 - r0) {
-    const unsigned r = r0 + threadIdx.x;
-    const bool lg = uniform_from_bits(bits_at(ks.a[3], ks.c[3], r)) < p_large;
-    large[threadIdx.x] = lg;
-    if (r * d >= e0) {  // the chain's first element is this block's
-      is_large[r] = lg;
-      u_acc[r] = uniform_from_bits(bits_at(ks.a[4], ks.c[4], r));
-    }
+  const unsigned first = (j - full_tasks) * mp.pack;  // the pack's first chain
+  if (!mp.tail || first >= rows) return 0;
+  r = min(first + sub, rows - 1);
+  col = mp.full * kWarp + tc;
+  return sub < mp.pack && first + sub < rows ? 2 : 1;
+}
+
+// the small step of element e: eps = U(k2), sign = U(k3) < 0.5 from the
+// two words, then (u + sign·s2·exp(-log(s2/s1)·eps)) mod 1
+__device__ __forceinline__ float small_step(float x, uint32_t eps_bits, uint32_t sign_bits,
+                                            float neg_log_ratio, float s2) {
+  const float eps = uniform_from_bits(eps_bits);
+  const float sign = uniform_from_bits(sign_bits) < 0.5f ? -1.0f : 1.0f;
+  return wrap_remainder(x + sign * (s2 * expf(neg_log_ratio * eps)));
+}
+
+__global__ void __launch_bounds__(kMutateThreads, kMutateBlocks)
+mlt_mutate_kernel(MutateKeys ks, const float* __restrict__ u, int N, int D, MutatePlan mp,
+                  float p_large, float neg_log_ratio, float s2, float* __restrict__ out,
+                  unsigned char* __restrict__ is_large, float* __restrict__ u_acc) {
+  __shared__ unsigned char large[kMaxBand];
+  const unsigned t = threadIdx.x, lane = t % kWarp, warp = t / kWarp;
+  const unsigned r0 = blockIdx.x * mp.band;
+  const unsigned rows = min(mp.band, static_cast<unsigned>(N) - r0);
+  // the band's chains: a thread a chain hashes U(k4) (its flag); the accept
+  // uniforms U(ka) from the next warp on, so that both run at once
+  const unsigned acc0 = (rows + kWarp - 1) / kWarp * kWarp;
+  if (t < rows) {
+    const bool lg = uniform_from_bits(bits_at(ks.a[3], ks.c[3], r0 + t)) < p_large;
+    large[t] = lg;
+    is_large[r0 + t] = lg;
+  } else if (t >= acc0 && t < acc0 + rows) {
+    u_acc[r0 + t - acc0] = uniform_from_bits(bits_at(ks.a[4], ks.c[4], r0 + t - acc0));
   }
   __syncthreads();
+  const unsigned d = static_cast<unsigned>(D);
+  const unsigned sub = mp.tail ? div_by(lane, mp.tails) : 0u;
+  const unsigned tc = lane - sub * mp.tail;
+  for (unsigned j = warp;; j += kMutateWarps) {
+    unsigned r, col;
+    const int st = mutate_task(mp, j, rows, lane, sub, tc, r, col);
+    if (!st) break;
+    if (st == 1) continue;
+    const unsigned e = (r0 + r) * d + col;
+    if (large[r]) {
+      out[e] = uniform_from_bits(bits_at(ks.a[0], ks.c[0], e));
+    } else {
+      const float x = u[e];
+      const uint32_t pe = bits_at(ks.a[1], ks.c[1], e), qe = bits_at(ks.a[2], ks.c[2], e);
+      out[e] = small_step(x, pe, qe, neg_log_ratio, s2);
+    }
+  }
+}
+
+// the large-only mode, jax.random.uniform(key, (n, d)): a thread kPer
+// consecutive counters (independent hashes in flight together), one
+// kPer·4-byte store
+template <int kPer>
+__global__ void __launch_bounds__(kMutateThreads)
+mlt_flat_uniforms_kernel(uint32_t k0, uint32_t k1, unsigned total, float* __restrict__ out) {
+  const unsigned e = (blockIdx.x * kMutateThreads + threadIdx.x) * kPer;
   if (e >= total) return;
-  if (large[e / d - r0]) {
-    out[e] = uniform_from_bits(bits_at(ks.a[0], ks.c[0], e));
+  float v[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) v[j] = uniform_from_bits(bits_at(k0, k1, e + j));
+  if (e + kPer <= total) {
+    if constexpr (kPer == 4)
+      *reinterpret_cast<float4*>(out + e) = make_float4(v[0], v[1], v[2], v[3]);
+    else
+      out[e] = v[0];
   } else {
-    const float eps = uniform_from_bits(bits_at(ks.a[1], ks.c[1], e));
-    const float sign = uniform_from_bits(bits_at(ks.a[2], ks.c[2], e)) < 0.5f ? -1.0f : 1.0f;
-    const float delta = s2 * expf(neg_log_ratio * eps);
-    float m = fmodf(u[e] + sign * delta, 1.0f);
-    if (m != 0.0f && m < 0.0f) m += 1.0f;
-    out[e] = m;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+      if (e + j < total) out[e + j] = v[j];
   }
 }
 
@@ -1104,26 +1223,69 @@ int pbrt_torch_keyed_scrambles(uint32_t k0, uint32_t k1, const long long* pixel,
 
 int pbrt_torch_keyed_camera_normals(uint32_t k0, uint32_t k1, const long long* pixel,
                                     int R, uint32_t sample, uint32_t tag0, int n_tags,
-                                    float* out, cudaStream_t stream) {
-  if (R > 0 && n_tags > 0)
-    keyed_camera_normals_kernel<<<(R - 1) / kThreads + 1, kThreads,
-                                  kThreads * normal_tile_cols(n_tags) * sizeof(float),
-                                  stream>>>(k0, k1, pixel, R, sample, tag0, n_tags, out);
+                                    uint32_t band, uint32_t threads, uint32_t items, uint32_t d,
+                                    uint32_t m, uint32_t s, float* out, cudaStream_t stream) {
+  const Div tags{d, m, s};
+  if (n_tags < 1 || static_cast<long long>(R) * 2 * n_tags >= (1ll << 31) || band < 2
+      || band % 2 || band > 2 * kNormalThreads || threads < 32 || threads > kNormalThreads
+      || threads % 32 || (items != 1 && items != 2) || !divisor_ok(tags)
+      || tags.d != static_cast<uint32_t>(n_tags) || R < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = R > 0 ? (R - 1) / band + 1 : 0;
+  if (R > 0 && items == 2)
+    keyed_camera_normals_kernel<2><<<blocks, threads, 8 * band, stream>>>(
+        k0, k1, pixel, R, sample, tag0, n_tags, tags, band, out);
+  else if (R > 0)
+    keyed_camera_normals_kernel<1><<<blocks, threads, 8 * band, stream>>>(
+        k0, k1, pixel, R, sample, tag0, n_tags, tags, band, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pbrt_torch_keyed_camera_normals_rows(uint32_t k0, uint32_t k1, const long long* pixel,
+                                         int R, uint32_t sample, uint32_t tag0, int threads,
+                                         float* out, cudaStream_t stream) {
+  if (R < 0 || static_cast<long long>(R) * kNormalsPerTag >= (1ll << 31) || threads < 32
+      || threads > kNormalThreads || threads % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (R > 0)
+    keyed_camera_normals_rows_kernel<<<(R - 1) / threads + 1, threads, 0, stream>>>(
+        k0, k1, pixel, R, sample, tag0, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 int pbrt_torch_mlt_mutate(uint32_t a0, uint32_t c0, uint32_t a1, uint32_t c1, uint32_t a2,
                           uint32_t c2, uint32_t a3, uint32_t c3, uint32_t a4, uint32_t c4,
                           const float* u, int N, int D, float p_large, float neg_log_ratio,
-                          float s2, float* out, unsigned char* is_large, float* u_acc,
-                          cudaStream_t stream) {
-  if (N < 0 || D < 1 || static_cast<long long>(N) * D >= (1ll << 31))
+                          float s2, const uint32_t* plan, int plan_words, float* out,
+                          unsigned char* is_large, float* u_acc, cudaStream_t stream) {
+  MutatePlan mp;
+  if (N < 0 || D < 1 || static_cast<long long>(N) * D >= (1ll << 31)
+      || plan_words * 4 != static_cast<int>(sizeof(MutatePlan)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  std::memcpy(&mp, plan, sizeof(MutatePlan));
+  const uint32_t tail = static_cast<uint32_t>(D) % kWarp;
+  if (mp.band < 1 || mp.band > kMaxBand || mp.full != static_cast<uint32_t>(D) / kWarp
+      || mp.tail != tail || mp.pack != (tail ? kWarp / tail : 0u) || !divisor_ok(mp.tiles)
+      || mp.tiles.d != mp.full || !divisor_ok(mp.tails) || mp.tails.d != tail)
     return static_cast<int>(cudaErrorInvalidValue);
   const MutateKeys ks{{a0, a1, a2, a3, a4}, {c0, c1, c2, c3, c4}};
-  const int total = N * D;
-  if (total > 0)
-    mlt_mutate_kernel<<<(total - 1) / kMutateThreads + 1, kMutateThreads, 0, stream>>>(
-        ks, u, N, D, p_large, neg_log_ratio, s2, out, is_large, u_acc);
+  if (N > 0)
+    mlt_mutate_kernel<<<(N - 1) / mp.band + 1, kMutateThreads, 0, stream>>>(
+        ks, u, N, D, mp, p_large, neg_log_ratio, s2, out, is_large, u_acc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pbrt_torch_flat_uniforms(uint32_t k0, uint32_t k1, int total, int per_thread, float* out,
+                             cudaStream_t stream) {
+  if (total < 0 || (per_thread != 1 && per_thread != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = (static_cast<unsigned>(total) + kMutateThreads * per_thread - 1)
+                          / (kMutateThreads * per_thread);
+  const unsigned n = static_cast<unsigned>(total);
+  if (total > 0 && per_thread == 4)
+    mlt_flat_uniforms_kernel<4><<<blocks, kMutateThreads, 0, stream>>>(k0, k1, n, out);
+  else if (total > 0)
+    mlt_flat_uniforms_kernel<1><<<blocks, kMutateThreads, 0, stream>>>(k0, k1, n, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -68,12 +68,15 @@ KERNEL_ENTRIES = {
         "pbrt_torch_keyed_volume_uniforms": [_u32, _u32, _vp, _ci, _u32, _ci, _ci, _vp, _ci,
                                              _vp, _vp],
         "pbrt_torch_keyed_scrambles": [_u32, _u32, _vp, _ci, _vp, _vp],
-        "pbrt_torch_keyed_camera_normals": [_u32, _u32, _vp, _ci, _u32, _u32, _ci, _vp,
-                                            _vp],
+        "pbrt_torch_keyed_camera_normals": [_u32, _u32, _vp, _ci, _u32, _u32, _ci]
+        + [_u32] * 6 + [_vp, _vp],
+        "pbrt_torch_keyed_camera_normals_rows": [_u32, _u32, _vp, _ci, _u32, _u32, _ci, _vp,
+                                                 _vp],
         "pbrt_torch_keyed_chain_uniforms": [_u32, _u32, _vp, _ci, _u32, _vp, _ci, _vp, _ci,
                                             _vp, _vp],
         "pbrt_torch_mlt_mutate": [_u32] * 10 + [_vp, _ci, _ci, ctypes.c_float, ctypes.c_float,
-                                  ctypes.c_float, _vp, _vp, _vp, _vp],
+                                  ctypes.c_float, _vp, _ci, _vp, _vp, _vp, _vp],
+        "pbrt_torch_flat_uniforms": [_u32, _u32, _ci, _ci, _vp, _vp],
     },
     "traverse_kd.cu": {
         **{f"pbrt_torch_traverse_kd_{k}": [_vp] * 10 + [_ci] + [_vp] * 3 + [_ci]

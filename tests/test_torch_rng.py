@@ -312,8 +312,10 @@ def test_normals_cover_both_erfinv_branches():
 
 def test_camera_normals_kernel_constants_are_the_plain_versions():
     """rng.cu's erf_inv coefficients, √2 and the uniform's minval, read as
-    text, are ``core/rng.py``'s float32 values; the kernel folds tag0 + t
-    into the (pixel, sample) lane key and draws counters 0 and 1."""
+    text, are ``core/rng.py``'s float32 values; both normals kernels (a
+    band's (row, tag) items; the one tag's rows) fold tag0 + t into the
+    (pixel, sample) lane key, not a bounce tag, and draw counters 0 and 1
+    through ``normal_from_bits``."""
     text = SOURCE.read_text()
     for name, ref in (("kErfInvSmall", trng.ERFINV_SMALL), ("kErfInvLarge", trng.ERFINV_LARGE)):
         body = re.search(rf"{name}\[9\] = \{{(.*?)\}};", text, re.S).group(1)
@@ -325,8 +327,14 @@ def test_camera_normals_kernel_constants_are_the_plain_versions():
         np.float32(trng.SQRT2_F32) == np.float32(np.sqrt(2))
     assert _cu_int("kNormalsPerTag") == 2
     body = re.search(r"keyed_camera_normals_kernel\(.*?\n}\n", text, re.S).group(0)
-    assert "tag0 + static_cast<uint32_t>(t0 + t)" in body and "kBatchedTag" not in body
-    assert "bits_at(ta, tc, 0u)" in body and "bits_at(ta, tc, 1u)" in body
+    assert "fold_in(k[i].x, k[i].y, tag0 + (next ? ta + i - n : ta + i));" in body
+    assert "kBatchedTag" not in body and "kTagStep" not in body  # the tag steps by 1
+    assert "bits_at(k[i].x, k[i].y, 0u)" in body and "bits_at(k[i].x, k[i].y, 1u)" in body
+    assert body.count("normal_from_bits(w[") == 6
+    rows = re.search(r"keyed_camera_normals_rows_kernel\(.*?\n}\n", text, re.S).group(0)
+    assert "fold_in(a, c, sample);\n  fold_in(a, c, tag0);" in rows and "kBatchedTag" not in rows
+    assert "bits_at(a, c, 0u), b1 = bits_at(a, c, 1u);" in rows
+    assert "make_float2(normal_from_bits(b0), normal_from_bits(b1))" in rows
 
 
 def test_sampler_and_volume_kernel_constants_are_the_plain_versions():
@@ -709,15 +717,193 @@ def test_tile_map_draws_the_plain_bits(name):
     _same_floats(out.numpy(), ref.numpy())
 
 
+def normals_cover(words, R: int, T: int) -> dict:
+    """``csrc/rng.cu:keyed_camera_normals_kernel``'s arithmetic on a
+    ``normals_launch``, in numpy: block b's band of rows r0 = b·band …, its
+    lane keys (thread t: rows 2t and min(2t + 1, rows − 1), stepping by two
+    a thread), then thread t's items p = items·t, stepping by
+    items·threads: row p / T by the launch's divisor, tag p − row·T, and
+    for a second item past the row's end the next row's tag 0, stored as
+    pair r0·T + p + i (the second only where p + 1 < the band's items). →
+    the times each (row, tag) pair is stored (``hits``), the row and tag
+    each pair's key folds (``row``, ``tag``), the times each lane key is
+    staged (``keys``), and whether every 16-byte store is aligned."""
+    band, threads, items, d, m, s = (int(x) for x in words)
+    hits = np.zeros(R * T, np.int64)
+    row = np.full(R * T, -1, np.int64)
+    tag = np.full(R * T, -1, np.int64)
+    keys = np.zeros(R, np.int64)
+    aligned = True
+    for r0 in range(0, R, band):
+        rows = min(band, R - r0)
+        k = np.arange(0, rows, 2)
+        keys[r0 + k] += 1
+        keys[r0 + np.minimum(k + 1, rows - 1)] += k + 1 < rows  # rows − 1 twice: one store
+        p = np.arange(0, rows * T, items, dtype=np.uint64)
+        assert ((p // np.uint64(items)) % np.uint64(threads) < threads).all()
+        r = div_by(p, (d, m, s)).astype(np.int64)
+        ta = p.astype(np.int64) - r * T
+        for i in range(items):
+            live = p.astype(np.int64) + i < rows * T if i else np.ones(p.size, bool)
+            nxt = ta + i >= T
+            q = r0 * T + p.astype(np.int64)[live] + i
+            np.add.at(hits, q, 1)
+            row[q] = r0 + np.minimum(np.where(nxt, r + 1, r), rows - 1)[live]
+            tag[q] = np.where(nxt, ta + i - T, ta + i)[live]
+        aligned &= items == 1 or (2 * r0 * T) % 4 == 0
+    return dict(hits=hits, row=row, tag=tag, keys=keys, aligned=aligned)
+
+
+@pytest.mark.parametrize("n_tags", [1, 11, 17, 33])
+def test_normals_launch_covers_the_plain_layout(n_tags):
+    """``normals_launch``'s words under the band kernel's arithmetic
+    (``normals_cover``): every (row, tag) pair of (R, T, 2) is stored once,
+    its key folds tag0 + t into its own row's lane key, each row's lane key
+    is staged once, 16-byte stores land aligned, blocks stay within
+    ``NORMAL_THREADS``, on ragged lane counts and at one and two items a
+    thread; the pairs' keys and counters 0 and 1 hashed through
+    ``normals_from_bits`` equal ``camera_normals_plain`` bit for bit."""
+    for R in (32768, 4096, 4093, 7, 1):
+        words = trng.normals_launch(R, n_tags)
+        band, threads, items = (int(w) for w in words[:3])
+        assert band % 2 == 0 and 32 <= threads <= trng.NORMAL_THREADS and threads % 32 == 0
+        assert items == (2 if R * n_tags >= trng.NORMAL_PAIR_MIN_ITEMS * 132 else 1)
+        assert tuple(int(w) for w in words[3:]) == trng.divisor(n_tags)
+        cover = normals_cover(words, R, n_tags)
+        assert (cover["hits"] == 1).all() and (cover["keys"] == 1).all() and cover["aligned"]
+        np.testing.assert_array_equal(cover["row"], np.repeat(np.arange(R), n_tags))
+        np.testing.assert_array_equal(cover["tag"], np.tile(np.arange(n_tags), R))
+    tag0 = trng.IDEAL_NOISE_TAG if n_tags == 1 else trng.REALISTIC_NOISE_TAG
+    root, idx = trng.root_key(7), torch.as_tensor(PIXELS)
+    cover = normals_cover(trng.normals_launch(len(PIXELS), n_tags), len(PIXELS), n_tags)
+    lane = trng.pixel_sample_key(root, idx, 2**31 + 1)[torch.as_tensor(cover["row"])]
+    keys = trng.fold_in(lane, torch.as_tensor(tag0 + cover["tag"]))
+    c = torch.tensor([0, 1]).expand(keys.shape[0], 2)
+    y0, y1 = trng.threefry2x32(keys[:, None, 0], keys[:, None, 1], torch.zeros_like(c), c)
+    ref = trng.camera_normals_plain(root, idx, 2**31 + 1, tag0, n_tags)
+    _same_floats(trng.normals_from_bits(y0 ^ y1).numpy(), ref.reshape(-1, 2).numpy())
+
+
+def mutate_cover(plan, N: int, D: int) -> dict:
+    """``csrc/rng.cu:mlt_mutate_kernel``'s arithmetic on a ``mutate_plan``,
+    in numpy: block b's band of chains r0 = b·band …; its flag threads (t <
+    rows hashes chain r0 + t's U(k4); from the next whole warp a0 on, t − a0
+    its U(ka)); its
+    warps' tasks j (a whole tile of chain j / full, then the tails of
+    ``pack`` chains each, the lane split by the tail's divisor), as the
+    warps step them until a pack's first chain passes the band. → the
+    times each element is written (``hits``), each chain's flags and
+    accept uniforms hashed, and whether every element's counter r·D + col
+    lies in its chain's row."""
+    w = [int(x) for x in plan]
+    band, full, tail, pack = w[:4]
+    tiles, tails = tuple(w[4:7]), tuple(w[7:10])
+    blocks = -(-N // band)
+    r0 = np.arange(blocks, dtype=np.int64) * band
+    rows = np.minimum(band, N - r0)
+    t = np.arange(trng.MUTATE_THREADS)
+    acc0 = -(-rows // 32) * 32  # the accept uniforms from the next whole warp on
+    assert (acc0 + rows <= trng.MUTATE_THREADS).all()
+    flags = np.bincount((r0[:, None] + t)[t < rows[:, None]], minlength=N)
+    accs = np.bincount((r0[:, None] + t - acc0[:, None])[(t >= acc0[:, None])
+                                                          & (t < (acc0 + rows)[:, None])],
+                       minlength=N)
+    lanes = np.arange(trng.MUTATE_TILE, dtype=np.int64)
+    chains, cols = [], []
+    if full:  # task j < rows·full: chain j / full, its tile j mod full, a lane a column
+        j = np.arange(band * full, dtype=np.int64)
+        r = div_by(j, tiles).astype(np.int64)
+        col = (j - r * full)[:, None] * trng.MUTATE_TILE + lanes
+        ok = (j < (rows * full)[:, None])[..., None] & np.ones_like(col, bool)
+        chains.append(np.broadcast_to((r0[:, None] + r)[..., None], ok.shape)[ok])
+        cols.append(np.broadcast_to(col, ok.shape)[ok])
+    if tail:  # then a warp a pack: lane → (chain sub of the pack, column tc)
+        sub = div_by(lanes, tails).astype(np.int64)
+        tc = lanes - sub * tail
+        first = np.arange(-(-band // pack), dtype=np.int64) * pack
+        r = first[:, None] + sub
+        ok = (first[None, :, None] < rows[:, None, None]) & (sub < pack) \
+            & (r[None] < rows[:, None, None])
+        chains.append(np.broadcast_to(r0[:, None, None] + r, ok.shape)[ok])
+        cols.append(np.broadcast_to(full * trng.MUTATE_TILE + tc, ok.shape)[ok])
+    chain, col = np.concatenate(chains), np.concatenate(cols)
+    e = chain * D + col
+    return dict(hits=np.bincount(e, minlength=N * D), flags=flags, accs=accs,
+                in_row=bool(((col >= 0) & (col < D)).all() and (e < N * D).all()))
+
+
+@pytest.mark.parametrize("D", [1, 30, 32, 40, 60, 61, 64, 65])
+def test_mutate_plan_covers_each_element_once(D):
+    """``mutate_plan``'s words under the mutation kernel's arithmetic
+    (``mutate_cover``): every element of (N, D) written once, in its own
+    chain's row, each chain's flag and accept uniform hashed once, the band
+    within the block's flag threads, whole packs, and as many bands as an
+    H100 holds blocks (132 SMs × 8), on ragged chain counts and one past the
+    band's cap."""
+    for N in (16384, 4093, 7, 1, 140001):
+        plan = trng.mutate_plan(N, D)
+        band, full, tail, pack = (int(x) for x in plan[:4])
+        assert (full, tail) == divmod(D, 32) and pack == (32 // tail if tail else 0)
+        assert 1 <= band <= trng.MUTATE_MAX_BAND and 2 * band <= trng.MUTATE_THREADS
+        assert not pack or band % pack == 0
+        assert -(-N // band) <= 132 * trng.MUTATE_BLOCKS_PER_SM or band > 128 - (pack or 1)
+        cover = mutate_cover(plan, N, D)
+        assert cover["in_row"] and (cover["hits"] == 1).all()
+        assert (cover["flags"] == 1).all() and (cover["accs"] == 1).all()
+
+
+def wrap_select(x):
+    """``csrc/rng.cu:wrap_remainder`` in float32 numpy: for x in (−1, 2) x −
+    1 where x ≥ 1, x + 1 where x < 0, else x; elsewhere fmodf(x, 1), plus 1
+    where below 0."""
+    x = np.asarray(x, np.float32)
+    one = np.float32(1)
+    sel = np.where(x >= one, x - one, np.where(x < 0, x + one, x))
+    m = np.fmod(x, one)
+    return np.where((x > -one) & (x < np.float32(2)), sel, np.where(m < 0, m + one, m))
+
+
+def test_mutation_wrap_is_torch_remainder():
+    """The kernel's wrap (``wrap_select``) equals ``torch.remainder(x, 1.0)``,
+    the plain version's, bit for bit: on a dense u × eps × sign grid of the
+    small step (x = u + sign·s2·exp(−log(s2/s1)·eps) in float32), at u = 0
+    and 1 − ulp, where u ± delta lands on 0, on 1 or just below 0 (→ 1.0),
+    at ±0.0, and outside (−1, 2) where fmodf takes over."""
+    gen = np.random.default_rng(22)
+    u = np.concatenate([np.linspace(0, 1, 1025, dtype=np.float32)[:-1],
+                        gen.random(1024, dtype=np.float32),
+                        [0.0, np.nextafter(np.float32(1), np.float32(0)), 2**-24, 1 / 16,
+                         1 - 1 / 16, 1 / 1024, 1 - 1 / 1024]]).astype(np.float32)
+    eps = np.concatenate([np.arange(0, 2**23, 2**14, dtype=np.int64) * 2.0**-23,
+                          [1 - 2.0**-23]]).astype(np.float32)
+    delta = (np.float32(trng.MUTATE_S2)
+             * torch.exp(trng.neg_log_ratio(trng.MUTATE_S1, trng.MUTATE_S2)
+                         * torch.as_tensor(eps)).numpy()).astype(np.float32)
+    edges = np.concatenate([delta, np.float32(1) - delta,  # u - delta on 0, u + delta on 1
+                            np.nextafter(delta, np.float32(0)),  # u - delta just below 0
+                            np.nextafter(np.float32(1) - delta, np.float32(2))])
+    u = np.concatenate([u, edges]).astype(np.float32)
+    x = [u[:, None] + s * delta[None, :] for s in (np.float32(-1), np.float32(1))]
+    x = np.concatenate([v.ravel() for v in x] + [np.array(
+        [0.0, -0.0, -1e-10, -2**-149, 2**-149, 1.0, 1 - 2**-24, -1 + 2**-24, 2 - 2**-23,
+         -1.0, 2.0, 1.5, -0.5, 3.25, -3.25, -1.0 - 2**-23, 17.75, -1e6], np.float32)])
+    x = x.astype(np.float32)
+    want = torch.remainder(torch.as_tensor(x), 1.0).numpy()
+    _same_floats(wrap_select(x), want)
+    assert (x == 0).sum() >= 2 and (want == 1).any() and ((x < 0) & (x > -1)).sum() > 1000
+
+
 def test_launch_words_are_memoised():
-    """The wrappers' per-launch words (``volume_words``, ``chain_words``)
-    are computed once per launch shape: a second call returns the same
-    tuple, whose (address, size) pairs are those of read-only arrays equal
-    to ``volume_tiling``'s, ``chain_map``'s and ``chain_tiling``'s words
-    computed afresh."""
+    """The wrappers' per-launch words (``volume_words``, ``chain_words``,
+    ``mutate_words``) are computed once per launch shape: a second call
+    returns the same tuple, whose (address, size) pairs are those of
+    read-only arrays equal to ``volume_tiling``'s, ``chain_map``'s and
+    ``chain_tiling``'s and ``mutate_plan``'s words computed afresh;
+    ``normals_words`` is ``normals_launch``'s words as ints, once."""
     tags = trng._chain_tags([(trng.BSDF_SAMPLE, 4)])
     for memo, args, fresh in (
             (trng.volume_words, (32768, 5, False, 132), [trng.volume_tiling(32768, 5, False, 132)]),
+            (trng.mutate_words, (16384, 60, 132), [trng.mutate_plan(16384, 60, 132)]),
             (trng.chain_words, (32768, tags, 2, 2, 2, 5, 132),
              [trng.chain_map(tags, 2, 2, 2, 5), trng.chain_tiling(32768, tags, 2, 5, 132)])):
         words, arrays = memo(*args)
@@ -727,6 +913,9 @@ def test_launch_words_are_memoised():
             np.testing.assert_array_equal(a, b)
             with pytest.raises(ValueError):
                 a[0] = 1
+    words = trng.normals_words(32768, 11, 132)
+    assert trng.normals_words(32768, 11, 132) is words
+    assert words == tuple(int(w) for w in trng.normals_launch(32768, 11, 132))
 
 
 def test_divisor_is_exact():
